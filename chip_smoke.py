@@ -1,0 +1,393 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py          # from the repository root
+
+Phases, one line each; any failure exits nonzero and nothing is caught:
+
+1. device: the card's name and power limit (nvidia-smi), then both CUDA
+   kernels built with nvcc from ``src/repro_torch/csrc``;
+2. Black-Scholes at its PARSEC-large size (65,536 options x 100 runs =
+   6,553,600 evaluations): kernel against the plain version on the card at
+   rtol = atol = 3e-5, times and bound;
+3. engine scan, kernel against the plain version on the card: the
+   short-body RiVec apps x the 24 Table-10 configs, seeded random traces
+   under ooo / crossbar / mshrs=1 / 1 MB LLC configs, and the study's own
+   168-lane launch (which is also timed);
+4. the study (the main path, with every launch counter set to 0 first):
+   the Black-Scholes app on the card, ``suite.sweep_all`` over the seven
+   RiVec apps x Table 10 checked against ``tests/golden_sweep.json`` at
+   rtol 1e-2, the 11 §5 anchors, the README quickstart's two claims, and
+   the timed Fig-10 + MSHR study (504 lanes);
+5. the ``kernels`` JSON line, launch counts from phase 4;
+6. the last line: ``{"ok": true, "device": {...}}``.
+
+Exits nonzero, printing no result, when there is no CUDA device or when
+the port's sources are not beside this script.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+GOLDEN = ROOT / "tests" / "golden_sweep.json"
+
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and
+# float32 outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# Latency bound of the scan: one lane is one serial chain of records.  The
+# loop-carried dependent float ops of one record, counted from
+# csrc/engine_scan.cu (vector: issue max, in-order max, + startup, + execute
+# -> lane/VMU free; scalar block: the t_scalar add; NOP: none), each waits
+# the FP32 dependent-issue latency (4 cycles on Hopper).
+SCAN_CHAIN = {"vector": 4, "scalar": 1}
+FP32_LATENCY_CYCLES = 4
+# Black-Scholes: operations per option as written (each sqrt/log/exp/erf
+# counted as one), bytes per option (5 float32 + 1 int32 in, 1 float32 out).
+BS_OPS, BS_BYTES = 40, 28
+BS_OPTIONS, BS_RUNS = 65_536, 100
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def nvidia_smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, reps: int, per: int = 1, warmup: int = 2) -> float:
+    """Median device time (ms) of one ``fn`` call: each of ``reps`` samples
+    times ``per`` back-to-back calls between one pair of CUDA events and
+    divides by ``per``, so the host work of a call overlaps the device work
+    of the one before it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per)
+    return statistics.median(times)
+
+
+def host_issue_ms(torch, fn, per: int) -> float:
+    """Host time (ms) to issue one ``fn`` call, from ``per`` back-to-back
+    calls with no synchronization between them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(per):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / per
+
+
+def random_trace(isa, seed: int, n_ops: int = 60):
+    """A seeded random trace over every instruction kind."""
+    rng = np.random.RandomState(seed)
+    b = isa.TraceBuilder()
+    reg = lambda: int(rng.randint(-1, 8))
+    for _ in range(n_ops):
+        k = rng.randint(8)
+        vl = int((1, 8, 64, 200, 256)[rng.randint(5)])
+        if k == 0:
+            b.arith(vl, fu=int(rng.randint(4)), src1=reg(), src2=reg(),
+                    dst=reg())
+        elif k == 1:
+            b.load(vl, dst=reg(), pattern=int(rng.randint(3)),
+                   footprint_kb=float((8.0, 64.0, 2048.0)[rng.randint(3)]))
+        elif k == 2:
+            b.store(vl, src1=reg(), pattern=int(rng.randint(3)),
+                    footprint_kb=float((8.0, 64.0, 2048.0)[rng.randint(3)]))
+        elif k == 3:
+            b.slide(vl, src1=reg(), dst=reg())
+        elif k == 4:
+            b.move(vl, src1=reg(), dst=reg())
+        elif k == 5:
+            b.reduce(vl, src1=reg(), dst=reg(), fu=int(rng.randint(4)))
+        elif k == 6:
+            b.mask_to_scalar(vl, src1=reg())
+        else:
+            b.scalar(int(rng.randint(1, 40)), fu=int(rng.randint(4)),
+                     dep_scalar=bool(rng.randint(2)))
+    return b.build()
+
+
+def scan_bound(inp, sm_clock_hz: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) of one scan launch: the larger of the bytes
+    bound and the latency bound.  The latency bound is the dependent
+    operations on the longest lane's chain, one per FP32 latency, so it is
+    reported as an operations bound."""
+    kind = inp.xi[0].cpu().numpy()                      # [P, B]
+    period, n = inp.period.cpu().numpy(), inp.n_steps.cpu().numpy()
+    per_kind = np.zeros(9, np.int64)
+    per_kind[0] = SCAN_CHAIN["scalar"]
+    per_kind[1:8] = SCAN_CHAIN["vector"]
+    chain = 0
+    for b in range(kind.shape[1]):
+        ops = per_kind[kind[:period[b], b]]
+        full, rem = divmod(int(n[b]), int(period[b]))
+        chain = max(chain, full * int(ops.sum()) + int(ops[:rem].sum()))
+    t_latency = chain * FP32_LATENCY_CYCLES / sm_clock_hz
+    nbytes = sum(t.numel() * t.element_size() for t in inp.args())
+    nbytes += 8 * inp.xf.shape[1] * 4                     # the [8, B] output
+    t_bytes = nbytes / PEAK_BYTES_S
+    return (max(t_bytes, t_latency) * 1e3,
+            "bytes" if t_bytes >= t_latency else "operations")
+
+
+def main() -> int:
+    sys.stdout.reconfigure(line_buffering=True)   # phase lines survive a kill
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir() or not GOLDEN.exists():
+        print("chip_smoke: run from a checkout of the repository "
+              "(src/repro_torch and tests/golden_sweep.json beside this "
+              "script)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import _build, _device
+    from repro_torch.configs import vector_engine as ve
+    from repro_torch.core import anchors, engine as eng, isa
+    from repro_torch.core import suite, tracegen
+    from repro_torch.kernels import blackscholes as bs_mod
+    from repro_torch.kernels import engine_scan, ops, ref
+
+    dev = _device.resolve()
+    # ---- 1. device + build ------------------------------------------------
+    print(nvidia_smi("name,power.limit"))
+    sm_clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    t0 = time.perf_counter()
+    report = _build.build_all()
+    build_s = time.perf_counter() - t0
+    for name, r in report.items():
+        regs = [ln.strip() for ln in r["log"].splitlines()
+                if "registers" in ln or "bytes stack" in ln]
+        print(f"phase 1 build {name}: {r['seconds']:.1f} s  {' | '.join(regs)}")
+    print(f"phase 1 device: {torch.cuda.get_device_name(0)} "
+          f"sm_clock_max={sm_clock_hz / 1e6:.0f} MHz  build wall {build_s:.1f} s")
+
+    # ---- 2. Black-Scholes ---------------------------------------------------
+    rng = np.random.RandomState(2021)
+    cols = [rng.uniform(lo, hi, BS_OPTIONS).astype(np.float32)
+            for lo, hi in ((10, 100), (10, 100), (0.01, 0.1), (0.05, 0.65),
+                           (0.1, 2.0))]
+    calls = (rng.uniform(size=BS_OPTIONS) > 0.5).astype(np.int32)
+    # the 100 PARSEC runs re-price the same 65,536 options
+    bs_args = [torch.from_numpy(np.tile(c, BS_RUNS)).to(dev) for c in cols]
+    bs_args.append(torch.from_numpy(np.tile(calls, BS_RUNS)).to(dev))
+    n_opt = bs_args[0].numel()
+    got = bs_mod.blackscholes(*bs_args)
+    want = ref.blackscholes(*bs_args)
+    torch.cuda.synchronize()
+    if got.shape != (n_opt,) or not torch.isfinite(got).all():
+        fail("blackscholes: non-finite or misshapen output")
+    bs_err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=3e-5, atol=3e-5):
+        fail(f"blackscholes kernel vs plain: max abs err {bs_err}")
+    # the plain version against float64 on the host, first 65,536 options
+    f64 = ref.blackscholes(*(t[:BS_OPTIONS].double().cpu()
+                             for t in bs_args[:5]),
+                           bs_args[5][:BS_OPTIONS].cpu())
+    if not torch.allclose(got[:BS_OPTIONS].cpu().double(), f64,
+                          rtol=1e-4, atol=1e-4):
+        fail("blackscholes kernel vs float64 host reference")
+    bs_ms = cuda_ms(torch, lambda: bs_mod.blackscholes(*bs_args), reps=20,
+                    per=25)
+    bs_issue_ms = host_issue_ms(torch, lambda: bs_mod.blackscholes(*bs_args),
+                                per=25)
+    bs_plain_ms = cuda_ms(torch, lambda: ref.blackscholes(*bs_args), reps=20,
+                          per=5)
+    bs_t_bytes = n_opt * BS_BYTES / PEAK_BYTES_S
+    bs_t_ops = n_opt * BS_OPS / PEAK_F32_S
+    bs_bound_ms = max(bs_t_bytes, bs_t_ops) * 1e3
+    bs_bound_by = "bytes" if bs_t_bytes >= bs_t_ops else "operations"
+    print(f"phase 2 blackscholes: n={n_opt} max_abs_err={bs_err:.3g} "
+          f"(rtol=atol=3e-5) kernel {bs_ms:.4f} ms (host issue "
+          f"{bs_issue_ms:.4f} ms/call), plain {bs_plain_ms:.4f} ms, "
+          f"bound {bs_bound_ms:.4f} ms ({bs_bound_by}; {n_opt * BS_BYTES / 1e6:.1f}"
+          f" MB at 3.35 TB/s, H100 SXM)")
+
+    # ---- 3. engine scan, kernel against plain --------------------------------
+    def compare(tag, inp):
+        k = engine_scan.scan(*inp.args())
+        p = engine_scan.scan_plain(*inp.args())
+        torch.cuda.synchronize()
+        if not torch.isfinite(k).all():
+            fail(f"engine_scan {tag}: non-finite output")
+        diff = (k != p).any(0)
+        rel = float(((k - p).abs() / p.abs().clamp_min(1e-30)).max())
+        err = float((k - p).abs().max())
+        print(f"phase 3 engine_scan {tag}: {k.shape[1]} lanes, "
+              f"T_max={int(inp.n_steps.max())}, differing lanes "
+              f"{int(diff.sum())}, max rel {rel:.3g}, max abs {err:.3g}")
+        if rel > 1e-6:
+            fail(f"engine_scan {tag}: kernel vs plain rel {rel} > 1e-6")
+        return err
+
+    scan_err = 0.0
+    short = ("jacobi-2d", "pathfinder", "swaptions", "streamcluster")
+    pairs = [(a, c) for a in short for c in ve.TABLE10]
+    bodies = [tracegen.body_for(a, suite.effective_mvl(a, c), c)
+              for a, c in pairs]
+    scan_err = max(scan_err, compare("short-body apps x Table 10",
+                   eng.pack_steady_state(bodies, [c for _, c in pairs],
+                                         8, 24, dev)))
+    variants = [dict(ooo_issue=True), dict(interconnect="crossbar"),
+                dict(mshrs=1), dict(l2_kb=1024),
+                dict(ooo_issue=True, interconnect="crossbar", mshrs=1,
+                     l2_kb=1024, queue_entries=8)]
+    traces, cfgs = [], []
+    for seed in range(40):
+        base = ve.TABLE10[(7 * seed) % len(ve.TABLE10)]
+        cfgs.append(dataclasses.replace(base, **variants[seed % len(variants)]))
+        traces.append(random_trace(isa, seed))
+    scan_err = max(scan_err, compare("random traces x ooo/crossbar/mshrs1/1MB",
+                   eng.pack(traces, cfgs, [3 * len(t) for t in traces],
+                            [len(t) for t in traces], dev)))
+    study_pairs = [(a, c) for a in tracegen.RIVEC_APPS for c in ve.TABLE10]
+    study_bodies = [tracegen.body_for(a, suite.effective_mvl(a, c), c)
+                    for a, c in study_pairs]
+    study_inp = eng.pack_steady_state(study_bodies,
+                                      [c for _, c in study_pairs], 8, 24, dev)
+    scan_err = max(scan_err, compare("study (7 apps x Table 10)", study_inp))
+    scan_ms = cuda_ms(torch, lambda: engine_scan.scan(*study_inp.args()),
+                      reps=10, per=3)
+    scan_plain_ms = cuda_ms(
+        torch, lambda: engine_scan.scan_plain(*study_inp.args()), reps=1,
+        warmup=0)
+    scan_bound_ms, scan_bound_by = scan_bound(study_inp, sm_clock_hz)
+    n_rec = int(study_inp.n_steps.long().sum())
+    print(f"phase 3 engine_scan time (168 lanes, {n_rec} records, T_max="
+          f"{int(study_inp.n_steps.max())}): kernel {scan_ms:.4f} ms "
+          f"({n_rec / scan_ms / 1e3:.1f} M records/s), plain "
+          f"{scan_plain_ms:.1f} ms, bound {scan_bound_ms:.4f} ms "
+          f"({scan_bound_by})")
+
+    # ---- 4. the study: the main path ----------------------------------------
+    engine_scan.scan.launches = 0
+    bs_mod.blackscholes.launches = 0
+    t0 = time.perf_counter()
+    prices = ops.blackscholes(*bs_args)
+    torch.cuda.synchronize()
+    bs_app_s = time.perf_counter() - t0
+    if not torch.isfinite(prices).all() or not torch.equal(prices, got):
+        fail("blackscholes app run: output differs from phase 2")
+    # cold: loop bodies and scalar baselines built anew, as in a fresh process
+    suite.clear_caches()
+    t0 = time.perf_counter()
+    table = suite.sweep_all()
+    sweep_cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if suite.sweep_all() != table:
+        fail("sweep_all: a repeat call differs")
+    sweep_s = time.perf_counter() - t0
+    anchor_got = suite.speedup_batch(
+        [(a, eng.VectorEngineConfig(mvl=m, lanes=l))
+         for a, m, l, _, _ in anchors.ANCHORS])
+    q = eng.VectorEngineConfig(mvl=64, lanes=4)
+    quick = suite.speedup_batch(
+        [("blackscholes", q),
+         ("blackscholes", eng.VectorEngineConfig(mvl=64, lanes=4,
+                                                 issue_width=1)),
+         ("streamcluster", q),
+         ("streamcluster", eng.VectorEngineConfig(mvl=64, lanes=4,
+                                                  l2_kb=1024))])
+    fig10 = [(a, c) for a in tracegen.RIVEC_APPS
+             for c in ve.TABLE10 + ve.TABLE10_L2_1MB + ve.TABLE10_MSHR1]
+    t0 = time.perf_counter()
+    fig10_got = suite.speedup_batch(fig10)
+    fig10_s = time.perf_counter() - t0
+    launches = {"engine_scan": engine_scan.scan.launches,
+                "blackscholes": bs_mod.blackscholes.launches}
+
+    golden = json.loads(GOLDEN.read_text())
+    worst, bad = 0.0, []
+    for app, grid in table.items():
+        for (m, l), s in grid.items():
+            w = golden[app][f"{m}x{l}"]
+            rel = abs(s - w) / abs(w)
+            worst = max(worst, rel)
+            if not np.isfinite(s) or rel > 1e-2:
+                bad.append(f"{app} {m}x{l}: {s} vs {w}")
+    n_cells = sum(len(g) for g in table.values())
+    print(f"phase 4 study: sweep_all {n_cells} cells in {sweep_cold_s:.4f} s "
+          f"cold, {sweep_s:.4f} s warm, worst rel vs golden {worst:.3g} "
+          f"(rtol 1e-2), "
+          f"blackscholes app {n_opt} options in {bs_app_s * 1e3:.2f} ms")
+    if n_cells != 168 or bad:
+        fail(f"golden sweep: {n_cells} cells, off: {bad[:5]}")
+    misses = []
+    for (app, mvl, lanes, target, kind), s in zip(anchors.ANCHORS, anchor_got):
+        ok = (anchors.EQ_LO <= s / target <= anchors.EQ_HI if kind == "eq"
+              else s <= target * anchors.LT_SLACK)
+        if not ok:
+            misses.append(f"{app}@{mvl}x{lanes}={s:.3f} vs {target} [{kind}]")
+    print(f"phase 4 anchors: {len(anchors.ANCHORS) - len(misses)}/"
+          f"{len(anchors.ANCHORS)} in band")
+    if misses:
+        fail(f"anchors out of band: {misses}")
+    bs_base, bs_narrow, sc_256, sc_1mb = quick
+    print(f"phase 4 quickstart: blackscholes {bs_base:.4f} -> issue_width=1 "
+          f"{bs_narrow:.4f}; streamcluster 256KB {sc_256:.4f} -> 1MB "
+          f"{sc_1mb:.4f}")
+    if not (bs_narrow > bs_base and sc_1mb > sc_256):
+        fail("README quickstart claims do not hold")
+    per_app = 3 * len(ve.TABLE10)       # each app: Table 10, 1 MB LLC, MSHR=1
+    base_cells = [s for i, s in enumerate(fig10_got)
+                  if i % per_app < len(ve.TABLE10)]
+    flat = [table[a][(c.mvl, c.lanes)] for a in tracegen.RIVEC_APPS
+            for c in ve.TABLE10]
+    if base_cells != flat or not all(np.isfinite(fig10_got)):
+        fail("Fig-10/MSHR study: Table-10 cells differ from sweep_all")
+    print(f"phase 4 Fig-10 + MSHR study: {len(fig10)} lanes in "
+          f"{fig10_s:.4f} s wall")
+    print(f"phase 4 launches on the main path: {launches}")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel was not launched on the main path: {launches}")
+
+    # ---- 5. kernels line ------------------------------------------------------
+    kernels = [
+        {"name": "engine_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/engine_scan.cu",
+         "replaces": "src/repro/core/engine.py:198",
+         "launches": launches["engine_scan"], "max_abs_err": scan_err,
+         "ms": scan_ms, "plain_ms": scan_plain_ms, "bound_ms": scan_bound_ms,
+         "bound_by": scan_bound_by, "library_ms": None},
+        {"name": "blackscholes", "route": "cuda",
+         "source": "src/repro_torch/csrc/blackscholes.cu",
+         "replaces": "src/repro/kernels/blackscholes.py:38",
+         "launches": launches["blackscholes"], "max_abs_err": bs_err,
+         "ms": bs_ms, "plain_ms": bs_plain_ms, "bound_ms": bs_bound_ms,
+         "bound_by": bs_bound_by, "library_ms": None},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    # ---- 6. last line -----------------------------------------------------------
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,3 +6,7 @@ def pytest_configure(config):
         "markers",
         "slow: spawns a subprocess / long wall-clock (kept in tier-1, but "
         "deselectable with -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's hand-written kernels); "
+        "skips with a reason on a host without one")
