@@ -19,8 +19,16 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    RiVec apps x Table 10 checked against ``tests/golden_sweep.json`` at
    rtol 1e-2, the 11 §5 anchors, the README quickstart's two claims, and
    the timed Fig-10 + MSHR study (504 lanes);
-5. the ``kernels`` JSON line, launch counts from phase 4;
-6. the last line: ``{"ok": true, "device": {...}}``.
+5. the suite's kernel path (every launch counter set to 0 first): swaptions,
+   streamcluster (float32 and bfloat16), particle filter and canneal through
+   ``kernels.ops`` at their PARSEC / Rodinia input sizes, each output checked
+   on its own terms (shape, range, a float64 or numpy host reference on a
+   slice);
+6. those four kernels against their plain versions on the card at the
+   reference's bars, timed beside their plain versions, the nearest single
+   PyTorch call and their bounds;
+7. the ``kernels`` JSON line, launch counts from phases 4 and 5;
+8. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no CUDA device or when
 the port's sources are not beside this script.
@@ -44,6 +52,9 @@ GOLDEN = ROOT / "tests" / "golden_sweep.json"
 # float32 outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+# bfloat16 products with float32 sums are exact on the tensor cores (dense
+# bf16 rate), so they bound the bfloat16 streamcluster distances.
+PEAK_BF16_S = 989e12
 # Latency bound of the scan: one lane is one serial chain of records.  The
 # loop-carried dependent float ops of one record, counted from
 # csrc/engine_scan.cu (vector: issue max, in-order max, + startup, + execute
@@ -55,6 +66,20 @@ FP32_LATENCY_CYCLES = 4
 # counted as one), bytes per option (5 float32 + 1 int32 in, 1 float32 out).
 BS_OPS, BS_BYTES = 40, 28
 BS_OPTIONS, BS_RUNS = 65_536, 100
+# The suite kernels' inputs (PERF.md gives the sources): swaptions at PARSEC
+# simlarge (64 swaptions x 20,000 trials x 11 tenor points x 3 factors);
+# streamcluster at simlarge (16,384 points of 128 dimensions, 4,096 centers
+# drawn from them); particle filter at Rodinia -np 100000 (as many queries);
+# canneal at simlarge (400,000 locations, 1,920,000 swaps, 22 fan slots,
+# mean fan 10.15).
+SW_N = 64 * 20_000 * 11 * 3
+SC_M, SC_N, SC_D = 16_384, 4_096, 128
+PF_N = PF_M = 100_000
+CA_N, CA_B, CA_F, CA_MEAN_FAN = 400_000, 1_920_000, 22, 10.15
+# Operations per element as written, each log/division/select one: the
+# swaptions chain (central 17, tail 21, selects and clamps 8); canneal per
+# valid fan entry (4 subtractions, 4 abs, 2 adds, 2 accumulations).
+SW_OPS, CA_OPS = 46, 12
 
 
 def fail(msg: str) -> None:
@@ -154,6 +179,171 @@ def scan_bound(inp, sm_clock_hz: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_latency else "operations")
 
 
+# The suite kernels, each with the Pallas kernel it replaces.
+SUITE_REPLACES = {
+    "swaptions": "src/repro/kernels/swaptions.py:42",
+    "streamcluster": "src/repro/kernels/streamcluster.py:29",
+    "particlefilter": "src/repro/kernels/particlefilter.py:31",
+    "canneal": "src/repro/kernels/canneal.py:34"}
+
+
+def suite_inputs(torch, dev) -> dict:
+    """The suite kernels' operands at full width, made with numpy from one
+    seed; ``host`` keeps the numpy arrays for the host-side checks."""
+    rng = np.random.RandomState(2111)
+    u = rng.uniform(1e-5, 1 - 1e-5, SW_N).astype(np.float32)
+    points = rng.uniform(size=(SC_M, SC_D)).astype(np.float32)
+    # streamcluster opens its centers at points of the stream
+    centers = points[rng.choice(SC_M, SC_N, replace=False)]
+    # Rodinia: the CDF of normalized weights, u_j = u1 + j/N
+    w = rng.uniform(size=PF_N)
+    cdf = np.cumsum(w / w.sum()).astype(np.float32)
+    q = (rng.uniform(0, 1 / PF_N) + np.arange(PF_M) / PF_N).astype(np.float32)
+    # canneal: integer coordinates; each swap's fan (1 + a binomial, mean
+    # CA_MEAN_FAN) first in its row, -1 padding after
+    locs = rng.randint(0, 1000, (CA_N, 2)).astype(np.float32)
+    fan_n = 1 + rng.binomial(CA_F - 1, (CA_MEAN_FAN - 1) / (CA_F - 1), CA_B)
+    fan = rng.randint(0, CA_N, (CA_B, CA_F)).astype(np.int32)
+    fan[np.arange(CA_F)[None, :] >= fan_n[:, None]] = -1
+    ca, cb = (rng.randint(0, 1000, (CA_B, 2)).astype(np.float32)
+              for _ in range(2))
+    t = lambda a: torch.from_numpy(a).to(dev)
+    sc = (t(points), t(centers))
+    return {"sw": t(u), "sc": sc,
+            "sc_bf16": tuple(x.to(torch.bfloat16) for x in sc),
+            "pf": (t(cdf), t(q)), "ca": tuple(map(t, (locs, fan, ca, cb))),
+            "host": {"pf": (cdf, q), "ca": (locs, fan, ca, cb)}}
+
+
+def check_suite_outputs(torch, data, outs) -> None:
+    """Each suite kernel's main-path output on its own terms: type, shape,
+    range, and a reference that shares no code with the port on a slice
+    (float64 on the card, or numpy on the host)."""
+    x = outs["swaptions"]
+    if x.shape != (SW_N,) or not torch.isfinite(x).all():
+        fail("swaptions: non-finite or misshapen output")
+    # the reference's own check: the normal CDF of the result is u again
+    back = 0.5 * (1 + torch.erf(x.double() / np.sqrt(2)))
+    sw_back = float((back - data["sw"].double()).abs().max())
+    if sw_back > 5e-4:
+        fail(f"swaptions: cndf(inverse(u)) off u by {sw_back} > 5e-4")
+    worst = {}
+    for key, inputs, tol in (("streamcluster", "sc", 2e-4),
+                             ("streamcluster_bf16", "sc_bf16", 1e-2)):
+        d = outs[key]
+        if d.shape != (SC_M, SC_N) or d.dtype != torch.float32 \
+                or not torch.isfinite(d).all() or float(d.min()) < 0:
+            fail(f"{key}: output not finite non-negative float32 "
+                 f"[{SC_M}, {SC_N}]")
+        p, c = data[inputs]
+        p, c = p[:128].double(), c.double()
+        exact = ((p[:, None, :] - c[None]) ** 2).sum(-1)
+        worst[key] = float((d[:128].double() - exact).abs().max())
+        if not torch.allclose(d[:128].double(), exact, rtol=tol, atol=tol):
+            fail(f"{key}: off the float64 distances by {worst[key]}")
+    idx = outs["particlefilter"]
+    cdf, q = data["host"]["pf"]
+    want = np.minimum(np.searchsorted(cdf, q, side="left"), PF_N - 1)
+    if idx.dtype != torch.int32 or not np.array_equal(idx.cpu().numpy(),
+                                                      want):
+        fail("particlefilter: differs from numpy's search of the CDF")
+    locs, fan, ca, cb = (a[:20_000] if a.shape[0] == CA_B else a
+                         for a in data["host"]["ca"])
+    fl = locs[np.maximum(fan, 0)].astype(np.float64)
+    for got, cand in zip(outs["canneal"], (ca, cb)):
+        cost = np.where(fan >= 0, np.abs(fl - cand[:, None]).sum(-1),
+                        0).sum(-1)
+        if got.shape != (CA_B,) or not np.array_equal(
+                got[:20_000].cpu().numpy().astype(np.float64), cost):
+            fail("canneal: differs from the float64 host sums")
+    print(f"phase 5 outputs: swaptions cndf round trip {sw_back:.3g} "
+          f"(5e-4); streamcluster vs float64 on 128 rows "
+          f"{worst['streamcluster']:.3g} (2e-4), bf16 "
+          f"{worst['streamcluster_bf16']:.3g} (1e-2); particlefilter equal "
+          f"to numpy searchsorted; canneal equal to float64 sums on 20,000 "
+          f"swaps")
+
+
+def suite_specs(torch, ref, data, mods):
+    """What phase 6 runs for each suite kernel: the kernel, its plain
+    version and the nearest single PyTorch call as closures, the bar, and
+    the bytes and operations its bound counts (from these inputs)."""
+    sw_k, sc_k, pf_k, ca_k = mods
+    u = data["sw"]
+    cdf, q = data["pf"]
+    locs, fan, ca, cb = data["ca"]
+    n_valid = int((fan >= 0).sum())
+    specs = [dict(name="swaptions", kernel=lambda: sw_k(u),
+                  plain=lambda: ref.cum_normal_inv(u),
+                  library=lambda: torch.special.ndtri(u), tol=(1e-5, 1e-6),
+                  peak=PEAK_F32_S, nbytes=SW_N * 8, ops=SW_N * SW_OPS,
+                  per=25)]
+    for name, key, tol, peak in (
+            ("streamcluster", "sc", 2e-4, PEAK_F32_S),
+            ("streamcluster_bf16", "sc_bf16", 1e-2, PEAK_BF16_S)):
+        p, c = data[key]
+        cdist = lambda p=p, c=c: torch.cdist(
+            p, c, compute_mode="use_mm_for_euclid_dist")
+        specs.append(dict(
+            name=name, kernel=lambda p=p, c=c: sc_k(p, c),
+            plain=lambda p=p, c=c: ref.streamcluster_dist(p, c),
+            library=cdist if key == "sc" else None, tol=(tol, tol), peak=peak,
+            nbytes=(SC_M + SC_N) * SC_D * p.element_size() + SC_M * SC_N * 4,
+            ops=2 * SC_M * SC_N * SC_D + 2 * (SC_M + SC_N) * SC_D
+            + 4 * SC_M * SC_N, per=10))
+    specs.append(dict(
+        name="particlefilter", kernel=lambda: pf_k(cdf, q),
+        plain=lambda: ref.particlefilter_findindex(cdf, q),
+        library=lambda: torch.searchsorted(cdf, q, out_int32=True),
+        tol=None, peak=PEAK_F32_S, nbytes=(PF_N + 2 * PF_M) * 4,
+        ops=2 * PF_N * PF_M + PF_M, per=10))
+    specs.append(dict(
+        name="canneal", kernel=lambda: ca_k(locs, fan, ca, cb),
+        plain=lambda: ref.canneal_swap_cost(locs, fan, ca, cb),
+        library=None, tol=(1e-6, 0.0), peak=PEAK_F32_S,
+        nbytes=CA_N * 8 + CA_B * CA_F * 4 + 2 * CA_B * 8 + 2 * CA_B * 4,
+        ops=n_valid * CA_OPS, per=25))
+    return specs
+
+
+def run_suite_kernel(torch, spec) -> dict:
+    """Hold one suite kernel against its plain version on the card (exactly
+    where ``tol`` is None), then time the kernel, the plain version and the
+    library call, and bound the kernel from its bytes and operations."""
+    name = spec["name"]
+    got, want = spec["kernel"](), spec["plain"]()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want))
+    if spec["tol"] is None:
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+    else:
+        rtol, atol = spec["tol"]
+        ok = all(torch.allclose(g, w, rtol=rtol, atol=atol)
+                 for g, w in zip(got, want))
+    if not ok:
+        fail(f"{name} kernel vs plain: max abs err {err} "
+             f"(bar {spec['tol'] or 'exact'})")
+    ms = cuda_ms(torch, spec["kernel"], reps=10, per=spec["per"])
+    plain_ms = cuda_ms(torch, spec["plain"], reps=5)
+    lib_ms = (cuda_ms(torch, spec["library"], reps=10, per=spec["per"])
+              if spec["library"] else None)
+    t_bytes = spec["nbytes"] / PEAK_BYTES_S
+    t_ops = spec["ops"] / spec["peak"]
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    print(f"phase 6 {name}: max_abs_err={err:.3g} (bar "
+          f"{spec['tol'] or 'exact'}) kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
+          f"({bound_by}; {spec['nbytes'] / 1e6:.1f} MB, "
+          f"{spec['ops'] / 1e9:.3f} G ops)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)   # phase lines survive a kill
     import torch
@@ -171,7 +361,14 @@ def main() -> int:
     from repro_torch.core import anchors, engine as eng, isa
     from repro_torch.core import suite, tracegen
     from repro_torch.kernels import blackscholes as bs_mod
+    from repro_torch.kernels import canneal as ca_mod
     from repro_torch.kernels import engine_scan, ops, ref
+    from repro_torch.kernels import particlefilter as pf_mod
+    from repro_torch.kernels import streamcluster as sc_mod
+    from repro_torch.kernels import swaptions as sw_mod
+    # launch counters of the suite kernels, in SUITE_REPLACES order
+    suite_mods = (sw_mod.cum_normal_inv, sc_mod.streamcluster_dist,
+                  pf_mod.find_index, ca_mod.swap_cost)
 
     dev = _device.resolve()
     # ---- 1. device + build ------------------------------------------------
@@ -366,7 +563,31 @@ def main() -> int:
     if min(launches.values()) <= 0:
         fail(f"a kernel was not launched on the main path: {launches}")
 
-    # ---- 5. kernels line ------------------------------------------------------
+    # ---- 5. the suite kernels' path -----------------------------------------
+    data = suite_inputs(torch, dev)
+    for mod in suite_mods:
+        mod.launches = 0
+    t0 = time.perf_counter()
+    outs = {"swaptions": ops.cum_normal_inv(data["sw"]),
+            "streamcluster": ops.streamcluster_dist(*data["sc"]),
+            "streamcluster_bf16": ops.streamcluster_dist(*data["sc_bf16"]),
+            "particlefilter": ops.particlefilter_findindex(*data["pf"]),
+            "canneal": ops.canneal_swap_cost(*data["ca"])}
+    torch.cuda.synchronize()
+    suite_s = time.perf_counter() - t0
+    for name, mod in zip(SUITE_REPLACES, suite_mods):
+        launches[name] = mod.launches
+    print(f"phase 5 suite kernels through kernels.ops: {suite_s * 1e3:.1f} ms"
+          f" wall, launches {[launches[n] for n in SUITE_REPLACES]}")
+    if min(launches[n] for n in SUITE_REPLACES) <= 0:
+        fail(f"a suite kernel was not launched on its path: {launches}")
+    check_suite_outputs(torch, data, outs)
+
+    # ---- 6. suite kernels against their plain versions, times, bounds -------
+    rows = {spec["name"]: run_suite_kernel(torch, spec)
+            for spec in suite_specs(torch, ref, data, suite_mods)}
+
+    # ---- 7. kernels line ------------------------------------------------------
     kernels = [
         {"name": "engine_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/engine_scan.cu",
@@ -381,8 +602,13 @@ def main() -> int:
          "ms": bs_ms, "plain_ms": bs_plain_ms, "bound_ms": bs_bound_ms,
          "bound_by": bs_bound_by, "library_ms": None},
     ]
+    for name, replaces in SUITE_REPLACES.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/csrc/{name}.cu",
+                        "replaces": replaces, "launches": launches[name],
+                        **rows[name]})
     print(json.dumps({"kernels": kernels}))
-    # ---- 6. last line -----------------------------------------------------------
+    # ---- 8. last line -----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -24,12 +24,14 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 
-SOURCES = ("engine_scan", "blackscholes")
+SOURCES = ("engine_scan", "blackscholes", "swaptions", "streamcluster",
+           "particlefilter", "canneal")
 COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The engine scan must reproduce the reference's float32 arithmetic bit for
-# bit: no contraction of a*b+c into one rounding.
-EXTRA_FLAGS = {"engine_scan": ("-fmad=false",)}
+# bit, and swaptions its plain version's term by term: no contraction of
+# a*b+c into one rounding.
+EXTRA_FLAGS = {"engine_scan": ("-fmad=false",), "swaptions": ("-fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

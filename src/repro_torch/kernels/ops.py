@@ -4,7 +4,8 @@ The port of ``repro/kernels/ops.py``.  Where the reference picks Pallas
 interpret mode off-TPU, the port picks by device: tensors already on a
 device stay there (CUDA tensors launch the kernel, CPU tensors take the
 plain version); anything else is moved to ``device``, which defaults to
-the CUDA device and raises if there is none.
+the CUDA device and raises if there is none.  The Pallas block sizes have
+no counterpart: the CUDA kernels take any size.
 """
 from __future__ import annotations
 
@@ -12,9 +13,15 @@ import torch
 
 from repro_torch import _device
 from repro_torch.kernels import blackscholes as _bs
+from repro_torch.kernels import canneal as _ca
+from repro_torch.kernels import particlefilter as _pf
+from repro_torch.kernels import streamcluster as _sc
+from repro_torch.kernels import swaptions as _sw
 
 
 def _as_tensor(x, dtype, device):
+    """``x`` itself if it is a tensor, else a new tensor on ``device``
+    (``dtype=None`` keeps the array's own type)."""
     if isinstance(x, torch.Tensor):
         return x
     return torch.as_tensor(x, dtype=dtype, device=_device.resolve(device))
@@ -26,3 +33,34 @@ def blackscholes(spot, strike, rate, vol, time, is_call, *, device=None):
     args = [_as_tensor(x, f32, device) for x in (spot, strike, rate, vol, time)]
     args.append(_as_tensor(is_call, torch.int32, device))
     return _bs.blackscholes(*args)
+
+
+def cum_normal_inv(u, *, device=None):
+    """Swaptions' inverse normal CDF (Moro) of uniforms ``u`` (float32
+    ``[N]``)."""
+    return _sw.cum_normal_inv(_as_tensor(u, torch.float32, device))
+
+
+def streamcluster_dist(points, centers, *, device=None):
+    """Squared distances, float32 ``[M,N]``, of points ``[M,D]`` to centers
+    ``[N,D]`` (float32 or bfloat16)."""
+    return _sc.streamcluster_dist(_as_tensor(points, None, device),
+                                  _as_tensor(centers, None, device))
+
+
+def canneal_swap_cost(locs, fan_idx, cand_a, cand_b, *, device=None):
+    """Canneal's routing cost of each swap's fan against two candidates:
+    ``(cost_a, cost_b)``, float32 ``[B]`` each."""
+    f32 = torch.float32
+    return _ca.swap_cost(_as_tensor(locs, f32, device),
+                         _as_tensor(fan_idx, torch.int32, device),
+                         _as_tensor(cand_a, f32, device),
+                         _as_tensor(cand_b, f32, device))
+
+
+def particlefilter_findindex(cdf, u, *, device=None):
+    """For each query ``u_j``, ``count(cdf < u_j)`` clamped to N-1 (int32
+    ``[M]``): the first index with ``cdf >= u_j`` on a monotone CDF."""
+    f32 = torch.float32
+    return _pf.find_index(_as_tensor(cdf, f32, device),
+                          _as_tensor(u, f32, device))

@@ -1,14 +1,30 @@
 """Plain PyTorch versions of the suite's data-parallel kernels.
 
 The port of ``repro/kernels/ref.py``: each function is the semantic ground
-truth its hand-written kernel must reproduce.  This slice carries
-Black-Scholes (``repro/kernels/ref.py:19-27``).
+truth its hand-written kernel must reproduce, with the reference's operand
+order, ``where``/``clip`` order and float32 arithmetic.  Carried so far:
+Black-Scholes (``repro/kernels/ref.py:19-27``) and the swaptions,
+streamcluster, canneal and particle-filter kernels (``:48-106``).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 SQRT2 = 1.4142135623730951
+
+# Moro (1995) rational approximation of the inverse cumulative normal, as
+# used by PARSEC swaptions' CumNormalInv.
+MORO_A = (2.50662823884, -18.61500062529, 41.39119773534, -25.44106049637)
+MORO_B = (-8.47351093090, 23.08336743743, -21.06224101826, 3.13082909833)
+MORO_C = (0.3374754822726147, 0.9761690190917186, 0.1607979714918209,
+          0.0276438810333863, 0.0038405729373609, 0.0003951896511919,
+          0.0000321767881768, 0.0000002888167364, 0.0000003960315187)
+
+# Queries per step of the plain particle-filter search: the [chunk, N]
+# comparison at N = 100,000 particles stays near 100 MB.
+FINDINDEX_CHUNK = 1024
 
 
 def _cndf(x):
@@ -24,3 +40,74 @@ def blackscholes(spot, strike, rate, vol, time, is_call):
     call = spot * _cndf(d1) - strike * torch.exp(-rate * time) * _cndf(d2)
     put = strike * torch.exp(-rate * time) * _cndf(-d2) - spot * _cndf(-d1)
     return torch.where(is_call != 0, call, put)
+
+
+def cum_normal_inv(u):
+    """Swaptions CumNormalInv (Moro's algorithm), elementwise on float32."""
+    A, B, C = MORO_A, MORO_B, MORO_C
+    x = u - 0.5
+    r_c = x * x
+    num = x * (A[0] + r_c * (A[1] + r_c * (A[2] + r_c * A[3])))
+    den = 1.0 + r_c * (B[0] + r_c * (B[1] + r_c * (B[2] + r_c * B[3])))
+    central = num / den
+    rr = torch.where(x > 0, 1.0 - u, u)
+    rr = torch.clamp(rr, 1e-12, 0.5)
+    z = torch.log(-torch.log(rr))
+    tail = (C[0] + z * (C[1] + z * (C[2] + z * (C[3] + z * (C[4] + z * (
+        C[5] + z * (C[6] + z * (C[7] + z * C[8]))))))))
+    tail = torch.where(x > 0, tail, -tail)
+    return torch.where(torch.abs(x) < 0.42, central, tail)
+
+
+@contextlib.contextmanager
+def _full_float32_matmul():
+    """Float32 products in full float32: TF32 keeps ~3 decimal digits, too
+    few for the 2e-4 bar of the streamcluster distances."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def streamcluster_dist(points, centers):
+    """Pairwise squared euclidean distances [M,D]x[N,D] -> [M,N] float32."""
+    p = points.float()
+    c = centers.float()
+    p2 = torch.sum(p * p, -1, keepdim=True)
+    c2 = torch.sum(c * c, -1)
+    with _full_float32_matmul():
+        pc = p @ c.T
+    return torch.clamp_min(p2 + c2[None, :] - 2.0 * pc, 0.0)
+
+
+def canneal_swap_cost(locs, fan_idx, cand_a, cand_b):
+    """Canneal swap_cost: manhattan routing cost of each element's fan
+    against two candidate locations.
+
+    locs [N,2]; fan_idx [B,F] (entries < 0 are padding; entries >= N read
+    row N-1, as the reference's gather clamps); cand_a/b [B,2].
+    Returns (cost_a [B], cost_b [B]).
+    """
+    valid = fan_idx >= 0
+    idx = fan_idx.clamp(0, locs.shape[0] - 1).long()
+    fl = locs.float()[idx]                                      # [B,F,2]
+    da = torch.abs(fl - cand_a[:, None, :].float()).sum(-1)
+    db = torch.abs(fl - cand_b[:, None, :].float()).sum(-1)
+    va = torch.where(valid, da, 0.0).sum(-1)
+    vb = torch.where(valid, db, 0.0).sum(-1)
+    return va, vb
+
+
+def particlefilter_findindex(cdf, u):
+    """Rodinia particle filter guess-update: for each u_j, ``count(cdf <
+    u_j)`` clamped to N-1 (the first index with cdf >= u_j on a monotone
+    CDF; the vfirst.m/vpopc.m pattern).  Queries go ``FINDINDEX_CHUNK`` at
+    a time, so the [M,N] comparison is never built whole."""
+    out = torch.empty(u.shape[0], dtype=torch.int32, device=u.device)
+    for s in range(0, u.shape[0], FINDINDEX_CHUNK):
+        q = u[s:s + FINDINDEX_CHUNK]
+        counts = torch.sum(cdf[None, :] < q[:, None], dim=1)
+        out[s:s + FINDINDEX_CHUNK] = torch.clamp_max(counts, cdf.shape[0] - 1)
+    return out

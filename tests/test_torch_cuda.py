@@ -12,7 +12,11 @@ import torch
 from repro_torch.core import engine as eng
 from repro_torch.core import suite, tracegen
 from repro_torch.kernels import blackscholes as bs_mod
+from repro_torch.kernels import canneal as ca_mod
 from repro_torch.kernels import engine_scan, ref
+from repro_torch.kernels import particlefilter as pf_mod
+from repro_torch.kernels import streamcluster as sc_mod
+from repro_torch.kernels import swaptions as sw_mod
 
 pytestmark = pytest.mark.cuda
 
@@ -70,3 +74,67 @@ def test_kernel_launch_errors_raise(cuda):
     args[2] = args[2].cpu()
     with pytest.raises(ValueError, match="rate on cpu"):
         bs_mod.blackscholes(*args)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 65_537])
+def test_cum_normal_inv_kernel_matches_plain(cuda, n):
+    """Ragged sizes, the reference's bar rtol 1e-5 / atol 1e-6."""
+    rng = np.random.RandomState(n)
+    u = torch.from_numpy(rng.uniform(1e-5, 1 - 1e-5, n).astype(np.float32))
+    u = u.to(cuda)
+    before = sw_mod.cum_normal_inv.launches
+    got = sw_mod.cum_normal_inv(u)
+    assert sw_mod.cum_normal_inv.launches == before + 1
+    torch.testing.assert_close(got, ref.cum_normal_inv(u), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("m,n,d", [(1, 1, 1), (1000, 129, 128),
+                                   (300, 1000, 37), (65_537, 5, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_streamcluster_kernel_matches_plain(cuda, m, n, d, dtype):
+    """M, N and D off the 128 x 128 x 16 tiling; 2e-4 in float32 and 1e-2
+    in bfloat16, the reference's bars."""
+    rng = np.random.RandomState(m + n + d)
+    tdt = getattr(torch, dtype)
+    p = torch.from_numpy(rng.uniform(size=(m, d)).astype(np.float32))
+    c = torch.from_numpy(rng.uniform(size=(n, d)).astype(np.float32))
+    p, c = p.to(cuda, tdt), c.to(cuda, tdt)
+    before = sc_mod.streamcluster_dist.launches
+    got = sc_mod.streamcluster_dist(p, c)
+    assert sc_mod.streamcluster_dist.launches == before + 1
+    tol = 1e-2 if dtype == "bfloat16" else 2e-4
+    torch.testing.assert_close(got, ref.streamcluster_dist(p, c), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("m", [1, 1000, 65_537])
+def test_find_index_kernel_matches_plain_exactly(cuda, m):
+    """A monotone CDF of 5,000 entries (not a multiple of the kernel's
+    2,048-entry tile) and, for the count semantics, an unsorted one."""
+    rng = np.random.RandomState(m)
+    u = torch.from_numpy(rng.uniform(size=m).astype(np.float32)).to(cuda)
+    raw = rng.uniform(size=5000).astype(np.float32)
+    for cdf in (np.sort(raw), raw):
+        cdf = torch.from_numpy(cdf).to(cuda)
+        before = pf_mod.find_index.launches
+        got = pf_mod.find_index(cdf, u)
+        assert pf_mod.find_index.launches == before + 1
+        assert torch.equal(got, ref.particlefilter_findindex(cdf, u))
+
+
+@pytest.mark.parametrize("b", [1, 1000, 65_537])
+def test_swap_cost_kernel_matches_plain_bitwise(cuda, b):
+    """Integer coordinates make every sum exact; -1 padding and indices
+    past N (clamped to N-1) included."""
+    rng = np.random.RandomState(b)
+    N, F = 4000, 22
+    locs = rng.randint(0, 1000, (N, 2)).astype(np.float32)
+    fan = rng.randint(-1, N + 100, (b, F)).astype(np.int32)
+    cand = [rng.randint(0, 1000, (b, 2)).astype(np.float32) for _ in "ab"]
+    args = [torch.from_numpy(a).to(cuda) for a in (locs, fan, *cand)]
+    before = ca_mod.swap_cost.launches
+    got = ca_mod.swap_cost(*args)
+    assert ca_mod.swap_cost.launches == before + 1
+    for g, w in zip(got, ref.canneal_swap_cost(*args)):
+        assert torch.equal(g, w)
