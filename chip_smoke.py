@@ -5,8 +5,9 @@
 
 Phases, one line each; any failure exits nonzero and nothing is caught:
 
-1. device: the card's name and power limit (nvidia-smi), then both CUDA
-   kernels built with nvcc from ``src/repro_torch/csrc``;
+1. device: the card's name and power limit (nvidia-smi), then the ten
+   CUDA sources of ``src/repro_torch/csrc`` built with nvcc, one process
+   per source, all at once;
 2. Black-Scholes at its PARSEC-large size (65,536 options x 100 runs =
    6,553,600 evaluations): kernel against the plain version on the card at
    rtol = atol = 3e-5, times and bound;
@@ -20,14 +21,18 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    rtol 1e-2, the 11 §5 anchors, the README quickstart's two claims, and
    the timed Fig-10 + MSHR study (504 lanes);
 5. the suite's kernel path (every launch counter set to 0 first): swaptions,
-   streamcluster (float32 and bfloat16), particle filter and canneal through
-   ``kernels.ops`` at their PARSEC / Rodinia input sizes, each output checked
-   on its own terms (shape, range, a float64 or numpy host reference on a
-   slice);
-6. those four kernels against their plain versions on the card at the
-   reference's bars, timed beside their plain versions, the nearest single
-   PyTorch call and their bounds;
-7. the ``kernels`` JSON line, launch counts from phases 4 and 5;
+   streamcluster (float32 and bfloat16), particle filter, canneal,
+   pathfinder, flash attention (float32, bfloat16, and bfloat16 at
+   llama3-8b's attention width) and flash decoding through ``kernels.ops``
+   at their PARSEC / Rodinia / app input sizes, and Jacobi-2D for RiVec's
+   4,000 sweeps; each output checked on its own terms (shape, range, a
+   float64 or numpy reference that shares no code with the port);
+6. those eight kernels against their plain versions on the card at the
+   reference's bars (Jacobi-2D on a PolyBench EXTRALARGE grid), timed
+   beside their plain versions, the nearest single PyTorch call and their
+   bounds;
+7. the ``kernels`` JSON line (ten entries), launch counts from phases 4
+   and 5;
 8. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no CUDA device or when
@@ -80,6 +85,26 @@ CA_N, CA_B, CA_F, CA_MEAN_FAN = 400_000, 1_920_000, 22, 10.15
 # swaptions chain (central 17, tail 21, selects and clamps 8); canneal per
 # valid fan entry (4 subtractions, 4 abs, 2 adds, 2 accumulations).
 SW_OPS, CA_OPS = 46, 12
+# Jacobi-2D at RiVec's own size: _J2_CHUNK8 / 4,000 sweeps x 8 elements =
+# 26,112 points updated per sweep (tracegen.py:171-185); sqrt(26,112) =
+# 161.6, so the updated interior is 162 x 162 (26,244 points) and the grid
+# with its fixed boundary 164 x 164, swept 4,000 times.  Its timed row runs
+# on PolyBench 4.2.1's EXTRALARGE grid (N = 2,800), since one sweep of the
+# app's 105 KB grid takes far less than a launch.  5 float operations per
+# interior point.
+J2_N, J2_SWEEPS, J2_BIG, J2_OPS = 164, 4_000, 2_800, 5
+# pathfinder: Rodinia's 100,000 columns (tracegen.py:317) x the rows that
+# _PATH_CHUNK8 implies (20,054,016 x 8 / 100,000 = 1,604), wall
+# rand() % 10; 3 operations per cell after the first row (2 min, 1 add).
+PATH_R, PATH_C, PATH_OPS = 1_604, 100_000, 3
+# flash attention at the app's scale (workloads_ml.py:46: B 4, S 2,048, H 8,
+# D 64, causal) and at llama3-8b's attention width (configs/llama3_8b.py:9:
+# 32 heads of 128) at S 4,096, B 1, with K/V given all 32 heads (the kernel
+# has no GQA); [B, S, H, D].  4*D flops per (query, key) pair kept.
+FA_APP, FA_LLAMA = (4, 2_048, 8, 64), (1, 4_096, 32, 128)
+# flash decoding at the app's scale (workloads_ml.py:49: B 32, S 4,096, H 8,
+# D 64, float32); kv_len uniform in [1, S] per batch, one batch at 0.
+DA_B, DA_S, DA_H, DA_D = 32, 4_096, 8, 64
 
 
 def fail(msg: str) -> None:
@@ -184,7 +209,11 @@ SUITE_REPLACES = {
     "swaptions": "src/repro/kernels/swaptions.py:42",
     "streamcluster": "src/repro/kernels/streamcluster.py:29",
     "particlefilter": "src/repro/kernels/particlefilter.py:31",
-    "canneal": "src/repro/kernels/canneal.py:34"}
+    "canneal": "src/repro/kernels/canneal.py:34",
+    "jacobi2d": "src/repro/kernels/jacobi2d.py:32",
+    "pathfinder": "src/repro/kernels/pathfinder.py:43",
+    "flash_attention": "src/repro/kernels/flash_attention.py:65",
+    "decode_attention": "src/repro/kernels/decode_attention.py:51"}
 
 
 def suite_inputs(torch, dev) -> dict:
@@ -209,13 +238,42 @@ def suite_inputs(torch, dev) -> dict:
               for _ in range(2))
     t = lambda a: torch.from_numpy(a).to(dev)
     sc = (t(points), t(centers))
+    # the grid, wall and attention inputs, from a Generator on the same seed
+    # (its float32 normals are fast at these sizes)
+    gen = np.random.default_rng(2111)
+    j2 = gen.uniform(size=(J2_N, J2_N)).astype(np.float32)
+    j2_big = gen.uniform(size=(J2_BIG, J2_BIG)).astype(np.float32)
+    wall = gen.integers(0, 10, (PATH_R, PATH_C), dtype=np.int32)
+    normal = lambda shape: t(gen.standard_normal(shape, dtype=np.float32))
+    fa = tuple(normal(FA_APP) for _ in range(3))
+    fa_llama = tuple(normal(FA_LLAMA).to(torch.bfloat16) for _ in range(3))
+    lens = gen.integers(1, DA_S, DA_B, endpoint=True).astype(np.int32)
+    lens[DA_B // 2] = 0
+    da = (normal((DA_B, DA_H, DA_D)), normal((DA_B, DA_S, DA_H, DA_D)),
+          normal((DA_B, DA_S, DA_H, DA_D)), t(lens))
     return {"sw": t(u), "sc": sc,
             "sc_bf16": tuple(x.to(torch.bfloat16) for x in sc),
             "pf": (t(cdf), t(q)), "ca": tuple(map(t, (locs, fan, ca, cb))),
-            "host": {"pf": (cdf, q), "ca": (locs, fan, ca, cb)}}
+            "j2": t(j2), "j2_big": t(j2_big), "path": t(wall), "fa": fa,
+            "fa_bf16": tuple(x.to(torch.bfloat16) for x in fa),
+            "fa_llama": fa_llama, "da": da,
+            "host": {"pf": (cdf, q), "ca": (locs, fan, ca, cb), "j2": j2,
+                     "path": wall, "da_lens": lens}}
 
 
-def check_suite_outputs(torch, data, outs) -> None:
+def attention_f64(torch, q, k, v, causal, rows):
+    """Softmax attention of the query rows ``rows`` (an index tensor) of one
+    head in float64, q, k, v ``[S, D]``; written out here, it shares no code
+    with the port."""
+    q, k, v = q.double(), k.double(), v.double()
+    s = (q[rows] @ k.T) / np.sqrt(q.shape[-1])
+    if causal:
+        keys = torch.arange(k.shape[0], device=k.device)
+        s = s.masked_fill(keys[None, :] > rows[:, None], float("-inf"))
+    return s.softmax(dim=-1) @ v
+
+
+def check_suite_outputs(torch, ref, data, outs) -> None:
     """Each suite kernel's main-path output on its own terms: type, shape,
     range, and a reference that shares no code with the port on a slice
     (float64 on the card, or numpy on the host)."""
@@ -263,12 +321,89 @@ def check_suite_outputs(torch, data, outs) -> None:
           f"to numpy searchsorted; canneal equal to float64 sums on 20,000 "
           f"swaps")
 
+    # Jacobi-2D: the 4,000 sweeps again through numpy's float32 on the host
+    # (same order of sums), then the plain version on the card
+    grid = outs["jacobi2d"]
+    if grid.shape != (J2_N, J2_N) or not torch.isfinite(grid).all():
+        fail("jacobi2d: non-finite or misshapen output")
+    a = data["host"]["j2"].copy()
+    fifth = np.float32(0.2)
+    for _ in range(J2_SWEEPS):
+        a[1:-1, 1:-1] = fifth * (a[1:-1, 1:-1] + a[1:-1, :-2] + a[1:-1, 2:]
+                                 + a[:-2, 1:-1] + a[2:, 1:-1])
+    j2_err = float(np.abs(grid.cpu().numpy() - a).max())
+    if j2_err > 1e-6:
+        fail(f"jacobi2d: off numpy's {J2_SWEEPS} sweeps by {j2_err} > 1e-6")
+    plain = data["j2"]
+    for _ in range(J2_SWEEPS):
+        plain = ref.jacobi2d(plain)
+    if not torch.equal(grid, plain):
+        fail(f"jacobi2d: {J2_SWEEPS} kernel sweeps differ from the plain "
+             "version's")
+    # pathfinder: numpy's row-by-row program on the host; integer walls
+    # keep every sum exact
+    wall = data["host"]["path"]
+    cost = wall[0].astype(np.float32)
+    inf = np.full(1, np.inf, np.float32)
+    for row in wall[1:]:
+        near = np.minimum(cost, np.minimum(np.concatenate([inf, cost[:-1]]),
+                                           np.concatenate([cost[1:], inf])))
+        cost = row.astype(np.float32) + near
+    got = outs["pathfinder"]
+    if got.dtype != torch.float32 or not np.array_equal(got.cpu().numpy(),
+                                                        cost):
+        fail("pathfinder: differs from numpy's row-by-row program")
+    # attention: float64 softmax on 64 query rows of the first and the last
+    # (b, h); decoding: every (b, h) in float64, kv_len = 0 the mean of V
+    att = {}
+    for key, inputs, tol in (("flash_attention", "fa", 2e-4),
+                             ("flash_attention_bf16", "fa_bf16", 2e-2),
+                             ("flash_attention_llama", "fa_llama", 2e-2)):
+        q, k, v = data[inputs]
+        o = outs[key]
+        B, S, H, _ = q.shape
+        if o.shape != q.shape or o.dtype != q.dtype \
+                or not torch.isfinite(o).all():
+            fail(f"{key}: output not finite {q.dtype} {tuple(q.shape)}")
+        rows = torch.linspace(0, S - 1, 64, device=q.device).long()
+        att[key] = 0.0
+        for b, h in ((0, 0), (B - 1, H - 1)):
+            want = attention_f64(torch, q[b, :, h], k[b, :, h], v[b, :, h],
+                                 True, rows)
+            got = o[b, rows, h].double()
+            att[key] = max(att[key], float((got - want).abs().max()))
+            if not torch.allclose(got, want, rtol=tol, atol=tol):
+                fail(f"{key}: off float64 softmax attention by {att[key]}")
+    q, k, v, lens = data["da"]
+    o = outs["decode_attention"]
+    if o.shape != q.shape or not torch.isfinite(o).all():
+        fail("decode_attention: non-finite or misshapen output")
+    s = torch.einsum("bhd,bshd->bhs", q.double(), k.double()) / np.sqrt(DA_D)
+    keys = torch.arange(DA_S, device=q.device)
+    s = s.masked_fill(keys[None, None, :] >= lens[:, None, None].long(),
+                      float("-inf"))
+    want = torch.einsum("bhs,bshd->bhd", s.softmax(-1), v.double())
+    zero = lens <= 0
+    want[zero] = v[zero].double().mean(1)       # every key weighs the same
+    da_err = float((o.double() - want).abs().max())
+    da_zero = float((o[zero].double() - want[zero]).abs().max())
+    if not torch.allclose(o.double(), want, rtol=2e-4, atol=2e-4):
+        fail(f"decode_attention: off float64 attention by {da_err}")
+    print(f"phase 5 outputs: jacobi2d vs numpy's {J2_SWEEPS} sweeps "
+          f"{j2_err:.3g} (1e-6), equal to the plain version's sweeps; "
+          f"pathfinder equal to numpy's row program; flash attention vs "
+          f"float64 on 2 x 64 rows {att['flash_attention']:.3g} (2e-4), "
+          f"bf16 {att['flash_attention_bf16']:.3g} (2e-2), llama width "
+          f"{att['flash_attention_llama']:.3g} (2e-2); decoding vs float64 "
+          f"{da_err:.3g} (2e-4), the kv_len = 0 batch vs the mean of V "
+          f"{da_zero:.3g}")
+
 
 def suite_specs(torch, ref, data, mods):
     """What phase 6 runs for each suite kernel: the kernel, its plain
     version and the nearest single PyTorch call as closures, the bar, and
     the bytes and operations its bound counts (from these inputs)."""
-    sw_k, sc_k, pf_k, ca_k = mods
+    sw_k, sc_k, pf_k, ca_k, j2_k, path_k, fa_k, da_k = mods
     u = data["sw"]
     cdf, q = data["pf"]
     locs, fan, ca, cb = data["ca"]
@@ -303,6 +438,56 @@ def suite_specs(torch, ref, data, mods):
         library=None, tol=(1e-6, 0.0), peak=PEAK_F32_S,
         nbytes=CA_N * 8 + CA_B * CA_F * 4 + 2 * CA_B * 8 + 2 * CA_B * 4,
         ops=n_valid * CA_OPS, per=25))
+    big = data["j2_big"]
+    specs.append(dict(
+        name="jacobi2d", kernel=lambda: j2_k(big),
+        plain=lambda: ref.jacobi2d(big), library=None, tol=None,
+        peak=PEAK_F32_S, nbytes=J2_BIG * J2_BIG * 8,
+        ops=J2_OPS * (J2_BIG - 2) ** 2, per=25))
+    wall = data["path"]
+    specs.append(dict(
+        name="pathfinder", kernel=lambda: path_k(wall),
+        plain=lambda: ref.pathfinder(wall), library=None, tol=None,
+        peak=PEAK_F32_S, nbytes=PATH_R * PATH_C * 4 + PATH_C * 4,
+        ops=PATH_OPS * (PATH_R - 1) * PATH_C, per=5, plain_reps=2))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, key, tol, peak, per, plain_reps in (
+            ("flash_attention", "fa", 2e-4, PEAK_F32_S, 5, 5),
+            ("flash_attention_bf16", "fa_bf16", 2e-2, PEAK_BF16_S, 5, 5),
+            ("flash_attention_llama", "fa_llama", 2e-2, PEAK_BF16_S, 1, 2)):
+        fq, fk, fv = data[key]
+        B, S, H, D = fq.shape
+        specs.append(dict(
+            name=name, kernel=lambda q=fq, k=fk, v=fv: fa_k(q, k, v, True),
+            plain=lambda q=fq, k=fk, v=fv: ref.flash_attention(q, k, v, True),
+            library=lambda q=fq, k=fk, v=fv: sdpa(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True),
+            tol=(tol, tol), peak=peak,
+            nbytes=4 * fq.numel() * fq.element_size(),
+            ops=4 * D * B * H * S * (S + 1) // 2, per=per,
+            plain_reps=plain_reps))
+    dq, dk, dv, lens = data["da"]
+    # what these lengths need: the K and V rows below kv_len (4*D flops a
+    # key), and at kv_len <= 0 the S rows of V alone (2*D flops a key)
+    kv_rows = da_ops = 0
+    for n in data["host"]["da_lens"]:
+        if n > 0:
+            kv_rows += 2 * min(int(n), DA_S)
+            da_ops += 4 * DA_D * min(int(n), DA_S)
+        else:
+            kv_rows += DA_S
+            da_ops += 2 * DA_D * DA_S
+    mask = (torch.arange(DA_S, device=dq.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    specs.append(dict(
+        name="decode_attention", kernel=lambda: da_k(dq, dk, dv, lens),
+        plain=lambda: ref.decode_attention(dq, dk, dv, lens),
+        library=lambda: sdpa(dq[:, :, None], dk.transpose(1, 2),
+                             dv.transpose(1, 2), attn_mask=mask),
+        tol=(2e-4, 2e-4), peak=PEAK_F32_S,
+        nbytes=kv_rows * DA_H * DA_D * 4 + 2 * dq.numel() * 4 + DA_B * 4,
+        ops=da_ops * DA_H, per=10))
     return specs
 
 
@@ -327,7 +512,9 @@ def run_suite_kernel(torch, spec) -> dict:
         fail(f"{name} kernel vs plain: max abs err {err} "
              f"(bar {spec['tol'] or 'exact'})")
     ms = cuda_ms(torch, spec["kernel"], reps=10, per=spec["per"])
-    plain_ms = cuda_ms(torch, spec["plain"], reps=5)
+    plain_reps = spec.get("plain_reps", 5)
+    plain_ms = cuda_ms(torch, spec["plain"], reps=plain_reps,
+                       warmup=min(2, plain_reps - 1))
     lib_ms = (cuda_ms(torch, spec["library"], reps=10, per=spec["per"])
               if spec["library"] else None)
     t_bytes = spec["nbytes"] / PEAK_BYTES_S
@@ -362,13 +549,19 @@ def main() -> int:
     from repro_torch.core import suite, tracegen
     from repro_torch.kernels import blackscholes as bs_mod
     from repro_torch.kernels import canneal as ca_mod
+    from repro_torch.kernels import decode_attention as da_mod
     from repro_torch.kernels import engine_scan, ops, ref
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import jacobi2d as j2_mod
     from repro_torch.kernels import particlefilter as pf_mod
+    from repro_torch.kernels import pathfinder as path_mod
     from repro_torch.kernels import streamcluster as sc_mod
     from repro_torch.kernels import swaptions as sw_mod
     # launch counters of the suite kernels, in SUITE_REPLACES order
     suite_mods = (sw_mod.cum_normal_inv, sc_mod.streamcluster_dist,
-                  pf_mod.find_index, ca_mod.swap_cost)
+                  pf_mod.find_index, ca_mod.swap_cost, j2_mod.jacobi2d_step,
+                  path_mod.pathfinder, fa_mod.flash_attention,
+                  da_mod.decode_attention)
 
     dev = _device.resolve()
     # ---- 1. device + build ------------------------------------------------
@@ -564,7 +757,13 @@ def main() -> int:
         fail(f"a kernel was not launched on the main path: {launches}")
 
     # ---- 5. the suite kernels' path -----------------------------------------
+    t0 = time.perf_counter()
     data = suite_inputs(torch, dev)
+    torch.cuda.synchronize()
+    inputs_s = time.perf_counter() - t0
+    # the library yardsticks of phase 6 in full float32, as the kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     for mod in suite_mods:
         mod.launches = 0
     t0 = time.perf_counter()
@@ -572,16 +771,31 @@ def main() -> int:
             "streamcluster": ops.streamcluster_dist(*data["sc"]),
             "streamcluster_bf16": ops.streamcluster_dist(*data["sc_bf16"]),
             "particlefilter": ops.particlefilter_findindex(*data["pf"]),
-            "canneal": ops.canneal_swap_cost(*data["ca"])}
+            "canneal": ops.canneal_swap_cost(*data["ca"]),
+            "pathfinder": ops.pathfinder(data["path"]),
+            "flash_attention": ops.flash_attention(*data["fa"]),
+            "flash_attention_bf16": ops.flash_attention(*data["fa_bf16"]),
+            "flash_attention_llama": ops.flash_attention(*data["fa_llama"]),
+            "decode_attention": ops.decode_attention(*data["da"])}
     torch.cuda.synchronize()
     suite_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid = data["j2"]
+    for _ in range(J2_SWEEPS):
+        grid = ops.jacobi2d_step(grid)
+    torch.cuda.synchronize()
+    j2_app_s = time.perf_counter() - t0
+    outs["jacobi2d"] = grid
     for name, mod in zip(SUITE_REPLACES, suite_mods):
         launches[name] = mod.launches
     print(f"phase 5 suite kernels through kernels.ops: {suite_s * 1e3:.1f} ms"
-          f" wall, launches {[launches[n] for n in SUITE_REPLACES]}")
+          f" wall (inputs made in {inputs_s:.1f} s); jacobi2d {J2_SWEEPS} "
+          f"sweeps of {J2_N} x {J2_N} in {j2_app_s * 1e3:.1f} ms wall "
+          f"({j2_app_s * 1e6 / J2_SWEEPS:.2f} us/sweep); launches "
+          f"{ {n: launches[n] for n in SUITE_REPLACES} }")
     if min(launches[n] for n in SUITE_REPLACES) <= 0:
         fail(f"a suite kernel was not launched on its path: {launches}")
-    check_suite_outputs(torch, data, outs)
+    check_suite_outputs(torch, ref, data, outs)
 
     # ---- 6. suite kernels against their plain versions, times, bounds -------
     rows = {spec["name"]: run_suite_kernel(torch, spec)

@@ -25,13 +25,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 
 SOURCES = ("engine_scan", "blackscholes", "swaptions", "streamcluster",
-           "particlefilter", "canneal")
+           "particlefilter", "canneal", "jacobi2d", "pathfinder",
+           "flash_attention", "decode_attention")
 COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The engine scan must reproduce the reference's float32 arithmetic bit for
-# bit, and swaptions its plain version's term by term: no contraction of
-# a*b+c into one rounding.
-EXTRA_FLAGS = {"engine_scan": ("-fmad=false",), "swaptions": ("-fmad=false",)}
+# bit, and swaptions and Jacobi-2D their plain versions' term by term: no
+# contraction of a*b+c into one rounding.
+EXTRA_FLAGS = {"engine_scan": ("-fmad=false",), "swaptions": ("-fmad=false",),
+               "jacobi2d": ("-fmad=false",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -14,7 +14,11 @@ import torch
 from repro_torch import _device
 from repro_torch.kernels import blackscholes as _bs
 from repro_torch.kernels import canneal as _ca
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import jacobi2d as _j2
 from repro_torch.kernels import particlefilter as _pf
+from repro_torch.kernels import pathfinder as _path
 from repro_torch.kernels import streamcluster as _sc
 from repro_torch.kernels import swaptions as _sw
 
@@ -41,6 +45,18 @@ def cum_normal_inv(u, *, device=None):
     return _sw.cum_normal_inv(_as_tensor(u, torch.float32, device))
 
 
+def jacobi2d_step(a, *, device=None):
+    """One 5-point Jacobi sweep of a float32 ``[R, C]`` grid (boundary rows
+    and columns held), into a new tensor."""
+    return _j2.jacobi2d_step(_as_tensor(a, torch.float32, device))
+
+
+def pathfinder(wall, *, device=None):
+    """The last min-cost row, float32 ``[C]``, of an int32 or float32 wall
+    ``[R, C]``."""
+    return _path.pathfinder(_as_tensor(wall, None, device))
+
+
 def streamcluster_dist(points, centers, *, device=None):
     """Squared distances, float32 ``[M,N]``, of points ``[M,D]`` to centers
     ``[N,D]`` (float32 or bfloat16)."""
@@ -64,3 +80,27 @@ def particlefilter_findindex(cdf, u, *, device=None):
     f32 = torch.float32
     return _pf.find_index(_as_tensor(cdf, f32, device),
                           _as_tensor(u, f32, device))
+
+
+def flash_attention(q, k, v, *, causal=True, device=None):
+    """Softmax attention over q, k, v ``[B,S,H,D]`` (float32 or bfloat16,
+    D <= 128), causal or not; the output has q's type."""
+    return _fa.flash_attention(_as_tensor(q, None, device),
+                               _as_tensor(k, None, device),
+                               _as_tensor(v, None, device), causal=causal)
+
+
+def decode_attention(q, k, v, kv_len, *, device=None):
+    """One query token per batch, q ``[B,H,D]``, against a float32 cache
+    k, v ``[B,S,H,D]``: float32 ``[B,H,D]``.  ``kv_len`` is an int or int32
+    ``[B]``, broadcast to ``[B]`` as the reference does; at ``kv_len <= 0``
+    the result is the mean of V (the Pallas kernel's finite mask)."""
+    q = _as_tensor(q, torch.float32, device)
+    k, v = (_as_tensor(x, torch.float32, device) for x in (k, v))
+    lens = torch.as_tensor(kv_len, dtype=torch.int32, device=q.device)
+    lens = lens.reshape(-1)
+    if lens.numel() not in (1, k.shape[0]):
+        raise ValueError(f"decode_attention: kv_len has {lens.numel()} "
+                         f"entries for B = {k.shape[0]}")
+    lens = lens.expand(k.shape[0]).contiguous()
+    return _da.decode_attention(q, k, v, lens)

@@ -3,8 +3,10 @@
 The port of ``repro/kernels/ref.py``: each function is the semantic ground
 truth its hand-written kernel must reproduce, with the reference's operand
 order, ``where``/``clip`` order and float32 arithmetic.  Carried so far:
-Black-Scholes (``repro/kernels/ref.py:19-27``) and the swaptions,
-streamcluster, canneal and particle-filter kernels (``:48-106``).
+every entry but ``ssd_scan``: Black-Scholes (``repro/kernels/ref.py:19-27``),
+Jacobi-2D and pathfinder (``:29-45``), the swaptions, streamcluster,
+canneal and particle-filter kernels (``:48-106``), and flash attention and
+flash decoding (``:109-126``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,11 @@ MORO_B = (-8.47351093090, 23.08336743743, -21.06224101826, 3.13082909833)
 MORO_C = (0.3374754822726147, 0.9761690190917186, 0.1607979714918209,
           0.0276438810333863, 0.0038405729373609, 0.0003951896511919,
           0.0000321767881768, 0.0000002888167364, 0.0000003960315187)
+
+# The finite mask value of the Pallas attention kernels
+# (``repro/kernels/decode_attention.py:16``): a fully masked row averages V
+# instead of turning into NaN.
+NEG_INF = -1e30
 
 # Queries per step of the plain particle-filter search: the [chunk, N]
 # comparison at N = 100,000 particles stays near 100 MB.
@@ -111,3 +118,62 @@ def particlefilter_findindex(cdf, u):
         counts = torch.sum(cdf[None, :] < q[:, None], dim=1)
         out[s:s + FINDINDEX_CHUNK] = torch.clamp_max(counts, cdf.shape[0] - 1)
     return out
+
+
+def jacobi2d(a, iters=1):
+    """5-point Jacobi relaxation; boundary rows/cols held fixed.  A grid
+    with no interior (R < 3 or C < 3) comes back as a copy."""
+    for _ in range(iters):
+        interior = 0.2 * (a[1:-1, 1:-1] + a[1:-1, :-2] + a[1:-1, 2:]
+                          + a[:-2, 1:-1] + a[2:, 1:-1])
+        a = a.clone()
+        a[1:-1, 1:-1] = interior
+    return a
+
+
+def pathfinder(wall):
+    """Rodinia pathfinder: min-cost path, row by row (dynamic programming).
+    One row at a time on the wall's device; no ``[R, C]`` intermediate."""
+    cost = wall[0].float()
+    inf = torch.full((1,), float("inf"), device=wall.device)
+    for i in range(1, wall.shape[0]):
+        left = torch.cat([inf, cost[:-1]])
+        right = torch.cat([cost[1:], inf])
+        cost = wall[i].float() + torch.minimum(cost,
+                                               torch.minimum(left, right))
+    return cost
+
+
+def flash_attention(q, k, v, causal=True):
+    """Exact softmax attention. q/k/v [B,S,H,D] -> [B,S,H,D].  The scores
+    are formed in q's type and the probabilities cast back to it before the
+    product with V, as the reference does (why bf16 is held at 2e-2)."""
+    scale = q.shape[-1] ** -0.5
+    with _full_float32_matmul():
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+        if causal:
+            S = q.shape[1]
+            mask = torch.tril(torch.ones(S, S, dtype=torch.bool,
+                                         device=q.device))
+            s = torch.where(mask[None, None], s, float("-inf"))
+        a = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", a.to(q.dtype), v)
+
+
+def decode_attention(q, k, v, kv_len):
+    """Single-token attention vs a cache.  q [B,H,D], k/v [B,S,H,D],
+    ``kv_len`` an int or int32 ``[B]``.  Keys at ``ki >= kv_len`` are masked
+    with the finite ``NEG_INF`` of the Pallas kernel, not ``-inf``: at
+    ``kv_len <= 0`` every key is masked alike and the result is the mean of
+    V over all S positions, where ``repro/kernels/ref.py`` gives NaN."""
+    B, S = k.shape[:2]
+    lens = torch.as_tensor(kv_len, dtype=torch.int32, device=k.device)
+    lens = lens.reshape(-1).expand(B)
+    scale = q.shape[-1] ** -0.5
+    with _full_float32_matmul():
+        s = torch.einsum("bhd,bkhd->bhk", q, k).float() * scale
+        mask = torch.arange(S, device=k.device)[None, None] \
+            < lens[:, None, None]
+        s = torch.where(mask, s, NEG_INF)
+        a = torch.softmax(s, dim=-1)
+        return torch.einsum("bhk,bkhd->bhd", a.to(q.dtype), v)

@@ -1,0 +1,162 @@
+"""Port parity: the flash-attention and flash-decoding kernels.
+
+On the CPU each ``repro_torch.kernels.ops`` wrapper takes its kernel's
+plain PyTorch version, and only because the tensors lie on the CPU.  The
+same seeded numpy inputs go through ``repro.kernels.ops`` with
+``interpret=True`` (the Pallas kernels on the CPU), at the shapes and bars
+of ``tests/test_kernels.py``: 2e-4 in float32 and 2e-2 in bfloat16 for flash
+attention, 2e-4 for decoding.  The CUDA kernels themselves are held against
+their plain versions on the card by ``tests/test_torch_cuda.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as jref
+from repro_torch.kernels import decode_attention as da_mod
+from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import ops, ref
+
+
+def qkv(shape, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+
+
+def decode_inputs(B, S, H, D, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.standard_normal((B, H, D)).astype(np.float32),
+            rng.standard_normal((B, S, H, D)).astype(np.float32),
+            rng.standard_normal((B, S, H, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("S,bq,bk", [(256, 128, 128), (512, 128, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_pallas_interpret(S, bq, bk, causal, dtype):
+    """bfloat16 inputs are the same float32 arrays cast on both sides."""
+    B, H, D = 2, 2, 64
+    arrs = qkv((B, S, H, D), seed=S + bq + causal)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    want = ref_ops.flash_attention(*(jnp.asarray(a).astype(jdt)
+                                     for a in arrs),
+                                   bq=bq, bk=bk, causal=causal,
+                                   interpret=True)
+    got = ops.flash_attention(*(torch.from_numpy(a).to(tdt) for a in arrs),
+                              causal=causal)
+    assert got.dtype == tdt and got.shape == (B, S, H, D)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("S,D,causal", [(100, 64, True), (37, 128, False),
+                                        (1, 40, True)])
+def test_flash_attention_ragged_matches_reference(S, D, causal):
+    """S off every tile and D off 64, against the reference's oracle."""
+    arrs = qkv((2, S, 3, D), seed=S + D)
+    want = np.asarray(jref.flash_attention(*(jnp.asarray(a) for a in arrs),
+                                           causal=causal))
+    got = ops.flash_attention(*arrs, causal=causal, device="cpu")
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("S,bk,kv_len", [(256, 64, 100), (512, 128, 512)])
+def test_decode_attention_matches_pallas_interpret(S, bk, kv_len):
+    B, H, D = 2, 4, 64
+    q, k, v = decode_inputs(B, S, H, D, seed=S + kv_len)
+    want = np.asarray(ref_ops.decode_attention(
+        q, k, v, jnp.full((B,), kv_len), bk=bk, interpret=True))
+    got = ops.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), kv_len)
+    assert got.dtype == torch.float32 and got.shape == (B, H, D)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+def test_decode_attention_per_batch_lengths_match_pallas_interpret():
+    """One length per batch entry, including one past S, against the
+    Pallas kernel and against the reference oracle batch by batch."""
+    B, S, H, D = 4, 256, 2, 64
+    q, k, v = decode_inputs(B, S, H, D, seed=11)
+    lens = np.array([1, 77, 256, 300], np.int32)
+    want = np.asarray(ref_ops.decode_attention(q, k, v, lens, bk=64,
+                                               interpret=True))
+    got = ops.decode_attention(q, k, v, torch.from_numpy(lens), device="cpu")
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    oracle = jax.vmap(lambda qq, kk, vv, n: jref.decode_attention(
+        qq[None], kk[None], vv[None], n)[0])(q, k, v, jnp.asarray(lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_decode_attention_at_zero_length_is_the_mean_of_v():
+    """kv_len = 0 masks every key with the Pallas kernel's finite -1e30, so
+    each key weighs the same: the result is the mean of V over all S."""
+    B, S, H, D = 2, 256, 4, 64
+    q, k, v = decode_inputs(B, S, H, D, seed=5)
+    want = np.asarray(ref_ops.decode_attention(q, k, v, jnp.zeros((B,)),
+                                               bk=64, interpret=True))
+    got = ops.decode_attention(q, k, v, 0, device="cpu").numpy()
+    np.testing.assert_allclose(want, v.mean(1), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(
+        got, want, rtol=2e-4, atol=2e-4,
+        err_msg="at kv_len = 0 the port follows the Pallas kernel (the mean "
+                "of V, from its finite NEG_INF mask), not repro/kernels/"
+                "ref.py, whose -inf mask gives NaN there")
+    oracle = np.asarray(jref.decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0))
+    assert np.isnan(oracle).all()
+
+
+def test_wrappers_take_plain_path_on_cpu_only():
+    q, k, v = (torch.from_numpy(a) for a in qkv((1, 20, 2, 16), 0))
+    qd, kd, vd = (torch.from_numpy(a) for a in decode_inputs(2, 30, 2, 16, 0))
+    lens = torch.tensor([5, 30], dtype=torch.int32)
+    before = fa_mod.flash_attention.launches, da_mod.decode_attention.launches
+    assert torch.equal(fa_mod.flash_attention(q, k, v),
+                       ref.flash_attention(q, k, v))
+    assert torch.equal(da_mod.decode_attention(qd, kd, vd, lens),
+                       ref.decode_attention(qd, kd, vd, lens))
+    assert (fa_mod.flash_attention.launches,
+            da_mod.decode_attention.launches) == before
+
+
+def _bad_calls():
+    """(wrapper, operands) pairs each of which must raise ValueError."""
+    q, k, v = (torch.from_numpy(a) for a in qkv((1, 20, 2, 16), 0))
+    qd, kd, vd = (torch.from_numpy(a) for a in decode_inputs(2, 30, 2, 16, 0))
+    lens = torch.tensor([5, 30], dtype=torch.int32)
+    wide = torch.zeros(1, 4, 1, 129)
+    meta = torch.device("meta")
+    fa, da = fa_mod.flash_attention, da_mod.decode_attention
+    return {
+        "fa_dtype": (fa, (q.double(), k.double(), v.double())),
+        "fa_mixed": (fa, (q, k.bfloat16(), v)),
+        "fa_rank": (fa, (q[0], k[0], v[0])),
+        "fa_shape": (fa, (q, k[:, :10].contiguous(), v)),
+        "fa_wide": (fa, (wide, wide, wide)),
+        "fa_stride": (fa, (q.transpose(1, 2), k, v)),
+        "fa_device": (fa, (q, k, v.to(meta))),
+        "da_dtype": (da, (qd.bfloat16(), kd.bfloat16(), vd.bfloat16(),
+                          lens)),
+        "da_lens_dtype": (da, (qd, kd, vd, lens.long())),
+        "da_lens_shape": (da, (qd, kd, vd, lens[:1])),
+        "da_shape": (da, (qd, kd[:, :, :1].contiguous(), vd, lens)),
+        "da_rank": (da, (qd[0], kd, vd, lens)),
+        "da_empty": (da, (qd, kd[:, :0], vd[:, :0], lens)),
+        "da_stride": (da, (qd, kd, vd.transpose(1, 2), lens)),
+        "da_device": (da, (qd, kd.to(meta), vd, lens)),
+        "ops_da_lens": (ops.decode_attention, (qd, kd, vd, [1, 2, 3])),
+    }
+
+
+@pytest.mark.parametrize("bad", sorted(_bad_calls()))
+def test_wrappers_reject_bad_operands(bad):
+    fn, args = _bad_calls()[bad]
+    with pytest.raises(ValueError):
+        fn(*args)

@@ -13,8 +13,12 @@ from repro_torch.core import engine as eng
 from repro_torch.core import suite, tracegen
 from repro_torch.kernels import blackscholes as bs_mod
 from repro_torch.kernels import canneal as ca_mod
+from repro_torch.kernels import decode_attention as da_mod
 from repro_torch.kernels import engine_scan, ref
+from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import jacobi2d as j2_mod
 from repro_torch.kernels import particlefilter as pf_mod
+from repro_torch.kernels import pathfinder as path_mod
 from repro_torch.kernels import streamcluster as sc_mod
 from repro_torch.kernels import swaptions as sw_mod
 
@@ -138,3 +142,81 @@ def test_swap_cost_kernel_matches_plain_bitwise(cuda, b):
     assert ca_mod.swap_cost.launches == before + 1
     for g, w in zip(got, ref.canneal_swap_cost(*args)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", [(3, 3), (2, 5), (130, 3), (1001, 67),
+                                   (33, 2800)])
+def test_jacobi2d_kernel_matches_plain_bitwise(cuda, shape):
+    """R and C off the kernel's 32 x 32 block, C = 3 (one interior column),
+    a grid with no interior; three sweeps, every one equal to the plain
+    version's (-fmad=false, the plain version's order of sums)."""
+    rng = np.random.RandomState(sum(shape))
+    a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    got = want = a.to(cuda)
+    for _ in range(3):
+        before = j2_mod.jacobi2d_step.launches
+        got = j2_mod.jacobi2d_step(got)
+        assert j2_mod.jacobi2d_step.launches == before + 1
+        want = ref.jacobi2d(want)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("R,C", [(1, 7), (2, 1), (21, 3), (45, 255),
+                                 (41, 1000), (62, 100_003)])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_pathfinder_kernel_matches_plain_bitwise(cuda, R, C, dtype):
+    """R across the 20-row pyramid (one row, one launch, a ragged last
+    launch), C off the 216-column stride down to 1; int and float walls."""
+    rng = np.random.RandomState(R + C)
+    w = (rng.randint(0, 10, (R, C)).astype(np.int32) if dtype == "int32"
+         else rng.uniform(0, 10, (R, C)).astype(np.float32))
+    w = torch.from_numpy(w).to(cuda)
+    before = path_mod.pathfinder.launches
+    got = path_mod.pathfinder(w)
+    assert path_mod.pathfinder.launches == before + max(1, -(-(R - 1) // 20))
+    assert torch.equal(got, ref.pathfinder(w))
+
+
+@pytest.mark.parametrize("S", [1, 100, 257])
+@pytest.mark.parametrize("D", [40, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(cuda, S, D, causal, dtype):
+    """S off the 64-row tiles, D = 64, 128 and one padded to 64; 2e-4 in
+    float32 and 2e-2 in bfloat16, the reference's bars."""
+    rng = np.random.RandomState(S + D)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, S, 3, D)).astype(
+        np.float32)).to(cuda, tdt) for _ in range(3))
+    before = fa_mod.flash_attention.launches
+    got = fa_mod.flash_attention(q, k, v, causal=causal)
+    assert fa_mod.flash_attention.launches == before + 1
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention(q, k, v, causal).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kv_len", [0, 1, 1000, 1005, "per-batch"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_attention_kernel_matches_plain(cuda, kv_len, D):
+    """S = 1,000 (off the kernel's 64-key group), kv_len in {0, 1, S, > S}
+    and one length per batch entry; 0 is the mean of V."""
+    B, S, H = 3, 1000, 4
+    rng = np.random.RandomState(D)
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)) for _ in range(2))
+    lens = (np.array([0, 613, 2000]) if kv_len == "per-batch"
+            else np.full(B, kv_len))
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    lens = torch.from_numpy(lens.astype(np.int32)).to(cuda)
+    before = da_mod.decode_attention.launches
+    got = da_mod.decode_attention(q, k, v, lens)
+    assert da_mod.decode_attention.launches == before + 1
+    torch.testing.assert_close(got, ref.decode_attention(q, k, v, lens),
+                               rtol=2e-4, atol=2e-4)
+    for b in range(B):
+        if int(lens[b]) <= 0:
+            torch.testing.assert_close(got[b], v[b].mean(0), rtol=2e-4,
+                                       atol=2e-4)
