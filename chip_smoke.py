@@ -5,7 +5,7 @@
 
 Phases, one line each; any failure exits nonzero and nothing is caught:
 
-1. device: the card's name and power limit (nvidia-smi), then the ten
+1. device: the card's name and power limit (nvidia-smi), then the eleven
    CUDA sources of ``src/repro_torch/csrc`` built with nvcc, one process
    per source, all at once;
 2. Black-Scholes at its PARSEC-large size (65,536 options x 100 runs =
@@ -18,20 +18,23 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
 4. the study (the main path, with every launch counter set to 0 first):
    the Black-Scholes app on the card, ``suite.sweep_all`` over the seven
    RiVec apps x Table 10 checked against ``tests/golden_sweep.json`` at
-   rtol 1e-2, the 11 §5 anchors, the README quickstart's two claims, and
-   the timed Fig-10 + MSHR study (504 lanes);
+   rtol 1e-2 (timed as in the earlier slices), the 11 §5 anchors, the
+   README quickstart's two claims, the timed Fig-10 + MSHR study (504
+   lanes), and the whole golden table: all ten apps and their ten ``:asm``
+   variants x Table 10 (480 cells, cold and warm) at rtol 1e-2;
 5. the suite's kernel path (every launch counter set to 0 first): swaptions,
    streamcluster (float32 and bfloat16), particle filter, canneal,
    pathfinder, flash attention (float32, bfloat16, and bfloat16 at
-   llama3-8b's attention width) and flash decoding through ``kernels.ops``
-   at their PARSEC / Rodinia / app input sizes, and Jacobi-2D for RiVec's
-   4,000 sweeps; each output checked on its own terms (shape, range, a
-   float64 or numpy reference that shares no code with the port);
-6. those eight kernels against their plain versions on the card at the
+   llama3-8b's attention width), flash decoding and the Mamba-2 SSD scan
+   through ``kernels.ops`` at their PARSEC / Rodinia / app input sizes, and
+   Jacobi-2D for RiVec's 4,000 sweeps; each output checked on its own terms
+   (shape, range, a float64 or numpy reference that shares no code with
+   the port);
+6. those nine kernels against their plain versions on the card at the
    reference's bars (Jacobi-2D on a PolyBench EXTRALARGE grid), timed
    beside their plain versions, the nearest single PyTorch call and their
    bounds;
-7. the ``kernels`` JSON line (ten entries), launch counts from phases 4
+7. the ``kernels`` JSON line (eleven entries), launch counts from phases 4
    and 5;
 8. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -105,6 +108,13 @@ FA_APP, FA_LLAMA = (4, 2_048, 8, 64), (1, 4_096, 32, 128)
 # flash decoding at the app's scale (workloads_ml.py:49: B 32, S 4,096, H 8,
 # D 64, float32); kv_len uniform in [1, S] per batch, one batch at 0.
 DA_B, DA_S, DA_H, DA_D = 32, 4_096, 8, 64
+# the Mamba-2 SSD scan at the app's scale (workloads_ml.py:52: B 8,
+# S 65,536, H 16) with mamba2-130m's head dim and state (configs/
+# mamba2_130m.py:11: P 64, N 128; a pair the app leaves open), chunk 256,
+# float32; inputs drawn as tests/test_kernels.py:111-116 draws them.  The
+# float64 recurrence of phase 5 runs over the whole sequence of two (b, h).
+SSD_B, SSD_S, SSD_H, SSD_P, SSD_N, SSD_CHUNK = 8, 65_536, 16, 64, 128, 256
+SSD_CHECK = ((0, 0), (SSD_B - 1, SSD_H - 1))
 
 
 def fail(msg: str) -> None:
@@ -213,7 +223,8 @@ SUITE_REPLACES = {
     "jacobi2d": "src/repro/kernels/jacobi2d.py:32",
     "pathfinder": "src/repro/kernels/pathfinder.py:43",
     "flash_attention": "src/repro/kernels/flash_attention.py:65",
-    "decode_attention": "src/repro/kernels/decode_attention.py:51"}
+    "decode_attention": "src/repro/kernels/decode_attention.py:51",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:56"}
 
 
 def suite_inputs(torch, dev) -> dict:
@@ -251,14 +262,49 @@ def suite_inputs(torch, dev) -> dict:
     lens[DA_B // 2] = 0
     da = (normal((DA_B, DA_H, DA_D)), normal((DA_B, DA_S, DA_H, DA_D)),
           normal((DA_B, DA_S, DA_H, DA_D)), t(lens))
+    ssd, ssd_host = ssd_inputs(torch, dev)
     return {"sw": t(u), "sc": sc,
             "sc_bf16": tuple(x.to(torch.bfloat16) for x in sc),
             "pf": (t(cdf), t(q)), "ca": tuple(map(t, (locs, fan, ca, cb))),
             "j2": t(j2), "j2_big": t(j2_big), "path": t(wall), "fa": fa,
             "fa_bf16": tuple(x.to(torch.bfloat16) for x in fa),
-            "fa_llama": fa_llama, "da": da,
+            "fa_llama": fa_llama, "da": da, "ssd": ssd,
             "host": {"pf": (cdf, q), "ca": (locs, fan, ca, cb), "j2": j2,
-                     "path": wall, "da_lens": lens}}
+                     "path": wall, "da_lens": lens, "ssd": ssd_host}}
+
+
+def ssd_inputs(torch, dev):
+    """The SSD scan's operands x, dt, A, B, C on the card, drawn with numpy
+    from seed 2111 as tests/test_kernels.py draws them (x, B, C: 0.5 N(0,1);
+    dt: softplus N(0,1); A: -exp(0.3 N(0,1))), and float64 host copies of
+    the two (b, h) sequences the recurrence checks."""
+    gen = np.random.default_rng(2111)
+    f32 = np.float32
+    normal = lambda shape: gen.standard_normal(shape, dtype=f32)
+    x = normal((SSD_B, SSD_S, SSD_H, SSD_P)) * f32(0.5)
+    dt = np.logaddexp(f32(0), normal((SSD_B, SSD_S, SSD_H)))
+    A = -np.exp(normal(SSD_H) * f32(0.3))
+    B = normal((SSD_B, SSD_S, SSD_N)) * f32(0.5)
+    C = normal((SSD_B, SSD_S, SSD_N)) * f32(0.5)
+    host = {(b, h): tuple(a.astype(np.float64) for a in
+                          (x[b, :, h], dt[b, :, h], A[h], B[b], C[b]))
+            for b, h in SSD_CHECK}
+    return tuple(torch.from_numpy(a).to(dev) for a in (x, dt, A, B, C)), host
+
+
+def ssd_recurrence_f64(x, dt, a, B, C):
+    """The SSD scan of one (b, h) in its recurrent form, float64 numpy:
+    state = exp(dt a) state + dt x (x) B, y = state C, step by step over the
+    whole sequence; written out here, it shares no code with the port."""
+    state = np.zeros((x.shape[1], B.shape[1]))
+    y = np.empty_like(x)
+    decay = np.exp(dt * a)
+    xdt = x * dt[:, None]
+    for t in range(x.shape[0]):
+        state *= decay[t]
+        state += np.outer(xdt[t], B[t])
+        y[t] = state @ C[t]
+    return y
 
 
 def attention_f64(torch, q, k, v, causal, rows):
@@ -398,12 +444,31 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
           f"{da_err:.3g} (2e-4), the kv_len = 0 batch vs the mean of V "
           f"{da_zero:.3g}")
 
+    # SSD scan: the float64 recurrence over the whole sequence of two (b, h)
+    y = outs["ssd_scan"]
+    x = data["ssd"][0]
+    if y.shape != x.shape or y.dtype != x.dtype or not torch.isfinite(y).all():
+        fail("ssd_scan: output not finite float32 [b, S, H, P]")
+    ssd_err = 0.0
+    t0 = time.perf_counter()
+    for (b, h), args in data["host"]["ssd"].items():
+        want = ssd_recurrence_f64(*args)
+        got = y[b, :, h].double().cpu().numpy()
+        ssd_err = max(ssd_err, float(np.abs(got - want).max()))
+        if not np.allclose(got, want, rtol=4e-3, atol=4e-3):
+            fail(f"ssd_scan: (b, h) = {(b, h)} off the float64 recurrence by "
+                 f"{ssd_err}")
+    print(f"phase 5 outputs: ssd_scan vs the float64 recurrence over all "
+          f"{SSD_S} steps of (b, h) in {list(data['host']['ssd'])} "
+          f"{ssd_err:.3g} (4e-3; |y| up to "
+          f"{float(y.abs().max()):.3g}), {time.perf_counter() - t0:.1f} s")
+
 
 def suite_specs(torch, ref, data, mods):
     """What phase 6 runs for each suite kernel: the kernel, its plain
     version and the nearest single PyTorch call as closures, the bar, and
     the bytes and operations its bound counts (from these inputs)."""
-    sw_k, sc_k, pf_k, ca_k, j2_k, path_k, fa_k, da_k = mods
+    sw_k, sc_k, pf_k, ca_k, j2_k, path_k, fa_k, da_k, ssd_k = mods
     u = data["sw"]
     cdf, q = data["pf"]
     locs, fan, ca, cb = data["ca"]
@@ -488,6 +553,28 @@ def suite_specs(torch, ref, data, mods):
         tol=(2e-4, 2e-4), peak=PEAK_F32_S,
         nbytes=kv_rows * DA_H * DA_D * 4 + 2 * dq.numel() * 4 + DA_B * 4,
         ops=da_ops * DA_H, per=10))
+    # SSD scan: the chunked form at chunk length q does, per (b, chunk),
+    # C.B^T on the causal triangle once (the heads share it) and per head
+    # the decay block (one exp, one multiply a pair), its product with x dt,
+    # the carried state's term and the state update (2 q P N each).  The
+    # result depends on q only through rounding and the count falls with q
+    # (to the recurrence's ~4 P N a step at q = 1), so the bound takes the
+    # least count over the q that divide S, not the caller's chunk
+    x, dt, A, B, C = data["ssd"]
+
+    def ssd_ops_at(q):
+        tri = q * (q + 1) // 2
+        return SSD_B * (SSD_S // q) * (
+            2 * tri * SSD_N
+            + SSD_H * (2 * tri + 2 * tri * SSD_P + 4 * q * SSD_P * SSD_N))
+    ssd_ops = min(ssd_ops_at(q) for q in range(1, SSD_S + 1)
+                  if SSD_S % q == 0)
+    specs.append(dict(
+        name="ssd_scan", kernel=lambda: ssd_k(x, dt, A, B, C, SSD_CHUNK),
+        plain=lambda: ref.ssd_scan(x, dt, A, B, C, SSD_CHUNK), library=None,
+        tol=(4e-3, 4e-3), peak=PEAK_F32_S,
+        nbytes=2 * x.numel() * 4 + sum(t.numel() * 4 for t in (dt, A, B, C)),
+        ops=ssd_ops, per=1, plain_reps=2))
     return specs
 
 
@@ -555,13 +642,14 @@ def main() -> int:
     from repro_torch.kernels import jacobi2d as j2_mod
     from repro_torch.kernels import particlefilter as pf_mod
     from repro_torch.kernels import pathfinder as path_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
     from repro_torch.kernels import streamcluster as sc_mod
     from repro_torch.kernels import swaptions as sw_mod
     # launch counters of the suite kernels, in SUITE_REPLACES order
     suite_mods = (sw_mod.cum_normal_inv, sc_mod.streamcluster_dist,
                   pf_mod.find_index, ca_mod.swap_cost, j2_mod.jacobi2d_step,
                   path_mod.pathfinder, fa_mod.flash_attention,
-                  da_mod.decode_attention)
+                  da_mod.decode_attention, ssd_mod.ssd_scan)
 
     dev = _device.resolve()
     # ---- 1. device + build ------------------------------------------------
@@ -638,11 +726,8 @@ def main() -> int:
     scan_err = 0.0
     short = ("jacobi-2d", "pathfinder", "swaptions", "streamcluster")
     pairs = [(a, c) for a in short for c in ve.TABLE10]
-    bodies = [tracegen.body_for(a, suite.effective_mvl(a, c), c)
-              for a, c in pairs]
     scan_err = max(scan_err, compare("short-body apps x Table 10",
-                   eng.pack_steady_state(bodies, [c for _, c in pairs],
-                                         8, 24, dev)))
+                   suite.scan_inputs(pairs, device=dev)))
     variants = [dict(ooo_issue=True), dict(interconnect="crossbar"),
                 dict(mshrs=1), dict(l2_kb=1024),
                 dict(ooo_issue=True, interconnect="crossbar", mshrs=1,
@@ -656,10 +741,7 @@ def main() -> int:
                    eng.pack(traces, cfgs, [3 * len(t) for t in traces],
                             [len(t) for t in traces], dev)))
     study_pairs = [(a, c) for a in tracegen.RIVEC_APPS for c in ve.TABLE10]
-    study_bodies = [tracegen.body_for(a, suite.effective_mvl(a, c), c)
-                    for a, c in study_pairs]
-    study_inp = eng.pack_steady_state(study_bodies,
-                                      [c for _, c in study_pairs], 8, 24, dev)
+    study_inp = suite.scan_inputs(study_pairs, device=dev)
     scan_err = max(scan_err, compare("study (7 apps x Table 10)", study_inp))
     scan_ms = cuda_ms(torch, lambda: engine_scan.scan(*study_inp.args()),
                       reps=10, per=3)
@@ -686,10 +768,10 @@ def main() -> int:
     # cold: loop bodies and scalar baselines built anew, as in a fresh process
     suite.clear_caches()
     t0 = time.perf_counter()
-    table = suite.sweep_all()
+    table = suite.sweep_all(tracegen.RIVEC_APPS)
     sweep_cold_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    if suite.sweep_all() != table:
+    if suite.sweep_all(tracegen.RIVEC_APPS) != table:
         fail("sweep_all: a repeat call differs")
     sweep_s = time.perf_counter() - t0
     anchor_got = suite.speedup_batch(
@@ -752,6 +834,44 @@ def main() -> int:
         fail("Fig-10/MSHR study: Table-10 cells differ from sweep_all")
     print(f"phase 4 Fig-10 + MSHR study: {len(fig10)} lanes in "
           f"{fig10_s:.4f} s wall")
+    # the whole golden table: ten apps + ten ':asm' variants x Table 10
+    names = sorted(tracegen.APPS) + list(tracegen.ASM_APPS)
+    suite.clear_caches()
+    t0 = time.perf_counter()
+    study = suite.sweep_all(names)
+    study_cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if suite.sweep_all(names) != study:
+        fail("sweep_all over the 20 names: a repeat call differs")
+    study_s = time.perf_counter() - t0
+    launches["engine_scan"] = engine_scan.scan.launches
+    worst, bad, n_cells = 0.0, [], 0
+    for app, grid in study.items():
+        for (m, l), s in grid.items():
+            n_cells += 1
+            w = golden[app][f"{m}x{l}"]
+            rel = abs(s - w) / abs(w)
+            worst = max(worst, rel)
+            if not np.isfinite(s) or rel > 1e-2:
+                bad.append(f"{app} {m}x{l}: {s} vs {w}")
+    if any(study[a] != table[a] for a in tracegen.RIVEC_APPS):
+        fail("sweep_all over the 20 names: RiVec cells differ from the "
+             "seven-app study")
+    full_pairs = [(a, c) for a in names for c in ve.TABLE10]
+    lane_len, lane_app = max(
+        (len(tracegen.body_for(a, suite.effective_mvl(a, c), c)), a)
+        for a, c in full_pairs)
+    full_inp = suite.scan_inputs(full_pairs, device=dev)
+    full_scan_ms = cuda_ms(torch, lambda: engine_scan.scan(*full_inp.args()),
+                           reps=10, per=3)
+    print(f"phase 4 golden table: {n_cells - len(bad)}/{n_cells} cells "
+          f"within rtol 1e-2 ({len(names)} names x {len(ve.TABLE10)} "
+          f"configs), worst rel {worst:.3g}; sweep_all {study_cold_s:.4f} s "
+          f"cold, {study_s:.4f} s warm; longest lane {lane_app} "
+          f"{lane_len} records x 32 = {lane_len * 32}; scan over the "
+          f"{len(full_pairs)} lanes {full_scan_ms:.4f} ms")
+    if n_cells != len(golden) * len(ve.TABLE10) or n_cells != 480 or bad:
+        fail(f"golden table: {n_cells} cells, off: {bad[:5]}")
     print(f"phase 4 launches on the main path: {launches}")
     if min(launches.values()) <= 0:
         fail(f"a kernel was not launched on the main path: {launches}")
@@ -776,7 +896,8 @@ def main() -> int:
             "flash_attention": ops.flash_attention(*data["fa"]),
             "flash_attention_bf16": ops.flash_attention(*data["fa_bf16"]),
             "flash_attention_llama": ops.flash_attention(*data["fa_llama"]),
-            "decode_attention": ops.decode_attention(*data["da"])}
+            "decode_attention": ops.decode_attention(*data["da"]),
+            "ssd_scan": ops.ssd_scan(*data["ssd"], chunk=SSD_CHUNK)}
     torch.cuda.synchronize()
     suite_s = time.perf_counter() - t0
     t0 = time.perf_counter()

@@ -259,6 +259,18 @@ def trace_fingerprint(trace: Trace) -> str:
     return h.hexdigest()[:16]
 
 
+def trace_registers(trace: Trace) -> int:
+    """Number of distinct logical vector registers a trace touches — the
+    register-pressure figure the cross-validation contract compares."""
+    regs = np.concatenate([trace.src1, trace.src2, trace.dst])
+    return int(np.unique(regs[regs >= 0]).size)
+
+
+def kind_histogram(trace: Trace) -> np.ndarray:
+    """Instruction-kind histogram (len 9, indexed by the KIND constants)."""
+    return np.bincount(trace.kind, minlength=NOP + 1)
+
+
 N_ARCH_REGS = 32   # architectural vector registers (the scoreboard size)
 
 

@@ -13,6 +13,7 @@ the reference's.
 """
 from __future__ import annotations
 
+from repro_torch import _device
 from repro_torch.core import engine as eng
 from repro_torch.core import scalar_pipeline as _sp
 from repro_torch.core import tracegen
@@ -62,14 +63,28 @@ def speedup(app_name: str, cfg: eng.VectorEngineConfig, device=None) -> float:
 
 
 def clear_caches() -> None:
-    """Forget the memoized loop bodies and scalar baselines, so the next
-    call builds them anew as a fresh process would."""
+    """Forget the memoized loop bodies (hand-coded, lowered and decoded)
+    and scalar baselines, so the next call builds them anew as a fresh
+    process would."""
+    from repro_torch.core import frontend, rvv, workloads_ml
     tracegen._BODY_CACHE.clear()
+    workloads_ml._TRACE_CACHE.clear()
+    frontend._DERIVED_CACHE.clear()
+    rvv._DECODE_CACHE.clear()
     _sp._runtime_cached.cache_clear()
 
 
 def _bodies(pairs):
     return [tracegen.body_for(a, effective_mvl(a, c), c) for a, c in pairs]
+
+
+def scan_inputs(pairs: list[tuple[str, eng.VectorEngineConfig]],
+                warmup: int = 8, measure: int = 24,
+                device=None) -> eng.ScanInputs:
+    """The engine scan's operands for N (app, config) pairs, packed as
+    ``speedup_batch`` packs them (for timing or checking that one launch)."""
+    return eng.pack_steady_state(_bodies(pairs), [c for _, c in pairs],
+                                 warmup, measure, _device.resolve(device))
 
 
 def speedup_batch(pairs: list[tuple[str, eng.VectorEngineConfig]],
@@ -112,9 +127,9 @@ def sweep(app_name: str, mvls=(8, 16, 32, 64, 128, 256), lanes=(1, 2, 4, 8),
 
 def sweep_all(apps=None, mvls=(8, 16, 32, 64, 128, 256), lanes=(1, 2, 4, 8),
               utilization: bool = False, device=None, **overrides) -> dict:
-    """The paper's study — every app (default: the RiVec seven) x the
-    24-config grid — in one scan launch."""
-    apps = list(apps) if apps is not None else list(tracegen.RIVEC_APPS)
+    """The paper's study — every app (default: all ten, as the reference's)
+    x the 24-config grid — in one scan launch."""
+    apps = list(apps) if apps is not None else sorted(tracegen.APPS)
     grid = [(m, l) for m in mvls for l in lanes]
     pairs = [(a, eng.VectorEngineConfig(mvl=m, lanes=l, **overrides))
              for a in apps for m, l in grid]

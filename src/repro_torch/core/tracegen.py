@@ -14,9 +14,11 @@ application encodes two things:
 
 Host-side numpy, as in the reference: the bodies are bitwise the
 reference's (``tests/test_torch_isa.py`` compares their fingerprints).
-The reference's other trace sources — the jaxpr ``kernel=`` specs, the
-``":asm"`` RVV-corpus variants and the three ML apps — are not ported yet;
-``body_for`` names them in its error.
+Each RiVec app also carries a ``kernel=`` spec written in torch and lowered
+by ``core.frontend`` (cross-validated against the hand-coded body), and an
+``asm=`` entry of the RVV corpus decoded by ``core.rvv`` (the ``"<app>:asm"``
+variant).  The three ML apps of ``core.workloads_ml`` register here too, so
+the suite sees one app registry of ten apps and twenty names.
 """
 from __future__ import annotations
 
@@ -24,6 +26,9 @@ import math
 from dataclasses import dataclass
 from typing import Callable
 
+import torch
+
+from repro_torch.core import frontend as fe
 from repro_torch.core import isa
 from repro_torch.core.isa import (FU_MUL, FU_SIMPLE, MEM_INDEXED, Trace,
                                   scalar_block, varith, vload, vmask_scalar,
@@ -86,11 +91,22 @@ class App:
     init_scalar: float = 0.0                 # non-ROI init instructions
     max_vl: int = 10 ** 9                    # app's largest requested VL
     notes: str = ""
+    # torch.fx-frontend chunk spec: (mvl, cfg) -> list of frontend segments.
+    # For the RiVec apps it is cross-validated against `body` (same kind/FU/
+    # pattern mix, same element and scalar work, steady-state time within
+    # frontend.TIME_RTOL); for frontend-only workloads it IS the body.
+    kernel: Callable[[int, "object"], list] = None
+    # RVV assembly corpus entry (filename under src/repro_torch/asm): the
+    # third trace source, decoded by core.rvv and cross-validated against
+    # `body` exactly like `kernel` (python -m repro_torch.core.rvv
+    # --check-all)
+    asm: str = None
 
 
 def _arith_seq(n, mix, vl, start_reg=4):
     """n vector arith instructions with a rotating register dependency chain
-    (the canonical ``isa.fu_sequence`` order)."""
+    (the canonical ``isa.fu_sequence`` order, shared with the frontend's
+    ``chain_ops``)."""
     return isa.TraceBuilder().arith_chain(n, mix, vl, start_reg).records
 
 
@@ -140,6 +156,21 @@ def _bs_body(mvl, cfg):
     return Trace.from_records(recs)
 
 
+def _bs_kernel(mvl, cfg):
+    """Frontend spec: 22 option streams in, the characterized 269-op
+    pricing chain, 5 result streams out."""
+    vl = min(mvl, cfg.mvl) if cfg else mvl
+    ins = tuple(fe.Stream(f"opt{i}", _BS_FOOTPRINT_KB)
+                for i in range(_BS_MEM_PER - 5))
+    outs = tuple(fe.Stream(f"price{i}", _BS_FOOTPRINT_KB) for i in range(5))
+
+    def fn(*streams):
+        win = fe.chain_ops(_BS_ARITH_PER, _BS_MIX, seeds=(1.0, 2.0), vl=vl)
+        return tuple(win[:5])
+
+    return [fe.ScalarWork(_BS_S1), fe.KernelBody(fn, vl, ins=ins, outs=outs)]
+
+
 # ===========================================================================
 # Jacobi-2D (Table 5).  PolyBench large, 4,000 iterations.
 #   chunks@8 = 13,056,000 (65,280,000 mem / 5 per chunk)
@@ -185,6 +216,26 @@ def _j2_body(mvl, cfg):
     return Trace.from_records(recs)
 
 
+def _j2_kernel(mvl, cfg):
+    """Frontend spec: the rolls lower to VSLIDEs, the stencil update to the
+    characterized 20-op chain."""
+    vl = min(mvl, cfg.mvl) if cfg else mvl
+    ins = tuple(fe.Stream(f"grid{i}", _J2_GRID_KB) for i in range(4))
+
+    def fn(a, b, c, d):
+        up = torch.roll(a, 1)      # noqa: F841 neighbour slides: traced
+        down = torch.roll(a, -1)   # noqa: F841 (and timed) though unused
+        win = fe.chain_ops(20, _J2_MIX, seeds=(0.2,), vl=vl)
+        s1 = torch.roll(win[0], 1)
+        s2 = torch.roll(win[1], 1)   # noqa: F841 boundary-fixup slides: traced
+        s3 = torch.roll(win[2], 1)   # noqa: F841 (and timed) though unstored
+        return s1
+
+    return [fe.ScalarWork(_J2_S1),
+            fe.KernelBody(fn, vl, ins=ins,
+                          outs=(fe.Stream("grid_out", _J2_GRID_KB),))]
+
+
 # ===========================================================================
 # Particle Filter (Table 6).  vfirst/vpopc mask ops -> scalar-core stalls.
 #   arith instr fit: A/mvl + a0, A = 12,359,078,569, a0 = 657,519
@@ -228,6 +279,29 @@ def _pf_body(mvl, cfg):
         recs.append(vmask_scalar(vl, src1=6))
         recs.append(scalar_block(84, dep_scalar=True))
     return Trace.from_records(recs)
+
+
+def _pf_kernel(mvl, cfg):
+    """Frontend spec: the Box-Muller/motion chain from the graph; the
+    vfirst/vpopc round trips of the guess update are declared RawRecords
+    (no torch analogue) followed by the dependent scalar decision."""
+    vl = min(mvl, cfg.mvl) if cfg else mvl
+
+    def motion(state):
+        fe.chain_ops(760, _PF_MIX, seeds=(0.5,), vl=vl)
+        return state
+
+    def search():
+        return fe.chain_ops(11, {"simple": 1.0}, seeds=(0.5,), vl=vl)[0]
+
+    segs = [fe.KernelBody(motion, vl,
+                          ins=(fe.Stream("particles", _PF_STATE_KB),))]
+    for _ in range(16):
+        segs.append(fe.KernelBody(search, vl))
+        segs.append(fe.RawRecords((vmask_scalar(vl, src1=5),
+                                   vmask_scalar(vl, src1=6))))
+        segs.append(fe.ScalarWork(84, dep_scalar=True))
+    return segs
 
 
 # ===========================================================================
@@ -278,6 +352,37 @@ def _path_body(mvl, cfg):
     recs.append(vload(vl, dst=13, footprint_kb=_PATH_ROW_KB))
     recs.append(vstore(vl, src1=12, footprint_kb=_PATH_ROW_KB))
     return Trace.from_records(recs)
+
+
+def _path_kernel(mvl, cfg):
+    """Frontend spec: the real min-propagation dataflow — slides and arith
+    derive from the graph with true operand dependencies on the loads (the
+    hand-coded body reads the same registers).  The next row's block is
+    fetched while the result is stored (software pipelining, as the
+    hand-coded body orders it)."""
+    vl = min(mvl, cfg.mvl) if cfg else mvl
+    ins = (fe.Stream("wall", _PATH_WALL_KB),
+           fe.Stream("row", _PATH_ROW_KB),
+           fe.Stream("row_prev", _PATH_ROW_KB))
+
+    def fn(wall, row, row_prev):
+        left = torch.roll(row, 1)
+        right = torch.roll(row, -1)
+        m1 = torch.minimum(left, row)
+        m2 = torch.minimum(m1, right)
+        c1 = m2 + wall
+        c2 = c1 + row_prev
+        s3 = torch.roll(c2, 1)
+        s4 = torch.roll(c2, -1)
+        m3 = torch.minimum(s3, s4)
+        m4 = torch.minimum(m3, c2)
+        return m4
+
+    return [fe.ScalarWork(_PATH_S1),
+            fe.KernelBody(fn, vl, ins=ins, outs=("cost",)),
+            fe.KernelBody(lambda nxt, cost: cost, vl,
+                          ins=(fe.Stream("row_next", _PATH_ROW_KB), "cost"),
+                          outs=(fe.Stream("row_out", _PATH_ROW_KB),))]
 
 
 # ===========================================================================
@@ -332,6 +437,29 @@ def _sc_body(mvl, cfg):
     return Trace.from_records(recs)
 
 
+def _sc_kernel(mvl, cfg):
+    """Frontend spec: each dist() sub-block is load + multiply with a real
+    load->arith dependency (like the hand-coded body), chained through a
+    named carry into the final reduction."""
+    vl_eff = min(mvl, _SC_DIMS, cfg.mvl if cfg else mvl)
+    iters = math.ceil(_SC_DIMS / vl_eff)
+    segs = []
+    for i in range(iters):
+        segs.append(fe.ScalarWork(2.5))
+        if i == 0:
+            seg_fn, seg_ins = (lambda x: x * x), \
+                (fe.Stream("block0", _SC_WSET_KB),)
+        else:
+            seg_fn, seg_ins = (lambda x, acc: acc * x), \
+                (fe.Stream(f"block{i}", _SC_WSET_KB), "acc")
+        segs.append(fe.KernelBody(seg_fn, vl_eff, ins=seg_ins, outs=("acc",)))
+    segs.append(fe.KernelBody(lambda acc: torch.sum(acc), vl_eff,
+                              ins=("acc",)))
+    segs.append(fe.RawRecords((vmask_scalar(vl_eff, src1=20),)))
+    segs.append(fe.ScalarWork(30, dep_scalar=True))
+    return segs
+
+
 # ===========================================================================
 # Swaptions (Table 9).  HJM Monte-Carlo; RanUnif/serialB/CumNormalInv.
 #   elems = 17,314,316,288 (constant over MVL); instr = elems/mvl
@@ -380,6 +508,24 @@ def _sw_body(mvl, cfg):
     recs += _arith_seq(24, _SW_MIX, vl)
     recs.append(vstore(vl, src1=10, footprint_kb=fp))
     return Trace.from_records(recs)
+
+
+def _sw_kernel(mvl, cfg):
+    """Frontend spec: HJM path-state streams with the VL-scaled footprint
+    (the Fig-10 lever), characterized 24-op chain.  The chain runs over an
+    8-wide rotating window (not the default 16) so each result is consumed
+    again within a few ops, matching the hand-coded body's rotating-register
+    chain density — the small-MVL steady-state time is startup-latency bound
+    and sensitive to exactly this."""
+    vl = min(mvl, cfg.mvl) if cfg else mvl
+    fp = _sw_footprint_kb(vl)
+    ins = tuple(fe.Stream(f"hjm{i}", fp) for i in range(4))
+
+    def fn(*streams):
+        return fe.chain_ops(24, _SW_MIX, seeds=(1.5,), vl=vl, window=8)[6]
+
+    return [fe.ScalarWork(52.35),
+            fe.KernelBody(fn, vl, ins=ins, outs=(fe.Stream("path", fp),))]
 
 
 # ===========================================================================
@@ -474,61 +620,112 @@ def _ca_body(mvl, cfg):
     return Trace.from_records(recs)
 
 
+def _ca_kernel(mvl, cfg):
+    """Frontend spec: indexed netlist streams and the fan-in cost chain
+    derive from the graph; the full-MVL argument moves/spills are declared
+    RawRecords (ABI artifacts, no torch analogue), and the swap decision is
+    a dependent ScalarWork after the reduction hands its result over."""
+    vl_req = 12
+    vl = min(vl_req, mvl, cfg.mvl if cfg else mvl)
+    iters = math.ceil(vl_req / vl)
+    mvl_eff = cfg.mvl if cfg else mvl
+    n_mv = int(round(_CA_MOVES / _CA_N / 2))
+
+    def walk_fn(a, b):
+        return fe.chain_ops(22, _CA_MIX, seeds=(1.0,), vl=vl)[0]
+
+    segs = []
+    for _ in range(2):  # two picked nodes
+        segs.append(fe.RawRecords(tuple(
+            vmove(mvl_eff, src1=i % 4, dst=8 + i % 4) for i in range(n_mv))))
+        for it in range(iters):
+            segs.append(fe.ScalarWork(99.4 if it else 12))
+            segs.append(fe.KernelBody(
+                walk_fn, vl,
+                ins=(fe.Stream("net_a", _CA_HOT_KB, pattern=MEM_INDEXED),
+                     fe.Stream("net_b", _CA_HOT_KB, pattern=MEM_INDEXED)),
+                outs=("cost",)))
+        segs.append(fe.KernelBody(lambda cost: torch.sum(cost), vl,
+                                  ins=("cost",)))
+        segs.append(fe.RawRecords((vmask_scalar(vl, src1=20),)))
+        segs.append(fe.ScalarWork(820, dep_scalar=True))
+    return segs
+
+
 # ===========================================================================
 
 APPS = {
     "blackscholes": App("blackscholes", _bs_counts, _bs_body,
                         lambda mvl: _BS_UNITS / mvl, _BS_MIX,
-                        init_scalar=573_256_509,
+                        init_scalar=573_256_509, kernel=_bs_kernel,
+                        asm="blackscholes.s",
                         notes="regular DLP; PDE pricing; Table 3 / Fig 4"),
     "canneal": App("canneal", _ca_counts, _ca_body, _ca_chunks, _CA_MIX,
-                   max_vl=22,
+                   max_vl=22, kernel=_ca_kernel, asm="canneal.s",
                    notes="irregular DLP; indexed loads; Table 4 / Fig 5"),
     "jacobi-2d": App("jacobi-2d", _j2_counts, _j2_body,
                      lambda mvl: _J2_CHUNK8 * 8 / mvl, _J2_MIX,
+                     kernel=_j2_kernel, asm="jacobi2d.s",
                      notes="stencil; slides stress interconnect; Table 5 / Fig 6"),
     "particlefilter": App("particlefilter", _pf_counts, _pf_body, _pf_chunks,
-                          _PF_MIX,
+                          _PF_MIX, kernel=_pf_kernel, asm="particlefilter.s",
                           notes="mask ops stall scalar core; Table 6 / Fig 7"),
     "pathfinder": App("pathfinder", _path_counts, _path_body,
                       lambda mvl: _PATH_CHUNK8 * 8 / mvl, {"simple": 1.0},
+                      kernel=_path_kernel, asm="pathfinder.s",
                       notes="26% element-manip instrs; Table 7 / Fig 8"),
     "streamcluster": App("streamcluster", _sc_counts, _sc_body, _sc_chunks,
-                         _SC_MIX, max_vl=_SC_DIMS,
+                         _SC_MIX, max_vl=_SC_DIMS, kernel=_sc_kernel,
+                         asm="streamcluster.s",
                          notes="memory bound; reduction/call; Table 8 / Fig 9"),
     "swaptions": App("swaptions", _sw_counts, _sw_body, _sw_chunks, _SW_MIX,
+                     kernel=_sw_kernel, asm="swaptions.s",
                      notes="HJM Monte-Carlo; LLC sensitivity; Table 9 / Fig 10"),
 }
 
-# The paper's RiVec suite.
+# The paper's RiVec suite: both frontends exist and must cross-validate
+# (core.frontend.cross_validate_all).
 RIVEC_APPS = tuple(sorted(APPS))
 
-# Apps and trace sources of the reference that this port does not carry yet.
-NOT_PORTED_APPS = ("flash_attention", "decode_attention", "ssd_scan")
+# ---------------------------------------------------------------------------
+# trace-source variants: "<app>:asm" names the same app with its loop body
+# decoded from the RVV assembly corpus (src/repro_torch/asm, core.rvv)
+# instead of the hand-coded `body`.  The suite resolves names through
+# `app_for`/`body_for`/`chunks_for`, so asm-sourced apps ride `sweep_all`
+# and the golden table unchanged.
+# ---------------------------------------------------------------------------
+
 ASM_SUFFIX = ":asm"
 
 
-def _check_ported(app_name: str) -> str:
-    base = app_name[:-len(ASM_SUFFIX)] if app_name.endswith(ASM_SUFFIX) \
-        else app_name
-    if app_name.endswith(ASM_SUFFIX) or base in NOT_PORTED_APPS:
-        raise NotImplementedError(
-            f"{app_name!r} is not ported yet: repro_torch carries the seven "
-            f"RiVec hand-coded bodies {RIVEC_APPS}; the ML apps and the "
-            "':asm' RVV-corpus variants come with later slices")
-    if base not in APPS:
-        raise KeyError(f"unknown app {app_name!r}")
-    return base
+def split_variant(app_name: str) -> tuple[str, str]:
+    """``"canneal:asm" -> ("canneal", "asm")``; plain names are "hand"."""
+    if app_name.endswith(ASM_SUFFIX):
+        return app_name[:-len(ASM_SUFFIX)], "asm"
+    return app_name, "hand"
 
 
 def app_for(app_name: str) -> App:
-    """The registry entry backing an app name."""
-    return APPS[_check_ported(app_name)]
+    """The registry entry backing a (possibly variant-suffixed) app name."""
+    return APPS[split_variant(app_name)[0]]
 
 
 def chunks_for(app_name: str, mvl: int, cfg=None) -> float:
-    """Loop-body executions at this MVL (the closed form)."""
-    return APPS[_check_ported(app_name)].chunks(mvl)
+    """Loop-body executions at this MVL.  For ``:asm`` variants the count is
+    *derived from the decoded kernel* (its AVL / loop counter), not the
+    closed form — the two agree to ~1e-8 (the .s AVLs are the rounded
+    characterized totals)."""
+    base, source = split_variant(app_name)
+    if source == "asm":
+        from repro_torch.core import rvv
+        return rvv.asm_chunks(base, mvl, cfg)
+    return APPS[base].chunks(mvl)
+
+
+# Frontend-only ML workloads (no hand-coded bodies: the lowered kernel IS
+# the body) — registered here so the suite sees one app registry.
+from repro_torch.core import workloads_ml as _ml  # noqa: E402  (needs App/Counts)
+APPS.update(_ml.make_apps(App, Counts))
 
 
 # ---------------------------------------------------------------------------
@@ -574,12 +771,25 @@ SCALAR_PROFILES = {
     "swaptions": ScalarProfile(branch_frac=0.10, branch_miss_rate=0.06,
                                load_frac=0.20, raw_frac=0.30,
                                fusible_frac=0.30, mem_stall_cyc=1.43),
+    # ML workloads (no paper anchors): profiles modeled, mem_stall set for
+    # continuity with the previously modeled baselines (docs/calibration.md)
+    "flash_attention": ScalarProfile(branch_frac=0.06, branch_miss_rate=0.04,
+                                     load_frac=0.25, raw_frac=0.30,
+                                     fusible_frac=0.30, mem_stall_cyc=1.90),
+    # scalar core is itself DRAM-bound streaming the multi-MB KV cache
+    "decode_attention": ScalarProfile(branch_frac=0.06, branch_miss_rate=0.04,
+                                      load_frac=0.28, raw_frac=0.30,
+                                      fusible_frac=0.30, mem_stall_cyc=17.87),
+    "ssd_scan": ScalarProfile(branch_frac=0.08, branch_miss_rate=0.05,
+                              load_frac=0.25, raw_frac=0.30,
+                              fusible_frac=0.30, mem_stall_cyc=0.68),
 }
 
 
 def scalar_profile_for(app_name: str) -> ScalarProfile:
-    """The scalar profile backing an app name."""
-    return SCALAR_PROFILES[_check_ported(app_name)]
+    """The scalar profile backing a (possibly variant-suffixed) app name —
+    trace-source variants share the base app's scalar code."""
+    return SCALAR_PROFILES[split_variant(app_name)[0]]
 
 
 # Bodies are pure functions of (mvl, cfg) and VectorEngineConfig is frozen
@@ -588,10 +798,23 @@ _BODY_CACHE: dict = {}
 
 
 def body_for(app_name: str, mvl: int, cfg=None) -> Trace:
-    """Cached loop-body trace ``APPS[name].body(mvl, cfg)`` (callers must
-    not mutate it); raises for the reference's apps not ported yet."""
+    """Cached loop-body trace for a (possibly variant-suffixed) app name:
+    ``APPS[name].body(mvl, cfg)``, or the decoded RVV corpus body for
+    ``"<name>:asm"`` (callers must not mutate)."""
     key = (app_name, mvl, cfg)
     out = _BODY_CACHE.get(key)
     if out is None:
-        out = _BODY_CACHE[key] = APPS[_check_ported(app_name)].body(mvl, cfg)
+        base, source = split_variant(app_name)
+        if source == "asm":
+            from repro_torch.core import rvv
+            out = rvv.asm_body(base, mvl, cfg)
+        else:
+            out = APPS[base].body(mvl, cfg)
+        _BODY_CACHE[key] = out
     return out
+
+
+# The asm-sourced suite variant (rides sweep_all and the golden table):
+# every app whose corpus entry exists — the RiVec seven plus the three ML
+# workloads.
+ASM_APPS = tuple(f"{a}{ASM_SUFFIX}" for a in sorted(APPS) if APPS[a].asm)

@@ -19,6 +19,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import jacobi2d as _j2
 from repro_torch.kernels import particlefilter as _pf
 from repro_torch.kernels import pathfinder as _path
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import streamcluster as _sc
 from repro_torch.kernels import swaptions as _sw
 
@@ -104,3 +105,12 @@ def decode_attention(q, k, v, kv_len, *, device=None):
                          f"entries for B = {k.shape[0]}")
     lens = lens.expand(k.shape[0]).contiguous()
     return _da.decode_attention(q, k, v, lens)
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk=256, device=None):
+    """Mamba-2 SSD chunk scan: x ``[b,S,H,P]``, dt ``[b,S,H]``, A ``[H]``,
+    B/C ``[b,S,N]`` -> y ``[b,S,H,P]`` in x's type (D-skip and gating
+    outside).  ``S`` must be a multiple of ``min(chunk, S)``."""
+    x = _as_tensor(x, None, device)
+    dt, A, B, C = (_as_tensor(t, None, x.device) for t in (dt, A, B, C))
+    return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)

@@ -2,11 +2,11 @@
 
 The port of ``repro/kernels/ref.py``: each function is the semantic ground
 truth its hand-written kernel must reproduce, with the reference's operand
-order, ``where``/``clip`` order and float32 arithmetic.  Carried so far:
-every entry but ``ssd_scan``: Black-Scholes (``repro/kernels/ref.py:19-27``),
+order, ``where``/``clip`` order and float32 arithmetic.  Every entry is
+carried: Black-Scholes (``repro/kernels/ref.py:19-27``),
 Jacobi-2D and pathfinder (``:29-45``), the swaptions, streamcluster,
-canneal and particle-filter kernels (``:48-106``), and flash attention and
-flash decoding (``:109-126``).
+canneal and particle-filter kernels (``:48-106``), flash attention and
+flash decoding (``:109-126``) and the SSD scan (``:131-137``).
 """
 from __future__ import annotations
 
@@ -177,3 +177,15 @@ def decode_attention(q, k, v, kv_len):
         s = torch.where(mask, s, NEG_INF)
         a = torch.softmax(s, dim=-1)
         return torch.einsum("bhk,bkhd->bhd", a.to(q.dtype), v)
+
+
+def ssd_scan(x, dt, A, B, C, chunk):
+    """Mamba-2 SSD scan, the oracle ``models/ssm.py:ssd_chunked`` with no
+    D-skip (``repro/kernels/ref.py:131``).  x [b,S,H,P]; dt [b,S,H]; A [H];
+    B/C [b,S,N] -> y [b,S,H,P] in x's type; float32 products in full
+    float32."""
+    from repro_torch.models.ssm import ssd_chunked
+    with _full_float32_matmul():
+        y, _ = ssd_chunked(x, dt, A, B, C,
+                           torch.zeros(x.shape[2], device=x.device), chunk)
+    return y

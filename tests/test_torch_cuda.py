@@ -19,6 +19,7 @@ from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import jacobi2d as j2_mod
 from repro_torch.kernels import particlefilter as pf_mod
 from repro_torch.kernels import pathfinder as path_mod
+from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels import streamcluster as sc_mod
 from repro_torch.kernels import swaptions as sw_mod
 
@@ -220,3 +221,61 @@ def test_decode_attention_kernel_matches_plain(cuda, kv_len, D):
         if int(lens[b]) <= 0:
             torch.testing.assert_close(got[b], v[b].mean(0), rtol=2e-4,
                                        atol=2e-4)
+
+
+def ssd_inputs(b, S, H, P, N, seed):
+    """``tests/test_kernels.py``'s draws (x, B, C scaled by 0.5, dt a
+    softplus of normals, A = -exp(0.3 normal)) made with numpy."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    x = (rng.standard_normal((b, S, H, P)) * 0.5).astype(f32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, S, H)))).astype(f32)
+    A = (-np.exp(rng.standard_normal(H) * 0.3)).astype(f32)
+    B = (rng.standard_normal((b, S, N)) * 0.5).astype(f32)
+    C = (rng.standard_normal((b, S, N)) * 0.5).astype(f32)
+    return [torch.from_numpy(a) for a in (x, dt, A, B, C)]
+
+
+@pytest.mark.parametrize("S,chunk", [(64, 64), (256, 256), (512, 128),
+                                     (100, 50), (100, 256), (1000, 4096)],
+                         ids=["one-tile-chunk", "one-chunk", "several-chunks",
+                              "ragged-tiles", "chunk>S", "chunk>S-long"])
+@pytest.mark.parametrize("P,N", [(16, 32), (64, 128), (40, 200), (128, 16)])
+def test_ssd_scan_kernel_matches_plain(cuda, S, chunk, P, N):
+    """S equal to one chunk, several chunks and chunk > S; S off the
+    kernel's 64-step tile; P and N off its 16-wide thread tiles; the
+    reference's bar, 4e-3."""
+    x, dt, A, B, C = (t.to(cuda) for t in ssd_inputs(2, S, 3, P, N, S + P))
+    before = ssd_mod.ssd_scan.launches
+    got = ssd_mod.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    assert ssd_mod.ssd_scan.launches == before + 1
+    torch.testing.assert_close(got, ref.ssd_scan(x, dt, A, B, C, chunk),
+                               rtol=4e-3, atol=4e-3)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_ssd_scan_kernel_half_x_matches_plain(cuda, dtype):
+    """x in a 16-bit type: float32 inside, y in x's type.  4e-3 is the
+    reference's float32 bar; the type's epsilon added to it is a one-unit
+    allowance for the 16-bit output: both sides round float32 sums taken in
+    different orders to that type, so they may land one unit in the last
+    place apart (a wrong kernel is off by far more)."""
+    x, dt, A, B, C = (t.to(cuda) for t in ssd_inputs(2, 512, 4, 64, 128, 7))
+    x = x.to(getattr(torch, dtype))
+    got = ssd_mod.ssd_scan(x, dt.to(torch.bfloat16), A, B, C, chunk=128)
+    want = ref.ssd_scan(x, dt.to(torch.bfloat16), A, B, C, 128)
+    assert got.dtype == x.dtype
+    tol = 4e-3 + torch.finfo(x.dtype).eps
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_ssd_scan_kernel_rejects_what_it_cannot_take(cuda):
+    x, dt, A, B, C = (t.to(cuda) for t in ssd_inputs(1, 96, 2, 16, 32, 3))
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_mod.ssd_scan(x, dt, A, B, C, chunk=64)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        ssd_mod.ssd_scan(x.double(), dt, A, B, C, chunk=32)
+    big = torch.zeros(1, 96, 2, 128, device=cuda)
+    wide = torch.zeros(1, 96, 512, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_mod.ssd_scan(big, dt, A, wide, wide, chunk=32)

@@ -34,8 +34,9 @@ CORES = [dict(), dict(issue_width=1), dict(fusion=True),
 
 @pytest.fixture(scope="module")
 def study():
-    """The paper's study through the port: 7 apps x Table 10 (168 cells)."""
-    return suite.sweep_all(device="cpu")
+    """The paper's RiVec study through the port: 7 apps x Table 10 (168
+    cells; the ML apps and ``:asm`` variants: ``test_torch_study_ml.py``)."""
+    return suite.sweep_all(APPS, device="cpu")
 
 
 # ------------------------------------------------------------ scalar baseline
@@ -149,6 +150,20 @@ def test_study_entry_points_agree(study):
     assert all(dataclasses.replace(c, l2_kb=1024) == c2 for c, c2 in
                zip(ve.TABLE10, ve.TABLE10_L2_1MB))
     assert all(c.mshrs == 1 for c in ve.TABLE10_MSHR1)
+
+
+def test_scan_inputs_are_the_launch_speedup_batch_makes():
+    """``scan_inputs`` packs the operands ``steady_state_time_batch`` runs:
+    the scan over them gives the same steady-state times, bitwise."""
+    pairs = [("swaptions", eng.VectorEngineConfig(mvl=8, lanes=2)),
+             ("blackscholes:asm", eng.VectorEngineConfig(mvl=64, lanes=4))]
+    out = eng._run(suite.scan_inputs(pairs, device="cpu"))
+    got = [(float(out[0, b]) - float(out[5, b])) / 24
+           for b in range(len(pairs))]
+    bodies = [tracegen.body_for(a, suite.effective_mvl(a, c), c)
+              for a, c in pairs]
+    assert got == eng.steady_state_time_batch(
+        bodies, [c for _, c in pairs], device="cpu")
 
 
 def test_clear_caches_gives_a_cold_run_with_the_same_answers():
