@@ -7,7 +7,9 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
 
 1. device: the card's name and power limit (nvidia-smi), then the eleven
    CUDA sources of ``src/repro_torch/csrc`` built with nvcc, one process
-   per source, all at once;
+   per source, all at once, with each build's ptxas lines, and the count of
+   tensor-core instructions (HGMMA, HMMA) in the flash-attention library's
+   SASS where the toolkit has ``cuobjdump``;
 2. Black-Scholes at its PARSEC-large size (65,536 options x 100 runs =
    6,553,600 evaluations): kernel against the plain version on the card at
    rtol = atol = 3e-5, times and bound;
@@ -33,7 +35,9 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
 6. those nine kernels against their plain versions on the card at the
    reference's bars (Jacobi-2D on a PolyBench EXTRALARGE grid), timed
    beside their plain versions, the nearest single PyTorch call and their
-   bounds;
+   bounds; for flash attention also its load path, the wrapper's host
+   time a call, its TFLOP/s and the exponential co-bound (float32: the 3xTF32 tensor-core bound beside the
+   float32 SIMT one); and one Jacobi-2D launch at the app's 164 x 164;
 7. the ``kernels`` JSON line (eleven entries), launch counts from phases 4
    and 5;
 8. the last line: ``{"ok": true, "device": {...}}``.
@@ -63,6 +67,12 @@ PEAK_F32_S = 67e12
 # bfloat16 products with float32 sums are exact on the tensor cores (dense
 # bf16 rate), so they bound the bfloat16 streamcluster distances.
 PEAK_BF16_S = 989e12
+# TF32 on the tensor cores (dense): float32 attention runs as 3xTF32, three
+# TF32 products per product, which keeps float32's accuracy.
+PEAK_TF32_S = 495e12
+# The exponential unit (MUFU ex2): 16 results a clock per SM, 132 SMs; one
+# exponential per (query, key) pair is a co-bound of attention at D 64.
+MUFU_PER_CLOCK_SM, N_SM = 16, 132
 # Latency bound of the scan: one lane is one serial chain of records.  The
 # loop-carried dependent float ops of one record, counted from
 # csrc/engine_scan.cu (vector: issue max, in-order max, + startup, + execute
@@ -139,6 +149,44 @@ def cuda_ms(torch, fn, reps: int, per: int = 1, warmup: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per)
+    return statistics.median(times)
+
+
+def sass_counts(build) -> str:
+    """Tensor-core and copy instructions in the built flash-attention
+    library (``cuobjdump -sass``), or why they cannot be counted."""
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    if not cuobjdump.exists():
+        return f"not counted: no {cuobjdump}"
+    run = subprocess.run([str(cuobjdump), "-sass",
+                          str(build.target("flash_attention"))],
+                         capture_output=True, text=True)
+    if run.returncode != 0:
+        return f"not counted: cuobjdump exited {run.returncode}"
+    ops = [ln.split()[1].split(".")[0] for ln in run.stdout.splitlines()
+           if ln.lstrip().startswith("/*") and len(ln.split()) > 1]
+    return ", ".join(f"{op} {ops.count(op)}"
+                     for op in ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "FFMA"))
+
+
+def device_ms(torch, fn, reps: int, per: int, sm_clock_hz: float) -> float:
+    """Median device time (ms) of one ``fn`` call where the host's issue
+    time exceeds the kernel's: the stream first runs a spin of ~2 ms
+    (``torch.cuda._sleep``) while the host enqueues the ``per`` calls, so
+    the events around them see the device work alone."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e-3 * sm_clock_hz))
         start.record()
         for _ in range(per):
             fn()
@@ -515,23 +563,33 @@ def suite_specs(torch, ref, data, mods):
         plain=lambda: ref.pathfinder(wall), library=None, tol=None,
         peak=PEAK_F32_S, nbytes=PATH_R * PATH_C * 4 + PATH_C * 4,
         ops=PATH_OPS * (PATH_R - 1) * PATH_C, per=5, plain_reps=2))
+    # attention: 4 D flops a kept (query, key) pair on the tensor cores
+    # (3 TF32 products each in float32, beside the float32 SIMT rate the
+    # earlier slices bounded it by), and one exponential a pair
+    from repro_torch.kernels import flash_attention as fa_mod
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for name, key, tol, peak, per, plain_reps in (
-            ("flash_attention", "fa", 2e-4, PEAK_F32_S, 5, 5),
-            ("flash_attention_bf16", "fa_bf16", 2e-2, PEAK_BF16_S, 5, 5),
-            ("flash_attention_llama", "fa_llama", 2e-2, PEAK_BF16_S, 1, 2)):
+    # enough calls a sample that the wrapper's ~0.05 ms of host time a
+    # call overlaps the device work of the call before (one call a sample
+    # would time the host's issue gap too)
+    for name, key, tol, per, plain_reps in (
+            ("flash_attention", "fa", 2e-4, 20, 5),
+            ("flash_attention_bf16", "fa_bf16", 2e-2, 20, 5),
+            ("flash_attention_llama", "fa_llama", 2e-2, 5, 2)):
         fq, fk, fv = data[key]
         B, S, H, D = fq.shape
+        pairs = B * H * S * (S + 1) // 2
+        f32 = fq.dtype == torch.float32
         specs.append(dict(
             name=name, kernel=lambda q=fq, k=fk, v=fv: fa_k(q, k, v, True),
             plain=lambda q=fq, k=fk, v=fv: ref.flash_attention(q, k, v, True),
             library=lambda q=fq, k=fk, v=fv: sdpa(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True),
-            tol=(tol, tol), peak=peak,
+            tol=(tol, tol), peak=PEAK_TF32_S / 3 if f32 else PEAK_BF16_S,
             nbytes=4 * fq.numel() * fq.element_size(),
-            ops=4 * D * B * H * S * (S + 1) // 2, per=per,
-            plain_reps=plain_reps))
+            ops=4 * D * pairs, per=per, plain_reps=plain_reps,
+            exps=pairs, path=fa_mod.path(fq, fk, fv),
+            simt_ms=4 * D * pairs / PEAK_F32_S * 1e3 if f32 else None))
     dq, dk, dv, lens = data["da"]
     # what these lengths need: the K and V rows below kv_len (4*D flops a
     # key), and at kv_len <= 0 the S rows of V alone (2*D flops a key)
@@ -578,7 +636,7 @@ def suite_specs(torch, ref, data, mods):
     return specs
 
 
-def run_suite_kernel(torch, spec) -> dict:
+def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
     """Hold one suite kernel against its plain version on the card (exactly
     where ``tol`` is None), then time the kernel, the plain version and the
     library call, and bound the kernel from its bytes and operations."""
@@ -606,14 +664,29 @@ def run_suite_kernel(torch, spec) -> dict:
               if spec["library"] else None)
     t_bytes = spec["nbytes"] / PEAK_BYTES_S
     t_ops = spec["ops"] / spec["peak"]
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    # a second kind of operation, on its own unit: exponentials
+    t_exp = spec.get("exps", 0) / (MUFU_PER_CLOCK_SM * N_SM * sm_clock_hz)
+    bound_ms = max(t_bytes, t_ops, t_exp) * 1e3
+    bound_by = "bytes" if t_bytes >= max(t_ops, t_exp) else "operations"
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
     print(f"phase 6 {name}: max_abs_err={err:.3g} (bar "
           f"{spec['tol'] or 'exact'}) kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
           f"({bound_by}; {spec['nbytes'] / 1e6:.1f} MB, "
           f"{spec['ops'] / 1e9:.3f} G ops)")
+    if "path" in spec:
+        simt = ("" if spec["simt_ms"] is None else
+                f"; float32 SIMT bound {spec['simt_ms']:.4f} ms at 67 TFLOP/s")
+        # the wrapper's host time a call (checks, path choice, tensor maps
+        # on the TMA path, launch), which a lone call adds to its time
+        issue_ms = host_issue_ms(torch, spec["kernel"], per=20)
+        print(f"phase 6 {name}: path {spec['path']}, host issue "
+              f"{issue_ms:.4f} ms a call, "
+              f"{spec['ops'] / ms / 1e9:.1f} TFLOP/s, tensor bound "
+              f"{t_ops * 1e3:.4f} ms, exponential co-bound "
+              f"{t_exp * 1e3:.4f} ms ({spec['exps'] / 1e6:.1f} M exps at "
+              f"{MUFU_PER_CLOCK_SM * N_SM * sm_clock_hz / 1e12:.2f} T/s)"
+              f"{simt}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
@@ -660,8 +733,9 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for name, r in report.items():
         regs = [ln.strip() for ln in r["log"].splitlines()
-                if "registers" in ln or "bytes stack" in ln]
+                if "Used" in ln or "bytes stack" in ln]
         print(f"phase 1 build {name}: {r['seconds']:.1f} s  {' | '.join(regs)}")
+    print(f"phase 1 flash_attention SASS: {sass_counts(_build)}")
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} "
           f"sm_clock_max={sm_clock_hz / 1e6:.0f} MHz  build wall {build_s:.1f} s")
 
@@ -919,8 +993,17 @@ def main() -> int:
     check_suite_outputs(torch, ref, data, outs)
 
     # ---- 6. suite kernels against their plain versions, times, bounds -------
-    rows = {spec["name"]: run_suite_kernel(torch, spec)
+    rows = {spec["name"]: run_suite_kernel(torch, spec, sm_clock_hz)
             for spec in suite_specs(torch, ref, data, suite_mods)}
+    # one Jacobi-2D launch at the app's own 164 x 164, on the device
+    small = data["j2"]
+    j2_small_ms = device_ms(torch, lambda: j2_mod.jacobi2d_step(small),
+                            reps=10, per=25, sm_clock_hz=sm_clock_hz)
+    print(f"phase 6 jacobi2d at {J2_N} x {J2_N}: {j2_small_ms:.4f} ms a "
+          f"launch on the device (x {J2_SWEEPS} sweeps = "
+          f"{j2_small_ms * J2_SWEEPS:.2f} ms), against "
+          f"{j2_app_s * 1e3 / J2_SWEEPS:.4f} ms of wall time a sweep in "
+          f"phase 5")
 
     # ---- 7. kernels line ------------------------------------------------------
     kernels = [

@@ -4,237 +4,977 @@
 // (flash_attention, pallas_call at :75): softmax(q k^T / sqrt(D)) v over
 // q, k, v [B, S, H, D], causal or not, with an online softmax over key
 // tiles so the [S, S] scores never reach device memory.  Inputs float32 or
-// bfloat16 (widened as they are loaded), all sums float32, the output in
-// the inputs' type.
+// bfloat16, all sums float32, the output in the inputs' type.
 //
 // Bound on an H100: operations, 4 * D flops (q.k and p.v) per (query, key)
-// pair the mask keeps: 17.2 GFLOP causal at B 4, H 8, S 2,048, D 64
-// (0.256 ms at the 67 TFLOP/s float32 peak).
-// This is a float32 SIMT kernel: TF32 would miss the float32 bar (2e-4),
-// and a tensor-core bf16 design is later work.
+// pair the mask keeps, on the tensor cores: 17.2 GFLOP causal at B 4, H 8,
+// S 2,048, D 64 (0.0174 ms at the dense bf16 rate of 989 TFLOP/s); in
+// float32 three TF32 products per product (3 x 17.2 G at 495 TFLOP/s,
+// 0.104 ms).  At D 64 the exponentials (one per pair, 16 a clock per SM)
+// take nearly as long as the bf16 products.
 //
-// Design.  One 256-thread block per (b * H + h, 64-query tile), walking the
-// 64-key tiles in order; causal blocks stop at the diagonal tile (the tiles
-// wholly above it are skipped, as the Pallas kernel does) and the query
-// tiles with the most key tiles are launched first.  The layout is read in
-// place: a row of one head is D contiguous values, rows H * D apart (the
-// Pallas wrapper's transposes to [B*H, S, D] are not needed).  Q, K and V
-// tiles sit in shared memory row-major with a 4-float pad (float4 reads,
-// no bank conflicts); D is padded with zeros to DM = 64 or 128.  A thread
-// owns 4 query rows x 4 keys of the score tile (keys tx + 16 j, so the
-// float4 reads of K rows hit distinct banks) and the same 4 rows x DM / 16
-// columns of the output accumulator, so the running max m, the sum l and
-// the rescale stay in its registers; a row's 16 threads share a half-warp
-// and reduce with shuffles.  The probabilities go through shared memory to
-// the P V product.  Masked scores are the Pallas kernel's finite -1e30, a
-// ragged last tile (any S) is masked the same way, and the output is
-// acc / max(l, 1e-30) as there (flash_attention.py:58-61).
+// Design.  One block of three warpgroups per (b * H + h, 128-query tile);
+// the query tiles with the most key tiles are launched first, across the
+// heads of a group whose K and V fit in L2 (tile_of), and causal blocks
+// stop at the diagonal (tiles wholly above it are skipped).
+// Warpgroup 0 loads: the Q tile once, then K and V tiles into a ring of
+// stages in shared memory, each signalled by its own mbarrier ("full") and
+// handed back by the 8 consumer warps ("empty").  Warpgroups 1 and 2 each
+// own 64 query rows; `setmaxnreg` moves registers from the loader to them.
+// The consumers walk the key tiles from the last (the diagonal, or the
+// ragged tail: the only ones masked, on a branch of their own) to the
+// first.  The layout is read in place: a row of one head is D contiguous
+// values, rows H * D apart.
+//
+// What bounds it on the card: not the loads (the TMA ring alone runs in
+// about a third of the kernel's time) but the consumers' instruction
+// stream.  Only two consumer warps share each scheduler, so the softmax
+// (scale, mask, max, exp2, sum, rescale, pack) is kept lean: the mask is a
+// uniform branch taken on the masked tiles only (a per-element test cost
+// ~64 branch regions on every tile), exp2 is one MUFU.EX2 with the scale
+// folded into an FFMA, and the max and sum run in four partials a row.
+//
+// bfloat16: S = Q K^T and O += P V on wgmma (m64n128k16 and m64n64k16, f32
+// sums), the two consumer warpgroups taking turns to issue them (FA3's
+// ping-pong, named barriers 1 and 2) so that one's softmax overlaps the
+// other's products.  Tiles sit in shared memory as 64-column panels of
+// 128-byte rows, 128-byte swizzled; Q and K are K-major operands, V the
+// MN-major B operand of P V in its natural [keys, D] layout (transpose
+// bit), so no transposed copy is made.  P is rounded to bf16 in registers
+// and is wgmma's register A operand (the plain version rounds the
+// probabilities to q's type too).
+// The tiles come by TMA through a 4-D tensor map over [B, S, H, D] (box 64
+// x 1 x 128 x 1; its out-of-bounds zero fill covers a ragged tile and D <
+// 64 or < 128) when the rows are 16-byte aligned (D % 8 == 0); otherwise
+// the loader warpgroup writes the same swizzled tiles with cp.async (4-byte
+// pieces, D even) or plain loads (D odd).
+//
+// float32: 3xTF32 on mma.sync.m16n8k8: each operand x splits into big =
+// tf32(x) and small = tf32(x - big) (by masks, see split_tf32), and each
+// product is big*small + small*big + big*big with float32 sums, which
+// keeps float32's accuracy (plain TF32 keeps ~3 digits and misses the 2e-4
+// bar); each of the three passes runs over all n-tiles of a k-step, so no
+// HMMA waits on the one before it.  64-key tiles,
+// rows padded by 4 floats (conflict-free fragment reads), loaded with
+// cp.async (16-byte pieces when D % 4 == 0, else 4-byte).  Each consumer
+// warp owns 16 query rows; P's accumulator fragment is reused as the A
+// fragment of P V by reading V's key rows in the matching order.
+//
+// Masked scores are the Pallas kernel's finite -1e30 (so a row masked so
+// far gives no NaN), zero-filled key rows past S are masked explicitly, and
+// the output is acc / max(l, 1e-30) as there (flash_attention.py:58-61).
+// The softmax runs in base 2 with the scale folded into scale * log2(e).
 
+#include <cuda.h>   // CUtensorMap and its enums (the encoder: see encoder())
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
-constexpr int BQ = 64, BK = 64, THREADS = 256;
-constexpr int LP = BK + 4;           // row stride of the P tile
+constexpr int BQ = 128;              // query rows a block
+constexpr int THREADS = 384;         // warpgroup 0 loads, 1 and 2 compute
+constexpr int BK16 = 128;            // key rows a tile, bfloat16
+constexpr int BK32 = 64;             // key rows a tile, float32
+constexpr int LOADER_REGS = 40, CONSUMER_REGS = 232;
 constexpr float NEG_INF = -1e30f;    // flash_attention.py:17
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+// How the loader fills a tile (the wrapper picks, the entry point checks).
+enum Load { LOAD_TMA = 0, LOAD_LD2 = 2, LOAD_CP4 = 4, LOAD_CP16 = 16 };
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int S, H, D;
+  float scale_log2;
+  int causal, load;
+  int BH, group;   // B * H heads, scheduled `group` heads at a time
+};
+
+// K and V bytes a group of heads may hold in the 50 MB L2 while its
+// blocks run (Q tiles and outputs stream through the rest).
+constexpr double L2_GROUP_BYTES = 40e6;
+
+// ---- barriers, copies, fences -------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int DM>
-constexpr int smem_bytes() {
-  return (BQ * (DM + 4) + 2 * BK * (DM + 4) + BQ * LP) * (int)sizeof(float);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
 }
 
-// Rows [r0, r0 + n) of one head (rows `stride` apart, D values each) into a
-// [n][DM + 4] shared tile; rows past S and columns past D are 0.
-template <typename T, int DM, int N>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int r0, int S, int D,
-                                          long long stride) {
-#pragma unroll 4
-  for (int e = threadIdx.x; e < N * DM; e += THREADS) {
-    const int r = e / DM, d = e % DM;
-    dst[r * (DM + 4) + d] = (r0 + r < S && d < D)
-                                ? to_f(src[(long long)(r0 + r) * stride + d])
-                                : 0.0f;
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of `parity` has completed.  A phase that never
+// completes is a fault of the kernel: trap after ~2^33 cycles (~4 s) so
+// the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(a, parity))
+    if (clock64() - t0 > (1ll << 33)) __trap();
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// N-byte cp.async; `valid` false writes N zero bytes and reads nothing.
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const int n = valid ? N : 0;
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "n"(N), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Generic-proxy writes to shared memory made visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// The block's shared memory, aligned to 1024 bytes (the 128-byte swizzle
+// repeats every 8 rows of 128 bytes, and wgmma and TMA read it from
+// aligned tiles).
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// Named barriers 1 and 2 order the consumer warpgroups' turns: a turn
+// waits on its own barrier, and the other warpgroup arrives there.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+// ---- wgmma ----------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma (placed after its wait).
+template <int N>
+__device__ __forceinline__ void reg_fence(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile starting at
+// `p`: rows of 128 bytes, 8-row groups 1024 bytes apart (the stride byte
+// offset).  The leading byte offset is unused by the K-major operands
+// (16, by convention) and, for V's single 64-column MN-major panel, it is
+// set equal to the 8-row stride.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d[64] (+)= A(smem desc) * B(smem desc), m64n128k16, bf16 in, f32 sums; both
+// operands K-major.  `acc` 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[32] += A(registers, bf16x2 a[4]) * B(smem desc), m64n64k16; B
+// MN-major (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64_tb(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---- 3xTF32 -----------------------------------------------------------------
+
+// x ~ big + small, each a TF32 value (the low 13 mantissa bits zero): big
+// is x truncated, x - big is exact, and small is that rest truncated, so
+// the split loses under 2^-20 |x|.  Masks, not cvt.rna.tf32.f32: that
+// conversion costs four instructions a value, and the split runs for every
+// fragment element of K and V in every warp.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragment split once into its big and small halves.
+struct SplitA {
+  uint32_t big[4], small[4];
+};
+
+__device__ __forceinline__ SplitA split_a(float a0, float a1, float a2,
+                                          float a3) {
+  SplitA s;
+  split_tf32(a0, s.big[0], s.small[0]);
+  split_tf32(a1, s.big[1], s.small[1]);
+  split_tf32(a2, s.big[2], s.small[2]);
+  split_tf32(a3, s.big[3], s.small[3]);
+  return s;
+}
+
+// d[4 nt ..] += a * b(nt) in 3xTF32 for the n-tiles nt < n (of NT), B
+// fragment (b0[nt], b1[nt]): the two cross terms first, then big * big.
+// Each pass runs over all the tiles, so the three products into one
+// accumulator sit n instructions apart (an HMMA's latency is ~30 cycles).
+template <int NT>
+__device__ __forceinline__ void mma_3xtf32(float* d, const SplitA& a,
+                                           const float* b0, const float* b1,
+                                           int n) {
+  uint32_t bb[NT][2], bs[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    split_tf32(b0[nt], bb[nt][0], bs[nt][0]);
+    split_tf32(b1[nt], bb[nt][1], bs[nt][1]);
   }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    if (nt < n) mma_tf32(&d[4 * nt], a.small, bb[nt][0], bb[nt][1]);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    if (nt < n) mma_tf32(&d[4 * nt], a.big, bs[nt][0], bs[nt][1]);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    if (nt < n) mma_tf32(&d[4 * nt], a.big, bb[nt][0], bb[nt][1]);
 }
 
-template <typename T, int DM>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int D, float scale, int causal) {
-  constexpr int LD = DM + 4;
-  constexpr int NC = DM / 64;    // float4 column groups per thread
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ps = Vs + BK * LD;
+// ---- shared-memory layouts -------------------------------------------------
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n_qt = (S + BQ - 1) / BQ;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * BQ;   // heaviest tiles first
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const long long stride = (long long)H * D;
-  const long long head = (long long)b * S * stride + (long long)h * D;
+// bfloat16: Q [NP panels][BQ rows][128 B], then STAGES K tiles and STAGES V
+// tiles [NP panels][BK16 rows][128 B], then the barriers: Q full, K full x
+// STAGES, V full x STAGES, empty x STAGES.
+template <int NP>
+struct Bf16Smem {
+  static constexpr int STAGES = NP == 1 ? 4 : 3;
+  static constexpr int PANEL_Q = BQ * 128, PANEL_KV = BK16 * 128;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + NP * PANEL_Q;
+  static constexpr int V = K + STAGES * NP * PANEL_KV;
+  static constexpr int BAR = V + STAGES * NP * PANEL_KV;
+  static constexpr int BYTES = BAR + 8 * (1 + 3 * STAGES) + 1024;
+};
 
-  load_tile<T, DM, BQ>(Qs, q + head, q0, S, D, stride);
+// float32: Q [BQ][LD], STAGES x K [BK32][LD], STAGES x V [BK32][LD] floats
+// (LD = 64 NP + 4), then the barriers as above.
+template <int NP>
+struct F32Smem {
+  static constexpr int STAGES = NP == 1 ? 3 : 2;
+  static constexpr int DM = 64 * NP, LD = DM + 4;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + BQ * LD * 4;
+  static constexpr int V = K + STAGES * BK32 * LD * 4;
+  static constexpr int BAR = V + STAGES * BK32 * LD * 4;
+  static constexpr int BYTES = BAR + 8 * (1 + 3 * STAGES) + 1024;
+};
 
-  float m[4], l[4], acc[4][NC * 4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < NC * 4; ++c) acc[i][c] = 0.0f;
-  }
+// Byte offset of element (r, c) in a 2-byte tile of R rows stored as
+// 64-column panels of 128-byte rows, 128-byte swizzled: the 16-byte chunk
+// c / 8 of row r sits at chunk (c / 8) ^ (r % 8), as TMA writes it.
+template <int R>
+__device__ __forceinline__ int swz(int r, int c) {
+  const int cc = c & 63;
+  return (c >> 6) * (R * 128) + r * 128 + (((cc >> 3) ^ (r & 7)) << 4) +
+         (cc & 7) * 2;
+}
 
-  int n_kt = (S + BK - 1) / BK;
-  if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / BK + 1);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();   // the previous tile's P V is done with Ks, Vs, Ps
-    load_tile<T, DM, BK>(Ks, k + head, k0, S, D, stride);
-    load_tile<T, DM, BK>(Vs, v + head, k0, S, D, stride);
-    __syncthreads();
-
-    // scores of rows ty*4 + i against keys tx + 16 j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < DM; d += 4) {
-      float4 qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * LD + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kb[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * LD + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s[i][j] += qa[i].x * kb[j].x + qa[i].y * kb[j].y +
-                     qa[i].z * kb[j].z + qa[i].w * kb[j].w;
+// Rows [row0, row0 + R) of one bfloat16 head (element `base` is (b, 0, h, 0),
+// rows `rstride` apart) into the swizzled tile; rows past S and columns
+// past D are zero.  LOAD_CP4 needs D even and 4-byte aligned rows.
+template <int NP, int R>
+__device__ __forceinline__ void load_bf16_tile(uint8_t* dst,
+                                               const __nv_bfloat16* src,
+                                               long long base, int row0,
+                                               int S, int D,
+                                               long long rstride, int mode,
+                                               int tid) {
+  constexpr int COLS = 64 * NP;
+  if (mode == LOAD_CP4) {
+    for (int e = tid; e < R * COLS / 2; e += 128) {
+      const int r = e / (COLS / 2), c = (e % (COLS / 2)) * 2;
+      const bool ok = row0 + r < S && c < D;
+      const __nv_bfloat16* g =
+          ok ? src + base + (long long)(row0 + r) * rstride + c : src;
+      cp_async<4>(dst + swz<R>(r, c), g, ok);
     }
-
-    // online softmax over this tile; a row's 16 threads are one half-warp
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mt = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (col >= S || (causal && col > row)) x = NEG_INF;
-        s[i][j] = x;
-        mt = fmaxf(mt, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        Ps[(ty * 4 + i) * LP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC * 4; ++c) acc[i][c] *= corr;
+  } else {
+    for (int e = tid; e < R * COLS; e += 128) {
+      const int r = e / COLS, c = e % COLS;
+      unsigned short x = 0;
+      if (row0 + r < S && c < D)
+        x = reinterpret_cast<const unsigned short*>(
+            src)[base + (long long)(row0 + r) * rstride + c];
+      *reinterpret_cast<unsigned short*>(dst + swz<R>(r, c)) = x;
     }
-    __syncthreads();
-
-    // acc += P V: rows ty*4 + i, columns g * 64 + tx * 4 + {0..3}
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(&Ps[(ty * 4 + i) * LP + kk]);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int g = 0; g < NC; ++g) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              &Vs[(kk + u) * LD + g * 64 + tx * 4]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = u == 0 ? pa[i].x
-                          : u == 1 ? pa[i].y
-                          : u == 2 ? pa[i].z : pa[i].w;
-            acc[i][g * 4 + 0] += p * vv.x;
-            acc[i][g * 4 + 1] += p * vv.y;
-            acc[i][g * 4 + 2] += p * vv.z;
-            acc[i][g * 4 + 3] += p * vv.w;
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + head + (long long)row * stride;
-#pragma unroll
-    for (int g = 0; g < NC; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = g * 64 + tx * 4 + c;
-        if (d < D) store(orow + d, acc[i][g * 4 + c] / denom);
-      }
   }
 }
 
-template <typename T, int DM>
-int launch(const T* q, const T* k, const T* v, T* o, int B, int S, int H,
-           int D, float scale, int causal, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<DM>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((unsigned)((S + BQ - 1) / BQ), (unsigned)(B * H));
-  flash_fwd_kernel<T, DM><<<grid, THREADS, bytes, stream>>>(
-      q, k, v, o, S, H, D, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+// The float32 counterpart into a [R][64 NP + 4] tile; LOAD_CP16 needs D % 4
+// == 0 and 16-byte aligned rows.
+template <int NP, int R>
+__device__ __forceinline__ void load_f32_tile(float* dst, const float* src,
+                                              long long base, int row0, int S,
+                                              int D, long long rstride,
+                                              int mode, int tid) {
+  constexpr int DM = 64 * NP, LD = DM + 4;
+  if (mode == LOAD_CP16) {
+    for (int e = tid; e < R * DM / 4; e += 128) {
+      const int r = e / (DM / 4), c = (e % (DM / 4)) * 4;
+      const bool ok = row0 + r < S && c < D;
+      cp_async<16>(dst + r * LD + c,
+                   ok ? src + base + (long long)(row0 + r) * rstride + c : src,
+                   ok);
+    }
+  } else {
+    for (int e = tid; e < R * DM; e += 128) {
+      const int r = e / DM, c = e % DM;
+      const bool ok = row0 + r < S && c < D;
+      cp_async<4>(dst + r * LD + c,
+                  ok ? src + base + (long long)(row0 + r) * rstride + c : src,
+                  ok);
+    }
+  }
+}
+
+// ---- the kernels ------------------------------------------------------------
+
+struct Tile {          // what every thread of a block knows of its work
+  int q0, b, h, n_kt;
+  long long base;      // element (b, 0, h, 0)
+  long long rstride;   // H * D
+};
+
+// Blocks start in blockIdx order, so the order below is the schedule: the
+// heads go in groups whose K and V fit in L2, and inside a group the query
+// tiles with the most key tiles go first for all its heads (a head's
+// tiles one after another would leave the last heads' heaviest tiles for
+// the last wave).
+template <int BK>
+__device__ __forceinline__ Tile tile_of(Params p) {
+  Tile t;
+  const int n_qt = (p.S + BQ - 1) / BQ;
+  const long long per_group = (long long)p.group * n_qt;
+  const int g = (int)(blockIdx.x / per_group);
+  const int r = (int)(blockIdx.x % per_group);
+  const int heads = min(p.group, p.BH - g * p.group);
+  const int bh = g * p.group + r % heads;
+  t.q0 = (n_qt - 1 - r / heads) * BQ;   // heaviest tiles first
+  t.b = bh / p.H;
+  t.h = bh % p.H;
+  t.rstride = (long long)p.H * p.D;
+  t.base = (long long)t.b * p.S * t.rstride + (long long)t.h * p.D;
+  t.n_kt = (p.S + BK - 1) / BK;
+  if (p.causal) t.n_kt = min(t.n_kt, (t.q0 + BQ - 1) / BK + 1);
+  return t;
+}
+
+// Barriers: [0] Q full, [1 + s] K full, [1 + ST + s] V full, [1 + 2 ST + s]
+// empty.  Loads by TMA arrive once (with the bytes); loads by the loader
+// warpgroup's threads arrive 128 times.  The 8 consumer warps free a stage.
+template <int ST>
+__device__ __forceinline__ void init_barriers(uint64_t* bars, int load) {
+  if (threadIdx.x == 0) {
+    const int n = load == LOAD_TMA ? 1 : 128;
+    for (int i = 0; i < 1 + 2 * ST; ++i) mbar_init(&bars[i], n);
+    for (int s = 0; s < ST; ++s) mbar_init(&bars[1 + 2 * ST + s], 8);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// 2^x on the exponential unit (one MUFU.EX2; exp2f adds a range fix-up of
+// three instructions).  2^-1e30 is 0 and 2^0 is 1, as the mask needs.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Online-softmax step for the two rows (g, g + 8) a thread holds of a score
+// tile in mma accumulator order: s[4j + e] is row g + 8 (e / 2), column
+// 8 j + 2 t + e % 2.  Scales into base 2, masks (causal and keys past S,
+// when `mask`), updates m, returns the rescale factor of each row in corr
+// and replaces the scores by exp2(s - m); rs gets each row's partial sum.
+// The max and the sum run over four partials a row (shorter chains).  An
+// unmasked tile takes its max on the raw scores (the scale is positive) and
+// folds the scale into one FFMA an element: its scores are all real, so its
+// m is too, and 2^(s sl - m) never meets the -1e30 - -1e30 that a row
+// masked so far needs to be 2^0.
+template <int N>
+__device__ __forceinline__ void online_softmax(float* s, float* m, float* corr,
+                                               float* rs, float scale_log2,
+                                               int S, bool causal, int row,
+                                               int k0, int t, bool mask) {
+  float mx[2][4], sum[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      mx[r][u] = NEG_INF;
+      sum[r][u] = 0.0f;
+    }
+  if (mask) {   // one uniform branch; selects, not a branch an element
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] *= scale_log2;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        const bool out = (col >= S) | (causal & (col > row + 8 * (e >> 1)));
+        s[4 * j + e] = out ? NEG_INF : s[4 * j + e];
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float& u = mx[e >> 1][(j & 1) * 2 + (e & 1)];
+      u = fmaxf(u, s[4 * j + e]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float v = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    const float m_new = fmaxf(m[r], mask ? v : v * scale_log2);
+    corr[r] = fast_exp2(m[r] - m_new);
+    m[r] = m_new;
+  }
+  if (mask) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = s[4 * j + e];
+        x = fast_exp2(x - m[e >> 1]);
+        sum[e >> 1][(j & 1) * 2 + (e & 1)] += x;
+      }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = s[4 * j + e];
+        x = fast_exp2(fmaf(x, scale_log2, -m[e >> 1]));
+        sum[e >> 1][(j & 1) * 2 + (e & 1)] += x;
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    rs[r] = (sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]);
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int D, float scale, int causal,
-             cudaStream_t stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(o);
-  if (D <= 64)
-    return launch<T, 64>(qt, kt, vt, ot, B, S, H, D, scale, causal, stream);
-  return launch<T, 128>(qt, kt, vt, ot, B, S, H, D, scale, causal, stream);
+__device__ __forceinline__ void store_pair(T* row, int col, int D, float a,
+                                           float b);
+template <>
+__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int col, int D,
+                                           float a, float b) {
+  if ((D & 1) == 0 && col + 1 < D) {
+    *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(a, b);
+  } else {
+    if (col < D) row[col] = __float2bfloat16(a);
+    if (col + 1 < D) row[col + 1] = __float2bfloat16(b);
+  }
+}
+template <>
+__device__ __forceinline__ void store_pair(float* row, int col, int D, float a,
+                                           float b) {
+  if ((D & 1) == 0 && col + 1 < D) {
+    *reinterpret_cast<float2*>(row + col) = make_float2(a, b);
+  } else {
+    if (col < D) row[col] = a;
+    if (col + 1 < D) row[col + 1] = b;
+  }
+}
+
+// Rows `row` and `row + 8` of the output from accumulator fragments
+// o[8 j + ...] (N floats: columns 8 j + 2 t, + 1 of row, then of row + 8).
+template <typename T, int N>
+__device__ __forceinline__ void store_rows(void* out, int S, int D, Tile tl,
+                                           const float* o, int col0, int row,
+                                           int t, const float* l) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+    if (rr >= S) continue;
+    const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+    T* orow = static_cast<T*>(out) + tl.base + (long long)rr * tl.rstride;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+      store_pair(orow, col0 + 8 * j + 2 * t, D, o[4 * j + 2 * r] * inv,
+                 o[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+template <int NP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const Params p) {
+  using L = Bf16Smem<NP>;
+  constexpr int ST = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  const Tile tl = tile_of<BK16>(p);
+  init_barriers<ST>(bars, p.load);
+
+  if (threadIdx.x < 128) {   // ---- the loader warpgroup ----
+    regs_dealloc<LOADER_REGS>();
+    if (p.load == LOAD_TMA) {
+      if (threadIdx.x != 0) return;
+      mbar_expect_tx(&bars[0], NP * L::PANEL_Q);
+      for (int pn = 0; pn < NP; ++pn)
+        tma_load_4d(smem + L::Q + pn * L::PANEL_Q, &tq, &bars[0], pn * 64,
+                    tl.h, tl.q0, tl.b);
+      for (int it = 0; it < tl.n_kt; ++it) {
+        const int s = it % ST, k0 = (tl.n_kt - 1 - it) * BK16;
+        if (it >= ST) mbar_wait(&bars[1 + 2 * ST + s], (it / ST - 1) & 1);
+        mbar_expect_tx(&bars[1 + s], NP * L::PANEL_KV);
+        for (int pn = 0; pn < NP; ++pn)
+          tma_load_4d(smem + L::K + (s * NP + pn) * L::PANEL_KV, &tk,
+                      &bars[1 + s], pn * 64, tl.h, k0, tl.b);
+        mbar_expect_tx(&bars[1 + ST + s], NP * L::PANEL_KV);
+        for (int pn = 0; pn < NP; ++pn)
+          tma_load_4d(smem + L::V + (s * NP + pn) * L::PANEL_KV, &tv,
+                      &bars[1 + ST + s], pn * 64, tl.h, k0, tl.b);
+      }
+      return;
+    }
+    const int tid = threadIdx.x;
+    const auto* q = static_cast<const __nv_bfloat16*>(p.q);
+    const auto* k = static_cast<const __nv_bfloat16*>(p.k);
+    const auto* v = static_cast<const __nv_bfloat16*>(p.v);
+    load_bf16_tile<NP, BQ>(smem + L::Q, q, tl.base, tl.q0, p.S, p.D,
+                           tl.rstride, p.load, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
+    mbar_arrive(&bars[0]);
+    for (int it = 0; it < tl.n_kt; ++it) {
+      const int s = it % ST, k0 = (tl.n_kt - 1 - it) * BK16;
+      if (it >= ST) mbar_wait(&bars[1 + 2 * ST + s], (it / ST - 1) & 1);
+      load_bf16_tile<NP, BK16>(smem + L::K + s * NP * L::PANEL_KV, k, tl.base,
+                               k0, p.S, p.D, tl.rstride, p.load, tid);
+      cp_async_commit();
+      load_bf16_tile<NP, BK16>(smem + L::V + s * NP * L::PANEL_KV, v, tl.base,
+                               k0, p.S, p.D, tl.rstride, p.load, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+      fence_proxy_async();
+      mbar_arrive(&bars[1 + s]);
+      cp_async_wait<0>();
+      fence_proxy_async();
+      mbar_arrive(&bars[1 + ST + s]);
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: 64 query rows each ----
+  regs_alloc<CONSUMER_REGS>();
+  const int wg = threadIdx.x / 128 - 1, w = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row = tl.q0 + 64 * wg + 16 * w + g;   // and row + 8
+  const uint8_t* qs = smem + L::Q + wg * 64 * 128;
+  const int S = p.S;
+  const float scale_log2 = p.scale_log2;
+  const bool causal = p.causal != 0;
+  float o[NP][32];
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[pn][i] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  mbar_wait(&bars[0], 0);
+
+  // Ping-pong (FA3): the two warpgroups take turns issuing their products
+  // (named barriers 1 and 2), so one's softmax runs while the other's wgmma
+  // do.  Turn `it` issues O += P(it - 1) V(it - 1) and S = Q K(it); the
+  // softmax of tile it follows, outside the turn.
+  float sc[64];
+  uint32_t pa[8][4];
+  // descriptors of the tiles' first bytes; a descriptor addresses shared
+  // memory in 16-byte units in its low bits, so an offset is added as is
+  const uint64_t dq = sw128_desc(qs, 16), dk = sw128_desc(smem + L::K, 16);
+  const uint64_t dv = sw128_desc(smem + L::V, 1024);
+  auto issue_qk = [&](int it) {   // S = Q K^T: 64 rows x 128 keys
+    const uint64_t dks = dk + (it % ST) * (NP * L::PANEL_KV / 16);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)   // D in k16 steps of 32 bytes a panel
+        wgmma_ss_n128(sc, dq + (pn * L::PANEL_Q + 32 * j) / 16,
+                      dks + (pn * L::PANEL_KV + 32 * j) / 16, pn + j > 0);
+  };
+  auto issue_pv = [&](int it) {   // O += P V, V's [keys][D] panel MN-major
+    const uint64_t dvs = dv + (it % ST) * (NP * L::PANEL_KV / 16);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn)
+        wgmma_rs_n64_tb(o[pn], pa[kk],
+                        dvs + (pn * L::PANEL_KV + 2048 * kk) / 16);
+  };
+  auto softmax = [&](int it) {
+    const int k0 = (tl.n_kt - 1 - it) * BK16;
+    // only the tiles that reach past S or above this warp's first row mask
+    const bool mask = k0 + BK16 > S || (causal && k0 + BK16 - 1 > row - g);
+    float corr[2], rs[2];
+    online_softmax<64>(sc, m, corr, rs, scale_log2, S, causal, row, k0, t,
+                       mask);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[pn][i] *= corr[(i >> 1) & 1];
+    // P as the register A operand: k16 step kk covers keys 16 kk .. + 15,
+    // the accumulator's column groups 2 kk and 2 kk + 1
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * (2 * kk + h2) + 2 * r;
+          const __nv_bfloat162 x = __floats2bfloat162_rn(sc[i], sc[i + 1]);
+          pa[kk][2 * h2 + r] = *reinterpret_cast<const uint32_t*>(&x);
+        }
+  };
+
+  const int my_turn = 1 + wg, their_turn = 2 - wg;
+  if (wg == 1) named_arrive(1);   // warpgroup 0 goes first
+  for (int it = 0; it <= tl.n_kt; ++it) {
+    const bool qk = it < tl.n_kt, pv = it > 0;
+    if (qk) mbar_wait(&bars[1 + it % ST], (it / ST) & 1);
+    if (pv) mbar_wait(&bars[1 + ST + (it - 1) % ST], ((it - 1) / ST) & 1);
+    named_sync(my_turn);
+    wgmma_fence();
+    if (pv) issue_pv(it - 1);
+    if (qk) issue_qk(it);
+    wgmma_commit();
+    // every sync is matched: warpgroup 1's last turn hands over to no one
+    if (wg == 0 || it < tl.n_kt) named_arrive(their_turn);
+    wgmma_wait0();
+    reg_fence<64>(sc);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) reg_fence<32>(o[pn]);
+    if (pv) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bars[1 + 2 * ST + (it - 1) % ST]);
+    }
+    if (qk) softmax(it);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn)
+    store_rows<__nv_bfloat16, 32>(p.o, S, p.D, tl, o[pn], 64 * pn, row, t, l);
+}
+
+template <int NP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_f32_kernel(const Params p) {
+  using L = F32Smem<NP>;
+  constexpr int ST = L::STAGES, DM = L::DM, LD = L::LD;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  float* Qs = reinterpret_cast<float*>(smem + L::Q);
+  float* Ks = reinterpret_cast<float*>(smem + L::K);
+  float* Vs = reinterpret_cast<float*>(smem + L::V);
+  const Tile tl = tile_of<BK32>(p);
+  init_barriers<ST>(bars, LOAD_CP16);
+
+  if (threadIdx.x < 128) {   // ---- the loader warpgroup ----
+    regs_dealloc<LOADER_REGS>();
+    const int tid = threadIdx.x;
+    const auto* q = static_cast<const float*>(p.q);
+    const auto* k = static_cast<const float*>(p.k);
+    const auto* v = static_cast<const float*>(p.v);
+    load_f32_tile<NP, BQ>(Qs, q, tl.base, tl.q0, p.S, p.D, tl.rstride, p.load,
+                          tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    mbar_arrive(&bars[0]);
+    for (int it = 0; it < tl.n_kt; ++it) {
+      const int s = it % ST, k0 = (tl.n_kt - 1 - it) * BK32;
+      if (it >= ST) mbar_wait(&bars[1 + 2 * ST + s], (it / ST - 1) & 1);
+      load_f32_tile<NP, BK32>(Ks + s * BK32 * LD, k, tl.base, k0, p.S, p.D,
+                              tl.rstride, p.load, tid);
+      cp_async_commit();
+      load_f32_tile<NP, BK32>(Vs + s * BK32 * LD, v, tl.base, k0, p.S, p.D,
+                              tl.rstride, p.load, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+      mbar_arrive(&bars[1 + s]);
+      cp_async_wait<0>();
+      mbar_arrive(&bars[1 + ST + s]);
+    }
+    return;
+  }
+
+  // ---- the consumer warps: 16 query rows each ----
+  regs_alloc<CONSUMER_REGS>();
+  const int cw = threadIdx.x / 32 - 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row = tl.q0 + 16 * cw + g;   // and row + 8
+  const float* qs = Qs + 16 * cw * LD;
+  const int n_dt = (p.D + 7) / 8;   // 8-column tiles of D
+  const int S = p.S;
+  const float scale_log2 = p.scale_log2;
+  const bool causal = p.causal != 0;
+  float o[DM / 2];
+#pragma unroll
+  for (int i = 0; i < DM / 2; ++i) o[i] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  mbar_wait(&bars[0], 0);
+
+  for (int it = 0; it < tl.n_kt; ++it) {
+    const int s = it % ST, ph = (it / ST) & 1;
+    const int k0 = (tl.n_kt - 1 - it) * BK32;
+    const float* ks = Ks + s * BK32 * LD;
+    const float* vs = Vs + s * BK32 * LD;
+
+    // S = Q K^T: 16 rows x 64 keys, D in k8 steps (those past D skipped)
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+    mbar_wait(&bars[1 + s], ph);
+#pragma unroll
+    for (int kk = 0; kk < DM / 8; ++kk) {
+      if (kk >= n_dt) break;
+      const int c = 8 * kk + t;
+      const SplitA a = split_a(qs[g * LD + c], qs[(g + 8) * LD + c],
+                               qs[g * LD + c + 4], qs[(g + 8) * LD + c + 4]);
+      float b0[8], b1[8];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        b0[nt] = ks[(8 * nt + g) * LD + c];
+        b1[nt] = ks[(8 * nt + g) * LD + c + 4];
+      }
+      mma_3xtf32<8>(sc, a, b0, b1, 8);
+    }
+
+    const bool mask = k0 + BK32 > S || (causal && k0 + BK32 - 1 > row - g);
+    float corr[2], rs[2];
+    online_softmax<32>(sc, m, corr, rs, scale_log2, S, causal, row, k0, t,
+                       mask);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+#pragma unroll
+    for (int i = 0; i < DM / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    // O += P V: k8 step kk covers keys 8 kk .. + 7; the accumulator holds
+    // keys 2t and 2t + 1 of each row, so the A fragment's columns t and
+    // t + 4 are read as keys 2t and 2t + 1, and V's rows in that order
+    mbar_wait(&bars[1 + ST + s], ph);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const SplitA a = split_a(sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1],
+                               sc[4 * kk + 3]);
+      const float* v0 = vs + (8 * kk + 2 * t) * LD + g;
+      float b0[DM / 8], b1[DM / 8];   // column tiles past D are skipped
+#pragma unroll
+      for (int nt = 0; nt < DM / 8; ++nt) {
+        b0[nt] = nt < n_dt ? v0[8 * nt] : 0.0f;
+        b1[nt] = nt < n_dt ? v0[LD + 8 * nt] : 0.0f;
+      }
+      mma_3xtf32<DM / 8>(o, a, b0, b1, n_dt);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bars[1 + 2 * ST + s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  store_rows<float, DM / 2>(p.o, S, p.D, tl, o, 0, row, t, l);
+}
+
+// ---- host side -----------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: it is looked
+// up in the libcuda.so.1 the process has loaded, so this library links
+// against the runtime only.
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return h ? reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"))
+             : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D map over a bfloat16 [B, S, H, D] tensor: dims innermost first
+// (D, H, S, B), box (64, 1, 128, 1), 128-byte swizzle, zero fill.
+int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr)
+    return static_cast<int>(cudaErrorSharedObjectInitFailed);
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, BQ, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int smem, dim3 grid, cudaStream_t stream,
+           Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, THREADS, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned(const void* p, int n) {
+  return reinterpret_cast<uintptr_t>(p) % n == 0;
 }
 
 }  // namespace
@@ -243,15 +983,55 @@ extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, k, v, o contiguous [b, s, h, d] (d <= 128), float32 or (`is_bf16`)
-// bfloat16; `scale` multiplies the scores.  Launches on `stream`; returns
-// cudaGetLastError() (0 on success).
+// q, k, v, o contiguous [b, s, h, d] (1 <= d <= 128), float32 or
+// (`is_bf16`) bfloat16; `scale` multiplies the scores.  `load` is how the
+// tiles are loaded: bfloat16 0 (TMA: d % 8 == 0 and 16-byte aligned
+// pointers), 4 (cp.async: d even, 4-byte aligned) or 2 (plain loads);
+// float32 16 (cp.async: d % 4 == 0, 16-byte aligned) or 4.  Launches on
+// `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a `load` the operands do not allow.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int b, int s,
                                       int h, int d, float scale, int causal,
-                                      int is_bf16, void* stream) {
+                                      int is_bf16, int load, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, b, s, h, d, scale, causal, st);
-  return dispatch<float>(q, k, v, o, b, s, h, d, scale, causal, st);
+  const long long kv_head = 2ll * s * d * (is_bf16 ? 2 : 4);
+  const int group = (int)std::max(
+      1ll, std::min((long long)b * h, (long long)(L2_GROUP_BYTES / kv_head)));
+  const Params p{q, k, v, o, s, h, d, scale * LOG2E, causal, load, b * h,
+                 group};
+  const long long blocks = (long long)((s + BQ - 1) / BQ) * b * h;
+  if (blocks > 0x7fffffffll)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid((unsigned)blocks);
+  auto all_aligned = [&](int n) {
+    return aligned(q, n) && aligned(k, n) && aligned(v, n);
+  };
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (d < 1 || d > 128) return bad;
+  if (is_bf16) {
+    if ((load == LOAD_TMA && (d % 8 || !all_aligned(16))) ||
+        (load == LOAD_CP4 && (d % 2 || !all_aligned(4))) ||
+        (load != LOAD_TMA && load != LOAD_CP4 && load != LOAD_LD2))
+      return bad;
+    CUtensorMap maps[3] = {};
+    if (load == LOAD_TMA) {
+      const void* ptrs[3] = {q, k, v};
+      for (int i = 0; i < 3; ++i) {
+        const int err = make_map(&maps[i], ptrs[i], b, s, h, d);
+        if (err) return err;
+      }
+    }
+    if (d <= 64)
+      return launch(flash_bf16_kernel<1>, Bf16Smem<1>::BYTES, grid, st,
+                    maps[0], maps[1], maps[2], p);
+    return launch(flash_bf16_kernel<2>, Bf16Smem<2>::BYTES, grid, st, maps[0],
+                  maps[1], maps[2], p);
+  }
+  if ((load == LOAD_CP16 && (d % 4 || !all_aligned(16))) ||
+      (load != LOAD_CP16 && load != LOAD_CP4))
+    return bad;
+  if (d <= 64)
+    return launch(flash_f32_kernel<1>, F32Smem<1>::BYTES, grid, st, p);
+  return launch(flash_f32_kernel<2>, F32Smem<2>::BYTES, grid, st, p);
 }

@@ -6,13 +6,16 @@ causal or not, float32 or bfloat16, with the online softmax in float32 and
 the output in the inputs' type.
 
 The CUDA kernel (``csrc/flash_attention.cu``) reads the ``[B,S,H,D]`` layout
-in place (no transposes to ``[B*H,S,D]``): one 256-thread block per (b*H +
-h, 64-query tile) walks the 64-key tiles, skipping those wholly above the
-diagonal when causal, with the running max, sum and accumulator of each row
-in registers.  Any S (a ragged last tile is masked) and D <= 128.  A float32
-SIMT kernel: TF32 would miss the float32 bar of 2e-4.  Bound on an H100:
-operations, 4*D flops per (query, key) pair the mask keeps.  The Pallas
-block sizes (``bq``, ``bk``) have no counterpart.
+in place (no transposes to ``[B*H,S,D]``) and runs every product on the
+tensor cores: one block per (b*H + h, 128-query tile), a loader warpgroup
+filling a ring of K/V tiles and two consumer warpgroups of 64 rows each,
+skipping the key tiles wholly above the diagonal when causal.  bfloat16
+runs on ``wgmma``; float32 as 3xTF32 on ``mma.sync`` (three TF32 products
+per product keep float32's accuracy).  Any S and 1 <= D <= 128.  ``path``
+says how the tiles are loaded, from the type, D and the pointers'
+alignment.  Bound on an H100: operations, 4*D flops per (query, key) pair
+the mask keeps.  The Pallas block sizes (``bq``, ``bk``) have no
+counterpart.
 """
 from __future__ import annotations
 
@@ -26,8 +29,15 @@ from repro_torch.kernels import _check, ref
 NAME = "flash_attention"
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_D = 128
-# gridDim.y holds B * H
+# at most this many heads B * H (the C entry point also refuses a grid of
+# more than 2^31 - 1 blocks, query tiles x B * H)
 MAX_BH = 65_535
+# How the kernel loads its tiles (the C entry point's ``load`` code), by path:
+# bfloat16 by TMA where rows are 16-byte aligned, by 4-byte cp.async where
+# they are 4-byte aligned, else by plain loads; float32 by 16- or 4-byte
+# cp.async.  The products run on the tensor cores on every path.
+LOADS = {"wgmma/tma": 0, "wgmma/cp.async": 4, "wgmma/ld": 2,
+         "3xtf32/cp.async16": 16, "3xtf32/cp.async4": 4}
 
 
 def _check_args(q, k, v):
@@ -45,12 +55,35 @@ def _check_args(q, k, v):
                          "must fit int32")
 
 
+def _alignment(*ts) -> int:
+    """The largest of 16, 8, 4, 2, 1 bytes that every data pointer is a
+    multiple of."""
+    a = 16
+    for t in ts:
+        while t.data_ptr() % a:
+            a //= 2
+    return a
+
+
+def path(q, k, v) -> str:
+    """The kernel's path for these operands, a key of ``LOADS``: a row of
+    one head starts at a multiple of D elements, so D and the base pointers
+    decide its alignment."""
+    D, a = q.shape[-1], _alignment(q, k, v)
+    if q.dtype == torch.bfloat16:
+        if D % 8 == 0 and a >= 16:
+            return "wgmma/tma"
+        return "wgmma/cp.async" if D % 2 == 0 and a >= 4 else "wgmma/ld"
+    return "3xtf32/cp.async16" if D % 4 == 0 and a >= 16 else \
+        "3xtf32/cp.async4"
+
+
 def _lib():
     lib = _build.load("flash_attention")
     if not getattr(lib, "_repro_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i,
-                                               ctypes.c_float, i, i, p]
+                                               ctypes.c_float, i, i, i, p]
         lib.flash_attention_launch.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
@@ -71,7 +104,7 @@ def flash_attention(q, k, v, causal=True):
         code = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
             H, D, D ** -0.5, int(bool(causal)),
-            int(q.dtype == torch.bfloat16),
+            int(q.dtype == torch.bfloat16), LOADS[path(q, k, v)],
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, NAME)
     flash_attention.launches += 1

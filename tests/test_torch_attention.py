@@ -126,6 +126,61 @@ def test_wrappers_take_plain_path_on_cpu_only():
             da_mod.decode_attention.launches) == before
 
 
+def _view(shape, dtype, offset):
+    """A contiguous tensor of ``shape`` whose data starts ``offset``
+    elements into its buffer (the buffer itself 16-byte aligned or more)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("dtype,D,offset,want", [
+    (torch.bfloat16, 64, 0, "wgmma/tma"),
+    (torch.bfloat16, 128, 0, "wgmma/tma"),
+    (torch.bfloat16, 40, 0, "wgmma/tma"),
+    (torch.bfloat16, 8, 0, "wgmma/tma"),
+    (torch.bfloat16, 64, 2, "wgmma/cp.async"),     # 4-byte aligned rows
+    (torch.bfloat16, 38, 0, "wgmma/cp.async"),     # 76-byte rows
+    (torch.bfloat16, 37, 0, "wgmma/ld"),           # 74-byte rows
+    (torch.bfloat16, 64, 1, "wgmma/ld"),           # 2-byte aligned rows
+    (torch.float32, 64, 0, "3xtf32/cp.async16"),
+    (torch.float32, 4, 0, "3xtf32/cp.async16"),
+    (torch.float32, 64, 1, "3xtf32/cp.async4"),    # rows off 16 bytes
+    (torch.float32, 37, 0, "3xtf32/cp.async4"),
+])
+def test_flash_attention_path_by_type_width_and_alignment(dtype, D, offset,
+                                                         want):
+    """The wrapper's choice of load path: TMA needs 16-byte rows and
+    pointers (bf16, D % 8 == 0), 4-byte cp.async D even, and float32's
+    16-byte cp.async D % 4 == 0; the products are on the tensor cores on
+    every path."""
+    q, k, v = (_view((2, 5, 3, D), dtype, offset) for _ in range(3))
+    assert fa_mod.path(q, k, v) == want
+    # one misaligned operand moves all three off the aligned path
+    k2 = _view((2, 5, 3, D), dtype, 1)
+    assert fa_mod.path(q, k2, v) in (("wgmma/ld",) if dtype == torch.bfloat16
+                                     else ("3xtf32/cp.async4",))
+
+
+def test_every_accepted_shape_maps_to_a_tensor_core_path():
+    """Each (type, D in 1..128, pointer alignment) the wrapper accepts has a
+    path, and the path's load code is one the C entry point takes for that
+    type."""
+    c_loads = {torch.bfloat16: {0, 4, 2}, torch.float32: {16, 4}}
+    seen = set()
+    for dtype in fa_mod.DTYPES:
+        for D in range(1, fa_mod.MAX_D + 1):
+            for offset in (0, 1, 2, 4, 8):
+                q, k, v = (_view((1, 3, 2, D), dtype, offset)
+                           for _ in range(3))
+                fa_mod._check_args(q, k, v)
+                name = fa_mod.path(q, k, v)
+                assert name.split("/")[0] == (
+                    "wgmma" if dtype == torch.bfloat16 else "3xtf32")
+                assert fa_mod.LOADS[name] in c_loads[dtype]
+                seen.add(name)
+    assert seen == set(fa_mod.LOADS)
+
+
 def _bad_calls():
     """(wrapper, operands) pairs each of which must raise ValueError."""
     q, k, v = (torch.from_numpy(a) for a in qkv((1, 20, 2, 16), 0))

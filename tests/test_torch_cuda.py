@@ -178,17 +178,31 @@ def test_pathfinder_kernel_matches_plain_bitwise(cuda, R, C, dtype):
     assert torch.equal(got, ref.pathfinder(w))
 
 
-@pytest.mark.parametrize("S", [1, 100, 257])
-@pytest.mark.parametrize("D", [40, 64, 128])
+def fa_inputs(B, S, H, D, dtype, device, offset=0, seed=0):
+    """q, k, v [B, S, H, D] of ``dtype``, each a view ``offset`` elements
+    into its own buffer (an offset moves the rows off 16-byte alignment)."""
+    rng = np.random.RandomState(seed + S + D)
+    n = B * S * H * D
+    return [torch.from_numpy(rng.standard_normal(n + offset).astype(
+        np.float32)).to(device, getattr(torch, dtype))[offset:].view(
+            B, S, H, D) for _ in range(3)]
+
+
+@pytest.mark.parametrize("B,S,H,D,offset", [
+    *((2, S, 3, D, 0) for S in (1, 100, 257, 300, 1031)
+      for D in (40, 64, 96, 128)),
+    (2, 300, 3, 37, 0),      # 74-byte rows: cp.async / plain loads
+    (2, 257, 3, 64, 1),      # rows off 16-byte alignment
+    (1, 2048, 4, 128, 0)])   # head width 128 over sixteen 128-row tiles
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_kernel_matches_plain(cuda, S, D, causal, dtype):
-    """S off the 64-row tiles, D = 64, 128 and one padded to 64; 2e-4 in
-    float32 and 2e-2 in bfloat16, the reference's bars."""
-    rng = np.random.RandomState(S + D)
-    tdt = getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(rng.standard_normal((2, S, 3, D)).astype(
-        np.float32)).to(cuda, tdt) for _ in range(3))
+def test_flash_attention_kernel_matches_plain(cuda, B, S, H, D, offset,
+                                              causal, dtype):
+    """S off the 128-row tiles (several of them, with a ragged tail), D off
+    and on the 64-column panels, rows that are not 16-byte aligned, every
+    load path; 2e-4 in float32 and 2e-2 in bfloat16, the reference's
+    bars."""
+    q, k, v = fa_inputs(B, S, H, D, dtype, cuda, offset)
     before = fa_mod.flash_attention.launches
     got = fa_mod.flash_attention(q, k, v, causal=causal)
     assert fa_mod.flash_attention.launches == before + 1
@@ -196,6 +210,26 @@ def test_flash_attention_kernel_matches_plain(cuda, S, D, causal, dtype):
     torch.testing.assert_close(got.float(),
                                ref.flash_attention(q, k, v, causal).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_schedules_heads_in_groups(cuda, causal):
+    """float32 at S 16,384 and D 128 holds 16.8 MB of K and V a head, so
+    the kernel schedules its 3 heads as groups of 2 and 1 (40 MB of L2 a
+    group); every tile of every head is still computed, at 2e-4."""
+    q, k, v = fa_inputs(1, 16_384, 3, 128, "float32", cuda)
+    got = fa_mod.flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(got, ref.flash_attention(q, k, v, causal),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_is_deterministic(cuda, dtype):
+    """Two calls on the same operands give bitwise-equal outputs: each
+    output row is summed by one block in a fixed order."""
+    q, k, v = fa_inputs(2, 1031, 4, 128, dtype, cuda)
+    assert torch.equal(fa_mod.flash_attention(q, k, v),
+                       fa_mod.flash_attention(q, k, v))
 
 
 @pytest.mark.parametrize("kv_len", [0, 1, 1000, 1005, "per-batch"])
