@@ -5,7 +5,7 @@
 
 Phases, one line each; any failure exits nonzero and nothing is caught:
 
-1. device: the card's name and power limit (nvidia-smi), then the eleven
+1. device: the card's name and power limit (nvidia-smi), then the twelve
    CUDA sources of ``src/repro_torch/csrc`` built with nvcc, one process
    per source, all at once, with each build's ptxas lines, and the count of
    tensor-core instructions (HGMMA, HMMA) in the flash-attention library's
@@ -13,32 +13,41 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
 2. Black-Scholes at its PARSEC-large size (65,536 options x 100 runs =
    6,553,600 evaluations): kernel against the plain version on the card at
    rtol = atol = 3e-5, times and bound;
-3. engine scan, kernel against the plain version on the card: the
-   short-body RiVec apps x the 24 Table-10 configs, seeded random traces
-   under ooo / crossbar / mshrs=1 / 1 MB LLC configs, and the study's own
-   168-lane launch (which is also timed);
+3. engine scan, kernels against the plain version on the card, bit for
+   bit: the short-body RiVec apps x the 24 Table-10 configs, seeded random
+   traces under ooo / crossbar / mshrs=1 / 1 MB LLC configs, and the
+   study's own 168-lane launch, timed as its two kernels (the pre-pass and
+   the scan) and their sum;
 4. the study (the main path, with every launch counter set to 0 first):
    the Black-Scholes app on the card, ``suite.sweep_all`` over the seven
    RiVec apps x Table 10 checked against ``tests/golden_sweep.json`` at
    rtol 1e-2 (timed as in the earlier slices), the 11 §5 anchors, the
    README quickstart's two claims, the timed Fig-10 + MSHR study (504
    lanes), and the whole golden table: all ten apps and their ten ``:asm``
-   variants x Table 10 (480 cells, cold and warm) at rtol 1e-2;
+   variants x Table 10 (480 cells, cold and warm) at rtol 1e-2, and the
+   warm 480-cell sweep taken apart: body lookup, packing, the H2D copy,
+   the launch, the D2H copy and the runtime derivation;
 5. the suite's kernel path (every launch counter set to 0 first): swaptions,
    streamcluster (float32 and bfloat16), particle filter, canneal,
    pathfinder, flash attention (float32, bfloat16, and bfloat16 at
-   llama3-8b's attention width), flash decoding and the Mamba-2 SSD scan
+   llama3-8b's and at gemma-7b's attention width, the last on the wide
+   route of heads past 128), flash decoding and the Mamba-2 SSD scan
    through ``kernels.ops`` at their PARSEC / Rodinia / app input sizes, and
    Jacobi-2D for RiVec's 4,000 sweeps; each output checked on its own terms
    (shape, range, a float64 or numpy reference that shares no code with
    the port);
-6. those nine kernels against their plain versions on the card at the
+6. those kernels against their plain versions on the card at the
    reference's bars (Jacobi-2D on a PolyBench EXTRALARGE grid), timed
    beside their plain versions, the nearest single PyTorch call and their
-   bounds; for flash attention also its load path, the wrapper's host
-   time a call, its TFLOP/s and the exponential co-bound (float32: the 3xTF32 tensor-core bound beside the
-   float32 SIMT one); and one Jacobi-2D launch at the app's 164 x 164;
-7. the ``kernels`` JSON line (eleven entries), launch counts from phases 4
+   bounds, and the input types and widths the reference computes beyond
+   them: flash attention in float16 at the app's width and in bfloat16 at
+   gemma-7b's (D 256), decoding from a bfloat16 cache, streamcluster in
+   float16, Jacobi-2D in bfloat16 and the SSD scan at P 256; for flash
+   attention also its load path, the wrapper's host time a call, its
+   TFLOP/s and the exponential co-bound (float32: the 3xTF32 tensor-core
+   bound beside the float32 SIMT one); and one Jacobi-2D launch at the
+   app's 164 x 164;
+7. the ``kernels`` JSON line (twelve entries), launch counts from phases 4
    and 5;
 8. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -115,6 +124,9 @@ PATH_R, PATH_C, PATH_OPS = 1_604, 100_000, 3
 # 32 heads of 128) at S 4,096, B 1, with K/V given all 32 heads (the kernel
 # has no GQA); [B, S, H, D].  4*D flops per (query, key) pair kept.
 FA_APP, FA_LLAMA = (4, 2_048, 8, 64), (1, 4_096, 32, 128)
+# and at gemma-7b's (google/gemma-7b config.json: 16 heads, head_dim 256),
+# past the tensor-core kernels' 128 columns: the wide route
+FA_GEMMA = (1, 4_096, 16, 256)
 # flash decoding at the app's scale (workloads_ml.py:49: B 32, S 4,096, H 8,
 # D 64, float32); kv_len uniform in [1, S] per batch, one batch at 0.
 DA_B, DA_S, DA_H, DA_D = 32, 4_096, 8, 64
@@ -125,6 +137,8 @@ DA_B, DA_S, DA_H, DA_D = 32, 4_096, 8, 64
 # float64 recurrence of phase 5 runs over the whole sequence of two (b, h).
 SSD_B, SSD_S, SSD_H, SSD_P, SSD_N, SSD_CHUNK = 8, 65_536, 16, 64, 128, 256
 SSD_CHECK = ((0, 0), (SSD_B - 1, SSD_H - 1))
+# and with a head of 256 columns, split on the card into two P-slices
+SSD_WIDE = (2, 16_384, 16, 256, 128)
 
 
 def fail(msg: str) -> None:
@@ -310,9 +324,18 @@ def suite_inputs(torch, dev) -> dict:
     lens[DA_B // 2] = 0
     da = (normal((DA_B, DA_H, DA_D)), normal((DA_B, DA_S, DA_H, DA_D)),
           normal((DA_B, DA_S, DA_H, DA_D)), t(lens))
+    # drawn last, so the earlier slices' inputs stay as they were
+    fa_gemma = tuple(normal(FA_GEMMA).to(torch.bfloat16) for _ in range(3))
     ssd, ssd_host = ssd_inputs(torch, dev)
+    ssd_wide, _ = ssd_inputs(torch, dev, *SSD_WIDE, check=())
     return {"sw": t(u), "sc": sc,
             "sc_bf16": tuple(x.to(torch.bfloat16) for x in sc),
+            "sc_f16": tuple(x.to(torch.float16) for x in sc),
+            "j2_big_bf16": t(j2_big).to(torch.bfloat16),
+            "fa_f16": tuple(x.to(torch.float16) for x in fa),
+            "fa_gemma": fa_gemma,
+            "da_bf16": (*(x.to(torch.bfloat16) for x in da[:3]), da[3]),
+            "ssd_wide": ssd_wide,
             "pf": (t(cdf), t(q)), "ca": tuple(map(t, (locs, fan, ca, cb))),
             "j2": t(j2), "j2_big": t(j2_big), "path": t(wall), "fa": fa,
             "fa_bf16": tuple(x.to(torch.bfloat16) for x in fa),
@@ -321,22 +344,23 @@ def suite_inputs(torch, dev) -> dict:
                      "path": wall, "da_lens": lens, "ssd": ssd_host}}
 
 
-def ssd_inputs(torch, dev):
+def ssd_inputs(torch, dev, b_=SSD_B, S=SSD_S, H=SSD_H, P=SSD_P, N=SSD_N,
+               check=SSD_CHECK):
     """The SSD scan's operands x, dt, A, B, C on the card, drawn with numpy
     from seed 2111 as tests/test_kernels.py draws them (x, B, C: 0.5 N(0,1);
     dt: softplus N(0,1); A: -exp(0.3 N(0,1))), and float64 host copies of
-    the two (b, h) sequences the recurrence checks."""
+    the (b, h) sequences the recurrence checks."""
     gen = np.random.default_rng(2111)
     f32 = np.float32
     normal = lambda shape: gen.standard_normal(shape, dtype=f32)
-    x = normal((SSD_B, SSD_S, SSD_H, SSD_P)) * f32(0.5)
-    dt = np.logaddexp(f32(0), normal((SSD_B, SSD_S, SSD_H)))
-    A = -np.exp(normal(SSD_H) * f32(0.3))
-    B = normal((SSD_B, SSD_S, SSD_N)) * f32(0.5)
-    C = normal((SSD_B, SSD_S, SSD_N)) * f32(0.5)
+    x = normal((b_, S, H, P)) * f32(0.5)
+    dt = np.logaddexp(f32(0), normal((b_, S, H)))
+    A = -np.exp(normal(H) * f32(0.3))
+    B = normal((b_, S, N)) * f32(0.5)
+    C = normal((b_, S, N)) * f32(0.5)
     host = {(b, h): tuple(a.astype(np.float64) for a in
                           (x[b, :, h], dt[b, :, h], A[h], B[b], C[b]))
-            for b, h in SSD_CHECK}
+            for b, h in check}
     return tuple(torch.from_numpy(a).to(dev) for a in (x, dt, A, B, C)), host
 
 
@@ -452,7 +476,8 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
     att = {}
     for key, inputs, tol in (("flash_attention", "fa", 2e-4),
                              ("flash_attention_bf16", "fa_bf16", 2e-2),
-                             ("flash_attention_llama", "fa_llama", 2e-2)):
+                             ("flash_attention_llama", "fa_llama", 2e-2),
+                             ("flash_attention_gemma", "fa_gemma", 2e-2)):
         q, k, v = data[inputs]
         o = outs[key]
         B, S, H, _ = q.shape
@@ -488,7 +513,8 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
           f"pathfinder equal to numpy's row program; flash attention vs "
           f"float64 on 2 x 64 rows {att['flash_attention']:.3g} (2e-4), "
           f"bf16 {att['flash_attention_bf16']:.3g} (2e-2), llama width "
-          f"{att['flash_attention_llama']:.3g} (2e-2); decoding vs float64 "
+          f"{att['flash_attention_llama']:.3g} (2e-2), gemma width (D 256) "
+          f"{att['flash_attention_gemma']:.3g} (2e-2); decoding vs float64 "
           f"{da_err:.3g} (2e-4), the kv_len = 0 batch vs the mean of V "
           f"{da_zero:.3g}")
 
@@ -528,7 +554,8 @@ def suite_specs(torch, ref, data, mods):
                   per=25)]
     for name, key, tol, peak in (
             ("streamcluster", "sc", 2e-4, PEAK_F32_S),
-            ("streamcluster_bf16", "sc_bf16", 1e-2, PEAK_BF16_S)):
+            ("streamcluster_bf16", "sc_bf16", 1e-2, PEAK_BF16_S),
+            ("streamcluster_f16", "sc_f16", 1e-2, PEAK_BF16_S)):
         p, c = data[key]
         cdist = lambda p=p, c=c: torch.cdist(
             p, c, compute_mode="use_mm_for_euclid_dist")
@@ -551,12 +578,14 @@ def suite_specs(torch, ref, data, mods):
         library=None, tol=(1e-6, 0.0), peak=PEAK_F32_S,
         nbytes=CA_N * 8 + CA_B * CA_F * 4 + 2 * CA_B * 8 + 2 * CA_B * 4,
         ops=n_valid * CA_OPS, per=25))
-    big = data["j2_big"]
-    specs.append(dict(
-        name="jacobi2d", kernel=lambda: j2_k(big),
-        plain=lambda: ref.jacobi2d(big), library=None, tol=None,
-        peak=PEAK_F32_S, nbytes=J2_BIG * J2_BIG * 8,
-        ops=J2_OPS * (J2_BIG - 2) ** 2, per=25))
+    for name, key in (("jacobi2d", "j2_big"),
+                      ("jacobi2d_bf16", "j2_big_bf16")):
+        big = data[key]
+        specs.append(dict(
+            name=name, kernel=lambda big=big: j2_k(big),
+            plain=lambda big=big: ref.jacobi2d(big), library=None, tol=None,
+            peak=PEAK_F32_S, nbytes=J2_BIG * J2_BIG * 2 * big.element_size(),
+            ops=J2_OPS * (J2_BIG - 2) ** 2, per=25))
     wall = data["path"]
     specs.append(dict(
         name="pathfinder", kernel=lambda: path_k(wall),
@@ -574,7 +603,9 @@ def suite_specs(torch, ref, data, mods):
     for name, key, tol, per, plain_reps in (
             ("flash_attention", "fa", 2e-4, 20, 5),
             ("flash_attention_bf16", "fa_bf16", 2e-2, 20, 5),
-            ("flash_attention_llama", "fa_llama", 2e-2, 5, 2)):
+            ("flash_attention_f16", "fa_f16", 2e-2, 20, 5),
+            ("flash_attention_llama", "fa_llama", 2e-2, 5, 2),
+            ("flash_attention_gemma", "fa_gemma", 2e-2, 2, 2)):
         fq, fk, fv = data[key]
         B, S, H, D = fq.shape
         pairs = B * H * S * (S + 1) // 2
@@ -590,9 +621,9 @@ def suite_specs(torch, ref, data, mods):
             ops=4 * D * pairs, per=per, plain_reps=plain_reps,
             exps=pairs, path=fa_mod.path(fq, fk, fv),
             simt_ms=4 * D * pairs / PEAK_F32_S * 1e3 if f32 else None))
-    dq, dk, dv, lens = data["da"]
-    # what these lengths need: the K and V rows below kv_len (4*D flops a
-    # key), and at kv_len <= 0 the S rows of V alone (2*D flops a key)
+    # decoding: what these lengths need, the K and V rows below kv_len (4*D
+    # flops a key), and at kv_len <= 0 the S rows of V alone (2*D flops a
+    # key); float32 and a bfloat16 q and cache (2e-4 plus one bf16 unit)
     kv_rows = da_ops = 0
     for n in data["host"]["da_lens"]:
         if n > 0:
@@ -601,16 +632,22 @@ def suite_specs(torch, ref, data, mods):
         else:
             kv_rows += DA_S
             da_ops += 2 * DA_D * DA_S
-    mask = (torch.arange(DA_S, device=dq.device)[None, :]
-            < lens[:, None])[:, None, None, :]
-    specs.append(dict(
-        name="decode_attention", kernel=lambda: da_k(dq, dk, dv, lens),
-        plain=lambda: ref.decode_attention(dq, dk, dv, lens),
-        library=lambda: sdpa(dq[:, :, None], dk.transpose(1, 2),
-                             dv.transpose(1, 2), attn_mask=mask),
-        tol=(2e-4, 2e-4), peak=PEAK_F32_S,
-        nbytes=kv_rows * DA_H * DA_D * 4 + 2 * dq.numel() * 4 + DA_B * 4,
-        ops=da_ops * DA_H, per=10))
+    for name, key, tol in (("decode_attention", "da", 2e-4),
+                           ("decode_attention_bf16", "da_bf16",
+                            2e-4 + 2.0 ** -7)):
+        dq, dk, dv, lens = data[key]
+        mask = (torch.arange(DA_S, device=dq.device)[None, :]
+                < lens[:, None])[:, None, None, :]
+        size = dq.element_size()
+        specs.append(dict(
+            name=name, kernel=lambda a=data[key]: da_k(*a),
+            plain=lambda a=data[key]: ref.decode_attention(*a),
+            library=lambda dq=dq, dk=dk, dv=dv, mask=mask: sdpa(
+                dq[:, :, None], dk.transpose(1, 2), dv.transpose(1, 2),
+                attn_mask=mask),
+            tol=(tol, tol), peak=PEAK_F32_S,
+            nbytes=kv_rows * DA_H * DA_D * size + 2 * dq.numel() * size
+            + DA_B * 4, ops=da_ops * DA_H, per=10))
     # SSD scan: the chunked form at chunk length q does, per (b, chunk),
     # C.B^T on the causal triangle once (the heads share it) and per head
     # the decay block (one exp, one multiply a pair), its product with x dt,
@@ -618,22 +655,83 @@ def suite_specs(torch, ref, data, mods):
     # result depends on q only through rounding and the count falls with q
     # (to the recurrence's ~4 P N a step at q = 1), so the bound takes the
     # least count over the q that divide S, not the caller's chunk
-    x, dt, A, B, C = data["ssd"]
-
-    def ssd_ops_at(q):
+    def ssd_ops_at(q, b, S, H, P, N):
         tri = q * (q + 1) // 2
-        return SSD_B * (SSD_S // q) * (
-            2 * tri * SSD_N
-            + SSD_H * (2 * tri + 2 * tri * SSD_P + 4 * q * SSD_P * SSD_N))
-    ssd_ops = min(ssd_ops_at(q) for q in range(1, SSD_S + 1)
-                  if SSD_S % q == 0)
-    specs.append(dict(
-        name="ssd_scan", kernel=lambda: ssd_k(x, dt, A, B, C, SSD_CHUNK),
-        plain=lambda: ref.ssd_scan(x, dt, A, B, C, SSD_CHUNK), library=None,
-        tol=(4e-3, 4e-3), peak=PEAK_F32_S,
-        nbytes=2 * x.numel() * 4 + sum(t.numel() * 4 for t in (dt, A, B, C)),
-        ops=ssd_ops, per=1, plain_reps=2))
+        return b * (S // q) * (
+            2 * tri * N + H * (2 * tri + 2 * tri * P + 4 * q * P * N))
+    for name, key in (("ssd_scan", "ssd"), ("ssd_scan_p256", "ssd_wide")):
+        x, dt, A, B, C = args = data[key]
+        dims = (*x.shape, B.shape[-1])
+        ssd_ops = min(ssd_ops_at(q, *dims) for q in range(1, dims[1] + 1)
+                      if dims[1] % q == 0)
+        specs.append(dict(
+            name=name, kernel=lambda a=args: ssd_k(*a, SSD_CHUNK),
+            plain=lambda a=args: ref.ssd_scan(*a, SSD_CHUNK), library=None,
+            tol=(4e-3, 4e-3), peak=PEAK_F32_S,
+            nbytes=2 * x.numel() * 4
+            + sum(t.numel() * 4 for t in (dt, A, B, C)),
+            ops=ssd_ops, per=1, plain_reps=2))
     return specs
+
+
+SPLIT_STAGES = ("body lookup", "pack", "H2D copy", "launch", "D2H copy",
+                "runtime derivation")
+
+
+def warm_sweep_split(torch, eng, suite, tracegen, engine_scan, names, study,
+                     dev, reps: int = 5) -> dict:
+    """The warm ``sweep_all(names)`` taken apart into its stages, each on
+    the host clock (median of ``reps`` passes, each beside one whole warm
+    ``sweep_all`` call): the configs and the cached loop bodies, ``pack`` on
+    the host, the operands' copy to the card, the scan launch (both
+    kernels, synchronized), the copy back, and the runtime derivation
+    (steady-state time, scalar baseline, speedup).  The stages are
+    ``suite.speedup_batch``'s, called one by one; the cells must equal
+    ``sweep_all``'s bit for bit."""
+    grid = [(m, l) for m in (8, 16, 32, 64, 128, 256) for l in (1, 2, 4, 8)]
+    times = {k: [] for k in SPLIT_STAGES}
+    whole = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        suite.sweep_all(names)
+        torch.cuda.synchronize()
+        whole.append((time.perf_counter() - t0) * 1e3)
+        t = [time.perf_counter()]
+        pairs = [(a, eng.VectorEngineConfig(mvl=m, lanes=l))
+                 for a in names for m, l in grid]
+        bodies = [tracegen.body_for(a, suite.effective_mvl(a, c), c)
+                  for a, c in pairs]
+        t.append(time.perf_counter())
+        host = eng.pack_steady_state(bodies, [c for _, c in pairs], 8, 24,
+                                     torch.device("cpu"))
+        t.append(time.perf_counter())
+        inp = eng.ScanInputs(*(x.to(dev) for x in host.args()))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out = engine_scan.scan(*inp.args())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out = out.cpu().numpy()
+        t.append(time.perf_counter())
+        flat = []
+        for b, ((a, c), body) in enumerate(zip(pairs, bodies)):
+            steady = (float(out[0, b]) - float(out[5, b])) / 24
+            flat.append(suite.scalar_runtime_ns(a, c)
+                        / suite.vector_runtime_from_per_chunk(a, c, body,
+                                                              steady))
+        t.append(time.perf_counter())
+        for k, t0, t1 in zip(SPLIT_STAGES, t, t[1:]):
+            times[k].append((t1 - t0) * 1e3)
+    want = [study[a][g] for a in names for g in grid]
+    if flat != want:
+        fail("warm sweep split: the stages' cells differ from sweep_all's")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"phase 4 warm {len(want)}-cell sweep split (host ms, median of "
+          f"{reps}): " + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+          + f"; sum {sum(med.values()):.3f} against a whole warm sweep_all's "
+          f"{statistics.median(whole):.3f} (median of {reps}: "
+          + ", ".join(f"{w:.1f}" for w in whole) + ")")
+    return med
 
 
 def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
@@ -788,14 +886,26 @@ def main() -> int:
         if not torch.isfinite(k).all():
             fail(f"engine_scan {tag}: non-finite output")
         diff = (k != p).any(0)
-        rel = float(((k - p).abs() / p.abs().clamp_min(1e-30)).max())
         err = float((k - p).abs().max())
         print(f"phase 3 engine_scan {tag}: {k.shape[1]} lanes, "
               f"T_max={int(inp.n_steps.max())}, differing lanes "
-              f"{int(diff.sum())}, max rel {rel:.3g}, max abs {err:.3g}")
-        if rel > 1e-6:
-            fail(f"engine_scan {tag}: kernel vs plain rel {rel} > 1e-6")
+              f"{int(diff.sum())}, max abs {err:.3g} (bar: bit for bit)")
+        if not torch.equal(k, p):
+            fail(f"engine_scan {tag}: kernel differs from plain in "
+                 f"{int(diff.sum())} lanes")
         return err
+
+    def scan_times(inp):
+        """Device ms of one launch's pre-pass, of its scan, and their sum."""
+        xi, xf, params, consts, period, n, ck = inp.args()
+        recs = engine_scan.prepass(xi, xf, params, consts)
+        pre = cuda_ms(torch, lambda: engine_scan.prepass(xi, xf, params,
+                                                         consts),
+                      reps=10, per=10)
+        steps = cuda_ms(torch, lambda: engine_scan.steps(*recs, params,
+                                                         period, n, ck),
+                        reps=10, per=3)
+        return pre, steps, pre + steps
 
     scan_err = 0.0
     short = ("jacobi-2d", "pathfinder", "swaptions", "streamcluster")
@@ -817,7 +927,8 @@ def main() -> int:
     study_pairs = [(a, c) for a in tracegen.RIVEC_APPS for c in ve.TABLE10]
     study_inp = suite.scan_inputs(study_pairs, device=dev)
     scan_err = max(scan_err, compare("study (7 apps x Table 10)", study_inp))
-    scan_ms = cuda_ms(torch, lambda: engine_scan.scan(*study_inp.args()),
+    pre_ms, steps_ms, scan_ms = scan_times(study_inp)
+    call_ms = cuda_ms(torch, lambda: engine_scan.scan(*study_inp.args()),
                       reps=10, per=3)
     scan_plain_ms = cuda_ms(
         torch, lambda: engine_scan.scan_plain(*study_inp.args()), reps=1,
@@ -825,9 +936,12 @@ def main() -> int:
     scan_bound_ms, scan_bound_by = scan_bound(study_inp, sm_clock_hz)
     n_rec = int(study_inp.n_steps.long().sum())
     print(f"phase 3 engine_scan time (168 lanes, {n_rec} records, T_max="
-          f"{int(study_inp.n_steps.max())}): kernel {scan_ms:.4f} ms "
-          f"({n_rec / scan_ms / 1e3:.1f} M records/s), plain "
-          f"{scan_plain_ms:.1f} ms, bound {scan_bound_ms:.4f} ms "
+          f"{int(study_inp.n_steps.max())}): kernel {scan_ms:.4f} ms = "
+          f"pre-pass {pre_ms:.4f} ms + scan {steps_ms:.4f} ms "
+          f"({n_rec / scan_ms / 1e3:.1f} M records/s; "
+          f"{steps_ms * 1e-3 * sm_clock_hz / int(study_inp.n_steps.max()):.1f}"
+          f" cycles a step at the max SM clock; scan() call {call_ms:.4f} "
+          f"ms), plain {scan_plain_ms:.1f} ms, bound {scan_bound_ms:.4f} ms "
           f"({scan_bound_by})")
 
     # ---- 4. the study: the main path ----------------------------------------
@@ -936,16 +1050,18 @@ def main() -> int:
         (len(tracegen.body_for(a, suite.effective_mvl(a, c), c)), a)
         for a, c in full_pairs)
     full_inp = suite.scan_inputs(full_pairs, device=dev)
-    full_scan_ms = cuda_ms(torch, lambda: engine_scan.scan(*full_inp.args()),
-                           reps=10, per=3)
+    full_pre_ms, full_steps_ms, full_scan_ms = scan_times(full_inp)
     print(f"phase 4 golden table: {n_cells - len(bad)}/{n_cells} cells "
           f"within rtol 1e-2 ({len(names)} names x {len(ve.TABLE10)} "
           f"configs), worst rel {worst:.3g}; sweep_all {study_cold_s:.4f} s "
           f"cold, {study_s:.4f} s warm; longest lane {lane_app} "
           f"{lane_len} records x 32 = {lane_len * 32}; scan over the "
-          f"{len(full_pairs)} lanes {full_scan_ms:.4f} ms")
+          f"{len(full_pairs)} lanes {full_scan_ms:.4f} ms (pre-pass "
+          f"{full_pre_ms:.4f} + scan {full_steps_ms:.4f})")
     if n_cells != len(golden) * len(ve.TABLE10) or n_cells != 480 or bad:
         fail(f"golden table: {n_cells} cells, off: {bad[:5]}")
+    warm_sweep_split(torch, eng, suite, tracegen, engine_scan, names, study,
+                     dev)
     print(f"phase 4 launches on the main path: {launches}")
     if min(launches.values()) <= 0:
         fail(f"a kernel was not launched on the main path: {launches}")
@@ -960,6 +1076,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     for mod in suite_mods:
         mod.launches = 0
+    fa_mod.flash_attention.wide_launches = 0
     t0 = time.perf_counter()
     outs = {"swaptions": ops.cum_normal_inv(data["sw"]),
             "streamcluster": ops.streamcluster_dist(*data["sc"]),
@@ -970,6 +1087,7 @@ def main() -> int:
             "flash_attention": ops.flash_attention(*data["fa"]),
             "flash_attention_bf16": ops.flash_attention(*data["fa_bf16"]),
             "flash_attention_llama": ops.flash_attention(*data["fa_llama"]),
+            "flash_attention_gemma": ops.flash_attention(*data["fa_gemma"]),
             "decode_attention": ops.decode_attention(*data["da"]),
             "ssd_scan": ops.ssd_scan(*data["ssd"], chunk=SSD_CHUNK)}
     torch.cuda.synchronize()
@@ -983,12 +1101,15 @@ def main() -> int:
     outs["jacobi2d"] = grid
     for name, mod in zip(SUITE_REPLACES, suite_mods):
         launches[name] = mod.launches
+    launches["flash_attention_wide"] = fa_mod.flash_attention.wide_launches
+    path_counts = {n: launches[n]
+                   for n in (*SUITE_REPLACES, "flash_attention_wide")}
     print(f"phase 5 suite kernels through kernels.ops: {suite_s * 1e3:.1f} ms"
           f" wall (inputs made in {inputs_s:.1f} s); jacobi2d {J2_SWEEPS} "
           f"sweeps of {J2_N} x {J2_N} in {j2_app_s * 1e3:.1f} ms wall "
           f"({j2_app_s * 1e6 / J2_SWEEPS:.2f} us/sweep); launches "
-          f"{ {n: launches[n] for n in SUITE_REPLACES} }")
-    if min(launches[n] for n in SUITE_REPLACES) <= 0:
+          f"{path_counts}")
+    if min(path_counts.values()) <= 0:
         fail(f"a suite kernel was not launched on its path: {launches}")
     check_suite_outputs(torch, ref, data, outs)
 
@@ -1025,6 +1146,12 @@ def main() -> int:
                         "source": f"src/repro_torch/csrc/{name}.cu",
                         "replaces": replaces, "launches": launches[name],
                         **rows[name]})
+    # flash attention's route for heads of 129..256, at gemma-7b's width
+    kernels.append({"name": "flash_attention_wide", "route": "cuda",
+                    "source": "src/repro_torch/csrc/flash_attention_wide.cu",
+                    "replaces": SUITE_REPLACES["flash_attention"],
+                    "launches": launches["flash_attention_wide"],
+                    **rows["flash_attention_gemma"]})
     print(json.dumps({"kernels": kernels}))
     # ---- 8. last line -----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {

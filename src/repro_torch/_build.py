@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 
 SOURCES = ("engine_scan", "blackscholes", "swaptions", "streamcluster",
            "particlefilter", "canneal", "jacobi2d", "pathfinder",
-           "flash_attention", "decode_attention", "ssd_scan")
+           "flash_attention", "flash_attention_wide", "decode_attention",
+           "ssd_scan")
 COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The engine scan must reproduce the reference's float32 arithmetic bit for

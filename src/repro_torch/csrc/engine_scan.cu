@@ -2,42 +2,78 @@
 //
 // Replaces repro/core/engine.py:198-338 (_make_step, collect=False, under
 // lax.scan, vmapped over configs) with repro/core/memory.py:150-165 inlined.
-// One thread is one lane = one (trace, config) pair, and runs that lane's
-// whole scan in this one launch.  Layouts are documented in
-// repro_torch/kernels/engine_scan.py.
+// One lane is one (trace, config) pair.  Layouts of the operands are
+// documented in repro_torch/kernels/engine_scan.py.
 //
-// Design.  The carry of a lane is the 32-entry register scoreboard, four
-// 64-entry occupancy rings (ROB, physical registers, arithmetic queue,
-// memory queue) and a dozen scalar clocks and counters.  Scoreboard and
-// rings (288 floats) live in shared memory, column per thread:
-// st[slot][lane], one warp per block, 36,864 B static.  A thread touches
-// only its own column, so the 32 threads of a warp always hit 32 distinct
-// banks.  The trace is read time-major ([field][row][lane]) and the next
-// record is loaded before the current one is processed, so the loads
-// overlap the step's dependent arithmetic.
+// Two kernels, launched back to back on one stream:
 //
-// Bound on an H100: latency.  A lane is one serial chain of n_steps
-// dependent steps and a study has a few hundred lanes, so the time is
-// max(n_steps) x the critical-path latency of one step, not bytes or
-// operations.
+//  1. The pre-pass, one thread per (record row, lane): everything a step
+//     needs that does not depend on the carry, as the plain version's
+//     _record_terms computes it, in the same float32 operand order --
+//     the scalar-clock add (the block's cost for a scalar record, the
+//     issue cost for a vector one), start-up, execute cycles and their sum,
+//     plus one int32 word of flag bits and the state slots the record reads
+//     and writes.  It is written time-major, rec[row][lane] as a float4 and
+//     an int, so a step reads 20 bytes.  Every division, ceil, the switch
+//     on the kind and vector_access_cycles live here, fully parallel over
+//     P x B (~165k threads at the study's 985 x 168).
+//  2. The scan, one thread per lane, 32 lanes a block.  Each thread copies
+//     its own lane's records with cp.async into a ring of STAGES tiles of
+//     K records in shared memory, TILES_AHEAD tiles ahead of the step that
+//     reads them, so a step never waits on L2.  The step has no branch on
+//     the record: the scalar and vector updates are selects on the flag
+//     bits, as the plain version's masks are.
 //
-// Where this goes wrong, and what the code does about it:
-//  * Ring index.  The reference reads ring[jnp.mod(count - capacity, 64)]
-//    only when count >= capacity; jnp.mod is a floor mod, C's % truncates.
-//    The read is guarded first, and inside the guard count - capacity >= 0,
-//    where the two agree.
-//  * jnp.select order.  exec_c picks the first true kind (all kinds are
-//    distinct, so the switch is the same select); SCALAR_BLOCK and NOP take
-//    the scalar branch, where complete/startup would be masked out anyway.
+// The carry of a lane is the 32-entry register scoreboard, three 64-entry
+// occupancy rings (ROB, arithmetic queue, memory queue) and a dozen scalar
+// clocks and counters.  The physical-register ring of the reference is
+// written with the ROB's values at the ROB's count on every vector record,
+// so it is the ROB ring read at another capacity and is not stored.
+// Scoreboard and rings live in shared memory, column per thread:
+// st[slot][lane], so a warp's 32 threads always hit 32 distinct banks.  An
+// absent source reads a slot that stays 0 and an absent dst writes a slot
+// nothing reads, so register reads and writes need no test; slots, counts
+// and capacities are kept as byte offsets into the thread's column.
+//
+// What bounds a step now.  A lane is one serial chain of n_steps steps and
+// a study has a few hundred lanes (a few warps on as many SMs), so the time
+// is max(n_steps) x one step.  The shared-memory reads a step needs (its
+// two source registers and three ring slots) are issued one step ahead,
+// before the previous step's stores, and the previous step's results are
+// forwarded into them where it wrote the same slot; so the dependent chain
+// of a step is a forwarding select, the fmax tree of the issue time and the
+// two adds of the completion time (~7 dependent float operations, ~30
+// cycles).  What sets the step's length is its instruction count: one warp
+// a scheduler issues at most one instruction a cycle, and a step is ~100
+// instructions of its own (flag decoding, slot offsets, five loads and
+// three stores, the forwarding compares and selects, the carry's selects)
+// plus ~14 a record for the cp.async stream (a tile's wait and copies)
+// -- ~158 cycles a step on an H100 (PERF.md).
+//
+// Bitwise parity with the plain version (and so with the reference's step):
 //  * FMA contraction.  Build with -fmad=false: every a*b+c is two
-//    roundings, as in the reference.  Float literals carry the f suffix;
-//    division is IEEE (nvcc's default; never --use_fast_math).
+//    roundings.  Float literals carry the f suffix; division is IEEE
+//    (nvcc's default; never --use_fast_math).  busy = startup + exec_c is
+//    summed in the pre-pass, complete = (issue + startup) + exec_c in the
+//    step, in the reference's order.
+//  * Selects for masks.  A scalar record adds 0.0f to the busy sums, as the
+//    plain version does; fmaxf(t, -inf) is t; max is exact, so the fmax
+//    trees are regrouped freely (no value is NaN or -0: every clock is a
+//    sum of non-negative terms).
+//  * Ring index.  The reference reads ring[jnp.mod(count - capacity, 64)]
+//    only when count >= capacity, else 0.  Here the index is the floor mod
+//    (a mask), unguarded: while count < capacity (<= 64) that slot has not
+//    been written yet and holds its initial 0.
+//  * exec_c picks the first true kind (all kinds are distinct, so the
+//    chain of selects is jnp.select); an unknown kind executes for 0
+//    cycles, as in the plain version (the host refuses such kinds).
 //  * ceil(log2(lanes)).  Computed exactly from frexpf; the reference's
 //    log2 is exact for the integer lane counts the configs take.
 //  * float64 parameters.  dram_line_cycles and scalar_scale arrive already
 //    computed in float64 on the host and cast once, as the reference does.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -45,41 +81,39 @@ namespace {
 constexpr int WARP = 32;
 constexpr int MAX_RING = 64;
 constexpr int N_REGS = 32;
-constexpr int N_SLOTS = N_REGS + 4 * MAX_RING;
 constexpr int N_PARAMS = 20;
+constexpr int N_FIELDS = 10;
+
+// state slots of a lane: the scoreboard, a slot that stays 0 (read for an
+// absent source), a slot nothing reads (written for an absent dst), then
+// the ROB, arithmetic-queue and memory-queue rings
+constexpr int ZERO = N_REGS, DUMMY = N_REGS + 1;
+constexpr int ROB0 = N_REGS + 2, AQ0 = ROB0 + MAX_RING, MQ0 = AQ0 + MAX_RING;
+constexpr int N_SLOTS = MQ0 + MAX_RING;
+
+// the record ring: STAGES tiles of K records a lane; the tile a step reads
+// next was requested TILES_AHEAD tiles earlier
+constexpr int K = 8, STAGES = 4, TILES_AHEAD = STAGES - 1;
 
 // isa kinds
 constexpr int SCALAR_BLOCK = 0, VARITH = 1, VLOAD = 2, VSTORE = 3, VSLIDE = 4,
               VREDUCE = 5, VMASK_SCALAR = 6, VMOVE = 7, NOP = 8;
 constexpr int MEM_UNIT = 0, MEM_INDEXED = 2;
-// rings
-constexpr int ROB = 0, PHYS = 1, AQ = 2, MQ = 3;
 
-struct Rec {
-  int kind, vl, fu, n_src, src1, src2, dst, mpat, s_count, dep;
-  float fp_kb;
-};
-
-__device__ __forceinline__ Rec load_rec(const int32_t* __restrict__ xi,
-                                        const float* __restrict__ xf,
-                                        size_t field_stride, size_t o) {
-  Rec r;
-  r.kind = __ldg(xi + 0 * field_stride + o);
-  r.vl = __ldg(xi + 1 * field_stride + o);
-  r.fu = __ldg(xi + 2 * field_stride + o);
-  r.n_src = __ldg(xi + 3 * field_stride + o);
-  r.src1 = __ldg(xi + 4 * field_stride + o);
-  r.src2 = __ldg(xi + 5 * field_stride + o);
-  r.dst = __ldg(xi + 6 * field_stride + o);
-  r.mpat = __ldg(xi + 7 * field_stride + o);
-  r.s_count = __ldg(xi + 8 * field_stride + o);
-  r.dep = __ldg(xi + 9 * field_stride + o);
-  r.fp_kb = __ldg(xf + o);
-  return r;
-}
+// A record's int32 word: flag bits, then the state slots it reads (src1,
+// src2: the register, or ZERO when absent) and writes (dst: the register
+// of a vector instruction, else DUMMY), each as slot x 128, the byte offset
+// of its row of st[slot][lane], 8 bits a slot from bit 7, 15 and 23.
+constexpr int F_DEP = 1;     // a scalar block that waits for a vector result
+constexpr int F_VEC = 2;     // a vector instruction (not SCALAR_BLOCK / NOP)
+constexpr int F_MEM = 4;     // a vector load or store
+constexpr int F_ARITH = 8;   // a vector instruction of the lanes (not memory)
+constexpr int F_RES = 16;    // hands its result to the scalar core
+constexpr int ROW = WARP * (int)sizeof(float);   // bytes of one slot row
+constexpr int SLOT_BITS = 0xff * ROW;            // one slot field, in place
+constexpr int RING_MASK = (MAX_RING - 1) * ROW;  // a ring index, in bytes
 
 __device__ __forceinline__ float pick4(const float* c, int i) {
-  // a select chain keeps the per-class constants in registers
   return i == 0 ? c[0] : i == 1 ? c[1] : i == 2 ? c[2] : c[3];
 }
 
@@ -110,148 +144,286 @@ __device__ __forceinline__ float vector_access_cycles(
   return lead + n_acc * per;
 }
 
-__global__ void __launch_bounds__(WARP)
-engine_scan_kernel(const int32_t* __restrict__ xi, const float* __restrict__ xf,
-                   const float* __restrict__ params,
-                   const float* __restrict__ consts,
-                   const int32_t* __restrict__ period,
-                   const int32_t* __restrict__ n_steps,
-                   const int32_t* __restrict__ ckpt, float* __restrict__ out,
-                   int P, int B) {
-  __shared__ float st[N_SLOTS][WARP];
-  const int t = threadIdx.x;
-  const int b = blockIdx.x * WARP + t;
-  if (b >= B) return;  // no block-wide barrier below: safe to leave early
-  for (int s = 0; s < N_SLOTS; ++s) st[s][t] = 0.0f;
-#define REG(i) st[(i)][t]
-#define RING(k, i) st[N_REGS + (k) * MAX_RING + (i)][t]
+// ---- 1. the pre-pass ---------------------------------------------------------
 
-  const float* p = params + (size_t)b * N_PARAMS;
+__global__ void __launch_bounds__(256)
+engine_prepass_kernel(const int32_t* __restrict__ xi,
+                      const float* __restrict__ xf,
+                      const float* __restrict__ params,
+                      const float* __restrict__ consts,
+                      float4* __restrict__ rec_f, int32_t* __restrict__ rec_w,
+                      long long PB, int B) {
+  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= PB) return;
+  const int b = (int)(o % B);
+  int f[N_FIELDS];
+#pragma unroll
+  for (int i = 0; i < N_FIELDS; ++i) f[i] = __ldg(xi + i * PB + o);
+  const int kind = f[0], vl = f[1], fu = f[2], n_src = f[3], src1 = f[4],
+            src2 = f[5], dst = f[6], mpat = f[7], s_count = f[8], dep = f[9];
+  const float fp_kb = __ldg(xf + o);
+
+  const float* p = params + (long long)b * N_PARAMS;
   const float lanes = p[0];
-  const int phys_extra = (int)p[1], rob_entries = (int)p[2],
-            q_entries = (int)p[3];
   const float read_ports = p[4], line_elems = p[5], mem_ports = p[6];
   const float lat_l1 = p[7], lat_l2 = p[8], lat_dram = p[9];
-  const float scalar_scale = p[10], dispatch_lat = p[11];
-  const bool ooo = p[12] > 0.0f;
+  const float scalar_scale = p[10];
   const float ring_f = p[13], l1_kb = p[14], l2_kb = p[15], mshrs = p[16];
   const float line_cyc = p[17], bmiss_extra = p[18], fuse_save = p[19];
   float sc[4], pd[4], ec[4];
+#pragma unroll
   for (int i = 0; i < 4; ++i) {
     sc[i] = consts[i];
     pd[i] = consts[4 + i];
     ec[i] = consts[8 + i];
   }
   const float dram_mlp = consts[12], prefetch_depth = consts[13];
-  const float sv_add = sc[0] * scalar_scale;
+
+  const bool is_scalar = kind == SCALAR_BLOCK || kind == NOP;
+  const bool is_mem = kind == VLOAD || kind == VSTORE;
+  // scalar block: per-class cost with the fusion / mispredict deltas
+  const float s_cf = (float)s_count;
+  const float fz = fu == 0 ? 1.0f : 0.0f;
+  const float eff_cost = pick4(sc, fu) * (1.0f - fuse_save * fz);
+  const float sc_time = s_cf * eff_cost * scalar_scale + s_cf * bmiss_extra;
+  // vector instruction: start-up is pipe depth + VRF read-port
+  // serialization (§3.2.4), then the kind's execute cycles
+  const float startup = pick4(pd, fu) + ceilf((float)n_src / read_ports);
+  const float vlf = (float)vl;
+  const float per_lane = ceilf(vlf / lanes);
   const float hops =
       ring_f > 0.0f ? lanes - 1.0f : ceil_log2(fmaxf(lanes, 2.0f));
+  float exec_c = 0.0f;
+  switch (kind) {
+    case VARITH: exec_c = per_lane * pick4(ec, fu); break;
+    case VLOAD:
+    case VSTORE:
+      exec_c = vector_access_cycles(vlf, mpat, fp_kb, line_elems, l1_kb,
+                                    l2_kb, mshrs, lat_l1, lat_l2, lat_dram,
+                                    line_cyc, mem_ports, dram_mlp,
+                                    prefetch_depth);
+      break;
+    case VSLIDE: exec_c = per_lane + 1.0f; break;
+    case VREDUCE: exec_c = per_lane + hops + pick4(pd, fu); break;
+    case VMASK_SCALAR: exec_c = per_lane + hops; break;
+    case VMOVE: exec_c = per_lane; break;
+    default: break;
+  }
+  const float sv_add = sc[0] * scalar_scale;
 
-  int n_rob = 0, n_phys = 0, n_aq = 0, n_mq = 0;
+  const bool vec = !is_scalar;
+  int w = 0;
+  if (is_scalar && dep != 0) w |= F_DEP;
+  if (vec) w |= F_VEC;
+  if (vec && is_mem) w |= F_MEM;
+  if (vec && !is_mem) w |= F_ARITH;
+  if (vec && (kind == VMASK_SCALAR || kind == VREDUCE)) w |= F_RES;
+  w |= (src1 >= 0 ? src1 & 31 : ZERO) << 7 |
+       (src2 >= 0 ? src2 & 31 : ZERO) << 15 |
+       (vec && dst >= 0 ? dst & 31 : DUMMY) << 23;
+
+  rec_f[o] = make_float4(is_scalar ? sc_time : sv_add, startup, exec_c,
+                         startup + exec_c);
+  rec_w[o] = w;
+}
+
+// ---- 2. the scan ---------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// N-byte cp.async of one piece of this thread's own record
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "n"(N)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// A float at byte offset `off` of this thread's column of st.
+__device__ __forceinline__ float& at(char* col, int off) {
+  return *reinterpret_cast<float*>(col + off);
+}
+
+// This lane's record stream: the ring of STAGES x K records (this thread's
+// column of it: ring row i at f[i * WARP], w[i * WARP]) and the row of the
+// next record to request.
+struct Stream {
+  float4* f;
+  int32_t* w;
+  const float4* src_f;   // the lane's next record in rec_f / rec_w
+  const int32_t* src_w;
+  int pos, per;
+  long long stride;      // B: one row of rec_f / rec_w
+};
+
+// Request tile `tile` (steps tile * K ..) in the lane's loop order; one
+// commit group a tile.  Rows past n_steps are copied too (they are valid
+// rows of the lane's body and are never read), so there is no branch.
+__device__ __forceinline__ void fetch_tile(Stream& s, int tile) {
+  const int s0 = (tile % STAGES) * K;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    cp_async<16>(s.f + (s0 + k) * WARP, s.src_f);
+    cp_async<4>(s.w + (s0 + k) * WARP, s.src_w);
+    const bool wrap = ++s.pos == s.per;
+    const long long step = wrap ? -(s.per - 1) * s.stride : s.stride;
+    s.pos = wrap ? 0 : s.pos;
+    s.src_f += step;
+    s.src_w += step;
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(WARP)
+engine_scan_kernel(const float4* __restrict__ rec_f,
+                   const int32_t* __restrict__ rec_w,
+                   const float* __restrict__ params,
+                   const int32_t* __restrict__ period,
+                   const int32_t* __restrict__ n_steps,
+                   const int32_t* __restrict__ ckpt, float* __restrict__ out,
+                   int B) {
+  __shared__ float st[N_SLOTS][WARP];
+  extern __shared__ float4 ring_raw[];
+  const int t = threadIdx.x;
+  const int b = blockIdx.x * WARP + t;
+  if (b >= B) return;  // no block-wide barrier below: safe to leave early
+  char* col = reinterpret_cast<char*>(&st[0][t]);
+  for (int s = 0; s < N_SLOTS; ++s) st[s][t] = 0.0f;
+
+  const float* p = params + (size_t)b * N_PARAMS;
+  const int phys_cap = (int)p[1] * ROW, rob_cap = (int)p[2] * ROW,
+            q_cap = (int)p[3] * ROW;   // capacities, in ring bytes
+  const float dispatch_lat = p[11];
+  const bool ooo = p[12] > 0.0f;
+
+  const int T = n_steps[b], ck = ckpt[b];
+  // vector, arithmetic, memory allocations so far, in ring bytes
+  int nv = 0, na = 0, nm = 0;
   float t_scalar = 0.0f, lane_free = 0.0f, vmu_free = 0.0f, last_aq = 0.0f,
         last_mq = 0.0f, last_commit = 0.0f, scalar_res = 0.0f,
         busy_lane = 0.0f, busy_vmu = 0.0f;
   float ck_time = 0.0f, ck_lane = 0.0f, ck_vmu = 0.0f;
+  if (T > 0) {   // a lane with no steps reads no record (P may be 0)
+    Stream in{ring_raw + t,
+              reinterpret_cast<int32_t*>(ring_raw + STAGES * K * WARP) + t,
+              rec_f + b, rec_w + b, 0, max(period[b], 1), B};
+    for (int j = 0; j < TILES_AHEAD; ++j) fetch_tile(in, j);
 
-  const int T = n_steps[b], per = period[b], ck = ckpt[b];
-  const size_t fs = (size_t)P * B;
-  Rec cur{};
-  if (T > 0) cur = load_rec(xi, xf, fs, (size_t)b);
-  int pos = per > 1 ? 1 : 0;  // row of the next record
-  for (int r = 0; r < T; ++r) {
-    Rec nxt = cur;
-    if (r + 1 < T) {
-      nxt = load_rec(xi, xf, fs, (size_t)pos * B + b);
-      if (++pos == per) pos = 0;
-    }
-    const Rec& x = cur;
+    // the current record and the five state reads it needs, read before
+    // the previous step's stores and forwarded (all zero at step 0)
+    cp_async_wait<TILES_AHEAD - 1>();  // tile 0 has landed
+    float4 xf = in.f[0];
+    int xw = in.w[0];
+    float r1 = 0.0f, r2 = 0.0f, rob_slot = 0.0f, phys_slot = 0.0f,
+          q_slot = 0.0f;
 
-    if (x.kind == SCALAR_BLOCK || x.kind == NOP) {
-      // scalar block: per-class cost with the fusion / mispredict deltas
-      const float t_wait = x.dep ? fmaxf(t_scalar, scalar_res) : t_scalar;
-      const float s_cf = (float)x.s_count;
-      const float fz = x.fu == 0 ? 1.0f : 0.0f;
-      const float eff_cost = pick4(sc, x.fu) * (1.0f - fuse_save * fz);
-      const float sc_time = s_cf * eff_cost * scalar_scale + s_cf * bmiss_extra;
-      t_scalar = t_wait + sc_time;
-    } else {
-      const bool is_mem = x.kind == VLOAD || x.kind == VSTORE;
-      const float t_scalar_v = t_scalar + sv_add;
-      // guarded ring reads: the slot frees when the entry written
-      // `capacity` allocations ago commits (issues, for the queues)
-      const float rob_slot =
-          n_rob >= rob_entries ? RING(ROB, (n_rob - rob_entries) % MAX_RING)
-                               : 0.0f;
-      const float phys_slot =
-          n_phys >= phys_extra ? RING(PHYS, (n_phys - phys_extra) % MAX_RING)
-                               : 0.0f;
-      const int q = is_mem ? MQ : AQ;
-      const int n_q = is_mem ? n_mq : n_aq;
-      const float q_slot =
-          n_q >= q_entries ? RING(q, (n_q - q_entries) % MAX_RING) : 0.0f;
-      const float dispatch = fmaxf(fmaxf(t_scalar_v + dispatch_lat, rob_slot),
+    // one step: record r (xf, xw) with its state reads; reads record r + 1
+    // (ring row rn) and its state reads before this step's stores
+    auto step = [&](int r, int rn) {
+      const bool vec = xw & F_VEC, mem = xw & F_MEM, arith = xw & F_ARITH;
+
+      // ---- the next record and its state reads, before this step's stores
+      const float4 nf = in.f[rn * WARP];
+      const int nw = in.w[rn * WARP];
+      const int nv2 = nv + (xw & F_VEC) * (ROW / F_VEC);
+      const int na2 = na + (xw & F_ARITH) * (ROW / F_ARITH);
+      const int nm2 = nm + (xw & F_MEM) * (ROW / F_MEM);
+      const bool nmem = nw & F_MEM;
+      const int ns1 = nw & (SLOT_BITS), ns2 = (nw >> 8) & SLOT_BITS;
+      // a ring slot read before its first write holds 0, as the
+      // reference's guarded read gives while count < capacity (<= 64)
+      const int i_rob = ROB0 * ROW + ((nv2 - rob_cap) & RING_MASK);
+      const int i_phys = ROB0 * ROW + ((nv2 - phys_cap) & RING_MASK);
+      const int i_q = nmem ? MQ0 * ROW + ((nm2 - q_cap) & RING_MASK)
+                           : AQ0 * ROW + ((na2 - q_cap) & RING_MASK);
+      const float l_r1 = at(col, ns1), l_r2 = at(col, ns2);
+      const float l_rob = at(col, i_rob), l_phys = at(col, i_phys),
+                  l_q = at(col, i_q);
+
+      // ---- this step: scalar clock, then the vector instruction's times
+      const float t_new =
+          fmaxf(t_scalar, (xw & F_DEP) ? scalar_res : -INFINITY) + xf.x;
+      const float dispatch = fmaxf(fmaxf(t_new + dispatch_lat, rob_slot),
                                    fmaxf(phys_slot, q_slot));
-      const float r1 = x.src1 >= 0 ? REG(x.src1) : 0.0f;
-      const float r2 = x.src2 >= 0 ? REG(x.src2) : 0.0f;
-      const float ops_ready = fmaxf(r1, r2);
-      const float fu_free = is_mem ? vmu_free : lane_free;
-      const float inorder = is_mem ? last_mq : last_aq;
-      float issue = fmaxf(fmaxf(dispatch, ops_ready), fu_free);
-      if (!ooo) issue = fmaxf(issue, inorder);
-
-      // start-up: pipe depth + VRF read-port serialization (§3.2.4)
-      const float startup = pick4(pd, x.fu) + ceilf((float)x.n_src / read_ports);
-      const float vlf = (float)x.vl;
-      const float per_lane = ceilf(vlf / lanes);
-      float exec_c;
-      switch (x.kind) {
-        case VARITH: exec_c = per_lane * pick4(ec, x.fu); break;
-        case VLOAD:
-        case VSTORE:
-          exec_c = vector_access_cycles(vlf, x.mpat, x.fp_kb, line_elems,
-                                        l1_kb, l2_kb, mshrs, lat_l1, lat_l2,
-                                        lat_dram, line_cyc, mem_ports,
-                                        dram_mlp, prefetch_depth);
-          break;
-        case VSLIDE: exec_c = per_lane + 1.0f; break;
-        case VREDUCE: exec_c = per_lane + hops + pick4(pd, x.fu); break;
-        case VMASK_SCALAR: exec_c = per_lane + hops; break;
-        default: exec_c = per_lane; break;  // VMOVE (kinds checked on host)
-      }
-      const float complete = issue + startup + exec_c;
+      const float inorder = ooo ? -INFINITY : (mem ? last_mq : last_aq);
+      const float fu_free = mem ? vmu_free : lane_free;
+      const float issue =
+          fmaxf(fmaxf(dispatch, inorder), fmaxf(fmaxf(r1, r2), fu_free));
+      const float complete = (issue + xf.y) + xf.z;
       const float commit = fmaxf(complete, last_commit);
 
-      t_scalar = t_scalar_v;
-      if (x.dst >= 0) REG(x.dst) = complete;
-      RING(ROB, n_rob % MAX_RING) = commit;
-      ++n_rob;
-      RING(PHYS, n_phys % MAX_RING) = commit;
-      ++n_phys;
-      RING(q, n_q % MAX_RING) = issue;
-      if (is_mem) {
-        ++n_mq;
-        vmu_free = complete;
-        last_mq = issue;
-        busy_vmu = busy_vmu + (startup + exec_c);
-      } else {
-        ++n_aq;
-        lane_free = complete;
-        last_aq = issue;
-        busy_lane = busy_lane + (startup + exec_c);
+      // ---- stores, and the same values forwarded into the next reads
+      const int w_reg = (xw >> 16) & SLOT_BITS;   // DUMMY without a dst
+      const int w_rob = ROB0 * ROW + (nv & RING_MASK);
+      const int w_q = mem ? MQ0 * ROW + (nm & RING_MASK)
+                          : AQ0 * ROW + (na & RING_MASK);
+      at(col, w_reg) = complete;
+      if (vec) {
+        at(col, w_rob) = commit;
+        at(col, w_q) = issue;
       }
-      last_commit = commit;
-      // vfirst/vpopc and reductions hand their result to the scalar core
-      if (x.kind == VMASK_SCALAR || x.kind == VREDUCE) scalar_res = complete;
+      r1 = ns1 == w_reg ? complete : l_r1;
+      r2 = ns2 == w_reg ? complete : l_r2;
+      rob_slot = vec && i_rob == w_rob ? commit : l_rob;
+      phys_slot = vec && i_phys == w_rob ? commit : l_phys;
+      q_slot = vec && i_q == w_q ? issue : l_q;
+
+      // ---- the carry
+      t_scalar = t_new;
+      lane_free = arith ? complete : lane_free;
+      vmu_free = mem ? complete : vmu_free;
+      last_aq = arith ? issue : last_aq;
+      last_mq = mem ? issue : last_mq;
+      last_commit = vec ? commit : last_commit;
+      scalar_res = (xw & F_RES) ? complete : scalar_res;
+      busy_lane = busy_lane + (arith ? xf.w : 0.0f);
+      busy_vmu = busy_vmu + (mem ? xf.w : 0.0f);
+      nv = nv2;
+      na = na2;
+      nm = nm2;
+      xf = nf;
+      xw = nw;
+      if (r + 1 == ck) {
+        ck_time = fmaxf(t_scalar, last_commit);
+        ck_lane = busy_lane;
+        ck_vmu = busy_vmu;
+      }
+    };
+
+    for (int j = 0; j * K < T; ++j) {
+      // tiles <= j + 1 have landed (the last step of tile j reads the
+      // first record of j + 1); the stage of tile j - 1 is free for j + 3
+      cp_async_wait<TILES_AHEAD - 2>();
+      fetch_tile(in, j + TILES_AHEAD);
+      const int r0 = j * K, s1 = (j % STAGES) * K + 1;
+      if (r0 + K <= T) {   // a whole tile: no end test a step
+#pragma unroll
+        for (int k = 0; k < K; ++k) step(r0 + k, (s1 + k) % (STAGES * K));
+      } else {
+        for (int k = 0; r0 + k < T; ++k)
+          step(r0 + k, (s1 + k) % (STAGES * K));
+      }
     }
-    if (r + 1 == ck) {
-      ck_time = fmaxf(t_scalar, last_commit);
-      ck_lane = busy_lane;
-      ck_vmu = busy_vmu;
-    }
-    cur = nxt;
+    cp_async_wait<0>();  // no copy outlives the block
   }
-#undef REG
-#undef RING
   out[0 * B + b] = fmaxf(t_scalar, last_commit);
   out[1 * B + b] = t_scalar;
   out[2 * B + b] = last_commit;
@@ -262,20 +434,45 @@ engine_scan_kernel(const int32_t* __restrict__ xi, const float* __restrict__ xf,
   out[7 * B + b] = ck_vmu;
 }
 
+constexpr int RING_BYTES = STAGES * K * WARP * (int)(sizeof(float4) +
+                                                     sizeof(int32_t));
+
 }  // namespace
 
 extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
-extern "C" int engine_scan_launch(const int32_t* xi, const float* xf,
-                                  const float* params, const float* consts,
-                                  const int32_t* period, const int32_t* n_steps,
-                                  const int32_t* ckpt, float* out, int P, int B,
-                                  void* stream) {
+// The pre-pass: rec_f float4 [P, B], rec_w int32 [P, B] from the trace
+// tables.  Launches on `stream`; returns cudaGetLastError() (0 on success).
+extern "C" int engine_prepass_launch(const int32_t* xi, const float* xf,
+                                     const float* params, const float* consts,
+                                     void* rec_f, int32_t* rec_w, int P,
+                                     int B, void* stream) {
+  const long long PB = (long long)P * B;
+  if (PB == 0) return 0;
+  const long long blocks = (PB + 255) / 256;
+  engine_prepass_kernel<<<(unsigned)blocks, 256, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      xi, xf, params, consts, static_cast<float4*>(rec_f), rec_w, PB, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The scan over the pre-pass's records into out float32 [8, B].  Launches
+// on `stream`; returns cudaGetLastError() (0 on success).
+extern "C" int engine_steps_launch(const void* rec_f, const int32_t* rec_w,
+                                   const float* params, const int32_t* period,
+                                   const int32_t* n_steps,
+                                   const int32_t* ckpt, float* out, int B,
+                                   void* stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      engine_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      RING_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (B + WARP - 1) / WARP;
-  engine_scan_kernel<<<blocks, WARP, 0, static_cast<cudaStream_t>(stream)>>>(
-      xi, xf, params, consts, period, n_steps, ckpt, out, P, B);
+  engine_scan_kernel<<<blocks, WARP, RING_BYTES,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(rec_f), rec_w, params, period, n_steps, ckpt,
+      out, B);
   return static_cast<int>(cudaGetLastError());
 }

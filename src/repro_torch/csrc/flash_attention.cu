@@ -3,8 +3,9 @@
 // Replaces the Pallas kernel repro/kernels/flash_attention.py:65
 // (flash_attention, pallas_call at :75): softmax(q k^T / sqrt(D)) v over
 // q, k, v [B, S, H, D], causal or not, with an online softmax over key
-// tiles so the [S, S] scores never reach device memory.  Inputs float32 or
-// bfloat16, all sums float32, the output in the inputs' type.
+// tiles so the [S, S] scores never reach device memory.  Inputs float32,
+// bfloat16 or float16, all sums float32, the output in the inputs' type.
+// Head widths 1..128; csrc/flash_attention_wide.cu takes 129..256.
 //
 // Bound on an H100: operations, 4 * D flops (q.k and p.v) per (query, key)
 // pair the mask keeps, on the tensor cores: 17.2 GFLOP causal at B 4, H 8,
@@ -34,15 +35,15 @@
 // ~64 branch regions on every tile), exp2 is one MUFU.EX2 with the scale
 // folded into an FFMA, and the max and sum run in four partials a row.
 //
-// bfloat16: S = Q K^T and O += P V on wgmma (m64n128k16 and m64n64k16, f32
-// sums), the two consumer warpgroups taking turns to issue them (FA3's
-// ping-pong, named barriers 1 and 2) so that one's softmax overlaps the
-// other's products.  Tiles sit in shared memory as 64-column panels of
-// 128-byte rows, 128-byte swizzled; Q and K are K-major operands, V the
-// MN-major B operand of P V in its natural [keys, D] layout (transpose
-// bit), so no transposed copy is made.  P is rounded to bf16 in registers
-// and is wgmma's register A operand (the plain version rounds the
-// probabilities to q's type too).
+// bfloat16 and float16 (one kernel, instantiated for each 16-bit type): S = Q
+// K^T and O += P V on wgmma (m64n128k16 and m64n64k16, f32 sums), the two
+// consumer warpgroups taking turns to issue them (FA3's ping-pong, named
+// barriers 1 and 2) so that one's softmax overlaps the other's products.  Tiles
+// sit in shared memory as 64-column panels of 128-byte rows, 128-byte swizzled;
+// Q and K are K-major operands, V the MN-major B operand of P V in its natural
+// [keys, D] layout (transpose bit), so no transposed copy is made.  P is
+// rounded to the inputs' 16-bit type in registers and is wgmma's register A
+// operand (the plain version rounds the probabilities to q's type too).
 // The tiles come by TMA through a 4-D tensor map over [B, S, H, D] (box 64
 // x 1 x 128 x 1; its out-of-bounds zero fill covers a ragged tile and D <
 // 64 or < 128) when the rows are 16-byte aligned (D % 8 == 0); otherwise
@@ -67,17 +68,19 @@
 
 #include <cuda.h>   // CUtensorMap and its enums (the encoder: see encoder())
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
 constexpr int BQ = 128;              // query rows a block
 constexpr int THREADS = 384;         // warpgroup 0 loads, 1 and 2 compute
-constexpr int BK16 = 128;            // key rows a tile, bfloat16
+constexpr int BK16 = 128;            // key rows a tile, 16-bit types
 constexpr int BK32 = 64;             // key rows a tile, float32
 constexpr int LOADER_REGS = 40, CONSUMER_REGS = 232;
 constexpr float NEG_INF = -1e30f;    // flash_attention.py:17
@@ -247,57 +250,75 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// d[64] (+)= A(smem desc) * B(smem desc), m64n128k16, bf16 in, f32 sums; both
-// operands K-major.  `acc` 0 overwrites d.
+// d[64] (+)= A(smem desc) * B(smem desc), m64n128k16, 16-bit in (F16:
+// float16, else bfloat16), f32 sums; both operands K-major.  `acc` 0
+// overwrites d.
+#define WGMMA_SS_N128(TY)                                                      \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\n"                                                     \
+      "setp.ne.b32 p, %66, 0;\n"                                               \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "             \
+      "{"                                                                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                       \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                 \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                               \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                               \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                               \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                               \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                               \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                                 \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),       \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),       \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),       \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),       \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),       \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                     \
+      : "l"(da), "l"(db), "r"(acc))
+
+template <bool F16>
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
+  if constexpr (F16)
+    WGMMA_SS_N128("f16");
+  else
+    WGMMA_SS_N128("bf16");
 }
 
-// d[32] += A(registers, bf16x2 a[4]) * B(smem desc), m64n64k16; B
+// d[32] += A(registers, 16-bit x2 a[4]) * B(smem desc), m64n64k16; B
 // MN-major (transpose bit set).
+#define WGMMA_RS_N64_TB(TY)                                                    \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\n"                                                     \
+      "setp.ne.b32 p, %37, 0;\n"                                               \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "              \
+      "{"                                                                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                       \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                 \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                               \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                                 \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+        "+f"(d[30]), "+f"(d[31])                                               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <bool F16>
 __device__ __forceinline__ void wgmma_rs_n64_tb(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (F16)
+    WGMMA_RS_N64_TB("f16");
+  else
+    WGMMA_RS_N64_TB("bf16");
 }
 
 // ---- 3xTF32 -----------------------------------------------------------------
@@ -363,7 +384,7 @@ __device__ __forceinline__ void mma_3xtf32(float* d, const SplitA& a,
 
 // ---- shared-memory layouts -------------------------------------------------
 
-// bfloat16: Q [NP panels][BQ rows][128 B], then STAGES K tiles and STAGES V
+// 16-bit types: Q [NP panels][BQ rows][128 B], then STAGES K tiles and STAGES V
 // tiles [NP panels][BK16 rows][128 B], then the barriers: Q full, K full x
 // STAGES, V full x STAGES, empty x STAGES.
 template <int NP>
@@ -400,7 +421,7 @@ __device__ __forceinline__ int swz(int r, int c) {
          (cc & 7) * 2;
 }
 
-// Rows [row0, row0 + R) of one bfloat16 head (element `base` is (b, 0, h, 0),
+// Rows [row0, row0 + R) of one 16-bit head (element `base` is (b, 0, h, 0),
 // rows `rstride` apart) into the swizzled tile; rows past S and columns
 // past D are zero.  LOAD_CP4 needs D even and 4-byte aligned rows.
 template <int NP, int R>
@@ -601,6 +622,16 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* row, int col, int D,
   }
 }
 template <>
+__device__ __forceinline__ void store_pair(__half* row, int col, int D,
+                                           float a, float b) {
+  if ((D & 1) == 0 && col + 1 < D) {
+    *reinterpret_cast<__half2*>(row + col) = __floats2half2_rn(a, b);
+  } else {
+    if (col < D) row[col] = __float2half(a);
+    if (col + 1 < D) row[col + 1] = __float2half(b);
+  }
+}
+template <>
 __device__ __forceinline__ void store_pair(float* row, int col, int D, float a,
                                            float b) {
   if ((D & 1) == 0 && col + 1 < D) {
@@ -630,12 +661,25 @@ __device__ __forceinline__ void store_rows(void* out, int S, int D, Tile tl,
   }
 }
 
-template <int NP>
+// Two 16-bit values rounded to T16 (bfloat16 or float16) as one register.
+__device__ __forceinline__ uint32_t pack2(float a, float b, __nv_bfloat16*) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+__device__ __forceinline__ uint32_t pack2(float a, float b, __half*) {
+  const __half2 x = __floats2half2_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// The 16-bit kernel: F16 float16, else bfloat16 (the loads move bytes and
+// are the same for both).
+template <int NP, bool F16>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const Params p) {
   using L = Bf16Smem<NP>;
+  using T16 = typename std::conditional<F16, __half, __nv_bfloat16>::type;
   constexpr int ST = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
@@ -727,7 +771,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     for (int pn = 0; pn < NP; ++pn)
 #pragma unroll
       for (int j = 0; j < 4; ++j)   // D in k16 steps of 32 bytes a panel
-        wgmma_ss_n128(sc, dq + (pn * L::PANEL_Q + 32 * j) / 16,
+        wgmma_ss_n128<F16>(sc, dq + (pn * L::PANEL_Q + 32 * j) / 16,
                       dks + (pn * L::PANEL_KV + 32 * j) / 16, pn + j > 0);
   };
   auto issue_pv = [&](int it) {   // O += P V, V's [keys][D] panel MN-major
@@ -736,7 +780,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
       for (int pn = 0; pn < NP; ++pn)
-        wgmma_rs_n64_tb(o[pn], pa[kk],
+        wgmma_rs_n64_tb<F16>(o[pn], pa[kk],
                         dvs + (pn * L::PANEL_KV + 2048 * kk) / 16);
   };
   auto softmax = [&](int it) {
@@ -761,8 +805,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int i = 4 * (2 * kk + h2) + 2 * r;
-          const __nv_bfloat162 x = __floats2bfloat162_rn(sc[i], sc[i + 1]);
-          pa[kk][2 * h2 + r] = *reinterpret_cast<const uint32_t*>(&x);
+          pa[kk][2 * h2 + r] =
+              pack2(sc[i], sc[i + 1], static_cast<T16*>(nullptr));
         }
   };
 
@@ -797,7 +841,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   }
 #pragma unroll
   for (int pn = 0; pn < NP; ++pn)
-    store_rows<__nv_bfloat16, 32>(p.o, S, p.D, tl, o[pn], 64 * pn, row, t, l);
+    store_rows<T16, 32>(p.o, S, p.D, tl, o[pn], 64 * pn, row, t, l);
 }
 
 template <int NP>
@@ -943,9 +987,10 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// The 4-D map over a bfloat16 [B, S, H, D] tensor: dims innermost first
+// The 4-D map over a 16-bit [B, S, H, D] tensor: dims innermost first
 // (D, H, S, B), box (64, 1, 128, 1), 128-byte swizzle, zero fill.
-int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D) {
+int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+             bool f16) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr)
     return static_cast<int>(cudaErrorSharedObjectInitFailed);
@@ -956,7 +1001,9 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D) {
   const cuuint32_t box[4] = {64, 1, BQ, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      map,
+      f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -983,9 +1030,9 @@ extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, k, v, o contiguous [b, s, h, d] (1 <= d <= 128), float32 or
-// (`is_bf16`) bfloat16; `scale` multiplies the scores.  `load` is how the
-// tiles are loaded: bfloat16 0 (TMA: d % 8 == 0 and 16-byte aligned
+// q, k, v, o contiguous [b, s, h, d] (1 <= d <= 128), `dtype` 0 float32, 1
+// bfloat16 or 2 float16; `scale` multiplies the scores.  `load` is how the
+// tiles are loaded: 16-bit types 0 (TMA: d % 8 == 0 and 16-byte aligned
 // pointers), 4 (cp.async: d even, 4-byte aligned) or 2 (plain loads);
 // float32 16 (cp.async: d % 4 == 0, 16-byte aligned) or 4.  Launches on
 // `stream`; returns cudaGetLastError() (0 on success), or
@@ -993,9 +1040,10 @@ extern "C" const char* repro_cuda_error_string(int code) {
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int b, int s,
                                       int h, int d, float scale, int causal,
-                                      int is_bf16, int load, void* stream) {
+                                      int dtype, int load, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long kv_head = 2ll * s * d * (is_bf16 ? 2 : 4);
+  const bool h16 = dtype == 1 || dtype == 2, f16 = dtype == 2;
+  const long long kv_head = 2ll * s * d * (h16 ? 2 : 4);
   const int group = (int)std::max(
       1ll, std::min((long long)b * h, (long long)(L2_GROUP_BYTES / kv_head)));
   const Params p{q, k, v, o, s, h, d, scale * LOG2E, causal, load, b * h,
@@ -1008,8 +1056,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return aligned(q, n) && aligned(k, n) && aligned(v, n);
   };
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (d < 1 || d > 128) return bad;
-  if (is_bf16) {
+  if (d < 1 || d > 128 || dtype < 0 || dtype > 2) return bad;
+  if (h16) {
     if ((load == LOAD_TMA && (d % 8 || !all_aligned(16))) ||
         (load == LOAD_CP4 && (d % 2 || !all_aligned(4))) ||
         (load != LOAD_TMA && load != LOAD_CP4 && load != LOAD_LD2))
@@ -1018,15 +1066,22 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     if (load == LOAD_TMA) {
       const void* ptrs[3] = {q, k, v};
       for (int i = 0; i < 3; ++i) {
-        const int err = make_map(&maps[i], ptrs[i], b, s, h, d);
+        const int err = make_map(&maps[i], ptrs[i], b, s, h, d, f16);
         if (err) return err;
       }
     }
-    if (d <= 64)
-      return launch(flash_bf16_kernel<1>, Bf16Smem<1>::BYTES, grid, st,
+    if (f16) {
+      if (d <= 64)
+        return launch(flash_h16_kernel<1, true>, Bf16Smem<1>::BYTES, grid, st,
+                      maps[0], maps[1], maps[2], p);
+      return launch(flash_h16_kernel<2, true>, Bf16Smem<2>::BYTES, grid, st,
                     maps[0], maps[1], maps[2], p);
-    return launch(flash_bf16_kernel<2>, Bf16Smem<2>::BYTES, grid, st, maps[0],
-                  maps[1], maps[2], p);
+    }
+    if (d <= 64)
+      return launch(flash_h16_kernel<1, false>, Bf16Smem<1>::BYTES, grid, st,
+                    maps[0], maps[1], maps[2], p);
+    return launch(flash_h16_kernel<2, false>, Bf16Smem<2>::BYTES, grid, st,
+                  maps[0], maps[1], maps[2], p);
   }
   if ((load == LOAD_CP16 && (d % 4 || !all_aligned(16))) ||
       (load != LOAD_CP16 && load != LOAD_CP4))

@@ -17,17 +17,29 @@
 //
 // Built with -fmad=false and summed in the plain version's order
 // (((((c + l) + r) + u) + d) * 0.2f, repro_torch/kernels/ref.py:jacobi2d):
-// the sweep equals its plain version bit for bit.
+// the sweep equals its plain version bit for bit.  A bfloat16 grid is
+// widened as it is loaded, summed in float32 in the same order and rounded
+// once, on the store (as the plain version does); a held point is copied.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int TX = 32, TY = 8, ROWS = 4;   // a block: 32 cols x 32 rows
 
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);   // round to nearest even, as torch's cast
+}
+
+template <typename T>
 __global__ void __launch_bounds__(TX * TY)
-jacobi2d_kernel(const float* __restrict__ a, float* __restrict__ out, int R,
-                int C) {
+jacobi2d_kernel(const T* __restrict__ a, T* __restrict__ out, int R, int C) {
   const int c = blockIdx.x * TX + threadIdx.x;
   const int r0 = (blockIdx.y * TY + threadIdx.y) * ROWS;
   if (c >= C) return;
@@ -36,7 +48,7 @@ jacobi2d_kernel(const float* __restrict__ a, float* __restrict__ out, int R,
 #pragma unroll
   for (int i = 0; i < ROWS + 2; ++i) {
     const int r = r0 - 1 + i;
-    col[i] = (r >= 0 && r < R) ? __ldg(a + (long long)r * C + c) : 0.0f;
+    col[i] = (r >= 0 && r < R) ? to_f(__ldg(a + (long long)r * C + c)) : 0.0f;
   }
   const bool edge_col = (c == 0 || c == C - 1);
 #pragma unroll
@@ -44,12 +56,14 @@ jacobi2d_kernel(const float* __restrict__ a, float* __restrict__ out, int R,
     const int r = r0 + i;
     if (r >= R) break;
     const long long at = (long long)r * C + c;
-    float v = col[i + 1];
     if (!edge_col && r > 0 && r < R - 1) {
-      const float left = __ldg(a + at - 1), right = __ldg(a + at + 1);
-      v = 0.2f * ((((col[i + 1] + left) + right) + col[i]) + col[i + 2]);
+      const float left = to_f(__ldg(a + at - 1));
+      const float right = to_f(__ldg(a + at + 1));
+      store(out + at,
+            0.2f * ((((col[i + 1] + left) + right) + col[i]) + col[i + 2]));
+    } else {
+      out[at] = a[at];
     }
-    out[at] = v;
   }
 }
 
@@ -59,14 +73,21 @@ extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// One sweep of the [r, c] grid `a` into `out` (distinct buffers).  Launches
-// on `stream`; returns cudaGetLastError() (0 on success).
-extern "C" int jacobi2d_launch(const float* a, float* out, int r, int c,
-                               void* stream) {
+// One sweep of the [r, c] grid `a` into `out` (distinct buffers), float32
+// (`is_bf16` 0) or bfloat16 (1).  Launches on `stream`; returns
+// cudaGetLastError() (0 on success).
+extern "C" int jacobi2d_launch(const void* a, void* out, int r, int c,
+                               int is_bf16, void* stream) {
   const dim3 block(TX, TY);
   const dim3 grid((unsigned)((c + TX - 1) / TX),
                   (unsigned)((r + TY * ROWS - 1) / (TY * ROWS)));
-  jacobi2d_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, out, r, c);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    jacobi2d_kernel<<<grid, block, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(a), static_cast<__nv_bfloat16*>(out),
+        r, c);
+  else
+    jacobi2d_kernel<<<grid, block, 0, st>>>(static_cast<const float*>(a),
+                                            static_cast<float*>(out), r, c);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,10 +18,10 @@
 // ~4.1 ms at the float32 peak, against ~4.9 GB moved once, ~1.5 ms.  This
 // kernel does ~482 G (below), ~7.2 ms at the peak.
 //
-// Design.  One 256-thread block per (b, h) walks the sequence in order, in
-// tiles of L = 64 steps, with the head's state [P, N] in shared memory in
-// float32 for the whole walk.  The result depends on the chunk length only
-// through rounding, so the block uses its own tile length: a 256-step W
+// Design.  One 256-thread block per (b, h, P-slice) walks the sequence in
+// order, in tiles of L = 64 steps, with the head's state [P, N] in shared
+// memory in float32 for the whole walk.  The result depends on the chunk length
+// only through rounding, so the block uses its own tile length: a 256-step W
 // block alone would take 256 KB of shared memory.  Per tile: the running sum
 // of dt A (two warp scans), x dt, and B and C transposed to [N][L + 1] (the
 // padding keeps the transposing stores and the reads off bank conflicts),
@@ -43,6 +43,10 @@
 // 64 x 64 square, W (x dt) 2 L^2 P, C state and the state update 2 L P N
 // each).  Steps past S are zero (dt = 0,
 // x = 0, B = C = 0), which leaves the state and the running sum unchanged.
+// Each p column of the state (state[n][p]) is independent of the others, so
+// a head wider than MAX_PS = 128 is split into ceil(P / 128) slices of
+// equal width, one block each (C B^T is formed once a slice); a slice of at
+// most 128 columns keeps a thread's tile at 4 x 8.
 // A head-group block sharing C B^T, or a chunk-parallel pass with a
 // sequential state pass and tensor-core products, is later work.
 
@@ -59,6 +63,7 @@ constexpr int L = 64;        // steps per tile
 constexpr int LP = L + 1;    // padded row of the transposed B, C and of W
 constexpr int ROWS = 4;      // rows of a thread's register tile (t or n)
 constexpr int LOADS = 16;    // global loads a thread keeps in flight
+constexpr int MAX_PS = 128;  // columns of the state a block holds
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -78,20 +83,31 @@ template <> __device__ __forceinline__ __half from_f<__half>(float v) {
   return __float2half(v);
 }
 
-// Shared-memory floats of one block: state [N][P], x dt [L][P], B^T and C^T
-// [N][LP], W [L][LP], and four [L] vectors (running sum, dt, exp(seg),
-// exp(seg_end - seg)).
+// The width of one block's P-slice: P split into ceil(P / MAX_PS) equal
+// slices.
+inline int slice_width(int P) {
+  const int n = (P + MAX_PS - 1) / MAX_PS;
+  return (P + n - 1) / n;
+}
+
+// Shared-memory floats of one block holding P columns of the state: state
+// [N][P], x dt [L][P], B^T and C^T [N][LP], W [L][LP], and four [L] vectors
+// (running sum, dt, exp(seg), exp(seg_end - seg)).
 __host__ __device__ inline long long smem_floats(int P, int N) {
   return (long long)N * P + (long long)L * P + 2LL * N * LP +
          (long long)L * LP + 4LL * L;
 }
 
-template <typename T, int PJ>   // columns of a thread's tile: P <= 16 * PJ
+// columns of a thread's tile: a slice of PS <= 16 * PJ columns of the head's
+// Ptot; this block's slice starts at column PS * blockIdx.y
+template <typename T, int PJ>
 __global__ void __launch_bounds__(THREADS)
 ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ A, const float* __restrict__ Bm,
            const float* __restrict__ Cm, T* __restrict__ y, int S, int H,
-           int P, int N) {
+           int Ptot, int PS, int N) {
+  const int p0 = PS * blockIdx.y;
+  const int P = min(PS, Ptot - p0);   // this block's columns
   extern __shared__ float smem[];
   float* st = smem;                      // [N][P]
   float* xs = st + (long long)N * P;     // [L][P]
@@ -140,7 +156,8 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int k = 0; k < LOADS; ++k) {
         const int i = base + k * THREADS + tid, t = i / P;
         r[k] = i < L * P && t < nt
-                   ? to_f(x[((row0 + t) * H + h) * P + i % P]) : 0.0f;
+                   ? to_f(x[((row0 + t) * H + h) * Ptot + p0 + i % P])
+                   : 0.0f;
       }
 #pragma unroll
       for (int k = 0; k < LOADS; ++k) {
@@ -241,7 +258,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int i = 0; i < ROWS; ++i) {
         const int t = ty + 16 * i;
         if (t >= nt) continue;
-        T* yrow = y + ((row0 + t) * H + h) * P;
+        T* yrow = y + ((row0 + t) * H + h) * Ptot + p0;
 #pragma unroll
         for (int j = 0; j < PJ; ++j) {
           const int p = tx + 16 * j;
@@ -307,12 +324,15 @@ int launch_t(const void* x, const float* dt, const float* A, const float* B,
              const float* C, void* y, int batch, int S, int H, int P, int N,
              cudaStream_t stream) {
   auto kern = ssd_kernel<T, PJ>;
-  const size_t bytes = sizeof(float) * (size_t)smem_floats(P, N);
+  const int PS = slice_width(P);
+  const size_t bytes = sizeof(float) * (size_t)smem_floats(PS, N);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<batch * H, THREADS, bytes, stream>>>(
-      static_cast<const T*>(x), dt, A, B, C, static_cast<T*>(y), S, H, P, N);
+  const dim3 grid((unsigned)(batch * H), (unsigned)((P + PS - 1) / PS));
+  kern<<<grid, THREADS, bytes, stream>>>(static_cast<const T*>(x), dt, A, B,
+                                         C, static_cast<T*>(y), S, H, P, PS,
+                                         N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -320,11 +340,12 @@ template <typename T>
 int launch_p(const void* x, const float* dt, const float* A, const float* B,
              const float* C, void* y, int batch, int S, int H, int P, int N,
              cudaStream_t stream) {
-  if (P <= 16)
+  const int PS = slice_width(P);
+  if (PS <= 16)
     return launch_t<T, 1>(x, dt, A, B, C, y, batch, S, H, P, N, stream);
-  if (P <= 32)
+  if (PS <= 32)
     return launch_t<T, 2>(x, dt, A, B, C, y, batch, S, H, P, N, stream);
-  if (P <= 64)
+  if (PS <= 64)
     return launch_t<T, 4>(x, dt, A, B, C, y, batch, S, H, P, N, stream);
   return launch_t<T, 8>(x, dt, A, B, C, y, batch, S, H, P, N, stream);
 }
@@ -335,13 +356,14 @@ extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Bytes of dynamic shared memory one block takes at (P, N).
+// Bytes of dynamic shared memory one block takes at (P, N): its P-slice's.
 extern "C" long long ssd_scan_smem_bytes(int P, int N) {
-  return (long long)sizeof(float) * smem_floats(P, N);
+  return (long long)sizeof(float) * smem_floats(slice_width(P), N);
 }
 
 // x and y: float32 (dtype 0), bfloat16 (1) or float16 (2); the rest float32.
-// P <= 128.  Launches on `stream`; returns a CUDA error code (0 on success).
+// Any P >= 1, in slices of <= 128 columns.  Launches on `stream`; returns a
+// CUDA error code (0 on success).
 extern "C" int ssd_scan_launch(const void* x, const float* dt, const float* A,
                                const float* B, const float* C, void* y,
                                int batch, int S, int H, int P, int N,

@@ -1,6 +1,6 @@
 // Streamcluster dist for Hopper (sm_90a), plain C interface: pairwise
 // squared euclidean distances max(|p|^2 + |c|^2 - 2 p.c, 0), [M,D] x [N,D]
-// -> [M,N] float32, inputs float32 or bfloat16.
+// -> [M,N] float32, inputs float32, bfloat16 or float16.
 //
 // Replaces the Pallas kernel repro/kernels/streamcluster.py:29
 // (streamcluster_dist, pallas_call at :36), which put p.c on the TPU's
@@ -10,18 +10,18 @@
 // The tensor cores are not used: TF32 keeps ~3 decimal digits and misses
 // the reference's 2e-4 bar, so this is a float32 SIMT product.
 //
-// Design: a row-norm pre-pass (one warp per row, into a scratch [M+N]
-// buffer the wrapper allocates), then a tiled product whose epilogue forms
-// the distance.  A 256-thread block owns a 128 x 128 output tile and walks
-// D in steps of 16: each step stages the two [128,16] slices in shared
-// memory k-major (the next step's slices are loaded into registers while
-// this one is computed), and each thread accumulates an 8 x 8 sub-tile in
-// registers from float4 reads of the staged slices.  bfloat16 inputs are
-// widened to float32 as they are loaded; all sums are float32.  Ragged M, N
-// and D are masked: out-of-range rows and columns load as 0 and are not
-// stored.
+// Design: a row-norm pre-pass (one warp per row, into a scratch [M+N] buffer
+// the wrapper allocates), then a tiled product whose epilogue forms the
+// distance.  A 256-thread block owns a 128 x 128 output tile and walks D in
+// steps of 16: each step stages the two [128,16] slices in shared memory
+// k-major (the next step's slices are loaded into registers while this one is
+// computed), and each thread accumulates an 8 x 8 sub-tile in registers from
+// float4 reads of the staged slices.  bfloat16 and float16 inputs are widened
+// to float32 as they are loaded; all sums are float32.  Ragged M, N and D are
+// masked: out-of-range rows and columns load as 0 and are not stored.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,6 +35,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 
 template <typename T>
 __global__ void row_norms_kernel(const T* __restrict__ x,
@@ -179,17 +180,20 @@ extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// `norms` is scratch of m + n floats.  `is_bf16` selects the input type
-// (0: float32, 1: bfloat16).  Launches on `stream`; returns
+// `norms` is scratch of m + n floats.  `dtype` selects the input type
+// (0: float32, 1: bfloat16, 2: float16).  Launches on `stream`; returns
 // cudaGetLastError() (0 on success).
 extern "C" int streamcluster_dist_launch(const void* p, const void* c,
                                          float* norms, float* out, int m,
-                                         int n, int d, int is_bf16,
+                                         int n, int d, int dtype,
                                          void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
+  if (dtype == 1)
     return launch(static_cast<const __nv_bfloat16*>(p),
                   static_cast<const __nv_bfloat16*>(c), norms, out, m, n, d, s);
+  if (dtype == 2)
+    return launch(static_cast<const __half*>(p), static_cast<const __half*>(c),
+                  norms, out, m, n, d, s);
   return launch(static_cast<const float*>(p), static_cast<const float*>(c),
                 norms, out, m, n, d, s);
 }

@@ -1,10 +1,15 @@
-"""The vector-engine timing recurrence over B lanes: CUDA kernel + plain version.
+"""The vector-engine timing recurrence over B lanes: CUDA kernels + plain
+version.
 
 Replaces ``repro/core/engine.py:198-338`` (``_make_step`` with
 ``collect=False``, run under ``lax.scan`` and vmapped over configs, with
 ``repro/core/memory.py:150-165`` inlined).  One lane is one (trace, config)
-pair; the CUDA kernel (``csrc/engine_scan.cu``) gives each lane one thread
-and runs the whole scan in one launch.
+pair.  On the card (``csrc/engine_scan.cu``) a call is two launches: a
+pre-pass, one thread per (record row, lane), turns the trace tables into
+one 20-byte record per (row, lane) (``prepass``: the carry-free terms of
+``_record_terms`` and the flag bits); then the scan gives each lane one
+thread, streams its records through shared memory and runs the whole scan
+(``steps``).  ``scan`` runs both and counts one launch a call.
 
 Inputs (all on one device, contiguous):
 
@@ -27,9 +32,10 @@ Output: float32 ``[8, B]`` in ``OUT_FIELDS`` order — the reference's five
 Bound on an H100: the scan is latency-bound.  Each lane is one serial chain
 of ``n_steps`` dependent steps, and a study has a few hundred lanes where
 the card holds ~270k threads, so neither bytes (the record table is a few
-MB, L2-resident) nor operations (~50 float ops per step) come near their
-peaks; the time is ``max(n_steps)`` times the critical-path latency of one
-step.  ``PERF.md`` records how that latency was estimated.
+MB, L2-resident) nor operations come near their peaks; the bound is
+``max(n_steps)`` times the dependent float operations of one step at the
+FP32 latency.  The kernel's step is longer than that chain: one warp a
+scheduler issues its ~110 instructions (``csrc/engine_scan.cu``).
 """
 from __future__ import annotations
 
@@ -54,16 +60,24 @@ _M_DEP, _M_SCALAR, _M_MEM, _M_SRC, _M_WREG, _M_RES, _M_RING = 0, 1, 2, 3, 5, 6, 
 # the four ring-write masks (rob, phys, arith queue, memory queue) are
 # columns _M_RING.._M_RING+3: vec, vec, vec & ~mem, vec & mem
 
+# the flag bits of the pre-pass's record word (csrc/engine_scan.cu); the
+# state slots read for src1 and src2 (the register, or ZERO_SLOT when
+# absent) and written for dst (the register of a vector instruction, else
+# DUMMY_SLOT) follow from bits 7, 15 and 23, each times 128 (the byte
+# offset of the slot's row in the kernel's shared memory)
+F_DEP, F_VEC, F_MEM, F_ARITH, F_RES = 1, 2, 4, 8, 16
+ZERO_SLOT, DUMMY_SLOT = N_REGS, N_REGS + 1
 
-def _check_args(xi, xf, params, consts, period, n_steps, ckpt):
+
+def _check_args(xi, xf, params, consts, *lanes):
+    """The trace tables, and the three lane vectors ``period, n_steps,
+    ckpt`` where they are given."""
     P, B = xf.shape if xf.dim() == 2 else (-1, -1)
     want = ((xi, torch.int32, (len(INT_FIELDS), P, B)),
             (xf, torch.float32, (P, B)),
             (params, torch.float32, (B, N_PARAMS)),
             (consts, torch.float32, (N_CONSTS,)),
-            (period, torch.int32, (B,)),
-            (n_steps, torch.int32, (B,)),
-            (ckpt, torch.int32, (B,)))
+            *((t, torch.int32, (B,)) for t in lanes))
     for name, (t, dtype, shape) in zip(
             ("xi", "xf", "params", "consts", "period", "n_steps", "ckpt"),
             want):
@@ -227,36 +241,110 @@ def scan_plain(xi, xf, params, consts, period, n_steps, ckpt):
     return out
 
 
+def prepass_plain(xi, xf, params, consts):
+    """The pre-pass's records from ``_record_terms``: float32 ``[P, B, 4]``
+    (the scalar-clock add — the block's cost for a scalar record, the issue
+    cost ``SCALAR_CYCLES[0] * scalar_scale`` for a vector one — start-up,
+    execute cycles, their sum) and the int32 ``[P, B]`` word of flag bits
+    and state slots.  The kernel's pre-pass equals it bit for bit."""
+    _check_args(xi, xf, params, consts)
+    F, M, _ = _record_terms(xi, xf, params, consts)
+    sc_time, startup, exec_c = F[..., 0], F[..., 1], F[..., 2]
+    sv_add = consts[0] * params[:, 10]
+    rec_f = torch.stack([torch.where(M[..., _M_SCALAR], sc_time, sv_add),
+                         startup, exec_c, startup + exec_c], -1)
+    src1, src2, dst = xi[4], xi[5], xi[6]
+    vec = ~M[..., _M_SCALAR]
+    w = torch.zeros_like(src1)
+    for bit, m in ((F_DEP, M[..., _M_DEP] & M[..., _M_SCALAR]), (F_VEC, vec),
+                   (F_MEM, M[..., _M_MEM] & vec),
+                   (F_ARITH, vec & ~M[..., _M_MEM]), (F_RES, M[..., _M_RES])):
+        w |= m.to(torch.int32) * bit
+    w |= torch.where(src1 >= 0, src1 & 31, ZERO_SLOT) << 7
+    w |= torch.where(src2 >= 0, src2 & 31, ZERO_SLOT) << 15
+    w |= torch.where(M[..., _M_WREG], dst & 31, DUMMY_SLOT) << 23
+    return rec_f.contiguous(), w.contiguous()
+
+
 def _lib():
     lib = _build.load("engine_scan")
     if not getattr(lib, "_repro_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.engine_scan_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, p]
-        lib.engine_scan_launch.restype = ctypes.c_int
+        lib.engine_prepass_launch.argtypes = [p, p, p, p, p, p, i, i, p]
+        lib.engine_prepass_launch.restype = ctypes.c_int
+        lib.engine_steps_launch.argtypes = [p, p, p, p, p, p, p, i, p]
+        lib.engine_steps_launch.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
 
 
+def _cuda_device(xf):
+    if xf.device.type != "cuda":
+        raise ValueError(f"engine_scan: the kernels take CUDA tensors, got "
+                         f"{xf.device}")
+
+
+def prepass(xi, xf, params, consts):
+    """The pre-pass kernel alone: ``(rec_f, rec_w)`` as ``prepass_plain``
+    gives them, for CUDA operands."""
+    _check_args(xi, xf, params, consts)
+    _cuda_device(xf)
+    P, B = xf.shape
+    rec_f = torch.empty(P, B, 4, dtype=torch.float32, device=xf.device)
+    rec_w = torch.empty(P, B, dtype=torch.int32, device=xf.device)
+    lib = _lib()
+    with torch.cuda.device(xf.device):
+        code = lib.engine_prepass_launch(
+            xi.data_ptr(), xf.data_ptr(), params.data_ptr(), consts.data_ptr(),
+            rec_f.data_ptr(), rec_w.data_ptr(), P, B,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code, "engine_scan prepass")
+    return rec_f, rec_w
+
+
+def steps(rec_f, rec_w, params, period, n_steps, ckpt):
+    """The scan kernel alone over the pre-pass's records: float32 ``[8, B]``
+    for CUDA operands."""
+    _cuda_device(rec_f)
+    P, B = rec_w.shape if rec_w.dim() == 2 else (-1, -1)
+    want = ((rec_f, torch.float32, (P, B, 4)), (rec_w, torch.int32, (P, B)),
+            (params, torch.float32, (B, N_PARAMS)),
+            *((t, torch.int32, (B,)) for t in (period, n_steps, ckpt)))
+    for name, (t, dtype, shape) in zip(
+            ("rec_f", "rec_w", "params", "period", "n_steps", "ckpt"), want):
+        if t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != rec_f.device:
+            raise ValueError(f"engine_scan: {name} must be contiguous "
+                             f"{dtype} {shape} on {rec_f.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    out = torch.empty(len(OUT_FIELDS), B, dtype=torch.float32,
+                      device=rec_f.device)
+    if B == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(rec_f.device):
+        code = lib.engine_steps_launch(
+            rec_f.data_ptr(), rec_w.data_ptr(), params.data_ptr(),
+            period.data_ptr(), n_steps.data_ptr(), ckpt.data_ptr(),
+            out.data_ptr(), B, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code, "engine_scan")
+    return out
+
+
 def scan(xi, xf, params, consts, period, n_steps, ckpt):
-    """Run the scan where the tensors lie: the CUDA kernel for CUDA tensors
-    (raising on any launch error), the plain version for CPU tensors."""
+    """Run the scan where the tensors lie: the two CUDA kernels for CUDA
+    tensors (raising on any launch error), the plain version for CPU
+    tensors."""
     _check_args(xi, xf, params, consts, period, n_steps, ckpt)
     if xf.device.type == "cpu":
         return scan_plain(xi, xf, params, consts, period, n_steps, ckpt)
     if xf.device.type != "cuda":
         raise ValueError(f"engine_scan: unsupported device {xf.device}")
-    P, B = xf.shape
-    out = torch.empty(len(OUT_FIELDS), B, dtype=torch.float32,
-                      device=xf.device)
-    if B == 0:
-        return out
-    lib = _lib()
-    with torch.cuda.device(xf.device):
-        code = lib.engine_scan_launch(
-            xi.data_ptr(), xf.data_ptr(), params.data_ptr(), consts.data_ptr(),
-            period.data_ptr(), n_steps.data_ptr(), ckpt.data_ptr(),
-            out.data_ptr(), P, B, torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, code, "engine_scan")
+    if xf.shape[1] == 0:
+        return torch.empty(len(OUT_FIELDS), 0, dtype=torch.float32,
+                           device=xf.device)
+    out = steps(*prepass(xi, xf, params, consts), params, period, n_steps,
+                ckpt)
     scan.launches += 1
     return out
 

@@ -2,20 +2,23 @@
 
 Replaces ``repro/kernels/flash_attention.py:65`` (``flash_attention``,
 ``pallas_call`` at ``:75``): softmax attention over q, k, v ``[B,S,H,D]``,
-causal or not, float32 or bfloat16, with the online softmax in float32 and
-the output in the inputs' type.
+causal or not, float32, bfloat16 or float16, with the online softmax in
+float32 and the output in the inputs' type.
 
 The CUDA kernel (``csrc/flash_attention.cu``) reads the ``[B,S,H,D]`` layout
 in place (no transposes to ``[B*H,S,D]``) and runs every product on the
 tensor cores: one block per (b*H + h, 128-query tile), a loader warpgroup
 filling a ring of K/V tiles and two consumer warpgroups of 64 rows each,
 skipping the key tiles wholly above the diagonal when causal.  bfloat16
-runs on ``wgmma``; float32 as 3xTF32 on ``mma.sync`` (three TF32 products
-per product keep float32's accuracy).  Any S and 1 <= D <= 128.  ``path``
-says how the tiles are loaded, from the type, D and the pointers'
-alignment.  Bound on an H100: operations, 4*D flops per (query, key) pair
-the mask keeps.  The Pallas block sizes (``bq``, ``bk``) have no
-counterpart.
+and float16 run on ``wgmma``; float32 as 3xTF32 on ``mma.sync`` (three TF32
+products per product keep float32's accuracy).  Any S and 1 <= D <= 128.
+Head widths 129..256 take a route of their own, a float32 SIMT kernel
+(``csrc/flash_attention_wide.cu``, counted by
+``flash_attention.wide_launches``), until a wgmma kernel holds D 256.
+``path`` names the route and, on the tensor cores, how the tiles are
+loaded, from the type, D and the pointers' alignment.  Bound on an H100: operations, 4*D flops per
+(query, key) pair the mask keeps.  The Pallas block sizes (``bq``, ``bk``)
+have no counterpart.
 """
 from __future__ import annotations
 
@@ -27,17 +30,21 @@ from repro_torch import _build
 from repro_torch.kernels import _check, ref
 
 NAME = "flash_attention"
-DTYPES = (torch.float32, torch.bfloat16)
-MAX_D = 128
+# the C entry points' code for each input type
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the tensor-core kernels' widest head, and the wide route's
+MAX_D_TC, MAX_D = 128, 256
 # at most this many heads B * H (the C entry point also refuses a grid of
 # more than 2^31 - 1 blocks, query tiles x B * H)
 MAX_BH = 65_535
-# How the kernel loads its tiles (the C entry point's ``load`` code), by path:
-# bfloat16 by TMA where rows are 16-byte aligned, by 4-byte cp.async where
-# they are 4-byte aligned, else by plain loads; float32 by 16- or 4-byte
-# cp.async.  The products run on the tensor cores on every path.
+# How the tensor-core kernel loads its tiles (the C entry point's ``load``
+# code), by path: 16-bit types by TMA where rows are 16-byte aligned, by
+# 4-byte cp.async where they are 4-byte aligned, else by plain loads;
+# float32 by 16- or 4-byte cp.async.  The products run on the tensor cores
+# on every path.  Heads wider than MAX_D_TC take the path WIDE.
 LOADS = {"wgmma/tma": 0, "wgmma/cp.async": 4, "wgmma/ld": 2,
          "3xtf32/cp.async16": 16, "3xtf32/cp.async4": 4}
+WIDE = "simt/wide"
 
 
 def _check_args(q, k, v):
@@ -66,11 +73,13 @@ def _alignment(*ts) -> int:
 
 
 def path(q, k, v) -> str:
-    """The kernel's path for these operands, a key of ``LOADS``: a row of
-    one head starts at a multiple of D elements, so D and the base pointers
-    decide its alignment."""
+    """The kernel's path for these operands: ``WIDE`` above ``MAX_D_TC``,
+    else a key of ``LOADS`` (a row of one head starts at a multiple of D
+    elements, so D and the base pointers decide its alignment)."""
     D, a = q.shape[-1], _alignment(q, k, v)
-    if q.dtype == torch.bfloat16:
+    if D > MAX_D_TC:
+        return WIDE
+    if q.dtype != torch.float32:
         if D % 8 == 0 and a >= 16:
             return "wgmma/tma"
         return "wgmma/cp.async" if D % 2 == 0 and a >= 4 else "wgmma/ld"
@@ -78,13 +87,17 @@ def path(q, k, v) -> str:
         "3xtf32/cp.async4"
 
 
-def _lib():
-    lib = _build.load("flash_attention")
+def _lib(name="flash_attention"):
+    lib = _build.load(name)
     if not getattr(lib, "_repro_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i,
-                                               ctypes.c_float, i, i, i, p]
-        lib.flash_attention_launch.restype = ctypes.c_int
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "flash_attention":
+            fn = lib.flash_attention_launch
+            fn.argtypes = [p, p, p, p, i, i, i, i, f, i, i, i, p]
+        else:
+            fn = lib.flash_attention_wide_launch
+            fn.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
+        fn.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
 
@@ -99,16 +112,23 @@ def flash_attention(q, k, v, causal=True):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _lib()
+    route = path(q, k, v)
+    lib = _lib("flash_attention_wide" if route == WIDE else "flash_attention")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            H, D, D ** -0.5, int(bool(causal)), DTYPES[q.dtype])
     with torch.cuda.device(q.device):
-        code = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            H, D, D ** -0.5, int(bool(causal)),
-            int(q.dtype == torch.bfloat16), LOADS[path(q, k, v)],
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == WIDE:
+            code = lib.flash_attention_wide_launch(*args, stream)
+        else:
+            code = lib.flash_attention_launch(*args, LOADS[route], stream)
     _build.check(lib, code, NAME)
-    flash_attention.launches += 1
+    if route == WIDE:
+        flash_attention.wide_launches += 1
+    else:
+        flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.wide_launches = 0

@@ -24,12 +24,21 @@ from repro_torch.kernels import streamcluster as _sc
 from repro_torch.kernels import swaptions as _sw
 
 
+# what JAX with 64-bit types off makes of a 64-bit array
+_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
 def _as_tensor(x, dtype, device):
-    """``x`` itself if it is a tensor, else a new tensor on ``device``
-    (``dtype=None`` keeps the array's own type)."""
+    """``x`` itself if it is a tensor, else a new tensor on ``device``.
+    ``dtype=None`` keeps the array's own type, but a 64-bit one becomes its
+    32-bit counterpart (float64 float32, int64 int32), as the reference's
+    JAX (64-bit types off) makes it."""
     if isinstance(x, torch.Tensor):
         return x
-    return torch.as_tensor(x, dtype=dtype, device=_device.resolve(device))
+    t = torch.as_tensor(x, dtype=dtype)
+    if dtype is None and t.dtype in _NARROW:
+        t = t.to(_NARROW[t.dtype])
+    return t.to(_device.resolve(device))
 
 
 def blackscholes(spot, strike, rate, vol, time, is_call, *, device=None):
@@ -47,8 +56,8 @@ def cum_normal_inv(u, *, device=None):
 
 
 def jacobi2d_step(a, *, device=None):
-    """One 5-point Jacobi sweep of a float32 ``[R, C]`` grid (boundary rows
-    and columns held), into a new tensor."""
+    """One 5-point Jacobi sweep of a float32 or bfloat16 ``[R, C]`` grid
+    (boundary rows and columns held), into a new tensor of its type."""
     return _j2.jacobi2d_step(_as_tensor(a, torch.float32, device))
 
 
@@ -60,7 +69,7 @@ def pathfinder(wall, *, device=None):
 
 def streamcluster_dist(points, centers, *, device=None):
     """Squared distances, float32 ``[M,N]``, of points ``[M,D]`` to centers
-    ``[N,D]`` (float32 or bfloat16)."""
+    ``[N,D]`` (float32, bfloat16 or float16)."""
     return _sc.streamcluster_dist(_as_tensor(points, None, device),
                                   _as_tensor(centers, None, device))
 
@@ -84,20 +93,20 @@ def particlefilter_findindex(cdf, u, *, device=None):
 
 
 def flash_attention(q, k, v, *, causal=True, device=None):
-    """Softmax attention over q, k, v ``[B,S,H,D]`` (float32 or bfloat16,
-    D <= 128), causal or not; the output has q's type."""
+    """Softmax attention over q, k, v ``[B,S,H,D]`` (float32, bfloat16 or
+    float16, D <= 256), causal or not; the output has q's type."""
     return _fa.flash_attention(_as_tensor(q, None, device),
                                _as_tensor(k, None, device),
                                _as_tensor(v, None, device), causal=causal)
 
 
 def decode_attention(q, k, v, kv_len, *, device=None):
-    """One query token per batch, q ``[B,H,D]``, against a float32 cache
-    k, v ``[B,S,H,D]``: float32 ``[B,H,D]``.  ``kv_len`` is an int or int32
+    """One query token per batch, q ``[B,H,D]``, against a cache k, v
+    ``[B,S,H,D]`` (each float32, bfloat16 or float16, k and v of one type,
+    D <= 256): ``[B,H,D]`` in q's type.  ``kv_len`` is an int or int32
     ``[B]``, broadcast to ``[B]`` as the reference does; at ``kv_len <= 0``
     the result is the mean of V (the Pallas kernel's finite mask)."""
-    q = _as_tensor(q, torch.float32, device)
-    k, v = (_as_tensor(x, torch.float32, device) for x in (k, v))
+    q, k, v = (_as_tensor(x, None, device) for x in (q, k, v))
     lens = torch.as_tensor(kv_len, dtype=torch.int32, device=q.device)
     lens = lens.reshape(-1)
     if lens.numel() not in (1, k.shape[0]):

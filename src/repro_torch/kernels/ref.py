@@ -122,10 +122,12 @@ def particlefilter_findindex(cdf, u):
 
 def jacobi2d(a, iters=1):
     """5-point Jacobi relaxation; boundary rows/cols held fixed.  A grid
-    with no interior (R < 3 or C < 3) comes back as a copy."""
+    with no interior (R < 3 or C < 3) comes back as a copy.  A 16-bit grid
+    is summed in float32 and rounded once, on the store."""
     for _ in range(iters):
-        interior = 0.2 * (a[1:-1, 1:-1] + a[1:-1, :-2] + a[1:-1, 2:]
-                          + a[:-2, 1:-1] + a[2:, 1:-1])
+        w = a.float()
+        interior = 0.2 * (w[1:-1, 1:-1] + w[1:-1, :-2] + w[1:-1, 2:]
+                          + w[:-2, 1:-1] + w[2:, 1:-1])
         a = a.clone()
         a[1:-1, 1:-1] = interior
     return a
@@ -165,18 +167,21 @@ def decode_attention(q, k, v, kv_len):
     ``kv_len`` an int or int32 ``[B]``.  Keys at ``ki >= kv_len`` are masked
     with the finite ``NEG_INF`` of the Pallas kernel, not ``-inf``: at
     ``kv_len <= 0`` every key is masked alike and the result is the mean of
-    V over all S positions, where ``repro/kernels/ref.py`` gives NaN."""
+    V over all S positions, where ``repro/kernels/ref.py`` gives NaN.  q,
+    k and v are widened to float32, as the Pallas kernel widens them, and
+    the result has q's type."""
     B, S = k.shape[:2]
     lens = torch.as_tensor(kv_len, dtype=torch.int32, device=k.device)
     lens = lens.reshape(-1).expand(B)
     scale = q.shape[-1] ** -0.5
+    qf, kf, vf = (t.float() for t in (q, k, v))
     with _full_float32_matmul():
-        s = torch.einsum("bhd,bkhd->bhk", q, k).float() * scale
+        s = torch.einsum("bhd,bkhd->bhk", qf, kf) * scale
         mask = torch.arange(S, device=k.device)[None, None] \
             < lens[:, None, None]
         s = torch.where(mask, s, NEG_INF)
         a = torch.softmax(s, dim=-1)
-        return torch.einsum("bhk,bkhd->bhd", a.to(q.dtype), v)
+        return torch.einsum("bhk,bkhd->bhd", a, vf).to(q.dtype)
 
 
 def ssd_scan(x, dt, A, B, C, chunk):

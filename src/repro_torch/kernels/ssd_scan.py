@@ -8,13 +8,16 @@ and ``S % Q`` must be 0, as in the Pallas wrapper, which raises there too.
 
 The CUDA kernel (``csrc/ssd_scan.cu``) gives each (b, h) one 256-thread
 block that walks the sequence in order in tiles of 64 steps, with the
-head's ``[P, N]`` state in float32 shared memory.  The result depends on
+head's ``[P, N]`` state in float32 shared memory; a head wider than 128 is
+split into equal P-slices of at most 128 columns, one block each (each
+column of the state is independent).  The result depends on
 the chunk length only through rounding, so the kernel's tile is its own
 (a 256-step decay block would not fit shared memory); the bar against the
 plain version, which chunks at Q, is the reference's 4e-3.  x may be
 float32, bfloat16 or float16; dt, A, B and C are widened to float32 here
-before the launch.  P <= 128, and the block's shared memory (state, one
-tile of x dt, B, C and the decay block) must fit the card's 227 KB.  Bound
+before the launch.  Any P; a block's shared memory (its slice of the
+state, one tile of x dt, B, C and the decay block) must fit the card's
+227 KB, which bounds N.  Bound
 on an H100: operations.
 """
 from __future__ import annotations
@@ -29,7 +32,6 @@ from repro_torch.kernels import _check, ref
 NAME = "ssd_scan"
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 FLOATS = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
-MAX_P = 128
 # the opt-in shared memory of one block on an H100
 MAX_SMEM = 232_448
 
@@ -77,9 +79,9 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 256):
                          f"or float16, got {x.dtype}")
     b, S, H, P = x.shape
     N = B.shape[-1]
-    if not 1 <= P <= MAX_P or N < 1:
-        raise ValueError(f"{NAME}: head dim P = {P} must be in 1..{MAX_P} "
-                         f"and N = {N} >= 1")
+    if P < 1 or N < 1:
+        raise ValueError(f"{NAME}: head dim P = {P} and N = {N} must be "
+                         ">= 1")
     if S > _check.INT32_MAX or b * H > _check.INT32_MAX:
         raise ValueError(f"{NAME}: S and b*H must fit int32")
     lib = _lib()

@@ -2,16 +2,16 @@
 
 Replaces ``repro/kernels/streamcluster.py:29`` (``streamcluster_dist``,
 ``pallas_call`` at ``:36``): ``max(|p|^2 + |c|^2 - 2 p.c, 0)`` for points
-``[M,D]`` and centers ``[N,D]``, float32 or bfloat16, into float32
-``[M,N]``.
+``[M,D]`` and centers ``[N,D]``, float32, bfloat16 or float16, into
+float32 ``[M,N]``.
 
 The CUDA kernel (``csrc/streamcluster.cu``) is a row-norm pre-pass into a
 scratch ``[M+N]`` buffer, then a tiled float32 SIMT product (128 x 128
 output tiles, 8 x 8 per thread, D staged through shared memory 16 at a
-time) whose epilogue forms the distance.  bfloat16 inputs are widened as
-they are loaded.  Bound on an H100: operations, 2*M*N*D multiply-adds
-(17.2 GFLOP at PARSEC simlarge's 16,384 points x 4,096 centers x 128
-dimensions, 0.26 ms at 67 TFLOP/s).  Tensor cores are not used: TF32 misses
+time) whose epilogue forms the distance.  bfloat16 and float16 inputs are
+widened as they are loaded.  Bound on an H100: operations, 2*M*N*D
+multiply-adds (17.2 GFLOP at PARSEC simlarge's 16,384 points x 4,096
+centers x 128 dimensions, 0.26 ms at 67 TFLOP/s).  Tensor cores are not used: TF32 misses
 the reference's 2e-4 bar.  The Pallas kernel's ``M % bm`` and ``N % bn``
 requirements are gone: ragged tiles are masked.
 """
@@ -25,7 +25,8 @@ from repro_torch import _build
 from repro_torch.kernels import _check, ref
 
 NAME = "streamcluster_dist"
-DTYPES = (torch.float32, torch.bfloat16)
+# the C entry point's code for each input type
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _check_args(points, centers):
@@ -66,7 +67,7 @@ def streamcluster_dist(points, centers):
     with torch.cuda.device(points.device):
         code = lib.streamcluster_dist_launch(
             points.data_ptr(), centers.data_ptr(), norms.data_ptr(),
-            out.data_ptr(), M, N, D, int(points.dtype == torch.bfloat16),
+            out.data_ptr(), M, N, D, DTYPES[points.dtype],
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, NAME)
     streamcluster_dist.launches += 1

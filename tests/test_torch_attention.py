@@ -146,26 +146,33 @@ def _view(shape, dtype, offset):
     (torch.float32, 4, 0, "3xtf32/cp.async16"),
     (torch.float32, 64, 1, "3xtf32/cp.async4"),    # rows off 16 bytes
     (torch.float32, 37, 0, "3xtf32/cp.async4"),
+    (torch.float16, 64, 0, "wgmma/tma"),
+    (torch.float16, 37, 0, "wgmma/ld"),
+    (torch.bfloat16, 256, 0, "simt/wide"),         # past the tensor-core
+    (torch.float32, 129, 1, "simt/wide"),          # kernels' 128 columns
 ])
 def test_flash_attention_path_by_type_width_and_alignment(dtype, D, offset,
                                                          want):
     """The wrapper's choice of load path: TMA needs 16-byte rows and
-    pointers (bf16, D % 8 == 0), 4-byte cp.async D even, and float32's
-    16-byte cp.async D % 4 == 0; the products are on the tensor cores on
-    every path."""
+    pointers (16-bit types, D % 8 == 0), 4-byte cp.async D even, and
+    float32's 16-byte cp.async D % 4 == 0; the products are on the tensor
+    cores on every path up to D 128, and wider heads take the wide route
+    whatever their alignment."""
     q, k, v = (_view((2, 5, 3, D), dtype, offset) for _ in range(3))
     assert fa_mod.path(q, k, v) == want
     # one misaligned operand moves all three off the aligned path
     k2 = _view((2, 5, 3, D), dtype, 1)
-    assert fa_mod.path(q, k2, v) in (("wgmma/ld",) if dtype == torch.bfloat16
-                                     else ("3xtf32/cp.async4",))
+    assert fa_mod.path(q, k2, v) == (
+        fa_mod.WIDE if D > fa_mod.MAX_D_TC else
+        "3xtf32/cp.async4" if dtype == torch.float32 else "wgmma/ld")
 
 
 def test_every_accepted_shape_maps_to_a_tensor_core_path():
     """Each (type, D in 1..128, pointer alignment) the wrapper accepts has a
-    path, and the path's load code is one the C entry point takes for that
-    type."""
-    c_loads = {torch.bfloat16: {0, 4, 2}, torch.float32: {16, 4}}
+    tensor-core path, and the path's load code is one the C entry point
+    takes for that type; each D in 129..256 takes the wide route."""
+    c_loads = {torch.bfloat16: {0, 4, 2}, torch.float16: {0, 4, 2},
+               torch.float32: {16, 4}}
     seen = set()
     for dtype in fa_mod.DTYPES:
         for D in range(1, fa_mod.MAX_D + 1):
@@ -174,8 +181,11 @@ def test_every_accepted_shape_maps_to_a_tensor_core_path():
                            for _ in range(3))
                 fa_mod._check_args(q, k, v)
                 name = fa_mod.path(q, k, v)
+                if D > fa_mod.MAX_D_TC:
+                    assert name == fa_mod.WIDE
+                    continue
                 assert name.split("/")[0] == (
-                    "wgmma" if dtype == torch.bfloat16 else "3xtf32")
+                    "3xtf32" if dtype == torch.float32 else "wgmma")
                 assert fa_mod.LOADS[name] in c_loads[dtype]
                 seen.add(name)
     assert seen == set(fa_mod.LOADS)
@@ -186,7 +196,9 @@ def _bad_calls():
     q, k, v = (torch.from_numpy(a) for a in qkv((1, 20, 2, 16), 0))
     qd, kd, vd = (torch.from_numpy(a) for a in decode_inputs(2, 30, 2, 16, 0))
     lens = torch.tensor([5, 30], dtype=torch.int32)
-    wide = torch.zeros(1, 4, 1, 129)
+    # past the widest head the port takes (the reference computes it;
+    # ROADMAP Queue 3 lists it)
+    wide = torch.zeros(1, 4, 1, fa_mod.MAX_D + 1)
     meta = torch.device("meta")
     fa, da = fa_mod.flash_attention, da_mod.decode_attention
     return {
@@ -197,8 +209,10 @@ def _bad_calls():
         "fa_wide": (fa, (wide, wide, wide)),
         "fa_stride": (fa, (q.transpose(1, 2), k, v)),
         "fa_device": (fa, (q, k, v.to(meta))),
-        "da_dtype": (da, (qd.bfloat16(), kd.bfloat16(), vd.bfloat16(),
-                          lens)),
+        "da_dtype": (da, (qd, kd.int(), vd.int(), lens)),
+        "da_mixed": (da, (qd, kd, vd.half(), lens)),
+        "fa_no_width": (fa, (q[..., :0], k[..., :0], v[..., :0])),
+        "da_no_width": (da, (qd[..., :0], kd[..., :0], vd[..., :0], lens)),
         "da_lens_dtype": (da, (qd, kd, vd, lens.long())),
         "da_lens_shape": (da, (qd, kd, vd, lens[:1])),
         "da_shape": (da, (qd, kd[:, :, :1].contiguous(), vd, lens)),

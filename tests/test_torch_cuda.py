@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import vector_engine as ve
 from repro_torch.core import engine as eng
-from repro_torch.core import suite, tracegen
+from repro_torch.core import isa, suite, tracegen
 from repro_torch.kernels import blackscholes as bs_mod
 from repro_torch.kernels import canneal as ca_mod
 from repro_torch.kernels import decode_attention as da_mod
@@ -72,6 +73,96 @@ def test_engine_scan_kernel_matches_plain_bitwise(cuda):
     assert torch.equal(got, engine_scan.scan_plain(*inp.args()))
 
 
+def random_trace(seed: int, n_ops: int = 60):
+    """A seeded random trace over every instruction kind (chip_smoke.py's
+    phase-3 traces)."""
+    rng = np.random.RandomState(seed)
+    b = isa.TraceBuilder()
+    reg = lambda: int(rng.randint(-1, 8))
+    for _ in range(n_ops):
+        k = rng.randint(8)
+        vl = int((1, 8, 64, 200, 256)[rng.randint(5)])
+        if k == 0:
+            b.arith(vl, fu=int(rng.randint(4)), src1=reg(), src2=reg(),
+                    dst=reg())
+        elif k == 1:
+            b.load(vl, dst=reg(), pattern=int(rng.randint(3)),
+                   footprint_kb=float((8.0, 64.0, 2048.0)[rng.randint(3)]))
+        elif k == 2:
+            b.store(vl, src1=reg(), pattern=int(rng.randint(3)),
+                    footprint_kb=float((8.0, 64.0, 2048.0)[rng.randint(3)]))
+        elif k == 3:
+            b.slide(vl, src1=reg(), dst=reg())
+        elif k == 4:
+            b.move(vl, src1=reg(), dst=reg())
+        elif k == 5:
+            b.reduce(vl, src1=reg(), dst=reg(), fu=int(rng.randint(4)))
+        elif k == 6:
+            b.mask_to_scalar(vl, src1=reg())
+        else:
+            b.scalar(int(rng.randint(1, 40)), fu=int(rng.randint(4)),
+                     dep_scalar=bool(rng.randint(2)))
+    return b.build()
+
+
+_VARIANTS = [dict(ooo_issue=True), dict(interconnect="crossbar"),
+             dict(mshrs=1), dict(l2_kb=1024),
+             dict(ooo_issue=True, interconnect="crossbar", mshrs=1,
+                  l2_kb=1024, queue_entries=8)]
+
+
+def _scan_case(name, device):
+    """The scan operands of one named case: chip_smoke.py's phase-3 sets,
+    and ragged lanes (B 1, 31, 33, 481) with a lane of n_steps 0, ckpt 0,
+    n_steps and half of it, bodies shorter than P (period < P) run long
+    enough that the kernel's record ring wraps many times, and tiny ROB
+    and queue capacities (a step reads the slot the one before wrote)."""
+    import dataclasses
+    if name == "short-body x Table 10":
+        short = ("jacobi-2d", "pathfinder", "swaptions", "streamcluster")
+        return suite.scan_inputs([(a, c) for a in short for c in ve.TABLE10],
+                                 device=device)
+    if name == "random traces":
+        traces, cfgs = [], []
+        for seed in range(40):
+            base = ve.TABLE10[(7 * seed) % len(ve.TABLE10)]
+            variant = _VARIANTS[seed % len(_VARIANTS)]
+            cfgs.append(dataclasses.replace(base, **variant))
+            traces.append(random_trace(seed))
+        return eng.pack(traces, cfgs, [3 * len(t) for t in traces],
+                        [len(t) for t in traces], device)
+    B = int(name.split()[-1])
+    traces = [random_trace(100 + k % 40, 5 + k % 50) for k in range(B)]
+    cfgs = [dataclasses.replace(
+        ve.TABLE10[k % len(ve.TABLE10)], rob_entries=1 + k % 4,
+        queue_entries=1 + k % 3, phys_regs=33 + k % 2,
+        ooo_issue=bool(k % 2)) for k in range(B)]
+    n = [0 if k % 7 == 3 else 300 + (37 * k) % 200 for k in range(B)]
+    ck = [0 if k % 3 == 0 else n[k] if k % 3 == 1 else n[k] // 2
+          for k in range(B)]
+    return eng.pack(traces, cfgs, n, ck, device)
+
+
+SCAN_CASES = ["short-body x Table 10", "random traces", "ragged B 1",
+              "ragged B 31", "ragged B 33", "ragged B 481"]
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_engine_scan_redesign_bitwise(cuda, case):
+    """The pre-pass equals prepass_plain and the scan equals scan_plain,
+    every output bit for bit; one launch counted a call."""
+    inp = _scan_case(case, cuda)
+    xi, xf, params, consts = inp.args()[:4]
+    rec_f, rec_w = engine_scan.prepass(xi, xf, params, consts)
+    want_f, want_w = engine_scan.prepass_plain(xi, xf, params, consts)
+    assert torch.equal(rec_w, want_w)
+    assert torch.equal(rec_f.view(torch.int32), want_f.view(torch.int32))
+    before = engine_scan.scan.launches
+    got = engine_scan.scan(*inp.args())
+    assert engine_scan.scan.launches == before + 1
+    assert torch.equal(got, engine_scan.scan_plain(*inp.args()))
+
+
 def test_kernel_launch_errors_raise(cuda):
     """A wrapper checks its operands before launching: a CPU operand beside
     CUDA ones is refused, never silently run on the host."""
@@ -96,10 +187,10 @@ def test_cum_normal_inv_kernel_matches_plain(cuda, n):
 
 @pytest.mark.parametrize("m,n,d", [(1, 1, 1), (1000, 129, 128),
                                    (300, 1000, 37), (65_537, 5, 16)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_streamcluster_kernel_matches_plain(cuda, m, n, d, dtype):
     """M, N and D off the 128 x 128 x 16 tiling; 2e-4 in float32 and 1e-2
-    in bfloat16, the reference's bars."""
+    in the 16-bit types, the reference's bars."""
     rng = np.random.RandomState(m + n + d)
     tdt = getattr(torch, dtype)
     p = torch.from_numpy(rng.uniform(size=(m, d)).astype(np.float32))
@@ -108,7 +199,7 @@ def test_streamcluster_kernel_matches_plain(cuda, m, n, d, dtype):
     before = sc_mod.streamcluster_dist.launches
     got = sc_mod.streamcluster_dist(p, c)
     assert sc_mod.streamcluster_dist.launches == before + 1
-    tol = 1e-2 if dtype == "bfloat16" else 2e-4
+    tol = 2e-4 if dtype == "float32" else 1e-2
     torch.testing.assert_close(got, ref.streamcluster_dist(p, c), rtol=tol,
                                atol=tol)
 
@@ -162,6 +253,21 @@ def test_jacobi2d_kernel_matches_plain_bitwise(cuda, shape):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("shape", [(3, 3), (2, 5), (130, 3), (1001, 67),
+                                   (33, 2800)])
+def test_jacobi2d_kernel_bfloat16_matches_plain_bitwise(cuda, shape):
+    """A bfloat16 grid: widened, summed in float32 in the plain version's
+    order and rounded once on the store; three sweeps, bit for bit."""
+    rng = np.random.RandomState(sum(shape))
+    a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    got = want = a.to(cuda, torch.bfloat16)
+    for _ in range(3):
+        got = j2_mod.jacobi2d_step(got)
+        want = ref.jacobi2d(want)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("R,C", [(1, 7), (2, 1), (21, 3), (45, 255),
                                  (41, 1000), (62, 100_003)])
 @pytest.mark.parametrize("dtype", ["int32", "float32"])
@@ -212,6 +318,45 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, H, D, offset,
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("B,S,H,D,offset", [
+    (2, 300, 3, 64, 0), (2, 257, 3, 128, 0), (2, 300, 3, 37, 0),
+    (2, 257, 3, 64, 1), (1, 2048, 4, 128, 0)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_float16_matches_plain(cuda, B, S, H, D,
+                                                      offset, causal):
+    """float16 on the same wgmma kernel as bfloat16 (f16 operands, f32
+    sums), every load path; 2e-2, the reference's 16-bit bar."""
+    q, k, v = fa_inputs(B, S, H, D, "float16", cuda, offset)
+    before = fa_mod.flash_attention.launches
+    got = fa_mod.flash_attention(q, k, v, causal=causal)
+    assert fa_mod.flash_attention.launches == before + 1
+    assert got.dtype == torch.float16
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention(q, k, v, causal).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("S,D", [(1, 256), (100, 129), (257, 200),
+                                 (1031, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_attention_wide_route_matches_plain(cuda, S, D, causal,
+                                                  dtype):
+    """Heads of 129..256 take the wide route (its own kernel and launch
+    count); S off its 64-row tiles; 2e-4 in float32, 2e-2 in 16 bits."""
+    q, k, v = fa_inputs(2, S, 3, D, dtype, cuda)
+    before = (fa_mod.flash_attention.launches,
+              fa_mod.flash_attention.wide_launches)
+    got = fa_mod.flash_attention(q, k, v, causal=causal)
+    assert (fa_mod.flash_attention.launches,
+            fa_mod.flash_attention.wide_launches) == (before[0],
+                                                      before[1] + 1)
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention(q, k, v, causal).float(),
+                               rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_schedules_heads_in_groups(cuda, causal):
     """float32 at S 16,384 and D 128 holds 16.8 MB of K and V a head, so
@@ -255,6 +400,34 @@ def test_decode_attention_kernel_matches_plain(cuda, kv_len, D):
         if int(lens[b]) <= 0:
             torch.testing.assert_close(got[b], v[b].mean(0), rtol=2e-4,
                                        atol=2e-4)
+
+
+@pytest.mark.parametrize("q_type,kv_type,D", [
+    ("bfloat16", "bfloat16", 64), ("float16", "float16", 128),
+    ("float32", "bfloat16", 256), ("bfloat16", "bfloat16", 256),
+    ("float32", "float32", 256), ("float32", "float16", 200),
+    ("float16", "float16", 37)])
+def test_decode_attention_kernel_types_and_widths_match_plain(cuda, q_type,
+                                                              kv_type, D):
+    """16-bit caches widened in the kernel's loads, q of its own type, and
+    heads up to 256 (8 elements a lane); kv_len 0, 1, S and past S.  The
+    reference's 2e-4 plus one unit of a 16-bit output."""
+    B, S, H = 4, 1000, 2
+    rng = np.random.RandomState(D)
+    tq, tkv = getattr(torch, q_type), getattr(torch, kv_type)
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(
+        np.float32)).to(cuda, tq)
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)).to(cuda, tkv) for _ in range(2))
+    lens = torch.tensor([0, 1, 1000, 1500], dtype=torch.int32, device=cuda)
+    before = da_mod.decode_attention.launches
+    got = da_mod.decode_attention(q, k, v, lens)
+    assert da_mod.decode_attention.launches == before + 1
+    assert got.dtype == tq
+    tol = 2e-4 + torch.finfo(tq).eps * (tq != torch.float32)
+    torch.testing.assert_close(got.float(),
+                               ref.decode_attention(q, k, v, lens).float(),
+                               rtol=tol, atol=tol)
 
 
 def ssd_inputs(b, S, H, P, N, seed):
@@ -301,6 +474,18 @@ def test_ssd_scan_kernel_half_x_matches_plain(cuda, dtype):
     assert got.dtype == x.dtype
     tol = 4e-3 + torch.finfo(x.dtype).eps
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("P", [192, 256, 129])
+def test_ssd_scan_kernel_wide_heads_split_into_slices(cuda, P):
+    """A head past 128 columns is split into equal P-slices (192: two of
+    96, 256: two of 128, 129: 65 + 64), one block each; 4e-3."""
+    x, dt, A, B, C = (t.to(cuda) for t in ssd_inputs(2, 256, 3, P, 64, P))
+    before = ssd_mod.ssd_scan.launches
+    got = ssd_mod.ssd_scan(x, dt, A, B, C, chunk=128)
+    assert ssd_mod.ssd_scan.launches == before + 1
+    torch.testing.assert_close(got, ref.ssd_scan(x, dt, A, B, C, 128),
+                               rtol=4e-3, atol=4e-3)
 
 
 def test_ssd_scan_kernel_rejects_what_it_cannot_take(cuda):

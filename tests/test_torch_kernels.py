@@ -93,3 +93,44 @@ def test_engine_scan_wrapper_checks_operands():
     with pytest.raises(ValueError, match="contiguous"):
         engine_scan.scan(args[0], args[1], args[2].t().contiguous().t(),
                          *args[3:])
+
+
+def test_engine_scan_prepass_plain_word_layout():
+    """The pre-pass's records: the scalar-clock add is the block's cost for
+    a scalar record and SCALAR_CYCLES[0] x scalar_scale for a vector one;
+    the word's flags and slot fields decode to the trace's kinds and
+    registers (ZERO_SLOT for an absent source, DUMMY_SLOT for no vector
+    dst)."""
+    from repro_torch.core import isa
+    inp = _study_inputs("cpu", apps=("streamcluster", "particlefilter"))
+    xi, xf, params, consts = inp.args()[:4]
+    rec_f, w = engine_scan.prepass_plain(xi, xf, params, consts)
+    F, M, _ = engine_scan._record_terms(xi, xf, params, consts)
+    kind, src1, dst = xi[0], xi[4], xi[6]
+    scalar = (kind == isa.SCALAR_BLOCK) | (kind == isa.NOP)
+    assert rec_f.shape == (*xf.shape, 4) and w.dtype == torch.int32
+    assert torch.equal(rec_f[..., 0][scalar], F[..., 0][scalar])
+    sv = (consts[0] * params[:, 10]).expand_as(xf)
+    assert torch.equal(rec_f[..., 0][~scalar], sv[~scalar])
+    assert torch.equal(rec_f[..., 3], F[..., 1] + F[..., 2])
+    assert torch.equal((w & engine_scan.F_VEC) != 0, ~scalar)
+    mem = (kind == isa.VLOAD) | (kind == isa.VSTORE)
+    assert torch.equal((w & engine_scan.F_MEM) != 0, mem)
+    assert torch.equal((w & engine_scan.F_ARITH) != 0, ~scalar & ~mem)
+    slot1, slot_d = (w >> 7) & 0xff, (w >> 23) & 0xff
+    assert torch.equal(slot1, torch.where(src1 >= 0, src1,
+                                          engine_scan.ZERO_SLOT))
+    assert torch.equal(slot_d, torch.where(~scalar & (dst >= 0), dst,
+                                           engine_scan.DUMMY_SLOT))
+
+
+def test_engine_scan_kernels_take_cuda_tensors_only():
+    """The two kernels' wrappers refuse CPU operands (``scan`` takes the
+    plain version for them instead)."""
+    inp = _study_inputs("cpu")
+    xi, xf, params, consts, period, n, ck = inp.args()
+    with pytest.raises(ValueError, match="CUDA"):
+        engine_scan.prepass(xi, xf, params, consts)
+    rec_f, rec_w = engine_scan.prepass_plain(xi, xf, params, consts)
+    with pytest.raises(ValueError, match="CUDA"):
+        engine_scan.steps(rec_f, rec_w, params, period, n, ck)
