@@ -1,38 +1,42 @@
-// Flash attention, forward, at head widths 129..256, for Hopper (sm_90a),
-// plain C interface.
+// Flash attention, forward, on the FMA pipes (SIMT), for Hopper (sm_90a),
+// plain C interface: float32 at head widths 129..256 and every type past
+// 256.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py:65
 // (flash_attention, pallas_call at :75) where csrc/flash_attention.cu does
-// not reach: its tensor-core kernels hold Q, K and V tiles of at most 128
-// columns.  softmax(q k^T / sqrt(D)) v over q, k, v [B, S, H, D], causal or
-// not, with an online softmax over key tiles so the [S, S] scores never
-// reach device memory.  Inputs float32, bfloat16 or float16 (widened as
-// they are loaded), all sums float32, the output in the inputs' type.
+// not reach: its 3xTF32 kernel holds tiles of at most 128 float32 columns
+// and its wgmma kernel tiles of at most 256 16-bit columns.
+// softmax(q k^T / sqrt(D)) v over q, k, v [B, S, H, D], causal or not, with
+// an online softmax over key tiles so the [S, S] scores never reach device
+// memory.  Inputs float32, bfloat16 or float16 (widened as they are
+// loaded), all sums float32, the output in the inputs' type.
 //
 // Bound on an H100: operations, 4 * D flops (q.k and p.v) per (query, key)
 // pair the mask keeps.  This is a float32 SIMT kernel, the design the port
-// first ran at D <= 128 (before the tensor-core redesign), at D 256: 137.5
-// GFLOP causal at gemma-7b's 16 heads of 256, S 4,096 (2.05 ms at the
-// 67 TFLOP/s float32 peak, 0.139 ms at the bf16 tensor-core rate it does
-// not use).  A wgmma kernel at D 256 (64-key tiles, two stages of Q, K and
-// V in shared memory, as FA3 runs it) is later work.
+// first ran at D <= 128 (before the tensor-core redesign): at D 256 in
+// float32 it is held against the 67 TFLOP/s float32 peak (3xTF32 with 128
+// query rows would need ~266 KB of shared memory).
 //
-// Design.  One 256-thread block per (b * H + h, 64-query tile), walking the
-// 64-key tiles in order; causal blocks stop at the diagonal tile (the tiles
-// wholly above it are skipped, as the Pallas kernel does) and the query
-// tiles with the most key tiles are launched first.  The layout is read in
-// place: a row of one head is D contiguous values, rows H * D apart.  Q, K
-// and V tiles sit in shared memory row-major with a 4-float pad (float4
-// reads, no bank conflicts); D is padded with zeros to DM = 256 (217 KB of
-// shared memory a block).  A thread owns 4 query rows x 4 keys of the score
-// tile (keys tx + 16 j, so the float4 reads of K rows hit distinct banks)
-// and the same 4 rows x DM / 16 columns of the output accumulator, so the
-// running max m, the sum l and the rescale stay in its registers; a row's
-// 16 threads share a half-warp and reduce with shuffles.  The
-// probabilities go through shared memory to the P V product.  Masked
-// scores are the Pallas kernel's finite -1e30, a ragged last tile (any S)
-// is masked the same way, and the output is acc / max(l, 1e-30) as there
-// (flash_attention.py:58-61).
+// Design.  One 256-thread block per (b * H + h, 64-query tile, slice of
+// 256 output columns), walking the 64-key tiles in order; causal blocks
+// stop at the diagonal tile (the tiles wholly above it are skipped, as the
+// Pallas kernel does) and the query tiles with the most key tiles are
+// launched first.  The layout is read in place: a row of one head is D
+// contiguous values, rows H * D apart.  Q, K and V tiles sit in shared
+// memory row-major with a 4-float pad (float4 reads, no bank conflicts),
+// 256 columns wide (DM), zero past D (217 KB of shared memory a block).  A
+// head wider than 256 is cut into output slices of 256 columns, one block
+// each (grid z): each block forms the scores over all of D, 256 columns of
+// Q and K at a time (Q reloaded for each), and P V for its own slice of V,
+// as the SSD scan's P-slices share the work of a wide head.  A thread owns
+// 4 query rows x 4 keys of the score tile (keys tx + 16 j, so the float4
+// reads of K rows hit distinct banks) and the same 4 rows x DM / 16
+// columns of the output accumulator, so the running max m, the sum l and
+// the rescale stay in its registers; a row's 16 threads share a half-warp
+// and reduce with shuffles.  The probabilities go through shared memory to
+// the P V product.  Masked scores are the Pallas kernel's finite -1e30, a
+// ragged last tile (any S) is masked the same way, and the output is acc /
+// max(l, 1e-30) as there (flash_attention.py:58-61).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -96,8 +100,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const long long stride = (long long)H * D;
   const long long head = (long long)b * S * stride + (long long)h * D;
+  const int n_dc = (D + DM - 1) / DM;        // DM-column chunks of D
+  const int c0 = blockIdx.z * DM;            // this block's output slice
+  const int dv = min(DM, D - c0);            // its columns
 
-  load_tile<T, DM, BQ>(Qs, q + head, q0, S, D, stride);
+  if (n_dc == 1) load_tile<T, DM, BQ>(Qs, q + head, q0, S, D, stride);
 
   float m[4], l[4], acc[4][NC * 4];
 #pragma unroll
@@ -113,31 +120,39 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();   // the previous tile's P V is done with Ks, Vs, Ps
-    load_tile<T, DM, BK>(Ks, k + head, k0, S, D, stride);
-    load_tile<T, DM, BK>(Vs, v + head, k0, S, D, stride);
-    __syncthreads();
+    load_tile<T, DM, BK>(Vs, v + head + c0, k0, S, dv, stride);
 
-    // scores of rows ty*4 + i against keys tx + 16 j
+    // scores of rows ty*4 + i against keys tx + 16 j, over D's chunks
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+    for (int dc = 0; dc < n_dc; ++dc) {
+      const int d0 = dc * DM, dd = min(DM, D - d0);
+      if (dc > 0) __syncthreads();   // the last chunk's scores are done
+      if (n_dc > 1)
+        load_tile<T, DM, BQ>(Qs, q + head + d0, q0, S, dd, stride);
+      load_tile<T, DM, BK>(Ks, k + head + d0, k0, S, dd, stride);
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < DM; d += 4) {
-      float4 qa[4], kb[4];
+      for (int d = 0; d < DM; d += 4) {
+        float4 qa[4], kb[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * LD + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kb[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * LD + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
+          qa[i] =
+              *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * LD + d]);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          s[i][j] += qa[i].x * kb[j].x + qa[i].y * kb[j].y +
-                     qa[i].z * kb[j].z + qa[i].w * kb[j].w;
+          kb[j] =
+              *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * LD + d]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            s[i][j] += qa[i].x * kb[j].x + qa[i].y * kb[j].y +
+                       qa[i].z * kb[j].z + qa[i].w * kb[j].w;
+      }
     }
 
     // online softmax over this tile; a row's 16 threads are one half-warp
@@ -208,13 +223,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + head + (long long)row * stride;
+    T* orow = o + head + c0 + (long long)row * stride;
 #pragma unroll
     for (int g = 0; g < NC; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int d = g * 64 + tx * 4 + c;
-        if (d < D) store(orow + d, acc[i][g * 4 + c] / denom);
+        if (d < dv) store(orow + d, acc[i][g * 4 + c] / denom);
       }
   }
 }
@@ -227,7 +242,8 @@ int launch(const T* q, const T* k, const T* v, T* o, int B, int S, int H,
       flash_fwd_kernel<T, DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((unsigned)((S + BQ - 1) / BQ), (unsigned)(B * H));
+  const dim3 grid((unsigned)((S + BQ - 1) / BQ), (unsigned)(B * H),
+                  (unsigned)((D + DM - 1) / DM));
   flash_fwd_kernel<T, DM><<<grid, THREADS, bytes, stream>>>(
       q, k, v, o, S, H, D, scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -248,8 +264,8 @@ extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, k, v, o contiguous [b, s, h, d] (1 <= d <= 256), `dtype` 0 float32,
-// 1 bfloat16 or 2 float16; `scale` multiplies the scores.  Launches on
+// q, k, v, o contiguous [b, s, h, d] (d >= 1), `dtype` 0 float32, 1
+// bfloat16 or 2 float16; `scale` multiplies the scores.  Launches on
 // `stream`; returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a width or type it does not take.
 extern "C" int flash_attention_wide_launch(const void* q, const void* k,
@@ -258,7 +274,7 @@ extern "C" int flash_attention_wide_launch(const void* q, const void* k,
                                            int causal, int dtype,
                                            void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d < 1 || d > 256 || b * h > 65535)
+  if (d < 1 || b * h > 65535 || (d + 255) / 256 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, o, b, s, h, d, scale, causal, st);

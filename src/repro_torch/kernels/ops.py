@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import _device
+from repro_torch.kernels import _promote
 from repro_torch.kernels import blackscholes as _bs
 from repro_torch.kernels import canneal as _ca
 from repro_torch.kernels import decode_attention as _da
@@ -24,10 +25,6 @@ from repro_torch.kernels import streamcluster as _sc
 from repro_torch.kernels import swaptions as _sw
 
 
-# what JAX with 64-bit types off makes of a 64-bit array
-_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
-
-
 def _as_tensor(x, dtype, device):
     """``x`` itself if it is a tensor, else a new tensor on ``device``.
     ``dtype=None`` keeps the array's own type, but a 64-bit one becomes its
@@ -36,8 +33,8 @@ def _as_tensor(x, dtype, device):
     if isinstance(x, torch.Tensor):
         return x
     t = torch.as_tensor(x, dtype=dtype)
-    if dtype is None and t.dtype in _NARROW:
-        t = t.to(_NARROW[t.dtype])
+    if dtype is None:
+        t = _promote.narrow(t)
     return t.to(_device.resolve(device))
 
 
@@ -69,7 +66,8 @@ def pathfinder(wall, *, device=None):
 
 def streamcluster_dist(points, centers, *, device=None):
     """Squared distances, float32 ``[M,N]``, of points ``[M,D]`` to centers
-    ``[N,D]`` (float32, bfloat16 or float16)."""
+    ``[N,D]`` (float32, bfloat16 or float16 of one type; others in
+    float32, by the reference's rule)."""
     return _sc.streamcluster_dist(_as_tensor(points, None, device),
                                   _as_tensor(centers, None, device))
 
@@ -93,8 +91,10 @@ def particlefilter_findindex(cdf, u, *, device=None):
 
 
 def flash_attention(q, k, v, *, causal=True, device=None):
-    """Softmax attention over q, k, v ``[B,S,H,D]`` (float32, bfloat16 or
-    float16, D <= 256), causal or not; the output has q's type."""
+    """Softmax attention over q, k, v ``[B,S,H,D]``, causal or not; the
+    output has q's type.  float32, bfloat16 and float16 operands of one
+    type run as they are, others in float32 (the reference's rule); any
+    D."""
     return _fa.flash_attention(_as_tensor(q, None, device),
                                _as_tensor(k, None, device),
                                _as_tensor(v, None, device), causal=causal)
@@ -102,10 +102,11 @@ def flash_attention(q, k, v, *, causal=True, device=None):
 
 def decode_attention(q, k, v, kv_len, *, device=None):
     """One query token per batch, q ``[B,H,D]``, against a cache k, v
-    ``[B,S,H,D]`` (each float32, bfloat16 or float16, k and v of one type,
-    D <= 256): ``[B,H,D]`` in q's type.  ``kv_len`` is an int or int32
-    ``[B]``, broadcast to ``[B]`` as the reference does; at ``kv_len <= 0``
-    the result is the mean of V (the Pallas kernel's finite mask)."""
+    ``[B,S,H,D]`` (each float32, bfloat16 or float16; other types in
+    float32, by the reference's rule; any D): ``[B,H,D]`` in q's type.
+    ``kv_len`` is an int or int32 ``[B]``, broadcast to ``[B]`` as the
+    reference does; at ``kv_len <= 0`` the result is the mean of V (the
+    Pallas kernel's finite mask)."""
     q, k, v = (_as_tensor(x, None, device) for x in (q, k, v))
     lens = torch.as_tensor(kv_len, dtype=torch.int32, device=q.device)
     lens = lens.reshape(-1)

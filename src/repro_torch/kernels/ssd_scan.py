@@ -15,10 +15,11 @@ the chunk length only through rounding, so the kernel's tile is its own
 (a 256-step decay block would not fit shared memory); the bar against the
 plain version, which chunks at Q, is the reference's 4e-3.  x may be
 float32, bfloat16 or float16; dt, A, B and C are widened to float32 here
-before the launch.  Any P; a block's shared memory (its slice of the
-state, one tile of x dt, B, C and the decay block) must fit the card's
-227 KB, which bounds N.  Bound
-on an H100: operations.
+before the launch, and other types of x (64-bit, integers) are converted
+first by the reference's rule (``_promote``), y keeping x's type.  Any P;
+a block's shared memory (its slice of the state, one tile of x dt, B, C
+and the decay block) must fit the card's 227 KB, which bounds N.  Bound on
+an H100: operations.
 """
 from __future__ import annotations
 
@@ -27,21 +28,20 @@ import ctypes
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels import _check, ref
+from repro_torch.kernels import _check, _promote, ref
 
 NAME = "ssd_scan"
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-FLOATS = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
 # the opt-in shared memory of one block on an H100
 MAX_SMEM = 232_448
 
 
 def _check_args(x, dt, A, B, C, chunk):
-    _check.tensor(NAME, "x", x, FLOATS, 4)
+    _check.tensor(NAME, "x", x, X_DTYPES, 4)
     b, S, H, P = x.shape
     for name, t, ndim in (("dt", dt, 3), ("A", A, 1), ("B", B, 3),
                           ("C", C, 3)):
-        _check.tensor(NAME, name, t, FLOATS, ndim, x.device)
+        _check.tensor(NAME, name, t, (torch.float32,), ndim, x.device)
     if dt.shape != (b, S, H) or A.shape != (H,):
         raise ValueError(f"{NAME}: dt {tuple(dt.shape)} and A "
                          f"{tuple(A.shape)} must be [b, S, H] and [H] for x "
@@ -71,12 +71,13 @@ def _lib():
 def ssd_scan(x, dt, A, B, C, chunk: int = 256):
     """y ``[b,S,H,P]`` in x's type.  CUDA tensors launch the kernel; CPU
     tensors take the plain version."""
+    (x,), out_dtype = _promote.promote((x,), X_DTYPES)
+    dt, A, B, C = (t.to(torch.float32) if isinstance(t, torch.Tensor)
+                   and not t.is_complex() else t for t in (dt, A, B, C))
     _check_args(x, dt, A, B, C, chunk)
     if _check.device_kind(NAME, x) == "cpu":
-        return ref.ssd_scan(x, dt, A, B, C, chunk)
-    if x.dtype not in X_DTYPES:
-        raise ValueError(f"{NAME}: the kernel takes x in float32, bfloat16 "
-                         f"or float16, got {x.dtype}")
+        return _promote.restore(ref.ssd_scan(x, dt, A, B, C, chunk),
+                                out_dtype)
     b, S, H, P = x.shape
     N = B.shape[-1]
     if P < 1 or N < 1:
@@ -89,10 +90,9 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 256):
     if smem > MAX_SMEM:
         raise ValueError(f"{NAME}: P = {P}, N = {N} need {smem} bytes of "
                          f"shared memory per block, more than {MAX_SMEM}")
-    dt, A, B, C = (t.float().contiguous() for t in (dt, A, B, C))
     out = torch.empty_like(x)
     if out.numel() == 0:
-        return out
+        return _promote.restore(out, out_dtype)
     with torch.cuda.device(x.device):
         code = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
@@ -100,7 +100,7 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 256):
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, NAME)
     ssd_scan.launches += 1
-    return out
+    return _promote.restore(out, out_dtype)
 
 
 ssd_scan.launches = 0

@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels import _check, ref
+from repro_torch.kernels import _check, _promote, ref
 
 NAME = "streamcluster_dist"
 # the C entry point's code for each input type
@@ -55,6 +55,7 @@ def _lib():
 def streamcluster_dist(points, centers):
     """float32 ``[M,N]`` squared distances.  CUDA tensors launch the kernel;
     CPU tensors take the plain version."""
+    (points, centers), _ = _promote.promote((points, centers), DTYPES)
     _check_args(points, centers)
     if _check.device_kind(NAME, points) == "cpu":
         return ref.streamcluster_dist(points, centers)

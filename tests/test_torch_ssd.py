@@ -159,7 +159,7 @@ def test_ssd_scan_rejects_a_sequence_off_the_chunk():
 
 
 @pytest.mark.parametrize("bad", ["dt-shape", "A-shape", "B-shape", "C-N",
-                                 "int-x", "x-3d"])
+                                 "x-3d"])
 def test_ssd_scan_rejects_bad_operands(bad):
     x, dt, A, B, C, _ = (torch.from_numpy(a)
                          for a in ssd_inputs(1, 64, 2, 8, 16, 2))
@@ -171,8 +171,6 @@ def test_ssd_scan_rejects_bad_operands(bad):
         B = B[:, :32].contiguous()
     elif bad == "C-N":
         C = C[..., :8].contiguous()
-    elif bad == "int-x":
-        x = x.to(torch.int32)
     else:
         x = x[0]
     with pytest.raises(ValueError, match="ssd_scan"):

@@ -165,8 +165,6 @@ def _bad_calls():
         "sw_shape": (sw_mod.cum_normal_inv, (sw.reshape(8, 8),)),
         "sw_stride": (sw_mod.cum_normal_inv, (sw[::2],)),
         "sw_device": (sw_mod.cum_normal_inv, (sw.to(meta),)),
-        "sc_dtype": (sc_mod.streamcluster_dist, (p.double(), c.double())),
-        "sc_mixed": (sc_mod.streamcluster_dist, (p, c.bfloat16())),
         "sc_shape": (sc_mod.streamcluster_dist, (p, c[:, :3].contiguous())),
         "sc_stride": (sc_mod.streamcluster_dist, (p.t(), c)),
         "sc_device": (sc_mod.streamcluster_dist, (p, c.to(meta))),
