@@ -1,5 +1,5 @@
 // Flash decoding (one query token against a KV cache) for Hopper (sm_90a),
-// plain C interface.
+// plain C interface: split-KV, then a combine pass.
 //
 // Replaces the Pallas kernel repro/kernels/decode_attention.py:51
 // (decode_attention, pallas_call at :57): for q [B, H, D] and a cache k, v
@@ -16,21 +16,30 @@
 // once: min(kv_len, S) rows of K and V (only V, all S rows, at
 // kv_len <= 0), D values each per head, against ~4 D flops a key.
 //
-// Design.  One 256-thread block per (b, h); its 8 warps take the keys
-// round-robin, 8 at a time (16 from a 16-bit cache, 4 at D > 128), with
-// all the row loads of a group (K and V) issued before the first is used.
-// A lane holds D / 32 of the query, of a key row and of its accumulator, up
-// to 8 elements at D 256 (elements lane + 32 e, or for a 16-bit cache the
-// pairs 2 (lane + 32 e) and the next, read as 4 bytes: each load of a row
-// is one contiguous 128-byte piece in float32 and in 16 bits); a warp
-// reduces q.k with shuffles and keeps its own running max, sum and
-// accumulator.  Keys past kv_len are not read
-// (they would add exp(-1e30 - m) = 0); at kv_len <= 0, K is not read and
-// every score is the same, so each key weighs 1.  The 8 warps' partial
-// softmaxes are merged in shared memory: out = sum_w acc_w e^(m_w - M) /
-// max(sum_w l_w e^(m_w - M), 1e-30), as the Pallas kernel's epilogue.
-// Splitting one (b, h) across blocks with a combine pass (the Hopper
-// split-KV design) is later work.
+// Design (split-KV).  The keys of each batch entry are cut into splits of
+// `len` positions (the wrapper picks it from S, B, the head groups and the
+// SM count, so that the grid fills the card at any shape); one 256-thread
+// block takes one (split, b, head group).  A key position's rows of all
+// the group's heads are one contiguous run of HG * D values, which the
+// block reads as such: thread (kl, hh, j) holds NV vectors of VEC elements
+// (16 bytes where D % VEC == 0 and the cache is 16-byte aligned, else one
+// element) of head hh, columns (i * TPH + j) * VEC + e, and the block's
+// KPAR = 256 / (HG * TPH) key lanes kl take the split's keys round-robin,
+// UNROLL keys a thread with all their K and V loads issued before the
+// first is used.  q.k is reduced over a head's TPH lanes with shuffles,
+// and each thread keeps its own running max, sum and accumulator.  The key
+// lanes are merged in shared memory in a fixed order and the split writes
+// its partial (m, l, acc[D]) per head to a float32 workspace.  A split
+// that starts at or past kv_len writes the neutral (m = -1e30, l = 0, sums
+// 0) and exits; keys past kv_len are never read, nor is K at kv_len <= 0 (every
+// score is the mask's -1e30 there, so each key weighs 1).
+//
+// The combine kernel (a warp per (b, h)) merges its splits below kv_len in
+// split order, the Pallas kernel's epilogue: out = sum_s acc_s e^(m_s - M) / max(sum_s
+// l_s e^(m_s - M), 1e-30), so the result has the same bits every call (no
+// atomics).  Heads wider than 512 are cut into pieces of 512 columns: each
+// block forms q.k over all the pieces and accumulates P V for one piece of
+// V, a slice of the output columns (grid z).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -40,197 +49,380 @@
 
 namespace {
 
-constexpr int WARPS = 8, THREADS = 32 * WARPS;
-constexpr float NEG_INF = -1e30f;   // decode_attention.py:16
+constexpr int THREADS = 256;
+constexpr int MAX_E = 16;            // columns of a head a thread holds
+constexpr int COMBINE_THREADS = 64;   // two warps, a (b, h) each
+constexpr float NEG_INF = -1e30f;    // decode_attention.py:16
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+struct Plan {
+  int S, H, D;
+  float scale;
+  int len, NS;        // keys a split, splits a batch entry
+  int TPH, HG;        // threads a head, heads a block
+  int groups;         // head groups, ceil(H / HG)
+  int pieces;         // pieces of TPH * NV * VEC columns (1 unless D > 512)
+  int q_type;         // 0 float32, 1 bfloat16, 2 float16
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
-__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
-// Elements d and d + 1 of a 16-bit row as one 4-byte load (d even, the
-// row 4-byte aligned), widened exactly.
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a,
-                                      float& b) {
-  const unsigned int u = __ldg(reinterpret_cast<const unsigned int*>(p));
-  a = __uint_as_float(u << 16);
-  b = __uint_as_float(u & 0xffff0000u);
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
 }
-__device__ __forceinline__ void load2(const __half* p, float& a, float& b) {
-  const unsigned int u = __ldg(reinterpret_cast<const unsigned int*>(p));
-  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&u));
-  a = f.x;
-  b = f.y;
-}
-__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
-  a = __ldg(p);
-  b = __ldg(p + 1);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-__device__ __forceinline__ void store(__half* p, float v) {
-  *p = __float2half(v);
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half(x);
 }
 
-// EPL: elements of a D-row per lane, D <= 32 * EPL; VEC: elements a lane
-// loads at once (2: a 16-bit cache read 4 bytes a lane, so a warp's load
-// of a row is one 128-byte piece), so the lane holds elements
-// VEC (lane + 32 e2) + j; TQ: q's and the output's type; TC: the cache's
-template <typename TQ, typename TC, int EPL, int VEC>
-__global__ void __launch_bounds__(THREADS)
-decode_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
-              const TC* __restrict__ v, const int32_t* __restrict__ lens,
-              TQ* __restrict__ o, int S, int H, int D, float scale) {
-  // keys a warp loads at once: 8, 16 from a 16-bit cache (half the bytes
-  // a key, so as many bytes in flight), 4 at D > 128 (registers)
-  constexpr int UNROLL = EPL > 4 ? 4 : sizeof(TC) == 2 ? 16 : 8;
-  __shared__ float sm_m[WARPS], sm_l[WARPS];
-  __shared__ float sm_acc[WARPS][32 * EPL];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const long long stride = (long long)H * D;
-  const long long head = (long long)b * S * stride + (long long)h * D;
-  const TC* kb = k + head;
-  const TC* vb = v + head;
+// Element `i` of q as float32.
+__device__ __forceinline__ float load_q(const void* q, int q_type,
+                                        long long i) {
+  if (q_type == 1) return to_f(static_cast<const __nv_bfloat16*>(q)[i]);
+  if (q_type == 2) return to_f(static_cast<const __half*>(q)[i]);
+  return static_cast<const float*>(q)[i];
+}
 
-  // the D-index of this lane's element e
-  auto dim = [&](int e) { return VEC * (lane + 32 * (e / VEC)) + e % VEC; };
-  float qv[EPL];
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) {
-    const int d = dim(e);
-    qv[e] = d < D ? to_f(q[(long long)blockIdx.x * D + d]) : 0.0f;
+// VEC elements of the cache, read as one load (16 bytes, or one element),
+// kept in their own type until used.
+template <typename TC, int VEC>
+struct alignas(VEC * sizeof(TC)) Pack {
+  TC x[VEC];
+};
+
+template <typename TC, int VEC>
+__device__ __forceinline__ Pack<TC, VEC> load_pack(const TC* ptr, bool ok) {
+  Pack<TC, VEC> r;
+  if constexpr (VEC * sizeof(TC) == 16) {
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (ok) u = __ldg(reinterpret_cast<const uint4*>(ptr));
+    static_assert(sizeof(r) == sizeof(u), "a 16-byte pack");
+    __builtin_memcpy(&r, &u, sizeof(u));
+  } else {
+    static_assert(VEC == 1, "one element or 16 bytes");
+    r.x[0] = ok ? __ldg(ptr) : TC(0.0f);
   }
-  const int len = lens[b];
-  const bool all_masked = len <= 0;
-  const int n = all_masked ? S : min(len, S);
+  return r;
+}
 
-  float m = NEG_INF, l = 0.0f, acc[EPL];
+// Online-softmax update of one thread's (m, l, acc) by UNROLL scores and
+// the matching value packs.
+template <typename TC, int VEC, int NV, int UNROLL>
+__device__ __forceinline__ void update(float& m, float& l, float* acc,
+                                       const float* s,
+                                       Pack<TC, VEC> (*vr)[NV]) {
+  float mt = s[0];
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) acc[e] = 0.0f;
+  for (int u = 1; u < UNROLL; ++u) mt = fmaxf(mt, s[u]);
+  const float m_new = fmaxf(m, mt);
+  const float corr = expf(m - m_new);
+  l *= corr;
+#pragma unroll
+  for (int c = 0; c < NV * VEC; ++c) acc[c] *= corr;
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const float pr = expf(s[u] - m_new);
+    l += pr;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        acc[i * VEC + e] += pr * to_f(vr[u][i].x[e]);
+  }
+  m = m_new;
+}
 
-  for (int base = warp * UNROLL; base < n; base += WARPS * UNROLL) {
-    float kr[UNROLL][EPL], vr[UNROLL][EPL];
+// One block: split blockIdx.x % NS of batch entry blockIdx.x / NS, head
+// group and column slice blockIdx.z.  ws_ml [B, NS, H, 2] holds (m, l), ws_acc [B,
+// NS, H, D] the unnormalised sums.  MULTI (D > 512): q.k over `pieces`
+// pieces of P columns, P V over the slice of P columns this block owns.
+template <typename TC, int VEC, int NV, bool MULTI>
+__global__ void __launch_bounds__(THREADS)
+split_kernel(const void* __restrict__ q, const TC* __restrict__ k,
+             const TC* __restrict__ v, const int32_t* __restrict__ lens,
+             float* __restrict__ ws_ml, float* __restrict__ ws_acc,
+             const Plan p) {
+  constexpr int E = NV * VEC;
+  constexpr int UNROLL = E <= 4 ? 8 : E <= 8 ? 4 : 2;
+  extern __shared__ float smem[];
+  const int S = p.S, H = p.H, D = p.D, TPH = p.TPH, HG = p.HG;
+  const int P = TPH * E;                      // columns a piece
+  const int KPAR = THREADS / (TPH * HG);      // key lanes of the block
+  const int split = blockIdx.x % p.NS, b = blockIdx.x / p.NS;
+  const int g = blockIdx.z % p.groups, slice = blockIdx.z / p.groups;
+  const int tid = threadIdx.x, j = tid % TPH, hh = (tid / TPH) % HG;
+  const int kl = tid / (TPH * HG);
+  const int h = g * HG + hh;
+  const bool head_ok = h < H;
+  const long long part = ((long long)b * p.NS + split) * H;   // (b, split, 0)
+
+  const int dv0 = slice * P;                  // first column of the slice
+  const int kv_len = lens[b];
+  const bool all_masked = kv_len <= 0;
+  const int n = all_masked ? S : min(kv_len, S);
+  const int k_lo = split * p.len;
+  if (k_lo >= n) {   // the neutral partial: m = -1e30, l = 0, sums 0
+    if (slice == 0 && kl == 0 && j == 0 && head_ok) {
+      ws_ml[(part + h) * 2] = NEG_INF;
+      ws_ml[(part + h) * 2 + 1] = 0.0f;
+    }
+    for (int idx = tid; idx < HG * P; idx += THREADS) {
+      const int hd = g * HG + idx / P, d = dv0 + idx % P;
+      if (hd < H && d < D) ws_acc[(part + hd) * D + d] = 0.0f;
+    }
+    return;
+  }
+  const int k_hi = (int)min((long long)k_lo + p.len, (long long)n);
+  const long long row = (long long)H * D;     // elements a key position
+  const long long qrow = ((long long)b * H + h) * D;
+  const TC* kb = k + (long long)b * S * row + (long long)h * D;
+  const TC* vb = v + (long long)b * S * row + (long long)h * D + dv0;
+
+  float qv[E], acc[E];
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const int d = (i * TPH + j) * VEC + e;
+      qv[i * VEC + e] = !MULTI && head_ok && d < D
+                            ? load_q(q, p.q_type, qrow + d)
+                            : 0.0f;
+      acc[i * VEC + e] = 0.0f;
+    }
+  float m = NEG_INF, l = 0.0f;
+
+  for (int base = k_lo; base < k_hi; base += KPAR * UNROLL) {
+    Pack<TC, VEC> kr[UNROLL][NV], vr[UNROLL][NV];
+    bool ok[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      const bool valid = base + u < n;
-      const long long row = (long long)(base + u) * stride;
+      const int key = base + u * KPAR + kl;
+      ok[u] = head_ok && key < k_hi;
 #pragma unroll
-      for (int e = 0; e < EPL; e += VEC) {
-        const int d = dim(e);
-        const bool in = valid && d < D;
-        if constexpr (VEC == 2) {
-          kr[u][e] = kr[u][e + 1] = vr[u][e] = vr[u][e + 1] = 0.0f;
-          if (in && !all_masked) load2(kb + row + d, kr[u][e], kr[u][e + 1]);
-          if (in) load2(vb + row + d, vr[u][e], vr[u][e + 1]);
-        } else {
-          kr[u][e] = (in && !all_masked) ? to_f(__ldg(kb + row + d)) : 0.0f;
-          vr[u][e] = in ? to_f(__ldg(vb + row + d)) : 0.0f;
-        }
+      for (int i = 0; i < NV; ++i) {
+        const int c = (i * TPH + j) * VEC;
+        if constexpr (!MULTI)
+          kr[u][i] = load_pack<TC, VEC>(kb + key * row + c,
+                                        ok[u] && !all_masked && c < D);
+        vr[u][i] = load_pack<TC, VEC>(vb + key * row + c,
+                                      ok[u] && dv0 + c < D);
       }
     }
+    float dot[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) dot[u] = 0.0f;
+    if constexpr (MULTI) {   // q.k over the pieces, q read as it is needed
+      for (int pc = 0; pc < p.pieces; ++pc) {
+        const int d0 = pc * P;
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int key = base + u * KPAR + kl;
+#pragma unroll
+          for (int i = 0; i < NV; ++i) {
+            const int c = d0 + (i * TPH + j) * VEC;
+            kr[u][i] = load_pack<TC, VEC>(kb + key * row + c,
+                                          ok[u] && !all_masked && c < D);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < NV; ++i)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const int d = d0 + (i * TPH + j) * VEC + e;
+            qv[i * VEC + e] = head_ok && d < D ? load_q(q, p.q_type, qrow + d)
+                                               : 0.0f;
+          }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+#pragma unroll
+          for (int i = 0; i < NV; ++i)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              dot[u] += qv[i * VEC + e] * to_f(kr[u][i].x[e]);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+#pragma unroll
+        for (int i = 0; i < NV; ++i)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            dot[u] += qv[i * VEC + e] * to_f(kr[u][i].x[e]);
+    }
     float s[UNROLL];
-    float mt = NEG_INF;
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
-      float dot = 0.0f;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) dot += qv[e] * kr[u][e];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      // key base + u < n always holds for u == 0, so mt is finite
-      s[u] = base + u < n ? (all_masked ? 0.0f : dot * scale) : -INFINITY;
-      mt = fmaxf(mt, s[u]);
+      // a head's TPH lanes are an aligned group of one warp
+      for (int off = TPH >> 1; off > 0; off >>= 1)
+        dot[u] += __shfl_xor_sync(0xffffffffu, dot[u], off);
+      const int key = base + u * KPAR + kl;
+      s[u] = key < k_hi ? (all_masked ? NEG_INF : dot[u] * p.scale)
+                        : -INFINITY;
     }
-    const float m_new = fmaxf(m, mt);
-    const float corr = expf(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[e] *= corr;
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const float p = expf(s[u] - m_new);
-      l += p;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[e] += p * vr[u][e];
-    }
-    m = m_new;
+    update<TC, VEC, NV, UNROLL>(m, l, acc, s, vr);
   }
 
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
-  }
+  // merge the key lanes: smem [KPAR][HG][P] sums, then [KPAR][HG] m and l
+  float* sm_acc = smem;
+  float* sm_m = smem + THREADS * E;
+  float* sm_l = sm_m + KPAR * HG;
+  const int lane_head = kl * HG + hh;
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) sm_acc[warp][dim(e)] = acc[e];
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      sm_acc[lane_head * P + (i * TPH + j) * VEC + e] = acc[i * VEC + e];
+  if (j == 0) {
+    sm_m[lane_head] = m;
+    sm_l[lane_head] = l;
+  }
   __syncthreads();
-  float M = NEG_INF;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) M = fmaxf(M, sm_m[w]);
-  float L = 0.0f;
-  float wt[WARPS];
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) {
-    wt[w] = expf(sm_m[w] - M);   // 0 for a warp that saw no key
-    L += sm_l[w] * wt[w];
-  }
-  const float denom = fmaxf(L, 1e-30f);
-  for (int d = threadIdx.x; d < D; d += THREADS) {
-    float a = 0.0f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) a += sm_acc[w][d] * wt[w];
-    store(o + (long long)blockIdx.x * D + d, a / denom);
+  for (int idx = tid; idx < HG * P; idx += THREADS) {
+    const int h2 = idx / P, dl = idx % P;
+    const int hd = g * HG + h2, d = dv0 + dl;
+    if (hd >= H || d >= D) continue;
+    float M = NEG_INF;
+    for (int r = 0; r < KPAR; ++r) M = fmaxf(M, sm_m[r * HG + h2]);
+    float a = 0.0f, L = 0.0f;
+    for (int r = 0; r < KPAR; ++r) {
+      const float w = expf(sm_m[r * HG + h2] - M);
+      a += sm_acc[(r * HG + h2) * P + dl] * w;
+      L += sm_l[r * HG + h2] * w;
+    }
+    ws_acc[(part + hd) * D + d] = a;
+    if (dl == 0 && slice == 0) {
+      ws_ml[(part + hd) * 2] = M;
+      ws_ml[(part + hd) * 2 + 1] = L;
+    }
   }
 }
 
-template <typename TQ, typename TC, int EPL, int VEC>
-int launch(const void* q, const void* k, const void* v, const int32_t* lens,
-           void* o, int B, int S, int H, int D, float scale,
-           cudaStream_t stream) {
-  decode_kernel<TQ, TC, EPL, VEC><<<(unsigned)(B * H), THREADS, 0, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TC*>(k),
-      static_cast<const TC*>(v), lens, static_cast<TQ*>(o), S, H, D, scale);
+// One warp per (b, h): the splits below kv_len merged in split order.
+// Lanes take the splits 32 apart for the max M and the sum l (reduced in a
+// fixed order), then the columns 32 apart, CPL at a time, each lane
+// walking all the splits with their weights e^(m_s - M).
+template <typename TQ>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+combine_kernel(const float* __restrict__ ws_ml,
+               const float* __restrict__ ws_acc,
+               const int32_t* __restrict__ lens, TQ* __restrict__ o, int S,
+               int H, int D, int len, int NS, int BH) {
+  constexpr int CPL = 4;   // columns a lane holds at once
+  const int bh = blockIdx.x * (COMBINE_THREADS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (bh >= BH) return;
+  const int b = bh / H, h = bh % H;
+  const int kv_len = lens[b];
+  const int n = kv_len <= 0 ? S : min(kv_len, S);
+  const int ns = (n + len - 1) / len;
+  const long long first = (long long)b * NS * H + h;   // (b, 0, h)
+  float M = NEG_INF;
+  for (int s = lane; s < ns; s += 32)
+    M = fmaxf(M, ws_ml[(first + (long long)s * H) * 2]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+  float L = 0.0f;
+  for (int s = lane; s < ns; s += 32) {
+    const long long ph = (first + (long long)s * H) * 2;
+    L += ws_ml[ph + 1] * expf(ws_ml[ph] - M);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    L += __shfl_xor_sync(0xffffffffu, L, off);
+  const float denom = fmaxf(L, 1e-30f);
+  for (int d0 = 0; d0 < D; d0 += 32 * CPL) {
+    float a[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) a[c] = 0.0f;
+#pragma unroll 4
+    for (int s = 0; s < ns; ++s) {
+      const long long ph = first + (long long)s * H;
+      const float w = expf(ws_ml[ph * 2] - M);
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int d = d0 + lane + 32 * c;
+        if (d < D) a[c] += ws_acc[ph * D + d] * w;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      const int d = d0 + lane + 32 * c;
+      if (d < D) store(o + (long long)bh * D + d, a[c] / denom);
+    }
+  }
+}
+
+template <typename TC, int VEC, int NV, bool MULTI>
+int launch_split(const void* q, const void* k, const void* v,
+                 const int32_t* lens, float* ws, int B, const Plan& p,
+                 cudaStream_t st) {
+  const int kpar = THREADS / (p.TPH * p.HG);
+  const int smem = (THREADS * NV * VEC + 2 * kpar * p.HG) * (int)sizeof(float);
+  const dim3 grid((unsigned)((long long)p.NS * B), 1u,
+                  (unsigned)(p.groups * p.pieces));
+  float* ws_ml = ws;
+  float* ws_acc = ws + 2ll * B * p.NS * p.H;
+  split_kernel<TC, VEC, NV, MULTI><<<grid, THREADS, smem, st>>>(
+      q, static_cast<const TC*>(k), static_cast<const TC*>(v), lens, ws_ml,
+      ws_acc, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// float32 caches one element a load; 16-bit caches two where D is even and
-// k and v are 4-byte aligned (each row then is too), else one
-template <typename TQ, typename TC>
-int by_width(const void* q, const void* k, const void* v, const int32_t* lens,
-             void* o, int B, int S, int H, int D, float scale,
-             cudaStream_t st) {
-  const bool pairs = sizeof(TC) == 2 && D % 2 == 0 &&
-                     reinterpret_cast<uintptr_t>(k) % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(v) % 4 == 0;
-  if (pairs) {
-    if (D <= 64)
-      return launch<TQ, TC, 2, 2>(q, k, v, lens, o, B, S, H, D, scale, st);
-    if (D <= 128)
-      return launch<TQ, TC, 4, 2>(q, k, v, lens, o, B, S, H, D, scale, st);
-    return launch<TQ, TC, 8, 2>(q, k, v, lens, o, B, S, H, D, scale, st);
+// The instantiations: 16-byte packs with NV 1, 2 (and 4 for float32), one
+// element with NV 1, 2, 4, 8, 16; MULTI only at 16 columns a thread.
+template <typename TC>
+int by_pack(const void* q, const void* k, const void* v, const int32_t* lens,
+            float* ws, int B, const Plan& p, int vec, int nv,
+            cudaStream_t st) {
+  constexpr int V16 = 16 / (int)sizeof(TC);
+  const bool multi = p.pieces > 1;
+  if (vec == V16) {
+    if (multi && nv * V16 == MAX_E)
+      return launch_split<TC, V16, MAX_E / V16, true>(q, k, v, lens, ws, B,
+                                                      p, st);
+    if (!multi && nv == 1)
+      return launch_split<TC, V16, 1, false>(q, k, v, lens, ws, B, p, st);
+    if (!multi && nv == 2)
+      return launch_split<TC, V16, 2, false>(q, k, v, lens, ws, B, p, st);
+    if constexpr (V16 == 4)
+      if (!multi && nv == 4)
+        return launch_split<TC, 4, 4, false>(q, k, v, lens, ws, B, p, st);
+  } else if (vec == 1) {
+    if (multi && nv == MAX_E)
+      return launch_split<TC, 1, MAX_E, true>(q, k, v, lens, ws, B, p, st);
+    if (!multi) {
+      if (nv == 1)
+        return launch_split<TC, 1, 1, false>(q, k, v, lens, ws, B, p, st);
+      if (nv == 2)
+        return launch_split<TC, 1, 2, false>(q, k, v, lens, ws, B, p, st);
+      if (nv == 4)
+        return launch_split<TC, 1, 4, false>(q, k, v, lens, ws, B, p, st);
+      if (nv == 8)
+        return launch_split<TC, 1, 8, false>(q, k, v, lens, ws, B, p, st);
+      if (nv == 16)
+        return launch_split<TC, 1, 16, false>(q, k, v, lens, ws, B, p, st);
+    }
   }
-  if (D <= 32)
-    return launch<TQ, TC, 1, 1>(q, k, v, lens, o, B, S, H, D, scale, st);
-  if (D <= 64)
-    return launch<TQ, TC, 2, 1>(q, k, v, lens, o, B, S, H, D, scale, st);
-  if (D <= 128)
-    return launch<TQ, TC, 4, 1>(q, k, v, lens, o, B, S, H, D, scale, st);
-  return launch<TQ, TC, 8, 1>(q, k, v, lens, o, B, S, H, D, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename TQ>
-int by_cache(const void* q, const void* k, const void* v, const int32_t* lens,
-             void* o, int B, int S, int H, int D, float scale, int kv_type,
-             cudaStream_t st) {
-  if (kv_type == 1)
-    return by_width<TQ, __nv_bfloat16>(q, k, v, lens, o, B, S, H, D, scale, st);
-  if (kv_type == 2)
-    return by_width<TQ, __half>(q, k, v, lens, o, B, S, H, D, scale, st);
-  return by_width<TQ, float>(q, k, v, lens, o, B, S, H, D, scale, st);
+int launch_combine(const float* ws, const int32_t* lens, void* o, int B,
+                   int S, int H, int D, int len, int NS, cudaStream_t st) {
+  constexpr int WARPS = COMBINE_THREADS / 32;
+  const long long bh = (long long)B * H;
+  combine_kernel<TQ><<<(unsigned)((bh + WARPS - 1) / WARPS), COMBINE_THREADS,
+                       0, st>>>(ws, ws + 2ll * B * NS * H, lens,
+                                static_cast<TQ*>(o), S, H, D, len, NS,
+                                (int)bh);
+  return static_cast<int>(cudaGetLastError());
 }
+
+bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
 
 }  // namespace
 
@@ -238,23 +430,64 @@ extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, o [b, h, d] of type `q_type`; k, v [b, s, h, d] of type `kv_type`
-// (0 float32, 1 bfloat16, 2 float16); lens int32 [b]; all contiguous,
-// 1 <= d <= 256.  Launches on `stream`; returns cudaGetLastError() (0 on
-// success), or cudaErrorInvalidValue for a width or type it does not take.
-extern "C" int decode_attention_launch(const void* q, const void* k,
-                                       const void* v, const int32_t* lens,
-                                       void* o, int b, int s, int h, int d,
-                                       float scale, int q_type, int kv_type,
-                                       void* stream) {
+// The split kernel: q [b, h, d] of type `q_type`, k, v [b, s, h, d] of
+// type `kv_type` (0 float32, 1 bfloat16, 2 float16), lens int32 [b], all
+// contiguous, into the float32 workspace `ws` of b * ns * h * (d + 2)
+// values ((m, l) of every (b, split, h), then the sums).  The plan (the
+// wrapper's): splits of `len` keys, `ns` = ceil(s / len) a batch entry;
+// `vec` elements a load (16 bytes: d % vec == 0 and k, v 16-byte aligned;
+// or 1), `nv` loads a thread a head, `tph` threads a head (a power of two
+// <= 32), `hg` heads a block (tph * hg divides 256), `pieces` column pieces
+// of tph * nv * vec (1 unless nv * vec is 16 and d is wider).  Launches on
+// `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a plan or type it does not take.
+extern "C" int decode_attention_split_launch(
+    const void* q, const void* k, const void* v, const int32_t* lens,
+    float* ws, int b, int s, int h, int d, float scale, int q_type,
+    int kv_type, int len, int ns, int vec, int nv, int tph, int hg,
+    int pieces, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d < 1 || d > 256 || q_type < 0 || q_type > 2 || kv_type < 0 ||
-      kv_type > 2)
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (b < 1 || s < 1 || h < 1 || d < 1 || q_type < 0 || q_type > 2 ||
+      kv_type < 0 || kv_type > 2 || len < 1 || ns != (s + len - 1) / len ||
+      !pow2(tph) || tph > 32 || !pow2(hg) || tph * hg > THREADS ||
+      !pow2(nv) || nv * vec > MAX_E || pieces < 1 ||
+      (long long)ns * b > 0x7fffffffll)
+    return bad;
+  const int piece = tph * nv * vec;
+  if ((long long)piece * pieces < d || (pieces > 1 && nv * vec != MAX_E))
+    return bad;
+  const int size = kv_type == 0 ? 4 : 2;
+  if (vec != 1 && (vec * size != 16 || d % vec ||
+                   reinterpret_cast<uintptr_t>(k) % 16 ||
+                   reinterpret_cast<uintptr_t>(v) % 16))
+    return bad;
+  const int groups = (h + hg - 1) / hg;
+  if ((long long)groups * pieces > 65535) return bad;
+  const Plan p{s, h, d, scale, len, ns, tph, hg, groups, pieces, q_type};
+  if (kv_type == 1)
+    return by_pack<__nv_bfloat16>(q, k, v, lens, ws, b, p, vec, nv, st);
+  if (kv_type == 2)
+    return by_pack<__half>(q, k, v, lens, ws, b, p, vec, nv, st);
+  return by_pack<float>(q, k, v, lens, ws, b, p, vec, nv, st);
+}
+
+// The combine kernel: the split kernel's workspace `ws` (same b, s, h, d,
+// len, ns) and lens into o [b, h, d] of type `o_type`.  Launches on
+// `stream`; returns cudaGetLastError() (0 on success).
+extern "C" int decode_attention_combine_launch(const float* ws,
+                                               const int32_t* lens, void* o,
+                                               int b, int s, int h, int d,
+                                               int len, int ns, int o_type,
+                                               void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b < 1 || s < 1 || h < 1 || d < 1 || len < 1 ||
+      ns != (s + len - 1) / len || o_type < 0 || o_type > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (q_type == 1)
-    return by_cache<__nv_bfloat16>(q, k, v, lens, o, b, s, h, d, scale,
-                                   kv_type, st);
-  if (q_type == 2)
-    return by_cache<__half>(q, k, v, lens, o, b, s, h, d, scale, kv_type, st);
-  return by_cache<float>(q, k, v, lens, o, b, s, h, d, scale, kv_type, st);
+  if (o_type == 1)
+    return launch_combine<__nv_bfloat16>(ws, lens, o, b, s, h, d, len, ns,
+                                         st);
+  if (o_type == 2)
+    return launch_combine<__half>(ws, lens, o, b, s, h, d, len, ns, st);
+  return launch_combine<float>(ws, lens, o, b, s, h, d, len, ns, st);
 }

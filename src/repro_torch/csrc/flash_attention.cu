@@ -5,14 +5,17 @@
 // q, k, v [B, S, H, D], causal or not, with an online softmax over key
 // tiles so the [S, S] scores never reach device memory.  Inputs float32,
 // bfloat16 or float16, all sums float32, the output in the inputs' type.
-// Head widths 1..128; csrc/flash_attention_wide.cu takes 129..256.
+// Head widths 1..128 in float32 and 1..256 in the 16-bit types;
+// csrc/flash_attention_wide.cu takes the rest.
 //
 // Bound on an H100: operations, 4 * D flops (q.k and p.v) per (query, key)
 // pair the mask keeps, on the tensor cores: 17.2 GFLOP causal at B 4, H 8,
 // S 2,048, D 64 (0.0174 ms at the dense bf16 rate of 989 TFLOP/s); in
 // float32 three TF32 products per product (3 x 17.2 G at 495 TFLOP/s,
 // 0.104 ms).  At D 64 the exponentials (one per pair, 16 a clock per SM)
-// take nearly as long as the bf16 products.
+// take nearly as long as the bf16 products; at D 256 (gemma-7b: H 16, S
+// 4,096, 137.5 GFLOP causal, 0.139 ms) the products take four times the
+// exponentials' time.
 //
 // Design.  One block of three warpgroups per (b * H + h, 128-query tile);
 // the query tiles with the most key tiles are launched first, across the
@@ -35,8 +38,9 @@
 // ~64 branch regions on every tile), exp2 is one MUFU.EX2 with the scale
 // folded into an FFMA, and the max and sum run in four partials a row.
 //
-// bfloat16 and float16 (one kernel, instantiated for each 16-bit type): S = Q
-// K^T and O += P V on wgmma (m64n128k16 and m64n64k16, f32 sums), the two
+// bfloat16 and float16 (one kernel, instantiated for each 16-bit type and
+// for NP = 1, 2 or 4 64-column panels of D): S = Q K^T and O += P V on
+// wgmma (m64n128k16 and m64n64k16, f32 sums), the two
 // consumer warpgroups taking turns to issue them (FA3's ping-pong, named
 // barriers 1 and 2) so that one's softmax overlaps the other's products.  Tiles
 // sit in shared memory as 64-column panels of 128-byte rows, 128-byte swizzled;
@@ -45,10 +49,18 @@
 // rounded to the inputs' 16-bit type in registers and is wgmma's register A
 // operand (the plain version rounds the probabilities to q's type too).
 // The tiles come by TMA through a 4-D tensor map over [B, S, H, D] (box 64
-// x 1 x 128 x 1; its out-of-bounds zero fill covers a ragged tile and D <
-// 64 or < 128) when the rows are 16-byte aligned (D % 8 == 0); otherwise
-// the loader warpgroup writes the same swizzled tiles with cp.async (4-byte
-// pieces, D even) or plain loads (D odd).
+// x 1 x rows x 1, 128 rows for Q, a key tile's for K and V; its
+// out-of-bounds zero fill covers a ragged tile and D < 64 or < 128) when
+// the rows are 16-byte aligned (D % 8 == 0); otherwise the loader
+// warpgroup writes the same swizzled tiles with cp.async (4-byte pieces, D
+// even) or plain loads (D odd).  At D 129..256 (NP = 4) the Q
+// tile alone takes 64 KB, so the key tiles hold 48 keys (S on m64n48k16
+// over 16 k-steps) in a ring of three stages: Q 64 KB + 3 x (K 24 KB + V 24
+// KB) = 208 KB; a consumer warpgroup's 64 x 256 float32 output takes 128
+// registers a thread, its 64 x 48 scores 24.  64-key tiles in two stages
+// (192 KB, FA3's shape at D 256) ran 5 % slower
+// (scripts/wide_attention_and_decode_variants.py).  Panels
+// wholly past D are neither loaded nor multiplied.
 //
 // float32: 3xTF32 on mma.sync.m16n8k8: each operand x splits into big =
 // tf32(x) and small = tf32(x - big) (by masks, see split_tf32), and each
@@ -80,8 +92,13 @@ namespace {
 
 constexpr int BQ = 128;              // query rows a block
 constexpr int THREADS = 384;         // warpgroup 0 loads, 1 and 2 compute
-constexpr int BK16 = 128;            // key rows a tile, 16-bit types
 constexpr int BK32 = 64;             // key rows a tile, float32
+
+// key rows a tile, 16-bit types, at NP 64-column panels of D
+template <int NP>
+__host__ __device__ constexpr int bk16() {
+  return NP == 4 ? 48 : 128;
+}
 constexpr int LOADER_REGS = 40, CONSUMER_REGS = 232;
 constexpr float NEG_INF = -1e30f;    // flash_attention.py:17
 constexpr float LOG2E = 1.4426950408889634f;
@@ -291,6 +308,61 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db
     WGMMA_SS_N128("bf16");
 }
 
+// d[32] (+)= A(smem desc) * B(smem desc), m64n64k16, both K-major.
+#define WGMMA_SS_N64(TY)                                                       \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\n"                                                     \
+      "setp.ne.b32 p, %34, 0;\n"                                               \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "              \
+      "{"                                                                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                       \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                 \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                               \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                                 \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+        "+f"(d[30]), "+f"(d[31])                                               \
+      : "l"(da), "l"(db), "r"(acc))
+
+template <bool F16>
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int acc) {
+  if constexpr (F16)
+    WGMMA_SS_N64("f16");
+  else
+    WGMMA_SS_N64("bf16");
+}
+
+// The same at n48 (d[24]), for the D-256 kernel's 48-key tiles.
+#define WGMMA_SS_N48(TY)                                                       \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\n"                                                     \
+      "setp.ne.b32 p, %26, 0;\n"                                               \
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32." TY "." TY " "              \
+      "{"                                                                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                       \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                 \
+      "%16, %17, %18, %19, %20, %21, %22, %23"                                 \
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"                                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])                     \
+      : "l"(da), "l"(db), "r"(acc))
+
+template <bool F16>
+__device__ __forceinline__ void wgmma_ss_n48(float* d, uint64_t da, uint64_t db, int acc) {
+  if constexpr (F16)
+    WGMMA_SS_N48("f16");
+  else
+    WGMMA_SS_N48("bf16");
+}
+
 // d[32] += A(registers, 16-bit x2 a[4]) * B(smem desc), m64n64k16; B
 // MN-major (transpose bit set).
 #define WGMMA_RS_N64_TB(TY)                                                    \
@@ -385,12 +457,15 @@ __device__ __forceinline__ void mma_3xtf32(float* d, const SplitA& a,
 // ---- shared-memory layouts -------------------------------------------------
 
 // 16-bit types: Q [NP panels][BQ rows][128 B], then STAGES K tiles and STAGES V
-// tiles [NP panels][BK16 rows][128 B], then the barriers: Q full, K full x
+// tiles [NP panels][bk16 rows][128 B], then the barriers: Q full, K full x
 // STAGES, V full x STAGES, empty x STAGES.
 template <int NP>
 struct Bf16Smem {
-  static constexpr int STAGES = NP == 1 ? 4 : 3;
-  static constexpr int PANEL_Q = BQ * 128, PANEL_KV = BK16 * 128;
+  // as many stages as fit beside Q: at D 256, 48-key tiles three (64-key
+  // tiles two)
+  static constexpr int BK = bk16<NP>();
+  static constexpr int STAGES = NP == 1 ? 4 : NP == 2 ? 3 : BK == 48 ? 3 : 2;
+  static constexpr int PANEL_Q = BQ * 128, PANEL_KV = BK * 128;
   static constexpr int Q = 0;
   static constexpr int K = Q + NP * PANEL_Q;
   static constexpr int V = K + STAGES * NP * PANEL_KV;
@@ -680,30 +755,32 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tv, const Params p) {
   using L = Bf16Smem<NP>;
   using T16 = typename std::conditional<F16, __half, __nv_bfloat16>::type;
-  constexpr int ST = L::STAGES;
+  constexpr int ST = L::STAGES, BK = bk16<NP>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR);
-  const Tile tl = tile_of<BK16>(p);
+  const Tile tl = tile_of<BK>(p);
+  // the panels that hold columns below D (all NP but at D 129..192)
+  const int npan = min(NP, (p.D + 63) / 64);
   init_barriers<ST>(bars, p.load);
 
   if (threadIdx.x < 128) {   // ---- the loader warpgroup ----
     regs_dealloc<LOADER_REGS>();
     if (p.load == LOAD_TMA) {
       if (threadIdx.x != 0) return;
-      mbar_expect_tx(&bars[0], NP * L::PANEL_Q);
-      for (int pn = 0; pn < NP; ++pn)
+      mbar_expect_tx(&bars[0], npan * L::PANEL_Q);
+      for (int pn = 0; pn < npan; ++pn)
         tma_load_4d(smem + L::Q + pn * L::PANEL_Q, &tq, &bars[0], pn * 64,
                     tl.h, tl.q0, tl.b);
       for (int it = 0; it < tl.n_kt; ++it) {
-        const int s = it % ST, k0 = (tl.n_kt - 1 - it) * BK16;
+        const int s = it % ST, k0 = (tl.n_kt - 1 - it) * BK;
         if (it >= ST) mbar_wait(&bars[1 + 2 * ST + s], (it / ST - 1) & 1);
-        mbar_expect_tx(&bars[1 + s], NP * L::PANEL_KV);
-        for (int pn = 0; pn < NP; ++pn)
+        mbar_expect_tx(&bars[1 + s], npan * L::PANEL_KV);
+        for (int pn = 0; pn < npan; ++pn)
           tma_load_4d(smem + L::K + (s * NP + pn) * L::PANEL_KV, &tk,
                       &bars[1 + s], pn * 64, tl.h, k0, tl.b);
-        mbar_expect_tx(&bars[1 + ST + s], NP * L::PANEL_KV);
-        for (int pn = 0; pn < NP; ++pn)
+        mbar_expect_tx(&bars[1 + ST + s], npan * L::PANEL_KV);
+        for (int pn = 0; pn < npan; ++pn)
           tma_load_4d(smem + L::V + (s * NP + pn) * L::PANEL_KV, &tv,
                       &bars[1 + ST + s], pn * 64, tl.h, k0, tl.b);
       }
@@ -720,13 +797,13 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
     fence_proxy_async();
     mbar_arrive(&bars[0]);
     for (int it = 0; it < tl.n_kt; ++it) {
-      const int s = it % ST, k0 = (tl.n_kt - 1 - it) * BK16;
+      const int s = it % ST, k0 = (tl.n_kt - 1 - it) * BK;
       if (it >= ST) mbar_wait(&bars[1 + 2 * ST + s], (it / ST - 1) & 1);
-      load_bf16_tile<NP, BK16>(smem + L::K + s * NP * L::PANEL_KV, k, tl.base,
-                               k0, p.S, p.D, tl.rstride, p.load, tid);
+      load_bf16_tile<NP, BK>(smem + L::K + s * NP * L::PANEL_KV, k, tl.base,
+                             k0, p.S, p.D, tl.rstride, p.load, tid);
       cp_async_commit();
-      load_bf16_tile<NP, BK16>(smem + L::V + s * NP * L::PANEL_KV, v, tl.base,
-                               k0, p.S, p.D, tl.rstride, p.load, tid);
+      load_bf16_tile<NP, BK>(smem + L::V + s * NP * L::PANEL_KV, v, tl.base,
+                             k0, p.S, p.D, tl.rstride, p.load, tid);
       cp_async_commit();
       cp_async_wait<1>();
       fence_proxy_async();
@@ -759,37 +836,47 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
   // (named barriers 1 and 2), so one's softmax runs while the other's wgmma
   // do.  Turn `it` issues O += P(it - 1) V(it - 1) and S = Q K(it); the
   // softmax of tile it follows, outside the turn.
-  float sc[64];
-  uint32_t pa[8][4];
+  float sc[BK / 2];
+  uint32_t pa[BK / 16][4];
   // descriptors of the tiles' first bytes; a descriptor addresses shared
   // memory in 16-byte units in its low bits, so an offset is added as is
   const uint64_t dq = sw128_desc(qs, 16), dk = sw128_desc(smem + L::K, 16);
   const uint64_t dv = sw128_desc(smem + L::V, 1024);
-  auto issue_qk = [&](int it) {   // S = Q K^T: 64 rows x 128 keys
+  auto issue_qk = [&](int it) {   // S = Q K^T: 64 rows x BK keys
     const uint64_t dks = dk + (it % ST) * (NP * L::PANEL_KV / 16);
 #pragma unroll
-    for (int pn = 0; pn < NP; ++pn)
+    for (int pn = 0; pn < NP; ++pn) {
+      if (pn >= npan) break;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)   // D in k16 steps of 32 bytes a panel
-        wgmma_ss_n128<F16>(sc, dq + (pn * L::PANEL_Q + 32 * j) / 16,
-                      dks + (pn * L::PANEL_KV + 32 * j) / 16, pn + j > 0);
+      for (int j = 0; j < 4; ++j) {   // D in k16 steps of 32 bytes a panel
+        const uint64_t a = dq + (pn * L::PANEL_Q + 32 * j) / 16;
+        const uint64_t b = dks + (pn * L::PANEL_KV + 32 * j) / 16;
+        if constexpr (BK == 128)
+          wgmma_ss_n128<F16>(sc, a, b, pn + j > 0);
+        else if constexpr (BK == 64)
+          wgmma_ss_n64<F16>(sc, a, b, pn + j > 0);
+        else
+          wgmma_ss_n48<F16>(sc, a, b, pn + j > 0);
+      }
+    }
   };
   auto issue_pv = [&](int it) {   // O += P V, V's [keys][D] panel MN-major
     const uint64_t dvs = dv + (it % ST) * (NP * L::PANEL_KV / 16);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int pn = 0; pn < NP; ++pn)
-        wgmma_rs_n64_tb<F16>(o[pn], pa[kk],
-                        dvs + (pn * L::PANEL_KV + 2048 * kk) / 16);
+        if (pn < npan)
+          wgmma_rs_n64_tb<F16>(o[pn], pa[kk],
+                               dvs + (pn * L::PANEL_KV + 2048 * kk) / 16);
   };
   auto softmax = [&](int it) {
-    const int k0 = (tl.n_kt - 1 - it) * BK16;
+    const int k0 = (tl.n_kt - 1 - it) * BK;
     // only the tiles that reach past S or above this warp's first row mask
-    const bool mask = k0 + BK16 > S || (causal && k0 + BK16 - 1 > row - g);
+    const bool mask = k0 + BK > S || (causal && k0 + BK - 1 > row - g);
     float corr[2], rs[2];
-    online_softmax<64>(sc, m, corr, rs, scale_log2, S, causal, row, k0, t,
-                       mask);
+    online_softmax<BK / 2>(sc, m, corr, rs, scale_log2, S, causal, row, k0,
+                           t, mask);
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
 #pragma unroll
@@ -799,7 +886,7 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
     // P as the register A operand: k16 step kk covers keys 16 kk .. + 15,
     // the accumulator's column groups 2 kk and 2 kk + 1
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2)
 #pragma unroll
@@ -824,7 +911,7 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
     // every sync is matched: warpgroup 1's last turn hands over to no one
     if (wg == 0 || it < tl.n_kt) named_arrive(their_turn);
     wgmma_wait0();
-    reg_fence<64>(sc);
+    reg_fence<BK / 2>(sc);
 #pragma unroll
     for (int pn = 0; pn < NP; ++pn) reg_fence<32>(o[pn]);
     if (pv) {
@@ -988,9 +1075,9 @@ EncodeTiled encoder() {
 }
 
 // The 4-D map over a 16-bit [B, S, H, D] tensor: dims innermost first
-// (D, H, S, B), box (64, 1, 128, 1), 128-byte swizzle, zero fill.
+// (D, H, S, B), box (64, 1, rows, 1), 128-byte swizzle, zero fill.
 int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
-             bool f16) {
+             bool f16, int rows) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr)
     return static_cast<int>(cudaErrorSharedObjectInitFailed);
@@ -998,7 +1085,7 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                  (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, BQ, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map,
@@ -1030,8 +1117,9 @@ extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, k, v, o contiguous [b, s, h, d] (1 <= d <= 128), `dtype` 0 float32, 1
-// bfloat16 or 2 float16; `scale` multiplies the scores.  `load` is how the
+// q, k, v, o contiguous [b, s, h, d] (1 <= d <= 128 in float32, <= 256 in
+// the 16-bit types), `dtype` 0 float32, 1 bfloat16 or 2 float16; `scale`
+// multiplies the scores.  `load` is how the
 // tiles are loaded: 16-bit types 0 (TMA: d % 8 == 0 and 16-byte aligned
 // pointers), 4 (cp.async: d even, 4-byte aligned) or 2 (plain loads);
 // float32 16 (cp.async: d % 4 == 0, 16-byte aligned) or 4.  Launches on
@@ -1056,31 +1144,40 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return aligned(q, n) && aligned(k, n) && aligned(v, n);
   };
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (d < 1 || d > 128 || dtype < 0 || dtype > 2) return bad;
+  if (d < 1 || d > (h16 ? 256 : 128) || dtype < 0 || dtype > 2) return bad;
   if (h16) {
     if ((load == LOAD_TMA && (d % 8 || !all_aligned(16))) ||
         (load == LOAD_CP4 && (d % 2 || !all_aligned(4))) ||
         (load != LOAD_TMA && load != LOAD_CP4 && load != LOAD_LD2))
       return bad;
+    const int np = d <= 64 ? 1 : d <= 128 ? 2 : 4;
+    const int bk = np == 4 ? bk16<4>() : bk16<1>();   // key rows a tile
     CUtensorMap maps[3] = {};
     if (load == LOAD_TMA) {
       const void* ptrs[3] = {q, k, v};
       for (int i = 0; i < 3; ++i) {
-        const int err = make_map(&maps[i], ptrs[i], b, s, h, d, f16);
+        const int err =
+            make_map(&maps[i], ptrs[i], b, s, h, d, f16, i == 0 ? BQ : bk);
         if (err) return err;
       }
     }
     if (f16) {
-      if (d <= 64)
+      if (np == 1)
         return launch(flash_h16_kernel<1, true>, Bf16Smem<1>::BYTES, grid, st,
                       maps[0], maps[1], maps[2], p);
-      return launch(flash_h16_kernel<2, true>, Bf16Smem<2>::BYTES, grid, st,
+      if (np == 2)
+        return launch(flash_h16_kernel<2, true>, Bf16Smem<2>::BYTES, grid, st,
+                      maps[0], maps[1], maps[2], p);
+      return launch(flash_h16_kernel<4, true>, Bf16Smem<4>::BYTES, grid, st,
                     maps[0], maps[1], maps[2], p);
     }
-    if (d <= 64)
+    if (np == 1)
       return launch(flash_h16_kernel<1, false>, Bf16Smem<1>::BYTES, grid, st,
                     maps[0], maps[1], maps[2], p);
-    return launch(flash_h16_kernel<2, false>, Bf16Smem<2>::BYTES, grid, st,
+    if (np == 2)
+      return launch(flash_h16_kernel<2, false>, Bf16Smem<2>::BYTES, grid, st,
+                    maps[0], maps[1], maps[2], p);
+    return launch(flash_h16_kernel<4, false>, Bf16Smem<4>::BYTES, grid, st,
                   maps[0], maps[1], maps[2], p);
   }
   if ((load == LOAD_CP16 && (d % 4 || !all_aligned(16))) ||

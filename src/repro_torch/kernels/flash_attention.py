@@ -11,14 +11,21 @@ tensor cores: one block per (b*H + h, 128-query tile), a loader warpgroup
 filling a ring of K/V tiles and two consumer warpgroups of 64 rows each,
 skipping the key tiles wholly above the diagonal when causal.  bfloat16
 and float16 run on ``wgmma``; float32 as 3xTF32 on ``mma.sync`` (three TF32
-products per product keep float32's accuracy).  Any S and 1 <= D <= 128.
-Head widths 129..256 take a route of their own, a float32 SIMT kernel
+products per product keep float32's accuracy).  Any S; D 1..128 in every
+type (counted by ``flash_attention.launches``), and the 16-bit types up to
+D 256 on the kernel's D-256 instantiation (48-key tiles, three stages;
+counted by ``flash_attention.wgmma256_launches``).  Float32 at D 129..256
+and every type past D 256 take a float32 SIMT kernel
 (``csrc/flash_attention_wide.cu``, counted by
-``flash_attention.wide_launches``), until a wgmma kernel holds D 256.
-``path`` names the route and, on the tensor cores, how the tiles are
-loaded, from the type, D and the pointers' alignment.  Bound on an H100: operations, 4*D flops per
-(query, key) pair the mask keeps.  The Pallas block sizes (``bq``, ``bk``)
-have no counterpart.
+``flash_attention.wide_launches``), which splits D past 256 into output
+slices of 256 columns.  ``path`` names the route and, on the tensor cores,
+how the tiles are loaded, from the type, D and the pointers' alignment.
+
+Operands the kernels do not take as they are (64-bit, mixed or integer
+types) are converted first by the reference's rule (``_promote``): the
+output has q's type.  Bound on an H100: operations, 4*D flops per (query,
+key) pair the mask keeps.  The Pallas block sizes (``bq``, ``bk``) have no
+counterpart.
 """
 from __future__ import annotations
 
@@ -27,13 +34,14 @@ import ctypes
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels import _check, ref
+from repro_torch.kernels import _check, _promote, ref
 
 NAME = "flash_attention"
 # the C entry points' code for each input type
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# the tensor-core kernels' widest head, and the wide route's
-MAX_D_TC, MAX_D = 128, 256
+# the widest head of the tensor-core kernels in every type, and in the
+# 16-bit types (the D-256 instantiation)
+MAX_D_TC, MAX_D_TC16 = 128, 256
 # at most this many heads B * H (the C entry point also refuses a grid of
 # more than 2^31 - 1 blocks, query tiles x B * H)
 MAX_BH = 65_535
@@ -41,8 +49,11 @@ MAX_BH = 65_535
 # code), by path: 16-bit types by TMA where rows are 16-byte aligned, by
 # 4-byte cp.async where they are 4-byte aligned, else by plain loads;
 # float32 by 16- or 4-byte cp.async.  The products run on the tensor cores
-# on every path.  Heads wider than MAX_D_TC take the path WIDE.
+# on every path; ``wgmma256`` is the 16-bit kernel's D-256 instantiation.
+# Float32 heads wider than MAX_D_TC and any head wider than MAX_D_TC16
+# take the path WIDE.
 LOADS = {"wgmma/tma": 0, "wgmma/cp.async": 4, "wgmma/ld": 2,
+         "wgmma256/tma": 0, "wgmma256/cp.async": 4, "wgmma256/ld": 2,
          "3xtf32/cp.async16": 16, "3xtf32/cp.async4": 4}
 WIDE = "simt/wide"
 
@@ -55,8 +66,8 @@ def _check_args(q, k, v):
             raise ValueError(f"{NAME}: {name} {tuple(t.shape)} differs from "
                              f"q {tuple(q.shape)} (Sq = Sk, no GQA)")
     B, S, H, D = q.shape
-    if not 1 <= D <= MAX_D:
-        raise ValueError(f"{NAME}: head dim D = {D} must be in 1..{MAX_D}")
+    if D < 1:
+        raise ValueError(f"{NAME}: head dim D = {D} must be >= 1")
     if B * H > MAX_BH or S > _check.INT32_MAX - 64:
         raise ValueError(f"{NAME}: B*H = {B * H} must be <= {MAX_BH} and S "
                          "must fit int32")
@@ -73,16 +84,21 @@ def _alignment(*ts) -> int:
 
 
 def path(q, k, v) -> str:
-    """The kernel's path for these operands: ``WIDE`` above ``MAX_D_TC``,
-    else a key of ``LOADS`` (a row of one head starts at a multiple of D
-    elements, so D and the base pointers decide its alignment)."""
+    """The kernel's path for these operands (of one type the kernels
+    take): ``WIDE`` for float32 above ``MAX_D_TC`` and any type above
+    ``MAX_D_TC16``, else a key of ``LOADS`` (a row of one head starts at a
+    multiple of D elements, so D and the base pointers decide its
+    alignment)."""
     D, a = q.shape[-1], _alignment(q, k, v)
-    if D > MAX_D_TC:
+    f32 = q.dtype == torch.float32
+    if D > MAX_D_TC16 or (f32 and D > MAX_D_TC):
         return WIDE
-    if q.dtype != torch.float32:
+    if not f32:
+        kernel = "wgmma" if D <= MAX_D_TC else "wgmma256"
         if D % 8 == 0 and a >= 16:
-            return "wgmma/tma"
-        return "wgmma/cp.async" if D % 2 == 0 and a >= 4 else "wgmma/ld"
+            return f"{kernel}/tma"
+        return f"{kernel}/cp.async" if D % 2 == 0 and a >= 4 \
+            else f"{kernel}/ld"
     return "3xtf32/cp.async16" if D % 4 == 0 and a >= 16 else \
         "3xtf32/cp.async4"
 
@@ -105,13 +121,15 @@ def _lib(name="flash_attention"):
 def flash_attention(q, k, v, causal=True):
     """``[B,S,H,D]`` attention output in q's type.  CUDA tensors launch the
     kernel; CPU tensors take the plain version."""
+    (q, k, v), out_dtype = _promote.promote((q, k, v), DTYPES)
     _check_args(q, k, v)
     if _check.device_kind(NAME, q) == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal)
+        return _promote.restore(ref.flash_attention(q, k, v, causal=causal),
+                                out_dtype)
     B, S, H, D = q.shape
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out
+        return _promote.restore(out, out_dtype)
     route = path(q, k, v)
     lib = _lib("flash_attention_wide" if route == WIDE else "flash_attention")
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
@@ -125,10 +143,13 @@ def flash_attention(q, k, v, causal=True):
     _build.check(lib, code, NAME)
     if route == WIDE:
         flash_attention.wide_launches += 1
+    elif D > MAX_D_TC:
+        flash_attention.wgmma256_launches += 1
     else:
         flash_attention.launches += 1
-    return out
+    return _promote.restore(out, out_dtype)
 
 
 flash_attention.launches = 0
+flash_attention.wgmma256_launches = 0
 flash_attention.wide_launches = 0

@@ -113,6 +113,57 @@ def test_decode_attention_at_zero_length_is_the_mean_of_v():
     assert np.isnan(oracle).all()
 
 
+@pytest.mark.parametrize("B,S,H,D,lens", [
+    (7, 1000, 2, 64, "boundaries"),      # S off the split
+    (3, 100, 3, 1, (5, 100, 0)),         # one element a head
+    (2, 300, 2, 1000, (299, 7)),         # pieces past 512 columns
+    (4, 256, 4096 // 4, 16, (0, 1, 255, 256)),
+    (1, 4096, 1, 63, (4000,))])
+def test_decode_split_partials_merge_to_the_reference(B, S, H, D, lens):
+    """The split-KV plan and the plain versions of its two kernels: each
+    split's partial softmax, merged in split order, is the plain
+    decoding's result (2e-4), kv_len 0 the mean of V; a split at or past
+    kv_len is neutral."""
+    rng = np.random.RandomState(B + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, H, D), (B, S, H, D), (B, S, H, D)))
+    pl = da_mod.plan(B, S, H, D, 4, True, 132)
+    if lens == "boundaries":
+        lens = (0, 1, pl.len - 1, pl.len, pl.len + 1, S, S + 3)
+    lens = torch.tensor(lens, dtype=torch.int32)
+    assert pl.ns == -(-S // pl.len)
+    ws = da_mod.split_plain(q, k, v, lens, pl)
+    got = da_mod.combine_plain(ws, lens, pl, S, q.shape, q.dtype)
+    torch.testing.assert_close(got, ref.decode_attention(q, k, v, lens),
+                               rtol=2e-4, atol=2e-4)
+    ml = ws[:B * pl.ns * H * 2].view(B, pl.ns, H, 2)
+    for b, n in enumerate(lens.tolist()):
+        n = S if n <= 0 else min(n, S)
+        past = ml[b, -(-n // pl.len):]
+        assert (past[..., 0] == ref.NEG_INF).all() and (past[..., 1] == 0).all()
+
+
+@pytest.mark.parametrize("B,S,H,D,kv_size,aligned,want", [
+    # the app's shape: 64 threads read a key position's 8 heads (1 KB of
+    # bf16) as 16-byte pieces, 4 positions at once, splits of 256 keys
+    (32, 4096, 8, 64, 2, True, (256, 16, 8, 1, 8, 8, 1)),
+    (32, 4096, 8, 64, 4, True, (256, 16, 4, 1, 16, 8, 1)),
+    (32, 4096, 8, 64, 2, False, (256, 16, 1, 2, 32, 8, 1)),
+    (8, 4096, 8, 512, 2, True, (64, 64, 8, 2, 32, 8, 1)),
+    (2, 1000, 2, 1000, 2, True, (64, 16, 8, 2, 32, 2, 2)),
+    (1, 100, 1, 63, 4, True, (64, 2, 1, 2, 32, 1, 1))])
+def test_decode_split_plan(B, S, H, D, kv_size, aligned, want):
+    """The plan the wrapper hands the kernel: 16-byte loads where D and
+    the cache's alignment allow, a head's threads a power of two <= 32,
+    heads a block so that a key position's rows are one contiguous run,
+    and splits that make ~4 waves of blocks on 132 SMs (at least 64 keys,
+    at least the keys a block loads at once)."""
+    pl = da_mod.plan(B, S, H, D, kv_size, aligned, 132)
+    assert (pl.len, pl.ns, pl.vec, pl.nv, pl.tph, pl.hg, pl.pieces) == want
+    assert pl.tph * pl.nv * pl.vec * pl.pieces >= D
+    assert da_mod.THREADS % (pl.tph * pl.hg) == 0
+
+
 def test_wrappers_take_plain_path_on_cpu_only():
     q, k, v = (torch.from_numpy(a) for a in qkv((1, 20, 2, 16), 0))
     qd, kd, vd = (torch.from_numpy(a) for a in decode_inputs(2, 30, 2, 16, 0))
@@ -148,44 +199,58 @@ def _view(shape, dtype, offset):
     (torch.float32, 37, 0, "3xtf32/cp.async4"),
     (torch.float16, 64, 0, "wgmma/tma"),
     (torch.float16, 37, 0, "wgmma/ld"),
-    (torch.bfloat16, 256, 0, "simt/wide"),         # past the tensor-core
-    (torch.float32, 129, 1, "simt/wide"),          # kernels' 128 columns
+    (torch.bfloat16, 256, 0, "wgmma256/tma"),      # the D-256 wgmma kernel
+    (torch.bfloat16, 200, 0, "wgmma256/tma"),
+    (torch.float16, 256, 0, "wgmma256/tma"),
+    (torch.bfloat16, 130, 0, "wgmma256/cp.async"),  # 260-byte rows
+    (torch.bfloat16, 256, 2, "wgmma256/cp.async"),
+    (torch.bfloat16, 129, 0, "wgmma256/ld"),
+    (torch.float16, 256, 1, "wgmma256/ld"),
+    (torch.float32, 129, 1, "simt/wide"),          # past 3xTF32's 128
+    (torch.float32, 256, 0, "simt/wide"),
+    (torch.bfloat16, 257, 0, "simt/wide"),         # past wgmma's 256
+    (torch.float16, 512, 0, "simt/wide"),
 ])
 def test_flash_attention_path_by_type_width_and_alignment(dtype, D, offset,
                                                          want):
     """The wrapper's choice of load path: TMA needs 16-byte rows and
     pointers (16-bit types, D % 8 == 0), 4-byte cp.async D even, and
     float32's 16-byte cp.async D % 4 == 0; the products are on the tensor
-    cores on every path up to D 128, and wider heads take the wide route
-    whatever their alignment."""
+    cores on every path up to D 128 in float32 and D 256 in the 16-bit
+    types, and wider heads take the wide route whatever their
+    alignment."""
     q, k, v = (_view((2, 5, 3, D), dtype, offset) for _ in range(3))
     assert fa_mod.path(q, k, v) == want
     # one misaligned operand moves all three off the aligned path
     k2 = _view((2, 5, 3, D), dtype, 1)
     assert fa_mod.path(q, k2, v) == (
-        fa_mod.WIDE if D > fa_mod.MAX_D_TC else
-        "3xtf32/cp.async4" if dtype == torch.float32 else "wgmma/ld")
+        fa_mod.WIDE if want == fa_mod.WIDE else
+        "3xtf32/cp.async4" if dtype == torch.float32 else
+        want.split("/")[0] + "/ld")
 
 
 def test_every_accepted_shape_maps_to_a_tensor_core_path():
-    """Each (type, D in 1..128, pointer alignment) the wrapper accepts has a
-    tensor-core path, and the path's load code is one the C entry point
-    takes for that type; each D in 129..256 takes the wide route."""
+    """Each (type, pointer alignment) with D in 1..128, and in 1..256 for
+    the 16-bit types, has a tensor-core path, and the path's load code is
+    one the C entry point takes for that type; float32 past 128 and every
+    type past 256 take the wide route."""
     c_loads = {torch.bfloat16: {0, 4, 2}, torch.float16: {0, 4, 2},
                torch.float32: {16, 4}}
     seen = set()
     for dtype in fa_mod.DTYPES:
-        for D in range(1, fa_mod.MAX_D + 1):
+        for D in range(1, fa_mod.MAX_D_TC16 + 65):
             for offset in (0, 1, 2, 4, 8):
                 q, k, v = (_view((1, 3, 2, D), dtype, offset)
                            for _ in range(3))
                 fa_mod._check_args(q, k, v)
                 name = fa_mod.path(q, k, v)
-                if D > fa_mod.MAX_D_TC:
+                if D > fa_mod.MAX_D_TC16 or (dtype == torch.float32
+                                             and D > fa_mod.MAX_D_TC):
                     assert name == fa_mod.WIDE
                     continue
                 assert name.split("/")[0] == (
-                    "3xtf32" if dtype == torch.float32 else "wgmma")
+                    "3xtf32" if dtype == torch.float32 else
+                    "wgmma" if D <= fa_mod.MAX_D_TC else "wgmma256")
                 assert fa_mod.LOADS[name] in c_loads[dtype]
                 seen.add(name)
     assert seen == set(fa_mod.LOADS)
@@ -196,21 +261,13 @@ def _bad_calls():
     q, k, v = (torch.from_numpy(a) for a in qkv((1, 20, 2, 16), 0))
     qd, kd, vd = (torch.from_numpy(a) for a in decode_inputs(2, 30, 2, 16, 0))
     lens = torch.tensor([5, 30], dtype=torch.int32)
-    # past the widest head the port takes (the reference computes it;
-    # ROADMAP Queue 3 lists it)
-    wide = torch.zeros(1, 4, 1, fa_mod.MAX_D + 1)
     meta = torch.device("meta")
     fa, da = fa_mod.flash_attention, da_mod.decode_attention
     return {
-        "fa_dtype": (fa, (q.double(), k.double(), v.double())),
-        "fa_mixed": (fa, (q, k.bfloat16(), v)),
         "fa_rank": (fa, (q[0], k[0], v[0])),
         "fa_shape": (fa, (q, k[:, :10].contiguous(), v)),
-        "fa_wide": (fa, (wide, wide, wide)),
         "fa_stride": (fa, (q.transpose(1, 2), k, v)),
         "fa_device": (fa, (q, k, v.to(meta))),
-        "da_dtype": (da, (qd, kd.int(), vd.int(), lens)),
-        "da_mixed": (da, (qd, kd, vd.half(), lens)),
         "fa_no_width": (fa, (q[..., :0], k[..., :0], v[..., :0])),
         "da_no_width": (da, (qd[..., :0], kd[..., :0], vd[..., :0], lens)),
         "da_lens_dtype": (da, (qd, kd, vd, lens.long())),

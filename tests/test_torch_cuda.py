@@ -15,7 +15,7 @@ from repro_torch.core import isa, suite, tracegen
 from repro_torch.kernels import blackscholes as bs_mod
 from repro_torch.kernels import canneal as ca_mod
 from repro_torch.kernels import decode_attention as da_mod
-from repro_torch.kernels import engine_scan, ref
+from repro_torch.kernels import _promote, engine_scan, ref
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import jacobi2d as j2_mod
 from repro_torch.kernels import particlefilter as pf_mod
@@ -342,15 +342,20 @@ def test_flash_attention_kernel_float16_matches_plain(cuda, B, S, H, D,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_wide_route_matches_plain(cuda, S, D, causal,
                                                   dtype):
-    """Heads of 129..256 take the wide route (its own kernel and launch
-    count); S off its 64-row tiles; 2e-4 in float32, 2e-2 in 16 bits."""
+    """Heads of 129..256 take a route of their own and its launch count:
+    float32 the wide SIMT kernel, the 16-bit types the wgmma kernel's D-256
+    instantiation; S off the 64-row tiles; 2e-4 in float32, 2e-2 in 16
+    bits."""
     q, k, v = fa_inputs(2, S, 3, D, dtype, cuda)
-    before = (fa_mod.flash_attention.launches,
-              fa_mod.flash_attention.wide_launches)
+    counters = lambda: (fa_mod.flash_attention.launches,
+                        fa_mod.flash_attention.wgmma256_launches,
+                        fa_mod.flash_attention.wide_launches)
+    before = counters()
     got = fa_mod.flash_attention(q, k, v, causal=causal)
-    assert (fa_mod.flash_attention.launches,
-            fa_mod.flash_attention.wide_launches) == (before[0],
-                                                      before[1] + 1)
+    wide = dtype == "float32"
+    assert fa_mod.path(q, k, v).startswith("simt" if wide else "wgmma256")
+    assert counters() == (before[0], before[1] + (not wide),
+                          before[2] + wide)
     tol = 2e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(),
                                ref.flash_attention(q, k, v, causal).float(),
@@ -492,9 +497,237 @@ def test_ssd_scan_kernel_rejects_what_it_cannot_take(cuda):
     x, dt, A, B, C = (t.to(cuda) for t in ssd_inputs(1, 96, 2, 16, 32, 3))
     with pytest.raises(ValueError, match="multiple of the chunk"):
         ssd_mod.ssd_scan(x, dt, A, B, C, chunk=64)
-    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
-        ssd_mod.ssd_scan(x.double(), dt, A, B, C, chunk=32)
     big = torch.zeros(1, 96, 2, 128, device=cuda)
     wide = torch.zeros(1, 96, 512, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         ssd_mod.ssd_scan(big, dt, A, wide, wide, chunk=32)
+
+
+# ---- flash attention at D 129..256 on wgmma, and past 256 on SIMT --------
+
+WGMMA256_CASES = [(129, 0, "ld"), (130, 0, "cp.async"), (160, 0, "tma"),
+                  (160, 2, "cp.async"), (192, 0, "tma"), (201, 0, "ld"),
+                  (256, 0, "tma"), (256, 2, "cp.async"), (256, 1, "ld")]
+
+
+@pytest.mark.parametrize("D,offset,load", WGMMA256_CASES)
+@pytest.mark.parametrize("S", [48, 100, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_attention_wgmma256_matches_plain(cuda, D, offset, load, S,
+                                                causal, dtype):
+    """The wgmma kernel's D-256 instantiation (48-key tiles, three stages) on
+    every load path: TMA, 4-byte cp.async (D even, an offset view) and
+    plain loads (D odd, or rows 2-byte aligned); D 129..192 leaves the last
+    panel unloaded; S on, off and across the 48-key tiles; 2e-2."""
+    q, k, v = fa_inputs(2, S, 3, D, dtype, cuda, offset)
+    assert fa_mod.path(q, k, v) == f"wgmma256/{load}"
+    before = fa_mod.flash_attention.wgmma256_launches
+    got = fa_mod.flash_attention(q, k, v, causal=causal)
+    assert fa_mod.flash_attention.wgmma256_launches == before + 1
+    assert got.dtype == q.dtype
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention(q, k, v, causal).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_attention_wgmma256_is_deterministic(cuda, dtype):
+    q, k, v = fa_inputs(2, 1031, 4, 256, dtype, cuda)
+    assert torch.equal(fa_mod.flash_attention(q, k, v),
+                       fa_mod.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("D", [257, 320, 512])
+@pytest.mark.parametrize("S", [100, 300])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_simt_past_256_matches_plain(cuda, D, S, causal,
+                                                     dtype):
+    """Heads past 256 on the SIMT route, cut into output slices of 256
+    columns (320: 256 + 64; 257: 256 + 1); 2e-4 in float32, 2e-2 in
+    bfloat16."""
+    q, k, v = fa_inputs(2, S, 3, D, dtype, cuda)
+    assert fa_mod.path(q, k, v) == fa_mod.WIDE
+    before = fa_mod.flash_attention.wide_launches
+    got = fa_mod.flash_attention(q, k, v, causal=causal)
+    assert fa_mod.flash_attention.wide_launches == before + 1
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention(q, k, v, causal).float(),
+                               rtol=tol, atol=tol)
+
+
+# ---- flash decoding, split-KV ----------------------------------------------
+
+def decode_case(B, S, H, D, q_type, kv_type, lens, device, seed=0):
+    rng = np.random.RandomState(seed + S + D)
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(
+        np.float32)).to(device, getattr(torch, q_type))
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)).to(device, getattr(torch, kv_type)) for _ in range(2))
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=device)
+
+
+def check_decode(q, k, v, lens):
+    """One call: both kernels launched once, the plain version at the
+    reference's 2e-4 plus one unit of a 16-bit output, kv_len <= 0 the mean
+    of V, and the partials of the split kernel equal to its plain
+    version's where the combine reads them."""
+    counters = lambda: (da_mod.decode_attention.launches,
+                        da_mod.decode_attention.combine_launches)
+    before = counters()
+    got = da_mod.decode_attention(q, k, v, lens)
+    assert counters() == (before[0] + 1, before[1] + 1)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = 2e-4 + torch.finfo(q.dtype).eps * (q.dtype != torch.float32)
+    torch.testing.assert_close(got.float(),
+                               ref.decode_attention(q, k, v, lens).float(),
+                               rtol=tol, atol=tol)
+    for b in range(q.shape[0]):
+        if int(lens[b]) <= 0:
+            torch.testing.assert_close(got[b].float(), v[b].float().mean(0),
+                                       rtol=tol, atol=tol)
+    return got
+
+
+@pytest.mark.parametrize("D", [1, 63, 64, 128, 256, 257, 512, 1000])
+@pytest.mark.parametrize("q_type", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("kv_type", ["float32", "bfloat16", "float16"])
+def test_decode_split_kv_matches_plain(cuda, D, q_type, kv_type):
+    """Every q type x cache type and widths 1..1000 (16-byte loads where D
+    allows, one element a load else; pieces past 512); S = 1,000 not a
+    multiple of the split; kv_len 0, 1, a split boundary and one either
+    side of it, S, and past S, in one batch."""
+    S, H = 1000, 2
+    q, k, v, _ = decode_case(1, S, H, D, q_type, kv_type, [1], cuda)
+    L = da_mod.plan_for(q, k, v).len
+    lens = [0, 1, L - 1, L, L + 1, S, S + 7]
+    q, k, v, lens = decode_case(len(lens), S, H, D, q_type, kv_type, lens,
+                                cuda)
+    assert da_mod.plan_for(q, k, v).len == L and S % L
+    check_decode(q, k, v, lens)
+
+
+@pytest.mark.parametrize("B,S,H,D", [(1, 4096, 1, 64), (1, 37, 1, 8),
+                                     (512, 64, 8, 64), (4, 300, 1024, 16),
+                                     (3, 5000, 3, 200), (70_000, 3, 1, 8)])
+@pytest.mark.parametrize("kv_type", ["float32", "bfloat16"])
+def test_decode_split_kv_heads_and_batches(cuda, B, S, H, D, kv_type):
+    """B*H = 1, B*H = 4,096 (many batch entries, many heads: several head
+    groups a key position), a head of 200 and more batch entries than a
+    grid's y or z dimension holds; random lengths with a 0."""
+    rng = np.random.RandomState(B + S)
+    lens = rng.randint(1, S + 1, B)
+    lens[0] = 0 if B > 1 else lens[0]
+    q, k, v, lens = decode_case(B, S, H, D, "float32", kv_type,
+                                lens.tolist(), cuda)
+    check_decode(q, k, v, lens)
+
+
+@pytest.mark.parametrize("D", [64, 512, 1000])
+def test_decode_split_kv_partials_match_plain(cuda, D):
+    """The split kernel's workspace (every split's m, l and sums, the
+    neutral ones past kv_len included) against ``split_plain``, and the
+    combine kernel against ``combine_plain`` on it."""
+    q, k, v, lens = decode_case(4, 700, 3, D, "float32", "bfloat16",
+                                [0, 5, 350, 700], cuda)
+    pl = da_mod.plan_for(q, k, v)
+    ws = da_mod.split(q, k, v, lens, pl)
+    torch.testing.assert_close(ws, da_mod.split_plain(q, k, v, lens, pl),
+                               rtol=2e-4, atol=2e-4)
+    S = k.shape[1]
+    out = torch.empty_like(q)
+    torch.testing.assert_close(
+        da_mod.combine(ws, lens, pl, S, out),
+        da_mod.combine_plain(ws, lens, pl, S, q.shape, q.dtype),
+        rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("kv_type", ["float32", "bfloat16"])
+def test_decode_split_kv_is_deterministic(cuda, kv_type):
+    """Splits merged in a fixed order: the same bits every call."""
+    q, k, v, lens = decode_case(8, 3000, 4, 64, "float32", kv_type,
+                                [0, 1, 100, 999, 1000, 2048, 3000, 2999],
+                                cuda)
+    assert torch.equal(da_mod.decode_attention(q, k, v, lens),
+                       da_mod.decode_attention(q, k, v, lens))
+
+
+# ---- the reference's widenings, in front of the kernels --------------------
+
+@pytest.mark.parametrize("case", ["fa_mixed", "fa_int", "fa_f64", "fa_wide",
+                                  "da_mixed", "da_int", "da_f64",
+                                  "sc_mixed", "sc_int", "sc_f64",
+                                  "ssd_int", "ssd_f64"])
+def test_widened_operands_launch_the_kernel(cuda, case):
+    """Mixed types, integers and 64-bit tensors: widened (or narrowed) by
+    the wrapper, then the kernel launches (its counter moves) and matches
+    the plain version of the same promoted operands, in the reference's
+    output type."""
+    rng = np.random.RandomState(len(case))
+    f32 = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    ints = lambda *shape: torch.from_numpy(
+        rng.randint(-3, 4, shape).astype(np.int32)).to(cuda)
+    kind = case.split("_")[0]
+    if kind == "fa":
+        D = 320 if case == "fa_wide" else 64
+        q, k, v = f32(2, 100, 3, D), f32(2, 100, 3, D), f32(2, 100, 3, D)
+        args = {"fa_mixed": (q.bfloat16(), k, v.half()),
+                "fa_int": (ints(2, 100, 3, D), k, ints(2, 100, 3, D)),
+                "fa_f64": (q.double(), k.double(), v.double()),
+                "fa_wide": (q, k.bfloat16(), v)}[case]
+        fn, plain, mod = fa_mod.flash_attention, ref.flash_attention, \
+            fa_mod.flash_attention
+        counter = "wide_launches" if D > 256 else "launches"
+        dtypes, tol = fa_mod.DTYPES, 2e-4
+    elif kind == "da":
+        q, k, v = f32(3, 4, 64), f32(3, 200, 4, 64), f32(3, 200, 4, 64)
+        lens = torch.tensor([0, 50, 200], dtype=torch.int32, device=cuda)
+        args = {"da_mixed": (q, k.bfloat16(), v.half(), lens),
+                "da_int": (ints(3, 4, 64), ints(3, 200, 4, 64), v, lens),
+                "da_f64": (q.double(), k.double(), v.double(), lens)}[case]
+        fn, mod, counter = da_mod.decode_attention, da_mod.decode_attention, \
+            "launches"
+        plain = lambda q, k, v: ref.decode_attention(q, k, v, lens)
+        args, dtypes, tol = args[:3], da_mod.DTYPES, 2e-4
+        fn = lambda q, k, v, f=fn: f(q, k, v, lens)
+    elif kind == "sc":
+        p, c = f32(300, 40), f32(100, 40)
+        args = {"sc_mixed": (p.bfloat16(), c),
+                "sc_int": (ints(300, 40), c),
+                "sc_f64": (p.double(), c.double())}[case]
+        fn, plain, mod = sc_mod.streamcluster_dist, ref.streamcluster_dist, \
+            sc_mod.streamcluster_dist
+        counter, dtypes, tol = "launches", sc_mod.DTYPES, 2e-4
+    else:
+        x, dt, A, B, C = (t.to(cuda) for t in ssd_inputs(1, 128, 2, 16, 32,
+                                                         3))
+        if case == "ssd_int":
+            x = ints(1, 128, 2, 16)
+        else:
+            x, dt, A, B, C = (t.double() for t in (x, dt, A, B, C))
+        args = (x,)
+        fn = lambda x: ssd_mod.ssd_scan(x, dt, A, B, C, chunk=64)
+        plain = lambda x: ref.ssd_scan(x, dt.float(), A.float(), B.float(),
+                                       C.float(), 64)
+        mod, counter, dtypes, tol = ssd_mod.ssd_scan, "launches", \
+            ssd_mod.X_DTYPES, 4e-3
+    before = getattr(mod, counter)
+    got = fn(*args)
+    assert getattr(mod, counter) == before + 1
+    promoted, out_dtype = _promote.promote(args, dtypes)
+    if kind == "da":   # q and the cache are promoted apart
+        promoted = (_promote.promote(args[:1], dtypes)[0][0],
+                    *_promote.promote(args[1:], dtypes)[0])
+    want = plain(*promoted)
+    if kind != "sc":
+        want = _promote.restore(want, out_dtype)
+    assert got.dtype == want.dtype
+    if not got.dtype.is_floating_point:
+        assert (got.long() - want.long()).abs().max() <= 1
+    else:   # a 16-bit output: one unit of its type as well
+        tol += torch.finfo(got.dtype).eps * (got.dtype != torch.float32)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
