@@ -12,8 +12,6 @@ own nvcc flags into ``build/variants/`` by ``build`` of
 ``scripts/flash_attention_variants.py`` and called through the same C
 entry point:
 
-- ``k64-two-stages``: 64-key tiles in a ring of two stages (192 KB of
-  shared memory, FA3's shape at D 256) instead of 48-key tiles in three;
 - ``loader-56-regs``: ``setmaxnreg`` gives the loader warpgroup 56
   registers (the consumers 224), to see where ptxas spills;
 - ``loads-only``, ``products-only``, ``softmax-only``: as in
@@ -48,7 +46,6 @@ DECODE = (32, 4_096, 8, 64)
 WAVES = (4, 2, 8, 16, 32)
 ENTRY = "flash_h16_kernelILi4E"     # the D-256 instantiation's mangled name
 REGS = "constexpr int LOADER_REGS = 40, CONSUMER_REGS = 232;"
-KEY_TILE = "  return NP == 4 ? 48 : 128;"
 
 
 def events_ms(torch, fn, per: int, spin_cycles: int = 0) -> float:
@@ -90,8 +87,7 @@ def spill_lines(build_mod, name: str, text: str) -> str:
 
 def attention(torch, build_mod, fa, ref, fav) -> None:
     kernel = (build_mod.CSRC / "flash_attention.cu").read_text()
-    subs = {"k64-two-stages": ((KEY_TILE, KEY_TILE.replace("48", "64")),),
-            "loader-56-regs": ((REGS, REGS.replace("40", "56")
+    subs = {"loader-56-regs": ((REGS, REGS.replace("40", "56")
                                 .replace("232", "224")),),
             "loads-only": ((fav.PRODUCTS, ""), (fav.SOFTMAX, "")),
             "products-only": ((fav.SOFTMAX, ""),),

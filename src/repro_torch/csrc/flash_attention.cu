@@ -58,8 +58,7 @@
 // over 16 k-steps) in a ring of three stages: Q 64 KB + 3 x (K 24 KB + V 24
 // KB) = 208 KB; a consumer warpgroup's 64 x 256 float32 output takes 128
 // registers a thread, its 64 x 48 scores 24.  64-key tiles in two stages
-// (192 KB, FA3's shape at D 256) ran 5 % slower
-// (scripts/wide_attention_and_decode_variants.py).  Panels
+// (192 KB, FA3's shape at D 256) ran 5 % slower on an H100 (PERF.md).  Panels
 // wholly past D are neither loaded nor multiplied.
 //
 // float32: 3xTF32 on mma.sync.m16n8k8: each operand x splits into big =
@@ -308,36 +307,8 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db
     WGMMA_SS_N128("bf16");
 }
 
-// d[32] (+)= A(smem desc) * B(smem desc), m64n64k16, both K-major.
-#define WGMMA_SS_N64(TY)                                                       \
-  asm volatile(                                                                \
-      "{\n.reg .pred p;\n"                                                     \
-      "setp.ne.b32 p, %34, 0;\n"                                               \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "              \
-      "{"                                                                      \
-      "%0, %1, %2, %3, %4, %5, %6, %7, "                                       \
-      "%8, %9, %10, %11, %12, %13, %14, %15, "                                 \
-      "%16, %17, %18, %19, %20, %21, %22, %23, "                               \
-      "%24, %25, %26, %27, %28, %29, %30, %31"                                 \
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                       \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
-        "+f"(d[30]), "+f"(d[31])                                               \
-      : "l"(da), "l"(db), "r"(acc))
-
-template <bool F16>
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int acc) {
-  if constexpr (F16)
-    WGMMA_SS_N64("f16");
-  else
-    WGMMA_SS_N64("bf16");
-}
-
-// The same at n48 (d[24]), for the D-256 kernel's 48-key tiles.
+// d[24] (+)= A(smem desc) * B(smem desc), m64n48k16, both K-major, for
+// the D-256 kernel's 48-key tiles.
 #define WGMMA_SS_N48(TY)                                                       \
   asm volatile(                                                                \
       "{\n.reg .pred p;\n"                                                     \
@@ -461,10 +432,9 @@ __device__ __forceinline__ void mma_3xtf32(float* d, const SplitA& a,
 // STAGES, V full x STAGES, empty x STAGES.
 template <int NP>
 struct Bf16Smem {
-  // as many stages as fit beside Q: at D 256, 48-key tiles three (64-key
-  // tiles two)
+  // as many stages as fit beside Q (at D 256, 48-key tiles three)
   static constexpr int BK = bk16<NP>();
-  static constexpr int STAGES = NP == 1 ? 4 : NP == 2 ? 3 : BK == 48 ? 3 : 2;
+  static constexpr int STAGES = NP == 1 ? 4 : 3;
   static constexpr int PANEL_Q = BQ * 128, PANEL_KV = BK * 128;
   static constexpr int Q = 0;
   static constexpr int K = Q + NP * PANEL_Q;
@@ -760,8 +730,9 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* smem = aligned_smem(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR);
   const Tile tl = tile_of<BK>(p);
-  // the panels that hold columns below D (all NP but at D 129..192)
-  const int npan = min(NP, (p.D + 63) / 64);
+  // the panels that hold columns below D (all NP but at D 129..192); a
+  // constant below NP 4, so the D <= 128 kernel's loops test nothing
+  const int npan = NP < 4 ? NP : min(NP, (p.D + 63) / 64);
   init_barriers<ST>(bars, p.load);
 
   if (threadIdx.x < 128) {   // ---- the loader warpgroup ----
@@ -853,8 +824,6 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
         const uint64_t b = dks + (pn * L::PANEL_KV + 32 * j) / 16;
         if constexpr (BK == 128)
           wgmma_ss_n128<F16>(sc, a, b, pn + j > 0);
-        else if constexpr (BK == 64)
-          wgmma_ss_n64<F16>(sc, a, b, pn + j > 0);
         else
           wgmma_ss_n48<F16>(sc, a, b, pn + j > 0);
       }
