@@ -24,12 +24,15 @@ turns, the kernel first and last.  Only the kernel's output is checked
 
 Decoding at the app's shape (B 32, S 4,096, H 8, D 64, ``kv_len`` uniform
 in [1, S] with one batch at 0, as ``chip_smoke.py`` draws it): the plan
-re-made at WAVES 2, 4 (the wrapper's), 8, 16 and 32, each result held
+re-made at WAVES 1, 2, 4, 8, 16 and 32 (the wrapper's: 4 from a 16-bit
+cache, 2 from a float32 one), each result held
 against the plain version (2e-4 plus one unit of a 16-bit output), the
 whole call, the split kernel and the combine kernel timed alone (median
 of 10 samples of 10 calls, each sample behind a ~2 ms spin so that the
-host's issue time is not counted), the settings in turns, for a float32
-and a bfloat16 query and cache.
+host's issue time is not counted), and the whole call again as 10
+back-to-back calls with no spin (the host's issue time counted where it
+exceeds the device's), the settings in turns, for a float32 and a
+bfloat16 query and cache.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 GEMMA = (1, 4_096, 16, 256)
 DECODE = (32, 4_096, 8, 64)
-WAVES = (4, 2, 8, 16, 32)
+WAVES = (4, 2, 1, 8, 16, 32)
 ENTRY = "flash_h16_kernelILi4E"     # the D-256 instantiation's mangled name
 REGS = "constexpr int LOADER_REGS = 40, CONSUMER_REGS = 232;"
 
@@ -159,7 +162,7 @@ def decoding(torch, da, ref) -> None:
         tol = 2e-4 + torch.finfo(dtype).eps * (dtype != torch.float32)
         times = {}
         for waves in WAVES + WAVES[::-1]:
-            da.WAVES = waves
+            da.WAVES = {**default, k.element_size(): waves}
             da.plan.cache_clear()
             pl = da.plan_for(q, k, v)
             err = float((da.decode_attention(q, k, v, lens).float() - want)
@@ -170,9 +173,11 @@ def decoding(torch, da, ref) -> None:
             ws = da.split(q, k, v, lens, pl)
             out = torch.empty_like(q)
             row = times.setdefault(waves, {"len": pl.len, "call": [],
-                                           "split": [], "combine": []})
-            row["call"].append(events_ms(
-                torch, lambda: da.decode_attention(q, k, v, lens), 10, spin))
+                                           "back-to-back": [], "split": [],
+                                           "combine": []})
+            call = lambda: da.decode_attention(q, k, v, lens)
+            row["call"].append(events_ms(torch, call, 10, spin))
+            row["back-to-back"].append(events_ms(torch, call, 10))
             row["split"].append(events_ms(
                 torch, lambda: da.split(q, k, v, lens, pl), 10, spin))
             row["combine"].append(events_ms(
@@ -180,7 +185,10 @@ def decoding(torch, da, ref) -> None:
         for waves, row in times.items():
             print(f"decoding {str(dtype)[6:]} WAVES {waves} (splits of "
                   f"{row['len']} keys): call "
-                  + ", ".join(f"{t:.4f}" for t in row["call"]) + " ms; split "
+                  + ", ".join(f"{t:.4f}" for t in row["call"])
+                  + " ms (back-to-back "
+                  + ", ".join(f"{t:.4f}" for t in row["back-to-back"])
+                  + "); split "
                   + ", ".join(f"{t:.4f}" for t in row["split"]) + "; combine "
                   + ", ".join(f"{t:.4f}" for t in row["combine"]))
     da.WAVES = default

@@ -44,12 +44,13 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 THREADS = 256       # a split block's threads
 MAX_E = 16          # columns of a head a thread holds
 # splits of every batch entry and head group at full length make this many
-# blocks a wave of the card's SMs (under uniform lengths half of them run):
-# at the app's shape 4 (256-key splits) took 0.0626 ms from a bf16 cache
-# against 0.0724 at 8 and 0.0742 at 2, and 0.1188 from a float32 one
-# against 0.1182 at 8 (scripts/wide_attention_and_decode_variants.py;
-# NVIDIA H100 80GB HBM3, 700.00 W)
-WAVES = 4
+# blocks a wave of the card's SMs (under uniform lengths half of them run),
+# by the cache's element bytes: at the app's shape a 16-bit cache took
+# 0.0625 ms at 4 (256-key splits) against 0.0719 at 8 and 0.0733 at 2, a
+# float32 one 0.1072 at 2 (512-key splits) against 0.1189 at 4 and 0.1181
+# at 8 (scripts/wide_attention_and_decode_variants.py, whole calls behind a
+# spin; NVIDIA H100 80GB HBM3, 700.00 W)
+WAVES = {2: 4, 4: 2}
 
 
 def _pow2(n: int) -> int:
@@ -96,7 +97,7 @@ def plan(B, S, H, D, kv_size, aligned16, sms) -> Plan:
     hg = min(_pow2(H), THREADS // tph)
     groups = -(-H // hg)
     step = THREADS // (tph * hg) * _unroll(nv * vec)
-    target = _pow2(-(-S * B * groups * pieces // (WAVES * sms)))
+    target = _pow2(-(-S * B * groups * pieces // (WAVES[kv_size] * sms)))
     length = max(step, min(max(target, 64), _pow2(S)))
     return Plan(length, -(-S // length), vec, nv, tph, hg, pieces)
 

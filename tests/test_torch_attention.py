@@ -146,8 +146,9 @@ def test_decode_split_partials_merge_to_the_reference(B, S, H, D, lens):
 @pytest.mark.parametrize("B,S,H,D,kv_size,aligned,want", [
     # the app's shape: 64 threads read a key position's 8 heads (1 KB of
     # bf16) as 16-byte pieces, 4 positions at once, splits of 256 keys
+    # (512 from a float32 cache)
     (32, 4096, 8, 64, 2, True, (256, 16, 8, 1, 8, 8, 1)),
-    (32, 4096, 8, 64, 4, True, (256, 16, 4, 1, 16, 8, 1)),
+    (32, 4096, 8, 64, 4, True, (512, 8, 4, 1, 16, 8, 1)),
     (32, 4096, 8, 64, 2, False, (256, 16, 1, 2, 32, 8, 1)),
     (8, 4096, 8, 512, 2, True, (64, 64, 8, 2, 32, 8, 1)),
     (2, 1000, 2, 1000, 2, True, (64, 16, 8, 2, 32, 2, 2)),
@@ -156,8 +157,9 @@ def test_decode_split_plan(B, S, H, D, kv_size, aligned, want):
     """The plan the wrapper hands the kernel: 16-byte loads where D and
     the cache's alignment allow, a head's threads a power of two <= 32,
     heads a block so that a key position's rows are one contiguous run,
-    and splits that make ~4 waves of blocks on 132 SMs (at least 64 keys,
-    at least the keys a block loads at once)."""
+    and splits that make ~4 waves of blocks on 132 SMs from a 16-bit cache
+    and ~2 from a float32 one (at least 64 keys, at least the keys a block
+    loads at once)."""
     pl = da_mod.plan(B, S, H, D, kv_size, aligned, 132)
     assert (pl.len, pl.ns, pl.vec, pl.nv, pl.tph, pl.hg, pl.pieces) == want
     assert pl.tph * pl.nv * pl.vec * pl.pieces >= D
