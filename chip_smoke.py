@@ -7,9 +7,10 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
 
 1. device: the card's name and power limit (nvidia-smi), then the twelve
    CUDA sources of ``src/repro_torch/csrc`` built with nvcc, one process
-   per source, all at once, with each build's ptxas lines, and the count of
-   tensor-core instructions (HGMMA, HMMA) in the flash-attention library's
-   SASS where the toolkit has ``cuobjdump``;
+   per source, all at once, with each build's ptxas lines (and those of
+   the flash-attention kernel's D-256 and D-512 instantiations apart), and
+   the count of tensor-core instructions (HGMMA, HMMA) in the
+   flash-attention library's SASS where the toolkit has ``cuobjdump``;
 2. Black-Scholes at its PARSEC-large size (65,536 options x 100 runs =
    6,553,600 evaluations): kernel against the plain version on the card at
    rtol = atol = 3e-5, times and bound;
@@ -26,12 +27,16 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    lanes), and the whole golden table: all ten apps and their ten ``:asm``
    variants x Table 10 (480 cells, cold and warm) at rtol 1e-2, and the
    warm 480-cell sweep taken apart: body lookup, packing, the H2D copy,
-   the launch, the D2H copy and the runtime derivation;
+   the launch, the D2H copy and the runtime derivation; and the scalar
+   baseline's fold over the 480 cells, cold, on the host;
 5. the suite's kernel path (every launch counter set to 0 first): swaptions,
-   streamcluster (float32 and bfloat16), particle filter, canneal,
-   pathfinder, flash attention (float32, bfloat16, bfloat16 at llama3-8b's
-   and at gemma-7b's attention width, the last on the wgmma kernel's D-256
-   instantiation, float32 at gemma's width and bfloat16 at D 512 on the
+   streamcluster (float32 and bfloat16), particle filter (Rodinia's
+   monotone CDF, on the search path, and the same CDF shuffled, on the
+   count path; the path each took read from the kernel's flags),
+   canneal, pathfinder, flash attention (float32, bfloat16, bfloat16 at
+   llama3-8b's and at gemma-7b's attention width, the last on the wgmma
+   kernel's D-256 instantiation, bfloat16 at D 512 on its D-512
+   instantiation, float32 at gemma's width and bfloat16 at D 640 on the
    SIMT route, and a call of mixed types), flash decoding (float32, a
    float16 cache, bfloat16 at D 512, and a call of mixed types; the split
    kernel and its combine) and the Mamba-2 SSD scan through
@@ -44,19 +49,24 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    beside their plain versions, the nearest single PyTorch call and their
    bounds, and the input types and widths the reference computes beyond
    them: flash attention in float16 at the app's width and in bfloat16 and
-   float16 at gemma-7b's (D 256), float32 at gemma's width (S 1,024) and
-   bfloat16 at D 512 (both on the SIMT route) and one call of mixed types,
+   float16 at gemma-7b's (D 256), bfloat16 at D 512 (``wgmma512``),
+   float32 at gemma's width (S 1,024) and bfloat16 at D 640 (both on the
+   SIMT route) and one call of mixed types,
    decoding from a bfloat16 and a float16 cache, at D 512 and of mixed
    types, and decoding's split and combine kernels each alone,
    streamcluster in float16, Jacobi-2D in bfloat16 and the SSD scan at P
    256; for flash
    attention also its load path, the wrapper's host time a call, its
    TFLOP/s and the exponential co-bound (float32: the 3xTF32 tensor-core
-   bound beside the float32 SIMT one); and one Jacobi-2D launch at the
-   app's 164 x 164;
-7. the ``kernels`` JSON line (fourteen entries: flash attention's D-256
-   wgmma instantiation and its SIMT route, and decoding's combine kernel,
-   each their own), launch counts from phases 4 and 5;
+   bound beside the float32 SIMT one); for the particle filter the path
+   each row took and, as for decoding, the device time behind a spin
+   beside ``searchsorted``'s; and one Jacobi-2D launch at the app's 164 x
+   164;
+7. the ``kernels`` JSON line (sixteen entries: flash attention's D-256
+   and D-512 wgmma instantiations and its SIMT route, the particle
+   filter's shuffled row, and decoding's combine kernel, each their own;
+   the particle filter's rows name their path), launch counts from phases
+   4 and 5;
 8. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no CUDA device or when
@@ -137,9 +147,10 @@ FA_APP, FA_LLAMA = (4, 2_048, 8, 64), (1, 4_096, 32, 128)
 # route in float32 (there at S 1,024, to keep the run's time)
 FA_GEMMA = (1, 4_096, 16, 256)
 FA_GEMMA_F32 = (1, 1_024, 16, 256)
-# heads of 512 columns, past the wgmma kernel's 256: the SIMT route, cut
-# into two output slices
+# heads of 512 columns: the wgmma kernel's D-512 instantiation; and of 640,
+# past it: the SIMT route, cut into three output slices
 FA_D512 = (1, 2_048, 8, 512)
+FA_D640 = (1, 1_024, 4, 640)
 # flash decoding at the app's scale (workloads_ml.py:49: B 32, S 4,096, H 8,
 # D 64, float32); kv_len uniform in [1, S] per batch, one batch at 0.
 DA_B, DA_S, DA_H, DA_D = 32, 4_096, 8, 64
@@ -364,6 +375,9 @@ def suite_inputs(torch, dev) -> dict:
     da_d512 = (normal((b5, h5, d5)).to(torch.bfloat16),
                normal((b5, s5, h5, d5)).to(torch.bfloat16),
                normal((b5, s5, h5, d5)).to(torch.bfloat16), t(lens5))
+    # the particle filter's CDF shuffled (its count path), then heads of 640
+    cdf_shuffled = gen.permutation(cdf)
+    fa_d640 = tuple(normal(FA_D640).to(torch.bfloat16) for _ in range(3))
     return {"sw": t(u), "sc": sc,
             "sc_bf16": tuple(x.to(torch.bfloat16) for x in sc),
             "sc_f16": tuple(x.to(torch.float16) for x in sc),
@@ -372,6 +386,7 @@ def suite_inputs(torch, dev) -> dict:
             "fa_gemma": fa_gemma,
             "fa_gemma_f16": tuple(x.to(torch.float16) for x in fa_gemma),
             "fa_gemma_f32": fa_gemma_f32, "fa_d512": fa_d512,
+            "fa_d640": fa_d640, "pf_shuffled": (t(cdf_shuffled), t(q)),
             # mixed types through ops: q bfloat16, k and v float32
             "fa_mixed": (fa[0].to(torch.bfloat16), fa[1], fa[2]),
             "da_bf16": (*(x.to(torch.bfloat16) for x in da[:3]), da[3]),
@@ -385,7 +400,8 @@ def suite_inputs(torch, dev) -> dict:
             "j2": t(j2), "j2_big": t(j2_big), "path": t(wall), "fa": fa,
             "fa_bf16": tuple(x.to(torch.bfloat16) for x in fa),
             "fa_llama": fa_llama, "da": da, "ssd": ssd,
-            "host": {"pf": (cdf, q), "ca": (locs, fan, ca, cb), "j2": j2,
+            "host": {"pf": (cdf, q), "pf_shuffled": cdf_shuffled,
+                     "ca": (locs, fan, ca, cb), "j2": j2,
                      "path": wall, "da_lens": lens, "da_lens_d512": lens5,
                      "ssd": ssd_host}}
 
@@ -484,6 +500,14 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
     if idx.dtype != torch.int32 or not np.array_equal(idx.cpu().numpy(),
                                                       want):
         fail("particlefilter: differs from numpy's search of the CDF")
+    # the shuffled CDF: numpy's count on 2,000 queries across the range
+    every = PF_M // 2_000
+    shuffled = data["host"]["pf_shuffled"]
+    want = np.minimum((shuffled[None] < q[::every, None]).sum(1), PF_N - 1)
+    got = outs["particlefilter_shuffled"]
+    if got.dtype != torch.int32 or not np.array_equal(
+            got[::every].cpu().numpy(), want):
+        fail("particlefilter_shuffled: differs from numpy's count")
     locs, fan, ca, cb = (a[:20_000] if a.shape[0] == CA_B else a
                          for a in data["host"]["ca"])
     fl = locs[np.maximum(fan, 0)].astype(np.float64)
@@ -497,8 +521,8 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
           f"(5e-4); streamcluster vs float64 on 128 rows "
           f"{worst['streamcluster']:.3g} (2e-4), bf16 "
           f"{worst['streamcluster_bf16']:.3g} (1e-2); particlefilter equal "
-          f"to numpy searchsorted; canneal equal to float64 sums on 20,000 "
-          f"swaps")
+          f"to numpy searchsorted, shuffled equal to numpy's count on 2,000 "
+          f"queries; canneal equal to float64 sums on 20,000 swaps")
 
     # Jacobi-2D: the 4,000 sweeps again through numpy's float32 on the host
     # (same order of sums), then the plain version on the card
@@ -542,6 +566,7 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
                              ("flash_attention_gemma_f32", "fa_gemma_f32",
                               2e-4),
                              ("flash_attention_d512", "fa_d512", 2e-2),
+                             ("flash_attention_d640", "fa_d640", 2e-2),
                              ("flash_attention_mixed", "fa_mixed", 2e-2)):
         q, k, v = data[inputs]
         o = outs[key]
@@ -585,7 +610,8 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
           f"{att['flash_attention_llama']:.3g} (2e-2), gemma width (D 256) "
           f"{att['flash_attention_gemma']:.3g} (2e-2), in float32 "
           f"{att['flash_attention_gemma_f32']:.3g} (2e-4), D 512 "
-          f"{att['flash_attention_d512']:.3g} (2e-2), mixed types "
+          f"{att['flash_attention_d512']:.3g} (2e-2), D 640 "
+          f"{att['flash_attention_d640']:.3g} (2e-2), mixed types "
           f"{att['flash_attention_mixed']:.3g} (2e-2); decoding vs float64 "
           f"{da_err:.3g} (2e-4), the kv_len = 0 batch vs the mean of V "
           f"{da_zero:.3g}, float16 cache "
@@ -641,12 +667,28 @@ def suite_specs(torch, ref, data, mods):
             nbytes=(SC_M + SC_N) * SC_D * p.element_size() + SC_M * SC_N * 4,
             ops=2 * SC_M * SC_N * SC_D + 2 * (SC_M + SC_N) * SC_D
             + 4 * SC_M * SC_N, per=10))
+    # the particle filter: what these inputs need.  Rodinia's CDF is
+    # monotone, so a search: the CDF read once, the queries read, the
+    # indices written, and ceil(log2 N) compares a query; the shuffled CDF
+    # is counted, N compares and adds a query (searchsorted does not
+    # compute that function)
+    from repro_torch.kernels import particlefilter as pf_mod
+    took = lambda: ("search" if pf_mod.searched(pf_mod.find_index.last_flags)
+                    else "count")
+    shuffled = data["pf_shuffled"][0]
     specs.append(dict(
         name="particlefilter", kernel=lambda: pf_k(cdf, q),
         plain=lambda: ref.particlefilter_findindex(cdf, q),
         library=lambda: torch.searchsorted(cdf, q, out_int32=True),
         tol=None, peak=PEAK_F32_S, nbytes=(PF_N + 2 * PF_M) * 4,
-        ops=2 * PF_N * PF_M + PF_M, per=10))
+        ops=PF_M * int(np.ceil(np.log2(PF_N))), per=10, device_time=True,
+        took=took, want_path="search"))
+    specs.append(dict(
+        name="particlefilter_shuffled", kernel=lambda: pf_k(shuffled, q),
+        plain=lambda: ref.particlefilter_findindex(shuffled, q),
+        library=None, tol=None, peak=PEAK_F32_S,
+        nbytes=(PF_N + 2 * PF_M) * 4, ops=2 * PF_N * PF_M, per=10,
+        took=took, want_path="count"))
     specs.append(dict(
         name="canneal", kernel=lambda: ca_k(locs, fan, ca, cb),
         plain=lambda: ref.canneal_swap_cost(locs, fan, ca, cb),
@@ -695,7 +737,8 @@ def suite_specs(torch, ref, data, mods):
             ("flash_attention_gemma", "fa_gemma", 2e-2, 5, 2),
             ("flash_attention_gemma_f16", "fa_gemma_f16", 2e-2, 5, 2),
             ("flash_attention_gemma_f32", "fa_gemma_f32", 2e-4, 2, 2),
-            ("flash_attention_d512", "fa_d512", 2e-2, 2, 2),
+            ("flash_attention_d512", "fa_d512", 2e-2, 5, 2),
+            ("flash_attention_d640", "fa_d640", 2e-2, 2, 2),
             ("flash_attention_mixed", "fa_mixed", 2e-2, 20, 5)):
         fq, fk, fv = data[key]
         B, S, H, D = fq.shape
@@ -878,6 +921,30 @@ def warm_sweep_split(torch, eng, suite, tracegen, engine_scan, names, study,
     return med
 
 
+def scalar_fold_time(sp, ve, names) -> None:
+    """The scalar baseline's fold (the port of ``scalar_pipeline._scan_core``,
+    plain torch on the host: six steps need no kernel) over the golden
+    table's cells, cold: host time, folds and steps, beside one batched fold
+    of every pair, which must give the same bits."""
+    pairs = [(a, c) for a in names for c in ve.TABLE10]
+    sp._runtime_cached.cache_clear()
+    t0 = time.perf_counter()
+    cold = [sp.scalar_runtime_ns(a, c) for a, c in pairs]
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    folds = sp._runtime_cached.cache_info().misses
+    t0 = time.perf_counter()
+    batch = sp.scalar_runtime_ns_batch(*zip(*pairs))
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    if batch != cold:
+        fail("scalar baseline: the batched fold differs from the memoized one")
+    steps = len(sp.SEG_CLASSES)
+    print(f"phase 4 scalar baseline (the port of scalar_pipeline._scan_core, "
+          f"host): {len(pairs)} cells in {cold_ms:.3f} ms cold, {folds} "
+          f"folds x {steps} steps = {folds * steps} steps (memoized per app "
+          f"and scalar core); one batched fold of all {len(pairs)} pairs "
+          f"{batch_ms:.3f} ms")
+
+
 def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
     """Hold one suite kernel against its plain version on the card (exactly
     where ``tol`` is None), then time the kernel, the plain version and the
@@ -898,6 +965,13 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
     if not ok:
         fail(f"{name} kernel vs plain: max abs err {err} "
              f"(bar {spec['tol'] or 'exact'})")
+    extra = {}
+    if "took" in spec:
+        # the particle filter's flags: which path that call took
+        extra["path"] = spec["took"]()
+        if extra["path"] != spec["want_path"]:
+            fail(f"{name}: took the {extra['path']} path, not the "
+                 f"{spec['want_path']} path")
     timed = lambda fn: cuda_ms(torch, fn, reps=10, per=spec["per"])
     ms = timed(spec["kernel"])
     plain_reps = spec.get("plain_reps", 5)
@@ -916,7 +990,6 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
           f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
           f"({bound_by}; {spec['nbytes'] / 1e6:.1f} MB, "
           f"{spec['ops'] / 1e9:.3f} G ops)")
-    extra = {}
     if spec.get("device_time"):
         # a call whose host issue may exceed its device time: the times
         # above are back-to-back calls, as every row's; these are the
@@ -925,11 +998,14 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
                                     sm_clock_hz=sm_clock_hz)
         extra["device_ms"] = spun(spec["kernel"])
         lib_dev = spun(spec["library"]) if spec["library"] else None
+        extra["library_device_ms"] = lib_dev
         print(f"phase 6 {name}: device time behind a spin: kernel "
               f"{extra['device_ms']:.4f} ms, library "
               + ("none" if lib_dev is None else f"{lib_dev:.4f} ms")
               + f"; host issue {host_issue_ms(torch, spec['kernel'], per=20):.4f}"
               " ms a call")
+    if "path" in extra:
+        print(f"phase 6 {name}: path {extra['path']} (the kernel's flags)")
     if "path" in spec:
         simt = ("" if spec["simt_ms"] is None else
                 f"; float32 SIMT bound {spec['simt_ms']:.4f} ms at 67 TFLOP/s")
@@ -963,6 +1039,7 @@ def main() -> int:
     from repro_torch import _build, _device
     from repro_torch.configs import vector_engine as ve
     from repro_torch.core import anchors, engine as eng, isa
+    from repro_torch.core import scalar_pipeline as sp
     from repro_torch.core import suite, tracegen
     from repro_torch.kernels import blackscholes as bs_mod
     from repro_torch.kernels import canneal as ca_mod
@@ -993,8 +1070,10 @@ def main() -> int:
                 if "Used" in ln or "bytes stack" in ln]
         print(f"phase 1 build {name}: {r['seconds']:.1f} s  {' | '.join(regs)}")
     print(f"phase 1 flash_attention SASS: {sass_counts(_build)}")
-    print(f"phase 1 flash_attention D-256 instantiation: "
-          f"{entry_lines(report, 'flash_attention', 'flash_h16_kernelILi4E')}")
+    for width, entry in (("D-256", "flash_h16_kernelILi4E"),
+                         ("D-512", "flash_h16_kernelILi8E")):
+        print(f"phase 1 flash_attention {width} instantiation: "
+              f"{entry_lines(report, 'flash_attention', entry)}")
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} "
           f"sm_clock_max={sm_clock_hz / 1e6:.0f} MHz  build wall {build_s:.1f} s")
 
@@ -1223,6 +1302,7 @@ def main() -> int:
         fail(f"golden table: {n_cells} cells, off: {bad[:5]}")
     warm_sweep_split(torch, eng, suite, tracegen, engine_scan, names, study,
                      dev)
+    scalar_fold_time(sp, ve, names)
     print(f"phase 4 launches on the main path: {launches}")
     if min(launches.values()) <= 0:
         fail(f"a kernel was not launched on the main path: {launches}")
@@ -1238,6 +1318,7 @@ def main() -> int:
     for mod in suite_mods:
         mod.launches = 0
     fa_mod.flash_attention.wgmma256_launches = 0
+    fa_mod.flash_attention.wgmma512_launches = 0
     fa_mod.flash_attention.wide_launches = 0
     da_mod.decode_attention.combine_launches = 0
     t0 = time.perf_counter()
@@ -1245,6 +1326,10 @@ def main() -> int:
             "streamcluster": ops.streamcluster_dist(*data["sc"]),
             "streamcluster_bf16": ops.streamcluster_dist(*data["sc_bf16"]),
             "particlefilter": ops.particlefilter_findindex(*data["pf"]),
+            "pf_flags": pf_mod.find_index.last_flags,
+            "particlefilter_shuffled": ops.particlefilter_findindex(
+                *data["pf_shuffled"]),
+            "pf_shuffled_flags": pf_mod.find_index.last_flags,
             "canneal": ops.canneal_swap_cost(*data["ca"]),
             "pathfinder": ops.pathfinder(data["path"]),
             "flash_attention": ops.flash_attention(*data["fa"]),
@@ -1254,6 +1339,7 @@ def main() -> int:
             "flash_attention_gemma_f32": ops.flash_attention(
                 *data["fa_gemma_f32"]),
             "flash_attention_d512": ops.flash_attention(*data["fa_d512"]),
+            "flash_attention_d640": ops.flash_attention(*data["fa_d640"]),
             "flash_attention_mixed": ops.flash_attention(*data["fa_mixed"]),
             "decode_attention": ops.decode_attention(*data["da"]),
             "decode_attention_f16": ops.decode_attention(*data["da_f16"]),
@@ -1274,20 +1360,35 @@ def main() -> int:
         launches[name] = mod.launches
     launches["flash_attention_wgmma256"] = \
         fa_mod.flash_attention.wgmma256_launches
+    launches["flash_attention_wgmma512"] = \
+        fa_mod.flash_attention.wgmma512_launches
     launches["flash_attention_wide"] = fa_mod.flash_attention.wide_launches
     launches["decode_attention_combine"] = \
         da_mod.decode_attention.combine_launches
     path_counts = {n: launches[n]
                    for n in (*SUITE_REPLACES, "flash_attention_wgmma256",
+                             "flash_attention_wgmma512",
                              "flash_attention_wide",
                              "decode_attention_combine")}
+    # the particle filter's two calls: the path each took, from its flags
+    pf_paths = {key: "search" if pf_mod.searched(outs.pop(flags)) else
+                "count" for key, flags in
+                (("particlefilter", "pf_flags"),
+                 ("particlefilter_shuffled", "pf_shuffled_flags"))}
     print(f"phase 5 suite kernels through kernels.ops: {suite_s * 1e3:.1f} ms"
           f" wall (inputs made in {inputs_s:.1f} s); jacobi2d {J2_SWEEPS} "
           f"sweeps of {J2_N} x {J2_N} in {j2_app_s * 1e3:.1f} ms wall "
           f"({j2_app_s * 1e6 / J2_SWEEPS:.2f} us/sweep); launches "
-          f"{path_counts}")
+          f"{path_counts}; particle filter paths {pf_paths}")
     if min(path_counts.values()) <= 0:
         fail(f"a suite kernel was not launched on its path: {launches}")
+    if pf_paths != {"particlefilter": "search",
+                    "particlefilter_shuffled": "count"}:
+        fail(f"particle filter: paths {pf_paths}, expected the search on "
+             "Rodinia's CDF and the count on the shuffled one")
+    if fa_mod.path(*data["fa_d512"]) != "wgmma512/tma":
+        fail(f"flash attention at D 512 took {fa_mod.path(*data['fa_d512'])}"
+             ", not wgmma512/tma")
     check_suite_outputs(torch, ref, data, outs)
 
     # ---- 6. suite kernels against their plain versions, times, bounds -------
@@ -1327,19 +1428,29 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[name],
                         **rows[row_of.get(name, name)]})
     # flash attention's routes past 128 columns: the wgmma kernel's D-256
-    # instantiation at gemma-7b's width, and the SIMT route (float32 at
-    # gemma's width, S 1,024); decoding's combine kernel
-    for name, source, row, of in (
+    # instantiation at gemma-7b's width, its D-512 instantiation, and the
+    # SIMT route (float32 at gemma's width, S 1,024); the particle filter's
+    # count path (the shuffled CDF; its launches are the wrapper's, both
+    # calls); decoding's combine kernel
+    for name, source, row, of, counter in (
             ("flash_attention_wgmma256", "flash_attention",
-             "flash_attention_gemma", "flash_attention"),
+             "flash_attention_gemma", "flash_attention",
+             "flash_attention_wgmma256"),
+            ("flash_attention_wgmma512", "flash_attention",
+             "flash_attention_d512", "flash_attention",
+             "flash_attention_wgmma512"),
+            ("particlefilter_shuffled", "particlefilter",
+             "particlefilter_shuffled", "particlefilter", "particlefilter"),
             ("flash_attention_wide", "flash_attention_wide",
-             "flash_attention_gemma_f32", "flash_attention"),
+             "flash_attention_gemma_f32", "flash_attention",
+             "flash_attention_wide"),
             ("decode_attention_combine", "decode_attention",
-             "decode_attention_combine", "decode_attention")):
+             "decode_attention_combine", "decode_attention",
+             "decode_attention_combine")):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{source}.cu",
                         "replaces": SUITE_REPLACES[of],
-                        "launches": launches[name], **rows[row]})
+                        "launches": launches[counter], **rows[row]})
     print(json.dumps({"kernels": kernels}))
     # ---- 8. last line -----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {

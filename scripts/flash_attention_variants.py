@@ -84,8 +84,10 @@ def sources(kernel_text: str) -> dict[str, str]:
     return out
 
 
-def build(build_mod, texts: dict[str, str]) -> dict[str, ctypes.CDLL]:
-    """One nvcc per variant, all at once."""
+def build(build_mod, texts: dict[str, str],
+          logs: dict | None = None) -> dict[str, ctypes.CDLL]:
+    """One nvcc per variant, all at once; each build's log (ptxas's
+    report) into ``logs`` where one is given."""
     out_dir = ROOT / "build" / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -103,6 +105,8 @@ def build(build_mod, texts: dict[str, str]) -> dict[str, ctypes.CDLL]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc {name} failed:\n{log}")
+        if logs is not None:
+            logs[name] = log
         libs[name] = ctypes.CDLL(str(lib))
         p, i = ctypes.c_void_p, ctypes.c_int
         libs[name].flash_attention_launch.argtypes = [

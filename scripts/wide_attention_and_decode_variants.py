@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Diagnostic variants of the port's D-256 flash attention and of its
-split-KV decoding, timed beside the kernels themselves on one CUDA card.
+"""Diagnostic variants of the port's D-256 and D-512 flash attention and of
+its split-KV decoding, timed beside the kernels themselves on one CUDA card.
 
     python3 scripts/wide_attention_and_decode_variants.py   # from the root
 
@@ -21,6 +21,16 @@ Each variant's ptxas spill line of the D-256 instantiation is printed;
 times are CUDA events (median of 10 samples of 5 back-to-back calls) in
 turns, the kernel first and last.  Only the kernel's output is checked
 (2e-2 against the plain version).
+
+The same at D 512 (B 1, S 2,048, H 8, causal, bfloat16: the D-512
+instantiation, TMA path, ``chip_smoke.py``'s shape), with two more
+variants of that instantiation alone:
+
+- ``kv-empty-together``: one "empty" barrier a stage for K and V, as at D
+  <= 256, in place of K's and V's apart;
+- ``wg-branch``: P V's wgmma guarded by each warpgroup's own panel count,
+  a branch that differs between the warpgroups (ptxas then serializes
+  every wgmma: its C7520 note is printed).
 
 Decoding at the app's shape (B 32, S 4,096, H 8, D 64, ``kv_len`` uniform
 in [1, S] with one batch at 0, as ``chip_smoke.py`` draws it): the plan
@@ -48,6 +58,10 @@ GEMMA = (1, 4_096, 16, 256)
 DECODE = (32, 4_096, 8, 64)
 WAVES = (4, 2, 1, 8, 16, 32)
 ENTRY = "flash_h16_kernelILi4E"     # the D-256 instantiation's mangled name
+D512 = (1, 2_048, 8, 512)
+# text of the D-512 instantiation that its own two variants replace
+EMPTY_APART = "  static constexpr int EMPTY = NP == 8 ? 2 : 1;"
+PV_GUARD = "        if (pn < nmul)\n"
 REGS = "constexpr int LOADER_REGS = 40, CONSUMER_REGS = 232;"
 
 
@@ -94,7 +108,11 @@ def attention(torch, build_mod, fa, ref, fav) -> None:
                                 .replace("232", "224")),),
             "loads-only": ((fav.PRODUCTS, ""), (fav.SOFTMAX, "")),
             "products-only": ((fav.SOFTMAX, ""),),
-            "softmax-only": ((fav.PRODUCTS, ""),)}
+            "softmax-only": ((fav.PRODUCTS, ""),),
+            "kv-empty-together": ((EMPTY_APART,
+                                   "  static constexpr int EMPTY = 1;"),),
+            "wg-branch": ((PV_GUARD, "        if (pn < (wg == 0 ? half : "
+                           "npan - half))\n"),)}
     texts = {"kernel": kernel}
     for name, pairs in subs.items():
         text = kernel
@@ -108,11 +126,30 @@ def attention(torch, build_mod, fa, ref, fav) -> None:
     for name in ("kernel", "loader-56-regs"):
         print(f"{name} ptxas, D-256 instantiations: "
               f"{spill_lines(build_mod, name, texts[name])}")
-    libs = fav.build(build_mod, texts)
+    logs = {}
+    libs = fav.build(build_mod, texts, logs)
+    for name in ("kernel", "kv-empty-together", "wg-branch"):
+        notes = [ln.strip()[:90] for ln in logs[name].splitlines()
+                 if "C7520" in ln]
+        print(f"{name} ptxas, D-512 instantiations: "
+              f"{len(notes)} wgmma serialization notes (C7520)"
+              + (f": {notes[0]}" if notes else ""))
     gen = np.random.default_rng(2111)
-    B, S, H, D = GEMMA
+    d256 = ("kernel", "loader-56-regs", "loads-only", "products-only",
+            "softmax-only")
+    d512 = ("kernel", "kv-empty-together", "wg-branch", "loads-only",
+            "products-only", "softmax-only")
+    for shape, names in ((GEMMA, d256), (D512, d512)):
+        time_variants(torch, fa, ref, {n: libs[n] for n in names}, shape,
+                      gen)
+
+
+def time_variants(torch, fa, ref, libs, shape, gen) -> None:
+    """Each variant's time at ``shape`` (bfloat16, causal), in turns; the
+    kernel's output held against the plain version."""
+    B, S, H, D = shape
     q, k, v = (torch.from_numpy(gen.standard_normal(
-        GEMMA, dtype=np.float32)).to("cuda", torch.bfloat16)
+        shape, dtype=np.float32)).to("cuda", torch.bfloat16)
         for _ in range(3))
     out = torch.empty_like(q)
     load = fa.LOADS[fa.path(q, k, v)]

@@ -5,8 +5,11 @@
 // q, k, v [B, S, H, D], causal or not, with an online softmax over key
 // tiles so the [S, S] scores never reach device memory.  Inputs float32,
 // bfloat16 or float16, all sums float32, the output in the inputs' type.
-// Head widths 1..128 in float32 and 1..256 in the 16-bit types;
-// csrc/flash_attention_wide.cu takes the rest.
+// Routes by (type, D): float32 at D 1..128 the 3xTF32 kernel; bfloat16 and
+// float16 the wgmma kernel, instantiated for D 1..64, 65..128, 129..256
+// and 257..512 (NP = 1, 2, 4, 8 panels of 64 columns);
+// csrc/flash_attention_wide.cu takes the rest (float32 past 128, every
+// type past 512).
 //
 // Bound on an H100: operations, 4 * D flops (q.k and p.v) per (query, key)
 // pair the mask keeps, on the tensor cores: 17.2 GFLOP causal at B 4, H 8,
@@ -49,7 +52,7 @@
 // rounded to the inputs' 16-bit type in registers and is wgmma's register A
 // operand (the plain version rounds the probabilities to q's type too).
 // The tiles come by TMA through a 4-D tensor map over [B, S, H, D] (box 64
-// x 1 x rows x 1, 128 rows for Q, a key tile's for K and V; its
+// x 1 x rows x 1, a block's query rows for Q, a key tile's for K and V; its
 // out-of-bounds zero fill covers a ragged tile and D < 64 or < 128) when
 // the rows are 16-byte aligned (D % 8 == 0); otherwise the loader
 // warpgroup writes the same swizzled tiles with cp.async (4-byte pieces, D
@@ -60,6 +63,26 @@
 // registers a thread, its 64 x 48 scores 24.  64-key tiles in two stages
 // (192 KB, FA3's shape at D 256) ran 5 % slower on an H100 (PERF.md).  Panels
 // wholly past D are neither loaded nor multiplied.
+//
+// At D 257..512 (NP = 8) a 128-row block's output alone would need 256
+// accumulator registers a thread.  So a block owns 64 query rows, and both
+// consumer warpgroups work on them: each computes the same S = Q K^T over
+// every live panel of D (m64n32k16 over up to 32 k-steps), in the same
+// order, so both hold the same bits of m, l and P with no exchange, and
+// each runs O += P V on its own half of the live output panels (at D 512
+// warpgroup 0 columns 0..255, warpgroup 1 256..511; with an odd count of
+// live panels, at D 257..320 and 385..448, both multiply the middle one,
+// so that every wgmma's guard is the same for the whole block: one that
+// differs between warpgroups makes ptxas serialize every wgmma of the
+// kernel).  That does the q.k products twice, 1.5x the counted flops at D
+// 512.  Tiles of 32 keys in two stages: Q 64 KB + 2 x (K 32 KB + V 32 KB)
+// = 192 KB; a consumer holds 4 x 32 output floats, 16 scores and 8 words
+// of P.  The warpgroups ping-pong as below; a turn holds K of one tile and
+// V of the one before, so K and V have "empty" barriers apart (K's freed
+// once S is done, V's once P V is): with one for both, two stages left the
+// loader waiting for every tile.  The loads take every path the D-256
+// instantiation takes (TMA box 64 columns x 64 rows for Q, 32 for K and
+// V), and the cp.async and plain-load paths fill only the live panels.
 //
 // float32: 3xTF32 on mma.sync.m16n8k8: each operand x splits into big =
 // tf32(x) and small = tf32(x - big) (by masks, see split_tf32), and each
@@ -96,9 +119,20 @@ constexpr int BK32 = 64;             // key rows a tile, float32
 // key rows a tile, 16-bit types, at NP 64-column panels of D
 template <int NP>
 __host__ __device__ constexpr int bk16() {
-  return NP == 4 ? 48 : 128;
+  return NP == 8 ? 32 : NP == 4 ? 48 : 128;
+}
+// query rows a block, 16-bit types: both consumer warpgroups on the same
+// 64 rows at NP 8, 64 rows each below
+template <int NP>
+__host__ __device__ constexpr int bq16() {
+  return NP == 8 ? 64 : BQ;
 }
 constexpr int LOADER_REGS = 40, CONSUMER_REGS = 232;
+// The D-512 instantiation's loader walks the live panels one at a time
+// and spills at 40 and at 72 registers, not at 88; 208 are enough for its
+// consumers.  Both pairs hand over exactly the block's launch share, 384
+// threads x 168 registers.
+constexpr int LOADER_REGS8 = 88, CONSUMER_REGS8 = 208;
 constexpr float NEG_INF = -1e30f;    // flash_attention.py:17
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -334,6 +368,31 @@ __device__ __forceinline__ void wgmma_ss_n48(float* d, uint64_t da, uint64_t db,
     WGMMA_SS_N48("bf16");
 }
 
+// d[16] (+)= A(smem desc) * B(smem desc), m64n32k16, both K-major, for
+// the D-512 kernel's 32-key tiles.
+#define WGMMA_SS_N32(TY)                                                       \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\n"                                                     \
+      "setp.ne.b32 p, %18, 0;\n"                                               \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "              \
+      "{"                                                                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                       \
+      "%8, %9, %10, %11, %12, %13, %14, %15"                                   \
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"                                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+        "+f"(d[15])                                                            \
+      : "l"(da), "l"(db), "r"(acc))
+
+template <bool F16>
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db, int acc) {
+  if constexpr (F16)
+    WGMMA_SS_N32("f16");
+  else
+    WGMMA_SS_N32("bf16");
+}
+
 // d[32] += A(registers, 16-bit x2 a[4]) * B(smem desc), m64n64k16; B
 // MN-major (transpose bit set).
 #define WGMMA_RS_N64_TB(TY)                                                    \
@@ -427,20 +486,23 @@ __device__ __forceinline__ void mma_3xtf32(float* d, const SplitA& a,
 
 // ---- shared-memory layouts -------------------------------------------------
 
-// 16-bit types: Q [NP panels][BQ rows][128 B], then STAGES K tiles and STAGES V
-// tiles [NP panels][bk16 rows][128 B], then the barriers: Q full, K full x
-// STAGES, V full x STAGES, empty x STAGES.
+// 16-bit types: Q [NP panels][bq16 rows][128 B], then STAGES K tiles and
+// STAGES V tiles [NP panels][bk16 rows][128 B], then the barriers: Q full,
+// K full x STAGES, V full x STAGES, empty x STAGES (at NP 8 K's, then V's
+// empty x STAGES).
 template <int NP>
 struct Bf16Smem {
-  // as many stages as fit beside Q (at D 256, 48-key tiles three)
+  // as many stages as fit beside Q (at D 256, 48-key tiles three; at D
+  // 512, 32-key tiles two)
   static constexpr int BK = bk16<NP>();
-  static constexpr int STAGES = NP == 1 ? 4 : 3;
-  static constexpr int PANEL_Q = BQ * 128, PANEL_KV = BK * 128;
+  static constexpr int STAGES = NP == 1 ? 4 : NP == 8 ? 2 : 3;
+  static constexpr int PANEL_Q = bq16<NP>() * 128, PANEL_KV = BK * 128;
   static constexpr int Q = 0;
   static constexpr int K = Q + NP * PANEL_Q;
   static constexpr int V = K + STAGES * NP * PANEL_KV;
   static constexpr int BAR = V + STAGES * NP * PANEL_KV;
-  static constexpr int BYTES = BAR + 8 * (1 + 3 * STAGES) + 1024;
+  static constexpr int EMPTY = NP == 8 ? 2 : 1;   // rings of empty barriers
+  static constexpr int BYTES = BAR + 8 * (1 + (2 + EMPTY) * STAGES) + 1024;
 };
 
 // float32: Q [BQ][LD], STAGES x K [BK32][LD], STAGES x V [BK32][LD] floats
@@ -497,6 +559,25 @@ __device__ __forceinline__ void load_bf16_tile(uint8_t* dst,
   }
 }
 
+// The same tile as the kernel of NP panels lays it out: at NP 8 (D
+// 257..512) the `npan` panels below D one at a time, none past them;
+// below NP 8 whole.
+template <int NP, int R>
+__device__ __forceinline__ void load_h16_panels(uint8_t* dst,
+                                                const __nv_bfloat16* src,
+                                                long long base, int row0,
+                                                int S, int D,
+                                                long long rstride, int mode,
+                                                int tid, int npan) {
+  if constexpr (NP == 8) {
+    for (int pn = 0; pn < npan; ++pn)
+      load_bf16_tile<1, R>(dst + pn * R * 128, src, base + 64 * pn, row0, S,
+                           D - 64 * pn, rstride, mode, tid);
+  } else {
+    load_bf16_tile<NP, R>(dst, src, base, row0, S, D, rstride, mode, tid);
+  }
+}
+
 // The float32 counterpart into a [R][64 NP + 4] tile; LOAD_CP16 needs D % 4
 // == 0 and 16-byte aligned rows.
 template <int NP, int R>
@@ -536,35 +617,36 @@ struct Tile {          // what every thread of a block knows of its work
 // heads go in groups whose K and V fit in L2, and inside a group the query
 // tiles with the most key tiles go first for all its heads (a head's
 // tiles one after another would leave the last heads' heaviest tiles for
-// the last wave).
-template <int BK>
+// the last wave).  A block holds R query rows and walks BK-key tiles.
+template <int R, int BK>
 __device__ __forceinline__ Tile tile_of(Params p) {
   Tile t;
-  const int n_qt = (p.S + BQ - 1) / BQ;
+  const int n_qt = (p.S + R - 1) / R;
   const long long per_group = (long long)p.group * n_qt;
   const int g = (int)(blockIdx.x / per_group);
   const int r = (int)(blockIdx.x % per_group);
   const int heads = min(p.group, p.BH - g * p.group);
   const int bh = g * p.group + r % heads;
-  t.q0 = (n_qt - 1 - r / heads) * BQ;   // heaviest tiles first
+  t.q0 = (n_qt - 1 - r / heads) * R;   // heaviest tiles first
   t.b = bh / p.H;
   t.h = bh % p.H;
   t.rstride = (long long)p.H * p.D;
   t.base = (long long)t.b * p.S * t.rstride + (long long)t.h * p.D;
   t.n_kt = (p.S + BK - 1) / BK;
-  if (p.causal) t.n_kt = min(t.n_kt, (t.q0 + BQ - 1) / BK + 1);
+  if (p.causal) t.n_kt = min(t.n_kt, (t.q0 + R - 1) / BK + 1);
   return t;
 }
 
 // Barriers: [0] Q full, [1 + s] K full, [1 + ST + s] V full, [1 + 2 ST + s]
-// empty.  Loads by TMA arrive once (with the bytes); loads by the loader
-// warpgroup's threads arrive 128 times.  The 8 consumer warps free a stage.
-template <int ST>
+// empty (with EMPTY 2: K's, and [1 + 3 ST + s] V's).  Loads by TMA arrive
+// once (with the bytes); loads by the loader warpgroup's threads arrive 128
+// times.  The 8 consumer warps free a stage.
+template <int ST, int EMPTY = 1>
 __device__ __forceinline__ void init_barriers(uint64_t* bars, int load) {
   if (threadIdx.x == 0) {
     const int n = load == LOAD_TMA ? 1 : 128;
     for (int i = 0; i < 1 + 2 * ST; ++i) mbar_init(&bars[i], n);
-    for (int s = 0; s < ST; ++s) mbar_init(&bars[1 + 2 * ST + s], 8);
+    for (int s = 0; s < EMPTY * ST; ++s) mbar_init(&bars[1 + 2 * ST + s], 8);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -725,18 +807,25 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tv, const Params p) {
   using L = Bf16Smem<NP>;
   using T16 = typename std::conditional<F16, __half, __nv_bfloat16>::type;
-  constexpr int ST = L::STAGES, BK = bk16<NP>();
+  constexpr int ST = L::STAGES, BK = bk16<NP>(), BQH = bq16<NP>();
+  // NP 8: both consumer warpgroups on the same 64 rows, each holding OP of
+  // the output's panels
+  constexpr bool SPLIT = NP == 8;
+  constexpr int OP = SPLIT ? NP / 2 : NP;
+  // K's and V's stages freed apart (K's after S, V's after P V)
+  constexpr bool KV_APART = L::EMPTY == 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR);
-  const Tile tl = tile_of<BK>(p);
-  // the panels that hold columns below D (all NP but at D 129..192); a
-  // constant below NP 4, so the D <= 128 kernel's loops test nothing
+  const Tile tl = tile_of<BQH, BK>(p);
+  // the panels that hold columns below D (all NP but at D 129..192 and
+  // 257..448); a constant below NP 4, so the D <= 128 kernel's loops test
+  // nothing
   const int npan = NP < 4 ? NP : min(NP, (p.D + 63) / 64);
-  init_barriers<ST>(bars, p.load);
+  init_barriers<ST, L::EMPTY>(bars, p.load);
 
   if (threadIdx.x < 128) {   // ---- the loader warpgroup ----
-    regs_dealloc<LOADER_REGS>();
+    regs_dealloc<NP == 8 ? LOADER_REGS8 : LOADER_REGS>();
     if (p.load == LOAD_TMA) {
       if (threadIdx.x != 0) return;
       mbar_expect_tx(&bars[0], npan * L::PANEL_Q);
@@ -750,6 +839,8 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
         for (int pn = 0; pn < npan; ++pn)
           tma_load_4d(smem + L::K + (s * NP + pn) * L::PANEL_KV, &tk,
                       &bars[1 + s], pn * 64, tl.h, k0, tl.b);
+        if (KV_APART && it >= ST)
+          mbar_wait(&bars[1 + 3 * ST + s], (it / ST - 1) & 1);
         mbar_expect_tx(&bars[1 + ST + s], npan * L::PANEL_KV);
         for (int pn = 0; pn < npan; ++pn)
           tma_load_4d(smem + L::V + (s * NP + pn) * L::PANEL_KV, &tv,
@@ -761,8 +852,8 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
     const auto* q = static_cast<const __nv_bfloat16*>(p.q);
     const auto* k = static_cast<const __nv_bfloat16*>(p.k);
     const auto* v = static_cast<const __nv_bfloat16*>(p.v);
-    load_bf16_tile<NP, BQ>(smem + L::Q, q, tl.base, tl.q0, p.S, p.D,
-                           tl.rstride, p.load, tid);
+    load_h16_panels<NP, BQH>(smem + L::Q, q, tl.base, tl.q0, p.S, p.D,
+                             tl.rstride, p.load, tid, npan);
     cp_async_commit();
     cp_async_wait<0>();
     fence_proxy_async();
@@ -770,15 +861,25 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
     for (int it = 0; it < tl.n_kt; ++it) {
       const int s = it % ST, k0 = (tl.n_kt - 1 - it) * BK;
       if (it >= ST) mbar_wait(&bars[1 + 2 * ST + s], (it / ST - 1) & 1);
-      load_bf16_tile<NP, BK>(smem + L::K + s * NP * L::PANEL_KV, k, tl.base,
-                             k0, p.S, p.D, tl.rstride, p.load, tid);
+      load_h16_panels<NP, BK>(smem + L::K + s * NP * L::PANEL_KV, k,
+                              tl.base, k0, p.S, p.D, tl.rstride, p.load, tid,
+                              npan);
       cp_async_commit();
-      load_bf16_tile<NP, BK>(smem + L::V + s * NP * L::PANEL_KV, v, tl.base,
-                             k0, p.S, p.D, tl.rstride, p.load, tid);
+      if constexpr (KV_APART) {   // K lands before V's stage is waited for
+        cp_async_wait<0>();
+        fence_proxy_async();
+        mbar_arrive(&bars[1 + s]);
+        if (it >= ST) mbar_wait(&bars[1 + 3 * ST + s], (it / ST - 1) & 1);
+      }
+      load_h16_panels<NP, BK>(smem + L::V + s * NP * L::PANEL_KV, v,
+                              tl.base, k0, p.S, p.D, tl.rstride, p.load, tid,
+                              npan);
       cp_async_commit();
-      cp_async_wait<1>();
-      fence_proxy_async();
-      mbar_arrive(&bars[1 + s]);
+      if constexpr (!KV_APART) {
+        cp_async_wait<1>();
+        fence_proxy_async();
+        mbar_arrive(&bars[1 + s]);
+      }
       cp_async_wait<0>();
       fence_proxy_async();
       mbar_arrive(&bars[1 + ST + s]);
@@ -786,18 +887,27 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  // ---- the consumer warpgroups: 64 query rows each ----
-  regs_alloc<CONSUMER_REGS>();
+  // ---- the consumer warpgroups: 64 query rows each (NP 8: the same 64) ----
+  regs_alloc<NP == 8 ? CONSUMER_REGS8 : CONSUMER_REGS>();
   const int wg = threadIdx.x / 128 - 1, w = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int row = tl.q0 + 64 * wg + 16 * w + g;   // and row + 8
-  const uint8_t* qs = smem + L::Q + wg * 64 * 128;
+  const int row = tl.q0 + (SPLIT ? 0 : 64 * wg) + 16 * w + g;   // and row + 8
+  const uint8_t* qs = smem + L::Q + (SPLIT ? 0 : wg * 64 * 128);
+  // The output panels this warpgroup multiplies: p0 .. p0 + nmul - 1.  At
+  // NP 8 each takes half of the live panels, rounded up, the second the
+  // last ones: with an odd count both multiply the middle panel (the same
+  // bits, from the same P and V) and the first stores it.  nmul is the
+  // same for both warpgroups: a wgmma under a branch that differs between
+  // them makes ptxas serialize every wgmma of the kernel.
+  const int half = (npan + 1) / 2;
+  const int nmul = SPLIT ? half : npan;
+  const int p0 = SPLIT && wg == 1 ? npan - half : 0;
   const int S = p.S;
   const float scale_log2 = p.scale_log2;
   const bool causal = p.causal != 0;
-  float o[NP][32];
+  float o[OP][32];
 #pragma unroll
-  for (int pn = 0; pn < NP; ++pn)
+  for (int pn = 0; pn < OP; ++pn)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[pn][i] = 0.0f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
@@ -824,8 +934,10 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
         const uint64_t b = dks + (pn * L::PANEL_KV + 32 * j) / 16;
         if constexpr (BK == 128)
           wgmma_ss_n128<F16>(sc, a, b, pn + j > 0);
-        else
+        else if constexpr (BK == 48)
           wgmma_ss_n48<F16>(sc, a, b, pn + j > 0);
+        else
+          wgmma_ss_n32<F16>(sc, a, b, pn + j > 0);
       }
     }
   };
@@ -834,10 +946,10 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-      for (int pn = 0; pn < NP; ++pn)
-        if (pn < npan)
-          wgmma_rs_n64_tb<F16>(o[pn], pa[kk],
-                               dvs + (pn * L::PANEL_KV + 2048 * kk) / 16);
+      for (int pn = 0; pn < OP; ++pn)
+        if (pn < nmul)
+          wgmma_rs_n64_tb<F16>(
+              o[pn], pa[kk], dvs + ((p0 + pn) * L::PANEL_KV + 2048 * kk) / 16);
   };
   auto softmax = [&](int it) {
     const int k0 = (tl.n_kt - 1 - it) * BK;
@@ -849,7 +961,7 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
 #pragma unroll
-    for (int pn = 0; pn < NP; ++pn)
+    for (int pn = 0; pn < OP; ++pn)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[pn][i] *= corr[(i >> 1) & 1];
     // P as the register A operand: k16 step kk covers keys 16 kk .. + 15,
@@ -882,10 +994,15 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait0();
     reg_fence<BK / 2>(sc);
 #pragma unroll
-    for (int pn = 0; pn < NP; ++pn) reg_fence<32>(o[pn]);
+    for (int pn = 0; pn < OP; ++pn) reg_fence<32>(o[pn]);
     if (pv) {
       __syncwarp();
-      if (lane == 0) mbar_arrive(&bars[1 + 2 * ST + (it - 1) % ST]);
+      if (lane == 0)
+        mbar_arrive(&bars[1 + (KV_APART ? 3 : 2) * ST + (it - 1) % ST]);
+    }
+    if (KV_APART && qk) {   // S of this tile is done: free K's stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bars[1 + 2 * ST + it % ST]);
     }
     if (qk) softmax(it);
   }
@@ -896,8 +1013,9 @@ flash_h16_kernel(const __grid_constant__ CUtensorMap tq,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
 #pragma unroll
-  for (int pn = 0; pn < NP; ++pn)
-    store_rows<T16, 32>(p.o, S, p.D, tl, o[pn], 64 * pn, row, t, l);
+  for (int pn = 0; pn < OP; ++pn)
+    if (!SPLIT || (pn < nmul && p0 + pn >= wg * half))
+      store_rows<T16, 32>(p.o, S, p.D, tl, o[pn], 64 * (p0 + pn), row, t, l);
 }
 
 template <int NP>
@@ -911,7 +1029,7 @@ flash_f32_kernel(const Params p) {
   float* Qs = reinterpret_cast<float*>(smem + L::Q);
   float* Ks = reinterpret_cast<float*>(smem + L::K);
   float* Vs = reinterpret_cast<float*>(smem + L::V);
-  const Tile tl = tile_of<BK32>(p);
+  const Tile tl = tile_of<BQ, BK32>(p);
   init_barriers<ST>(bars, LOAD_CP16);
 
   if (threadIdx.x < 128) {   // ---- the loader warpgroup ----
@@ -1080,13 +1198,33 @@ bool aligned(const void* p, int n) {
   return reinterpret_cast<uintptr_t>(p) % n == 0;
 }
 
+// The 16-bit kernel of `np` panels (1, 2, 4 or 8).
+template <bool F16>
+int launch_h16(int np, const CUtensorMap* m, dim3 grid, cudaStream_t st,
+               const Params& p) {
+  switch (np) {
+    case 1:
+      return launch(flash_h16_kernel<1, F16>, Bf16Smem<1>::BYTES, grid, st,
+                    m[0], m[1], m[2], p);
+    case 2:
+      return launch(flash_h16_kernel<2, F16>, Bf16Smem<2>::BYTES, grid, st,
+                    m[0], m[1], m[2], p);
+    case 4:
+      return launch(flash_h16_kernel<4, F16>, Bf16Smem<4>::BYTES, grid, st,
+                    m[0], m[1], m[2], p);
+    default:
+      return launch(flash_h16_kernel<8, F16>, Bf16Smem<8>::BYTES, grid, st,
+                    m[0], m[1], m[2], p);
+  }
+}
+
 }  // namespace
 
 extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, k, v, o contiguous [b, s, h, d] (1 <= d <= 128 in float32, <= 256 in
+// q, k, v, o contiguous [b, s, h, d] (1 <= d <= 128 in float32, <= 512 in
 // the 16-bit types), `dtype` 0 float32, 1 bfloat16 or 2 float16; `scale`
 // multiplies the scores.  `load` is how the
 // tiles are loaded: 16-bit types 0 (TMA: d % 8 == 0 and 16-byte aligned
@@ -1105,7 +1243,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       1ll, std::min((long long)b * h, (long long)(L2_GROUP_BYTES / kv_head)));
   const Params p{q, k, v, o, s, h, d, scale * LOG2E, causal, load, b * h,
                  group};
-  const long long blocks = (long long)((s + BQ - 1) / BQ) * b * h;
+  const int bq = h16 && d > 256 ? bq16<8>() : BQ;   // query rows a block
+  const long long blocks = (long long)((s + bq - 1) / bq) * b * h;
   if (blocks > 0x7fffffffll)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const dim3 grid((unsigned)blocks);
@@ -1113,41 +1252,27 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return aligned(q, n) && aligned(k, n) && aligned(v, n);
   };
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (d < 1 || d > (h16 ? 256 : 128) || dtype < 0 || dtype > 2) return bad;
+  if (d < 1 || d > (h16 ? 512 : 128) || dtype < 0 || dtype > 2) return bad;
   if (h16) {
     if ((load == LOAD_TMA && (d % 8 || !all_aligned(16))) ||
         (load == LOAD_CP4 && (d % 2 || !all_aligned(4))) ||
         (load != LOAD_TMA && load != LOAD_CP4 && load != LOAD_LD2))
       return bad;
-    const int np = d <= 64 ? 1 : d <= 128 ? 2 : 4;
-    const int bk = np == 4 ? bk16<4>() : bk16<1>();   // key rows a tile
+    const int np = d <= 64 ? 1 : d <= 128 ? 2 : d <= 256 ? 4 : 8;
+    const int bk = np == 8   ? bk16<8>()
+                   : np == 4 ? bk16<4>()
+                             : bk16<1>();   // key rows a tile
     CUtensorMap maps[3] = {};
     if (load == LOAD_TMA) {
       const void* ptrs[3] = {q, k, v};
       for (int i = 0; i < 3; ++i) {
         const int err =
-            make_map(&maps[i], ptrs[i], b, s, h, d, f16, i == 0 ? BQ : bk);
+            make_map(&maps[i], ptrs[i], b, s, h, d, f16, i == 0 ? bq : bk);
         if (err) return err;
       }
     }
-    if (f16) {
-      if (np == 1)
-        return launch(flash_h16_kernel<1, true>, Bf16Smem<1>::BYTES, grid, st,
-                      maps[0], maps[1], maps[2], p);
-      if (np == 2)
-        return launch(flash_h16_kernel<2, true>, Bf16Smem<2>::BYTES, grid, st,
-                      maps[0], maps[1], maps[2], p);
-      return launch(flash_h16_kernel<4, true>, Bf16Smem<4>::BYTES, grid, st,
-                    maps[0], maps[1], maps[2], p);
-    }
-    if (np == 1)
-      return launch(flash_h16_kernel<1, false>, Bf16Smem<1>::BYTES, grid, st,
-                    maps[0], maps[1], maps[2], p);
-    if (np == 2)
-      return launch(flash_h16_kernel<2, false>, Bf16Smem<2>::BYTES, grid, st,
-                    maps[0], maps[1], maps[2], p);
-    return launch(flash_h16_kernel<4, false>, Bf16Smem<4>::BYTES, grid, st,
-                  maps[0], maps[1], maps[2], p);
+    return f16 ? launch_h16<true>(np, maps, grid, st, p)
+               : launch_h16<false>(np, maps, grid, st, p);
   }
   if ((load == LOAD_CP16 && (d % 4 || !all_aligned(16))) ||
       (load != LOAD_CP16 && load != LOAD_CP4))

@@ -1,11 +1,12 @@
 // Flash attention, forward, on the FMA pipes (SIMT), for Hopper (sm_90a),
-// plain C interface: float32 at head widths 129..256 and every type past
-// 256.
+// plain C interface: float32 past head width 128 and every type past 512.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py:65
 // (flash_attention, pallas_call at :75) where csrc/flash_attention.cu does
 // not reach: its 3xTF32 kernel holds tiles of at most 128 float32 columns
-// and its wgmma kernel tiles of at most 256 16-bit columns.
+// and its wgmma kernel (instantiated for D <= 64, 128, 256 and 512) tiles
+// of at most 512 16-bit columns.  Its own entry point takes any width and
+// type; the wrapper (kernels/flash_attention.py:path) sends it those.
 // softmax(q k^T / sqrt(D)) v over q, k, v [B, S, H, D], causal or not, with
 // an online softmax over key tiles so the [S, S] scores never reach device
 // memory.  Inputs float32, bfloat16 or float16 (widened as they are

@@ -11,15 +11,25 @@ tensor cores: one block per (b*H + h, 128-query tile), a loader warpgroup
 filling a ring of K/V tiles and two consumer warpgroups of 64 rows each,
 skipping the key tiles wholly above the diagonal when causal.  bfloat16
 and float16 run on ``wgmma``; float32 as 3xTF32 on ``mma.sync`` (three TF32
-products per product keep float32's accuracy).  Any S; D 1..128 in every
-type (counted by ``flash_attention.launches``), and the 16-bit types up to
-D 256 on the kernel's D-256 instantiation (48-key tiles, three stages;
-counted by ``flash_attention.wgmma256_launches``).  Float32 at D 129..256
-and every type past D 256 take a float32 SIMT kernel
-(``csrc/flash_attention_wide.cu``, counted by
-``flash_attention.wide_launches``), which splits D past 256 into output
-slices of 256 columns.  ``path`` names the route and, on the tensor cores,
-how the tiles are loaded, from the type, D and the pointers' alignment.
+products per product keep float32's accuracy).  The routes, by type and
+D (any S):
+
+- every type at D 1..128: ``wgmma/*`` (16-bit) or ``3xtf32/*`` (float32),
+  counted by ``flash_attention.launches``;
+- bfloat16 and float16 at D 129..256: the wgmma kernel's D-256
+  instantiation (``wgmma256/*``: 48-key tiles, three stages), counted by
+  ``flash_attention.wgmma256_launches``;
+- bfloat16 and float16 at D 257..512: its D-512 instantiation
+  (``wgmma512/*``: 64 query rows a block, both consumer warpgroups
+  computing the same scores and each half of the output's panels; 32-key
+  tiles, two stages), counted by ``flash_attention.wgmma512_launches``;
+- float32 past 128 and every type past 512: a float32 SIMT kernel
+  (``csrc/flash_attention_wide.cu``, ``simt/wide``), counted by
+  ``flash_attention.wide_launches``, which splits D past 256 into output
+  slices of 256 columns.
+
+``path`` names the route and, on the tensor cores, how the tiles are
+loaded, from the type, D and the pointers' alignment.
 
 Operands the kernels do not take as they are (64-bit, mixed or integer
 types) are converted first by the reference's rule (``_promote``): the
@@ -39,9 +49,9 @@ from repro_torch.kernels import _check, _promote, ref
 NAME = "flash_attention"
 # the C entry points' code for each input type
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# the widest head of the tensor-core kernels in every type, and in the
-# 16-bit types (the D-256 instantiation)
-MAX_D_TC, MAX_D_TC16 = 128, 256
+# the widest head of the tensor-core kernels in every type, of the 16-bit
+# kernel's D-256 instantiation, and in the 16-bit types (the D-512 one)
+MAX_D_TC, MAX_D_256, MAX_D_TC16 = 128, 256, 512
 # at most this many heads B * H (the C entry point also refuses a grid of
 # more than 2^31 - 1 blocks, query tiles x B * H)
 MAX_BH = 65_535
@@ -49,11 +59,12 @@ MAX_BH = 65_535
 # code), by path: 16-bit types by TMA where rows are 16-byte aligned, by
 # 4-byte cp.async where they are 4-byte aligned, else by plain loads;
 # float32 by 16- or 4-byte cp.async.  The products run on the tensor cores
-# on every path; ``wgmma256`` is the 16-bit kernel's D-256 instantiation.
-# Float32 heads wider than MAX_D_TC and any head wider than MAX_D_TC16
-# take the path WIDE.
+# on every path; ``wgmma256`` and ``wgmma512`` are the 16-bit kernel's D-256
+# and D-512 instantiations.  Float32 heads wider than MAX_D_TC and any head
+# wider than MAX_D_TC16 take the path WIDE.
 LOADS = {"wgmma/tma": 0, "wgmma/cp.async": 4, "wgmma/ld": 2,
          "wgmma256/tma": 0, "wgmma256/cp.async": 4, "wgmma256/ld": 2,
+         "wgmma512/tma": 0, "wgmma512/cp.async": 4, "wgmma512/ld": 2,
          "3xtf32/cp.async16": 16, "3xtf32/cp.async4": 4}
 WIDE = "simt/wide"
 
@@ -94,7 +105,8 @@ def path(q, k, v) -> str:
     if D > MAX_D_TC16 or (f32 and D > MAX_D_TC):
         return WIDE
     if not f32:
-        kernel = "wgmma" if D <= MAX_D_TC else "wgmma256"
+        kernel = ("wgmma" if D <= MAX_D_TC else
+                  "wgmma256" if D <= MAX_D_256 else "wgmma512")
         if D % 8 == 0 and a >= 16:
             return f"{kernel}/tma"
         return f"{kernel}/cp.async" if D % 2 == 0 and a >= 4 \
@@ -143,6 +155,8 @@ def flash_attention(q, k, v, causal=True):
     _build.check(lib, code, NAME)
     if route == WIDE:
         flash_attention.wide_launches += 1
+    elif D > MAX_D_256:
+        flash_attention.wgmma512_launches += 1
     elif D > MAX_D_TC:
         flash_attention.wgmma256_launches += 1
     else:
@@ -152,4 +166,5 @@ def flash_attention(q, k, v, causal=True):
 
 flash_attention.launches = 0
 flash_attention.wgmma256_launches = 0
+flash_attention.wgmma512_launches = 0
 flash_attention.wide_launches = 0

@@ -210,15 +210,21 @@ def _view(shape, dtype, offset):
     (torch.float16, 256, 1, "wgmma256/ld"),
     (torch.float32, 129, 1, "simt/wide"),          # past 3xTF32's 128
     (torch.float32, 256, 0, "simt/wide"),
-    (torch.bfloat16, 257, 0, "simt/wide"),         # past wgmma's 256
-    (torch.float16, 512, 0, "simt/wide"),
+    (torch.float32, 512, 0, "simt/wide"),
+    (torch.bfloat16, 257, 0, "wgmma512/ld"),       # the D-512 wgmma kernel
+    (torch.float16, 512, 0, "wgmma512/tma"),
+    (torch.bfloat16, 264, 0, "wgmma512/tma"),      # 528-byte rows
+    (torch.bfloat16, 320, 2, "wgmma512/cp.async"),
+    (torch.float16, 320, 1, "wgmma512/ld"),
+    (torch.bfloat16, 513, 0, "simt/wide"),         # past wgmma's 512
+    (torch.float16, 513, 0, "simt/wide"),
 ])
 def test_flash_attention_path_by_type_width_and_alignment(dtype, D, offset,
                                                          want):
     """The wrapper's choice of load path: TMA needs 16-byte rows and
     pointers (16-bit types, D % 8 == 0), 4-byte cp.async D even, and
     float32's 16-byte cp.async D % 4 == 0; the products are on the tensor
-    cores on every path up to D 128 in float32 and D 256 in the 16-bit
+    cores on every path up to D 128 in float32 and D 512 in the 16-bit
     types, and wider heads take the wide route whatever their
     alignment."""
     q, k, v = (_view((2, 5, 3, D), dtype, offset) for _ in range(3))
@@ -232,10 +238,10 @@ def test_flash_attention_path_by_type_width_and_alignment(dtype, D, offset,
 
 
 def test_every_accepted_shape_maps_to_a_tensor_core_path():
-    """Each (type, pointer alignment) with D in 1..128, and in 1..256 for
+    """Each (type, pointer alignment) with D in 1..128, and in 1..512 for
     the 16-bit types, has a tensor-core path, and the path's load code is
     one the C entry point takes for that type; float32 past 128 and every
-    type past 256 take the wide route."""
+    type past 512 take the wide route."""
     c_loads = {torch.bfloat16: {0, 4, 2}, torch.float16: {0, 4, 2},
                torch.float32: {16, 4}}
     seen = set()
@@ -252,7 +258,8 @@ def test_every_accepted_shape_maps_to_a_tensor_core_path():
                     continue
                 assert name.split("/")[0] == (
                     "3xtf32" if dtype == torch.float32 else
-                    "wgmma" if D <= fa_mod.MAX_D_TC else "wgmma256")
+                    "wgmma" if D <= fa_mod.MAX_D_TC else
+                    "wgmma256" if D <= fa_mod.MAX_D_256 else "wgmma512")
                 assert fa_mod.LOADS[name] in c_loads[dtype]
                 seen.add(name)
     assert seen == set(fa_mod.LOADS)

@@ -211,12 +211,81 @@ def test_find_index_kernel_matches_plain_exactly(cuda, m):
     rng = np.random.RandomState(m)
     u = torch.from_numpy(rng.uniform(size=m).astype(np.float32)).to(cuda)
     raw = rng.uniform(size=5000).astype(np.float32)
-    for cdf in (np.sort(raw), raw):
-        cdf = torch.from_numpy(cdf).to(cuda)
+    for arr, search in ((np.sort(raw), True), (raw, False)):
+        cdf = torch.from_numpy(arr).to(cuda)
         before = pf_mod.find_index.launches
         got = pf_mod.find_index(cdf, u)
         assert pf_mod.find_index.launches == before + 1
         assert torch.equal(got, ref.particlefilter_findindex(cdf, u))
+        assert pf_mod.searched(pf_mod.find_index.last_flags) == search
+
+
+def pf_edge_cases():
+    """(cdf, u) of each edge the kernel's search and count paths must
+    agree on (the cases of tests/test_torch_particlefilter.py)."""
+    f = lambda *a: np.array(a, np.float32)
+    rng = np.random.RandomState(18)
+    ragged = np.sort(rng.uniform(size=1000).astype(np.float32))
+    return {
+        "ties": (f(0, .25, .25, .5, .5, .5, .75, 1),
+                 f(0, .25, .5, .75, 1, .3, .5, .25)),
+        "signed-zeros": (f(-1, -0.0, 0.0, -0.0, 0.0, 1),
+                         f(0.0, -0.0, 1e-30, -1e-30, -1, 1)),
+        "infinities": (f(-np.inf, -np.inf, 0, 1, np.inf, np.inf),
+                       f(-np.inf, np.inf, 0.5, 1, 1e38)),
+        "nan-in-cdf": (f(0, 0.5, np.nan, 1), f(0, 0.25, 0.75, 2)),
+        "nan-queries": (f(0, 0.5, 1), f(np.nan, 0.5, np.nan, 2)),
+        "one-entry": (f(0.5), f(0, 0.5, 1, np.nan)),
+        "one-query": (ragged, f(0.3)),
+        "above-the-last": (f(0, 0.5, 1), f(1.5, 2, np.inf, 1)),
+        "ragged": (ragged, rng.uniform(-0.1, 1.1, 37).astype(np.float32)),
+    }
+
+
+@pytest.mark.parametrize("case", list(pf_edge_cases()))
+def test_find_index_edges_match_plain_bitwise(cuda, case):
+    """Each edge bit for bit; the search path runs where every adjacent
+    pair is non-decreasing, the count elsewhere (the NaN in the CDF)."""
+    cdf, u = (torch.from_numpy(a).to(cuda) for a in pf_edge_cases()[case])
+    got = pf_mod.find_index(cdf, u)
+    assert torch.equal(got, ref.particlefilter_findindex(cdf, u))
+    assert pf_mod.searched(pf_mod.find_index.last_flags) == (
+        case != "nan-in-cdf")
+
+
+@pytest.mark.parametrize("n,m", [(100_000, 100_000), (1_000_003, 4_099),
+                                 (262_145, 70_000)])
+def test_find_index_paths_by_flags(cuda, n, m):
+    """Rodinia's input (the CDF of normalized weights, systematic
+    resampling's sorted queries) searches; the same CDF shuffled, or with
+    one NaN, counts; past 262,144 entries the sample's stride doubles.
+    Bit for bit with the plain version on every path, and again on a
+    repeated call."""
+    rng = np.random.RandomState(n)
+    w = rng.uniform(size=n)
+    cdf = np.cumsum(w / w.sum()).astype(np.float32)
+    q = (rng.uniform(0, 1 / m) + np.arange(m) / m).astype(np.float32)
+    nan = cdf.copy()
+    nan[n // 3] = np.nan
+    u = torch.from_numpy(q).to(cuda)
+    for arr, search in ((cdf, True), (rng.permutation(cdf), False),
+                        (nan, False)):
+        c = torch.from_numpy(arr).to(cuda)
+        got = pf_mod.find_index(c, u)
+        flags = pf_mod.find_index.last_flags
+        assert flags.shape == (pf_mod.FLAG_SLOTS + m,)
+        assert pf_mod.searched(flags) == search
+        assert torch.equal(got, ref.particlefilter_findindex(c, u))
+        assert torch.equal(pf_mod.find_index(c, u), got)
+
+
+def test_find_index_without_queries(cuda):
+    cdf = torch.tensor([0.0, 0.5, 1.0], device=cuda)
+    before = pf_mod.find_index.launches
+    got = pf_mod.find_index(cdf, torch.zeros(0, device=cuda))
+    assert got.shape == (0,) and got.dtype == torch.int32
+    assert pf_mod.find_index.launches == before
+    assert pf_mod.find_index.last_flags is None
 
 
 @pytest.mark.parametrize("b", [1, 1000, 65_537])
@@ -538,15 +607,56 @@ def test_flash_attention_wgmma256_is_deterministic(cuda, dtype):
                        fa_mod.flash_attention(q, k, v))
 
 
-@pytest.mark.parametrize("D", [257, 320, 512])
+# every load path, and an even (D 384, 449, 512) and an odd (257..320: 5;
+# 400: 7) count of live panels, where both consumer warpgroups multiply
+# the middle one
+WGMMA512_CASES = [(257, 0, "ld"), (264, 0, "tma"), (320, 0, "tma"),
+                  (320, 2, "cp.async"), (384, 0, "tma"), (400, 0, "tma"),
+                  (449, 0, "ld"), (512, 0, "tma"), (512, 2, "cp.async"),
+                  (512, 1, "ld")]
+
+
+@pytest.mark.parametrize("D,offset,load", WGMMA512_CASES)
+@pytest.mark.parametrize("S", [1, 100, 1031])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_attention_wgmma512_matches_plain(cuda, D, offset, load, S,
+                                                causal, dtype):
+    """The wgmma kernel's D-512 instantiation (64 query rows a block, both
+    consumer warpgroups on them, 32-key tiles in two stages) on every load
+    path: TMA, 4-byte cp.async (an offset view) and plain loads (D odd, or
+    rows 2-byte aligned); S on, off and across the 64-row and 32-key tiles;
+    2e-2."""
+    q, k, v = fa_inputs(2, S, 3, D, dtype, cuda, offset)
+    assert fa_mod.path(q, k, v) == f"wgmma512/{load}"
+    before = fa_mod.flash_attention.wgmma512_launches
+    got = fa_mod.flash_attention(q, k, v, causal=causal)
+    assert fa_mod.flash_attention.wgmma512_launches == before + 1
+    assert got.dtype == q.dtype
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention(q, k, v, causal).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_attention_wgmma512_is_deterministic(cuda, dtype):
+    q, k, v = fa_inputs(2, 1031, 4, 512, dtype, cuda)
+    assert torch.equal(fa_mod.flash_attention(q, k, v),
+                       fa_mod.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("dtype,D", [
+    ("float32", 200), ("float32", 257), ("float32", 320),
+    ("bfloat16", 520), ("bfloat16", 640), ("float16", 520),
+    ("float16", 640)])
 @pytest.mark.parametrize("S", [100, 300])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_simt_past_256_matches_plain(cuda, D, S, causal,
                                                      dtype):
-    """Heads past 256 on the SIMT route, cut into output slices of 256
-    columns (320: 256 + 64; 257: 256 + 1); 2e-4 in float32, 2e-2 in
-    bfloat16."""
+    """The SIMT route: float32 past 128 and the 16-bit types past 512, cut
+    into output slices of 256 columns past 256 (320: 256 + 64; 257: 256 +
+    1; 520: 2 x 256 + 8; 640: 2 x 256 + 128); 2e-4 in float32, 2e-2 in 16
+    bits."""
     q, k, v = fa_inputs(2, S, 3, D, dtype, cuda)
     assert fa_mod.path(q, k, v) == fa_mod.WIDE
     before = fa_mod.flash_attention.wide_launches

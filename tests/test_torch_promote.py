@@ -117,11 +117,13 @@ def fa_pair(types, D, causal, seed, S=16):
     ts = [to_torch(a, t) for a, t in zip(arrs, types)]
     before = (fa_mod.flash_attention.launches,
               fa_mod.flash_attention.wgmma256_launches,
+              fa_mod.flash_attention.wgmma512_launches,
               fa_mod.flash_attention.wide_launches)
     got = ops.flash_attention(*ts, causal=causal, device="cpu")
     got_mod = fa_mod.flash_attention(*ts, causal=causal)
     assert (fa_mod.flash_attention.launches,
             fa_mod.flash_attention.wgmma256_launches,
+            fa_mod.flash_attention.wgmma512_launches,
             fa_mod.flash_attention.wide_launches) == before   # plain version
     return want, got, got_mod
 
