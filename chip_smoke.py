@@ -8,9 +8,11 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
 1. device: the card's name and power limit (nvidia-smi), then the twelve
    CUDA sources of ``src/repro_torch/csrc`` built with nvcc, one process
    per source, all at once, with each build's ptxas lines (and those of
-   the flash-attention kernel's D-256 and D-512 instantiations apart), and
-   the count of tensor-core instructions (HGMMA, HMMA) in the
-   flash-attention library's SASS where the toolkit has ``cuobjdump``;
+   the flash-attention kernel's D-256 and D-512 instantiations, its
+   sliced kernel and its float32 D-256 instantiation apart, failing on
+   any spill of the last two), and the count of tensor-core instructions
+   (HGMMA, HMMA) in the flash-attention library's SASS where the toolkit
+   has ``cuobjdump``;
 2. Black-Scholes at its PARSEC-large size (65,536 options x 100 runs =
    6,553,600 evaluations): kernel against the plain version on the card at
    rtol = atol = 3e-5, times and bound;
@@ -36,8 +38,10 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    canneal, pathfinder, flash attention (float32, bfloat16, bfloat16 at
    llama3-8b's and at gemma-7b's attention width, the last on the wgmma
    kernel's D-256 instantiation, bfloat16 at D 512 on its D-512
-   instantiation, float32 at gemma's width and bfloat16 at D 640 on the
-   SIMT route, and a call of mixed types), flash decoding (float32, a
+   instantiation, float32 at gemma's width on the 3xTF32 kernel's D-256
+   instantiation, bfloat16 and float16 at D 640 on the sliced kernel,
+   float32 at D 512 on the SIMT route, and a call of mixed types), flash
+   decoding (float32, a
    float16 cache, bfloat16 at D 512, and a call of mixed types; the split
    kernel and its combine) and the Mamba-2 SSD scan through
    ``kernels.ops`` at their PARSEC / Rodinia / app input sizes, and
@@ -50,8 +54,9 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    bounds, and the input types and widths the reference computes beyond
    them: flash attention in float16 at the app's width and in bfloat16 and
    float16 at gemma-7b's (D 256), bfloat16 at D 512 (``wgmma512``),
-   float32 at gemma's width (S 1,024) and bfloat16 at D 640 (both on the
-   SIMT route) and one call of mixed types,
+   float32 at gemma's width (S 1,024, ``3xtf32_256``), bfloat16 and
+   float16 at D 640 (``wgmma_sliced``), float32 at D 512 (the SIMT route)
+   and one call of mixed types,
    decoding from a bfloat16 and a float16 cache, at D 512 and of mixed
    types, and decoding's split and combine kernels each alone,
    streamcluster in float16, Jacobi-2D in bfloat16 and the SSD scan at P
@@ -62,9 +67,10 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    each row took and, as for decoding, the device time behind a spin
    beside ``searchsorted``'s; and one Jacobi-2D launch at the app's 164 x
    164;
-7. the ``kernels`` JSON line (sixteen entries: flash attention's D-256
-   and D-512 wgmma instantiations and its SIMT route, the particle
-   filter's shuffled row, and decoding's combine kernel, each their own;
+7. the ``kernels`` JSON line (eighteen entries: flash attention's D-256
+   and D-512 wgmma instantiations, its sliced kernel, its float32 D-256
+   instantiation and its SIMT route, the particle filter's shuffled row,
+   and decoding's combine kernel, each their own;
    the particle filter's rows name their path), launch counts from phases
    4 and 5;
 8. the last line: ``{"ok": true, "device": {...}}``.
@@ -76,6 +82,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -143,14 +150,16 @@ PATH_R, PATH_C, PATH_OPS = 1_604, 100_000, 3
 # has no GQA); [B, S, H, D].  4*D flops per (query, key) pair kept.
 FA_APP, FA_LLAMA = (4, 2_048, 8, 64), (1, 4_096, 32, 128)
 # and at gemma-7b's (google/gemma-7b config.json: 16 heads, head_dim 256):
-# the wgmma kernel's D-256 instantiation in the 16-bit types, the SIMT
-# route in float32 (there at S 1,024, to keep the run's time)
+# the wgmma kernel's D-256 instantiation in the 16-bit types, the 3xTF32
+# kernel's in float32 (there at S 1,024, as the earlier slices timed it)
 FA_GEMMA = (1, 4_096, 16, 256)
 FA_GEMMA_F32 = (1, 1_024, 16, 256)
-# heads of 512 columns: the wgmma kernel's D-512 instantiation; and of 640,
-# past it: the SIMT route, cut into three output slices
+# heads of 512 columns: the wgmma kernel's D-512 instantiation; of 640,
+# past it: its sliced kernel (two output slices of 320 columns, Q
+# resident); and float32 heads of 512, the SIMT route's last case
 FA_D512 = (1, 2_048, 8, 512)
 FA_D640 = (1, 1_024, 4, 640)
+FA_F32_D512 = (1, 1_024, 8, 512)
 # flash decoding at the app's scale (workloads_ml.py:49: B 32, S 4,096, H 8,
 # D 64, float32); kv_len uniform in [1, S] per batch, one batch at 0.
 DA_B, DA_S, DA_H, DA_D = 32, 4_096, 8, 64
@@ -165,6 +174,13 @@ SSD_B, SSD_S, SSD_H, SSD_P, SSD_N, SSD_CHUNK = 8, 65_536, 16, 64, 128, 256
 SSD_CHECK = ((0, 0), (SSD_B - 1, SSD_H - 1))
 # and with a head of 256 columns, split on the card into two P-slices
 SSD_WIDE = (2, 16_384, 16, 256, 128)
+# flash attention's routes past D 128 in the kernels line: name -> the
+# wrapper's launch counter
+FA_ROUTES = {"flash_attention_wgmma256": "wgmma256_launches",
+             "flash_attention_wgmma512": "wgmma512_launches",
+             "flash_attention_sliced": "sliced_launches",
+             "flash_attention_3xtf32_256": "tf32_256_launches",
+             "flash_attention_wide": "wide_launches"}
 
 
 def fail(msg: str) -> None:
@@ -378,6 +394,7 @@ def suite_inputs(torch, dev) -> dict:
     # the particle filter's CDF shuffled (its count path), then heads of 640
     cdf_shuffled = gen.permutation(cdf)
     fa_d640 = tuple(normal(FA_D640).to(torch.bfloat16) for _ in range(3))
+    fa_f32_d512 = tuple(normal(FA_F32_D512) for _ in range(3))
     return {"sw": t(u), "sc": sc,
             "sc_bf16": tuple(x.to(torch.bfloat16) for x in sc),
             "sc_f16": tuple(x.to(torch.float16) for x in sc),
@@ -386,7 +403,10 @@ def suite_inputs(torch, dev) -> dict:
             "fa_gemma": fa_gemma,
             "fa_gemma_f16": tuple(x.to(torch.float16) for x in fa_gemma),
             "fa_gemma_f32": fa_gemma_f32, "fa_d512": fa_d512,
-            "fa_d640": fa_d640, "pf_shuffled": (t(cdf_shuffled), t(q)),
+            "fa_d640": fa_d640,
+            "fa_d640_f16": tuple(x.to(torch.float16) for x in fa_d640),
+            "fa_f32_d512": fa_f32_d512,
+            "pf_shuffled": (t(cdf_shuffled), t(q)),
             # mixed types through ops: q bfloat16, k and v float32
             "fa_mixed": (fa[0].to(torch.bfloat16), fa[1], fa[2]),
             "da_bf16": (*(x.to(torch.bfloat16) for x in da[:3]), da[3]),
@@ -567,6 +587,10 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
                               2e-4),
                              ("flash_attention_d512", "fa_d512", 2e-2),
                              ("flash_attention_d640", "fa_d640", 2e-2),
+                             ("flash_attention_d640_f16", "fa_d640_f16",
+                              2e-2),
+                             ("flash_attention_f32_d512", "fa_f32_d512",
+                              2e-4),
                              ("flash_attention_mixed", "fa_mixed", 2e-2)):
         q, k, v = data[inputs]
         o = outs[key]
@@ -611,7 +635,9 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
           f"{att['flash_attention_gemma']:.3g} (2e-2), in float32 "
           f"{att['flash_attention_gemma_f32']:.3g} (2e-4), D 512 "
           f"{att['flash_attention_d512']:.3g} (2e-2), D 640 "
-          f"{att['flash_attention_d640']:.3g} (2e-2), mixed types "
+          f"{att['flash_attention_d640']:.3g} (2e-2), D 640 in float16 "
+          f"{att['flash_attention_d640_f16']:.3g} (2e-2), D 512 in float32 "
+          f"{att['flash_attention_f32_d512']:.3g} (2e-4), mixed types "
           f"{att['flash_attention_mixed']:.3g} (2e-2); decoding vs float64 "
           f"{da_err:.3g} (2e-4), the kv_len = 0 batch vs the mean of V "
           f"{da_zero:.3g}, float16 cache "
@@ -736,9 +762,11 @@ def suite_specs(torch, ref, data, mods):
             ("flash_attention_llama", "fa_llama", 2e-2, 5, 2),
             ("flash_attention_gemma", "fa_gemma", 2e-2, 5, 2),
             ("flash_attention_gemma_f16", "fa_gemma_f16", 2e-2, 5, 2),
-            ("flash_attention_gemma_f32", "fa_gemma_f32", 2e-4, 2, 2),
+            ("flash_attention_gemma_f32", "fa_gemma_f32", 2e-4, 5, 2),
             ("flash_attention_d512", "fa_d512", 2e-2, 5, 2),
-            ("flash_attention_d640", "fa_d640", 2e-2, 2, 2),
+            ("flash_attention_d640", "fa_d640", 2e-2, 10, 2),
+            ("flash_attention_d640_f16", "fa_d640_f16", 2e-2, 10, 2),
+            ("flash_attention_f32_d512", "fa_f32_d512", 2e-4, 2, 2),
             ("flash_attention_mixed", "fa_mixed", 2e-2, 20, 5)):
         fq, fk, fv = data[key]
         B, S, H, D = fq.shape
@@ -1070,10 +1098,17 @@ def main() -> int:
                 if "Used" in ln or "bytes stack" in ln]
         print(f"phase 1 build {name}: {r['seconds']:.1f} s  {' | '.join(regs)}")
     print(f"phase 1 flash_attention SASS: {sass_counts(_build)}")
-    for width, entry in (("D-256", "flash_h16_kernelILi4E"),
-                         ("D-512", "flash_h16_kernelILi8E")):
-        print(f"phase 1 flash_attention {width} instantiation: "
-              f"{entry_lines(report, 'flash_attention', entry)}")
+    # the sliced kernel and the float32 D-256 instantiation must not spill
+    for width, entry, no_spill in (
+            ("D-256", "flash_h16_kernelILi4E", False),
+            ("D-512", "flash_h16_kernelILi8E", False),
+            ("sliced", "flash_h16_sliced_kernel", True),
+            ("float32 D-256", "flash_f32_kernelILi4E", True)):
+        lines = entry_lines(report, "flash_attention", entry)
+        print(f"phase 1 flash_attention {width} instantiation: {lines}")
+        if no_spill and any(int(n) for n in
+                            re.findall(r"(\d+) bytes spill", lines)):
+            fail(f"flash_attention {width}: ptxas spills ({lines})")
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} "
           f"sm_clock_max={sm_clock_hz / 1e6:.0f} MHz  build wall {build_s:.1f} s")
 
@@ -1317,9 +1352,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     for mod in suite_mods:
         mod.launches = 0
-    fa_mod.flash_attention.wgmma256_launches = 0
-    fa_mod.flash_attention.wgmma512_launches = 0
-    fa_mod.flash_attention.wide_launches = 0
+    for counter in set(fa_mod.COUNTERS.values()):
+        setattr(fa_mod.flash_attention, counter, 0)
     da_mod.decode_attention.combine_launches = 0
     t0 = time.perf_counter()
     outs = {"swaptions": ops.cum_normal_inv(data["sw"]),
@@ -1340,6 +1374,10 @@ def main() -> int:
                 *data["fa_gemma_f32"]),
             "flash_attention_d512": ops.flash_attention(*data["fa_d512"]),
             "flash_attention_d640": ops.flash_attention(*data["fa_d640"]),
+            "flash_attention_d640_f16": ops.flash_attention(
+                *data["fa_d640_f16"]),
+            "flash_attention_f32_d512": ops.flash_attention(
+                *data["fa_f32_d512"]),
             "flash_attention_mixed": ops.flash_attention(*data["fa_mixed"]),
             "decode_attention": ops.decode_attention(*data["da"]),
             "decode_attention_f16": ops.decode_attention(*data["da_f16"]),
@@ -1358,17 +1396,13 @@ def main() -> int:
     outs["jacobi2d"] = grid
     for name, mod in zip(SUITE_REPLACES, suite_mods):
         launches[name] = mod.launches
-    launches["flash_attention_wgmma256"] = \
-        fa_mod.flash_attention.wgmma256_launches
-    launches["flash_attention_wgmma512"] = \
-        fa_mod.flash_attention.wgmma512_launches
-    launches["flash_attention_wide"] = fa_mod.flash_attention.wide_launches
+    # flash attention's routes past D 128, each its own counter
+    for name, counter in FA_ROUTES.items():
+        launches[name] = getattr(fa_mod.flash_attention, counter)
     launches["decode_attention_combine"] = \
         da_mod.decode_attention.combine_launches
     path_counts = {n: launches[n]
-                   for n in (*SUITE_REPLACES, "flash_attention_wgmma256",
-                             "flash_attention_wgmma512",
-                             "flash_attention_wide",
+                   for n in (*SUITE_REPLACES, *FA_ROUTES,
                              "decode_attention_combine")}
     # the particle filter's two calls: the path each took, from its flags
     pf_paths = {key: "search" if pf_mod.searched(outs.pop(flags)) else
@@ -1386,9 +1420,14 @@ def main() -> int:
                     "particlefilter_shuffled": "count"}:
         fail(f"particle filter: paths {pf_paths}, expected the search on "
              "Rodinia's CDF and the count on the shuffled one")
-    if fa_mod.path(*data["fa_d512"]) != "wgmma512/tma":
-        fail(f"flash attention at D 512 took {fa_mod.path(*data['fa_d512'])}"
-             ", not wgmma512/tma")
+    for key, want in (("fa_d512", "wgmma512/tma"),
+                      ("fa_gemma_f32", "3xtf32_256/cp.async16"),
+                      ("fa_d640", "wgmma_sliced/tma"),
+                      ("fa_d640_f16", "wgmma_sliced/tma"),
+                      ("fa_f32_d512", fa_mod.WIDE)):
+        if fa_mod.path(*data[key]) != want:
+            fail(f"flash attention {key} took {fa_mod.path(*data[key])}, "
+                 f"not {want}")
     check_suite_outputs(torch, ref, data, outs)
 
     # ---- 6. suite kernels against their plain versions, times, bounds -------
@@ -1428,10 +1467,11 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[name],
                         **rows[row_of.get(name, name)]})
     # flash attention's routes past 128 columns: the wgmma kernel's D-256
-    # instantiation at gemma-7b's width, its D-512 instantiation, and the
-    # SIMT route (float32 at gemma's width, S 1,024); the particle filter's
-    # count path (the shuffled CDF; its launches are the wrapper's, both
-    # calls); decoding's combine kernel
+    # instantiation at gemma-7b's width, its D-512 instantiation, its
+    # sliced kernel at D 640, the 3xTF32 kernel's D-256 instantiation
+    # (float32 at gemma's width, S 1,024) and the SIMT route (float32 at D
+    # 512); the particle filter's count path (the shuffled CDF; its
+    # launches are the wrapper's, both calls); decoding's combine kernel
     for name, source, row, of, counter in (
             ("flash_attention_wgmma256", "flash_attention",
              "flash_attention_gemma", "flash_attention",
@@ -1439,10 +1479,16 @@ def main() -> int:
             ("flash_attention_wgmma512", "flash_attention",
              "flash_attention_d512", "flash_attention",
              "flash_attention_wgmma512"),
+            ("flash_attention_sliced", "flash_attention",
+             "flash_attention_d640", "flash_attention",
+             "flash_attention_sliced"),
+            ("flash_attention_3xtf32_256", "flash_attention",
+             "flash_attention_gemma_f32", "flash_attention",
+             "flash_attention_3xtf32_256"),
             ("particlefilter_shuffled", "particlefilter",
              "particlefilter_shuffled", "particlefilter", "particlefilter"),
             ("flash_attention_wide", "flash_attention_wide",
-             "flash_attention_gemma_f32", "flash_attention",
+             "flash_attention_f32_d512", "flash_attention",
              "flash_attention_wide"),
             ("decode_attention_combine", "decode_attention",
              "decode_attention_combine", "decode_attention",

@@ -32,6 +32,17 @@ variants of that instantiation alone:
   a branch that differs between the warpgroups (ptxas then serializes
   every wgmma: its C7520 note is printed).
 
+The sliced kernel (16-bit heads past 512) under other plans than the
+wrapper's (``slice_plan``), each passed to its C entry point as the plan's
+arguments, no rebuild: at D 640 (B 1, S 1,024, H 4, causal, bfloat16,
+``chip_smoke.py``'s shape) the wrapper's plan (Q resident, a whole key
+tile a chunk, two stages, the warpgroups in turns) beside Q resident with
+chunks of 5 and of 1 panel (the warpgroups in lockstep; chunks of 1 panel
+were the kernel's first design) and Q streamed in chunks of 3; at D 1,024
+(B 1, S 1,024, H 4) the wrapper's plan (Q streamed, chunks of 3 panels)
+beside chunks of 1, 2 and 4.  Each output is held against the plain version
+(2e-2); times as above, in turns.
+
 Decoding at the app's shape (B 32, S 4,096, H 8, D 64, ``kv_len`` uniform
 in [1, S] with one batch at 0, as ``chip_smoke.py`` draws it): the plan
 re-made at WAVES 1, 2, 4, 8, 16 and 32 (the wrapper's: 4 from a 16-bit
@@ -59,6 +70,14 @@ DECODE = (32, 4_096, 8, 64)
 WAVES = (4, 2, 1, 8, 16, 32)
 ENTRY = "flash_h16_kernelILi4E"     # the D-256 instantiation's mangled name
 D512 = (1, 2_048, 8, 512)
+# the sliced kernel's shapes and the plans tried beside the wrapper's:
+# (Q resident, panels a chunk, chunks in the ring)
+SLICED = {(1, 1_024, 4, 640): {"resident-lockstep-5": (1, 5, 4),
+                               "resident-lockstep-1": (1, 1, 20),
+                               "streamed-3": (0, 3, 5)},
+          (1, 1_024, 4, 1_024): {"streamed-1": (0, 1, 13),
+                                 "streamed-2": (0, 2, 6),
+                                 "streamed-4": (0, 4, 3)}}
 # text of the D-512 instantiation that its own two variants replace
 EMPTY_APART = "  static constexpr int EMPTY = NP == 8 ? 2 : 1;"
 PV_GUARD = "        if (pn < nmul)\n"
@@ -179,6 +198,51 @@ def time_variants(torch, fa, ref, libs, shape, gen) -> None:
               + (f"; max abs err {err:.3g}" if name == "kernel" else ""))
 
 
+def sliced_plans(torch, fa, ref) -> None:
+    """The sliced kernel under the wrapper's plan and the others of
+    SLICED, in turns, each output held against the plain version."""
+    gen = np.random.default_rng(2111)
+    lib = fa._lib()
+    for shape, others in SLICED.items():
+        B, S, H, D = shape
+        q, k, v = (torch.from_numpy(gen.standard_normal(
+            shape, dtype=np.float32)).to("cuda", torch.bfloat16)
+            for _ in range(3))
+        out = torch.empty_like(q)
+        want = ref.flash_attention(q, k, v, True).float()
+        plan = fa.slice_plan(D)
+        plans = {"plan": (int(plan.q_resident), plan.chunk, plan.ring),
+                 **others}
+
+        def call(qres, chunk, ring):
+            code = lib.flash_attention_sliced_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                S, H, D, D ** -0.5, 1, 1, fa.LOADS[fa.path(q, k, v)], plan.n,
+                plan.panels, chunk, ring, qres,
+                torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise SystemExit(f"sliced plan {(qres, chunk, ring)}: CUDA "
+                                 f"error {code}")
+        for name, args in plans.items():
+            out.zero_()
+            call(*args)
+            err = float((out.float() - want).abs().max())
+            if err > 2e-2:
+                raise SystemExit(f"sliced {name}: off the plain version by "
+                                 f"{err}")
+        flops = 4 * D * B * H * S * (S + 1) // 2
+        times = {}
+        for name in list(plans) + list(plans)[::-1]:
+            times.setdefault(name, []).append(
+                events_ms(torch, lambda: call(*plans[name]), 10))
+        for name, ms in times.items():
+            print(f"sliced bfloat16 B {B} S {S} H {H} D {D} {name} "
+                  f"(Q resident, panels a chunk, ring: {plans[name]}): "
+                  + ", ".join(f"{t:.4f}" for t in ms)
+                  + f" ms ({flops / min(ms) / 1e9:.1f} TFLOP/s of "
+                  "attention)")
+
+
 def decoding(torch, da, ref) -> None:
     B, S, H, D = DECODE
     clock_mhz = float(subprocess.run(
@@ -249,6 +313,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    sliced_plans(torch, fa, ref)
     attention(torch, _build, fa, ref, fav)
     decoding(torch, da, ref)
     return 0

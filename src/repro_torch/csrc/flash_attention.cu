@@ -5,11 +5,12 @@
 // q, k, v [B, S, H, D], causal or not, with an online softmax over key
 // tiles so the [S, S] scores never reach device memory.  Inputs float32,
 // bfloat16 or float16, all sums float32, the output in the inputs' type.
-// Routes by (type, D): float32 at D 1..128 the 3xTF32 kernel; bfloat16 and
-// float16 the wgmma kernel, instantiated for D 1..64, 65..128, 129..256
-// and 257..512 (NP = 1, 2, 4, 8 panels of 64 columns);
-// csrc/flash_attention_wide.cu takes the rest (float32 past 128, every
-// type past 512).
+// Routes by (type, D): float32 at D 1..128 and 129..256 the 3xTF32 kernel
+// (NP = 1, 2 and 4 panels); bfloat16 and float16 the wgmma kernel,
+// instantiated for D 1..64, 65..128, 129..256 and 257..512 (NP = 1, 2, 4,
+// 8 panels of 64 columns), and past 512 its sliced kernel
+// (flash_attention_sliced_launch); csrc/flash_attention_wide.cu takes
+// float32 past 256.
 //
 // Bound on an H100: operations, 4 * D flops (q.k and p.v) per (query, key)
 // pair the mask keeps, on the tensor cores: 17.2 GFLOP causal at B 4, H 8,
@@ -93,7 +94,40 @@
 // rows padded by 4 floats (conflict-free fragment reads), loaded with
 // cp.async (16-byte pieces when D % 4 == 0, else 4-byte).  Each consumer
 // warp owns 16 query rows; P's accumulator fragment is reused as the A
-// fragment of P V by reading V's key rows in the matching order.
+// fragment of P V by reading V's key rows in the matching order.  At D
+// 129..256 (NP 4) 128 query rows of Q alone would take 133 KB, so a block
+// holds 64 query rows and walks 32-key tiles in two stages: Q 66.6 KB + 2
+// x (K 33.3 KB + V 33.3 KB) = 200 KB.  Two warps hold each 16 rows: both
+// compute the same S (the same bits of m, l and P) and each runs P V for
+// its half of the output's columns, 64 accumulator registers a thread;
+// q.k is done twice, 1.5x the counted flops.
+//
+// 16-bit heads past 512 (the sliced kernel).  The output is cut into
+// slices of at most eight 64-column panels, the same count each where D
+// allows (D 640: 2 x 320 columns, not 512 + 128), one block per (query
+// tile, slice); a query tile's slices are neighbours in blockIdx, so they
+// read the same K tiles from L2 at about the same time, and the heaviest
+// query tiles still go first.  A block owns 64 query rows, and both
+// consumer warpgroups compute the same S = Q K^T over all of D's panels,
+// in order (the same bits of m, l and P with no exchange), then O += P V
+// on their halves of the slice's panels (both multiply the middle one of
+// an odd count, so every wgmma guard is uniform over the block), as the
+// D-512 instantiation does.  S's operands come through a ring of chunks;
+// the slice's V panels come in two stages of their own.  Q's panels stay
+// in shared memory while Q and two key tiles of K fit beside V's stages:
+// up to D 704 (11 panels: Q 88 KB + V 2 x 24 KB + K 2 x 44 KB, 224 KB).
+// A chunk is then a whole key tile's K (32 keys, 4 KB a panel) in a ring
+// of two stages, and the warpgroups take turns (ping-pong) as the D-512
+// instantiation's do.  Wider, a chunk carries three panels of K and the
+// three of Q beside them (36 KB), Q re-read from L2 for every key tile,
+// and the warpgroups walk the ring in lockstep: turns would hold every
+// chunk of a key tile until the second warpgroup is done with it, which
+// a ring shorter than two key tiles cannot.  There a chunk's products
+// are committed as a group and the chunk before it freed once only that
+// group is left in flight.  The host plans the slices, whether Q stays, the
+// chunk and the ring (kernels/flash_attention.py:slice_plan); the entry
+// point checks the plan.  The work is (slices x 2 + 1) x 2D flops a pair
+// against the counted 4D: 2.5x at D 640.
 //
 // Masked scores are the Pallas kernel's finite -1e30 (so a row masked so
 // far gives no NaN), zero-filled key rows past S are masked explicitly, and
@@ -133,6 +167,12 @@ constexpr int LOADER_REGS = 40, CONSUMER_REGS = 232;
 // consumers.  Both pairs hand over exactly the block's launch share, 384
 // threads x 168 registers.
 constexpr int LOADER_REGS8 = 88, CONSUMER_REGS8 = 208;
+// The sliced kernel's loader (runtime ring positions and layout) spills at
+// 88 and its consumers need no more than 192; the float32 D-256
+// instantiation's loader spills at 40, not at 72.  Each pair hands over
+// the same 384 x 168.
+constexpr int LOADER_REGS_SL = 120, CONSUMER_REGS_SL = 192;
+constexpr int LOADER_REGS_F4 = 72, CONSUMER_REGS_F4 = 216;
 constexpr float NEG_INF = -1e30f;    // flash_attention.py:17
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -148,6 +188,10 @@ struct Params {
   float scale_log2;
   int causal, load;
   int BH, group;   // B * H heads, scheduled `group` heads at a time
+  // the sliced kernel's plan (slice_plan): output slices a query tile,
+  // 64-column panels a slice, panels a chunk, chunks in the ring, Q
+  // resident (1) or not
+  int slices = 1, panels = 0, cpanels = 0, ring = 0, qres = 0;
 };
 
 // K and V bytes a group of heads may hold in the 50 MB L2 while its
@@ -277,9 +321,11 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
+__device__ __forceinline__ void wgmma_wait0() { wgmma_wait<0>(); }
 
 // Keeps the compiler from moving reads or writes of accumulator registers
 // across the asynchronous wgmma (placed after its wait).
@@ -505,17 +551,45 @@ struct Bf16Smem {
   static constexpr int BYTES = BAR + 8 * (1 + (2 + EMPTY) * STAGES) + 1024;
 };
 
-// float32: Q [BQ][LD], STAGES x K [BK32][LD], STAGES x V [BK32][LD] floats
-// (LD = 64 NP + 4), then the barriers as above.
+// float32: Q [BQF][LD], STAGES x K [BKF][LD], STAGES x V [BKF][LD] floats
+// (LD = 64 NP + 4), then the barriers as above; at NP 4 (D 129..256) 64
+// query rows and 32-key tiles, below it 128 and 64.
 template <int NP>
 struct F32Smem {
   static constexpr int STAGES = NP == 1 ? 3 : 2;
   static constexpr int DM = 64 * NP, LD = DM + 4;
+  static constexpr int BQF = NP == 4 ? 64 : BQ, BKF = NP == 4 ? 32 : BK32;
   static constexpr int Q = 0;
-  static constexpr int K = Q + BQ * LD * 4;
-  static constexpr int V = K + STAGES * BK32 * LD * 4;
-  static constexpr int BAR = V + STAGES * BK32 * LD * 4;
+  static constexpr int K = Q + BQF * LD * 4;
+  static constexpr int V = K + STAGES * BKF * LD * 4;
+  static constexpr int BAR = V + STAGES * BKF * LD * 4;
   static constexpr int BYTES = BAR + 8 * (1 + 3 * STAGES) + 1024;
+};
+
+// The sliced kernel's shared memory, from its plan: the barriers (1024
+// bytes: Q full, ring full x R, ring empty x R, V full x 2, V empty x 2),
+// Q's panels when resident, two stages of the slice's V panels, then the
+// ring of R chunks, each `cpanels` of a key tile's panels of K and, when Q
+// is streamed, as many of Q's after them.  Every panel is 1024-byte
+// aligned.
+constexpr int SL_BK = 32;                  // keys a tile
+constexpr int SL_PANEL_Q = 64 * 128;       // a panel of the 64 query rows
+constexpr int SL_PANEL_K = SL_BK * 128;    // a panel of a key tile
+constexpr int SL_BARS = 1024, SL_RING_MAX = 48;
+constexpr int SMEM_MAX = 232448;           // bytes a block may use
+
+struct SlicedSmem {
+  int q, v, ring, chunk, bytes;
+  __host__ __device__ static SlicedSmem of(int nq, int panels, int cpanels,
+                                           int ring, int qres) {
+    SlicedSmem s;
+    s.q = SL_BARS;
+    s.v = s.q + (qres ? nq * SL_PANEL_Q : 0);
+    s.ring = s.v + 2 * panels * SL_PANEL_K;
+    s.chunk = cpanels * (SL_PANEL_K + (qres ? 0 : SL_PANEL_Q));
+    s.bytes = s.ring + ring * s.chunk + 1024;   // + the alignment
+    return s;
+  }
 };
 
 // Byte offset of element (r, c) in a 2-byte tile of R rows stored as
@@ -617,14 +691,16 @@ struct Tile {          // what every thread of a block knows of its work
 // heads go in groups whose K and V fit in L2, and inside a group the query
 // tiles with the most key tiles go first for all its heads (a head's
 // tiles one after another would leave the last heads' heaviest tiles for
-// the last wave).  A block holds R query rows and walks BK-key tiles.
+// the last wave).  A block holds R query rows and walks BK-key tiles;
+// the sliced kernel's `slices` blocks of one query tile are neighbours.
 template <int R, int BK>
 __device__ __forceinline__ Tile tile_of(Params p) {
   Tile t;
   const int n_qt = (p.S + R - 1) / R;
   const long long per_group = (long long)p.group * n_qt;
-  const int g = (int)(blockIdx.x / per_group);
-  const int r = (int)(blockIdx.x % per_group);
+  const unsigned blk = blockIdx.x / p.slices;   // a query tile's slices
+  const int g = (int)(blk / per_group);
+  const int r = (int)(blk % per_group);
   const int heads = min(p.group, p.BH - g * p.group);
   const int bh = g * p.group + r % heads;
   t.q0 = (n_qt - 1 - r / heads) * R;   // heaviest tiles first
@@ -1023,34 +1099,39 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_f32_kernel(const Params p) {
   using L = F32Smem<NP>;
   constexpr int ST = L::STAGES, DM = L::DM, LD = L::LD;
+  constexpr int BQF = L::BQF, BKF = L::BKF;
+  // NP 4: two warps on each 16 query rows, each holding OC of the output's
+  // columns; below it one warp holds all of them
+  constexpr bool CSPLIT = NP == 4;
+  constexpr int OC = CSPLIT ? DM / 2 : DM, NKT = BKF / 8;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR);
   float* Qs = reinterpret_cast<float*>(smem + L::Q);
   float* Ks = reinterpret_cast<float*>(smem + L::K);
   float* Vs = reinterpret_cast<float*>(smem + L::V);
-  const Tile tl = tile_of<BQ, BK32>(p);
+  const Tile tl = tile_of<BQF, BKF>(p);
   init_barriers<ST>(bars, LOAD_CP16);
 
   if (threadIdx.x < 128) {   // ---- the loader warpgroup ----
-    regs_dealloc<LOADER_REGS>();
+    regs_dealloc<NP == 4 ? LOADER_REGS_F4 : LOADER_REGS>();
     const int tid = threadIdx.x;
     const auto* q = static_cast<const float*>(p.q);
     const auto* k = static_cast<const float*>(p.k);
     const auto* v = static_cast<const float*>(p.v);
-    load_f32_tile<NP, BQ>(Qs, q, tl.base, tl.q0, p.S, p.D, tl.rstride, p.load,
-                          tid);
+    load_f32_tile<NP, BQF>(Qs, q, tl.base, tl.q0, p.S, p.D, tl.rstride,
+                           p.load, tid);
     cp_async_commit();
     cp_async_wait<0>();
     mbar_arrive(&bars[0]);
     for (int it = 0; it < tl.n_kt; ++it) {
-      const int s = it % ST, k0 = (tl.n_kt - 1 - it) * BK32;
+      const int s = it % ST, k0 = (tl.n_kt - 1 - it) * BKF;
       if (it >= ST) mbar_wait(&bars[1 + 2 * ST + s], (it / ST - 1) & 1);
-      load_f32_tile<NP, BK32>(Ks + s * BK32 * LD, k, tl.base, k0, p.S, p.D,
-                              tl.rstride, p.load, tid);
+      load_f32_tile<NP, BKF>(Ks + s * BKF * LD, k, tl.base, k0, p.S, p.D,
+                             tl.rstride, p.load, tid);
       cp_async_commit();
-      load_f32_tile<NP, BK32>(Vs + s * BK32 * LD, v, tl.base, k0, p.S, p.D,
-                              tl.rstride, p.load, tid);
+      load_f32_tile<NP, BKF>(Vs + s * BKF * LD, v, tl.base, k0, p.S, p.D,
+                             tl.rstride, p.load, tid);
       cp_async_commit();
       cp_async_wait<1>();
       mbar_arrive(&bars[1 + s]);
@@ -1060,32 +1141,36 @@ flash_f32_kernel(const Params p) {
     return;
   }
 
-  // ---- the consumer warps: 16 query rows each ----
-  regs_alloc<CONSUMER_REGS>();
+  // ---- the consumer warps: 16 query rows each (NP 4: two on each 16) ----
+  regs_alloc<NP == 4 ? CONSUMER_REGS_F4 : CONSUMER_REGS>();
   const int cw = threadIdx.x / 32 - 4;
+  const int rw = CSPLIT ? cw % 4 : cw;          // the warp's 16 rows
+  const int c0 = CSPLIT ? (cw / 4) * OC : 0;    // its first output column
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int row = tl.q0 + 16 * cw + g;   // and row + 8
-  const float* qs = Qs + 16 * cw * LD;
+  const int row = tl.q0 + 16 * rw + g;   // and row + 8
+  const float* qs = Qs + 16 * rw * LD;
   const int n_dt = (p.D + 7) / 8;   // 8-column tiles of D
+  // the warp's output column tiles below D
+  const int n_ot = min(OC / 8, max(0, n_dt - c0 / 8));
   const int S = p.S;
   const float scale_log2 = p.scale_log2;
   const bool causal = p.causal != 0;
-  float o[DM / 2];
+  float o[OC / 2];
 #pragma unroll
-  for (int i = 0; i < DM / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < OC / 2; ++i) o[i] = 0.0f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
   mbar_wait(&bars[0], 0);
 
   for (int it = 0; it < tl.n_kt; ++it) {
     const int s = it % ST, ph = (it / ST) & 1;
-    const int k0 = (tl.n_kt - 1 - it) * BK32;
-    const float* ks = Ks + s * BK32 * LD;
-    const float* vs = Vs + s * BK32 * LD;
+    const int k0 = (tl.n_kt - 1 - it) * BKF;
+    const float* ks = Ks + s * BKF * LD;
+    const float* vs = Vs + s * BKF * LD;
 
-    // S = Q K^T: 16 rows x 64 keys, D in k8 steps (those past D skipped)
-    float sc[32];
+    // S = Q K^T: 16 rows x BKF keys, D in k8 steps (those past D skipped)
+    float sc[BKF / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+    for (int i = 0; i < BKF / 2; ++i) sc[i] = 0.0f;
     mbar_wait(&bars[1 + s], ph);
 #pragma unroll
     for (int kk = 0; kk < DM / 8; ++kk) {
@@ -1093,40 +1178,40 @@ flash_f32_kernel(const Params p) {
       const int c = 8 * kk + t;
       const SplitA a = split_a(qs[g * LD + c], qs[(g + 8) * LD + c],
                                qs[g * LD + c + 4], qs[(g + 8) * LD + c + 4]);
-      float b0[8], b1[8];
+      float b0[NKT], b1[NKT];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < NKT; ++nt) {
         b0[nt] = ks[(8 * nt + g) * LD + c];
         b1[nt] = ks[(8 * nt + g) * LD + c + 4];
       }
-      mma_3xtf32<8>(sc, a, b0, b1, 8);
+      mma_3xtf32<NKT>(sc, a, b0, b1, NKT);
     }
 
-    const bool mask = k0 + BK32 > S || (causal && k0 + BK32 - 1 > row - g);
+    const bool mask = k0 + BKF > S || (causal && k0 + BKF - 1 > row - g);
     float corr[2], rs[2];
-    online_softmax<32>(sc, m, corr, rs, scale_log2, S, causal, row, k0, t,
-                       mask);
+    online_softmax<BKF / 2>(sc, m, corr, rs, scale_log2, S, causal, row, k0,
+                            t, mask);
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
 #pragma unroll
-    for (int i = 0; i < DM / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < OC / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 
     // O += P V: k8 step kk covers keys 8 kk .. + 7; the accumulator holds
     // keys 2t and 2t + 1 of each row, so the A fragment's columns t and
     // t + 4 are read as keys 2t and 2t + 1, and V's rows in that order
     mbar_wait(&bars[1 + ST + s], ph);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < NKT; ++kk) {
       const SplitA a = split_a(sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1],
                                sc[4 * kk + 3]);
-      const float* v0 = vs + (8 * kk + 2 * t) * LD + g;
-      float b0[DM / 8], b1[DM / 8];   // column tiles past D are skipped
+      const float* v0 = vs + (8 * kk + 2 * t) * LD + c0 + g;
+      float b0[OC / 8], b1[OC / 8];   // column tiles past D are skipped
 #pragma unroll
-      for (int nt = 0; nt < DM / 8; ++nt) {
-        b0[nt] = nt < n_dt ? v0[8 * nt] : 0.0f;
-        b1[nt] = nt < n_dt ? v0[LD + 8 * nt] : 0.0f;
+      for (int nt = 0; nt < OC / 8; ++nt) {
+        b0[nt] = nt < n_ot ? v0[8 * nt] : 0.0f;
+        b1[nt] = nt < n_ot ? v0[LD + 8 * nt] : 0.0f;
       }
-      mma_3xtf32<DM / 8>(o, a, b0, b1, n_dt);
+      mma_3xtf32<OC / 8>(o, a, b0, b1, n_ot);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&bars[1 + 2 * ST + s]);
@@ -1137,7 +1222,270 @@ flash_f32_kernel(const Params p) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  store_rows<float, DM / 2>(p.o, S, p.D, tl, o, 0, row, t, l);
+  store_rows<float, OC / 2>(p.o, S, p.D, tl, o, c0, row, t, l);
+}
+
+// The sliced kernel, 16-bit heads past 512 (F16: float16, else
+// bfloat16): one block per (query tile of 64 rows, output slice); see the
+// header for the design.
+template <bool F16>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_h16_sliced_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const Params p) {
+  using T16 = typename std::conditional<F16, __half, __nv_bfloat16>::type;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const int nq = (p.D + 63) / 64, R = p.ring;   // panels of D, chunks
+  const int G = p.cpanels;                        // panels a chunk
+  const bool qres = p.qres != 0;
+  const SlicedSmem L = SlicedSmem::of(nq, p.panels, G, R, p.qres);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);   // [0]: Q full
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + R;
+  uint64_t* vfull = bars + 1 + 2 * R;
+  uint64_t* vempty = bars + 3 + 2 * R;
+  const Tile tl = tile_of<64, SL_BK>(p);
+  // this block's slice: V's panels vp0 .. vp0 + nv - 1
+  const int vp0 = (blockIdx.x % p.slices) * p.panels;
+  const int nv = min(p.panels, nq - vp0);
+  if (threadIdx.x == 0) {
+    const int n = p.load == LOAD_TMA ? 1 : 128;
+    for (int i = 0; i < 1 + R; ++i) mbar_init(&bars[i], n);
+    for (int i = 0; i < R; ++i) mbar_init(&empty[i], 8);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&vfull[i], n);
+      mbar_init(&vempty[i], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // the ring's position: chunk `slot` in its `round`-th use
+  int slot = 0, round = 0;
+  auto next = [&] {
+    if (++slot == R) {
+      slot = 0;
+      ++round;
+    }
+  };
+
+  if (threadIdx.x < 128) {   // ---- the loader warpgroup ----
+    regs_dealloc<LOADER_REGS_SL>();
+    // a chunk's bytes of K (and Q) a panel, and its Q panels' offset
+    const int pbytes = SL_PANEL_K + (qres ? 0 : SL_PANEL_Q);
+    const int qoff = G * SL_PANEL_K;
+    if (p.load == LOAD_TMA) {   // one thread issues every copy
+      if (threadIdx.x != 0) return;
+      if (qres) {
+        mbar_expect_tx(&bars[0], nq * SL_PANEL_Q);
+        for (int pn = 0; pn < nq; ++pn)
+          tma_load_4d(smem + L.q + pn * SL_PANEL_Q, &tq, &bars[0], pn * 64,
+                      tl.h, tl.q0, tl.b);
+      }
+      for (int it = 0; it < tl.n_kt; ++it) {
+        const int k0 = (tl.n_kt - 1 - it) * SL_BK;
+        for (int pn0 = 0; pn0 < nq; pn0 += G, next()) {   // a chunk
+          const int cnt = min(G, nq - pn0);
+          if (round > 0) mbar_wait(&empty[slot], (round - 1) & 1);
+          uint8_t* c = smem + L.ring + slot * L.chunk;
+          mbar_expect_tx(&full[slot], cnt * pbytes);
+          for (int j = 0; j < cnt; ++j) {
+            tma_load_4d(c + j * SL_PANEL_K, &tk, &full[slot],
+                        (pn0 + j) * 64, tl.h, k0, tl.b);
+            if (!qres)
+              tma_load_4d(c + qoff + j * SL_PANEL_Q, &tq, &full[slot],
+                          (pn0 + j) * 64, tl.h, tl.q0, tl.b);
+          }
+        }
+        const int s = it & 1;
+        if (it >= 2) mbar_wait(&vempty[s], ((it >> 1) - 1) & 1);
+        uint8_t* vs = smem + L.v + s * p.panels * SL_PANEL_K;
+        mbar_expect_tx(&vfull[s], nv * SL_PANEL_K);
+        for (int j = 0; j < nv; ++j)
+          tma_load_4d(vs + j * SL_PANEL_K, &tv, &vfull[s], (vp0 + j) * 64,
+                      tl.h, k0, tl.b);
+      }
+      return;
+    }
+    // cp.async or plain loads by the 128 threads; each group of copies
+    // lands, then reaches the consumers' wgmma
+    const int tid = threadIdx.x;
+    const auto* q = static_cast<const __nv_bfloat16*>(p.q);
+    const auto* k = static_cast<const __nv_bfloat16*>(p.k);
+    const auto* v = static_cast<const __nv_bfloat16*>(p.v);
+    auto landed = [&](uint64_t* bar) {
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      mbar_arrive(bar);
+    };
+    if (qres) {
+      for (int pn = 0; pn < nq; ++pn)
+        load_bf16_tile<1, 64>(smem + L.q + pn * SL_PANEL_Q, q,
+                              tl.base + 64 * pn, tl.q0, p.S, p.D - 64 * pn,
+                              tl.rstride, p.load, tid);
+      landed(&bars[0]);
+    }
+    for (int it = 0; it < tl.n_kt; ++it) {
+      const int k0 = (tl.n_kt - 1 - it) * SL_BK;
+      for (int pn0 = 0; pn0 < nq; pn0 += G, next()) {   // a chunk
+        if (round > 0) mbar_wait(&empty[slot], (round - 1) & 1);
+        uint8_t* c = smem + L.ring + slot * L.chunk;
+        for (int pn = pn0; pn < min(pn0 + G, nq); ++pn) {
+          load_bf16_tile<1, SL_BK>(c + (pn - pn0) * SL_PANEL_K, k,
+                                   tl.base + 64 * pn, k0, p.S, p.D - 64 * pn,
+                                   tl.rstride, p.load, tid);
+          if (!qres)
+            load_bf16_tile<1, 64>(c + qoff + (pn - pn0) * SL_PANEL_Q, q,
+                                  tl.base + 64 * pn, tl.q0, p.S,
+                                  p.D - 64 * pn, tl.rstride, p.load, tid);
+        }
+        landed(&full[slot]);
+      }
+      const int s = it & 1;
+      if (it >= 2) mbar_wait(&vempty[s], ((it >> 1) - 1) & 1);
+      uint8_t* vs = smem + L.v + s * p.panels * SL_PANEL_K;
+      for (int j = 0; j < nv; ++j)
+        load_bf16_tile<1, SL_BK>(vs + j * SL_PANEL_K, v,
+                                 tl.base + 64 * (vp0 + j), k0, p.S,
+                                 p.D - 64 * (vp0 + j), tl.rstride, p.load,
+                                 tid);
+      landed(&vfull[s]);
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups, both on the same 64 rows ----
+  regs_alloc<CONSUMER_REGS_SL>();
+  const int wg = threadIdx.x / 128 - 1, w = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row = tl.q0 + 16 * w + g;   // and row + 8
+  // the slice's panels this warpgroup multiplies: p0 .. p0 + half - 1
+  // (both the middle one of an odd count; warpgroup 0 stores it)
+  const int half = (nv + 1) / 2, p0 = wg == 1 ? nv - half : 0;
+  const int S = p.S;
+  const float scale_log2 = p.scale_log2;
+  const bool causal = p.causal != 0;
+  float o[4][32];
+#pragma unroll
+  for (int pn = 0; pn < 4; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[pn][i] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  float sc[SL_BK / 2];
+  uint32_t pa[SL_BK / 16][4];
+  const uint64_t dq = sw128_desc(smem + L.q, 16);
+  const uint64_t dr = sw128_desc(smem + L.ring, 16);
+  const uint64_t dv = sw128_desc(smem + L.v, 1024);
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  if (qres) mbar_wait(&bars[0], 0);
+
+  // Iteration `it` issues O += P(it - 1) V(it - 1), then S = Q K(it) a
+  // chunk at a time; the softmax of tile it follows.  With Q resident a key
+  // tile is one chunk of two stages, and the warpgroups take turns to
+  // issue (FA3's ping-pong, named barriers 1 and 2, as the D-512
+  // instantiation does) so that one's softmax overlaps the other's
+  // products.  With Q streamed they walk the chunks in lockstep, each
+  // chunk freed once the next one's products are in flight.
+  const bool pp = qres && G >= nq;
+  const int my_turn = 1 + wg, their_turn = 2 - wg;
+  if (pp && wg == 1) named_arrive(1);   // warpgroup 0 goes first
+  for (int it = 0; it <= tl.n_kt; ++it) {
+    const bool qk = it < tl.n_kt;
+    const int vs = (it - 1) & 1;   // V's stage of tile it - 1
+    if (it > 0) mbar_wait(&vfull[vs], ((it - 1) >> 1) & 1);
+    if (pp) {
+      if (qk) mbar_wait(&full[slot], round & 1);
+      named_sync(my_turn);
+    }
+    wgmma_fence();
+    if (it > 0) {
+      const uint64_t dvs = dv + vs * (p.panels * SL_PANEL_K / 16);
+#pragma unroll
+      for (int kk = 0; kk < SL_BK / 16; ++kk)
+#pragma unroll
+        for (int pn = 0; pn < 4; ++pn)
+          if (pn < half)
+            wgmma_rs_n64_tb<F16>(
+                o[pn], pa[kk],
+                dvs + ((p0 + pn) * SL_PANEL_K + 2048 * kk) / 16);
+      wgmma_commit();
+    }
+    int prev = -1;   // the chunk issued last
+    for (int pn0 = 0; qk && pn0 < nq; pn0 += G) {   // a chunk of the ring
+      const int cnt = min(G, nq - pn0);
+      mbar_wait(&full[slot], round & 1);
+      const uint64_t kb = dr + slot * (L.chunk / 16);
+      const uint64_t qb = qres ? dq + pn0 * (SL_PANEL_Q / 16)
+                               : kb + G * (SL_PANEL_K / 16);
+      for (int j = 0; j < cnt; ++j)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)   // 32 bytes a k16 step
+          wgmma_ss_n32<F16>(sc, qb + j * (SL_PANEL_Q / 16) + 2 * kk,
+                            kb + j * (SL_PANEL_K / 16) + 2 * kk,
+                            pn0 + j + kk > 0);
+      wgmma_commit();
+      if (!pp) {
+        // all but this chunk's products are done: free the chunk before
+        // it (at the first chunk, V's stage of tile it - 1)
+        wgmma_wait<1>();
+        if (prev >= 0)
+          release(&empty[prev]);
+        else if (it > 0)
+          release(&vempty[vs]);
+      }
+      prev = slot;
+      next();
+    }
+    // every sync is matched: warpgroup 1's last turn hands over to no one
+    if (pp && (wg == 0 || qk)) named_arrive(their_turn);
+    wgmma_wait0();
+    reg_fence<SL_BK / 2>(sc);
+#pragma unroll
+    for (int pn = 0; pn < 4; ++pn) reg_fence<32>(o[pn]);
+    if (prev >= 0) release(&empty[prev]);
+    if (it > 0 && (pp || !qk)) release(&vempty[vs]);
+    if (!qk) break;
+
+    const int k0 = (tl.n_kt - 1 - it) * SL_BK;
+    // only the tiles that reach past S or above this warp's first row mask
+    const bool mask = k0 + SL_BK > S || (causal && k0 + SL_BK - 1 > row - g);
+    float corr[2], rs[2];
+    online_softmax<SL_BK / 2>(sc, m, corr, rs, scale_log2, S, causal, row, k0,
+                              t, mask);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+#pragma unroll
+    for (int pn = 0; pn < 4; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[pn][i] *= corr[(i >> 1) & 1];
+    // P as the register A operand: k16 step kk covers keys 16 kk .. + 15
+#pragma unroll
+    for (int kk = 0; kk < SL_BK / 16; ++kk)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * (2 * kk + h2) + 2 * r;
+          pa[kk][2 * h2 + r] =
+              pack2(sc[i], sc[i + 1], static_cast<T16*>(nullptr));
+        }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int pn = 0; pn < 4; ++pn)
+    if (pn < half && p0 + pn >= wg * half)
+      store_rows<T16, 32>(p.o, S, p.D, tl, o[pn], 64 * (vp0 + p0 + pn), row,
+                          t, l);
 }
 
 // ---- host side -----------------------------------------------------------
@@ -1224,7 +1572,7 @@ extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, k, v, o contiguous [b, s, h, d] (1 <= d <= 128 in float32, <= 512 in
+// q, k, v, o contiguous [b, s, h, d] (1 <= d <= 256 in float32, <= 512 in
 // the 16-bit types), `dtype` 0 float32, 1 bfloat16 or 2 float16; `scale`
 // multiplies the scores.  `load` is how the
 // tiles are loaded: 16-bit types 0 (TMA: d % 8 == 0 and 16-byte aligned
@@ -1243,7 +1591,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       1ll, std::min((long long)b * h, (long long)(L2_GROUP_BYTES / kv_head)));
   const Params p{q, k, v, o, s, h, d, scale * LOG2E, causal, load, b * h,
                  group};
-  const int bq = h16 && d > 256 ? bq16<8>() : BQ;   // query rows a block
+  // query rows a block
+  const int bq = (h16 && d > 256) || (!h16 && d > 128) ? 64 : BQ;
   const long long blocks = (long long)((s + bq - 1) / bq) * b * h;
   if (blocks > 0x7fffffffll)
     return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -1252,7 +1601,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return aligned(q, n) && aligned(k, n) && aligned(v, n);
   };
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (d < 1 || d > (h16 ? 512 : 128) || dtype < 0 || dtype > 2) return bad;
+  if (d < 1 || d > (h16 ? 512 : 256) || dtype < 0 || dtype > 2) return bad;
   if (h16) {
     if ((load == LOAD_TMA && (d % 8 || !all_aligned(16))) ||
         (load == LOAD_CP4 && (d % 2 || !all_aligned(4))) ||
@@ -1279,5 +1628,65 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return bad;
   if (d <= 64)
     return launch(flash_f32_kernel<1>, F32Smem<1>::BYTES, grid, st, p);
-  return launch(flash_f32_kernel<2>, F32Smem<2>::BYTES, grid, st, p);
+  if (d <= 128)
+    return launch(flash_f32_kernel<2>, F32Smem<2>::BYTES, grid, st, p);
+  return launch(flash_f32_kernel<4>, F32Smem<4>::BYTES, grid, st, p);
+}
+
+// The sliced kernel: q, k, v, o contiguous [b, s, h, d] of `dtype` 1
+// bfloat16 or 2 float16 (meant for d > 512; any d >= 1 runs), `load` as
+// above, and the plan (kernels/flash_attention.py:slice_plan): `slices`
+// output slices of `panels` 64-column panels (the last may hold fewer),
+// `ring` chunks of `cpanels` panels, Q resident in shared memory when
+// `qres` is 1.  Returns
+// cudaErrorInvalidValue for a plan that does not cover d, leaves a slice
+// empty or does not fit shared memory.
+extern "C" int flash_attention_sliced_launch(
+    const void* q, const void* k, const void* v, void* o, int b, int s,
+    int h, int d, float scale, int causal, int dtype, int load, int slices,
+    int panels, int cpanels, int ring, int qres, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  const int nq = (d + 63) / 64;
+  if (d < 1 || (dtype != 1 && dtype != 2) || panels < 1 || panels > 8 ||
+      slices < 1 || (long long)slices * panels < nq ||
+      (slices - 1) * panels >= nq || ring < 2 || ring > SL_RING_MAX ||
+      cpanels < 1 || cpanels > nq || (qres != 0 && qres != 1) ||
+      SlicedSmem::of(nq, panels, cpanels, ring, qres).bytes > SMEM_MAX)
+    return bad;
+  auto all_aligned = [&](int n) {
+    return aligned(q, n) && aligned(k, n) && aligned(v, n);
+  };
+  if ((load == LOAD_TMA && (d % 8 || !all_aligned(16))) ||
+      (load == LOAD_CP4 && (d % 2 || !all_aligned(4))) ||
+      (load != LOAD_TMA && load != LOAD_CP4 && load != LOAD_LD2))
+    return bad;
+  const bool f16 = dtype == 2;
+  const long long kv_head = 2ll * s * d * 2;
+  const int group = (int)std::max(
+      1ll, std::min((long long)b * h, (long long)(L2_GROUP_BYTES / kv_head)));
+  Params p{q, k, v, o, s, h, d, scale * LOG2E, causal, load, b * h, group};
+  p.slices = slices;
+  p.panels = panels;
+  p.cpanels = cpanels;
+  p.ring = ring;
+  p.qres = qres;
+  const long long blocks = (long long)((s + 63) / 64) * b * h * slices;
+  if (blocks > 0x7fffffffll)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  CUtensorMap maps[3] = {};
+  if (load == LOAD_TMA) {
+    const void* ptrs[3] = {q, k, v};
+    for (int i = 0; i < 3; ++i) {
+      const int err =
+          make_map(&maps[i], ptrs[i], b, s, h, d, f16, i == 0 ? 64 : SL_BK);
+      if (err) return err;
+    }
+  }
+  const int bytes = SlicedSmem::of(nq, panels, cpanels, ring, qres).bytes;
+  const dim3 grid((unsigned)blocks);
+  return f16 ? launch(flash_h16_sliced_kernel<true>, bytes, grid, st, maps[0],
+                      maps[1], maps[2], p)
+             : launch(flash_h16_sliced_kernel<false>, bytes, grid, st,
+                      maps[0], maps[1], maps[2], p);
 }

@@ -1,22 +1,22 @@
 // Flash attention, forward, on the FMA pipes (SIMT), for Hopper (sm_90a),
-// plain C interface: float32 past head width 128 and every type past 512.
+// plain C interface: float32 past head width 256, the one case the
+// tensor-core kernels do not take.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py:65
 // (flash_attention, pallas_call at :75) where csrc/flash_attention.cu does
-// not reach: its 3xTF32 kernel holds tiles of at most 128 float32 columns
-// and its wgmma kernel (instantiated for D <= 64, 128, 256 and 512) tiles
-// of at most 512 16-bit columns.  Its own entry point takes any width and
-// type; the wrapper (kernels/flash_attention.py:path) sends it those.
+// not reach: its 3xTF32 kernel holds tiles of at most 256 float32 columns
+// (64 query rows of 256 columns, Q, K and V padded, take 200 KB; 512
+// columns would not fit 227 KB), while its wgmma kernels take every
+// 16-bit width.  Its entry point takes float32 at any width; the wrapper
+// (kernels/flash_attention.py:path) sends it float32 past 256 only.
 // softmax(q k^T / sqrt(D)) v over q, k, v [B, S, H, D], causal or not, with
 // an online softmax over key tiles so the [S, S] scores never reach device
-// memory.  Inputs float32, bfloat16 or float16 (widened as they are
-// loaded), all sums float32, the output in the inputs' type.
+// memory.  Inputs, sums and output float32.
 //
 // Bound on an H100: operations, 4 * D flops (q.k and p.v) per (query, key)
 // pair the mask keeps.  This is a float32 SIMT kernel, the design the port
-// first ran at D <= 128 (before the tensor-core redesign): at D 256 in
-// float32 it is held against the 67 TFLOP/s float32 peak (3xTF32 with 128
-// query rows would need ~266 KB of shared memory).
+// first ran at D <= 128 (before the tensor-core redesign), held against
+// the 67 TFLOP/s float32 peak.
 //
 // Design.  One 256-thread block per (b * H + h, 64-query tile, slice of
 // 256 output columns), walking the 64-key tiles in order; causal blocks
@@ -39,8 +39,6 @@
 // ragged last tile (any S) is masked the same way, and the output is acc /
 // max(l, 1e-30) as there (flash_attention.py:58-61).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -49,19 +47,6 @@ constexpr int BQ = 64, BK = 64, THREADS = 256;
 constexpr int LP = BK + 4;           // row stride of the P tile
 constexpr float NEG_INF = -1e30f;    // flash_attention.py:17
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-__device__ __forceinline__ void store(__half* p, float v) {
-  *p = __float2half(v);
-}
-
 template <int DM>
 constexpr int smem_bytes() {
   return (BQ * (DM + 4) + 2 * BK * (DM + 4) + BQ * LP) * (int)sizeof(float);
@@ -69,24 +54,25 @@ constexpr int smem_bytes() {
 
 // Rows [r0, r0 + n) of one head (rows `stride` apart, D values each) into a
 // [n][DM + 4] shared tile; rows past S and columns past D are 0.
-template <typename T, int DM, int N>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+template <int DM, int N>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
                                           int r0, int S, int D,
                                           long long stride) {
 #pragma unroll 4
   for (int e = threadIdx.x; e < N * DM; e += THREADS) {
     const int r = e / DM, d = e % DM;
     dst[r * (DM + 4) + d] = (r0 + r < S && d < D)
-                                ? to_f(src[(long long)(r0 + r) * stride + d])
+                                ? src[(long long)(r0 + r) * stride + d]
                                 : 0.0f;
   }
 }
 
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int D, float scale, int causal) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S,
+                 int H, int D, float scale, int causal) {
   constexpr int LD = DM + 4;
   constexpr int NC = DM / 64;    // float4 column groups per thread
   extern __shared__ __align__(16) float smem[];
@@ -105,7 +91,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int c0 = blockIdx.z * DM;            // this block's output slice
   const int dv = min(DM, D - c0);            // its columns
 
-  if (n_dc == 1) load_tile<T, DM, BQ>(Qs, q + head, q0, S, D, stride);
+  if (n_dc == 1) load_tile<DM, BQ>(Qs, q + head, q0, S, D, stride);
 
   float m[4], l[4], acc[4][NC * 4];
 #pragma unroll
@@ -121,7 +107,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();   // the previous tile's P V is done with Ks, Vs, Ps
-    load_tile<T, DM, BK>(Vs, v + head + c0, k0, S, dv, stride);
+    load_tile<DM, BK>(Vs, v + head + c0, k0, S, dv, stride);
 
     // scores of rows ty*4 + i against keys tx + 16 j, over D's chunks
     float s[4][4];
@@ -133,8 +119,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d0 = dc * DM, dd = min(DM, D - d0);
       if (dc > 0) __syncthreads();   // the last chunk's scores are done
       if (n_dc > 1)
-        load_tile<T, DM, BQ>(Qs, q + head + d0, q0, S, dd, stride);
-      load_tile<T, DM, BK>(Ks, k + head + d0, k0, S, dd, stride);
+        load_tile<DM, BQ>(Qs, q + head + d0, q0, S, dd, stride);
+      load_tile<DM, BK>(Ks, k + head + d0, k0, S, dd, stride);
       __syncthreads();
 #pragma unroll 4
       for (int d = 0; d < DM; d += 4) {
@@ -224,39 +210,31 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + head + c0 + (long long)row * stride;
+    float* orow = o + head + c0 + (long long)row * stride;
 #pragma unroll
     for (int g = 0; g < NC; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int d = g * 64 + tx * 4 + c;
-        if (d < dv) store(orow + d, acc[i][g * 4 + c] / denom);
+        if (d < dv) orow[d] = acc[i][g * 4 + c] / denom;
       }
   }
 }
 
-template <typename T, int DM>
-int launch(const T* q, const T* k, const T* v, T* o, int B, int S, int H,
-           int D, float scale, int causal, cudaStream_t stream) {
+template <int DM>
+int launch(const float* q, const float* k, const float* v, float* o, int B,
+           int S, int H, int D, float scale, int causal,
+           cudaStream_t stream) {
   constexpr int bytes = smem_bytes<DM>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((unsigned)((S + BQ - 1) / BQ), (unsigned)(B * H),
                   (unsigned)((D + DM - 1) / DM));
-  flash_fwd_kernel<T, DM><<<grid, THREADS, bytes, stream>>>(
+  flash_fwd_kernel<DM><<<grid, THREADS, bytes, stream>>>(
       q, k, v, o, S, H, D, scale, causal);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int D, float scale, int causal,
-             cudaStream_t stream) {
-  return launch<T, 256>(static_cast<const T*>(q), static_cast<const T*>(k),
-                        static_cast<const T*>(v), static_cast<T*>(o), B, S, H,
-                        D, scale, causal, stream);
 }
 
 }  // namespace
@@ -265,23 +243,21 @@ extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, k, v, o contiguous [b, s, h, d] (d >= 1), `dtype` 0 float32, 1
-// bfloat16 or 2 float16; `scale` multiplies the scores.  Launches on
-// `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a width or type it does not take.
+// q, k, v, o contiguous float32 [b, s, h, d] (d >= 1), `dtype` 0 (the
+// flash_attention_launch code of float32, the one type it takes); `scale`
+// multiplies the scores.  Launches on `stream`; returns cudaGetLastError()
+// (0 on success), or cudaErrorInvalidValue for a width or type it does
+// not take.
 extern "C" int flash_attention_wide_launch(const void* q, const void* k,
                                            const void* v, void* o, int b,
                                            int s, int h, int d, float scale,
                                            int causal, int dtype,
                                            void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d < 1 || b * h > 65535 || (d + 255) / 256 > 65535)
+  if (d < 1 || b * h > 65535 || (d + 255) / 256 > 65535 || dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, b, s, h, d, scale, causal, st);
-  if (dtype == 2)
-    return dispatch<__half>(q, k, v, o, b, s, h, d, scale, causal, st);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, b, s, h, d, scale, causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch<256>(static_cast<const float*>(q),
+                     static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<float*>(o), b,
+                     s, h, d, scale, causal, st);
 }

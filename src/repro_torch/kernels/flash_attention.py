@@ -7,15 +7,18 @@ float32 and the output in the inputs' type.
 
 The CUDA kernel (``csrc/flash_attention.cu``) reads the ``[B,S,H,D]`` layout
 in place (no transposes to ``[B*H,S,D]``) and runs every product on the
-tensor cores: one block per (b*H + h, 128-query tile), a loader warpgroup
-filling a ring of K/V tiles and two consumer warpgroups of 64 rows each,
-skipping the key tiles wholly above the diagonal when causal.  bfloat16
-and float16 run on ``wgmma``; float32 as 3xTF32 on ``mma.sync`` (three TF32
-products per product keep float32's accuracy).  The routes, by type and
-D (any S):
+tensor cores: a loader warpgroup filling a ring of K/V tiles and two
+consumer warpgroups, skipping the key tiles wholly above the diagonal when
+causal.  bfloat16 and float16 run on ``wgmma``; float32 as 3xTF32 on
+``mma.sync`` (three TF32 products per product keep float32's accuracy).
+The routes, by type and D (any S):
 
 - every type at D 1..128: ``wgmma/*`` (16-bit) or ``3xtf32/*`` (float32),
-  counted by ``flash_attention.launches``;
+  128 query rows a block, counted by ``flash_attention.launches``;
+- float32 at D 129..256: the 3xTF32 kernel's D-256 instantiation
+  (``3xtf32_256/*``: 64 query rows a block, two warps on each 16 rows
+  each holding half the output's columns; 32-key tiles, two stages),
+  counted by ``flash_attention.tf32_256_launches``;
 - bfloat16 and float16 at D 129..256: the wgmma kernel's D-256
   instantiation (``wgmma256/*``: 48-key tiles, three stages), counted by
   ``flash_attention.wgmma256_launches``;
@@ -23,7 +26,11 @@ D (any S):
   (``wgmma512/*``: 64 query rows a block, both consumer warpgroups
   computing the same scores and each half of the output's panels; 32-key
   tiles, two stages), counted by ``flash_attention.wgmma512_launches``;
-- float32 past 128 and every type past 512: a float32 SIMT kernel
+- bfloat16 and float16 past 512: the sliced kernel (``wgmma_sliced/*``:
+  output slices of at most 512 columns, one block each, every block
+  computing the scores over all of D with Q resident or streamed, as
+  ``slice_plan`` says), counted by ``flash_attention.sliced_launches``;
+- float32 past 256 only: a float32 SIMT kernel
   (``csrc/flash_attention_wide.cu``, ``simt/wide``), counted by
   ``flash_attention.wide_launches``, which splits D past 256 into output
   slices of 256 columns.
@@ -40,33 +47,80 @@ counterpart.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from repro_torch import _build
+from repro_torch import _build, _device
 from repro_torch.kernels import _check, _promote, ref
 
 NAME = "flash_attention"
 # the C entry points' code for each input type
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# the widest head of the tensor-core kernels in every type, of the 16-bit
-# kernel's D-256 instantiation, and in the 16-bit types (the D-512 one)
-MAX_D_TC, MAX_D_256, MAX_D_TC16 = 128, 256, 512
+# the widest head of the tensor-core kernels in every type (128 query rows
+# a block), of their D-256 instantiations, and of the 16-bit D-512 one;
+# the 16-bit types past it take the sliced kernel, float32 past
+# MAX_D_256 the SIMT route
+MAX_D_TC, MAX_D_256, MAX_D_512 = 128, 256, 512
 # at most this many heads B * H (the C entry point also refuses a grid of
-# more than 2^31 - 1 blocks, query tiles x B * H)
+# more than 2^31 - 1 blocks, query tiles x B * H, x slices)
 MAX_BH = 65_535
 # How the tensor-core kernel loads its tiles (the C entry point's ``load``
 # code), by path: 16-bit types by TMA where rows are 16-byte aligned, by
 # 4-byte cp.async where they are 4-byte aligned, else by plain loads;
 # float32 by 16- or 4-byte cp.async.  The products run on the tensor cores
 # on every path; ``wgmma256`` and ``wgmma512`` are the 16-bit kernel's D-256
-# and D-512 instantiations.  Float32 heads wider than MAX_D_TC and any head
-# wider than MAX_D_TC16 take the path WIDE.
+# and D-512 instantiations, ``wgmma_sliced`` its sliced kernel,
+# ``3xtf32_256`` the float32 kernel's D-256 instantiation.  Float32 heads
+# wider than MAX_D_256 take the path WIDE.
 LOADS = {"wgmma/tma": 0, "wgmma/cp.async": 4, "wgmma/ld": 2,
          "wgmma256/tma": 0, "wgmma256/cp.async": 4, "wgmma256/ld": 2,
          "wgmma512/tma": 0, "wgmma512/cp.async": 4, "wgmma512/ld": 2,
-         "3xtf32/cp.async16": 16, "3xtf32/cp.async4": 4}
+         "wgmma_sliced/tma": 0, "wgmma_sliced/cp.async": 4,
+         "wgmma_sliced/ld": 2,
+         "3xtf32/cp.async16": 16, "3xtf32/cp.async4": 4,
+         "3xtf32_256/cp.async16": 16, "3xtf32_256/cp.async4": 4}
 WIDE = "simt/wide"
+# the launch counter of each route's kernel
+COUNTERS = {"wgmma": "launches", "3xtf32": "launches",
+            "3xtf32_256": "tf32_256_launches",
+            "wgmma256": "wgmma256_launches", "wgmma512": "wgmma512_launches",
+            "wgmma_sliced": "sliced_launches", "simt": "wide_launches"}
+
+# The sliced kernel's shared memory (csrc/flash_attention.cu, SlicedSmem):
+# what a block may use on an H100, the alignment and the barriers' 1024
+# bytes each, a 64-column panel of the 64 query rows and of a 32-key tile,
+# and the most chunks its barriers allow.
+SMEM_MAX, SMEM_FIXED = 232_448, 2 * 1024
+PANEL_Q, PANEL_K, RING_MAX = 64 * 128, 32 * 128, 48
+
+
+class Slices(NamedTuple):
+    """The sliced kernel's plan for a head of D columns."""
+    n: int            # output slices, one block each per query tile
+    panels: int       # 64-column panels a slice (the last may hold fewer)
+    q_resident: bool  # Q's panels stay in shared memory, else each chunk
+                      # of the ring carries Q's panels beside K's
+    chunk: int        # panels of a key tile a chunk of the ring holds
+    ring: int         # chunks in the ring
+
+
+def slice_plan(D: int) -> Slices:
+    """Slices of at most 8 panels, the same count each where D allows
+    (D 640: 2 x 5, not 8 + 2).  Q stays resident while Q and two key
+    tiles of K fit beside V's two stages (up to D 704): a chunk is then a
+    whole key tile and the ring its two stages.  Wider, a chunk is three
+    panels of K and three of Q, as many as what is left holds (at D
+    1,024 chunks of 3 ran faster than of 2 or 1 on an H100: PERF.md)."""
+    nq = -(-D // 64)
+    panels = -(-nq // -(-nq // 8))
+    room = SMEM_MAX - SMEM_FIXED - 2 * panels * PANEL_K
+    n = -(-nq // panels)
+    if nq * PANEL_Q + 2 * nq * PANEL_K <= room:
+        return Slices(n, panels, True, nq, 2)
+    chunk = min(3, nq)
+    ring = min(RING_MAX, room // (chunk * (PANEL_K + PANEL_Q)))
+    return Slices(n, panels, False, chunk, ring)
 
 
 def _check_args(q, k, v):
@@ -96,23 +150,21 @@ def _alignment(*ts) -> int:
 
 def path(q, k, v) -> str:
     """The kernel's path for these operands (of one type the kernels
-    take): ``WIDE`` for float32 above ``MAX_D_TC`` and any type above
-    ``MAX_D_TC16``, else a key of ``LOADS`` (a row of one head starts at a
-    multiple of D elements, so D and the base pointers decide its
-    alignment)."""
+    take): ``WIDE`` for float32 above ``MAX_D_256``, else a key of
+    ``LOADS`` (a row of one head starts at a multiple of D elements, so D
+    and the base pointers decide its alignment)."""
     D, a = q.shape[-1], _alignment(q, k, v)
-    f32 = q.dtype == torch.float32
-    if D > MAX_D_TC16 or (f32 and D > MAX_D_TC):
-        return WIDE
-    if not f32:
-        kernel = ("wgmma" if D <= MAX_D_TC else
-                  "wgmma256" if D <= MAX_D_256 else "wgmma512")
-        if D % 8 == 0 and a >= 16:
-            return f"{kernel}/tma"
-        return f"{kernel}/cp.async" if D % 2 == 0 and a >= 4 \
-            else f"{kernel}/ld"
-    return "3xtf32/cp.async16" if D % 4 == 0 and a >= 16 else \
-        "3xtf32/cp.async4"
+    if q.dtype == torch.float32:
+        if D > MAX_D_256:
+            return WIDE
+        kernel = "3xtf32" if D <= MAX_D_TC else "3xtf32_256"
+        return f"{kernel}/cp.async16" if D % 4 == 0 and a >= 16 else \
+            f"{kernel}/cp.async4"
+    kernel = ("wgmma" if D <= MAX_D_TC else "wgmma256" if D <= MAX_D_256
+              else "wgmma512" if D <= MAX_D_512 else "wgmma_sliced")
+    if D % 8 == 0 and a >= 16:
+        return f"{kernel}/tma"
+    return f"{kernel}/cp.async" if D % 2 == 0 and a >= 4 else f"{kernel}/ld"
 
 
 def _lib(name="flash_attention"):
@@ -120,22 +172,26 @@ def _lib(name="flash_attention"):
     if not getattr(lib, "_repro_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "flash_attention":
-            fn = lib.flash_attention_launch
-            fn.argtypes = [p, p, p, p, i, i, i, i, f, i, i, i, p]
+            lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, f,
+                                                   i, i, i, p]
+            lib.flash_attention_launch.restype = ctypes.c_int
+            lib.flash_attention_sliced_launch.argtypes = [
+                p, p, p, p, i, i, i, i, f, i, i, i, i, i, i, i, i, p]
+            lib.flash_attention_sliced_launch.restype = ctypes.c_int
         else:
-            fn = lib.flash_attention_wide_launch
-            fn.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
-        fn.restype = ctypes.c_int
+            lib.flash_attention_wide_launch.argtypes = [p, p, p, p, i, i, i,
+                                                        i, f, i, i, p]
+            lib.flash_attention_wide_launch.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
 
 
 def flash_attention(q, k, v, causal=True):
     """``[B,S,H,D]`` attention output in q's type.  CUDA tensors launch the
-    kernel; CPU tensors take the plain version."""
+    kernel of their route (``path``); CPU tensors take the plain version."""
     (q, k, v), out_dtype = _promote.promote((q, k, v), DTYPES)
     _check_args(q, k, v)
-    if _check.device_kind(NAME, q) == "cpu":
+    if not q.is_cuda and _check.device_kind(NAME, q) == "cpu":
         return _promote.restore(ref.flash_attention(q, k, v, causal=causal),
                                 out_dtype)
     B, S, H, D = q.shape
@@ -143,28 +199,29 @@ def flash_attention(q, k, v, causal=True):
     if out.numel() == 0:
         return _promote.restore(out, out_dtype)
     route = path(q, k, v)
+    kernel = route.split("/")[0]
     lib = _lib("flash_attention_wide" if route == WIDE else "flash_attention")
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
             H, D, D ** -0.5, int(bool(causal)), DTYPES[q.dtype])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if route == WIDE:
-            code = lib.flash_attention_wide_launch(*args, stream)
-        else:
-            code = lib.flash_attention_launch(*args, LOADS[route], stream)
-    _build.check(lib, code, NAME)
     if route == WIDE:
-        flash_attention.wide_launches += 1
-    elif D > MAX_D_256:
-        flash_attention.wgmma512_launches += 1
-    elif D > MAX_D_TC:
-        flash_attention.wgmma256_launches += 1
+        code = _device.launch(lib.flash_attention_wide_launch, q, *args)
+    elif kernel == "wgmma_sliced":
+        plan = slice_plan(D)
+        code = _device.launch(lib.flash_attention_sliced_launch, q, *args,
+                              LOADS[route], plan.n, plan.panels, plan.chunk,
+                              plan.ring, int(plan.q_resident))
     else:
-        flash_attention.launches += 1
+        code = _device.launch(lib.flash_attention_launch, q, *args,
+                              LOADS[route])
+    _build.check(lib, code, NAME)
+    counter = COUNTERS[kernel]
+    setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
     return _promote.restore(out, out_dtype)
 
 
 flash_attention.launches = 0
+flash_attention.tf32_256_launches = 0
 flash_attention.wgmma256_launches = 0
 flash_attention.wgmma512_launches = 0
+flash_attention.sliced_launches = 0
 flash_attention.wide_launches = 0

@@ -208,24 +208,31 @@ def _view(shape, dtype, offset):
     (torch.bfloat16, 256, 2, "wgmma256/cp.async"),
     (torch.bfloat16, 129, 0, "wgmma256/ld"),
     (torch.float16, 256, 1, "wgmma256/ld"),
-    (torch.float32, 129, 1, "simt/wide"),          # past 3xTF32's 128
-    (torch.float32, 256, 0, "simt/wide"),
+    (torch.float32, 129, 1, "3xtf32_256/cp.async4"),   # the D-256 3xTF32
+    (torch.float32, 256, 0, "3xtf32_256/cp.async16"),
+    (torch.float32, 200, 0, "3xtf32_256/cp.async16"),
+    (torch.float32, 130, 0, "3xtf32_256/cp.async4"),   # 520-byte rows
+    (torch.float32, 257, 0, "simt/wide"),          # past 3xTF32's 256
     (torch.float32, 512, 0, "simt/wide"),
     (torch.bfloat16, 257, 0, "wgmma512/ld"),       # the D-512 wgmma kernel
     (torch.float16, 512, 0, "wgmma512/tma"),
     (torch.bfloat16, 264, 0, "wgmma512/tma"),      # 528-byte rows
     (torch.bfloat16, 320, 2, "wgmma512/cp.async"),
     (torch.float16, 320, 1, "wgmma512/ld"),
-    (torch.bfloat16, 513, 0, "simt/wide"),         # past wgmma's 512
-    (torch.float16, 513, 0, "simt/wide"),
+    (torch.bfloat16, 513, 0, "wgmma_sliced/ld"),   # the sliced kernel
+    (torch.float16, 513, 0, "wgmma_sliced/ld"),
+    (torch.bfloat16, 640, 0, "wgmma_sliced/tma"),
+    (torch.float16, 640, 2, "wgmma_sliced/cp.async"),
+    (torch.bfloat16, 1100, 0, "wgmma_sliced/cp.async"),   # 2,200-byte rows
+    (torch.float16, 1024, 1, "wgmma_sliced/ld"),
 ])
 def test_flash_attention_path_by_type_width_and_alignment(dtype, D, offset,
                                                          want):
     """The wrapper's choice of load path: TMA needs 16-byte rows and
     pointers (16-bit types, D % 8 == 0), 4-byte cp.async D even, and
     float32's 16-byte cp.async D % 4 == 0; the products are on the tensor
-    cores on every path up to D 128 in float32 and D 512 in the 16-bit
-    types, and wider heads take the wide route whatever their
+    cores on every path up to D 256 in float32 and at every D in the
+    16-bit types, and float32 past 256 takes the wide route whatever its
     alignment."""
     q, k, v = (_view((2, 5, 3, D), dtype, offset) for _ in range(3))
     assert fa_mod.path(q, k, v) == want
@@ -233,36 +240,77 @@ def test_flash_attention_path_by_type_width_and_alignment(dtype, D, offset,
     k2 = _view((2, 5, 3, D), dtype, 1)
     assert fa_mod.path(q, k2, v) == (
         fa_mod.WIDE if want == fa_mod.WIDE else
-        "3xtf32/cp.async4" if dtype == torch.float32 else
-        want.split("/")[0] + "/ld")
+        want.split("/")[0] + ("/cp.async4" if dtype == torch.float32
+                               else "/ld"))
 
 
 def test_every_accepted_shape_maps_to_a_tensor_core_path():
-    """Each (type, pointer alignment) with D in 1..128, and in 1..512 for
-    the 16-bit types, has a tensor-core path, and the path's load code is
-    one the C entry point takes for that type; float32 past 128 and every
-    type past 512 take the wide route."""
+    """Each (type, pointer alignment) with D in 1..256, and every D for the
+    16-bit types (here up to 1,100), has a tensor-core path whose kernel
+    has a launch counter, and the path's load code is one the C entry
+    point takes for that type; only float32 past 256 takes the wide
+    route."""
     c_loads = {torch.bfloat16: {0, 4, 2}, torch.float16: {0, 4, 2},
                torch.float32: {16, 4}}
     seen = set()
     for dtype in fa_mod.DTYPES:
-        for D in range(1, fa_mod.MAX_D_TC16 + 65):
+        for D in range(1, 1101):
             for offset in (0, 1, 2, 4, 8):
                 q, k, v = (_view((1, 3, 2, D), dtype, offset)
                            for _ in range(3))
                 fa_mod._check_args(q, k, v)
                 name = fa_mod.path(q, k, v)
-                if D > fa_mod.MAX_D_TC16 or (dtype == torch.float32
-                                             and D > fa_mod.MAX_D_TC):
+                if dtype == torch.float32 and D > fa_mod.MAX_D_256:
                     assert name == fa_mod.WIDE
                     continue
-                assert name.split("/")[0] == (
-                    "3xtf32" if dtype == torch.float32 else
+                kernel = name.split("/")[0]
+                assert kernel == (
+                    ("3xtf32" if D <= fa_mod.MAX_D_TC else "3xtf32_256")
+                    if dtype == torch.float32 else
                     "wgmma" if D <= fa_mod.MAX_D_TC else
-                    "wgmma256" if D <= fa_mod.MAX_D_256 else "wgmma512")
+                    "wgmma256" if D <= fa_mod.MAX_D_256 else
+                    "wgmma512" if D <= fa_mod.MAX_D_512 else "wgmma_sliced")
                 assert fa_mod.LOADS[name] in c_loads[dtype]
+                assert hasattr(fa_mod.flash_attention,
+                               fa_mod.COUNTERS[kernel])
                 seen.add(name)
     assert seen == set(fa_mod.LOADS)
+
+
+@pytest.mark.parametrize("D,n,panels,q_resident", [
+    (513, 2, 5, True), (576, 2, 5, True), (640, 2, 5, True),
+    (700, 2, 6, True), (704, 2, 6, True),     # the widest Q kept resident
+    (705, 2, 6, False), (768, 2, 6, False), (1024, 2, 8, False),
+    (1100, 3, 6, False)])
+def test_slice_plan(D, n, panels, q_resident):
+    """The sliced kernel's plan: slices of at most 8 panels, the same
+    count each where D allows (640: 2 x 5, not 8 + 2); Q's panels stay in
+    shared memory up to D 704, wider each chunk of the ring carries Q's
+    panels beside K's."""
+    plan = fa_mod.slice_plan(D)
+    assert (plan.n, plan.panels, plan.q_resident) == (n, panels, q_resident)
+    # Q resident: a whole key tile a chunk, two stages; streamed: three
+    # panels a chunk, at least two chunks
+    assert (plan.chunk, plan.ring) == (-(-D // 64), 2) if q_resident else \
+        (plan.chunk == 3 and plan.ring >= 2)
+
+
+@pytest.mark.parametrize("D", [513, 600, 704, 705, 1100, 2047, 4096, 9000])
+def test_slice_plan_fits_and_covers(D):
+    """What the C entry point checks (flash_attention_sliced_launch): the
+    slices cover D's panels, none is empty, a warpgroup holds at most 4
+    panels of output, and the layout (barriers and alignment, Q when
+    resident, V's two stages, the ring) fits a block's shared memory."""
+    nq = -(-D // 64)
+    plan = fa_mod.slice_plan(D)
+    assert 1 <= plan.panels <= 8 and 2 <= plan.ring <= fa_mod.RING_MAX
+    assert plan.n * plan.panels >= nq > (plan.n - 1) * plan.panels
+    assert 1 <= plan.chunk <= nq
+    chunk = plan.chunk * (fa_mod.PANEL_K
+                          + (0 if plan.q_resident else fa_mod.PANEL_Q))
+    used = (fa_mod.SMEM_FIXED + plan.q_resident * nq * fa_mod.PANEL_Q
+            + 2 * plan.panels * fa_mod.PANEL_K + plan.ring * chunk)
+    assert used <= fa_mod.SMEM_MAX
 
 
 def _bad_calls():

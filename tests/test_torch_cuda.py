@@ -411,24 +411,31 @@ def test_flash_attention_kernel_float16_matches_plain(cuda, B, S, H, D,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_wide_route_matches_plain(cuda, S, D, causal,
                                                   dtype):
-    """Heads of 129..256 take a route of their own and its launch count:
-    float32 the wide SIMT kernel, the 16-bit types the wgmma kernel's D-256
-    instantiation; S off the 64-row tiles; 2e-4 in float32, 2e-2 in 16
-    bits."""
+    """Heads of 129..256 take a route of their own and its launch count
+    alone: float32 the 3xTF32 kernel's D-256 instantiation, the 16-bit
+    types the wgmma kernel's D-256 instantiation; S off the 64-row tiles;
+    2e-4 in float32, 2e-2 in 16 bits."""
     q, k, v = fa_inputs(2, S, 3, D, dtype, cuda)
-    counters = lambda: (fa_mod.flash_attention.launches,
-                        fa_mod.flash_attention.wgmma256_launches,
-                        fa_mod.flash_attention.wide_launches)
-    before = counters()
-    got = fa_mod.flash_attention(q, k, v, causal=causal)
-    wide = dtype == "float32"
-    assert fa_mod.path(q, k, v).startswith("simt" if wide else "wgmma256")
-    assert counters() == (before[0], before[1] + (not wide),
-                          before[2] + wide)
+    kernel = "3xtf32_256" if dtype == "float32" else "wgmma256"
+    assert fa_mod.path(q, k, v).split("/")[0] == kernel
+    got = launched_once(kernel, q, k, v, causal)
     tol = 2e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(),
                                ref.flash_attention(q, k, v, causal).float(),
                                rtol=tol, atol=tol)
+
+
+def launched_once(kernel, q, k, v, causal=True):
+    """Flash attention's output, asserting that the call moved the launch
+    counter of ``kernel`` (a route's first part) by one and no other."""
+    fa = fa_mod.flash_attention
+    names = sorted(set(fa_mod.COUNTERS.values()))
+    before = {n: getattr(fa, n) for n in names}
+    got = fa(q, k, v, causal=causal)
+    want = dict(before)
+    want[fa_mod.COUNTERS[kernel]] += 1
+    assert {n: getattr(fa, n) for n in names} == want
+    return got
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -572,7 +579,7 @@ def test_ssd_scan_kernel_rejects_what_it_cannot_take(cuda):
         ssd_mod.ssd_scan(big, dt, A, wide, wide, chunk=32)
 
 
-# ---- flash attention at D 129..256 on wgmma, and past 256 on SIMT --------
+# ---- flash attention at D 129..512 on wgmma; the SIMT route's old cases --
 
 WGMMA256_CASES = [(129, 0, "ld"), (130, 0, "cp.async"), (160, 0, "tma"),
                   (160, 2, "cp.async"), (192, 0, "tma"), (201, 0, "ld"),
@@ -653,19 +660,112 @@ def test_flash_attention_wgmma512_is_deterministic(cuda, dtype):
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_simt_past_256_matches_plain(cuda, D, S, causal,
                                                      dtype):
-    """The SIMT route: float32 past 128 and the 16-bit types past 512, cut
-    into output slices of 256 columns past 256 (320: 256 + 64; 257: 256 +
-    1; 520: 2 x 256 + 8; 640: 2 x 256 + 128); 2e-4 in float32, 2e-2 in 16
-    bits."""
+    """The heads the SIMT route took before the tensor cores reached them,
+    each on its route now: float32 at 200 the 3xTF32 kernel's D-256
+    instantiation; float32 past 256 the SIMT route alone, cut into output
+    slices of 256 columns (320: 256 + 64; 257: 256 + 1); the 16-bit types
+    past 512 the sliced kernel (520: 5 + 4 panels; 640: 5 + 5); 2e-4 in
+    float32, 2e-2 in 16 bits."""
     q, k, v = fa_inputs(2, S, 3, D, dtype, cuda)
-    assert fa_mod.path(q, k, v) == fa_mod.WIDE
-    before = fa_mod.flash_attention.wide_launches
-    got = fa_mod.flash_attention(q, k, v, causal=causal)
-    assert fa_mod.flash_attention.wide_launches == before + 1
+    kernel = ("simt" if dtype == "float32" and D > 256 else
+              "3xtf32_256" if dtype == "float32" else "wgmma_sliced")
+    assert fa_mod.path(q, k, v).split("/")[0] == kernel
+    got = launched_once(kernel, q, k, v, causal)
     tol = 2e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(),
                                ref.flash_attention(q, k, v, causal).float(),
                                rtol=tol, atol=tol)
+
+
+# ---- 16-bit heads past 512 on the sliced kernel; float32 at D 129..256 ----
+
+# every load path; Q resident (513..704: 9..11 panels, an odd count of
+# panels in a slice at 513, 576 and 700's second) and streamed (768,
+# 1,024, 1,100), two and three slices
+SLICED_CASES = [(513, 0, "ld"), (576, 0, "tma"), (576, 2, "cp.async"),
+                (640, 0, "tma"), (640, 1, "ld"), (700, 0, "cp.async"),
+                (768, 0, "tma"), (768, 2, "cp.async"), (1024, 0, "tma"),
+                (1100, 0, "cp.async"), (1100, 1, "ld")]
+
+
+@pytest.mark.parametrize("D,offset,load", SLICED_CASES)
+@pytest.mark.parametrize("S", [1, 100, 300, 1031])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_attention_sliced_matches_plain(cuda, D, offset, load, S,
+                                              causal, dtype):
+    """The sliced kernel (output slices of at most 8 panels, S over all of
+    D through the ring) on every load path, with Q resident and streamed;
+    S on, off and across the 64-row and 32-key tiles; its own launch
+    counter and no other; 2e-2."""
+    q, k, v = fa_inputs(2, S, 3, D, dtype, cuda, offset)
+    assert fa_mod.path(q, k, v) == f"wgmma_sliced/{load}"
+    got = launched_once("wgmma_sliced", q, k, v, causal)
+    assert got.dtype == q.dtype
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention(q, k, v, causal).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("D", [640, 1100])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_attention_sliced_is_deterministic(cuda, D, dtype):
+    q, k, v = fa_inputs(2, 1031, 4, D, dtype, cuda)
+    assert torch.equal(fa_mod.flash_attention(q, k, v),
+                       fa_mod.flash_attention(q, k, v))
+
+
+def test_flash_attention_sliced_entry_checks_the_plan(cuda):
+    """The C entry point refuses a plan that leaves a slice empty, does not
+    cover D or overflows shared memory, and launches the wrapper's."""
+    q, k, v = fa_inputs(1, 64, 1, 640, "bfloat16", cuda)
+    out = torch.empty_like(q)
+    lib = fa_mod._lib()
+    plan = fa_mod.slice_plan(640)
+    call = lambda n, panels, chunk, ring, qres: \
+        lib.flash_attention_sliced_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, 64,
+            1, 640, 640 ** -0.5, 1, 1, 0, n, panels, chunk, ring, qres,
+            torch.cuda.current_stream().cuda_stream)
+    assert call(3, 5, 10, 2, 1) != 0     # the third slice is empty
+    assert call(1, 8, 10, 2, 1) != 0     # 8 of 10 panels covered
+    assert call(2, 5, 10, 3, 1) != 0     # 3 stages beside Q: 242 KB
+    assert call(2, 5, 11, 2, 1) != 0     # a chunk of 11 of 10 panels
+    assert call(*plan[:2], plan.chunk, plan.ring, int(plan.q_resident)) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(),
+                               ref.flash_attention(q, k, v, True).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+TF32_256_CASES = [(129, 0, "cp.async4"), (160, 0, "cp.async16"),
+                  (160, 1, "cp.async4"), (200, 0, "cp.async16"),
+                  (255, 0, "cp.async4"), (256, 0, "cp.async16"),
+                  (256, 2, "cp.async4")]
+
+
+@pytest.mark.parametrize("D,offset,load", TF32_256_CASES)
+@pytest.mark.parametrize("S", [1, 100, 300, 1031])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_3xtf32_256_matches_plain(cuda, D, offset, load, S,
+                                                  causal):
+    """The 3xTF32 kernel's D-256 instantiation (64 query rows, two warps on
+    each 16 rows holding half the columns each, 32-key tiles) on both load
+    paths (16-byte cp.async, and 4-byte where D % 4 or the rows' alignment
+    rule it out); D 129..192 leaves the second half's warps one to eight
+    column tiles; its own launch counter and no other; 2e-4, float32's
+    bar."""
+    q, k, v = fa_inputs(2, S, 3, D, "float32", cuda, offset)
+    assert fa_mod.path(q, k, v) == f"3xtf32_256/{load}"
+    got = launched_once("3xtf32_256", q, k, v, causal)
+    torch.testing.assert_close(got, ref.flash_attention(q, k, v, causal),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_3xtf32_256_is_deterministic(cuda):
+    q, k, v = fa_inputs(2, 1031, 4, 256, "float32", cuda)
+    assert torch.equal(fa_mod.flash_attention(q, k, v),
+                       fa_mod.flash_attention(q, k, v))
 
 
 # ---- flash decoding, split-KV ----------------------------------------------

@@ -175,19 +175,27 @@ def test_jacobi2d_bfloat16(shape):
 
 # ---- head widths past 128 ------------------------------------------------
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [256, 160])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("D", [256, 160, 640, 1100])
 def test_flash_attention_wide_heads(dtype, D):
-    """Float32 past 128 columns takes the wide SIMT route, the 16-bit
-    types the wgmma kernel's D-256 instantiation."""
+    """Float32 at 129..256 columns takes the 3xTF32 kernel's D-256
+    instantiation and past 256 the wide SIMT route; the 16-bit types the
+    wgmma kernel's D-256 instantiation, and past 512 its sliced kernel
+    (D 640: two slices of 5 panels, Q resident; D 1,100: three of 6, Q
+    streamed)."""
     arrs = [normal((1, 128, 2, D), s).astype(np.float32) for s in (19, 20,
                                                                     21)]
     want = ref_ops.flash_attention(*(jnp.asarray(a, JDT[dtype])
                                      for a in arrs),
                                    bq=64, bk=64, interpret=True)
     q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs)
-    assert fa_mod.path(q, k, v) == (fa_mod.WIDE if dtype == "float32"
-                                    else "wgmma256/tma")
+    if dtype == "float32":
+        route = "3xtf32_256/cp.async16" if D <= 256 else fa_mod.WIDE
+    else:
+        route = ("wgmma256/tma" if D <= 256 else
+                 "wgmma_sliced/tma" if D % 8 == 0 else
+                 "wgmma_sliced/cp.async")
+    assert fa_mod.path(q, k, v) == route
     got = ops.flash_attention(q, k, v)
     assert got.dtype == q.dtype and got.shape == q.shape
     close(got, want, 2e-4 if dtype == "float32" else 2e-2)

@@ -115,16 +115,12 @@ def fa_pair(types, D, causal, seed, S=16):
         *(to_jax(a, t) for a, t in zip(arrs, types)), bq=S, bk=S,
         causal=causal, interpret=True)
     ts = [to_torch(a, t) for a, t in zip(arrs, types)]
-    before = (fa_mod.flash_attention.launches,
-              fa_mod.flash_attention.wgmma256_launches,
-              fa_mod.flash_attention.wgmma512_launches,
-              fa_mod.flash_attention.wide_launches)
+    counters = lambda: {n: getattr(fa_mod.flash_attention, n)
+                        for n in set(fa_mod.COUNTERS.values())}
+    before = counters()
     got = ops.flash_attention(*ts, causal=causal, device="cpu")
     got_mod = fa_mod.flash_attention(*ts, causal=causal)
-    assert (fa_mod.flash_attention.launches,
-            fa_mod.flash_attention.wgmma256_launches,
-            fa_mod.flash_attention.wgmma512_launches,
-            fa_mod.flash_attention.wide_launches) == before   # plain version
+    assert counters() == before   # the plain version: no route's launch
     return want, got, got_mod
 
 
