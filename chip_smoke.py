@@ -5,12 +5,13 @@
 
 Phases, one line each; any failure exits nonzero and nothing is caught:
 
-1. device: the card's name and power limit (nvidia-smi), then the twelve
+1. device: the card's name and power limit (nvidia-smi), then the eleven
    CUDA sources of ``src/repro_torch/csrc`` built with nvcc, one process
    per source, all at once, with each build's ptxas lines (and those of
    the flash-attention kernel's D-256 and D-512 instantiations, its
-   sliced kernel and its float32 D-256 instantiation apart, failing on
-   any spill of the last two), and the count of tensor-core instructions
+   sliced kernels and its float32 D-256 instantiation apart, failing on
+   any spill of the last three, and those of the SSD scan's chunk
+   kernels), and the count of tensor-core instructions
    (HGMMA, HMMA) in the flash-attention library's SASS where the toolkit
    has ``cuobjdump``;
 2. Black-Scholes at its PARSEC-large size (65,536 options x 100 runs =
@@ -40,11 +41,12 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    kernel's D-256 instantiation, bfloat16 at D 512 on its D-512
    instantiation, float32 at gemma's width on the 3xTF32 kernel's D-256
    instantiation, bfloat16 and float16 at D 640 on the sliced kernel,
-   float32 at D 512 on the SIMT route, and a call of mixed types), flash
+   float32 at D 512 on the 3xTF32 sliced kernel, and a call of mixed
+   types), flash
    decoding (float32, a
    float16 cache, bfloat16 at D 512, and a call of mixed types; the split
-   kernel and its combine) and the Mamba-2 SSD scan through
-   ``kernels.ops`` at their PARSEC / Rodinia / app input sizes, and
+   kernel and its combine) and the Mamba-2 SSD scan (its three passes)
+   through ``kernels.ops`` at their PARSEC / Rodinia / app input sizes, and
    Jacobi-2D for RiVec's 4,000 sweeps; each output checked on its own terms
    (shape, range, a float64 or numpy reference that shares no code with
    the port);
@@ -55,12 +57,13 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    them: flash attention in float16 at the app's width and in bfloat16 and
    float16 at gemma-7b's (D 256), bfloat16 at D 512 (``wgmma512``),
    float32 at gemma's width (S 1,024, ``3xtf32_256``), bfloat16 and
-   float16 at D 640 (``wgmma_sliced``), float32 at D 512 (the SIMT route)
-   and one call of mixed types,
+   float16 at D 640 (``wgmma_sliced``), float32 at D 512
+   (``3xtf32_sliced``) and one call of mixed types,
    decoding from a bfloat16 and a float16 cache, at D 512 and of mixed
    types, and decoding's split and combine kernels each alone,
    streamcluster in float16, Jacobi-2D in bfloat16 and the SSD scan at P
-   256; for flash
+   256 (each SSD row also timed pass by pass, beside its bytes bound and
+   its operations bound at the 3xTF32 rate and on the FMA pipes); for flash
    attention also its load path, the wrapper's host time a call, its
    TFLOP/s and the exponential co-bound (float32: the 3xTF32 tensor-core
    bound beside the float32 SIMT one); for the particle filter the path
@@ -69,7 +72,8 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    164;
 7. the ``kernels`` JSON line (eighteen entries: flash attention's D-256
    and D-512 wgmma instantiations, its sliced kernel, its float32 D-256
-   instantiation and its SIMT route, the particle filter's shuffled row,
+   instantiation and its float32 sliced kernel, the particle filter's
+   shuffled row,
    and decoding's combine kernel, each their own;
    the particle filter's rows name their path), launch counts from phases
    4 and 5;
@@ -156,7 +160,7 @@ FA_GEMMA = (1, 4_096, 16, 256)
 FA_GEMMA_F32 = (1, 1_024, 16, 256)
 # heads of 512 columns: the wgmma kernel's D-512 instantiation; of 640,
 # past it: its sliced kernel (two output slices of 320 columns, Q
-# resident); and float32 heads of 512, the SIMT route's last case
+# resident); and float32 heads of 512, on the 3xTF32 sliced kernel
 FA_D512 = (1, 2_048, 8, 512)
 FA_D640 = (1, 1_024, 4, 640)
 FA_F32_D512 = (1, 1_024, 8, 512)
@@ -180,7 +184,7 @@ FA_ROUTES = {"flash_attention_wgmma256": "wgmma256_launches",
              "flash_attention_wgmma512": "wgmma512_launches",
              "flash_attention_sliced": "sliced_launches",
              "flash_attention_3xtf32_256": "tf32_256_launches",
-             "flash_attention_wide": "wide_launches"}
+             "flash_attention_3xtf32_sliced": "tf32_sliced_launches"}
 
 
 def fail(msg: str) -> None:
@@ -874,18 +878,34 @@ def suite_specs(torch, ref, data, mods):
         tri = q * (q + 1) // 2
         return b * (S // q) * (
             2 * tri * N + H * (2 * tri + 2 * tri * P + 4 * q * P * N))
+    # The kernels run every product as 3xTF32 on the tensor cores, so the
+    # operations bound is three TF32 products a product at 495 TFLOP/s, as
+    # for float32 attention (phase 6 prints the FMA pipes' one beside it).
+    # Each row also times the kernels' three passes alone: the chunk pass,
+    # the state pass (in place on a buffer of start states: the same
+    # traffic every call) and the output pass.
+    from repro_torch.kernels import ssd_scan as ssd_mod
     for name, key in (("ssd_scan", "ssd"), ("ssd_scan_p256", "ssd_wide")):
         x, dt, A, B, C = args = data[key]
         dims = (*x.shape, B.shape[-1])
         ssd_ops = min(ssd_ops_at(q, *dims) for q in range(1, dims[1] + 1)
                       if dims[1] % q == 0)
+        ssd_pl = ssd_mod.plan(*dims[1:])
+        Z, seg = ssd_mod.chunk_states(x, dt, A, B, ssd_pl)
+        ssd_mod.state_pass(Z, seg)
         specs.append(dict(
             name=name, kernel=lambda a=args: ssd_k(*a, SSD_CHUNK),
             plain=lambda a=args: ref.ssd_scan(*a, SSD_CHUNK), library=None,
-            tol=(4e-3, 4e-3), peak=PEAK_F32_S,
+            tol=(4e-3, 4e-3), peak=PEAK_TF32_S / 3,
             nbytes=2 * x.numel() * 4
             + sum(t.numel() * 4 for t in (dt, A, B, C)),
-            ops=ssd_ops, per=1, plain_reps=2))
+            ops=ssd_ops, per=1, plain_reps=2,
+            passes=(("chunk pass", lambda a=args, pl=ssd_pl:
+                     ssd_mod.chunk_states(*a[:4], pl)),
+                    ("state pass", lambda Z=Z, seg=seg:
+                     ssd_mod.state_pass(Z, seg)),
+                    ("output pass", lambda a=args, Z=Z, pl=ssd_pl:
+                     ssd_mod.output_pass(*a, Z, pl)))))
     return specs
 
 
@@ -1034,6 +1054,17 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
               " ms a call")
     if "path" in extra:
         print(f"phase 6 {name}: path {extra['path']} (the kernel's flags)")
+    if "passes" in spec:
+        extra["pass_ms"] = {n: cuda_ms(torch, fn, reps=5)
+                            for n, fn in spec["passes"]}
+        print(f"phase 6 {name}: passes "
+              + ", ".join(f"{n} {t:.4f} ms"
+                          for n, t in extra["pass_ms"].items())
+              + f" (sum {sum(extra['pass_ms'].values()):.4f} ms); bytes "
+              f"bound {t_bytes * 1e3:.4f} ms, operations bound "
+              f"{t_ops * 1e3:.4f} ms as 3xTF32 at 495 TFLOP/s, "
+              f"{spec['ops'] / PEAK_F32_S * 1e3:.4f} ms on the FMA pipes "
+              "at 67 TFLOP/s")
     if "path" in spec:
         simt = ("" if spec["simt_ms"] is None else
                 f"; float32 SIMT bound {spec['simt_ms']:.4f} ms at 67 TFLOP/s")
@@ -1103,12 +1134,17 @@ def main() -> int:
             ("D-256", "flash_h16_kernelILi4E", False),
             ("D-512", "flash_h16_kernelILi8E", False),
             ("sliced", "flash_h16_sliced_kernel", True),
-            ("float32 D-256", "flash_f32_kernelILi4E", True)):
+            ("float32 D-256", "flash_f32_kernelILi4E", True),
+            ("float32 sliced", "flash_f32_sliced_kernel", True)):
         lines = entry_lines(report, "flash_attention", entry)
         print(f"phase 1 flash_attention {width} instantiation: {lines}")
         if no_spill and any(int(n) for n in
                             re.findall(r"(\d+) bytes spill", lines)):
             fail(f"flash_attention {width}: ptxas spills ({lines})")
+    # and the SSD scan's chunk kernels (its passes (a) and (c)); the chunk
+    # pass, bound for two blocks an SM, spills a few bytes at 128 registers
+    print(f"phase 1 ssd_scan chunk kernels: "
+          f"{entry_lines(report, 'ssd_scan', 'ssd_chunk_kernel')}")
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} "
           f"sm_clock_max={sm_clock_hz / 1e6:.0f} MHz  build wall {build_s:.1f} s")
 
@@ -1355,6 +1391,7 @@ def main() -> int:
     for counter in set(fa_mod.COUNTERS.values()):
         setattr(fa_mod.flash_attention, counter, 0)
     da_mod.decode_attention.combine_launches = 0
+    ssd_mod.ssd_scan.chunk_launches = ssd_mod.ssd_scan.state_launches = 0
     t0 = time.perf_counter()
     outs = {"swaptions": ops.cum_normal_inv(data["sw"]),
             "streamcluster": ops.streamcluster_dist(*data["sc"]),
@@ -1401,9 +1438,14 @@ def main() -> int:
         launches[name] = getattr(fa_mod.flash_attention, counter)
     launches["decode_attention_combine"] = \
         da_mod.decode_attention.combine_launches
+    # the SSD scan's chunk and state passes (its output pass counts as
+    # ssd_scan.launches)
+    launches["ssd_scan_chunk_pass"] = ssd_mod.ssd_scan.chunk_launches
+    launches["ssd_scan_state_pass"] = ssd_mod.ssd_scan.state_launches
     path_counts = {n: launches[n]
                    for n in (*SUITE_REPLACES, *FA_ROUTES,
-                             "decode_attention_combine")}
+                             "decode_attention_combine",
+                             "ssd_scan_chunk_pass", "ssd_scan_state_pass")}
     # the particle filter's two calls: the path each took, from its flags
     pf_paths = {key: "search" if pf_mod.searched(outs.pop(flags)) else
                 "count" for key, flags in
@@ -1424,7 +1466,7 @@ def main() -> int:
                       ("fa_gemma_f32", "3xtf32_256/cp.async16"),
                       ("fa_d640", "wgmma_sliced/tma"),
                       ("fa_d640_f16", "wgmma_sliced/tma"),
-                      ("fa_f32_d512", fa_mod.WIDE)):
+                      ("fa_f32_d512", "3xtf32_sliced/cp.async16")):
         if fa_mod.path(*data[key]) != want:
             fail(f"flash attention {key} took {fa_mod.path(*data[key])}, "
                  f"not {want}")
@@ -1469,8 +1511,8 @@ def main() -> int:
     # flash attention's routes past 128 columns: the wgmma kernel's D-256
     # instantiation at gemma-7b's width, its D-512 instantiation, its
     # sliced kernel at D 640, the 3xTF32 kernel's D-256 instantiation
-    # (float32 at gemma's width, S 1,024) and the SIMT route (float32 at D
-    # 512); the particle filter's count path (the shuffled CDF; its
+    # (float32 at gemma's width, S 1,024) and its sliced kernel (float32 at
+    # D 512); the particle filter's count path (the shuffled CDF; its
     # launches are the wrapper's, both calls); decoding's combine kernel
     for name, source, row, of, counter in (
             ("flash_attention_wgmma256", "flash_attention",
@@ -1487,9 +1529,9 @@ def main() -> int:
              "flash_attention_3xtf32_256"),
             ("particlefilter_shuffled", "particlefilter",
              "particlefilter_shuffled", "particlefilter", "particlefilter"),
-            ("flash_attention_wide", "flash_attention_wide",
+            ("flash_attention_3xtf32_sliced", "flash_attention",
              "flash_attention_f32_d512", "flash_attention",
-             "flash_attention_wide"),
+             "flash_attention_3xtf32_sliced"),
             ("decode_attention_combine", "decode_attention",
              "decode_attention_combine", "decode_attention",
              "decode_attention_combine")):

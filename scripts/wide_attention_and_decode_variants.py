@@ -43,6 +43,18 @@ were the kernel's first design) and Q streamed in chunks of 3; at D 1,024
 beside chunks of 1, 2 and 4.  Each output is held against the plain version
 (2e-2); times as above, in turns.
 
+The float32 sliced kernel (3xTF32, heads past 256) at ``chip_smoke.py``'s
+D 512 (B 1, S 1,024, H 8, causal): text-substituted copies with other
+register splits between its loader warpgroup and its consumers
+(``LOADER_REGS_FS`` / ``CONSUMER_REGS_FS``), each one's ptxas spill line
+printed and each timed; then the kernel under other plans than the
+wrapper's (``tf32_slice_plan``) through its C entry point: Q resident with
+K in chunks of 4 panels, Q streamed beside K in chunks of 3; and at D
+1,024 (B 1, S 1,024, H 4) the wrapper's plan (Q streamed, chunks of 3)
+beside Q resident in chunks of 1 panel and streamed in chunks of 2 and 4;
+SDPA (TF32 off) beside each shape.  Each output is held against the plain
+version (2e-4); times as above, in turns.
+
 Decoding at the app's shape (B 32, S 4,096, H 8, D 64, ``kv_len`` uniform
 in [1, S] with one batch at 0, as ``chip_smoke.py`` draws it): the plan
 re-made at WAVES 1, 2, 4, 8, 16 and 32 (the wrapper's: 4 from a 16-bit
@@ -54,9 +66,13 @@ host's issue time is not counted), and the whole call again as 10
 back-to-back calls with no spin (the host's issue time counted where it
 exceeds the device's), the settings in turns, for a float32 and a
 bfloat16 query and cache.
+
+    python3 scripts/wide_attention_and_decode_variants.py --only f32-sliced
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import statistics
 import subprocess
 import sys
@@ -78,6 +94,16 @@ SLICED = {(1, 1_024, 4, 640): {"resident-lockstep-5": (1, 5, 4),
           (1, 1_024, 4, 1_024): {"streamed-1": (0, 1, 13),
                                  "streamed-2": (0, 2, 6),
                                  "streamed-4": (0, 4, 3)}}
+# the float32 sliced kernel: its register split, the splits tried beside
+# it, and the plans tried beside the wrapper's at its two shapes
+FS_REGS = "constexpr int LOADER_REGS_FS = 104, CONSUMER_REGS_FS = 200;"
+FS_SPLITS = {"regs-72-216": (72, 216), "regs-88-208": (88, 208),
+             "regs-120-192": (120, 192)}
+F32_SLICED = {(1, 1_024, 8, 512): {"resident-chunk-4": (1, 4, 4),
+                                   "streamed-3": (0, 3, 3)},
+              (1, 1_024, 4, 1_024): {"resident-chunk-1": (1, 1, 2),
+                                     "streamed-2": (0, 2, 5),
+                                     "streamed-4": (0, 4, 2)}}
 # text of the D-512 instantiation that its own two variants replace
 EMPTY_APART = "  static constexpr int EMPTY = NP == 8 ? 2 : 1;"
 PV_GUARD = "        if (pn < nmul)\n"
@@ -243,6 +269,84 @@ def sliced_plans(torch, fa, ref) -> None:
                   "attention)")
 
 
+def f32_sliced(torch, build_mod, fa, ref, fav) -> None:
+    """The float32 sliced kernel: register splits (ptxas spills and
+    times), then plans, each in turns beside the wrapper's."""
+    kernel = (build_mod.CSRC / "flash_attention.cu").read_text()
+    if kernel.count(FS_REGS) != 1:
+        raise SystemExit(f"f32-sliced: {FS_REGS!r} is not in "
+                         "flash_attention.cu once")
+    texts = {"kernel": kernel}
+    for name, (lo, co) in FS_SPLITS.items():
+        texts[name] = kernel.replace(
+            FS_REGS, f"constexpr int LOADER_REGS_FS = {lo}, "
+            f"CONSUMER_REGS_FS = {co};")
+    logs = {}
+    libs = fav.build(build_mod, texts, logs)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, lib in libs.items():
+        lib.flash_attention_sliced_launch.argtypes = [
+            p, p, p, p, i, i, i, i, ctypes.c_float, i, i, i, i, i, i, i, i,
+            p]
+        entry, spills = None, []
+        for ln in logs[name].splitlines():
+            if "Compiling entry function" in ln:
+                entry = ln
+            elif entry and "flash_f32_sliced_kernel" in entry and \
+                    "spill" in ln:
+                spills.append(ln.strip())
+        print(f"f32-sliced {name} ptxas: {' | '.join(spills)}")
+    gen = np.random.default_rng(2111)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for shape, others in F32_SLICED.items():
+        B, S, H, D = shape
+        q, k, v = (torch.from_numpy(gen.standard_normal(
+            shape, dtype=np.float32)).cuda() for _ in range(3))
+        out = torch.empty_like(q)
+        want = ref.flash_attention(q, k, v, True)
+        plan = fa.tf32_slice_plan(D)
+        plans = {"plan": (int(plan.q_resident), plan.chunk, plan.ring),
+                 **others}
+        load = fa.LOADS[fa.path(q, k, v)]
+
+        def call(lib, qres, chunk, ring):
+            code = lib.flash_attention_sliced_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                S, H, D, D ** -0.5, 1, 0, load, plan.n, plan.panels, chunk,
+                ring, qres, torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise SystemExit(f"f32-sliced plan {(qres, chunk, ring)}: "
+                                 f"CUDA error {code}")
+        runs = {f"{lib_name} {name}": (libs[lib_name], args)
+                for lib_name in (libs if D == 512 else ("kernel",))
+                for name, args in plans.items()
+                if lib_name == "kernel" or name == "plan"}
+        for name, (lib, args) in runs.items():
+            out.zero_()
+            call(lib, *args)
+            err = float((out - want).abs().max())
+            if err > 2e-4:
+                raise SystemExit(f"f32-sliced {name}: off the plain version "
+                                 f"by {err}")
+        flops = 4 * D * B * H * S * (S + 1) // 2
+        tq, tk, tv = (t.transpose(1, 2) for t in (q, k, v))
+        runs["SDPA, TF32 off"] = None
+        times = {}
+        for name in list(runs) + list(runs)[::-1]:
+            fn = (lambda: sdpa(tq, tk, tv, is_causal=True)) \
+                if runs[name] is None else \
+                (lambda r=runs[name]: call(r[0], *r[1]))
+            times.setdefault(name, []).append(events_ms(torch, fn, 5))
+        for name, ms in times.items():
+            what = "" if runs[name] is None else \
+                f" (Q resident, panels a chunk, ring: {runs[name][1]})"
+            print(f"f32-sliced B {B} S {S} H {H} D {D} {name}{what}: "
+                  + ", ".join(f"{t:.4f}" for t in ms)
+                  + f" ms ({flops / min(ms) / 1e9:.1f} TFLOP/s of "
+                  "attention)")
+
+
 def decoding(torch, da, ref) -> None:
     B, S, H, D = DECODE
     clock_mhz = float(subprocess.run(
@@ -297,6 +401,11 @@ def decoding(torch, da, ref) -> None:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", choices=("sliced", "attention",
+                                           "f32-sliced", "decoding"),
+                        help="run one section alone")
+    only = parser.parse_args().only
     import torch
     if not torch.cuda.is_available():
         print("wide_attention_and_decode_variants: no CUDA device",
@@ -313,9 +422,14 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    sliced_plans(torch, fa, ref)
-    attention(torch, _build, fa, ref, fav)
-    decoding(torch, da, ref)
+    sections = {"sliced": lambda: sliced_plans(torch, fa, ref),
+                "attention": lambda: attention(torch, _build, fa, ref, fav),
+                "f32-sliced": lambda: f32_sliced(torch, _build, fa, ref,
+                                                 fav),
+                "decoding": lambda: decoding(torch, da, ref)}
+    for name, run in sections.items():
+        if only in (None, name):
+            run()
     return 0
 
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so one
 ``nvcc`` call per source takes seconds.  A source is built at first use into
 ``build/repro_torch/lib<name>-<key>.so`` at the repository root, where
-``<key>`` hashes the source text and the flags: an edited source or a
-changed flag gets a fresh library, an unchanged one is reused.  ``build_all``
+``<key>`` hashes the source text, the ``csrc`` headers it includes
+(``tf32.cuh``) and the flags: an edited source or header or a changed flag
+gets a fresh library, an unchanged one is reused.  ``build_all``
 starts one ``nvcc`` per source at once and waits for all of them.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,8 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 
 SOURCES = ("engine_scan", "blackscholes", "swaptions", "streamcluster",
            "particlefilter", "canneal", "jacobi2d", "pathfinder",
-           "flash_attention", "flash_attention_wide", "decode_attention",
-           "ssd_scan")
+           "flash_attention", "decode_attention", "ssd_scan")
 COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The engine scan must reproduce the reference's float32 arithmetic bit for
@@ -50,12 +51,24 @@ def nvcc() -> str:
 
 
 def flags(name: str) -> tuple[str, ...]:
-    return COMMON_FLAGS + EXTRA_FLAGS.get(name, ())
+    """nvcc's flags for ``csrc/<name>.cu``; ``csrc`` is on the include path,
+    so a copy of a source built elsewhere finds its headers."""
+    return COMMON_FLAGS + EXTRA_FLAGS.get(name, ()) + ("-I", str(CSRC))
+
+
+def headers(name: str) -> list[str]:
+    """The ``csrc`` headers ``<name>.cu`` includes with quotes."""
+    text = (CSRC / f"{name}.cu").read_text()
+    return sorted(set(re.findall(r'^#include "([^"]+)"', text, re.M)))
 
 
 def target(name: str) -> Path:
-    """The library path for the current source text and flags."""
+    """The library path for the current source text, the text of the
+    headers it includes from ``csrc`` and the flags."""
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in headers(name):
+        h.update(header.encode())
+        h.update((CSRC / header).read_bytes())
     h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

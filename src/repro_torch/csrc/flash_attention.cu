@@ -6,11 +6,11 @@
 // tiles so the [S, S] scores never reach device memory.  Inputs float32,
 // bfloat16 or float16, all sums float32, the output in the inputs' type.
 // Routes by (type, D): float32 at D 1..128 and 129..256 the 3xTF32 kernel
-// (NP = 1, 2 and 4 panels); bfloat16 and float16 the wgmma kernel,
-// instantiated for D 1..64, 65..128, 129..256 and 257..512 (NP = 1, 2, 4,
-// 8 panels of 64 columns), and past 512 its sliced kernel
-// (flash_attention_sliced_launch); csrc/flash_attention_wide.cu takes
-// float32 past 256.
+// (NP = 1, 2 and 4 panels), past 256 the 3xTF32 sliced kernel; bfloat16
+// and float16 the wgmma kernel, instantiated for D 1..64, 65..128,
+// 129..256 and 257..512 (NP = 1, 2, 4, 8 panels of 64 columns), and past
+// 512 its sliced kernel (both sliced kernels through
+// flash_attention_sliced_launch).
 //
 // Bound on an H100: operations, 4 * D flops (q.k and p.v) per (query, key)
 // pair the mask keeps, on the tensor cores: 17.2 GFLOP causal at B 4, H 8,
@@ -129,6 +129,30 @@
 // point checks the plan.  The work is (slices x 2 + 1) x 2D flops a pair
 // against the counted 4D: 2.5x at D 640.
 //
+// float32 heads past 256 (the 3xTF32 sliced kernel).  64 query rows of
+// D 512 alone take 132 KB, so a block owns 32 query rows and walks key
+// tiles of 16: Q 66 KB resident, K 33 KB and V 33 KB a tile.  The output
+// is cut into slices of at most eight 64-column panels as the 16-bit
+// sliced kernel cuts it (one slice up to D 512, D 640 2 x 320), one block
+// per (query tile, slice).  The 8 consumer warps are two row groups of 16
+// rows, four warps each; each warp holds a quarter of the slice's output
+// columns (at most 128, 64 accumulator registers a thread) and computes
+// the scores of its 16 rows over a quarter of every panel of D (k-steps
+// 2j and 2j + 1 of 8); the four partial score tiles go through shared
+// memory (two buffers, one named barrier a key tile) and each warp adds
+// them in the same order, so all four hold the same bits of S, m, l and
+// P with no product done twice within a slice: at D 512 the work is the
+// counted 4D a pair.  K (and Q, where it is streamed) comes through a ring
+// of chunks of panels by cp.async; the slice's V rows in two stages of
+// their own; the loader signals each group of copies once the next is
+// issued, so two are in flight.  Q stays resident while it fits beside
+// two chunks of three panels (to D 896): at D 512 a chunk is a
+// whole key tile and the ring its two stages (Q 68 KB + V 2 x 32 KB + K 2
+// x 34 KB + the partial scores 16 KB = 219 KB with the barriers and
+// the alignment); wider, Q is streamed
+// beside K in chunks of three panels.  The host plans it
+// (kernels/flash_attention.py:tf32_slice_plan).
+//
 // Masked scores are the Pallas kernel's finite -1e30 (so a row masked so
 // far gives no NaN), zero-filled key rows past S are masked explicitly, and
 // the output is acc / max(l, 1e-30) as there (flash_attention.py:58-61).
@@ -143,6 +167,8 @@
 
 #include <algorithm>
 #include <type_traits>
+
+#include "tf32.cuh"
 
 namespace {
 
@@ -173,6 +199,11 @@ constexpr int LOADER_REGS8 = 88, CONSUMER_REGS8 = 208;
 // the same 384 x 168.
 constexpr int LOADER_REGS_SL = 120, CONSUMER_REGS_SL = 192;
 constexpr int LOADER_REGS_F4 = 72, CONSUMER_REGS_F4 = 216;
+// The float32 sliced kernel's (runtime ring positions, three load loops)
+// spills 40 bytes at 72 / 216 and 16 at 88 / 208, none at 104 / 200 (and
+// runs 13 % faster than at 72 / 216: scripts/wide_attention_and_decode_
+// variants.py --only f32-sliced).
+constexpr int LOADER_REGS_FS = 104, CONSUMER_REGS_FS = 200;
 constexpr float NEG_INF = -1e30f;    // flash_attention.py:17
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -469,66 +500,7 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float* d, const uint32_t* a, uin
     WGMMA_RS_N64_TB("bf16");
 }
 
-// ---- 3xTF32 -----------------------------------------------------------------
-
-// x ~ big + small, each a TF32 value (the low 13 mantissa bits zero): big
-// is x truncated, x - big is exact, and small is that rest truncated, so
-// the split loses under 2^-20 |x|.  Masks, not cvt.rna.tf32.f32: that
-// conversion costs four instructions a value, and the split runs for every
-// fragment element of K and V in every warp.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = __float_as_uint(x) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment split once into its big and small halves.
-struct SplitA {
-  uint32_t big[4], small[4];
-};
-
-__device__ __forceinline__ SplitA split_a(float a0, float a1, float a2,
-                                          float a3) {
-  SplitA s;
-  split_tf32(a0, s.big[0], s.small[0]);
-  split_tf32(a1, s.big[1], s.small[1]);
-  split_tf32(a2, s.big[2], s.small[2]);
-  split_tf32(a3, s.big[3], s.small[3]);
-  return s;
-}
-
-// d[4 nt ..] += a * b(nt) in 3xTF32 for the n-tiles nt < n (of NT), B
-// fragment (b0[nt], b1[nt]): the two cross terms first, then big * big.
-// Each pass runs over all the tiles, so the three products into one
-// accumulator sit n instructions apart (an HMMA's latency is ~30 cycles).
-template <int NT>
-__device__ __forceinline__ void mma_3xtf32(float* d, const SplitA& a,
-                                           const float* b0, const float* b1,
-                                           int n) {
-  uint32_t bb[NT][2], bs[NT][2];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    split_tf32(b0[nt], bb[nt][0], bs[nt][0]);
-    split_tf32(b1[nt], bb[nt][1], bs[nt][1]);
-  }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-    if (nt < n) mma_tf32(&d[4 * nt], a.small, bb[nt][0], bb[nt][1]);
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-    if (nt < n) mma_tf32(&d[4 * nt], a.big, bs[nt][0], bs[nt][1]);
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-    if (nt < n) mma_tf32(&d[4 * nt], a.big, bb[nt][0], bb[nt][1]);
-}
+// ---- 3xTF32: split_tf32, mma_tf32, split_a, mma_3xtf32 (tf32.cuh) ------
 
 // ---- shared-memory layouts -------------------------------------------------
 
@@ -587,6 +559,35 @@ struct SlicedSmem {
     s.v = s.q + (qres ? nq * SL_PANEL_Q : 0);
     s.ring = s.v + 2 * panels * SL_PANEL_K;
     s.chunk = cpanels * (SL_PANEL_K + (qres ? 0 : SL_PANEL_Q));
+    s.bytes = s.ring + ring * s.chunk + 1024;   // + the alignment
+    return s;
+  }
+};
+
+// The float32 sliced kernel's shared memory, from its plan: the barriers
+// (as above), two buffers of the consumer warps' partial scores (8 warps x
+// 16 rows x 16 keys each), Q's panels when resident, two stages of the
+// slice's V rows, then the ring of R chunks, each `cpanels` of a key
+// tile's panels of K and, when Q is streamed, as many of Q's after them.
+// A panel is 64 columns of float32 rows padded by 4 floats (conflict-free
+// fragment reads); V's rows hold the slice's columns, padded by 4.
+constexpr int FS_BQ = 32, FS_BK = 16;      // query rows a block, keys a tile
+constexpr int FS_LD = 68;                  // floats a panel's row
+constexpr int FS_PANEL_Q = FS_BQ * FS_LD * 4, FS_PANEL_K = FS_BK * FS_LD * 4;
+constexpr int FS_XCHG = 2 * 8 * 16 * 16 * 4;
+
+struct F32SlicedSmem {
+  int xchg, q, v, vld, ring, chunk, bytes;
+  __host__ __device__ static F32SlicedSmem of(int nq, int panels,
+                                              int cpanels, int ring,
+                                              int qres) {
+    F32SlicedSmem s;
+    s.xchg = SL_BARS;
+    s.q = s.xchg + FS_XCHG;
+    s.v = s.q + (qres ? nq * FS_PANEL_Q : 0);
+    s.vld = 64 * panels + 4;
+    s.ring = s.v + 2 * FS_BK * s.vld * 4;
+    s.chunk = cpanels * (FS_PANEL_K + (qres ? 0 : FS_PANEL_Q));
     s.bytes = s.ring + ring * s.chunk + 1024;   // + the alignment
     return s;
   }
@@ -680,6 +681,38 @@ __device__ __forceinline__ void load_f32_tile(float* dst, const float* src,
 }
 
 // ---- the kernels ------------------------------------------------------------
+
+// Rows [row0, row0 + R) of one float32 head, `cols` columns from element
+// `base` on, into a [R][ld] tile by cp.async; rows past S and columns past
+// `live` are zero.  LOAD_CP16 needs cols, live and the rows' alignment
+// multiples of 4 floats.
+template <int R>
+__device__ __forceinline__ void load_f32_rows(float* dst, int ld,
+                                              const float* src,
+                                              long long base, int row0,
+                                              int S, int cols, int live,
+                                              long long rstride, int mode,
+                                              int tid) {
+  if (mode == LOAD_CP16) {
+    const int c4 = cols / 4;
+    for (int e = tid; e < R * c4; e += 128) {
+      const int r = e / c4, c = (e % c4) * 4;
+      const bool ok = row0 + r < S && c < live;
+      cp_async<16>(dst + r * ld + c,
+                   ok ? src + base + (long long)(row0 + r) * rstride + c : src,
+                   ok);
+    }
+  } else {
+    for (int e = tid; e < R * cols; e += 128) {
+      const int r = e / cols, c = e % cols;
+      const bool ok = row0 + r < S && c < live;
+      cp_async<4>(dst + r * ld + c,
+                  ok ? src + base + (long long)(row0 + r) * rstride + c : src,
+                  ok);
+    }
+  }
+}
+
 
 struct Tile {          // what every thread of a block knows of its work
   int q0, b, h, n_kt;
@@ -1488,6 +1521,224 @@ flash_h16_sliced_kernel(const __grid_constant__ CUtensorMap tq,
                           t, l);
 }
 
+// The float32 sliced kernel, heads past 256: one block per (query tile of
+// 32 rows, output slice); see the header for the design.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_f32_sliced_kernel(const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const int nq = (p.D + 63) / 64, R = p.ring;   // panels of D, chunks
+  const int G = p.cpanels;                        // panels a chunk
+  const bool qres = p.qres != 0;
+  const F32SlicedSmem L = F32SlicedSmem::of(nq, p.panels, G, R, p.qres);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);   // [0]: Q full
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + R;
+  uint64_t* vfull = bars + 1 + 2 * R;
+  uint64_t* vempty = bars + 3 + 2 * R;
+  float* Qs = reinterpret_cast<float*>(smem + L.q);
+  float* Vs = reinterpret_cast<float*>(smem + L.v);
+  const Tile tl = tile_of<FS_BQ, FS_BK>(p);
+  // this block's slice: V's panels vp0 .. vp0 + nv - 1
+  const int vp0 = (blockIdx.x % p.slices) * p.panels;
+  const int nv = min(p.panels, nq - vp0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + R; ++i) mbar_init(&bars[i], 128);
+    for (int i = 0; i < R; ++i) mbar_init(&empty[i], 8);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&vfull[i], 128);
+      mbar_init(&vempty[i], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // the ring's position: chunk `slot` in its `round`-th use
+  int slot = 0, round = 0;
+  auto next = [&] {
+    if (++slot == R) {
+      slot = 0;
+      ++round;
+    }
+  };
+
+  if (threadIdx.x < 128) {   // ---- the loader warpgroup ----
+    regs_dealloc<LOADER_REGS_FS>();
+    const int tid = threadIdx.x;
+    const auto* q = static_cast<const float*>(p.q);
+    const auto* k = static_cast<const float*>(p.k);
+    const auto* v = static_cast<const float*>(p.v);
+    // each group of copies is signalled once the group after it is
+    // issued, so two are in flight
+    uint64_t* pending = nullptr;
+    auto issued = [&](uint64_t* bar) {
+      cp_async_commit();
+      if (pending != nullptr) {
+        cp_async_wait<1>();
+        mbar_arrive(pending);
+      }
+      pending = bar;
+    };
+    if (qres) {
+      for (int pn = 0; pn < nq; ++pn)
+        load_f32_rows<FS_BQ>(Qs + pn * (FS_PANEL_Q / 4), FS_LD, q,
+                             tl.base + 64 * pn, tl.q0, p.S, 64,
+                             p.D - 64 * pn, tl.rstride, p.load, tid);
+      issued(&bars[0]);
+    }
+    for (int it = 0; it < tl.n_kt; ++it) {
+      const int k0 = (tl.n_kt - 1 - it) * FS_BK;
+      for (int pn0 = 0; pn0 < nq; pn0 += G, next()) {   // a chunk
+        if (round > 0) mbar_wait(&empty[slot], (round - 1) & 1);
+        float* c = reinterpret_cast<float*>(smem + L.ring + slot * L.chunk);
+        for (int pn = pn0; pn < min(pn0 + G, nq); ++pn) {
+          load_f32_rows<FS_BK>(c + (pn - pn0) * (FS_PANEL_K / 4), FS_LD, k,
+                               tl.base + 64 * pn, k0, p.S, 64, p.D - 64 * pn,
+                               tl.rstride, p.load, tid);
+          if (!qres)
+            load_f32_rows<FS_BQ>(
+                c + (G * FS_PANEL_K + (pn - pn0) * FS_PANEL_Q) / 4, FS_LD, q,
+                tl.base + 64 * pn, tl.q0, p.S, 64, p.D - 64 * pn, tl.rstride,
+                p.load, tid);
+        }
+        issued(&full[slot]);
+      }
+      const int s = it & 1;
+      if (it >= 2) mbar_wait(&vempty[s], ((it >> 1) - 1) & 1);
+      load_f32_rows<FS_BK>(Vs + s * FS_BK * L.vld, L.vld, v,
+                           tl.base + 64 * vp0, k0, p.S, 64 * nv,
+                           p.D - 64 * vp0, tl.rstride, p.load, tid);
+      issued(&vfull[s]);
+    }
+    cp_async_wait<0>();
+    if (pending != nullptr) mbar_arrive(pending);
+    return;
+  }
+
+  // ---- the consumer warps: two row groups of 16 rows, four warps each ----
+  regs_alloc<CONSUMER_REGS_FS>();
+  const int cw = threadIdx.x / 32 - 4, rg = cw >> 2, qj = cw & 3;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int row = tl.q0 + 16 * rg + g;   // and row + 8
+  // the warp's output: n-tiles (8 columns) qj * ntq .. of the slice's live
+  // ones, from column c0
+  const int ntq = 2 * p.panels;
+  const int n_live = min(8 * nv, (p.D - 64 * vp0 + 7) / 8);
+  const int n_ot = min(ntq, max(0, n_live - qj * ntq));
+  const int c0 = 8 * qj * ntq;   // within the slice
+  const int S = p.S;
+  const float scale_log2 = p.scale_log2;
+  const bool causal = p.causal != 0;
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  float* xchg = reinterpret_cast<float*>(smem + L.xchg);
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  if (qres) mbar_wait(&bars[0], 0);
+
+  for (int it = 0; it < tl.n_kt; ++it) {
+    const int k0 = (tl.n_kt - 1 - it) * FS_BK;
+    // S = Q K^T over the warp's quarter of each panel's columns (k-steps
+    // 2 qj and 2 qj + 1 of 8), chunk by chunk through the ring
+    float sc[FS_BK / 2];
+#pragma unroll
+    for (int i = 0; i < FS_BK / 2; ++i) sc[i] = 0.0f;
+    for (int pn0 = 0; pn0 < nq; pn0 += G) {
+      const int cnt = min(G, nq - pn0);
+      mbar_wait(&full[slot], round & 1);
+      const float* c =
+          reinterpret_cast<const float*>(smem + L.ring + slot * L.chunk);
+      for (int j = 0; j < cnt; ++j) {
+        const int pn = pn0 + j;
+        const float* kp = c + j * (FS_PANEL_K / 4);
+        const float* qp = (qres ? Qs + pn * (FS_PANEL_Q / 4)
+                                : c + (G * FS_PANEL_K + j * FS_PANEL_Q) / 4) +
+                          16 * rg * FS_LD;
+#pragma unroll
+        for (int kq = 0; kq < 2; ++kq) {
+          const int col = 8 * (2 * qj + kq) + t;
+          if (64 * pn + col - t >= p.D) break;   // columns past D
+          const SplitA a = split_a(qp[g * FS_LD + col], qp[(g + 8) * FS_LD + col],
+                                   qp[g * FS_LD + col + 4],
+                                   qp[(g + 8) * FS_LD + col + 4]);
+          float b0[2], b1[2];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            b0[nt] = kp[(8 * nt + g) * FS_LD + col];
+            b1[nt] = kp[(8 * nt + g) * FS_LD + col + 4];
+          }
+          mma_3xtf32<2>(sc, a, b0, b1, 2);
+        }
+      }
+      release(&empty[slot]);
+      next();
+    }
+    // the row group's four partial sums, added in one order by all four
+    // warps, so they hold the same bits of S, m, l and P
+    float* xb = xchg + (it & 1) * 8 * 256;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) xb[cw * 256 + i * 32 + lane] = sc[i];
+    named_sync(1);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float* x0 = xb + 4 * rg * 256 + i * 32 + lane;
+      sc[i] = ((x0[0] + x0[256]) + x0[512]) + x0[768];
+    }
+
+    // only the tiles that reach past S or above this row group's first row
+    // mask
+    const bool mask = k0 + FS_BK > S || (causal && k0 + FS_BK - 1 > row - g);
+    float corr[2], rs[2];
+    online_softmax<FS_BK / 2>(sc, m, corr, rs, scale_log2, S, causal, row,
+                              k0, t, mask);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    // O += P V, the accumulator fragment reused as the A fragment (keys 2t
+    // and 2t + 1 as columns t and t + 4, V's rows read in that order)
+    const int s = it & 1;
+    mbar_wait(&vfull[s], (it >> 1) & 1);
+    const float* vs = Vs + s * FS_BK * L.vld;
+#pragma unroll
+    for (int kk = 0; kk < FS_BK / 8; ++kk) {
+      const SplitA a = split_a(sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1],
+                               sc[4 * kk + 3]);
+      const float* v0 = vs + (8 * kk + 2 * t) * L.vld + c0 + g;
+      float b0[16], b1[16];   // column tiles past the warp's are skipped
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        b0[nt] = nt < n_ot ? v0[8 * nt] : 0.0f;
+        b1[nt] = nt < n_ot ? v0[L.vld + 8 * nt] : 0.0f;
+      }
+      mma_3xtf32<16>(o, a, b0, b1, n_ot);
+    }
+    release(&vempty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+    if (rr >= S) continue;
+    const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+    float* orow = static_cast<float*>(p.o) + tl.base + (long long)rr * tl.rstride;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+      if (nt < n_ot)
+        store_pair(orow, 64 * vp0 + c0 + 8 * nt + 2 * t, p.D,
+                   o[4 * nt + 2 * r] * inv, o[4 * nt + 2 * r + 1] * inv);
+  }
+}
+
 // ---- host side -----------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1633,12 +1884,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return launch(flash_f32_kernel<4>, F32Smem<4>::BYTES, grid, st, p);
 }
 
-// The sliced kernel: q, k, v, o contiguous [b, s, h, d] of `dtype` 1
-// bfloat16 or 2 float16 (meant for d > 512; any d >= 1 runs), `load` as
-// above, and the plan (kernels/flash_attention.py:slice_plan): `slices`
-// output slices of `panels` 64-column panels (the last may hold fewer),
-// `ring` chunks of `cpanels` panels, Q resident in shared memory when
-// `qres` is 1.  Returns
+// The sliced kernels: q, k, v, o contiguous [b, s, h, d] of `dtype` 1
+// bfloat16 or 2 float16 (the wgmma kernel, meant for d > 512) or 0 float32
+// (the 3xTF32 kernel, meant for d > 256); any d >= 1 runs.  `load` as
+// above, and the plan (kernels/flash_attention.py:slice_plan, and
+// tf32_slice_plan for float32): `slices` output slices of `panels`
+// 64-column panels (the last may hold fewer), `ring` chunks of `cpanels`
+// panels, Q resident in shared memory when `qres` is 1.  Returns
 // cudaErrorInvalidValue for a plan that does not cover d, leaves a slice
 // empty or does not fit shared memory.
 extern "C" int flash_attention_sliced_launch(
@@ -1648,15 +1900,39 @@ extern "C" int flash_attention_sliced_launch(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   const int nq = (d + 63) / 64;
-  if (d < 1 || (dtype != 1 && dtype != 2) || panels < 1 || panels > 8 ||
+  const bool f32 = dtype == 0;
+  if (d < 1 || dtype < 0 || dtype > 2 || panels < 1 || panels > 8 ||
       slices < 1 || (long long)slices * panels < nq ||
       (slices - 1) * panels >= nq || ring < 2 || ring > SL_RING_MAX ||
       cpanels < 1 || cpanels > nq || (qres != 0 && qres != 1) ||
-      SlicedSmem::of(nq, panels, cpanels, ring, qres).bytes > SMEM_MAX)
+      (f32 ? F32SlicedSmem::of(nq, panels, cpanels, ring, qres).bytes
+           : SlicedSmem::of(nq, panels, cpanels, ring, qres).bytes) >
+          SMEM_MAX)
     return bad;
   auto all_aligned = [&](int n) {
     return aligned(q, n) && aligned(k, n) && aligned(v, n);
   };
+  if (f32) {
+    if ((load == LOAD_CP16 && (d % 4 || !all_aligned(16))) ||
+        (load != LOAD_CP16 && load != LOAD_CP4))
+      return bad;
+    const long long kv_head = 2ll * s * d * 4;
+    const int group = (int)std::max(
+        1ll, std::min((long long)b * h, (long long)(L2_GROUP_BYTES / kv_head)));
+    Params p{q, k, v, o, s, h, d, scale * LOG2E, causal, load, b * h, group};
+    p.slices = slices;
+    p.panels = panels;
+    p.cpanels = cpanels;
+    p.ring = ring;
+    p.qres = qres;
+    const long long blocks =
+        (long long)((s + FS_BQ - 1) / FS_BQ) * b * h * slices;
+    if (blocks > 0x7fffffffll)
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    return launch(flash_f32_sliced_kernel,
+                  F32SlicedSmem::of(nq, panels, cpanels, ring, qres).bytes,
+                  dim3((unsigned)blocks), st, p);
+  }
   if ((load == LOAD_TMA && (d % 8 || !all_aligned(16))) ||
       (load == LOAD_CP4 && (d % 2 || !all_aligned(4))) ||
       (load != LOAD_TMA && load != LOAD_CP4 && load != LOAD_LD2))

@@ -30,13 +30,15 @@ The routes, by type and D (any S):
   output slices of at most 512 columns, one block each, every block
   computing the scores over all of D with Q resident or streamed, as
   ``slice_plan`` says), counted by ``flash_attention.sliced_launches``;
-- float32 past 256 only: a float32 SIMT kernel
-  (``csrc/flash_attention_wide.cu``, ``simt/wide``), counted by
-  ``flash_attention.wide_launches``, which splits D past 256 into output
-  slices of 256 columns.
+- float32 past 256: the 3xTF32 sliced kernel (``3xtf32_sliced/*``: 32
+  query rows a block, 16-key tiles, output slices of at most 512 columns,
+  one block each, four warps on each 16 rows splitting D for the scores
+  and summing their partial scores in one order; Q resident or streamed,
+  as ``tf32_slice_plan`` says), counted by
+  ``flash_attention.tf32_sliced_launches``.
 
-``path`` names the route and, on the tensor cores, how the tiles are
-loaded, from the type, D and the pointers' alignment.
+``path`` names the route and how the tiles are loaded, from the type, D
+and the pointers' alignment.
 
 Operands the kernels do not take as they are (64-bit, mixed or integer
 types) are converted first by the reference's rule (``_promote``): the
@@ -59,8 +61,8 @@ NAME = "flash_attention"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the widest head of the tensor-core kernels in every type (128 query rows
 # a block), of their D-256 instantiations, and of the 16-bit D-512 one;
-# the 16-bit types past it take the sliced kernel, float32 past
-# MAX_D_256 the SIMT route
+# the 16-bit types past it, and float32 past MAX_D_256, take the sliced
+# kernels
 MAX_D_TC, MAX_D_256, MAX_D_512 = 128, 256, 512
 # at most this many heads B * H (the C entry point also refuses a grid of
 # more than 2^31 - 1 blocks, query tiles x B * H, x slices)
@@ -71,21 +73,22 @@ MAX_BH = 65_535
 # float32 by 16- or 4-byte cp.async.  The products run on the tensor cores
 # on every path; ``wgmma256`` and ``wgmma512`` are the 16-bit kernel's D-256
 # and D-512 instantiations, ``wgmma_sliced`` its sliced kernel,
-# ``3xtf32_256`` the float32 kernel's D-256 instantiation.  Float32 heads
-# wider than MAX_D_256 take the path WIDE.
+# ``3xtf32_256`` the float32 kernel's D-256 instantiation and
+# ``3xtf32_sliced`` its sliced kernel.
 LOADS = {"wgmma/tma": 0, "wgmma/cp.async": 4, "wgmma/ld": 2,
          "wgmma256/tma": 0, "wgmma256/cp.async": 4, "wgmma256/ld": 2,
          "wgmma512/tma": 0, "wgmma512/cp.async": 4, "wgmma512/ld": 2,
          "wgmma_sliced/tma": 0, "wgmma_sliced/cp.async": 4,
          "wgmma_sliced/ld": 2,
          "3xtf32/cp.async16": 16, "3xtf32/cp.async4": 4,
-         "3xtf32_256/cp.async16": 16, "3xtf32_256/cp.async4": 4}
-WIDE = "simt/wide"
+         "3xtf32_256/cp.async16": 16, "3xtf32_256/cp.async4": 4,
+         "3xtf32_sliced/cp.async16": 16, "3xtf32_sliced/cp.async4": 4}
 # the launch counter of each route's kernel
 COUNTERS = {"wgmma": "launches", "3xtf32": "launches",
             "3xtf32_256": "tf32_256_launches",
             "wgmma256": "wgmma256_launches", "wgmma512": "wgmma512_launches",
-            "wgmma_sliced": "sliced_launches", "simt": "wide_launches"}
+            "wgmma_sliced": "sliced_launches",
+            "3xtf32_sliced": "tf32_sliced_launches"}
 
 # The sliced kernel's shared memory (csrc/flash_attention.cu, SlicedSmem):
 # what a block may use on an H100, the alignment and the barriers' 1024
@@ -123,6 +126,38 @@ def slice_plan(D: int) -> Slices:
     return Slices(n, panels, False, chunk, ring)
 
 
+# The float32 sliced kernel's (csrc/flash_attention.cu, F32SlicedSmem): 32
+# query rows and 16-key tiles of 64-column panels whose rows are padded by
+# 4 floats, and the consumer warps' partial scores (two buffers of 8 x 16
+# x 16 floats) beside the barriers and the alignment.
+F32_PANEL_Q, F32_PANEL_K = 32 * 68 * 4, 16 * 68 * 4
+F32_SMEM_FIXED = SMEM_FIXED + 2 * 8 * 16 * 16 * 4
+
+
+def tf32_slice_plan(D: int) -> Slices:
+    """The float32 sliced kernel's plan: slices as ``slice_plan`` cuts
+    them (at most 8 panels, the same count each where D allows), V's two
+    stages of a slice's 16-key rows, and Q resident while it fits beside
+    two chunks of three panels of K (or of the whole tile, if shorter): a
+    chunk then as many panels of a key tile as fit twice (the whole tile
+    to D 576), the ring as many chunks as fit (to D 896).  Wider, chunks
+    of three panels of K and Q's beside them."""
+    nq = -(-D // 64)
+    panels = -(-nq // -(-nq // 8))
+    n = -(-nq // panels)
+    room = (SMEM_MAX - F32_SMEM_FIXED
+            - 2 * 16 * (64 * panels + 4) * 4)
+    left = room - nq * F32_PANEL_Q
+    if left >= 2 * min(3, nq) * F32_PANEL_K:
+        chunk = min(nq, left // (2 * F32_PANEL_K))
+        return Slices(n, panels, True, chunk,
+                      min(RING_MAX, left // (chunk * F32_PANEL_K)))
+    pair = F32_PANEL_K + F32_PANEL_Q
+    chunk = min(3, nq, room // (2 * pair))
+    return Slices(n, panels, False, chunk,
+                  min(RING_MAX, room // (chunk * pair)))
+
+
 def _check_args(q, k, v):
     _check.tensor(NAME, "q", q, DTYPES, 4)
     for name, t in (("k", k), ("v", v)):
@@ -150,14 +185,12 @@ def _alignment(*ts) -> int:
 
 def path(q, k, v) -> str:
     """The kernel's path for these operands (of one type the kernels
-    take): ``WIDE`` for float32 above ``MAX_D_256``, else a key of
-    ``LOADS`` (a row of one head starts at a multiple of D elements, so D
-    and the base pointers decide its alignment)."""
+    take), a key of ``LOADS`` (a row of one head starts at a multiple of D
+    elements, so D and the base pointers decide its alignment)."""
     D, a = q.shape[-1], _alignment(q, k, v)
     if q.dtype == torch.float32:
-        if D > MAX_D_256:
-            return WIDE
-        kernel = "3xtf32" if D <= MAX_D_TC else "3xtf32_256"
+        kernel = ("3xtf32" if D <= MAX_D_TC else "3xtf32_256"
+                  if D <= MAX_D_256 else "3xtf32_sliced")
         return f"{kernel}/cp.async16" if D % 4 == 0 and a >= 16 else \
             f"{kernel}/cp.async4"
     kernel = ("wgmma" if D <= MAX_D_TC else "wgmma256" if D <= MAX_D_256
@@ -167,21 +200,16 @@ def path(q, k, v) -> str:
     return f"{kernel}/cp.async" if D % 2 == 0 and a >= 4 else f"{kernel}/ld"
 
 
-def _lib(name="flash_attention"):
-    lib = _build.load(name)
+def _lib():
+    lib = _build.load("flash_attention")
     if not getattr(lib, "_repro_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "flash_attention":
-            lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, f,
-                                                   i, i, i, p]
-            lib.flash_attention_launch.restype = ctypes.c_int
-            lib.flash_attention_sliced_launch.argtypes = [
-                p, p, p, p, i, i, i, i, f, i, i, i, i, i, i, i, i, p]
-            lib.flash_attention_sliced_launch.restype = ctypes.c_int
-        else:
-            lib.flash_attention_wide_launch.argtypes = [p, p, p, p, i, i, i,
-                                                        i, f, i, i, p]
-            lib.flash_attention_wide_launch.restype = ctypes.c_int
+        lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, f, i,
+                                               i, i, p]
+        lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_sliced_launch.argtypes = [
+            p, p, p, p, i, i, i, i, f, i, i, i, i, i, i, i, i, p]
+        lib.flash_attention_sliced_launch.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
 
@@ -200,13 +228,12 @@ def flash_attention(q, k, v, causal=True):
         return _promote.restore(out, out_dtype)
     route = path(q, k, v)
     kernel = route.split("/")[0]
-    lib = _lib("flash_attention_wide" if route == WIDE else "flash_attention")
+    lib = _lib()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
             H, D, D ** -0.5, int(bool(causal)), DTYPES[q.dtype])
-    if route == WIDE:
-        code = _device.launch(lib.flash_attention_wide_launch, q, *args)
-    elif kernel == "wgmma_sliced":
-        plan = slice_plan(D)
+    if kernel in ("wgmma_sliced", "3xtf32_sliced"):
+        plan = slice_plan(D) if kernel == "wgmma_sliced" else \
+            tf32_slice_plan(D)
         code = _device.launch(lib.flash_attention_sliced_launch, q, *args,
                               LOADS[route], plan.n, plan.panels, plan.chunk,
                               plan.ring, int(plan.q_resident))
@@ -224,4 +251,4 @@ flash_attention.tf32_256_launches = 0
 flash_attention.wgmma256_launches = 0
 flash_attention.wgmma512_launches = 0
 flash_attention.sliced_launches = 0
-flash_attention.wide_launches = 0
+flash_attention.tf32_sliced_launches = 0

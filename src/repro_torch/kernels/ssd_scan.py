@@ -1,4 +1,4 @@
-"""Mamba-2 SSD chunk scan: CUDA kernel + wrapper.
+"""Mamba-2 SSD chunk scan: CUDA kernels + wrapper.
 
 Replaces ``repro/kernels/ssd_scan.py:56`` (``ssd_scan``, ``pallas_call`` at
 ``:66``): for x ``[b,S,H,P]``, dt ``[b,S,H]``, A ``[H]`` and B, C
@@ -6,34 +6,88 @@ Replaces ``repro/kernels/ssd_scan.py:56`` (``ssd_scan``, ``pallas_call`` at
 Every input is widened to float32; y has x's type.  ``Q = min(chunk, S)``
 and ``S % Q`` must be 0, as in the Pallas wrapper, which raises there too.
 
-The CUDA kernel (``csrc/ssd_scan.cu``) gives each (b, h) one 256-thread
-block that walks the sequence in order in tiles of 64 steps, with the
-head's ``[P, N]`` state in float32 shared memory; a head wider than 128 is
-split into equal P-slices of at most 128 columns, one block each (each
-column of the state is independent).  The result depends on
-the chunk length only through rounding, so the kernel's tile is its own
-(a 256-step decay block would not fit shared memory); the bar against the
+The CUDA kernels (``csrc/ssd_scan.cu``) run the scan chunk-parallel in three
+passes over chunks of ``CHUNK`` = 512 steps, every product on the tensor
+cores in 3xTF32: ``chunk_states`` (each chunk's own end state and its sum
+of dt A, into a ``[b, chunks, H, P, N]`` float32 buffer allocated per
+call), ``state_pass`` (in chunk order, each of those becomes the state the
+chunk starts from) and ``output_pass`` (y from each chunk's start state;
+the only pass where the sequence is one chunk).  Inside a chunk the
+kernels walk tiles of 32 or 64 steps with the heads' states in shared
+memory; a head wider than 64 is split into equal P-slices of at most 64
+columns, one block each; the output pass gives a block up to four heads,
+which then share C B^T and the loads of B and C.  ``plan`` picks these on the host.  The result depends on
+the chunking only through rounding, so the chunk and tile are the
+kernels' own; the bar against the
 plain version, which chunks at Q, is the reference's 4e-3.  x may be
 float32, bfloat16 or float16; dt, A, B and C are widened to float32 here
 before the launch, and other types of x (64-bit, integers) are converted
 first by the reference's rule (``_promote``), y keeping x's type.  Any P;
-a block's shared memory (its slice of the state, one tile of x dt, B, C
-and the decay block) must fit the card's 227 KB, which bounds N.  Bound on
-an H100: operations.
+a block's shared memory must fit the card's 227 KB, which bounds N.
+Bound on an H100: operations.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from repro_torch import _build
+from repro_torch import _build, _device
 from repro_torch.kernels import _check, _promote, ref
 
 NAME = "ssd_scan"
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the opt-in shared memory of one block on an H100
 MAX_SMEM = 232_448
+# steps a chunk (the state buffer's grain) and the widest P-slice
+CHUNK, MAX_PS = 512, 64
+
+
+class Plan(NamedTuple):
+    """How the kernels cut one call's work (``plan``)."""
+    steps: int         # a tile's steps in the output pass, 64 or 32
+    width: int         # a P-slice's columns (the last may hold fewer)
+    slices: int        # P-slices a head
+    heads: int         # heads a block of the output pass, 1 to 4
+    chunks: int        # chunks of CHUNK steps
+    chunk_steps: int   # a tile's steps in the chunk pass, 64 or 32
+
+
+def smem_bytes(T: int, PS: int, N: int, hg: int, out: bool) -> int:
+    """A block's shared memory (csrc/ssd_scan.cu, Layout): the heads'
+    states, B, C (output pass), x dt, W (output pass) and four vectors of
+    T a head, rows padded as the kernel pads them."""
+    n8, ps16 = -(-N // 8) * 8, -(-PS // 16) * 16
+    floats = (hg * ps16 * (n8 + 4) + T * -(-n8 // 32) * 32
+              + (T * (n8 + 4) if out else 0) + hg * T * (ps16 + 8)
+              + (T * (T + 4) if out else 0) + 4 * hg * T)
+    return 4 * floats
+
+
+# the output pass's (tile steps, heads a block), in the order the plan
+# tries them: at the suite's size four heads in 32-step tiles ran 11 %
+# faster than two in 64-step ones, which held the most heads 64-step tiles
+# fit (scripts/ssd_scan_variants.py)
+OUTPUT_SHAPES = ((32, 4), (64, 2), (64, 1), (32, 2), (32, 1))
+
+
+def plan(S: int, H: int, P: int, N: int) -> Plan:
+    """P-slices of at most 64 columns, as many as needed, equal but the
+    last; then the first of OUTPUT_SHAPES whose block fits shared memory
+    (with H or more heads), and for the chunk pass (one head a block)
+    64-step tiles where they fit.  Raises where not even 32-step tiles of
+    one head fit."""
+    slices = -(-P // MAX_PS)
+    width = -(-P // slices)
+    for T, hg in OUTPUT_SHAPES:
+        if hg <= H and smem_bytes(T, width, N, hg, True) <= MAX_SMEM:
+            chunk_T = 64 if smem_bytes(64, width, N, 1, False) <= MAX_SMEM \
+                else 32
+            return Plan(T, width, slices, hg, -(-S // CHUNK), chunk_T)
+    raise ValueError(f"{NAME}: P = {P}, N = {N} need "
+                     f"{smem_bytes(32, width, N, 1, True)} bytes of shared "
+                     f"memory per block, more than {MAX_SMEM}")
 
 
 def _check_args(x, dt, A, B, C, chunk):
@@ -59,17 +113,72 @@ def _check_args(x, dt, A, B, C, chunk):
 def _lib():
     lib = _build.load("ssd_scan")
     if not getattr(lib, "_repro_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_scan_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
-        lib.ssd_scan_launch.restype = ctypes.c_int
-        lib.ssd_scan_smem_bytes.argtypes = [i, i]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ssd_chunk_states_launch.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                                i, i, i, i, p]
+        lib.ssd_state_pass_launch.argtypes = [p, p, i, i, i, ll, p]
+        lib.ssd_output_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                          i, i, i, i, p]
+        for fn in (lib.ssd_chunk_states_launch, lib.ssd_state_pass_launch,
+                   lib.ssd_output_launch):
+            fn.restype = ctypes.c_int
+        lib.ssd_scan_smem_bytes.argtypes = [i, i, i, i, i]
         lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
         lib._repro_typed = True
     return lib
 
 
+def chunk_states(x, dt, A, B, pl: Plan):
+    """Pass (a) on checked CUDA operands: each chunk's end state from zero
+    ``[b, chunks, H, P, N]`` and its sum of dt A ``[b, chunks, H]``, both
+    float32; counted by ``ssd_scan.chunk_launches``."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    Z = torch.empty((b, pl.chunks, H, P, N), dtype=torch.float32,
+                    device=x.device)
+    seg = torch.empty((b, pl.chunks, H), dtype=torch.float32,
+                      device=x.device)
+    lib = _lib()
+    code = _device.launch(lib.ssd_chunk_states_launch, x, x.data_ptr(),
+                          dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                          Z.data_ptr(), seg.data_ptr(), b, S, H, P, N,
+                          X_DTYPES[x.dtype], pl.chunk_steps, pl.width)
+    _build.check(lib, code, NAME)
+    ssd_scan.chunk_launches += 1
+    return Z, seg
+
+
+def state_pass(Z, seg):
+    """Pass (b), in place: each chunk's end state in ``Z`` becomes the state
+    the chunk starts from; counted by ``ssd_scan.state_launches``."""
+    b, nc, H, P, N = Z.shape
+    lib = _lib()
+    code = _device.launch(lib.ssd_state_pass_launch, Z, Z.data_ptr(),
+                          seg.data_ptr(), b, nc, H, P * N)
+    _build.check(lib, code, NAME)
+    ssd_scan.state_launches += 1
+    return Z
+
+
+def output_pass(x, dt, A, B, C, Z, pl: Plan):
+    """Pass (c): y in x's type from the chunks' start states ``Z`` (None:
+    one chunk, from zero); counted by ``ssd_scan.launches``."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    out = torch.empty_like(x)
+    lib = _lib()
+    code = _device.launch(lib.ssd_output_launch, x, x.data_ptr(),
+                          dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                          C.data_ptr(), None if Z is None else Z.data_ptr(),
+                          out.data_ptr(), b, S, H, P, N, X_DTYPES[x.dtype],
+                          pl.steps, pl.width, pl.heads)
+    _build.check(lib, code, NAME)
+    ssd_scan.launches += 1
+    return out
+
+
 def ssd_scan(x, dt, A, B, C, chunk: int = 256):
-    """y ``[b,S,H,P]`` in x's type.  CUDA tensors launch the kernel; CPU
+    """y ``[b,S,H,P]`` in x's type.  CUDA tensors launch the kernels; CPU
     tensors take the plain version."""
     (x,), out_dtype = _promote.promote((x,), X_DTYPES)
     dt, A, B, C = (t.to(torch.float32) if isinstance(t, torch.Tensor)
@@ -85,22 +194,16 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 256):
                          ">= 1")
     if S > _check.INT32_MAX or b * H > _check.INT32_MAX:
         raise ValueError(f"{NAME}: S and b*H must fit int32")
-    lib = _lib()
-    smem = lib.ssd_scan_smem_bytes(P, N)
-    if smem > MAX_SMEM:
-        raise ValueError(f"{NAME}: P = {P}, N = {N} need {smem} bytes of "
-                         f"shared memory per block, more than {MAX_SMEM}")
-    out = torch.empty_like(x)
-    if out.numel() == 0:
-        return _promote.restore(out, out_dtype)
-    with torch.cuda.device(x.device):
-        code = lib.ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), out.data_ptr(), b, S, H, P, N, X_DTYPES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, code, NAME)
-    ssd_scan.launches += 1
-    return _promote.restore(out, out_dtype)
+    pl = plan(S, H, P, N)
+    if x.numel() == 0:
+        return _promote.restore(torch.empty_like(x), out_dtype)
+    Z = None
+    if pl.chunks > 1:
+        Z, seg = chunk_states(x, dt, A, B, pl)
+        state_pass(Z, seg)
+    return _promote.restore(output_pass(x, dt, A, B, C, Z, pl), out_dtype)
 
 
 ssd_scan.launches = 0
+ssd_scan.chunk_launches = 0
+ssd_scan.state_launches = 0

@@ -212,8 +212,10 @@ def _view(shape, dtype, offset):
     (torch.float32, 256, 0, "3xtf32_256/cp.async16"),
     (torch.float32, 200, 0, "3xtf32_256/cp.async16"),
     (torch.float32, 130, 0, "3xtf32_256/cp.async4"),   # 520-byte rows
-    (torch.float32, 257, 0, "simt/wide"),          # past 3xTF32's 256
-    (torch.float32, 512, 0, "simt/wide"),
+    (torch.float32, 257, 0, "3xtf32_sliced/cp.async4"),   # the sliced
+    (torch.float32, 512, 0, "3xtf32_sliced/cp.async16"),  # 3xTF32 kernel
+    (torch.float32, 512, 1, "3xtf32_sliced/cp.async4"),
+    (torch.float32, 1100, 0, "3xtf32_sliced/cp.async16"),
     (torch.bfloat16, 257, 0, "wgmma512/ld"),       # the D-512 wgmma kernel
     (torch.float16, 512, 0, "wgmma512/tma"),
     (torch.bfloat16, 264, 0, "wgmma512/tma"),      # 528-byte rows
@@ -231,25 +233,20 @@ def test_flash_attention_path_by_type_width_and_alignment(dtype, D, offset,
     """The wrapper's choice of load path: TMA needs 16-byte rows and
     pointers (16-bit types, D % 8 == 0), 4-byte cp.async D even, and
     float32's 16-byte cp.async D % 4 == 0; the products are on the tensor
-    cores on every path up to D 256 in float32 and at every D in the
-    16-bit types, and float32 past 256 takes the wide route whatever its
-    alignment."""
+    cores on every path, in every type and at every D."""
     q, k, v = (_view((2, 5, 3, D), dtype, offset) for _ in range(3))
     assert fa_mod.path(q, k, v) == want
     # one misaligned operand moves all three off the aligned path
     k2 = _view((2, 5, 3, D), dtype, 1)
     assert fa_mod.path(q, k2, v) == (
-        fa_mod.WIDE if want == fa_mod.WIDE else
         want.split("/")[0] + ("/cp.async4" if dtype == torch.float32
                                else "/ld"))
 
 
 def test_every_accepted_shape_maps_to_a_tensor_core_path():
-    """Each (type, pointer alignment) with D in 1..256, and every D for the
-    16-bit types (here up to 1,100), has a tensor-core path whose kernel
-    has a launch counter, and the path's load code is one the C entry
-    point takes for that type; only float32 past 256 takes the wide
-    route."""
+    """Each (type, pointer alignment) at every D (here up to 1,100) has a
+    tensor-core path whose kernel has a launch counter, and the path's
+    load code is one the C entry point takes for that type."""
     c_loads = {torch.bfloat16: {0, 4, 2}, torch.float16: {0, 4, 2},
                torch.float32: {16, 4}}
     seen = set()
@@ -260,12 +257,10 @@ def test_every_accepted_shape_maps_to_a_tensor_core_path():
                            for _ in range(3))
                 fa_mod._check_args(q, k, v)
                 name = fa_mod.path(q, k, v)
-                if dtype == torch.float32 and D > fa_mod.MAX_D_256:
-                    assert name == fa_mod.WIDE
-                    continue
                 kernel = name.split("/")[0]
                 assert kernel == (
-                    ("3xtf32" if D <= fa_mod.MAX_D_TC else "3xtf32_256")
+                    ("3xtf32" if D <= fa_mod.MAX_D_TC else "3xtf32_256"
+                     if D <= fa_mod.MAX_D_256 else "3xtf32_sliced")
                     if dtype == torch.float32 else
                     "wgmma" if D <= fa_mod.MAX_D_TC else
                     "wgmma256" if D <= fa_mod.MAX_D_256 else
@@ -311,6 +306,44 @@ def test_slice_plan_fits_and_covers(D):
     used = (fa_mod.SMEM_FIXED + plan.q_resident * nq * fa_mod.PANEL_Q
             + 2 * plan.panels * fa_mod.PANEL_K + plan.ring * chunk)
     assert used <= fa_mod.SMEM_MAX
+
+
+@pytest.mark.parametrize("D,n,panels,q_resident,chunk", [
+    (257, 1, 5, True, 5), (320, 1, 5, True, 5), (512, 1, 8, True, 8),
+    (576, 2, 5, True, 9),
+    (640, 2, 5, True, 9), (896, 2, 7, True, 3), (897, 2, 8, False, 3),
+    (1100, 3, 6, False, 3), (2048, 4, 8, False, 3)])
+def test_tf32_slice_plan(D, n, panels, q_resident, chunk):
+    """The float32 sliced kernel's plan: slices as the 16-bit kernel cuts
+    them; Q resident to D 896, a whole key tile a chunk to D 576 (at D 512
+    two stages, the layout the header counts: 219 KB); wider, Q streamed
+    beside K in chunks of three panels."""
+    plan = fa_mod.tf32_slice_plan(D)
+    assert (plan.n, plan.panels, plan.q_resident, plan.chunk) == \
+        (n, panels, q_resident, chunk)
+    if D == 512:
+        assert plan.ring == 2
+
+
+@pytest.mark.parametrize("D", list(range(257, 2049, 37)) + [
+    512, 576, 577, 640, 896, 897, 1024, 2048])
+def test_tf32_slice_plan_fits_and_covers(D):
+    """What the C entry point checks (flash_attention_sliced_launch, float32):
+    the slices cover D's panels, none is empty, a warp holds at most 16
+    n-tiles of output, the ring holds two chunks or more, and the layout
+    (barriers and alignment, the partial scores, Q when resident, V's two
+    stages of the slice's 16-key rows, the ring) fits a block's 227 KB."""
+    nq = -(-D // 64)
+    plan = fa_mod.tf32_slice_plan(D)
+    assert 1 <= plan.panels <= 8 and 2 <= plan.ring <= fa_mod.RING_MAX
+    assert plan.n * plan.panels >= nq > (plan.n - 1) * plan.panels
+    assert 1 <= plan.chunk <= nq
+    chunk = plan.chunk * (fa_mod.F32_PANEL_K
+                          + (0 if plan.q_resident else fa_mod.F32_PANEL_Q))
+    used = (fa_mod.F32_SMEM_FIXED + plan.q_resident * nq * fa_mod.F32_PANEL_Q
+            + 2 * 16 * (64 * plan.panels + 4) * 4 + plan.ring * chunk)
+    assert used <= fa_mod.SMEM_MAX
+    assert fa_mod.SMEM_MAX == 232_448 and fa_mod.F32_PANEL_Q == 32 * 68 * 4
 
 
 def _bad_calls():

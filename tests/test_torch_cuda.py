@@ -569,6 +569,74 @@ def test_ssd_scan_kernel_wide_heads_split_into_slices(cuda, P):
                                rtol=4e-3, atol=4e-3)
 
 
+@pytest.mark.parametrize("S,H,P,N,dtype,shape", [
+    (1100, 6, 64, 128, "float32", (32, 4)), (640, 3, 256, 128, "float32",
+                                             (64, 2)),
+    (1100, 3, 129, 40, "float32", (64, 2)), (768, 4, 64, 128, "bfloat16",
+                                             (32, 4)),
+    (600, 3, 16, 360, "float32", (32, 2)), (600, 1, 1, 409, "float16",
+                                            (32, 1))],
+    ids=["suite-head", "P256", "P129-N40", "bf16-x", "N360", "N409-f16-x"])
+def test_ssd_scan_chunk_parallel_matches_plain(cuda, S, H, P, N, dtype,
+                                               shape):
+    """Several 512-step chunks (the three passes; the last chunk ragged),
+    heads split into P-slices of at most 64 (256: four; 129: three of 43),
+    up to four heads a block of the output pass (H 6: a group of four and
+    one of two; H 3: two and one), 32-step tiles where N needs the room
+    (360 at P 16, and 409 at P 1, the widest the one-block kernel took at
+    those P), x in each type; every pass's counter moves once; 4e-3, plus
+    one unit of a 16-bit output."""
+    x, dt, A, B, C = (t.to(cuda) for t in ssd_inputs(2, S, H, P, N, S + N))
+    x = x.to(getattr(torch, dtype))
+    pl = ssd_mod.plan(S, H, P, N)
+    assert (pl.chunks, pl.steps, pl.heads) == (-(-S // 512), *shape)
+    assert pl.width <= 64
+    counters = ("launches", "chunk_launches", "state_launches")
+    before = [getattr(ssd_mod.ssd_scan, c) for c in counters]
+    got = ssd_mod.ssd_scan(x, dt, A, B, C, chunk=S)
+    assert [getattr(ssd_mod.ssd_scan, c) - n
+            for c, n in zip(counters, before)] == [1, 1, 1]
+    assert got.dtype == x.dtype
+    tol = 4e-3 + (torch.finfo(x.dtype).eps if dtype != "float32" else 0)
+    torch.testing.assert_close(got.float(),
+                               ref.ssd_scan(x, dt, A, B, C, S).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("P,N", [(64, 128), (256, 128), (1, 409)])
+def test_ssd_scan_kernel_is_deterministic(cuda, P, N):
+    """No atomics: two calls give the same bits."""
+    x, dt, A, B, C = (t.to(cuda) for t in ssd_inputs(2, 1024, 4, P, N, 5))
+    assert torch.equal(ssd_mod.ssd_scan(x, dt, A, B, C, chunk=256),
+                       ssd_mod.ssd_scan(x, dt, A, B, C, chunk=256))
+
+
+@pytest.mark.parametrize("T,PS,N,hg,out", [
+    (32, 64, 128, 4, 1), (64, 64, 128, 1, 0), (32, 43, 40, 1, 1),
+    (32, 1, 409, 2, 1), (64, 16, 360, 1, 0)])
+def test_ssd_scan_plan_matches_the_kernels_layout(cuda, T, PS, N, hg, out):
+    """The host's shared-memory count (what ``plan`` fits) is the
+    kernels'."""
+    assert ssd_mod._lib().ssd_scan_smem_bytes(T, PS, N, hg, out) == \
+        ssd_mod.smem_bytes(T, PS, N, hg, bool(out))
+
+
+@pytest.mark.parametrize("shape", [(32, 4, 64), (64, 2, 32), (64, 1, 64),
+                                   (32, 2, 32), (32, 1, 64)])
+def test_ssd_scan_every_tile_shape_matches_plain(cuda, shape):
+    """Each (output tile steps, heads a block, chunk-pass tile steps) the
+    plan may pick, forced through the passes at the suite's head (P 64, N
+    128) with H 5 (groups of four and one, two, two and one): 4e-3."""
+    x, dt, A, B, C = (t.to(cuda) for t in ssd_inputs(2, 1100, 5, 64, 128,
+                                                     9))
+    T, hg, chunk_T = shape
+    pl = ssd_mod.Plan(T, 64, 1, hg, 3, chunk_T)
+    Z, seg = ssd_mod.chunk_states(x, dt, A, B, pl)
+    got = ssd_mod.output_pass(x, dt, A, B, C, ssd_mod.state_pass(Z, seg), pl)
+    torch.testing.assert_close(got, ref.ssd_scan(x, dt, A, B, C, 1100),
+                               rtol=4e-3, atol=4e-3)
+
+
 def test_ssd_scan_kernel_rejects_what_it_cannot_take(cuda):
     x, dt, A, B, C = (t.to(cuda) for t in ssd_inputs(1, 96, 2, 16, 32, 3))
     with pytest.raises(ValueError, match="multiple of the chunk"):
@@ -662,12 +730,12 @@ def test_flash_attention_simt_past_256_matches_plain(cuda, D, S, causal,
                                                      dtype):
     """The heads the SIMT route took before the tensor cores reached them,
     each on its route now: float32 at 200 the 3xTF32 kernel's D-256
-    instantiation; float32 past 256 the SIMT route alone, cut into output
-    slices of 256 columns (320: 256 + 64; 257: 256 + 1); the 16-bit types
-    past 512 the sliced kernel (520: 5 + 4 panels; 640: 5 + 5); 2e-4 in
-    float32, 2e-2 in 16 bits."""
+    instantiation; float32 past 256 the 3xTF32 sliced kernel (257 and 320:
+    one slice of 5 panels); the 16-bit types past 512 the wgmma sliced
+    kernel (520: 5 + 4 panels; 640: 5 + 5); 2e-4 in float32, 2e-2 in 16
+    bits."""
     q, k, v = fa_inputs(2, S, 3, D, dtype, cuda)
-    kernel = ("simt" if dtype == "float32" and D > 256 else
+    kernel = ("3xtf32_sliced" if dtype == "float32" and D > 256 else
               "3xtf32_256" if dtype == "float32" else "wgmma_sliced")
     assert fa_mod.path(q, k, v).split("/")[0] == kernel
     got = launched_once(kernel, q, k, v, causal)
@@ -766,6 +834,80 @@ def test_flash_attention_3xtf32_256_is_deterministic(cuda):
     q, k, v = fa_inputs(2, 1031, 4, 256, "float32", cuda)
     assert torch.equal(fa_mod.flash_attention(q, k, v),
                        fa_mod.flash_attention(q, k, v))
+
+
+# ---- float32 heads past 256 on the 3xTF32 sliced kernel -------------------
+
+# both load paths (16-byte cp.async; 4-byte where D % 4 or an offset view
+# rule it out); one slice (257..512: 5 to 8 panels, the whole key tile a
+# chunk), two (640: 5 + 5; 1,100: three of 6 with Q streamed); the last
+# panel part-filled (257, 1,100)
+TF32_SLICED_CASES = [(257, 0, "cp.async4"), (320, 0, "cp.async16"),
+                     (512, 0, "cp.async16"), (512, 1, "cp.async4"),
+                     (640, 0, "cp.async16"), (1100, 0, "cp.async16"),
+                     (1100, 2, "cp.async4")]
+
+
+@pytest.mark.parametrize("D,offset,load", TF32_SLICED_CASES)
+@pytest.mark.parametrize("S", [1, 100, 300, 1031])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_3xtf32_sliced_matches_plain(cuda, D, offset, load,
+                                                     S, causal):
+    """The 3xTF32 sliced kernel (32 query rows, 16-key tiles, four warps on
+    each 16 rows summing their partial scores) on both load paths, with Q
+    resident and streamed; S on, off and across the 32-row and 16-key
+    tiles; its own launch counter and no other; 2e-4, float32's bar."""
+    q, k, v = fa_inputs(2, S, 3, D, "float32", cuda, offset)
+    assert fa_mod.path(q, k, v) == f"3xtf32_sliced/{load}"
+    got = launched_once("3xtf32_sliced", q, k, v, causal)
+    torch.testing.assert_close(got, ref.flash_attention(q, k, v, causal),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("D", [512, 1100])
+def test_flash_attention_3xtf32_sliced_is_deterministic(cuda, D):
+    q, k, v = fa_inputs(2, 1031, 4, D, "float32", cuda)
+    assert torch.equal(fa_mod.flash_attention(q, k, v),
+                       fa_mod.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_3xtf32_sliced_matches_float64(cuda, causal):
+    """D 512 against softmax attention in float64 on 64 query rows of each
+    head, 2e-4."""
+    q, k, v = fa_inputs(1, 1024, 2, 512, "float32", cuda)
+    got = fa_mod.flash_attention(q, k, v, causal=causal).double()
+    rows = torch.linspace(0, 1023, 64, device=cuda).long()
+    for h in range(2):
+        s = q[0, rows, h].double() @ k[0, :, h].double().T / 512 ** 0.5
+        if causal:
+            keys = torch.arange(1024, device=cuda)
+            s = s.masked_fill(keys[None] > rows[:, None], float("-inf"))
+        want = s.softmax(-1) @ v[0, :, h].double()
+        torch.testing.assert_close(got[0, rows, h], want, rtol=2e-4,
+                                   atol=2e-4)
+
+
+def test_flash_attention_3xtf32_sliced_entry_checks_the_plan(cuda):
+    """The C entry point refuses a float32 plan that leaves a slice empty,
+    overflows shared memory or asks for 16-byte copies of rows off 16
+    bytes, and launches the wrapper's."""
+    q, k, v = fa_inputs(1, 64, 1, 512, "float32", cuda)
+    out = torch.empty_like(q)
+    lib = fa_mod._lib()
+    plan = fa_mod.tf32_slice_plan(512)
+    call = lambda n, panels, chunk, ring, qres, load=16: \
+        lib.flash_attention_sliced_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, 64,
+            1, 512, 512 ** -0.5, 1, 0, load, n, panels, chunk, ring, qres,
+            torch.cuda.current_stream().cuda_stream)
+    assert call(2, 8, 8, 2, 1) != 0      # the second slice is empty
+    assert call(1, 8, 8, 3, 1) != 0      # 3 stages beside Q: 258 KB
+    assert call(1, 8, 8, 2, 1, load=2) != 0   # no such float32 load
+    assert call(*plan[:2], plan.chunk, plan.ring, int(plan.q_resident)) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref.flash_attention(q, k, v, True),
+                               rtol=2e-4, atol=2e-4)
 
 
 # ---- flash decoding, split-KV ----------------------------------------------
@@ -890,7 +1032,7 @@ def test_widened_operands_launch_the_kernel(cuda, case):
                 "fa_wide": (q, k.bfloat16(), v)}[case]
         fn, plain, mod = fa_mod.flash_attention, ref.flash_attention, \
             fa_mod.flash_attention
-        counter = "wide_launches" if D > 256 else "launches"
+        counter = "tf32_sliced_launches" if D > 256 else "launches"
         dtypes, tol = fa_mod.DTYPES, 2e-4
     elif kind == "da":
         q, k, v = f32(3, 4, 64), f32(3, 200, 4, 64), f32(3, 200, 4, 64)

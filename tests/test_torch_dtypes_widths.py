@@ -179,7 +179,7 @@ def test_jacobi2d_bfloat16(shape):
 @pytest.mark.parametrize("D", [256, 160, 640, 1100])
 def test_flash_attention_wide_heads(dtype, D):
     """Float32 at 129..256 columns takes the 3xTF32 kernel's D-256
-    instantiation and past 256 the wide SIMT route; the 16-bit types the
+    instantiation and past 256 its sliced kernel; the 16-bit types the
     wgmma kernel's D-256 instantiation, and past 512 its sliced kernel
     (D 640: two slices of 5 panels, Q resident; D 1,100: three of 6, Q
     streamed)."""
@@ -190,7 +190,8 @@ def test_flash_attention_wide_heads(dtype, D):
                                    bq=64, bk=64, interpret=True)
     q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs)
     if dtype == "float32":
-        route = "3xtf32_256/cp.async16" if D <= 256 else fa_mod.WIDE
+        route = ("3xtf32_256/cp.async16" if D <= 256 else
+                 "3xtf32_sliced/cp.async16")
     else:
         route = ("wgmma256/tma" if D <= 256 else
                  "wgmma_sliced/tma" if D % 8 == 0 else

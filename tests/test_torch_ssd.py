@@ -175,3 +175,121 @@ def test_ssd_scan_rejects_bad_operands(bad):
         x = x[0]
     with pytest.raises(ValueError, match="ssd_scan"):
         ssd_mod.ssd_scan(x, dt, A, B, C, chunk=64)
+
+
+# ---- the chunk-parallel kernels' algebra ------------------------------------
+
+def three_pass_mirror(x, dt, A, B, C, steps=64, chunk=512):
+    """csrc/ssd_scan.cu's decomposition in torch float32, kept here as the
+    check of its algebra: (a) each chunk's end state from zero, walked in
+    tiles of ``steps``, with its sum of dt A; (b) in chunk order, the state
+    each chunk starts from; (c) each chunk again from that state, tile by
+    tile: y = (C B^T o exp(seg_t - seg_u), u <= t) (x dt) + exp(seg_t) C
+    state, then state = exp(seg_end) state + (x dt exp(seg_end - seg))^T B.
+    Returns y and the largest exponent it formed (never above 0 for A <=
+    0: the decay between tiles is factored at their boundary, through the
+    carried state)."""
+    x, dt, A, B, C = (torch.from_numpy(a) for a in (x, dt, A, B, C))
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    top = [-float("inf")]
+
+    def exp(t):
+        if t.numel():
+            top[0] = max(top[0], float(t.max()))
+        return torch.exp(t)
+
+    def walk(c, state, emit):
+        ys, total = [], torch.zeros(b, H)
+        for t0 in range(c * chunk, min(S, (c + 1) * chunk), steps):
+            sl = slice(t0, min(S, t0 + steps))
+            d = dt[:, sl]                                      # [b, n, H]
+            seg = torch.cumsum(d * A, dim=1)
+            xd = x[:, sl] * d[..., None]                       # [b, n, H, P]
+            Bt, Ct = B[:, sl], C[:, sl]
+            if emit:
+                n = d.shape[1]
+                tri = torch.ones(n, n, dtype=torch.bool).tril()
+                diff = seg[:, :, None, :] - seg[:, None, :, :]  # [b, t, u, H]
+                decay = torch.zeros_like(diff)
+                decay[:, tri] = exp(diff[:, tri])
+                w = torch.einsum("btn,bun->btu", Ct, Bt)[..., None] * decay
+                ys.append(torch.einsum("btuh,buhp->bthp", w, xd)
+                          + exp(seg)[..., None]
+                          * torch.einsum("btn,bhpn->bthp", Ct, state))
+            end = seg[:, -1]                                   # [b, H]
+            sd = exp(end[:, None] - seg)
+            state = (torch.exp(end)[..., None, None] * state
+                     + torch.einsum("buhp,bun,buh->bhpn", xd, Bt, sd))
+            total = total + end
+        return state, total, ys
+
+    n_chunks = -(-S // chunk)
+    zero = torch.zeros(b, H, P, N)
+    own = [walk(c, zero, False)[:2] for c in range(n_chunks)]      # (a)
+    starts, cur = [], zero
+    for Z, total in own:                                           # (b)
+        starts.append(cur)
+        cur = torch.exp(total)[..., None, None] * cur + Z
+    y = torch.cat([torch.cat(walk(c, starts[c], True)[2], dim=1)   # (c)
+                   for c in range(n_chunks)], dim=1)
+    return y.numpy(), top[0]
+
+
+@pytest.mark.parametrize("S,steps,steep", [(1152, 64, False),
+                                           (1152, 32, False),
+                                           (576, 64, True)],
+                         ids=["three-chunks", "32-step-tiles",
+                              "steep-decay"])
+def test_three_pass_mirror_matches_pallas_and_float64(S, steps, steep):
+    """Chunks of 512 steps (the last one ragged), held against the Pallas
+    kernel in interpret mode (4e-3, its chunk 64) and against the float64
+    recurrence (1e-5 of its largest value); a steep decay (A = -40 |A|,
+    running sums past -88, where exp(seg_u - seg_t) overflows float32)
+    stays finite, and no exponent the mirror forms is positive."""
+    x, dt, A, B, C, _ = ssd_inputs(2, S, 2, 8, 16, S + steps)
+    if steep:
+        A = (-np.abs(A) * 40.0).astype(np.float32)
+        assert np.cumsum(dt[0, :64, 0] * A[0])[-1] < -88.0
+    got, top = three_pass_mirror(x, dt, A, B, C, steps=steps)
+    assert np.isfinite(got).all() and top <= 0.0
+    want = ref_ops.ssd_scan(*(jnp.asarray(a) for a in (x, dt, A, B, C)),
+                            chunk=64, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=4e-3, atol=4e-3)
+    y64, _ = recurrence_f64(x, dt, A, B, C, np.zeros(2, np.float32))
+    assert normwise(got, y64) <= 1e-5, normwise(got, y64)
+
+
+@pytest.mark.parametrize("S,H,P,N,want", [
+    (65_536, 16, 64, 128, (32, 64, 1, 4, 128, 64)),  # the suite's size
+    (16_384, 16, 256, 128, (32, 64, 4, 4, 32, 64)),  # P 256: four slices
+    (1100, 3, 129, 40, (64, 43, 3, 2, 3, 64)),       # 129: three of 43
+    (600, 1, 16, 360, (32, 16, 1, 1, 2, 64)),        # one head; 32 steps
+    (600, 4, 1, 409, (32, 1, 1, 2, 2, 64))])
+def test_ssd_plan(S, H, P, N, want):
+    """P-slices of at most 64 columns, equal but the last; then the first
+    (tile steps, heads a block) of OUTPUT_SHAPES whose output-pass block
+    fits 227 KB, and 64-step tiles for the chunk pass where its block
+    fits; chunks of 512 steps."""
+    pl = ssd_mod.plan(S, H, P, N)
+    assert tuple(pl) == want
+    assert ssd_mod.smem_bytes(pl.steps, pl.width, N, pl.heads, True) \
+        <= ssd_mod.MAX_SMEM
+    assert ssd_mod.smem_bytes(pl.chunk_steps, pl.width, N, 1, False) \
+        <= ssd_mod.MAX_SMEM
+
+
+def test_ssd_plan_refuses_nothing_the_one_block_kernel_took():
+    """The one-block kernel (P-slices of at most 128 columns holding the
+    state, a tile of x dt, B and C transposed and the decay block) took
+    every (P, N) whose block fit 227 KB; the plan takes each of them."""
+    def took(P, N):
+        ps = -(-P // -(-P // 128))
+        return 4 * (N * ps + 64 * ps + 2 * N * 65 + 64 * 65 + 256) \
+            <= 232_448
+    for P in (*range(1, 70), 127, 128, 129, 192, 256, 257, 512):
+        for N in range(1, 420):
+            if took(P, N):
+                ssd_mod.plan(1024, 2, P, N)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_mod.plan(96, 2, 128, 512)
