@@ -18,7 +18,7 @@ alone (CUDA events, median of 5 calls) for:
   not found once): ``no-products`` (``mma_tiles`` returns at once: loads,
   scans, exponentials, stores and barriers alone), ``no-loads`` (a tile's
   B, C and x are not copied in: products on whatever the buffers hold),
-  ``output-one-kstep`` (the output pass's products one k-step a loop
+  ``output-one-kstep`` (the output pass's y products one k-step a loop
   iteration, as the chunk pass's), ``chunk-two-ksteps`` (the chunk
   pass's two, as the output pass's) and ``chunk-256`` (chunks of 256
   steps: twice the chunk states).
@@ -45,7 +45,7 @@ NO_PRODUCTS = ("  auto step = [&](int k0) {\n",
                "  if (K > 0) return;\n  auto step = [&](int k0) {\n")
 NO_LOADS = ("    issue(t0);   // in flight while the running sum is taken\n",
             "")
-OUT_KSTEP = ("      mma_tiles<1, NTY>(\n", "      mma_tiles<1, NTY, 1>(\n")
+OUT_KSTEP = ("          mma_tiles<2, 4>(\n", "          mma_tiles<2, 4, 1>(\n")
 CHUNK_KSTEPS = ("      mma_tiles<2, 4, OUT ? 2 : 1>(",
                 "      mma_tiles<2, 4, 2>(")
 CHUNK_256 = ("constexpr int CHUNK = 512;", "constexpr int CHUNK = 256;")

@@ -96,9 +96,9 @@ SLICED = {(1, 1_024, 4, 640): {"resident-lockstep-5": (1, 5, 4),
                                  "streamed-4": (0, 4, 3)}}
 # the float32 sliced kernel: its register split, the splits tried beside
 # it, and the plans tried beside the wrapper's at its two shapes
-FS_REGS = "constexpr int LOADER_REGS_FS = 104, CONSUMER_REGS_FS = 200;"
+FS_REGS = "constexpr int LOADER_REGS_FS = 120, CONSUMER_REGS_FS = 192;"
 FS_SPLITS = {"regs-72-216": (72, 216), "regs-88-208": (88, 208),
-             "regs-120-192": (120, 192)}
+             "regs-104-200": (104, 200)}
 F32_SLICED = {(1, 1_024, 8, 512): {"resident-chunk-4": (1, 4, 4),
                                    "streamed-3": (0, 3, 3)},
               (1, 1_024, 4, 1_024): {"resident-chunk-1": (1, 1, 2),

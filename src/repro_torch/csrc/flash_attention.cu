@@ -200,10 +200,10 @@ constexpr int LOADER_REGS8 = 88, CONSUMER_REGS8 = 208;
 constexpr int LOADER_REGS_SL = 120, CONSUMER_REGS_SL = 192;
 constexpr int LOADER_REGS_F4 = 72, CONSUMER_REGS_F4 = 216;
 // The float32 sliced kernel's (runtime ring positions, three load loops)
-// spills 40 bytes at 72 / 216 and 16 at 88 / 208, none at 104 / 200 (and
-// runs 13 % faster than at 72 / 216: scripts/wide_attention_and_decode_
+// spills 40 bytes at 72 / 216 and 16 at 88 / 208, none at 104 / 200 or
+// 120 / 192, which ran fastest (scripts/wide_attention_and_decode_
 // variants.py --only f32-sliced).
-constexpr int LOADER_REGS_FS = 104, CONSUMER_REGS_FS = 200;
+constexpr int LOADER_REGS_FS = 120, CONSUMER_REGS_FS = 192;
 constexpr float NEG_INF = -1e30f;    // flash_attention.py:17
 constexpr float LOG2E = 1.4426950408889634f;
 

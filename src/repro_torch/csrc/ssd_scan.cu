@@ -35,9 +35,13 @@
 // where they fit, the chunk pass one head in 64-step tiles), the state of
 // each head [PS][N] in shared memory, carried from tile to tile as the
 // one-block kernel did: within a tile, G = C B^T (shared by the heads of
-// the group, kept in registers), W = G o exp(seg_t - seg_u) formed only for u <= t, Y = W (x dt)
-// + exp(seg_t) (C state^T), then state = exp(seg_end) state + (x dt o
-// exp(seg_end - seg))^T B.  seg is the running sum of dt A within the tile,
+// the group, kept in registers), every head's W = G o exp(seg_t - seg_u)
+// formed only for u <= t, then Y = W (x dt) + exp(seg_t) (C state^T) and
+// state = exp(seg_end) state + (x dt o exp(seg_end - seg))^T B for all
+// heads at once, a warp taking whole units of one head (two m-tiles x
+// four n-tiles of Y; every m-tile x four n-tiles of the state), so a tile
+// needs two barriers past its loads whatever the heads.  seg is the
+// running sum of dt A within the tile,
 // so every exponent is seg_t - seg_u with t >= u, seg_t, or seg_end - seg_u:
 // none is positive (A < 0), and a chunk's earlier tiles reach a later one
 // only through the carried state, i.e. the decay of an off-diagonal
@@ -122,8 +126,8 @@ __device__ __forceinline__ int bswz(int u) {
 
 // A block's shared memory, in floats: the heads' states [hg][ps16][lds],
 // B [T][ldb] (swizzled), C [T][ldc] (output pass), x dt [hg][T][ldx], W
-// [T][ldw] (output pass), and per head the running sum, dt, exp(seg) and
-// exp(seg_end - seg) [hg][4][T].  A stride of 4 mod 8 floats makes the reads
+// [hg][T][ldw] (output pass), and per head the running sum, dt, exp(seg)
+// and exp(seg_end - seg) [hg][4][T].  A stride of 4 mod 8 floats makes the reads
 // of rows g, columns t conflict-free, 8 mod 16 those of rows t, columns g.
 struct Layout {
   int lds, ldb, ldc, ldx, ldw;
@@ -142,7 +146,7 @@ struct Layout {
     L.c = L.b + T * L.ldb;
     L.x = L.c + (out ? T * L.ldc : 0);
     L.w = L.x + hg * T * L.ldx;
-    L.vec = L.w + (out ? T * L.ldw : 0);
+    L.vec = L.w + (out ? hg * T * L.ldw : 0);
     L.floats = L.vec + 4 * hg * T;
     return L;
   }
@@ -226,8 +230,9 @@ ssd_chunk_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
   }
   float lsum = 0.0f;   // pass (a): thread hh's sum of dt A over the chunk
 
-  // The state update of head hh: S = exp(seg_end) S + (x dt o sd)^T B over
-  // the tile, [ps16 x n8] in m-tile pairs x groups of 4 n-tiles.
+  // The chunk pass's state update of head hh: S = exp(seg_end) S + (x dt o
+  // sd)^T B over the tile, [ps16 x n8] in m-tile pairs x groups of 4
+  // n-tiles over all eight warps (one head a block).
   auto update = [&](int hh) {
     const float* v = vec + hh * 4 * T;
     const float* xh = xs + hh * T * L.ldx;
@@ -389,66 +394,122 @@ ssd_chunk_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
             return bs[u * L.ldb + (k ^ bswz(u))];
           },
           n8, 1, gn, g, t4);
-      // the Y tiles a warp owns: m-tile ym, n-tiles yn0 .. + yn (of p)
-      constexpr int NTY = T == 64 ? 4 : 2, YW = WARPS / (T / 16);
-      const int ym = warp / YW, yn0 = (warp % YW) * NTY;
-      const int yn = min(NTY, max(0, (np + 7) / 8 - yn0));
-      for (int hh = 0; hh < nh; ++hh) {
+      // ---- W of every head: G o exp(seg_t - seg_u) for u <= t, else 0 ----
+      for (int hh = 0; hh < hg; ++hh) {
         const float* v = vec + hh * 4 * T;
-        // ---- W = G o exp(seg_t - seg_u) for u <= t, else 0 ----------------
+        float* wh = ws + hh * T * L.ldw;
 #pragma unroll
         for (int j = 0; j < NTG; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int t = 16 * gm + g + 8 * (e >> 1);
             const int u = 8 * (gn0 + j) + 2 * t4 + (e & 1);
-            ws[t * L.ldw + u] =
-                j < gn && u <= t ? gacc[0][j][e] * expf(v[t] - v[u]) : 0.0f;
+            wh[t * L.ldw + u] = hh < nh && j < gn && u <= t
+                                    ? gacc[0][j][e] * expf(v[t] - v[u])
+                                    : 0.0f;
           }
-        __syncthreads();
-        // ---- y = W (x dt) + exp(seg_t) C S^T --------------------------------
-        if (yn > 0) {
+      }
+      __syncthreads();
+      // ---- y = W (x dt) + exp(seg_t) C S^T: a warp's unit is two m-tiles
+      // x four n-tiles (of p) of one head ---------------------------------
+      {
+        const int per_head = T / 32 * 2, nlive = (np + 7) / 8;
+        for (int unit = warp; unit < nh * per_head; unit += WARPS) {
+          const int hh = unit / per_head, mp = unit % per_head / 2;
+          const int ng = unit % 2, yn = min(4, nlive - 4 * ng);
+          if (yn <= 0) continue;
+          const float* v = vec + hh * 4 * T;
+          const float* wh = ws + hh * T * L.ldw;
           const float* xh = xs + hh * T * L.ldx;
           const float* sh = st + hh * ps16 * L.lds;
-          float yi[1][NTY][4], ys[1][NTY][4];
+          float yi[2][4][4], ys[2][4][4];
 #pragma unroll
-          for (int j = 0; j < NTY; ++j)
+          for (int i = 0; i < 2; ++i)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) yi[0][j][e] = ys[0][j][e] = 0.0f;
-          // W is zero right of the diagonal: k stops at the m-tile's end
-          mma_tiles<1, NTY>(
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) yi[i][j][e] = ys[i][j][e] = 0.0f;
+          // W is zero right of the diagonal: k stops at the m-tiles' end
+          mma_tiles<2, 4>(
               yi,
-              [&](int, int r, int k) { return ws[(16 * ym + r) * L.ldw + k]; },
-              [&](int j, int k, int col) {
-                return xh[k * L.ldx + 8 * (yn0 + j) + col];
+              [&](int i, int r, int k) {
+                return wh[(32 * mp + 16 * i + r) * L.ldw + k];
               },
-              16 * (ym + 1), 1, yn, g, t4);
-          mma_tiles<1, NTY>(
+              [&](int j, int k, int col) {
+                return xh[k * L.ldx + 8 * (4 * ng + j) + col];
+              },
+              32 * (mp + 1), 2, yn, g, t4);
+          mma_tiles<2, 4>(
               ys,
-              [&](int, int r, int k) { return cs[(16 * ym + r) * L.ldc + k]; },
-              [&](int j, int k, int col) {
-                return sh[(8 * (yn0 + j) + col) * L.lds + k];
+              [&](int i, int r, int k) {
+                return cs[(32 * mp + 16 * i + r) * L.ldc + k];
               },
-              n8, 1, yn, g, t4);
+              [&](int j, int k, int col) {
+                return sh[(8 * (4 * ng + j) + col) * L.lds + k];
+              },
+              n8, 2, yn, g, t4);
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int t = 16 * ym + g + 8 * r;
-            if (t >= nt) continue;
-            const float e = v[2 * T + t];
-            Tx* yrow = y + ((row0 + t) * H + h0 + hh) * P + p0;
+          for (int i = 0; i < 2; ++i)
 #pragma unroll
-            for (int j = 0; j < NTY; ++j) {
-              const int p = 8 * (yn0 + j) + 2 * t4;
-              if (j < yn && p < np)
-                yrow[p] = from_f<Tx>(yi[0][j][2 * r] + e * ys[0][j][2 * r]);
-              if (j < yn && p + 1 < np)
-                yrow[p + 1] =
-                    from_f<Tx>(yi[0][j][2 * r + 1] + e * ys[0][j][2 * r + 1]);
+            for (int r = 0; r < 2; ++r) {
+              const int t = 32 * mp + 16 * i + g + 8 * r;
+              if (t >= nt) continue;
+              const float e = v[2 * T + t];
+              Tx* yrow = y + ((row0 + t) * H + h0 + hh) * P + p0;
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const int p = 8 * (4 * ng + j) + 2 * t4;
+                if (j < yn && p < np)
+                  yrow[p] = from_f<Tx>(yi[i][j][2 * r] + e * ys[i][j][2 * r]);
+                if (j < yn && p + 1 < np)
+                  yrow[p + 1] = from_f<Tx>(yi[i][j][2 * r + 1] +
+                                           e * ys[i][j][2 * r + 1]);
+              }
             }
-          }
         }
-        __syncthreads();   // W and the state are read above, rewritten below
-        if (!last) update(hh);
+      }
+      __syncthreads();   // W and the states are read above, rewritten below
+      // ---- the states' updates: a warp's unit is every m-tile x four
+      // n-tiles of one head ------------------------------------------------
+      if (!last) {
+        const int mt = ps16 / 16, nt8 = n8 / 8, per_head = (nt8 + 3) / 4;
+        for (int unit = warp; unit < nh * per_head; unit += WARPS) {
+          const int hh = unit / per_head, ng = unit % per_head;
+          const int un = min(4, nt8 - 4 * ng);
+          const float* v = vec + hh * 4 * T;
+          const float* xh = xs + hh * T * L.ldx;
+          float* sh = st + hh * ps16 * L.lds;
+          const float a = v[2 * T + T - 1];
+          float acc[4][4][4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (i < mt && j < un)
+                  acc[i][j][e] = a * sh[(16 * i + g + 8 * (e >> 1)) * L.lds +
+                                        8 * (4 * ng + j) + 2 * t4 + (e & 1)];
+          mma_tiles<4, 4, 1>(
+              acc,
+              [&](int i, int r, int k) {
+                return xh[k * L.ldx + 16 * i + r] * v[3 * T + k];
+              },
+              [&](int j, int k, int col) {
+                const int n = 8 * (4 * ng + j) + col;
+                return bs[k * L.ldb + (n ^ bswz(k))];
+              },
+              T, mt, un, g, t4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (i < mt && j < un)
+                  sh[(16 * i + g + 8 * (e >> 1)) * L.lds + 8 * (4 * ng + j) +
+                     2 * t4 + (e & 1)] = acc[i][j][e];
+        }
       }
     }
   }

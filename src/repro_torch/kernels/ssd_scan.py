@@ -61,7 +61,7 @@ def smem_bytes(T: int, PS: int, N: int, hg: int, out: bool) -> int:
     n8, ps16 = -(-N // 8) * 8, -(-PS // 16) * 16
     floats = (hg * ps16 * (n8 + 4) + T * -(-n8 // 32) * 32
               + (T * (n8 + 4) if out else 0) + hg * T * (ps16 + 8)
-              + (T * (T + 4) if out else 0) + 4 * hg * T)
+              + (hg * T * (T + 4) if out else 0) + 4 * hg * T)
     return 4 * floats
 
 
