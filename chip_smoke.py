@@ -11,7 +11,8 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    the flash-attention kernel's D-256 and D-512 instantiations, its
    sliced kernels and its float32 D-256 instantiation apart, failing on
    any spill of the last three, and those of the SSD scan's chunk
-   kernels), and the count of tensor-core instructions
+   kernels and the Jacobi-2D cluster kernel), and the count of tensor-core
+   instructions
    (HGMMA, HMMA) in the flash-attention library's SASS where the toolkit
    has ``cuobjdump``;
 2. Black-Scholes at its PARSEC-large size (65,536 options x 100 runs =
@@ -45,11 +46,15 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    types), flash
    decoding (float32, a
    float16 cache, bfloat16 at D 512, and a call of mixed types; the split
-   kernel and its combine) and the Mamba-2 SSD scan (its three passes)
+   kernel and its combine) and the Mamba-2 SSD scan (its three passes, and
+   states of N 512 and 1,024 on its N-panel route)
    through ``kernels.ops`` at their PARSEC / Rodinia / app input sizes, and
-   Jacobi-2D for RiVec's 4,000 sweeps; each output checked on its own terms
-   (shape, range, a float64 or numpy reference that shares no code with
-   the port);
+   Jacobi-2D: RiVec's 4,000 sweeps of 164 x 164 in float32 and bfloat16
+   through ``ops.jacobi2d`` (one cluster launch each), PolyBench's 1,000
+   sweeps of 2,800 x 2,800 (the loop route) and one float16 sweep; each
+   output checked on its own terms (shape, range, a float64 or numpy
+   reference that shares no code with the port, and each Jacobi-2D route
+   bit for bit against as many sweeps of the plain version);
 6. those kernels against their plain versions on the card at the
    reference's bars (Jacobi-2D on a PolyBench EXTRALARGE grid), timed
    beside their plain versions, the nearest single PyTorch call and their
@@ -68,9 +73,13 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    TFLOP/s and the exponential co-bound (float32: the 3xTF32 tensor-core
    bound beside the float32 SIMT one); for the particle filter the path
    each row took and, as for decoding, the device time behind a spin
-   beside ``searchsorted``'s; and one Jacobi-2D launch at the app's 164 x
-   164;
-7. the ``kernels`` JSON line (eighteen entries: flash attention's D-256
+   beside ``searchsorted``'s; Jacobi-2D's two routes and the SSD scan's
+   N-panel route; and at the app's 164 x 164 the old 4,000-launch loop
+   beside the cluster route (wall time, device time, launches), the route
+   under each cluster size, one cluster barrier and the floor it sets, and
+   the routes on the widest float32 and bfloat16 grids the cluster takes;
+7. the ``kernels`` JSON line (twenty-one entries: Jacobi-2D's cluster and
+   loop routes and the SSD scan's N-panel route; flash attention's D-256
    and D-512 wgmma instantiations, its sliced kernel, its float32 D-256
    instantiation and its float32 sliced kernel, the particle filter's
    shuffled row,
@@ -144,6 +153,12 @@ SW_OPS, CA_OPS = 46, 12
 # app's 105 KB grid takes far less than a launch.  5 float operations per
 # interior point.
 J2_N, J2_SWEEPS, J2_BIG, J2_OPS = 164, 4_000, 2_800, 5
+# The app's sweeps run in one launch of a thread-block cluster (the grid in
+# its shared memory, ``jacobi2d.route``); PolyBench's EXTRALARGE grid does
+# not fit one and runs its 1,000 time steps (TSTEPS) on the loop route, one
+# launch a sweep.  Phase 6 also times the cluster route on the widest
+# float32 and bfloat16 grids it takes (J2_WIDEST sweeps each).
+J2_BIG_SWEEPS, J2_WIDEST = 1_000, 1_000
 # pathfinder: Rodinia's 100,000 columns (tracegen.py:317) x the rows that
 # _PATH_CHUNK8 implies (20,054,016 x 8 / 100,000 = 1,604), wall
 # rand() % 10; 3 operations per cell after the first row (2 min, 1 add).
@@ -178,6 +193,11 @@ SSD_B, SSD_S, SSD_H, SSD_P, SSD_N, SSD_CHUNK = 8, 65_536, 16, 64, 128, 256
 SSD_CHECK = ((0, 0), (SSD_B - 1, SSD_H - 1))
 # and with a head of 256 columns, split on the card into two P-slices
 SSD_WIDE = (2, 16_384, 16, 256, 128)
+# states too wide for one block (N > 416 at P 128): the scan splits them
+# into N-panels (two of 256, three of 344, 344 and 336), each (b, S, H, P,
+# N) checked against the float64 recurrence over two (b, h)
+SSD_PANELS = {"ssd_scan_n512": (2, 4_096, 8, 128, 512),
+              "ssd_scan_n1024": (2, 4_096, 4, 128, 1_024)}
 # flash attention's routes past D 128 in the kernels line: name -> the
 # wrapper's launch counter
 FA_ROUTES = {"flash_attention_wgmma256": "wgmma256_launches",
@@ -399,7 +419,14 @@ def suite_inputs(torch, dev) -> dict:
     cdf_shuffled = gen.permutation(cdf)
     fa_d640 = tuple(normal(FA_D640).to(torch.bfloat16) for _ in range(3))
     fa_f32_d512 = tuple(normal(FA_F32_D512) for _ in range(3))
+    # the SSD scan on N-panels (its own seed, as every SSD input)
+    panels = {key: ssd_inputs(torch, dev, *dims,
+                              check=((0, 0), (dims[0] - 1, dims[2] - 1)))
+              for key, dims in SSD_PANELS.items()}
     return {"sw": t(u), "sc": sc,
+            "j2_bf16": t(j2).to(torch.bfloat16),
+            "j2_f16": t(j2).to(torch.float16),
+            **{key: args for key, (args, _) in panels.items()},
             "sc_bf16": tuple(x.to(torch.bfloat16) for x in sc),
             "sc_f16": tuple(x.to(torch.float16) for x in sc),
             "j2_big_bf16": t(j2_big).to(torch.bfloat16),
@@ -427,7 +454,8 @@ def suite_inputs(torch, dev) -> dict:
             "host": {"pf": (cdf, q), "pf_shuffled": cdf_shuffled,
                      "ca": (locs, fan, ca, cb), "j2": j2,
                      "path": wall, "da_lens": lens, "da_lens_d512": lens5,
-                     "ssd": ssd_host}}
+                     "ssd": ssd_host,
+                     **{key: host for key, (_, host) in panels.items()}}}
 
 
 def ssd_inputs(torch, dev, b_=SSD_B, S=SSD_S, H=SSD_H, P=SSD_P, N=SSD_N,
@@ -561,12 +589,20 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
     j2_err = float(np.abs(grid.cpu().numpy() - a).max())
     if j2_err > 1e-6:
         fail(f"jacobi2d: off numpy's {J2_SWEEPS} sweeps by {j2_err} > 1e-6")
-    plain = data["j2"]
-    for _ in range(J2_SWEEPS):
-        plain = ref.jacobi2d(plain)
-    if not torch.equal(grid, plain):
-        fail(f"jacobi2d: {J2_SWEEPS} kernel sweeps differ from the plain "
-             "version's")
+    # each route against as many sweeps of the plain version, bit for bit:
+    # the app in float32 and bfloat16 (one cluster launch each), PolyBench's
+    # grid (the loop route), one float16 sweep
+    for key, src, sweeps in (("jacobi2d", "j2", J2_SWEEPS),
+                             ("jacobi2d_bf16", "j2_bf16", J2_SWEEPS),
+                             ("jacobi2d_big", "j2_big", J2_BIG_SWEEPS),
+                             ("jacobi2d_f16_step", "j2_f16", 1)):
+        plain = data[src]
+        for _ in range(sweeps):
+            plain = ref.jacobi2d(plain)
+        if outs[key].dtype != plain.dtype or not torch.equal(outs[key],
+                                                             plain):
+            fail(f"{key}: {sweeps} kernel sweeps differ from the plain "
+                 "version's")
     # pathfinder: numpy's row-by-row program on the host; integer walls
     # keep every sum exact
     wall = data["host"]["path"]
@@ -630,7 +666,10 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
         if not torch.allclose(o.double(), want, rtol=tol, atol=tol):
             fail(f"{key}: off float64 attention by {da[key]}")
     da_err = da["decode_attention"]
-    print(f"phase 5 outputs: jacobi2d vs numpy's {J2_SWEEPS} sweeps "
+    print(f"phase 5 outputs: jacobi2d (cluster route, float32 and bfloat16; "
+          f"loop route at {J2_BIG} x {J2_BIG} x {J2_BIG_SWEEPS}; a float16 "
+          "sweep) equal to the plain version's sweeps; vs numpy's "
+          f"{J2_SWEEPS} sweeps "
           f"{j2_err:.3g} (1e-6), equal to the plain version's sweeps; "
           f"pathfinder equal to numpy's row program; flash attention vs "
           f"float64 on 2 x 64 rows {att['flash_attention']:.3g} (2e-4), "
@@ -667,6 +706,31 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
           f"{SSD_S} steps of (b, h) in {list(data['host']['ssd'])} "
           f"{ssd_err:.3g} (4e-3; |y| up to "
           f"{float(y.abs().max()):.3g}), {time.perf_counter() - t0:.1f} s")
+    # the N-panel route: the plain version on the card and the float64
+    # recurrence over two (b, h), 4e-3
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    for key, dims in SSD_PANELS.items():
+        y, args = outs[key], data[key]
+        if y.shape != args[0].shape or not torch.isfinite(y).all():
+            fail(f"{key}: output not finite float32 [b, S, H, P]")
+        plain = ref.ssd_scan(*args, SSD_CHUNK)
+        plain_err = float((y - plain).abs().max())
+        f64_err = 0.0
+        for (b, h), host in data["host"][key].items():
+            want = ssd_recurrence_f64(*host)
+            got = y[b, :, h].double().cpu().numpy()
+            f64_err = max(f64_err, float(np.abs(got - want).max()))
+            if not np.allclose(got, want, rtol=4e-3, atol=4e-3):
+                fail(f"{key}: (b, h) = {(b, h)} off the float64 recurrence "
+                     f"by {f64_err}")
+        if not torch.allclose(y, plain, rtol=4e-3, atol=4e-3):
+            fail(f"{key}: off the plain version by {plain_err}")
+        pl = ssd_mod.plan(*dims[1:])
+        print(f"phase 5 outputs: {key} (b, S, H, P, N = {dims}; "
+              f"{-(-dims[4] // pl.panel)} N-panels of {pl.panel}) vs the "
+              f"plain version {plain_err:.3g}, vs the float64 recurrence "
+              f"over (b, h) in {list(data['host'][key])} {f64_err:.3g} "
+              "(4e-3)")
 
 
 def suite_specs(torch, ref, data, mods):
@@ -733,6 +797,20 @@ def suite_specs(torch, ref, data, mods):
             plain=lambda big=big: ref.jacobi2d(big), library=None, tol=None,
             peak=PEAK_F32_S, nbytes=J2_BIG * J2_BIG * 2 * big.element_size(),
             ops=J2_OPS * (J2_BIG - 2) ** 2, per=25))
+    # Jacobi-2D's many-sweep routes: the app's 4,000 sweeps of 164 x 164 on
+    # the cluster route (one launch) and PolyBench's 1,000 of 2,800 x 2,800
+    # on the loop route (one launch a sweep); the grid read once and
+    # written once, 5 operations an interior point a sweep
+    from repro_torch.kernels import jacobi2d as j2_mod
+    for name, key, sweeps in (("jacobi2d_cluster", "j2", J2_SWEEPS),
+                              ("jacobi2d_loop", "j2_big", J2_BIG_SWEEPS)):
+        g = data[key]
+        specs.append(dict(
+            name=name, kernel=lambda g=g, k=sweeps: j2_mod.jacobi2d(g, k),
+            plain=lambda g=g, k=sweeps: ref.jacobi2d(g, k), library=None,
+            tol=None, peak=PEAK_F32_S, nbytes=g.numel() * 2 * g.element_size(),
+            ops=J2_OPS * (g.shape[0] - 2) * (g.shape[1] - 2) * sweeps, per=1,
+            plain_reps=1))
     wall = data["path"]
     specs.append(dict(
         name="pathfinder", kernel=lambda: path_k(wall),
@@ -906,6 +984,18 @@ def suite_specs(torch, ref, data, mods):
                      ssd_mod.state_pass(Z, seg)),
                     ("output pass", lambda a=args, Z=Z, pl=ssd_pl:
                      ssd_mod.output_pass(*a, Z, pl)))))
+    # the N-panel route (its four passes in one call), bound as above
+    for key in SSD_PANELS:
+        x, dt, A, B, C = args = data[key]
+        dims = (*x.shape, B.shape[-1])
+        specs.append(dict(
+            name=key, kernel=lambda a=args: ssd_k(*a, SSD_CHUNK),
+            plain=lambda a=args: ref.ssd_scan(*a, SSD_CHUNK), library=None,
+            tol=(4e-3, 4e-3), peak=PEAK_TF32_S / 3,
+            nbytes=2 * x.numel() * 4
+            + sum(t.numel() * 4 for t in (dt, A, B, C)),
+            ops=min(ssd_ops_at(q, *dims) for q in range(1, dims[1] + 1)
+                    if dims[1] % q == 0), per=2, plain_reps=2))
     return specs
 
 
@@ -1083,6 +1173,96 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
             **extra}
 
 
+def jacobi_routes(torch, j2_mod, ops, small, j2_app_s, sm_clock_hz) -> None:
+    """Jacobi-2D at the app's 164 x 164: the old loop (4,000 one-sweep
+    launches) beside the cluster route (one launch), each in wall and
+    device time; the cluster route under every cluster size; one cluster
+    barrier (a grid of no interior column: empty sweeps) and the floor it
+    sets; the cluster route beside the loop route on float32 grids of 256
+    to 512 rows, on the widest float32 and bfloat16 grids the plan gives
+    the cluster and on a bfloat16 one past it."""
+    def wall_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def old_loop():
+        g = small
+        for _ in range(J2_SWEEPS):
+            g = j2_mod.jacobi2d_step(g)
+        return g
+
+    launch_ms = device_ms(torch, lambda: j2_mod.jacobi2d_step(small),
+                          reps=10, per=25, sm_clock_hz=sm_clock_hz)
+    before = j2_mod.jacobi2d_step.launches
+    old_wall = wall_ms(old_loop, reps=3)
+    old_launches = (j2_mod.jacobi2d_step.launches - before) // 3
+    route = lambda: ops.jacobi2d(small, iters=J2_SWEEPS)
+    before = j2_mod.jacobi2d.launches
+    new_wall = wall_ms(route)
+    new_launches = (j2_mod.jacobi2d.launches - before) // 5
+    new_dev = cuda_ms(torch, route, reps=5)
+    print(f"phase 6 jacobi2d app ({J2_N} x {J2_N}, {J2_SWEEPS} sweeps): "
+          f"old loop {old_wall:.3f} ms wall, {launch_ms * J2_SWEEPS:.3f} ms "
+          f"device ({launch_ms:.5f} ms a launch behind a spin), "
+          f"{old_launches} launches; cluster route {new_wall:.3f} ms wall, "
+          f"{new_dev:.3f} ms device, {new_launches} launch; phase 5's call "
+          f"{j2_app_s * 1e3:.3f} ms wall")
+    rt = j2_mod.route(*small.shape, small.dtype)
+    sizes = {n: cuda_ms(torch, lambda n=n: j2_mod.cluster(
+        small, J2_SWEEPS, n, j2_mod.route(J2_N, J2_N, small.dtype, n).k),
+        reps=5) for n in (1, 2, 4, 8, 16)}
+    print(f"phase 6 jacobi2d cluster sizes at the app's grid (the plan: "
+          f"{rt.ctas} CTAs, k = {rt.k}): " + ", ".join(
+              f"{n} CTAs {t:.3f} ms" for n, t in sizes.items()))
+    ks = {k: cuda_ms(torch, lambda k=k: j2_mod.cluster(
+        small, J2_SWEEPS, 16, k), reps=5) for k in (1, 2, 3, 4, 6, 8, 11)}
+    print("phase 6 jacobi2d sweeps between cluster barriers at the app's "
+          "grid, 16 CTAs: " + ", ".join(f"k = {k} {t:.3f} ms"
+                                        for k, t in ks.items()))
+    empty = torch.zeros(J2_N, 2, device=small.device)
+    full = cuda_ms(torch, lambda: j2_mod.cluster(empty, J2_SWEEPS, 16, 1),
+                   reps=5)
+    none = cuda_ms(torch, lambda: j2_mod.cluster(empty, 0, 16, 1), reps=5)
+    barrier_us = (full - none) / J2_SWEEPS * 1e3
+    barriers = -(-J2_SWEEPS // rt.k)
+    print(f"phase 6 jacobi2d one cluster barrier (16 CTAs, empty sweeps of "
+          f"a {J2_N} x 2 grid, k = 1): {barrier_us:.4f} us ({full:.4f} ms "
+          f"for {J2_SWEEPS} sweeps, {none:.4f} ms for none); the app's "
+          f"dependency floor {barriers} barriers (k = {rt.k}) x "
+          f"{barrier_us:.4f} us = {barrier_us * barriers / 1e3:.4f} ms")
+    widest = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        n = 3
+        while j2_mod.route(n + 1, n + 1, dtype).name == "cluster":
+            n += 1
+        widest[dtype] = n
+    for n, dtype in ((256, torch.float32), (384, torch.float32),
+                     (512, torch.float32), (widest[torch.float32],
+                                            torch.float32),
+                     (widest[torch.bfloat16], torch.bfloat16),
+                     (896, torch.bfloat16)):
+        g = torch.rand(n, n, device=small.device).to(dtype)
+        rt = j2_mod.route(n, n, dtype, 16)
+        t_route = cuda_ms(torch, lambda: j2_mod.cluster(g, J2_WIDEST, 16,
+                                                        rt.k), reps=3)
+        t_loop = cuda_ms(torch, lambda: j2_mod.loop(g, J2_WIDEST), reps=3)
+        if not torch.equal(j2_mod.cluster(g, J2_WIDEST, 16, rt.k),
+                           j2_mod.loop(g, J2_WIDEST)):
+            fail(f"jacobi2d {n} x {n} {dtype}: the routes differ")
+        print(f"phase 6 jacobi2d {n} x {n} {dtype} (the plan: "
+              f"{j2_mod.route(n, n, dtype).name} route): cluster route "
+              f"(16 CTAs, k = {rt.k}) {t_route * 1e3 / J2_WIDEST:.4f} us a "
+              "sweep, "
+              f"loop route {t_loop * 1e3 / J2_WIDEST:.4f} us a sweep "
+              f"({J2_WIDEST} sweeps, bit for bit alike)")
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)   # phase lines survive a kill
     import torch
@@ -1145,6 +1325,8 @@ def main() -> int:
     # pass, bound for two blocks an SM, spills a few bytes at 128 registers
     print(f"phase 1 ssd_scan chunk kernels: "
           f"{entry_lines(report, 'ssd_scan', 'ssd_chunk_kernel')}")
+    print(f"phase 1 jacobi2d cluster kernel: "
+          f"{entry_lines(report, 'jacobi2d', 'jacobi2d_cluster_kernel')}")
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} "
           f"sm_clock_max={sm_clock_hz / 1e6:.0f} MHz  build wall {build_s:.1f} s")
 
@@ -1392,6 +1574,8 @@ def main() -> int:
         setattr(fa_mod.flash_attention, counter, 0)
     da_mod.decode_attention.combine_launches = 0
     ssd_mod.ssd_scan.chunk_launches = ssd_mod.ssd_scan.state_launches = 0
+    ssd_mod.ssd_scan.panel_launches = 0
+    j2_mod.jacobi2d.launches = j2_mod.jacobi2d.loop_launches = 0
     t0 = time.perf_counter()
     outs = {"swaptions": ops.cum_normal_inv(data["sw"]),
             "streamcluster": ops.streamcluster_dist(*data["sc"]),
@@ -1421,18 +1605,28 @@ def main() -> int:
             "decode_attention_d512": ops.decode_attention(*data["da_d512"]),
             "decode_attention_mixed": ops.decode_attention(
                 *data["da_mixed"]),
-            "ssd_scan": ops.ssd_scan(*data["ssd"], chunk=SSD_CHUNK)}
+            "ssd_scan": ops.ssd_scan(*data["ssd"], chunk=SSD_CHUNK),
+            **{key: ops.ssd_scan(*data[key], chunk=SSD_CHUNK)
+               for key in SSD_PANELS}}
     torch.cuda.synchronize()
     suite_s = time.perf_counter() - t0
+    # the app: RiVec's 4,000 sweeps in one call (one cluster launch)
     t0 = time.perf_counter()
-    grid = data["j2"]
-    for _ in range(J2_SWEEPS):
-        grid = ops.jacobi2d_step(grid)
+    outs["jacobi2d"] = ops.jacobi2d(data["j2"], iters=J2_SWEEPS)
     torch.cuda.synchronize()
     j2_app_s = time.perf_counter() - t0
-    outs["jacobi2d"] = grid
+    # and in bfloat16; PolyBench's grid on the loop route; one float16 sweep
+    outs["jacobi2d_bf16"] = ops.jacobi2d(data["j2_bf16"], iters=J2_SWEEPS)
+    outs["jacobi2d_big"] = ops.jacobi2d(data["j2_big"], iters=J2_BIG_SWEEPS)
+    outs["jacobi2d_f16_step"] = ops.jacobi2d_step(data["j2_f16"])
+    torch.cuda.synchronize()
     for name, mod in zip(SUITE_REPLACES, suite_mods):
         launches[name] = mod.launches
+    # Jacobi-2D's two routes and the SSD scan's N-panel sum, their own
+    # counters
+    launches["jacobi2d_cluster"] = j2_mod.jacobi2d.launches
+    launches["jacobi2d_loop"] = j2_mod.jacobi2d.loop_launches
+    launches["ssd_scan_panels"] = ssd_mod.ssd_scan.panel_launches
     # flash attention's routes past D 128, each its own counter
     for name, counter in FA_ROUTES.items():
         launches[name] = getattr(fa_mod.flash_attention, counter)
@@ -1445,7 +1639,9 @@ def main() -> int:
     path_counts = {n: launches[n]
                    for n in (*SUITE_REPLACES, *FA_ROUTES,
                              "decode_attention_combine",
-                             "ssd_scan_chunk_pass", "ssd_scan_state_pass")}
+                             "ssd_scan_chunk_pass", "ssd_scan_state_pass",
+                             "jacobi2d_cluster", "jacobi2d_loop",
+                             "ssd_scan_panels")}
     # the particle filter's two calls: the path each took, from its flags
     pf_paths = {key: "search" if pf_mod.searched(outs.pop(flags)) else
                 "count" for key, flags in
@@ -1453,11 +1649,20 @@ def main() -> int:
                  ("particlefilter_shuffled", "pf_shuffled_flags"))}
     print(f"phase 5 suite kernels through kernels.ops: {suite_s * 1e3:.1f} ms"
           f" wall (inputs made in {inputs_s:.1f} s); jacobi2d {J2_SWEEPS} "
-          f"sweeps of {J2_N} x {J2_N} in {j2_app_s * 1e3:.1f} ms wall "
-          f"({j2_app_s * 1e6 / J2_SWEEPS:.2f} us/sweep); launches "
-          f"{path_counts}; particle filter paths {pf_paths}")
+          f"sweeps of {J2_N} x {J2_N} in {j2_app_s * 1e3:.3f} ms wall "
+          f"({j2_app_s * 1e6 / J2_SWEEPS:.3f} us/sweep, one launch); "
+          f"launches {path_counts}; particle filter paths {pf_paths}")
     if min(path_counts.values()) <= 0:
         fail(f"a suite kernel was not launched on its path: {launches}")
+    for key, want in (("j2", "cluster"), ("j2_bf16", "cluster"),
+                      ("j2_big", "loop")):
+        got = j2_mod.route(*data[key].shape, data[key].dtype).name
+        if got != want:
+            fail(f"jacobi2d {key}: the {got} route, not the {want} route")
+    for key in SSD_PANELS:
+        if not ssd_mod.plan(*data[key][0].shape[1:],
+                            data[key][3].shape[-1]).panel:
+            fail(f"{key}: not on the N-panel route")
     if pf_paths != {"particlefilter": "search",
                     "particlefilter_shuffled": "count"}:
         fail(f"particle filter: paths {pf_paths}, expected the search on "
@@ -1475,15 +1680,7 @@ def main() -> int:
     # ---- 6. suite kernels against their plain versions, times, bounds -------
     rows = {spec["name"]: run_suite_kernel(torch, spec, sm_clock_hz)
             for spec in suite_specs(torch, ref, data, suite_mods)}
-    # one Jacobi-2D launch at the app's own 164 x 164, on the device
-    small = data["j2"]
-    j2_small_ms = device_ms(torch, lambda: j2_mod.jacobi2d_step(small),
-                            reps=10, per=25, sm_clock_hz=sm_clock_hz)
-    print(f"phase 6 jacobi2d at {J2_N} x {J2_N}: {j2_small_ms:.4f} ms a "
-          f"launch on the device (x {J2_SWEEPS} sweeps = "
-          f"{j2_small_ms * J2_SWEEPS:.2f} ms), against "
-          f"{j2_app_s * 1e3 / J2_SWEEPS:.4f} ms of wall time a sweep in "
-          f"phase 5")
+    jacobi_routes(torch, j2_mod, ops, data["j2"], j2_app_s, sm_clock_hz)
 
     # ---- 7. kernels line ------------------------------------------------------
     kernels = [
@@ -1534,7 +1731,13 @@ def main() -> int:
              "flash_attention_3xtf32_sliced"),
             ("decode_attention_combine", "decode_attention",
              "decode_attention_combine", "decode_attention",
-             "decode_attention_combine")):
+             "decode_attention_combine"),
+            ("jacobi2d_cluster", "jacobi2d", "jacobi2d_cluster", "jacobi2d",
+             "jacobi2d_cluster"),
+            ("jacobi2d_loop", "jacobi2d", "jacobi2d_loop", "jacobi2d",
+             "jacobi2d_loop"),
+            ("ssd_scan_panels", "ssd_scan", "ssd_scan_n512", "ssd_scan",
+             "ssd_scan_panels")):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{source}.cu",
                         "replaces": SUITE_REPLACES[of],

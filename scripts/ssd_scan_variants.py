@@ -84,10 +84,10 @@ def build(build_mod, variants: dict) -> dict:
         lib = ctypes.CDLL(str(path))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ssd_chunk_states_launch.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                                i, i, i, i, p]
+                                                i, i, i, i, i, p]
         lib.ssd_state_pass_launch.argtypes = [p, p, i, i, i, ll, p]
         lib.ssd_output_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                          i, i, i, i, p]
+                                          i, i, i, i, i, ll, p]
         libs[name] = lib
     return libs
 
@@ -162,14 +162,14 @@ def main() -> int:
             chunk = lambda: lib.ssd_chunk_states_launch(
                 x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                 Z.data_ptr(), seg.data_ptr(), b, S, H, P, N, 0,
-                pl.chunk_steps, pl.width, stream())
+                pl.chunk_steps, pl.width, N, stream())
             nc = -(-S // 256) if name == "chunk-256" else pl.chunks
             state = lambda: lib.ssd_state_pass_launch(
                 Z.data_ptr(), seg.data_ptr(), b, nc, H, P * N, stream())
             output = lambda: lib.ssd_output_launch(
                 x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                 C.data_ptr(), Z.data_ptr(), out.data_ptr(), b, S, H, P, N, 0,
-                T, pl.width, hg, stream())
+                T, pl.width, hg, N, 0, stream())
             for fn in (chunk, state, output):
                 if fn():
                     raise SystemExit(f"{name} {(T, hg)}: launch failed")

@@ -1,4 +1,4 @@
-// Jacobi-2D, one 5-point sweep, for Hopper (sm_90a), plain C interface.
+// Jacobi-2D 5-point sweeps for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas kernel repro/kernels/jacobi2d.py:32 (jacobi2d_step,
 // pallas_call at :45): every interior point of a float32 [R, C] grid
@@ -7,64 +7,314 @@
 // halo strips (a[idx]) and needed (R - 2) % rows_per_block == 0; here each
 // thread reads its four neighbours straight from the input (the block's
 // rows share them through L1) and writes a fresh output, for any R and C.
+// The reference's many-sweep function (repro/kernels/ref.py:29,
+// jacobi2d(a, iters)) has no Pallas kernel; its port is the cluster kernel
+// below.
 //
-// Bound on an H100: bytes.  Each point is read once and written once
-// (8 B a point: 62.7 MB, 18.7 us, on PolyBench EXTRALARGE's 2,800 x 2,800
-// grid) against 5 float operations a point.  Design: a 32 x 8 thread block
-// covers 32 columns x 32 rows.  A thread owns four rows of one column and
-// loads the six rows around them once, so every up/down neighbour is its
-// own load; a warp's loads are 128-byte row segments.
+// One sweep (jacobi2d_kernel).  Bound on an H100: bytes.  Each point is
+// read once and written once (8 B a point: 62.7 MB, 18.7 us, on PolyBench
+// EXTRALARGE's 2,800 x 2,800 grid) against 5 float operations a point.
+// Design: a 32 x 8 thread block covers 32 columns x 32 rows.  A thread owns
+// four rows of one column and loads the six rows around them once, so
+// every up/down neighbour is its own load; a warp's loads are 128-byte row
+// segments.  Row blocks go on gridDim.y and, past its 65,535, round again
+// in a loop, so any R is taken.
 //
-// Built with -fmad=false and summed in the plain version's order
-// (((((c + l) + r) + u) + d) * 0.2f, repro_torch/kernels/ref.py:jacobi2d):
-// the sweep equals its plain version bit for bit.  A bfloat16 grid is
-// widened as it is loaded, summed in float32 in the same order and rounded
-// once, on the store (as the plain version does); a held point is copied.
+// Many sweeps (jacobi2d_cluster_kernel).  A grid of a few hundred rows
+// takes ~2.5 us a launch against a fraction of that in bytes, so RiVec's
+// 4,000 sweeps of 164 x 164 were launch bound.  Here one launch runs all
+// sweeps: the grid lives in the shared memory of one thread-block cluster
+// of up to 16 CTAs, double-buffered.  CTA j holds rows [j rpc, (j+1) rpc)
+// and K halo rows above and below, and runs the sweeps in blocks of K: the
+// block's first sweep also updates K - 1 halo rows on each side, its next
+// K - 2, and so on (the same arithmetic on the same values as the CTA that
+// owns those rows, so the same bits), with a CTA barrier between sweeps.
+// At a block's end each CTA stores its K top and K bottom rows into its
+// neighbours' inboxes (remote stores into distributed shared memory), and
+// one cluster barrier (arrive with release, wait with acquire) orders them
+// before the neighbours copy them into their halo rows at the next
+// block's start.  The inboxes are double-buffered by the block's parity: a
+// CTA writes inbox p again only at the end of block b + 2, after the
+// barrier that ends block b + 1, which its neighbour passes only once it
+// has copied inbox p at the start of block b + 1.  So K sweeps take one
+// cluster barrier, the K - 1 halo rows' redundant updates and one
+// exchange; the last block exchanges nothing, and no CTA touches another
+// CTA's shared memory after the last barrier, so none exits while a
+// neighbour still writes into it.  A thread takes one column of a run of
+// rows, walking down it with the rows above and below in registers (three
+// shared-memory loads a point).  Bound: the dependent cluster barriers
+// (4,000 / K for the app), not bytes (the grid is read and written once).
+//
+// Both kernels are built with -fmad=false and sum in the plain version's
+// order (((((c + l) + r) + u) + d) * 0.2f, repro_torch/kernels/ref.py:
+// jacobi2d): every sweep equals its plain version bit for bit.  A bfloat16
+// or float16 grid is widened as it is loaded, summed in float32 in the same
+// order and rounded to its type on every store, as the plain version
+// rounds at the end of every sweep; a held point is copied.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int TX = 32, TY = 8, ROWS = 4;   // a block: 32 cols x 32 rows
+constexpr int MAX_GRID_Y = 65535;
+constexpr int SMEM_MAX = 232448;           // a block's opt-in shared memory
+constexpr int MAX_CLUSTER = 16;            // non-portable past 8
+constexpr int CLUSTER_THREADS = 1024;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);   // round to nearest even, as torch's cast
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+
+// round to nearest even, as torch's cast
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half(v);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(TX * TY)
 jacobi2d_kernel(const T* __restrict__ a, T* __restrict__ out, int R, int C) {
   const int c = blockIdx.x * TX + threadIdx.x;
-  const int r0 = (blockIdx.y * TY + threadIdx.y) * ROWS;
   if (c >= C) return;
-  // rows r0 - 1 .. r0 + ROWS of this column, as far as they exist
-  float col[ROWS + 2];
-#pragma unroll
-  for (int i = 0; i < ROWS + 2; ++i) {
-    const int r = r0 - 1 + i;
-    col[i] = (r >= 0 && r < R) ? to_f(__ldg(a + (long long)r * C + c)) : 0.0f;
-  }
+  const int nby = (R + TY * ROWS - 1) / (TY * ROWS);
   const bool edge_col = (c == 0 || c == C - 1);
+  for (int by = blockIdx.y; by < nby; by += gridDim.y) {
+    const int r0 = (by * TY + threadIdx.y) * ROWS;
+    // rows r0 - 1 .. r0 + ROWS of this column, as far as they exist
+    float col[ROWS + 2];
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int r = r0 + i;
-    if (r >= R) break;
-    const long long at = (long long)r * C + c;
-    if (!edge_col && r > 0 && r < R - 1) {
-      const float left = to_f(__ldg(a + at - 1));
-      const float right = to_f(__ldg(a + at + 1));
-      store(out + at,
+    for (int i = 0; i < ROWS + 2; ++i) {
+      const int r = r0 - 1 + i;
+      col[i] = (r >= 0 && r < R) ? to_f(__ldg(a + (long long)r * C + c))
+                                 : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const int r = r0 + i;
+      if (r >= R) break;
+      const long long at = (long long)r * C + c;
+      if (!edge_col && r > 0 && r < R - 1) {
+        const float left = to_f(__ldg(a + at - 1));
+        const float right = to_f(__ldg(a + at + 1));
+        out[at] = from_f<T>(
             0.2f * ((((col[i + 1] + left) + right) + col[i]) + col[i + 2]));
-    } else {
-      out[at] = a[at];
+      } else {
+        out[at] = a[at];
+      }
     }
   }
+}
+
+// `iters` sweeps of the [R, C] grid in one cluster of gridDim.x CTAs,
+// each holding rows [rank rpc, (rank + 1) rpc) of it (the last ones may
+// hold fewer, or none), in blocks of K (<= rpc) sweeps.  Shared memory:
+// two working buffers of (rpc + 2 K) rows (K halo rows, the CTA's own
+// rows, K halo rows) and the inboxes [parity][top, bottom][K] rows, all C
+// wide.  blockDim.x threads take the columns of a row, blockDim.y runs of
+// rows at a time.
+template <typename T>
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+jacobi2d_cluster_kernel(const T* __restrict__ a, T* __restrict__ out, int R,
+                        int C, int rpc, int K, int iters) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const buf = reinterpret_cast<T*>(smem_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int ctas = (int)cluster.num_blocks();
+  const int r0 = rank * rpc;                   // the first row held
+  const int nr = max(0, min(rpc, R - r0));     // rows held
+  const int span = (rpc + 2 * K) * C;          // one working buffer
+  T* const inbox = buf + 2 * span;             // [2][2][K][C]
+  // signed copies: a CTA past the grid's last row has lo > hi below
+  const int ty = threadIdx.y, by = blockDim.y;
+  const int tid = ty * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * by;
+  // neighbours that hold rows, and the rows they and this CTA swap
+  const bool has_prev = rank > 0 && nr > 0;
+  const bool has_next = rank + 1 < ctas && (rank + 1) * rpc < R;
+  const int up_rows = has_prev ? K : 0;                 // from prev
+  const int down_rows = has_next ? min(K, R - r0 - nr) : 0;
+  T* const prev_inbox =
+      has_prev ? cluster.map_shared_rank(inbox, rank - 1) : inbox;
+  T* const next_inbox =
+      has_next ? cluster.map_shared_rank(inbox, rank + 1) : inbox;
+
+  // rows r0 - K .. r0 + nr + K - 1, as far as they exist, into both
+  // working buffers: held points never change
+  for (int i = tid; i < (nr + 2 * K) * C; i += nthreads) {
+    const int g = r0 - K + i / C;
+    if (g >= 0 && g < R) {
+      const T v = a[(long long)g * C + i % C];
+      buf[i] = v;
+      buf[span + i] = v;
+    }
+  }
+  cluster.sync();
+
+  // local rows lo..hi that hold interior rows of the grid (1 .. R - 2)
+  const int lo_g = K + 1 - r0, hi_g = K + R - 2 - r0;
+  int cur = 0;                                 // the buffer read next
+  for (int done = 0; done < iters;) {
+    const int kb = min(K, iters - done);
+    T* src = buf + cur;
+    if (done > 0) {   // the neighbours' rows of the last block: the halos
+      const T* in = inbox + ((done / K - 1) & 1) * 2 * K * C;
+      for (int i = tid; i < up_rows * C; i += nthreads) src[i] = in[i];
+      for (int i = tid; i < down_rows * C; i += nthreads)
+        src[(K + nr) * C + i] = in[K * C + i];
+      __syncthreads();
+    }
+    for (int j = 1; j <= kb; ++j) {
+      src = buf + cur;
+      T* const dst = buf + (span - cur);
+      const int ext = kb - j;                  // halo rows updated too
+      const int lo = max(K - ext, lo_g), hi = min(K + nr - 1 + ext, hi_g);
+      const int run = hi >= lo ? (hi - lo + by) / by : 0;   // rows a thread
+      const int first = lo + ty * run;
+      const int last = min(hi, first + run - 1);
+      for (int c = 1 + threadIdx.x; c < C - 1; c += blockDim.x) {
+        if (first > last) break;
+        const T* col = src + c;
+        float up = to_f(col[(first - 1) * C]), mid = to_f(col[first * C]);
+#pragma unroll 4
+        for (int lr = first; lr <= last; ++lr) {
+          const float down = to_f(col[(lr + 1) * C]);
+          const float v = 0.2f * ((((mid + to_f(col[lr * C - 1])) +
+                                    to_f(col[lr * C + 1])) +
+                                   up) +
+                                  down);
+          dst[lr * C + c] = from_f<T>(v);
+          up = mid;
+          mid = down;
+        }
+      }
+      __syncthreads();
+      cur = span - cur;
+    }
+    done += kb;
+    if (done < iters) {   // this block's edge rows to the neighbours
+      const int p = (done / K - 1) & 1;
+      const T* res = buf + cur;
+      for (int i = tid; i < up_rows * C; i += nthreads)   // top K rows
+        prev_inbox[(p * 2 + 1) * K * C + i] = res[K * C + i];
+      for (int i = tid; i < K * C && has_next; i += nthreads)
+        next_inbox[p * 2 * K * C + i] = res[nr * C + i];
+      cluster.sync();
+    }
+  }
+
+  const T* fin = buf + cur;
+  for (int i = tid; i < nr * C; i += nthreads)
+    out[(long long)r0 * C + i] = fin[K * C + i];
+}
+
+int set_smem(const void* kern, size_t bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
+}
+
+template <typename T>
+int launch_step(const void* a, void* out, int r, int c, cudaStream_t st) {
+  const int nby = (r + TY * ROWS - 1) / (TY * ROWS);
+  const dim3 grid((unsigned)((c + TX - 1) / TX),
+                  (unsigned)(nby < MAX_GRID_Y ? nby : MAX_GRID_Y));
+  jacobi2d_kernel<T><<<grid, dim3(TX, TY), 0, st>>>(
+      static_cast<const T*>(a), static_cast<T*>(out), r, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_step_typed(const void* a, void* out, int r, int c, int dtype,
+                      cudaStream_t st) {
+  if (dtype == 1) return launch_step<__nv_bfloat16>(a, out, r, c, st);
+  if (dtype == 2) return launch_step<__half>(a, out, r, c, st);
+  return launch_step<float>(a, out, r, c, st);
+}
+
+// The cluster launch's configuration: one cluster of `ctas`, rows of
+// `rpc`, blocks of K sweeps, a thread a column (in whole warps, up to 1024)
+// and as many runs of rows at once as the remaining threads allow, up to
+// the rows a sweep updates.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int rpc;
+  size_t bytes;
+  ClusterLaunch(int r, int c, int ctas, int k, size_t elem, cudaStream_t st)
+      : cfg{}, attr{} {
+    rpc = (r + ctas - 1) / ctas;
+    bytes = (size_t)(2 * (rpc + 2 * k) + 4 * k) * c * elem;
+    int bx = ((c > 2 ? c - 2 : 1) + 31) / 32 * 32;
+    if (bx > CLUSTER_THREADS) bx = CLUSTER_THREADS;
+    int by = CLUSTER_THREADS / bx;
+    if (by > rpc + 2 * k - 2) by = rpc + 2 * k - 2;
+    cfg.gridDim = dim3((unsigned)ctas);
+    cfg.blockDim = dim3((unsigned)bx, (unsigned)by);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <typename T>
+int prepare_cluster(const ClusterLaunch& L, int ctas) {
+  const void* kern = (const void*)jacobi2d_cluster_kernel<T>;
+  if (L.bytes > (size_t)SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int e = set_smem(kern, L.bytes);
+  if (e) return e;
+  if (ctas > 8)
+    e = static_cast<int>(cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+  return e;
+}
+
+template <typename T>
+int launch_cluster(const void* a, void* out, int r, int c, int iters,
+                   int ctas, int k, cudaStream_t st) {
+  ClusterLaunch L(r, c, ctas, k, sizeof(T), st);
+  const int e = prepare_cluster<T>(L, ctas);
+  if (e) return e;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &L.cfg, jacobi2d_cluster_kernel<T>, static_cast<const T*>(a),
+      static_cast<T*>(out), r, c, L.rpc, k, iters));
+}
+
+template <typename T>
+int clusters_fit(int r, int c, int ctas, int k, int* count) {
+  ClusterLaunch L(r, c, ctas, k, sizeof(T), nullptr);
+  const int e = prepare_cluster<T>(L, ctas);
+  if (e) return e;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      count, (const void*)jacobi2d_cluster_kernel<T>, &L.cfg));
+}
+
+bool bad_dims(int r, int c, int dtype) {
+  return r < 1 || c < 1 || dtype < 0 || dtype > 2;
+}
+
+// a cluster of `ctas` CTAs in blocks of `k` sweeps: k at most a CTA's rows
+bool bad_cluster(int r, int ctas, int k) {
+  return ctas < 1 || ctas > MAX_CLUSTER || k < 1 || k > (r + ctas - 1) / ctas;
 }
 
 }  // namespace
@@ -74,20 +324,58 @@ extern "C" const char* repro_cuda_error_string(int code) {
 }
 
 // One sweep of the [r, c] grid `a` into `out` (distinct buffers), float32
-// (`is_bf16` 0) or bfloat16 (1).  Launches on `stream`; returns
-// cudaGetLastError() (0 on success).
+// (`dtype` 0), bfloat16 (1) or float16 (2).  Launches on `stream`;
+// returns cudaGetLastError() (0 on success).
 extern "C" int jacobi2d_launch(const void* a, void* out, int r, int c,
-                               int is_bf16, void* stream) {
-  const dim3 block(TX, TY);
-  const dim3 grid((unsigned)((c + TX - 1) / TX),
-                  (unsigned)((r + TY * ROWS - 1) / (TY * ROWS)));
+                               int dtype, void* stream) {
+  if (bad_dims(r, c, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_step_typed(a, out, r, c, dtype,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The loop route: `iters` (>= 1) one-sweep launches from `a`, between
+// `out` and `tmp` in turns so that the last lands in `out`.
+extern "C" int jacobi2d_loop_launch(const void* a, void* out, void* tmp,
+                                    int r, int c, int dtype, int iters,
+                                    void* stream) {
+  if (bad_dims(r, c, dtype) || iters < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    jacobi2d_kernel<<<grid, block, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(a), static_cast<__nv_bfloat16*>(out),
-        r, c);
-  else
-    jacobi2d_kernel<<<grid, block, 0, st>>>(static_cast<const float*>(a),
-                                            static_cast<float*>(out), r, c);
-  return static_cast<int>(cudaGetLastError());
+  const void* src = a;
+  for (int k = 0; k < iters; ++k) {
+    void* dst = (iters - 1 - k) % 2 == 0 ? out : tmp;
+    const int e = launch_step_typed(src, dst, r, c, dtype, st);
+    if (e) return e;
+    src = dst;
+  }
+  return 0;
+}
+
+// The cluster route: `iters` (>= 0) sweeps of `a` into `out` in one
+// launch of one cluster of `ctas` (1 to 16) CTAs, in blocks of `k` (1 to
+// ceil(r / ctas)) sweeps between cluster barriers.
+extern "C" int jacobi2d_cluster_launch(const void* a, void* out, int r,
+                                       int c, int dtype, int iters, int ctas,
+                                       int k, void* stream) {
+  if (bad_dims(r, c, dtype) || iters < 0 || bad_cluster(r, ctas, k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_cluster<__nv_bfloat16>(a, out, r, c, iters, ctas, k, st);
+  if (dtype == 2)
+    return launch_cluster<__half>(a, out, r, c, iters, ctas, k, st);
+  return launch_cluster<float>(a, out, r, c, iters, ctas, k, st);
+}
+
+// How many clusters of `ctas` CTAs in blocks of `k` sweeps for an [r, c]
+// grid of `dtype` the card can hold at once, into *count (0: the cluster
+// cannot be scheduled); returns a CUDA error code.
+extern "C" int jacobi2d_clusters_fit(int r, int c, int dtype, int ctas,
+                                     int k, int* count) {
+  *count = 0;
+  if (bad_dims(r, c, dtype) || bad_cluster(r, ctas, k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) return clusters_fit<__nv_bfloat16>(r, c, ctas, k, count);
+  if (dtype == 2) return clusters_fit<__half>(r, c, ctas, k, count);
+  return clusters_fit<float>(r, c, ctas, k, count);
 }

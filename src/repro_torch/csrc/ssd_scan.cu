@@ -54,6 +54,19 @@
 // Shared-memory rows are padded so that every fragment read is free of bank
 // conflicts; B, read both along N (for C B^T) and along the steps (for the
 // state update), has its columns swizzled per row instead (bswz).
+//
+// A state too wide for one block (32-step tiles of one head past 227 KB:
+// N > 416 at P >= 64) is split along N into panels of NW columns (a
+// multiple of 8; the last may hold fewer), one block each, as P is split:
+// each column of the state, and so each of its end states and start
+// states, depends on its own columns of B alone, so passes (a) and (b)
+// take the panels as they are.  y needs all of N: y = sum over the panels
+// of (C_p B_p^T o decay) (x dt) + exp(seg) C_p state_p^T, each panel's
+// share formed by the same code on its own columns of B and C, written as
+// float32 to its own slice of a [panels, b, S, H, P] buffer (x comes
+// widened to float32 on this route) and added by pass (d), one thread an
+// output element, the panels in order: no atomics, so a call repeats bit
+// for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -162,30 +175,36 @@ struct Layout {
 // suite's size (four heads' states), so it is bound for one block an SM
 // (up to 255 registers a thread: its products run two k-steps an
 // iteration); the chunk pass's for two (128 registers: one k-step; ptxas
-// spills up to 24 bytes there, and two blocks an SM still ran faster than
+// spills up to 28 bytes there, and two blocks an SM still ran faster than
 // one with room for two stages of a tile's operands).
+// N is the state's width (the row length of B, C and Z), NW a panel's
+// (N on the one-panel route); pass (c) writes panel p's y at y + p ypanel.
 template <typename Tx, int T, bool OUT>
 __global__ void __launch_bounds__(THREADS, OUT ? 1 : 2)
 ssd_chunk_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ A, const float* __restrict__ Bm,
                  const float* __restrict__ Cm, float* __restrict__ Z,
                  float* __restrict__ segsum, Tx* __restrict__ y, int S,
-                 int H, int P, int N, int PS, int hg) {
+                 int H, int P, int N, int PS, int hg, int NW,
+                 long long ypanel) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L = Layout::of(T, PS, N, hg, OUT);
+  const Layout L = Layout::of(T, PS, NW, hg, OUT);
   const int nc = (S + CHUNK - 1) / CHUNK, nps = (P + PS - 1) / PS;
-  const int ngroups = (H + hg - 1) / hg;
+  const int ngroups = (H + hg - 1) / hg, npan = (N + NW - 1) / NW;
   unsigned blk = blockIdx.x;
   const int ps = blk % nps;
   blk /= nps;
+  const int pan = blk % npan;
+  blk /= npan;
   const int grp = blk % ngroups;
   blk /= ngroups;
   const int c = blk % nc, b = blk / nc;
   const int p0 = ps * PS, np = min(PS, P - p0);   // this block's state rows
+  const int n0 = pan * NW, nn = min(NW, N - n0);  // and columns
   const int h0 = grp * hg, nh = min(hg, H - h0);  // and heads
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int n8 = round_up(N, 8), ps16 = round_up(PS, 16);
+  const int n8 = round_up(NW, 8), ps16 = round_up(PS, 16);
   const long long PN = (long long)P * N;
   float* st = smem + L.s;
   float* bs = smem + L.b;
@@ -197,7 +216,8 @@ ssd_chunk_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
   // Rows go to shared memory by cp.async, a warp a row, 16 bytes a lane
   // where the row's length and alignment allow it, else 4; everything past
   // a row's end, S, the slice or the heads is zero-filled.
-  const bool v4 = N % 4 == 0 && aligned16(Bm) && (!OUT || aligned16(Cm)) &&
+  const bool v4 = N % 4 == 0 && NW % 4 == 0 && aligned16(Bm) &&
+                  (!OUT || aligned16(Cm)) &&
                   (!OUT || Z == nullptr || aligned16(Z));
   constexpr bool XF = sizeof(Tx) == 4;   // float32 x: by cp.async too
   const bool xv4 = XF && P % 4 == 0 && PS % 4 == 0 && aligned16(x);
@@ -222,8 +242,8 @@ ssd_chunk_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
     if (OUT && Z != nullptr) {
       copy_row(dst,
                Z + (((long long)b * nc + c) * H + h0 + min(hh, nh - 1)) * PN +
-                   (long long)(p0 + min(p, np - 1)) * N,
-               N, n8, hh < nh && p < np, flat);
+                   (long long)(p0 + min(p, np - 1)) * N + n0,
+               nn, n8, hh < nh && p < np, flat);
     } else {
       for (int n = lane; n < n8; n += 32) dst[n] = 0.0f;
     }
@@ -286,10 +306,10 @@ ssd_chunk_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
     const int nt = min(T, S - t0);
     const long long row0 = (long long)b * S + t0;
     for (int u = warp; u < T; u += WARPS) {
-      const long long gi = (row0 + min(u, nt - 1)) * N;
-      copy_row(bs + u * L.ldb, Bm + gi, N, n8, u < nt,
+      const long long gi = (row0 + min(u, nt - 1)) * N + n0;
+      copy_row(bs + u * L.ldb, Bm + gi, nn, n8, u < nt,
                [&](int n) { return n ^ bswz(u); });
-      if (OUT) copy_row(cs + u * L.ldc, Cm + gi, N, n8, u < nt, flat);
+      if (OUT) copy_row(cs + u * L.ldc, Cm + gi, nn, n8, u < nt, flat);
     }
     if constexpr (XF) {
       for (int r = warp; r < hg * T; r += WARPS) {
@@ -455,7 +475,8 @@ ssd_chunk_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
               const int t = 32 * mp + 16 * i + g + 8 * r;
               if (t >= nt) continue;
               const float e = v[2 * T + t];
-              Tx* yrow = y + ((row0 + t) * H + h0 + hh) * P + p0;
+              Tx* yrow =
+                  y + pan * ypanel + ((row0 + t) * H + h0 + hh) * P + p0;
 #pragma unroll
               for (int j = 0; j < 4; ++j) {
                 const int p = 8 * (4 * ng + j) + 2 * t4;
@@ -519,11 +540,12 @@ ssd_chunk_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
     for (int i = tid; i < nh * ps16 * L.lds; i += THREADS) {
       const int hh = i / (ps16 * L.lds), r = i % (ps16 * L.lds);
       const int p = r / L.lds, n = r % L.lds;
-      if (p < np && n < N)
+      if (p < np && n < nn)
         Z[(((long long)b * nc + c) * H + h0 + hh) * PN +
-          (long long)(p0 + p) * N + n] = st[i];
+          (long long)(p0 + p) * N + n0 + n] = st[i];
     }
-    if (tid < nh) segsum[((long long)b * nc + c) * H + h0 + tid] = lsum;
+    if (pan == 0 && tid < nh)
+      segsum[((long long)b * nc + c) * H + h0 + tid] = lsum;
   }
 }
 
@@ -556,26 +578,40 @@ ssd_state_kernel(float* __restrict__ Z, const float* __restrict__ segsum,
   }
 }
 
+// Pass (d), the panel route's last: y[i] = the sum of part[p][i] over the
+// panels p in order, rounded once to y's type; one thread an element.
+template <typename Ty>
+__global__ void __launch_bounds__(256)
+ssd_panel_sum_kernel(const float* __restrict__ part, Ty* __restrict__ y,
+                     int panels, long long total) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= total) return;
+  float s = part[i];
+  for (int p = 1; p < panels; ++p) s += part[p * total + i];
+  y[i] = from_f<Ty>(s);
+}
+
 template <typename Tx, int T, bool OUT>
 int launch_chunks(const void* x, const float* dt, const float* A,
                   const float* B, const float* C, float* Z, float* segsum,
                   void* y, int batch, int S, int H, int P, int N, int PS,
-                  int hg, cudaStream_t stream) {
+                  int hg, int NW, long long ypanel, cudaStream_t stream) {
   auto kern = ssd_chunk_kernel<Tx, T, OUT>;
   const size_t bytes =
-      sizeof(float) * (size_t)Layout::of(T, PS, N, hg, OUT).floats;
+      sizeof(float) * (size_t)Layout::of(T, PS, NW, hg, OUT).floats;
   if (bytes > (size_t)SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long blocks = (long long)batch * ((S + CHUNK - 1) / CHUNK) *
-                           ((H + hg - 1) / hg) * ((P + PS - 1) / PS);
+                           ((H + hg - 1) / hg) * ((N + NW - 1) / NW) *
+                           ((P + PS - 1) / PS);
   if (blocks > 0x7fffffffll)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   kern<<<(unsigned)blocks, THREADS, bytes, stream>>>(
       static_cast<const Tx*>(x), dt, A, B, C, Z, segsum, static_cast<Tx*>(y),
-      S, H, P, N, PS, hg);
+      S, H, P, N, PS, hg, NW, ypanel);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -583,15 +619,17 @@ template <bool OUT>
 int launch_typed(const void* x, const float* dt, const float* A,
                  const float* B, const float* C, float* Z, float* segsum,
                  void* y, int batch, int S, int H, int P, int N, int dtype,
-                 int T, int PS, int hg, cudaStream_t s) {
+                 int T, int PS, int hg, int NW, long long ypanel,
+                 cudaStream_t s) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (batch < 1 || S < 1 || H < 1 || P < 1 || N < 1 || PS < 1 ||
       PS > MAX_PS || (P + PS - 1) / PS * PS - P >= PS || hg < 1 || hg > 4 ||
-      (T != 32 && T != 64) || dtype < 0 || dtype > 2)
+      (T != 32 && T != 64) || dtype < 0 || dtype > 2 || NW < 1 || NW > N ||
+      (NW < N && (NW % 8 != 0 || dtype != 0 || (OUT && ypanel < 1))))
     return bad;
 #define SSD_LAUNCH(TX, TT)                                                   \
   return launch_chunks<TX, TT, OUT>(x, dt, A, B, C, Z, segsum, y, batch, S,  \
-                                    H, P, N, PS, hg, s)
+                                    H, P, N, PS, hg, NW, ypanel, s)
   if (dtype == 1) {
     if (T == 64) SSD_LAUNCH(__nv_bfloat16, 64);
     SSD_LAUNCH(__nv_bfloat16, 32);
@@ -620,17 +658,18 @@ extern "C" long long ssd_scan_smem_bytes(int T, int PS, int N, int hg,
 }
 
 // Pass (a): x (dtype 0 float32, 1 bfloat16, 2 float16), dt, A, B float32;
-// Z [batch, ceil(S / 256), H, P, N] and segsum [batch, ceil(S / 256), H]
+// Z [batch, ceil(S / 512), H, P, N] and segsum [batch, ceil(S / 512), H]
 // float32 written; one head a block, tiles of T (32 or 64) steps, P-slices
-// of PS (<= 64, equal but the last).  Launches on `stream`; returns a CUDA
-// error code (0 on success).
+// of PS (<= 64, equal but the last), N-panels of NW columns (N: one panel;
+// else a multiple of 8, float32 x only).  Launches on `stream`; returns a
+// CUDA error code (0 on success).
 extern "C" int ssd_chunk_states_launch(const void* x, const float* dt,
                                        const float* A, const float* B,
                                        float* Z, float* segsum, int batch,
                                        int S, int H, int P, int N, int dtype,
-                                       int T, int PS, void* stream) {
+                                       int T, int PS, int NW, void* stream) {
   return launch_typed<false>(x, dt, A, B, nullptr, Z, segsum, nullptr, batch,
-                             S, H, P, N, dtype, T, PS, 1,
+                             S, H, P, N, dtype, T, PS, 1, NW, 0,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -653,14 +692,38 @@ extern "C" int ssd_state_pass_launch(float* Z, const float* segsum, int batch,
 
 // Pass (c): y [batch, S, H, P] in x's type from the start states in Z (as
 // pass (b) leaves it; null: one chunk, from zero), hg (1 to 4) heads a
-// block, tiles and P-slices as pass (a).
+// block, tiles, P-slices and N-panels as pass (a); with N-panels, each
+// panel's share of y at y + p ypanel (ypanel >= batch S H P), float32.
 extern "C" int ssd_output_launch(const void* x, const float* dt,
                                  const float* A, const float* B,
                                  const float* C, const float* Z, void* y,
                                  int batch, int S, int H, int P, int N,
-                                 int dtype, int T, int PS, int hg,
-                                 void* stream) {
+                                 int dtype, int T, int PS, int hg, int NW,
+                                 long long ypanel, void* stream) {
   return launch_typed<true>(x, dt, A, B, C, const_cast<float*>(Z), nullptr,
-                            y, batch, S, H, P, N, dtype, T, PS, hg,
-                            static_cast<cudaStream_t>(stream));
+                            y, batch, S, H, P, N, dtype, T, PS, hg, NW,
+                            ypanel, static_cast<cudaStream_t>(stream));
+}
+
+// Pass (d): y (`dtype` 0 float32, 1 bfloat16, 2 float16) [total] = the
+// sum of the `panels` float32 [total] slices of `part`, in order.
+extern "C" int ssd_panel_sum_launch(const float* part, void* y, int panels,
+                                    long long total, int dtype,
+                                    void* stream) {
+  if (panels < 1 || total < 1 || dtype < 0 || dtype > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (total + 255) / 256;
+  if (blocks > 0x7fffffffll)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    ssd_panel_sum_kernel<<<(unsigned)blocks, 256, 0, st>>>(
+        part, static_cast<__nv_bfloat16*>(y), panels, total);
+  else if (dtype == 2)
+    ssd_panel_sum_kernel<<<(unsigned)blocks, 256, 0, st>>>(
+        part, static_cast<__half*>(y), panels, total);
+  else
+    ssd_panel_sum_kernel<<<(unsigned)blocks, 256, 0, st>>>(
+        part, static_cast<float*>(y), panels, total);
+  return static_cast<int>(cudaGetLastError());
 }

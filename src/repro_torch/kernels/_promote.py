@@ -15,6 +15,11 @@ of the kernel, on the CPU and the card alike:
 - the result is cast to the reference's output type, an integer type by
   truncation toward zero, as ``.astype(o_ref.dtype)`` does.
 
+The kernels that take float32 (or int32) alone widen the reference's
+other operand types the same way (``widen``): the 16-bit floats, and
+int32 or int16 where the reference converts them to float32 itself; the
+result is cast back to the reference's output type.
+
 This is a conversion in front of the kernel, not a fallback: the kernel
 launches (and counts its launch) on the widened operands.
 """
@@ -22,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+# the 16-bit floats, which widen to float32 exactly
+HALF = (torch.bfloat16, torch.float16)
 # what JAX with 64-bit types off makes of a 64-bit array
 NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
 
@@ -53,3 +60,13 @@ def restore(out: torch.Tensor, dtype) -> torch.Tensor:
     """The kernel's result in the reference's output type (float to an
     integer type truncates toward zero)."""
     return out if dtype is None or out.dtype == dtype else out.to(dtype)
+
+
+def widen(t, types=HALF):
+    """``t`` converted to float32 where its type is one of ``types``
+    (exactly for the 16-bit types; an int32 past 2^24 rounds to nearest,
+    as the reference's ``astype(float32)``); anything else as it is, for
+    the wrapper's checks to judge."""
+    if isinstance(t, torch.Tensor) and t.dtype in types:
+        return t.to(torch.float32)
+    return t

@@ -14,7 +14,11 @@ GFLOP) needs ~10 us at 67 TFLOP/s.  The design is therefore a plain
 coalesced stream: consecutive threads read consecutive options, enough
 blocks to cover every SM several times, no shared memory.  It is compiled
 without ``--use_fast_math``: ``__expf``/``__logf`` would break the 3e-5
-tolerance of the reference's tests.
+tolerance of the reference's tests.  Inputs in bfloat16 or float16 are
+widened to float32 first and a boolean ``is_call`` taken as 0 or 1; the
+prices come back in ``spot``'s type, the reference's output type
+(``repro/kernels/blackscholes.py:50``), rounded once from float32 where
+the reference rounds every step in the 16-bit type.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import ctypes
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels import ref
+from repro_torch.kernels import _promote, ref
 
 
 def _check_args(args):
@@ -58,18 +62,24 @@ def _lib():
 
 
 def blackscholes(spot, strike, rate, vol, time, is_call):
-    """Price N options: float32 ``[N]`` inputs, int32 ``is_call`` (0 put,
-    nonzero call).  CUDA tensors launch the kernel; CPU tensors take the
-    plain version."""
-    args = (spot, strike, rate, vol, time, is_call)
+    """Price N options: ``[N]`` inputs of float32 (bfloat16 and float16
+    widened to it), int32 or boolean ``is_call`` (0 put, nonzero call); the
+    prices in ``spot``'s type.  CUDA tensors launch the kernel; CPU tensors
+    take the plain version."""
+    out_dtype = getattr(spot, "dtype", None)
+    if isinstance(is_call, torch.Tensor) and is_call.dtype == torch.bool:
+        is_call = is_call.to(torch.int32)
+    args = (*(_promote.widen(t) for t in (spot, strike, rate, vol, time)),
+            is_call)
     _check_args(args)
+    spot = args[0]
     if spot.device.type == "cpu":
-        return ref.blackscholes(*args)
+        return _promote.restore(ref.blackscholes(*args), out_dtype)
     if spot.device.type != "cuda":
         raise ValueError(f"blackscholes: unsupported device {spot.device}")
     out = torch.empty_like(spot)
     if spot.numel() == 0:
-        return out
+        return _promote.restore(out, out_dtype)
     lib = _lib()
     with torch.cuda.device(spot.device):
         code = lib.blackscholes_launch(
@@ -77,7 +87,7 @@ def blackscholes(spot, strike, rate, vol, time, is_call):
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "blackscholes")
     blackscholes.launches += 1
-    return out
+    return _promote.restore(out, out_dtype)
 
 
 blackscholes.launches = 0

@@ -13,7 +13,10 @@ kept the whole table in VMEM, but PARSEC simlarge's 400,000-entry table
 bandwidth, ~218 MB moved at simlarge (1,920,000 swaps x 22 fan slots), 65
 us at 3.35 TB/s.  The Pallas kernel's ``B % block`` requirement is gone.
 With integer-valued coordinates every sum is exact, so the kernel equals
-the plain version bit for bit.
+the plain version bit for bit.  Locations and candidates in bfloat16,
+float16 or int32 are widened to float32 first, as the reference's kernel
+widens them (``repro/kernels/canneal.py:19,25-26``); the costs are float32
+whatever the inputs.
 """
 from __future__ import annotations
 
@@ -22,9 +25,11 @@ import ctypes
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels import _check, ref
+from repro_torch.kernels import _check, _promote, ref
 
 NAME = "swap_cost"
+# coordinate types the reference widens to float32 inside its kernel
+WIDENED = (torch.bfloat16, torch.float16, torch.int32)
 
 
 def _check_args(locs, fan_idx, cand_a, cand_b):
@@ -58,8 +63,11 @@ def _lib():
 def swap_cost(locs, fan_idx, cand_a, cand_b):
     """``(cost_a, cost_b)``, float32 ``[B]`` each, for float32 ``locs``
     ``[N,2]``, int32 ``fan_idx`` ``[B,F]`` and float32 ``cand_a``/``cand_b``
-    ``[B,2]``.  CUDA tensors launch the kernel; CPU tensors take the plain
+    ``[B,2]`` (bfloat16, float16 or int32 coordinates widened to float32
+    first).  CUDA tensors launch the kernel; CPU tensors take the plain
     version."""
+    locs, cand_a, cand_b = (_promote.widen(t, WIDENED)
+                            for t in (locs, cand_a, cand_b))
     _check_args(locs, fan_idx, cand_a, cand_b)
     if _check.device_kind(NAME, locs) == "cpu":
         return ref.canneal_swap_cost(locs, fan_idx, cand_a, cand_b)

@@ -64,9 +64,6 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the 16-bit types past it, and float32 past MAX_D_256, take the sliced
 # kernels
 MAX_D_TC, MAX_D_256, MAX_D_512 = 128, 256, 512
-# at most this many heads B * H (the C entry point also refuses a grid of
-# more than 2^31 - 1 blocks, query tiles x B * H, x slices)
-MAX_BH = 65_535
 # How the tensor-core kernel loads its tiles (the C entry point's ``load``
 # code), by path: 16-bit types by TMA where rows are 16-byte aligned, by
 # 4-byte cp.async where they are 4-byte aligned, else by plain loads;
@@ -168,9 +165,10 @@ def _check_args(q, k, v):
     B, S, H, D = q.shape
     if D < 1:
         raise ValueError(f"{NAME}: head dim D = {D} must be >= 1")
-    if B * H > MAX_BH or S > _check.INT32_MAX - 64:
-        raise ValueError(f"{NAME}: B*H = {B * H} must be <= {MAX_BH} and S "
-                         "must fit int32")
+    # the grid is one-dimensional: the C entry points refuse only more than
+    # 2^31 - 1 blocks (query tiles x B * H, x slices)
+    if B * H > _check.INT32_MAX or S > _check.INT32_MAX - 64:
+        raise ValueError(f"{NAME}: B*H = {B * H} and S must fit int32")
 
 
 def _alignment(*ts) -> int:

@@ -1,30 +1,98 @@
-"""Jacobi-2D (one 5-point sweep): CUDA kernel + wrapper.
+"""Jacobi-2D sweeps: CUDA kernels + wrappers.
 
 Replaces ``repro/kernels/jacobi2d.py:32`` (``jacobi2d_step``,
-``pallas_call`` at ``:45``): every interior point of a float32 or bfloat16
-``[R, C]`` grid becomes the mean of itself and its four neighbours; boundary
-rows and columns are held.  A bfloat16 grid is summed in float32 and
-rounded once, on the store.  The Pallas wrapper's halo strips and its
-``(R - 2) % rows_per_block`` requirement are gone: the CUDA kernel
-(``csrc/jacobi2d.cu``) reads the neighbouring rows in place, writes a fresh
-output and takes any ``R, C``; a grid with no interior comes back as a copy.
-Bound on an H100: bytes, 8 B a point (one read, one write).  Built with
-``-fmad=false`` and summed in the plain version's order, so a sweep equals
-the plain version bit for bit.
+``pallas_call`` at ``:45``): every interior point of a float32, bfloat16 or
+float16 ``[R, C]`` grid becomes the mean of itself and its four
+neighbours; boundary rows and columns are held.  A 16-bit grid is summed in
+float32 and rounded to its type once, on the store.  The Pallas wrapper's
+halo strips and its ``(R - 2) % rows_per_block`` requirement are gone: the
+one-sweep kernel (``csrc/jacobi2d.cu``) reads the neighbouring rows in
+place, writes a fresh output and takes any ``R, C``; a grid with no
+interior comes back as a copy.  Bound on an H100: bytes, 8 B a point (one
+read, one write).
+
+``jacobi2d(a, iters)`` is the port's counterpart of the reference's
+``repro/kernels/ref.py:29`` (``jacobi2d(a, iters=1)``), which has no Pallas
+kernel.  It takes one of two routes, which ``route`` picks on the host:
+
+- ``cluster``: all sweeps in one launch of one thread-block cluster of up
+  to 16 CTAs, the grid double-buffered in their shared memory with K halo
+  rows a side, one cluster barrier every K sweeps; for every grid whose
+  buffers fit the cluster with K >= 2 and whose CTAs hold at most 32,768
+  points (float32 to 618 x 618, 16-bit to 720 x 720), where it ran faster
+  than the loop.  Counted by ``jacobi2d.launches``.
+- ``loop``: the one-sweep kernel ``iters`` times, for the other grids;
+  counted by ``jacobi2d.loop_launches``, one a sweep.
+
+Both kernels are built with ``-fmad=false``, sum in the plain version's
+order and round a 16-bit grid at the end of every sweep, so ``iters``
+sweeps equal ``iters`` sweeps of the plain version bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
-from repro_torch import _build
+from repro_torch import _build, _device
 from repro_torch.kernels import _check, ref
 
 NAME = "jacobi2d_step"
-DTYPES = (torch.float32, torch.bfloat16)
-# a block covers 32 rows; gridDim.y is at most 65,535
-MAX_ROWS = 65_535 * 32
+# the C entry points' code for each grid type
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the opt-in shared memory of one CTA, and the most CTAs a cluster holds
+# on an H100 (past 8 only by the non-portable size attribute)
+MAX_SMEM, MAX_CTAS = 232_448, 16
+# sweeps between two cluster barriers, at most: at the app's 164 x 164 on
+# 16 CTAs, 4,000 sweeps took 7.637 ms at 1, 3.824 at 4, 3.522 at 8 and
+# 3.525 at 11 (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W)
+MAX_K = 8
+# the most points a CTA of the plan's cluster holds: 16 SMs sweep a grid
+# that 132 take one launch at a time, so past about this many a CTA one
+# launch a sweep ran faster (896 x 896 bfloat16, 50,176 a CTA: 5.63 against
+# the loop's 4.52-4.59 us a sweep; 618 x 618 float32, 24,102: 2.94-2.97
+# against 4.04-4.29; chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W)
+MAX_CTA_POINTS = 32_768
+
+
+class Route(NamedTuple):
+    """How ``jacobi2d`` runs a grid (``route``)."""
+    name: str          # "cluster" or "loop"
+    ctas: int          # the cluster's CTAs (0 on the loop route)
+    k: int             # sweeps between cluster barriers (0: loop route)
+
+
+def cluster_bytes(R: int, C: int, itemsize: int, ctas: int, k: int) -> int:
+    """One CTA's shared memory on the cluster route: two buffers of its
+    ``ceil(R / ctas)`` rows and ``k`` halo rows a side, and two parities of
+    ``k`` rows from each neighbour."""
+    return (2 * (-(-R // ctas) + 2 * k) + 4 * k) * C * itemsize
+
+
+def route(R: int, C: int, dtype: torch.dtype, ctas: int | None = None
+          ) -> Route:
+    """The cluster route with ``ctas`` CTAs (by default the largest power
+    of two up to 16 and R) and the most sweeps between barriers, up to
+    MAX_K and a CTA's rows, whose buffers fit a CTA's shared memory; else
+    the loop route.  By default the loop route also takes a grid whose
+    CTAs would hold more than MAX_CTA_POINTS points, or that leaves room
+    for one sweep between barriers only where a CTA holds more than one
+    row: one launch a sweep ran faster there (645 x 645 float32 at one
+    sweep between barriers: 3.68 against 3.98 us a sweep, where 512 x 512
+    at six took 2.20 against the loop's 3.38; chip_smoke.py, NVIDIA H100
+    80GB HBM3, 700 W)."""
+    plan = ctas is None
+    if plan:
+        ctas = 1 << min(MAX_CTAS.bit_length() - 1, R.bit_length() - 1)
+    rpc = -(-R // ctas)
+    for k in range(min(MAX_K, rpc), 0, -1):
+        if cluster_bytes(R, C, dtype.itemsize, ctas, k) <= MAX_SMEM:
+            if plan and (k < min(2, rpc) or rpc * C > MAX_CTA_POINTS):
+                break
+            return Route("cluster", ctas, k)
+    return Route("loop", 0, 0)
 
 
 def _lib():
@@ -32,33 +100,135 @@ def _lib():
     if not getattr(lib, "_repro_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.jacobi2d_launch.argtypes = [p, p, i, i, i, p]
-        lib.jacobi2d_launch.restype = ctypes.c_int
+        lib.jacobi2d_loop_launch.argtypes = [p, p, p, i, i, i, i, p]
+        lib.jacobi2d_cluster_launch.argtypes = [p, p, i, i, i, i, i, i, p]
+        lib.jacobi2d_clusters_fit.argtypes = [i, i, i, i, i,
+                                              ctypes.POINTER(i)]
+        for fn in (lib.jacobi2d_launch, lib.jacobi2d_loop_launch,
+                   lib.jacobi2d_cluster_launch, lib.jacobi2d_clusters_fit):
+            fn.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
 
 
-def jacobi2d_step(a):
-    """One sweep of the float32 or bfloat16 ``[R, C]`` grid ``a`` into a new
-    tensor of its type.  CUDA tensors launch the kernel; CPU tensors take
-    the plain version."""
+def _check_grid(a):
     _check.tensor(NAME, "a", a, DTYPES, 2)
     R, C = a.shape
-    if R > MAX_ROWS or C > _check.INT32_MAX - 32:
+    if R > _check.INT32_MAX - 32 or C > _check.INT32_MAX - 32:
         raise ValueError(f"{NAME}: grid {tuple(a.shape)} too large "
-                         f"(R <= {MAX_ROWS}, C < 2^31)")
+                         "(R and C < 2^31)")
+
+
+def jacobi2d_step(a):
+    """One sweep of the float32, bfloat16 or float16 ``[R, C]`` grid ``a``
+    into a new tensor of its type.  CUDA tensors launch the kernel; CPU
+    tensors take the plain version."""
+    _check_grid(a)
     if _check.device_kind(NAME, a) == "cpu":
         return ref.jacobi2d(a)
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out
     lib = _lib()
-    with torch.cuda.device(a.device):
-        code = lib.jacobi2d_launch(a.data_ptr(), out.data_ptr(), R, C,
-                                   int(a.dtype == torch.bfloat16),
-                                   torch.cuda.current_stream().cuda_stream)
+    code = _device.launch(lib.jacobi2d_launch, a, a.data_ptr(),
+                          out.data_ptr(), *a.shape, DTYPES[a.dtype])
     _build.check(lib, code, NAME)
     jacobi2d_step.launches += 1
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def clusters_fit(R: int, C: int, dtype: torch.dtype, ctas: int, k: int,
+                 device: int = 0) -> int:
+    """How many clusters of ``ctas`` CTAs in blocks of ``k`` sweeps for
+    this grid card ``device`` holds at once (0: such a cluster cannot be
+    scheduled)."""
+    lib, n = _lib(), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = lib.jacobi2d_clusters_fit(R, C, DTYPES[dtype], ctas, k,
+                                         ctypes.byref(n))
+    _build.check(lib, code, NAME)
+    return n.value
+
+
+def jacobi2d(a, iters: int = 1):
+    """``iters`` sweeps of the float32, bfloat16 or float16 ``[R, C]`` grid
+    ``a`` into a new tensor of its type, each rounded to it as one sweep of
+    ``jacobi2d_step`` is.  CUDA tensors take ``route``; CPU tensors take
+    the plain version."""
+    _check_grid(a)
+    iters = int(iters)
+    if iters < 0:
+        raise ValueError(f"jacobi2d: iters = {iters} must be >= 0")
+    if _check.device_kind(NAME, a) == "cpu":
+        return ref.jacobi2d(a, iters).clone()
+    out = torch.empty_like(a)
+    if a.numel() == 0:
+        return out
+    R, C = a.shape
+    rt = route(R, C, a.dtype)
+    # the plan's cluster halves where the card cannot schedule it (16 CTAs
+    # take 16 SMs of one GPC)
+    while rt.name == "cluster" and rt.ctas > 1 and clusters_fit(
+            R, C, a.dtype, rt.ctas, rt.k, a.get_device()) < 1:
+        rt = route(R, C, a.dtype, rt.ctas // 2)
+    if rt.name == "cluster":
+        return cluster(a, iters, rt.ctas, rt.k, out)
+    return loop(a, iters, out)
+
+
+def _check_cuda(a):
+    _check_grid(a)
+    if _check.device_kind(NAME, a) != "cuda":
+        raise ValueError(f"jacobi2d: a route's kernels take a CUDA grid, "
+                         f"not one on {a.device}")
+
+
+def cluster(a, iters: int, ctas: int, k: int, out=None):
+    """The cluster route on a CUDA grid: ``iters`` sweeps in one launch of
+    a cluster of ``ctas`` CTAs, ``k`` sweeps between barriers, into
+    ``out`` (new where None), counted by ``jacobi2d.launches``; any
+    ``ctas`` and ``k`` whose buffers fit, so it also times the plan's
+    alternatives."""
+    _check_grid(a)
+    R, C = a.shape
+    if not 1 <= ctas <= MAX_CTAS or not 1 <= k <= -(-R // ctas) or \
+            cluster_bytes(R, C, a.element_size(), ctas, k) > MAX_SMEM:
+        raise ValueError(f"jacobi2d: no cluster of {ctas} CTAs with {k} "
+                         f"sweeps between barriers for a {R} x {C} grid")
+    _check_cuda(a)
+    if clusters_fit(R, C, a.dtype, ctas, k, a.get_device()) < 1:
+        raise ValueError(f"jacobi2d: a cluster of {ctas} CTAs for a {R} x "
+                         f"{C} grid cannot be scheduled")
+    out = torch.empty_like(a) if out is None else out
+    lib = _lib()
+    code = _device.launch(lib.jacobi2d_cluster_launch, a, a.data_ptr(),
+                          out.data_ptr(), R, C, DTYPES[a.dtype], iters, ctas,
+                          k)
+    _build.check(lib, code, "jacobi2d")
+    jacobi2d.launches += 1
+    return out
+
+
+def loop(a, iters: int, out=None):
+    """The loop route on a CUDA grid: ``iters`` launches of the one-sweep
+    kernel into ``out`` (new where None), counted by
+    ``jacobi2d.loop_launches``; any grid, so it also times the route a
+    cluster replaces."""
+    _check_cuda(a)
+    out = torch.empty_like(a) if out is None else out
+    if iters == 0 or a.numel() == 0:
+        return out.copy_(a)
+    tmp = torch.empty_like(a) if iters > 1 else out
+    lib = _lib()
+    code = _device.launch(lib.jacobi2d_loop_launch, a, a.data_ptr(),
+                          out.data_ptr(), tmp.data_ptr(), *a.shape,
+                          DTYPES[a.dtype], iters)
+    _build.check(lib, code, "jacobi2d")
+    jacobi2d.loop_launches += iters
+    return out
+
+
 jacobi2d_step.launches = 0
+jacobi2d.launches = 0
+jacobi2d.loop_launches = 0

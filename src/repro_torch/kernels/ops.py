@@ -39,7 +39,9 @@ def _as_tensor(x, dtype, device):
 
 
 def blackscholes(spot, strike, rate, vol, time, is_call, *, device=None):
-    """Black-Scholes call/put prices of N options (float32 ``[N]``)."""
+    """Black-Scholes call/put prices of N options, ``[N]`` in ``spot``'s
+    type (arrays become float32; bfloat16 and float16 tensors are priced
+    in float32 and rounded back; ``is_call`` int32 or boolean)."""
     f32 = torch.float32
     args = [_as_tensor(x, f32, device) for x in (spot, strike, rate, vol, time)]
     args.append(_as_tensor(is_call, torch.int32, device))
@@ -47,20 +49,39 @@ def blackscholes(spot, strike, rate, vol, time, is_call, *, device=None):
 
 
 def cum_normal_inv(u, *, device=None):
-    """Swaptions' inverse normal CDF (Moro) of uniforms ``u`` (float32
-    ``[N]``)."""
+    """Swaptions' inverse normal CDF (Moro) of uniforms ``u`` ``[N]``, in
+    their type (an array becomes float32; a 16-bit tensor is computed in
+    float32 and rounded back)."""
     return _sw.cum_normal_inv(_as_tensor(u, torch.float32, device))
 
 
+def _grid(a, device):
+    """A Jacobi-2D grid: a tensor as it is, an array in its own float type
+    (float16 kept, float64 narrowed) and anything else as float32."""
+    t = _as_tensor(a, None, device)
+    return t if isinstance(a, torch.Tensor) or t.is_floating_point() \
+        else t.float()
+
+
 def jacobi2d_step(a, *, device=None):
-    """One 5-point Jacobi sweep of a float32 or bfloat16 ``[R, C]`` grid
-    (boundary rows and columns held), into a new tensor of its type."""
-    return _j2.jacobi2d_step(_as_tensor(a, torch.float32, device))
+    """One 5-point Jacobi sweep of a float32, bfloat16 or float16 ``[R, C]``
+    grid (boundary rows and columns held), into a new tensor of its
+    type."""
+    return _j2.jacobi2d_step(_grid(a, device))
+
+
+def jacobi2d(a, iters=1, *, device=None):
+    """``iters`` 5-point Jacobi sweeps of a float32, bfloat16 or float16
+    ``[R, C]`` grid, into a new tensor of its type, rounded to it at the end
+    of every sweep (the reference's ``ref.jacobi2d(a, iters)``): one launch
+    where the grid fits a thread-block cluster's shared memory, else one a
+    sweep (``jacobi2d.route``)."""
+    return _j2.jacobi2d(_grid(a, device), iters)
 
 
 def pathfinder(wall, *, device=None):
-    """The last min-cost row, float32 ``[C]``, of an int32 or float32 wall
-    ``[R, C]``."""
+    """The last min-cost row, float32 ``[C]``, of a wall ``[R, C]`` of
+    int32 or float32 (bfloat16, float16 and int16 widened, exactly)."""
     return _path.pathfinder(_as_tensor(wall, None, device))
 
 
@@ -74,7 +95,9 @@ def streamcluster_dist(points, centers, *, device=None):
 
 def canneal_swap_cost(locs, fan_idx, cand_a, cand_b, *, device=None):
     """Canneal's routing cost of each swap's fan against two candidates:
-    ``(cost_a, cost_b)``, float32 ``[B]`` each."""
+    ``(cost_a, cost_b)``, float32 ``[B]`` each (bfloat16, float16 or int32
+    coordinate tensors widened to float32, as the reference widens
+    them)."""
     f32 = torch.float32
     return _ca.swap_cost(_as_tensor(locs, f32, device),
                          _as_tensor(fan_idx, torch.int32, device),
@@ -84,7 +107,8 @@ def canneal_swap_cost(locs, fan_idx, cand_a, cand_b, *, device=None):
 
 def particlefilter_findindex(cdf, u, *, device=None):
     """For each query ``u_j``, ``count(cdf < u_j)`` clamped to N-1 (int32
-    ``[M]``): the first index with ``cdf >= u_j`` on a monotone CDF."""
+    ``[M]``): the first index with ``cdf >= u_j`` on a monotone CDF
+    (bfloat16 and float16 tensors widened to float32, exactly)."""
     f32 = torch.float32
     return _pf.find_index(_as_tensor(cdf, f32, device),
                           _as_tensor(u, f32, device))

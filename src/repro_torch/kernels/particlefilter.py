@@ -19,6 +19,10 @@ particles x 100,000 queries; otherwise the 2e10 compares and adds, 0.30 ms
 at 67 TFLOP/s.  The Pallas kernel's tile requirements (``M % bu``, ``N %
 bc``) are gone.  The output is exact on both paths.
 
+A CDF or queries in bfloat16 or float16, or of two float types, are
+widened to float32 first: exactly, so the counts are those of the
+reference, which compares in the wider type.
+
 The wrapper never reads the flags (that would wait for the card): it keeps
 the last call's buffer as ``find_index.last_flags`` (the flags lead the
 allocation the output is a view of), and ``searched`` tells, after a
@@ -31,7 +35,7 @@ import ctypes
 import torch
 
 from repro_torch import _build, _device
-from repro_torch.kernels import _check, ref
+from repro_torch.kernels import _check, _promote, ref
 
 NAME = "find_index"
 # one block of the monotonicity check, and one flag, per SM of an H100
@@ -49,9 +53,11 @@ def _lib():
 
 
 def find_index(cdf, u):
-    """int32 ``[M]``: ``min(count(cdf < u_j), N - 1)`` for float32 ``cdf``
-    ``[N]`` and queries ``u`` ``[M]``.  CUDA tensors launch the kernels;
-    CPU tensors take the plain version."""
+    """int32 ``[M]``: ``min(count(cdf < u_j), N - 1)`` for a ``cdf``
+    ``[N]`` and queries ``u`` ``[M]`` of float32, bfloat16 or float16 (the
+    16-bit ones widened to float32).  CUDA tensors launch the kernels; CPU
+    tensors take the plain version."""
+    cdf, u = _promote.widen(cdf), _promote.widen(u)
     _check.tensor(NAME, "cdf", cdf, (torch.float32,), 1)
     _check.tensor(NAME, "u", u, (torch.float32,), 1, cdf.device)
     if cdf.numel() > _check.INT32_MAX:

@@ -9,7 +9,9 @@ The CUDA kernel (``csrc/pathfinder.cu``) is Rodinia's ghost-zone pyramid:
 256-column strips, overlapping by 20 on each side, each advance 20 rows in
 shared memory per launch; one call makes ``ceil((R - 1) / 20)`` launches.
 Bound on an H100: bytes, the wall read once.  min is exact and each row
-adds once, so the kernel equals its plain version bit for bit.
+adds once, so the kernel equals its plain version bit for bit.  A wall in
+bfloat16, float16 or int16 is widened to float32 first, exactly, as the
+reference widens each row (``repro/kernels/pathfinder.py:23``).
 """
 from __future__ import annotations
 
@@ -18,10 +20,12 @@ import ctypes
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels import _check, ref
+from repro_torch.kernels import _check, _promote, ref
 
 NAME = "pathfinder"
 DTYPES = (torch.int32, torch.float32)
+# wall types the reference widens to float32, row by row
+WIDENED = (torch.bfloat16, torch.float16, torch.int16)
 
 
 def _lib():
@@ -38,8 +42,9 @@ def _lib():
 
 def pathfinder(wall):
     """float32 ``[C]``: the last min-cost row of ``wall`` ``[R, C]`` (int32
-    or float32, R >= 1).  CUDA tensors launch the kernel; CPU tensors take
-    the plain version."""
+    or float32, R >= 1; bfloat16, float16 and int16 widened to float32).
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    wall = _promote.widen(wall, WIDENED)
     _check.tensor(NAME, "wall", wall, DTYPES, 2)
     R, C = wall.shape
     if R < 1:

@@ -16,15 +16,20 @@ the only pass where the sequence is one chunk).  Inside a chunk the
 kernels walk tiles of 32 or 64 steps with the heads' states in shared
 memory; a head wider than 64 is split into equal P-slices of at most 64
 columns, one block each; the output pass gives a block up to four heads,
-which then share C B^T and the loads of B and C.  ``plan`` picks these on the host.  The result depends on
+which then share C B^T and the loads of B and C.  A state too wide for
+one block (N > 416 at P >= 64) is split along N into panels, one block
+each: the chunk and state passes take a panel's columns as they are, the
+output pass writes each panel's share of y in float32, and a fourth pass,
+``panel_sum``, adds the shares in panel order into x's type (x is widened
+to float32 on this route).  ``plan`` picks all of these on the host, the
+panels only where one block cannot hold the state.  The result depends on
 the chunking only through rounding, so the chunk and tile are the
 kernels' own; the bar against the
 plain version, which chunks at Q, is the reference's 4e-3.  x may be
 float32, bfloat16 or float16; dt, A, B and C are widened to float32 here
 before the launch, and other types of x (64-bit, integers) are converted
-first by the reference's rule (``_promote``), y keeping x's type.  Any P;
-a block's shared memory must fit the card's 227 KB, which bounds N.
-Bound on an H100: operations.
+first by the reference's rule (``_promote``), y keeping x's type.  Any P
+and any N.  Bound on an H100: operations.
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ class Plan(NamedTuple):
     heads: int         # heads a block of the output pass, 1 to 4
     chunks: int        # chunks of CHUNK steps
     chunk_steps: int   # a tile's steps in the chunk pass, 64 or 32
+    panel: int = 0     # an N-panel's columns (0: one panel, all of N)
 
 
 def smem_bytes(T: int, PS: int, N: int, hg: int, out: bool) -> int:
@@ -76,18 +82,23 @@ def plan(S: int, H: int, P: int, N: int) -> Plan:
     """P-slices of at most 64 columns, as many as needed, equal but the
     last; then the first of OUTPUT_SHAPES whose block fits shared memory
     (with H or more heads), and for the chunk pass (one head a block)
-    64-step tiles where they fit.  Raises where not even 32-step tiles of
-    one head fit."""
+    64-step tiles where they fit.  Where not even 32-step tiles of one head
+    fit, the fewest N-panels (of a multiple of 8 columns, equal but the
+    last) with which one of OUTPUT_SHAPES does."""
     slices = -(-P // MAX_PS)
     width = -(-P // slices)
-    for T, hg in OUTPUT_SHAPES:
-        if hg <= H and smem_bytes(T, width, N, hg, True) <= MAX_SMEM:
-            chunk_T = 64 if smem_bytes(64, width, N, 1, False) <= MAX_SMEM \
-                else 32
-            return Plan(T, width, slices, hg, -(-S // CHUNK), chunk_T)
-    raise ValueError(f"{NAME}: P = {P}, N = {N} need "
-                     f"{smem_bytes(32, width, N, 1, True)} bytes of shared "
-                     f"memory per block, more than {MAX_SMEM}")
+    for panels in range(1, -(-N // 8) + 1):
+        nw = N if panels == 1 else (-(-N // panels) + 7) // 8 * 8
+        if panels > 1 and -(-N // nw) != panels:
+            continue       # the same panel width as fewer panels
+        for T, hg in OUTPUT_SHAPES:
+            if hg <= H and smem_bytes(T, width, nw, hg, True) <= MAX_SMEM:
+                chunk_T = 64 if smem_bytes(64, width, nw, 1, False) \
+                    <= MAX_SMEM else 32
+                return Plan(T, width, slices, hg, -(-S // CHUNK), chunk_T,
+                            0 if panels == 1 else nw)
+    raise ValueError(f"{NAME}: P = {P}, N = {N}: no block fits "
+                     f"{MAX_SMEM} bytes of shared memory")
 
 
 def _check_args(x, dt, A, B, C, chunk):
@@ -115,12 +126,13 @@ def _lib():
     if not getattr(lib, "_repro_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ssd_chunk_states_launch.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                                i, i, i, i, p]
+                                                i, i, i, i, i, p]
         lib.ssd_state_pass_launch.argtypes = [p, p, i, i, i, ll, p]
         lib.ssd_output_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                          i, i, i, i, p]
+                                          i, i, i, i, i, ll, p]
+        lib.ssd_panel_sum_launch.argtypes = [p, p, i, ll, i, p]
         for fn in (lib.ssd_chunk_states_launch, lib.ssd_state_pass_launch,
-                   lib.ssd_output_launch):
+                   lib.ssd_output_launch, lib.ssd_panel_sum_launch):
             fn.restype = ctypes.c_int
         lib.ssd_scan_smem_bytes.argtypes = [i, i, i, i, i]
         lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
@@ -129,9 +141,10 @@ def _lib():
 
 
 def chunk_states(x, dt, A, B, pl: Plan):
-    """Pass (a) on checked CUDA operands: each chunk's end state from zero
-    ``[b, chunks, H, P, N]`` and its sum of dt A ``[b, chunks, H]``, both
-    float32; counted by ``ssd_scan.chunk_launches``."""
+    """Pass (a) on checked CUDA operands (x float32 where ``pl`` has
+    N-panels): each chunk's end state from zero ``[b, chunks, H, P, N]``
+    and its sum of dt A ``[b, chunks, H]``, both float32; counted by
+    ``ssd_scan.chunk_launches``."""
     b, S, H, P = x.shape
     N = B.shape[-1]
     Z = torch.empty((b, pl.chunks, H, P, N), dtype=torch.float32,
@@ -142,7 +155,8 @@ def chunk_states(x, dt, A, B, pl: Plan):
     code = _device.launch(lib.ssd_chunk_states_launch, x, x.data_ptr(),
                           dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                           Z.data_ptr(), seg.data_ptr(), b, S, H, P, N,
-                          X_DTYPES[x.dtype], pl.chunk_steps, pl.width)
+                          X_DTYPES[x.dtype], pl.chunk_steps, pl.width,
+                          pl.panel or N)
     _build.check(lib, code, NAME)
     ssd_scan.chunk_launches += 1
     return Z, seg
@@ -162,18 +176,36 @@ def state_pass(Z, seg):
 
 def output_pass(x, dt, A, B, C, Z, pl: Plan):
     """Pass (c): y in x's type from the chunks' start states ``Z`` (None:
-    one chunk, from zero); counted by ``ssd_scan.launches``."""
+    one chunk, from zero); where ``pl`` has N-panels, each panel's share of
+    y, ``[panels, b, S, H, P]`` float32 (x float32).  Counted by
+    ``ssd_scan.launches``."""
     b, S, H, P = x.shape
     N = B.shape[-1]
-    out = torch.empty_like(x)
+    panels = -(-N // (pl.panel or N))
+    out = torch.empty((panels, *x.shape), dtype=x.dtype, device=x.device)
     lib = _lib()
     code = _device.launch(lib.ssd_output_launch, x, x.data_ptr(),
                           dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                           C.data_ptr(), None if Z is None else Z.data_ptr(),
                           out.data_ptr(), b, S, H, P, N, X_DTYPES[x.dtype],
-                          pl.steps, pl.width, pl.heads)
+                          pl.steps, pl.width, pl.heads, pl.panel or N,
+                          x.numel() if panels > 1 else 0)
     _build.check(lib, code, NAME)
     ssd_scan.launches += 1
+    return out if panels > 1 else out[0]
+
+
+def panel_sum(part, dtype):
+    """Pass (d): the panels' float32 shares ``[panels, ...]`` added in panel
+    order, into ``dtype`` (a type of ``X_DTYPES``); counted by
+    ``ssd_scan.panel_launches``."""
+    out = torch.empty(part.shape[1:], dtype=dtype, device=part.device)
+    lib = _lib()
+    code = _device.launch(lib.ssd_panel_sum_launch, part, part.data_ptr(),
+                          out.data_ptr(), part.shape[0], out.numel(),
+                          X_DTYPES[dtype])
+    _build.check(lib, code, NAME)
+    ssd_scan.panel_launches += 1
     return out
 
 
@@ -197,13 +229,18 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 256):
     pl = plan(S, H, P, N)
     if x.numel() == 0:
         return _promote.restore(torch.empty_like(x), out_dtype)
+    xk = x.to(torch.float32) if pl.panel else x
     Z = None
     if pl.chunks > 1:
-        Z, seg = chunk_states(x, dt, A, B, pl)
+        Z, seg = chunk_states(xk, dt, A, B, pl)
         state_pass(Z, seg)
-    return _promote.restore(output_pass(x, dt, A, B, C, Z, pl), out_dtype)
+    y = output_pass(xk, dt, A, B, C, Z, pl)
+    if pl.panel:
+        y = panel_sum(y, x.dtype)
+    return _promote.restore(y, out_dtype)
 
 
 ssd_scan.launches = 0
 ssd_scan.chunk_launches = 0
 ssd_scan.state_launches = 0
+ssd_scan.panel_launches = 0

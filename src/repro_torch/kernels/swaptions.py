@@ -12,7 +12,10 @@ PARSEC simlarge's 42,240,000 uniforms (64 swaptions x 20,000 trials x 11
 tenor points x 3 factors) that is 337.9 MB, or 101 us at 3.35 TB/s, while
 the ~40 float ops per element need ~25 us at 67 TFLOP/s.  It is compiled
 without ``--use_fast_math`` and with ``-fmad=false``, so its float32
-arithmetic is the plain version's term by term.
+arithmetic is the plain version's term by term.  Uniforms in bfloat16 or
+float16 are widened to float32 first and the result comes back in their
+type (the reference's output type), rounded once from float32 where the
+reference rounds every step in the 16-bit type.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import ctypes
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels import _check, ref
+from repro_torch.kernels import _check, _promote, ref
 
 NAME = "cum_normal_inv"
 
@@ -37,14 +40,17 @@ def _lib():
 
 
 def cum_normal_inv(u):
-    """Moro's inverse normal CDF of float32 uniforms ``u`` ``[N]``.  CUDA
-    tensors launch the kernel; CPU tensors take the plain version."""
+    """Moro's inverse normal CDF of uniforms ``u`` ``[N]`` in float32
+    (bfloat16 and float16 widened to it), in ``u``'s type.  CUDA tensors
+    launch the kernel; CPU tensors take the plain version."""
+    out_dtype = getattr(u, "dtype", None)
+    u = _promote.widen(u)
     _check.tensor(NAME, "u", u, (torch.float32,), 1)
     if _check.device_kind(NAME, u) == "cpu":
-        return ref.cum_normal_inv(u)
+        return _promote.restore(ref.cum_normal_inv(u), out_dtype)
     out = torch.empty_like(u)
     if u.numel() == 0:
-        return out
+        return _promote.restore(out, out_dtype)
     lib = _lib()
     with torch.cuda.device(u.device):
         code = lib.cum_normal_inv_launch(
@@ -52,7 +58,7 @@ def cum_normal_inv(u):
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, NAME)
     cum_normal_inv.launches += 1
-    return out
+    return _promote.restore(out, out_dtype)
 
 
 cum_normal_inv.launches = 0

@@ -15,7 +15,7 @@ from repro_torch.core import isa, suite, tracegen
 from repro_torch.kernels import blackscholes as bs_mod
 from repro_torch.kernels import canneal as ca_mod
 from repro_torch.kernels import decode_attention as da_mod
-from repro_torch.kernels import _promote, engine_scan, ref
+from repro_torch.kernels import _promote, engine_scan, ops, ref
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import jacobi2d as j2_mod
 from repro_torch.kernels import particlefilter as pf_mod
@@ -613,7 +613,8 @@ def test_ssd_scan_kernel_is_deterministic(cuda, P, N):
 
 @pytest.mark.parametrize("T,PS,N,hg,out", [
     (32, 64, 128, 4, 1), (64, 64, 128, 1, 0), (32, 43, 40, 1, 1),
-    (32, 1, 409, 2, 1), (64, 16, 360, 1, 0)])
+    (32, 1, 409, 2, 1), (64, 16, 360, 1, 0), (32, 64, 256, 2, 1),
+    (64, 64, 344, 1, 0), (32, 16, 688, 1, 1)])
 def test_ssd_scan_plan_matches_the_kernels_layout(cuda, T, PS, N, hg, out):
     """The host's shared-memory count (what ``plan`` fits) is the
     kernels'."""
@@ -638,13 +639,54 @@ def test_ssd_scan_every_tile_shape_matches_plain(cuda, shape):
 
 
 def test_ssd_scan_kernel_rejects_what_it_cannot_take(cuda):
+    """A sequence off the chunk is refused, as the reference refuses it;
+    a state too wide for one block, (P 128, N 512), is computed on two
+    N-panels, 4e-3 against the plain version."""
     x, dt, A, B, C = (t.to(cuda) for t in ssd_inputs(1, 96, 2, 16, 32, 3))
     with pytest.raises(ValueError, match="multiple of the chunk"):
         ssd_mod.ssd_scan(x, dt, A, B, C, chunk=64)
-    big = torch.zeros(1, 96, 2, 128, device=cuda)
-    wide = torch.zeros(1, 96, 512, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        ssd_mod.ssd_scan(big, dt, A, wide, wide, chunk=32)
+    x, dt, A, B, C = (t.to(cuda) for t in ssd_inputs(1, 96, 2, 128, 512, 3))
+    got = ssd_mod.ssd_scan(x, dt, A, B, C, chunk=32)
+    torch.testing.assert_close(got, ref.ssd_scan(x, dt, A, B, C, 32),
+                               rtol=4e-3, atol=4e-3)
+
+
+@pytest.mark.parametrize("S,H,P,N,dtype", [
+    (1100, 3, 128, 512, "float32"), (1100, 2, 128, 1024, "float32"),
+    (600, 2, 8, 2048, "float32"), (768, 4, 64, 417, "bfloat16"),
+    (256, 3, 128, 512, "float16"), (96, 1, 1, 5000, "float32")],
+    ids=["P128-N512", "P128-N1024", "P8-N2048", "N417-bf16-x",
+         "N512-f16-x-one-chunk", "P1-N5000"])
+def test_ssd_scan_n_panels_match_plain(cuda, S, H, P, N, dtype):
+    """States too wide for one block, split into N-panels (the last ragged
+    where N is not a multiple of the panel): every pass's counter moves
+    once, pass (d) adds the panels' shares; 4e-3, plus one unit of a 16-bit
+    output."""
+    x, dt, A, B, C = (t.to(cuda) for t in ssd_inputs(2, S, H, P, N, S + N))
+    x = x.to(getattr(torch, dtype))
+    pl = ssd_mod.plan(S, H, P, N)
+    assert pl.panel and -(-N // pl.panel) > 1
+    counters = ("launches", "chunk_launches", "state_launches",
+                "panel_launches")
+    before = [getattr(ssd_mod.ssd_scan, c) for c in counters]
+    got = ssd_mod.ssd_scan(x, dt, A, B, C, chunk=S)
+    several = int(pl.chunks > 1)
+    assert [getattr(ssd_mod.ssd_scan, c) - n
+            for c, n in zip(counters, before)] == [1, several, several, 1]
+    assert got.dtype == x.dtype
+    tol = 4e-3 + (torch.finfo(x.dtype).eps if dtype != "float32" else 0)
+    torch.testing.assert_close(got.float(),
+                               ref.ssd_scan(x, dt, A, B, C, S).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_ssd_scan_n_panels_are_deterministic(cuda):
+    """The panels' shares are added in one order, with no atomics: two
+    calls give the same bits."""
+    x, dt, A, B, C = (t.to(cuda) for t in ssd_inputs(2, 1024, 3, 128, 1024,
+                                                     6))
+    assert torch.equal(ssd_mod.ssd_scan(x, dt, A, B, C, chunk=256),
+                       ssd_mod.ssd_scan(x, dt, A, B, C, chunk=256))
 
 
 # ---- flash attention at D 129..512 on wgmma; the SIMT route's old cases --
@@ -1083,3 +1125,194 @@ def test_widened_operands_launch_the_kernel(cuda, case):
         tol += torch.finfo(got.dtype).eps * (got.dtype != torch.float32)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+# ---- the widened operand types (Queue 3, fault 4) -------------------------
+
+def half(dtype):
+    return getattr(torch, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "int32"])
+def test_swap_cost_widens_coordinates(cuda, dtype):
+    """16-bit or int32 locations and candidates, widened to float32 as the
+    reference's kernel widens them: bit for bit the plain version on the
+    widened values (integer coordinates keep every sum exact)."""
+    rng = np.random.RandomState(5)
+    N, b, F = 4000, 1000, 22
+    locs = torch.from_numpy(rng.randint(0, 1000, (N, 2)).astype(np.float32))
+    fan = torch.from_numpy(rng.randint(-1, N, (b, F)).astype(np.int32))
+    cand = [torch.from_numpy(rng.randint(0, 1000, (b, 2)).astype(np.float32))
+            for _ in "ab"]
+    args = [t.to(cuda, half(dtype)) for t in (locs, *cand)]
+    before = ca_mod.swap_cost.launches
+    got = ca_mod.swap_cost(args[0], fan.to(cuda), *args[1:])
+    assert ca_mod.swap_cost.launches == before + 1
+    want = ref.canneal_swap_cost(args[0].float(), fan.to(cuda),
+                                 *(t.float() for t in args[1:]))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("cdf_type,u_type", [
+    ("bfloat16", "bfloat16"), ("float16", "float16"),
+    ("float32", "bfloat16"), ("float16", "bfloat16")])
+def test_find_index_widens_exactly(cuda, cdf_type, u_type):
+    """16-bit CDFs and queries, and two float types: widened exactly, so
+    the kernel's int32 indices equal the plain version's on the widened
+    values, on the search path (sorted) and the count path (shuffled)."""
+    rng = np.random.RandomState(8)
+    raw = rng.uniform(size=5000).astype(np.float32)
+    u = torch.from_numpy(rng.uniform(size=1000).astype(np.float32)).to(
+        cuda, half(u_type))
+    for arr in (np.sort(raw), raw):
+        cdf = torch.from_numpy(arr).to(cuda, half(cdf_type))
+        before = pf_mod.find_index.launches
+        got = pf_mod.find_index(cdf, u)
+        assert pf_mod.find_index.launches == before + 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got, ref.particlefilter_findindex(cdf.float(),
+                                                             u.float()))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "int16"])
+def test_pathfinder_widens_exactly(cuda, dtype):
+    rng = np.random.RandomState(12)
+    w = torch.from_numpy(rng.randint(0, 10, (45, 1001)).astype(np.float32))
+    w = w.to(cuda, half(dtype))
+    got = path_mod.pathfinder(w)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ref.pathfinder(w.float()))
+
+
+@pytest.mark.parametrize("shape", [(3, 3), (130, 3), (1001, 67),
+                                   (33, 2800)])
+def test_jacobi2d_kernel_float16_matches_plain_bitwise(cuda, shape):
+    """A float16 grid on the kernel's float16 instantiation: summed in
+    float32, rounded once a sweep; three sweeps, bit for bit."""
+    rng = np.random.RandomState(sum(shape))
+    a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    got = want = a.to(cuda, torch.float16)
+    for _ in range(3):
+        got = j2_mod.jacobi2d_step(got)
+        want = ref.jacobi2d(want)
+        assert got.dtype == torch.float16 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_blackscholes_and_swaptions_16bit(cuda, dtype):
+    """16-bit inputs, widened to the float32 kernels and rounded once to
+    the inputs' type: within the float32 bars plus one unit of the 16-bit
+    output of the plain version on the widened values; a boolean is_call
+    prices as int32 0/1."""
+    t, eps = half(dtype), torch.finfo(half(dtype)).eps
+    args = [torch.from_numpy(a).to(cuda) for a in bs_inputs(65_537, 3)]
+    got = bs_mod.blackscholes(*(a.to(t) for a in args[:5]), args[5])
+    assert got.dtype == t
+    want = ref.blackscholes(*(a.to(t).float() for a in args[:5]),
+                            args[5]).to(t)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-5 + eps,
+                               atol=3e-5 + eps)
+    assert torch.equal(bs_mod.blackscholes(*args[:5], args[5].bool()),
+                       bs_mod.blackscholes(*args))
+    u = torch.from_numpy(np.random.RandomState(4).uniform(
+        1e-5, 1 - 1e-5, 65_537).astype(np.float32)).to(cuda, t)
+    before = sw_mod.cum_normal_inv.launches
+    got = sw_mod.cum_normal_inv(u)
+    assert sw_mod.cum_normal_inv.launches == before + 1
+    assert got.dtype == t
+    torch.testing.assert_close(got.float(),
+                               ref.cum_normal_inv(u.float()).to(t).float(),
+                               rtol=1e-5 + eps, atol=1e-6 + eps)
+
+
+# ---- no B*H or row cap (Queue 3, fault 5) ---------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_past_65535_heads(cuda, dtype):
+    """B * H = 65,536 (B 65,536, S 1, H 1, D 8): one block a head on the
+    one-dimensional grid, against the plain version."""
+    q, k, v = fa_inputs(65_536, 1, 1, 8, dtype, cuda)
+    got = fa_mod.flash_attention(q, k, v, causal=True)
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention(q, k, v).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_jacobi2d_past_2097120_rows(cuda):
+    """R 2,097,123 x C 3: past 65,535 row blocks of 32, which now round
+    again over gridDim.y; bit for bit, a sweep and a loop of sweeps."""
+    rng = np.random.RandomState(21)
+    a = torch.from_numpy(rng.standard_normal((2_097_123, 3)).astype(
+        np.float32)).to(cuda)
+    assert torch.equal(j2_mod.jacobi2d_step(a), ref.jacobi2d(a))
+    assert j2_mod.route(*a.shape, a.dtype).name == "loop"
+    assert torch.equal(j2_mod.jacobi2d(a, 2), ref.jacobi2d(a, 2))
+
+
+# ---- Jacobi-2D's sweeps in one cluster launch (R4) ------------------------
+
+def largest_square(dtype):
+    n = 3
+    while j2_mod.route(n + 1, n + 1, dtype).name == "cluster":
+        n += 1
+    return n
+
+
+J2_SIDES = {"float32": 618, "bfloat16": 720, "float16": 720}
+
+
+@pytest.mark.parametrize("iters", [1, 2, 1000])
+@pytest.mark.parametrize("side", ["3", "5", "164", "165", "largest",
+                                  "past-largest"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_jacobi2d_sweeps_match_plain_bitwise(cuda, dtype, side, iters):
+    """Square grids on the cluster route (3, 5, RiVec's 164, 165 and the
+    widest it takes) and on the loop route just past it: ``iters`` sweeps
+    equal ``iters`` sweeps of the plain version bit for bit, a 16-bit grid
+    rounded every sweep; the cluster route launches once, the loop route
+    once a sweep."""
+    t = half(dtype)
+    assert largest_square(t) == J2_SIDES[dtype]
+    n = {"largest": J2_SIDES[dtype],
+         "past-largest": J2_SIDES[dtype] + 1}.get(side) or int(side)
+    rng = np.random.RandomState(n + iters)
+    a = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32))
+    a = a.to(cuda, t)
+    rt = j2_mod.route(n, n, t)
+    assert rt.name == ("loop" if side == "past-largest" else "cluster")
+    before = (j2_mod.jacobi2d.launches, j2_mod.jacobi2d.loop_launches)
+    got = j2_mod.jacobi2d(a, iters)
+    after = (j2_mod.jacobi2d.launches, j2_mod.jacobi2d.loop_launches)
+    assert [x - y for x, y in zip(after, before)] == (
+        [1, 0] if rt.name == "cluster" else [0, iters])
+    assert got.dtype == t and torch.equal(got, ref.jacobi2d(a, iters))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("shape", [(150, 164), (67, 131)])
+def test_jacobi2d_cluster_sizes_match_plain_bitwise(cuda, ctas, k, shape):
+    """Each cluster size the route may take (16 past the portable 8), the
+    last CTAs holding fewer rows or none, and each number of sweeps
+    between barriers (the halo rows updated twice over): 101 sweeps (the
+    last block short of k), bit for bit."""
+    rng = np.random.RandomState(ctas + k)
+    a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    a = a.to(cuda)
+    before = j2_mod.jacobi2d.launches
+    assert torch.equal(j2_mod.cluster(a, 101, ctas, k), ref.jacobi2d(a, 101))
+    assert j2_mod.jacobi2d.launches == before + 1
+
+
+def test_jacobi2d_zero_sweeps_and_ops(cuda):
+    """No sweep is a copy; ``ops.jacobi2d`` takes a numpy float16 grid in
+    its type onto the card."""
+    a = torch.randn(40, 50, device=cuda)
+    got = j2_mod.jacobi2d(a, 0)
+    assert torch.equal(got, a) and got.data_ptr() != a.data_ptr()
+    g = np.random.RandomState(1).standard_normal((40, 50)).astype(np.float16)
+    got = ops.jacobi2d(g, 7)
+    assert got.is_cuda and got.dtype == torch.float16
+    assert torch.equal(got, ref.jacobi2d(torch.from_numpy(g).to(cuda), 7))

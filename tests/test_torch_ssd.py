@@ -261,28 +261,37 @@ def test_three_pass_mirror_matches_pallas_and_float64(S, steps, steep):
 
 
 @pytest.mark.parametrize("S,H,P,N,want", [
-    (65_536, 16, 64, 128, (32, 64, 1, 4, 128, 64)),  # the suite's size
-    (16_384, 16, 256, 128, (32, 64, 4, 4, 32, 64)),  # P 256: four slices
-    (1100, 3, 129, 40, (64, 43, 3, 2, 3, 64)),       # 129: three of 43
-    (600, 1, 16, 360, (32, 16, 1, 1, 2, 64)),        # one head; 32 steps
-    (600, 4, 1, 409, (32, 1, 1, 2, 2, 64))])
+    (65_536, 16, 64, 128, (32, 64, 1, 4, 128, 64, 0)),  # the suite's size
+    (16_384, 16, 256, 128, (32, 64, 4, 4, 32, 64, 0)),  # P 256: four slices
+    (1100, 3, 129, 40, (64, 43, 3, 2, 3, 64, 0)),       # 129: three of 43
+    (600, 1, 16, 360, (32, 16, 1, 1, 2, 64, 0)),        # one head; 32 steps
+    (600, 4, 1, 409, (32, 1, 1, 2, 2, 64, 0)),
+    (96, 2, 128, 512, (32, 64, 2, 2, 1, 64, 256)),      # two N-panels
+    (1100, 4, 64, 417, (64, 64, 1, 1, 3, 64, 216)),     # just past 416
+    (96, 2, 128, 1024, (32, 64, 2, 1, 1, 64, 344)),     # 344 + 344 + 336
+    (96, 1, 16, 2048, (32, 16, 1, 1, 1, 64, 688))])
 def test_ssd_plan(S, H, P, N, want):
     """P-slices of at most 64 columns, equal but the last; then the first
     (tile steps, heads a block) of OUTPUT_SHAPES whose output-pass block
     fits 227 KB, and 64-step tiles for the chunk pass where its block
-    fits; chunks of 512 steps."""
+    fits; chunks of 512 steps.  Where no block holds the whole state, the
+    fewest N-panels of a multiple of 8 columns with which one does."""
     pl = ssd_mod.plan(S, H, P, N)
     assert tuple(pl) == want
-    assert ssd_mod.smem_bytes(pl.steps, pl.width, N, pl.heads, True) \
+    nw = pl.panel or N
+    assert ssd_mod.smem_bytes(pl.steps, pl.width, nw, pl.heads, True) \
         <= ssd_mod.MAX_SMEM
-    assert ssd_mod.smem_bytes(pl.chunk_steps, pl.width, N, 1, False) \
+    assert ssd_mod.smem_bytes(pl.chunk_steps, pl.width, nw, 1, False) \
         <= ssd_mod.MAX_SMEM
 
 
 def test_ssd_plan_refuses_nothing_the_one_block_kernel_took():
     """The one-block kernel (P-slices of at most 128 columns holding the
     state, a tile of x dt, B and C transposed and the decay block) took
-    every (P, N) whose block fit 227 KB; the plan takes each of them."""
+    every (P, N) whose block fit 227 KB; the plan takes each of them on
+    one N-panel.  A state it refused, (P 128, N 512), now takes two
+    N-panels of 256, whose shares of y add up to the plain version's y
+    (4e-3)."""
     def took(P, N):
         ps = -(-P // -(-P // 128))
         return 4 * (N * ps + 64 * ps + 2 * N * 65 + 64 * 65 + 256) \
@@ -290,6 +299,44 @@ def test_ssd_plan_refuses_nothing_the_one_block_kernel_took():
     for P in (*range(1, 70), 127, 128, 129, 192, 256, 257, 512):
         for N in range(1, 420):
             if took(P, N):
-                ssd_mod.plan(1024, 2, P, N)
-    with pytest.raises(ValueError, match="shared memory"):
-        ssd_mod.plan(96, 2, 128, 512)
+                assert ssd_mod.plan(1024, 2, P, N).panel == 0
+    pl = ssd_mod.plan(96, 2, 128, 512)
+    assert pl.panel == 256
+    x, dt, A, B, C, _ = ssd_inputs(1, 96, 2, 128, 512, 3)
+    got = panel_mirror(x, dt, A, B, C, pl.panel, steps=pl.steps)
+    want = ops.ssd_scan(x, dt, A, B, C, chunk=32, device="cpu")
+    np.testing.assert_allclose(got, want.numpy(), rtol=4e-3, atol=4e-3)
+
+
+def panel_mirror(x, dt, A, B, C, panel, steps=64, chunk=512):
+    """csrc/ssd_scan.cu's N-panel route in torch float32: each panel of
+    ``panel`` columns of B and C (the last ragged) runs the three passes
+    on its own columns alone, which yields its share of y, (C_p B_p^T o
+    decay) (x dt) + exp(seg) C_p state_p; pass (d) adds the shares in
+    panel order."""
+    N = B.shape[-1]
+    y = None
+    for n0 in range(0, N, panel):
+        share, top = three_pass_mirror(x, dt, A, B[..., n0:n0 + panel],
+                                       C[..., n0:n0 + panel], steps, chunk)
+        assert top <= 0.0
+        y = share if y is None else y + share
+    return y
+
+
+@pytest.mark.parametrize("N,P", [(512, 128), (1024, 128), (1024, 8)])
+def test_panel_mirror_matches_float64_and_the_plain_version(N, P):
+    """The N-panel algebra at the plan's own panels (N 512: two of 256; N
+    1,024: 344, 344 and 336), over two 512-step chunks (the second ragged)
+    and 32-step tiles: against the float64 recurrence (1e-5 of its largest
+    value) and the plain version (4e-3)."""
+    S, H = 576, 2
+    pl = ssd_mod.plan(S, H, P, N)
+    assert pl.panel and -(-N // pl.panel) > 1
+    x, dt, A, B, C, _ = ssd_inputs(1, S, H, P, N, N + P)
+    got = panel_mirror(x, dt, A, B, C, pl.panel, steps=pl.steps)
+    assert np.isfinite(got).all()
+    y64, _ = recurrence_f64(x, dt, A, B, C, np.zeros(H, np.float32))
+    assert normwise(got, y64) <= 1e-5, normwise(got, y64)
+    want = ops.ssd_scan(x, dt, A, B, C, chunk=64, device="cpu")
+    np.testing.assert_allclose(got, want.numpy(), rtol=4e-3, atol=4e-3)
