@@ -11,10 +11,12 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    the flash-attention kernel's D-256 and D-512 instantiations, its
    sliced kernels and its float32 D-256 instantiation apart, failing on
    any spill of the last three, and those of the SSD scan's chunk
-   kernels and the Jacobi-2D cluster kernel), and the count of tensor-core
-   instructions
-   (HGMMA, HMMA) in the flash-attention library's SASS where the toolkit
-   has ``cuobjdump``;
+   kernels and the Jacobi-2D cluster kernel, and of Jacobi-2D's tiled
+   kernel and streamcluster's kernel (16-bit and 3xTF32), failing on any
+   spill of these), and the count of tensor-core instructions (HGMMA,
+   HMMA) in the flash-attention and streamcluster libraries' SASS where
+   the toolkit has ``cuobjdump`` (failing if streamcluster's holds no
+   HGMMA);
 2. Black-Scholes at its PARSEC-large size (65,536 options x 100 runs =
    6,553,600 evaluations): kernel against the plain version on the card at
    rtol = atol = 3e-5, times and bound;
@@ -34,7 +36,8 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    the launch, the D2H copy and the runtime derivation; and the scalar
    baseline's fold over the 480 cells, cold, on the host;
 5. the suite's kernel path (every launch counter set to 0 first): swaptions,
-   streamcluster (float32 and bfloat16), particle filter (Rodinia's
+   streamcluster (float32 on 3xTF32, bfloat16 and float16 on wgmma, each
+   route asserted), particle filter (Rodinia's
    monotone CDF, on the search path, and the same CDF shuffled, on the
    count path; the path each took read from the kernel's flags),
    canneal, pathfinder, flash attention (float32, bfloat16, bfloat16 at
@@ -51,7 +54,9 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    through ``kernels.ops`` at their PARSEC / Rodinia / app input sizes, and
    Jacobi-2D: RiVec's 4,000 sweeps of 164 x 164 in float32 and bfloat16
    through ``ops.jacobi2d`` (one cluster launch each), PolyBench's 1,000
-   sweeps of 2,800 x 2,800 (the loop route) and one float16 sweep; each
+   sweeps of 2,800 x 2,800 in float32 and bfloat16 (the tiled route, 125
+   launches each, timed on the host clock), one sweep of it (the loop
+   route) and one float16 sweep; each
    output checked on its own terms (shape, range, a float64 or numpy
    reference that shares no code with the port, and each Jacobi-2D route
    bit for bit against as many sweeps of the plain version);
@@ -66,7 +71,10 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    (``3xtf32_sliced``) and one call of mixed types,
    decoding from a bfloat16 and a float16 cache, at D 512 and of mixed
    types, and decoding's split and combine kernels each alone,
-   streamcluster in float16, Jacobi-2D in bfloat16 and the SSD scan at P
+   streamcluster in float16 and on its plain-load route (a bfloat16 view
+   off 16 bytes), each streamcluster row with its route and, for the
+   16-bit types, ``torch.cdist`` on the same operands where it computes
+   them, Jacobi-2D in bfloat16 and the SSD scan at P
    256 (each SSD row also timed pass by pass, beside its bytes bound and
    its operations bound at the 3xTF32 rate and on the FMA pipes); for flash
    attention also its load path, the wrapper's host time a call, its
@@ -78,8 +86,13 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    beside the cluster route (wall time, device time, launches), the route
    under each cluster size, one cluster barrier and the floor it sets, and
    the routes on the widest float32 and bfloat16 grids the cluster takes;
-7. the ``kernels`` JSON line (twenty-one entries: Jacobi-2D's cluster and
-   loop routes and the SSD scan's N-panel route; flash attention's D-256
+   and PolyBench's 1,000 sweeps in float32 and bfloat16 on the tiled route
+   beside the old loop of 1,000 launches, each in device and wall time
+   with its launches, beside the bound;
+7. the ``kernels`` JSON line (twenty-three entries: Jacobi-2D's cluster,
+   loop and tiled routes, streamcluster's 16-bit (its own entry) and
+   float32 3xTF32 instantiations and the SSD scan's N-panel route; flash
+   attention's D-256
    and D-512 wgmma instantiations, its sliced kernel, its float32 D-256
    instantiation and its float32 sliced kernel, the particle filter's
    shuffled row,
@@ -155,9 +168,10 @@ SW_OPS, CA_OPS = 46, 12
 J2_N, J2_SWEEPS, J2_BIG, J2_OPS = 164, 4_000, 2_800, 5
 # The app's sweeps run in one launch of a thread-block cluster (the grid in
 # its shared memory, ``jacobi2d.route``); PolyBench's EXTRALARGE grid does
-# not fit one and runs its 1,000 time steps (TSTEPS) on the loop route, one
-# launch a sweep.  Phase 6 also times the cluster route on the widest
-# float32 and bfloat16 grids it takes (J2_WIDEST sweeps each).
+# not fit one and runs its 1,000 time steps (TSTEPS) on the tiled route, 8
+# sweeps a launch, and one sweep of it on the loop route.  Phase 6 also
+# times the cluster route on the widest float32 and bfloat16 grids it takes
+# (J2_WIDEST sweeps each).
 J2_BIG_SWEEPS, J2_WIDEST = 1_000, 1_000
 # pathfinder: Rodinia's 100,000 columns (tracegen.py:317) x the rows that
 # _PATH_CHUNK8 implies (20,054,016 x 8 / 100,000 = 1,604), wall
@@ -238,14 +252,14 @@ def cuda_ms(torch, fn, reps: int, per: int = 1, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def sass_counts(build) -> str:
-    """Tensor-core and copy instructions in the built flash-attention
-    library (``cuobjdump -sass``), or why they cannot be counted."""
+def sass_counts(build, source: str = "flash_attention") -> str:
+    """Tensor-core and copy instructions in the built library of
+    ``source`` (``cuobjdump -sass``), or why they cannot be counted."""
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     if not cuobjdump.exists():
         return f"not counted: no {cuobjdump}"
     run = subprocess.run([str(cuobjdump), "-sass",
-                          str(build.target("flash_attention"))],
+                          str(build.target(source))],
                          capture_output=True, text=True)
     if run.returncode != 0:
         return f"not counted: cuobjdump exited {run.returncode}"
@@ -286,6 +300,18 @@ def device_ms(torch, fn, reps: int, per: int, sm_clock_hz: float) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / per)
+    return statistics.median(times)
+
+
+def wall_clock_ms(torch, fn, reps: int) -> float:
+    """Median host time (ms) of one ``fn`` call and a synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -534,7 +560,8 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
         fail(f"swaptions: cndf(inverse(u)) off u by {sw_back} > 5e-4")
     worst = {}
     for key, inputs, tol in (("streamcluster", "sc", 2e-4),
-                             ("streamcluster_bf16", "sc_bf16", 1e-2)):
+                             ("streamcluster_bf16", "sc_bf16", 1e-2),
+                             ("streamcluster_f16", "sc_f16", 1e-2)):
         d = outs[key]
         if d.shape != (SC_M, SC_N) or d.dtype != torch.float32 \
                 or not torch.isfinite(d).all() or float(d.min()) < 0:
@@ -572,7 +599,8 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
     print(f"phase 5 outputs: swaptions cndf round trip {sw_back:.3g} "
           f"(5e-4); streamcluster vs float64 on 128 rows "
           f"{worst['streamcluster']:.3g} (2e-4), bf16 "
-          f"{worst['streamcluster_bf16']:.3g} (1e-2); particlefilter equal "
+          f"{worst['streamcluster_bf16']:.3g} (1e-2), f16 "
+          f"{worst['streamcluster_f16']:.3g} (1e-2); particlefilter equal "
           f"to numpy searchsorted, shuffled equal to numpy's count on 2,000 "
           f"queries; canneal equal to float64 sums on 20,000 swaps")
 
@@ -591,10 +619,14 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
         fail(f"jacobi2d: off numpy's {J2_SWEEPS} sweeps by {j2_err} > 1e-6")
     # each route against as many sweeps of the plain version, bit for bit:
     # the app in float32 and bfloat16 (one cluster launch each), PolyBench's
-    # grid (the loop route), one float16 sweep
+    # grid in float32 and bfloat16 (the tiled route) and one sweep of it
+    # (the loop route), one float16 sweep
     for key, src, sweeps in (("jacobi2d", "j2", J2_SWEEPS),
                              ("jacobi2d_bf16", "j2_bf16", J2_SWEEPS),
                              ("jacobi2d_big", "j2_big", J2_BIG_SWEEPS),
+                             ("jacobi2d_big_bf16", "j2_big_bf16",
+                              J2_BIG_SWEEPS),
+                             ("jacobi2d_big_step", "j2_big", 1),
                              ("jacobi2d_f16_step", "j2_f16", 1)):
         plain = data[src]
         for _ in range(sweeps):
@@ -667,8 +699,9 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
             fail(f"{key}: off float64 attention by {da[key]}")
     da_err = da["decode_attention"]
     print(f"phase 5 outputs: jacobi2d (cluster route, float32 and bfloat16; "
-          f"loop route at {J2_BIG} x {J2_BIG} x {J2_BIG_SWEEPS}; a float16 "
-          "sweep) equal to the plain version's sweeps; vs numpy's "
+          f"tiled route at {J2_BIG} x {J2_BIG} x {J2_BIG_SWEEPS}, float32 and "
+          "bfloat16; loop route, one sweep of it; a float16 sweep) equal to "
+          "the plain version's sweeps; vs numpy's "
           f"{J2_SWEEPS} sweeps "
           f"{j2_err:.3g} (1e-6), equal to the plain version's sweeps; "
           f"pathfinder equal to numpy's row program; flash attention vs "
@@ -747,20 +780,48 @@ def suite_specs(torch, ref, data, mods):
                   library=lambda: torch.special.ndtri(u), tol=(1e-5, 1e-6),
                   peak=PEAK_F32_S, nbytes=SW_N * 8, ops=SW_N * SW_OPS,
                   per=25)]
+    # streamcluster: float32 as 3xTF32 (three TF32 products a product, as
+    # float32 attention is bounded), the 16-bit types on wgmma; the library
+    # yardstick torch.cdist on the same operands, which returns the root
+    # distance in the operands' type (TF32 off for float32)
+    from repro_torch.kernels import streamcluster as sc_mod
+
+    def cdist_or_reason(p, c):
+        call = lambda: torch.cdist(p, c,
+                                   compute_mode="use_mm_for_euclid_dist")
+        try:
+            call()
+        except RuntimeError as e:
+            return None, str(e).splitlines()[0][:120]
+        return call, None
+
     for name, key, tol, peak in (
-            ("streamcluster", "sc", 2e-4, PEAK_F32_S),
+            ("streamcluster", "sc", 2e-4, PEAK_TF32_S / 3),
             ("streamcluster_bf16", "sc_bf16", 1e-2, PEAK_BF16_S),
             ("streamcluster_f16", "sc_f16", 1e-2, PEAK_BF16_S)):
         p, c = data[key]
-        cdist = lambda p=p, c=c: torch.cdist(
-            p, c, compute_mode="use_mm_for_euclid_dist")
+        cdist, why = cdist_or_reason(p, c)
         specs.append(dict(
             name=name, kernel=lambda p=p, c=c: sc_k(p, c),
             plain=lambda p=p, c=c: ref.streamcluster_dist(p, c),
-            library=cdist if key == "sc" else None, tol=(tol, tol), peak=peak,
+            library=cdist, library_none=why, tol=(tol, tol), peak=peak,
             nbytes=(SC_M + SC_N) * SC_D * p.element_size() + SC_M * SC_N * 4,
             ops=2 * SC_M * SC_N * SC_D + 2 * (SC_M + SC_N) * SC_D
-            + 4 * SC_M * SC_N, per=10))
+            + 4 * SC_M * SC_N, per=10, route=sc_mod.path(p, c)))
+    # and a bfloat16 view 3 elements into its buffer (no TMA: the plain-
+    # load route), at the same shape
+    p, c = data["sc_bf16"]
+    p_off = torch.empty(p.numel() + 3, dtype=p.dtype,
+                        device=p.device)[3:].view(p.shape).copy_(p)
+    specs.append(dict(
+        name="streamcluster_bf16_unaligned",
+        kernel=lambda: sc_k(p_off, c),
+        plain=lambda: ref.streamcluster_dist(p_off, c), library=None,
+        library_none="the same call as streamcluster_bf16's",
+        tol=(1e-2, 1e-2), peak=PEAK_BF16_S,
+        nbytes=(SC_M + SC_N) * SC_D * 2 + SC_M * SC_N * 4,
+        ops=2 * SC_M * SC_N * SC_D + 2 * (SC_M + SC_N) * SC_D
+        + 4 * SC_M * SC_N, per=10, route=sc_mod.path(p_off, c)))
     # the particle filter: what these inputs need.  Rodinia's CDF is
     # monotone, so a search: the CDF read once, the queries read, the
     # indices written, and ceil(log2 N) compares a query; the shuffled CDF
@@ -798,15 +859,21 @@ def suite_specs(torch, ref, data, mods):
             peak=PEAK_F32_S, nbytes=J2_BIG * J2_BIG * 2 * big.element_size(),
             ops=J2_OPS * (J2_BIG - 2) ** 2, per=25))
     # Jacobi-2D's many-sweep routes: the app's 4,000 sweeps of 164 x 164 on
-    # the cluster route (one launch) and PolyBench's 1,000 of 2,800 x 2,800
-    # on the loop route (one launch a sweep); the grid read once and
-    # written once, 5 operations an interior point a sweep
+    # the cluster route (one launch), PolyBench's 1,000 of 2,800 x 2,800 on
+    # the tiled route (8 sweeps a launch) in float32 and bfloat16 and on the
+    # loop route (one launch a sweep, the route the tiled one replaced); the
+    # grid read once and written once, 5 operations an interior point a
+    # sweep
     from repro_torch.kernels import jacobi2d as j2_mod
-    for name, key, sweeps in (("jacobi2d_cluster", "j2", J2_SWEEPS),
-                              ("jacobi2d_loop", "j2_big", J2_BIG_SWEEPS)):
+    for name, key, sweeps, fn in (
+            ("jacobi2d_cluster", "j2", J2_SWEEPS, j2_mod.jacobi2d),
+            ("jacobi2d_tiled", "j2_big", J2_BIG_SWEEPS, j2_mod.jacobi2d),
+            ("jacobi2d_tiled_bf16", "j2_big_bf16", J2_BIG_SWEEPS,
+             j2_mod.jacobi2d),
+            ("jacobi2d_loop", "j2_big", J2_BIG_SWEEPS, j2_mod.loop)):
         g = data[key]
         specs.append(dict(
-            name=name, kernel=lambda g=g, k=sweeps: j2_mod.jacobi2d(g, k),
+            name=name, kernel=lambda g=g, k=sweeps, fn=fn: fn(g, k),
             plain=lambda g=g, k=sweeps: ref.jacobi2d(g, k), library=None,
             tol=None, peak=PEAK_F32_S, nbytes=g.numel() * 2 * g.element_size(),
             ops=J2_OPS * (g.shape[0] - 2) * (g.shape[1] - 2) * sweeps, per=1,
@@ -1123,6 +1190,8 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
     bound_ms = max(t_bytes, t_ops, t_exp) * 1e3
     bound_by = "bytes" if t_bytes >= max(t_ops, t_exp) else "operations"
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    if lib_ms is None and spec.get("library_none"):
+        lib += f" ({spec['library_none']})"
     print(f"phase 6 {name}: max_abs_err={err:.3g} (bar "
           f"{spec['tol'] or 'exact'}) kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
@@ -1144,6 +1213,8 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
               " ms a call")
     if "path" in extra:
         print(f"phase 6 {name}: path {extra['path']} (the kernel's flags)")
+    if "route" in spec:
+        print(f"phase 6 {name}: route {spec['route']}")
     if "passes" in spec:
         extra["pass_ms"] = {n: cuda_ms(torch, fn, reps=5)
                             for n, fn in spec["passes"]}
@@ -1181,16 +1252,6 @@ def jacobi_routes(torch, j2_mod, ops, small, j2_app_s, sm_clock_hz) -> None:
     sets; the cluster route beside the loop route on float32 grids of 256
     to 512 rows, on the widest float32 and bfloat16 grids the plan gives
     the cluster and on a bfloat16 one past it."""
-    def wall_ms(fn, reps=5):
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-
     def old_loop():
         g = small
         for _ in range(J2_SWEEPS):
@@ -1200,11 +1261,11 @@ def jacobi_routes(torch, j2_mod, ops, small, j2_app_s, sm_clock_hz) -> None:
     launch_ms = device_ms(torch, lambda: j2_mod.jacobi2d_step(small),
                           reps=10, per=25, sm_clock_hz=sm_clock_hz)
     before = j2_mod.jacobi2d_step.launches
-    old_wall = wall_ms(old_loop, reps=3)
+    old_wall = wall_clock_ms(torch, old_loop, reps=3)
     old_launches = (j2_mod.jacobi2d_step.launches - before) // 3
     route = lambda: ops.jacobi2d(small, iters=J2_SWEEPS)
     before = j2_mod.jacobi2d.launches
-    new_wall = wall_ms(route)
+    new_wall = wall_clock_ms(torch, route, reps=5)
     new_launches = (j2_mod.jacobi2d.launches - before) // 5
     new_dev = cuda_ms(torch, route, reps=5)
     print(f"phase 6 jacobi2d app ({J2_N} x {J2_N}, {J2_SWEEPS} sweeps): "
@@ -1261,6 +1322,37 @@ def jacobi_routes(torch, j2_mod, ops, small, j2_app_s, sm_clock_hz) -> None:
               "sweep, "
               f"loop route {t_loop * 1e3 / J2_WIDEST:.4f} us a sweep "
               f"({J2_WIDEST} sweeps, bit for bit alike)")
+
+
+def jacobi_polybench(torch, j2_mod, data, rows) -> None:
+    """PolyBench's 1,000 sweeps of 2,800 x 2,800 in float32 and bfloat16:
+    the tiled route (the plan) beside the old loop of one launch a sweep,
+    each in device time (CUDA events around one call, median of 5) and
+    wall time (the host clock around one call and a synchronize, median
+    of 3), with its launches, beside the bound."""
+    for key, tiled_row in (("j2_big", "jacobi2d_tiled"),
+                           ("j2_big_bf16", "jacobi2d_tiled_bf16")):
+        g = data[key]
+        rt = j2_mod.route(*g.shape, g.dtype, iters=J2_BIG_SWEEPS)
+        tiled = lambda: j2_mod.jacobi2d(g, J2_BIG_SWEEPS)
+        old = lambda: j2_mod.loop(g, J2_BIG_SWEEPS)
+        counts = []
+        for fn, counter in ((tiled, "tiled_launches"),
+                            (old, "loop_launches")):
+            before = getattr(j2_mod.jacobi2d, counter)
+            fn()
+            counts.append(getattr(j2_mod.jacobi2d, counter) - before)
+        dev = [cuda_ms(torch, fn, reps=5) for fn in (tiled, old)]
+        wall = [wall_clock_ms(torch, fn, reps=3) for fn in (tiled, old)]
+        bound = rows[tiled_row]["bound_ms"]
+        print(f"phase 6 jacobi2d PolyBench {J2_BIG} x {J2_BIG} x "
+              f"{J2_BIG_SWEEPS} {g.dtype}: tiled route (k {rt.k}, tile "
+              f"{rt.tile[0]} x {rt.tile[1]}) {dev[0]:.4f} ms device, "
+              f"{wall[0]:.4f} ms wall, {counts[0]} launches; old loop "
+              f"{dev[1]:.4f} ms device, {wall[1]:.4f} ms wall, {counts[1]} "
+              f"launches; bound {bound:.4f} ms "
+              f"({rows[tiled_row]['bound_by']}), {bound / dev[0] * 100:.1f} % "
+              "of it")
 
 
 def main() -> int:
@@ -1327,6 +1419,19 @@ def main() -> int:
           f"{entry_lines(report, 'ssd_scan', 'ssd_chunk_kernel')}")
     print(f"phase 1 jacobi2d cluster kernel: "
           f"{entry_lines(report, 'jacobi2d', 'jacobi2d_cluster_kernel')}")
+    # the kernels of this slice: Jacobi-2D's tiled kernel, streamcluster's
+    # kernel (16-bit and 3xTF32 instantiations); none may spill, and the
+    # streamcluster library must hold wgmma (HGMMA) where it was counted
+    for source, entry in (("jacobi2d", "jacobi2d_tiled_kernel"),
+                          ("streamcluster", "streamcluster_kernel")):
+        lines = entry_lines(report, source, entry)
+        print(f"phase 1 {entry}: {lines}")
+        if any(int(n) for n in re.findall(r"(\d+) bytes spill", lines)):
+            fail(f"{entry}: ptxas spills ({lines})")
+    sc_sass = sass_counts(_build, "streamcluster")
+    print(f"phase 1 streamcluster SASS: {sc_sass}")
+    if sc_sass.startswith("HGMMA 0"):
+        fail(f"streamcluster: no wgmma in the build ({sc_sass})")
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} "
           f"sm_clock_max={sm_clock_hz / 1e6:.0f} MHz  build wall {build_s:.1f} s")
 
@@ -1576,10 +1681,13 @@ def main() -> int:
     ssd_mod.ssd_scan.chunk_launches = ssd_mod.ssd_scan.state_launches = 0
     ssd_mod.ssd_scan.panel_launches = 0
     j2_mod.jacobi2d.launches = j2_mod.jacobi2d.loop_launches = 0
+    j2_mod.jacobi2d.tiled_launches = 0
+    sc_mod.streamcluster_dist.tf32_launches = 0
     t0 = time.perf_counter()
     outs = {"swaptions": ops.cum_normal_inv(data["sw"]),
             "streamcluster": ops.streamcluster_dist(*data["sc"]),
             "streamcluster_bf16": ops.streamcluster_dist(*data["sc_bf16"]),
+            "streamcluster_f16": ops.streamcluster_dist(*data["sc_f16"]),
             "particlefilter": ops.particlefilter_findindex(*data["pf"]),
             "pf_flags": pf_mod.find_index.last_flags,
             "particlefilter_shuffled": ops.particlefilter_findindex(
@@ -1615,9 +1723,18 @@ def main() -> int:
     outs["jacobi2d"] = ops.jacobi2d(data["j2"], iters=J2_SWEEPS)
     torch.cuda.synchronize()
     j2_app_s = time.perf_counter() - t0
-    # and in bfloat16; PolyBench's grid on the loop route; one float16 sweep
+    # and in bfloat16; PolyBench's 1,000 sweeps on the tiled route, timed
+    # on the host clock (wall), in float32 and bfloat16; one sweep of its
+    # grid (the loop route); one float16 sweep
     outs["jacobi2d_bf16"] = ops.jacobi2d(data["j2_bf16"], iters=J2_SWEEPS)
-    outs["jacobi2d_big"] = ops.jacobi2d(data["j2_big"], iters=J2_BIG_SWEEPS)
+    j2_big_s = {}
+    for key in ("j2_big", "j2_big_bf16"):
+        t0 = time.perf_counter()
+        outs[key.replace("j2", "jacobi2d")] = ops.jacobi2d(
+            data[key], iters=J2_BIG_SWEEPS)
+        torch.cuda.synchronize()
+        j2_big_s[key] = time.perf_counter() - t0
+    outs["jacobi2d_big_step"] = ops.jacobi2d(data["j2_big"], iters=1)
     outs["jacobi2d_f16_step"] = ops.jacobi2d_step(data["j2_f16"])
     torch.cuda.synchronize()
     for name, mod in zip(SUITE_REPLACES, suite_mods):
@@ -1626,6 +1743,11 @@ def main() -> int:
     # counters
     launches["jacobi2d_cluster"] = j2_mod.jacobi2d.launches
     launches["jacobi2d_loop"] = j2_mod.jacobi2d.loop_launches
+    launches["jacobi2d_tiled"] = j2_mod.jacobi2d.tiled_launches
+    # streamcluster's 3xTF32 instantiation (float32; its 16-bit ones count as
+    # streamcluster.launches)
+    launches["streamcluster_3xtf32"] = \
+        sc_mod.streamcluster_dist.tf32_launches
     launches["ssd_scan_panels"] = ssd_mod.ssd_scan.panel_launches
     # flash attention's routes past D 128, each its own counter
     for name, counter in FA_ROUTES.items():
@@ -1641,6 +1763,7 @@ def main() -> int:
                              "decode_attention_combine",
                              "ssd_scan_chunk_pass", "ssd_scan_state_pass",
                              "jacobi2d_cluster", "jacobi2d_loop",
+                             "jacobi2d_tiled", "streamcluster_3xtf32",
                              "ssd_scan_panels")}
     # the particle filter's two calls: the path each took, from its flags
     pf_paths = {key: "search" if pf_mod.searched(outs.pop(flags)) else
@@ -1651,14 +1774,31 @@ def main() -> int:
           f" wall (inputs made in {inputs_s:.1f} s); jacobi2d {J2_SWEEPS} "
           f"sweeps of {J2_N} x {J2_N} in {j2_app_s * 1e3:.3f} ms wall "
           f"({j2_app_s * 1e6 / J2_SWEEPS:.3f} us/sweep, one launch); "
+          f"PolyBench's {J2_BIG_SWEEPS} sweeps of {J2_BIG} x {J2_BIG} "
+          f"(tiled route, first call) {j2_big_s['j2_big'] * 1e3:.3f} ms wall "
+          f"float32, {j2_big_s['j2_big_bf16'] * 1e3:.3f} ms bfloat16; "
           f"launches {path_counts}; particle filter paths {pf_paths}")
     if min(path_counts.values()) <= 0:
         fail(f"a suite kernel was not launched on its path: {launches}")
-    for key, want in (("j2", "cluster"), ("j2_bf16", "cluster"),
-                      ("j2_big", "loop")):
-        got = j2_mod.route(*data[key].shape, data[key].dtype).name
+    for key, iters, want in (("j2", J2_SWEEPS, "cluster"),
+                             ("j2_bf16", J2_SWEEPS, "cluster"),
+                             ("j2_big", J2_BIG_SWEEPS, "tiled"),
+                             ("j2_big_bf16", J2_BIG_SWEEPS, "tiled"),
+                             ("j2_big", 1, "loop")):
+        got = j2_mod.route(*data[key].shape, data[key].dtype,
+                           iters=iters).name
         if got != want:
-            fail(f"jacobi2d {key}: the {got} route, not the {want} route")
+            fail(f"jacobi2d {key}, {iters} sweeps: the {got} route, not the "
+                 f"{want} route")
+    want_tiled = 2 * -(-J2_BIG_SWEEPS // j2_mod.MAX_K_TILED)
+    if launches["jacobi2d_tiled"] != want_tiled:
+        fail(f"jacobi2d: {launches['jacobi2d_tiled']} tiled launches, not "
+             f"{want_tiled}")
+    for key, want in (("sc", "3xtf32/tma"), ("sc_bf16", "wgmma/tma"),
+                      ("sc_f16", "wgmma/tma")):
+        if sc_mod.path(*data[key]) != want:
+            fail(f"streamcluster {key} took {sc_mod.path(*data[key])}, not "
+                 f"{want}")
     for key in SSD_PANELS:
         if not ssd_mod.plan(*data[key][0].shape[1:],
                             data[key][3].shape[-1]).panel:
@@ -1681,6 +1821,7 @@ def main() -> int:
     rows = {spec["name"]: run_suite_kernel(torch, spec, sm_clock_hz)
             for spec in suite_specs(torch, ref, data, suite_mods)}
     jacobi_routes(torch, j2_mod, ops, data["j2"], j2_app_s, sm_clock_hz)
+    jacobi_polybench(torch, j2_mod, data, rows)
 
     # ---- 7. kernels line ------------------------------------------------------
     kernels = [
@@ -1699,7 +1840,10 @@ def main() -> int:
     ]
     # decoding's entry is its split kernel alone (the whole call, both
     # kernels, is phase 6's decode_attention row)
-    row_of = {"decode_attention": "decode_attention_split"}
+    # streamcluster's entry is its 16-bit kernel (bfloat16, counted by
+    # streamcluster.launches); its 3xTF32 instantiation has its own
+    row_of = {"decode_attention": "decode_attention_split",
+              "streamcluster": "streamcluster_bf16"}
     for name, replaces in SUITE_REPLACES.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{name}.cu",
@@ -1736,6 +1880,10 @@ def main() -> int:
              "jacobi2d_cluster"),
             ("jacobi2d_loop", "jacobi2d", "jacobi2d_loop", "jacobi2d",
              "jacobi2d_loop"),
+            ("jacobi2d_tiled", "jacobi2d", "jacobi2d_tiled", "jacobi2d",
+             "jacobi2d_tiled"),
+            ("streamcluster_3xtf32", "streamcluster", "streamcluster",
+             "streamcluster", "streamcluster_3xtf32"),
             ("ssd_scan_panels", "ssd_scan", "ssd_scan_n512", "ssd_scan",
              "ssd_scan_panels")):
         kernels.append({"name": name, "route": "cuda",

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Diagnostic variants of the port's Jacobi-2D cluster kernel, timed beside
-the kernel itself on one CUDA card.
+"""Diagnostic variants of the port's Jacobi-2D cluster and tiled kernels,
+timed beside the kernels themselves on one CUDA card.
 
-    python3 scripts/jacobi2d_variants.py   # from the root
+    python3 scripts/jacobi2d_variants.py                # from the root
+    python3 scripts/jacobi2d_variants.py --only tiled   # the tiled kernel
+    python3 scripts/jacobi2d_variants.py --only cluster
 
 At RiVec's 164 x 164 float32 grid (the app's 4,000 sweeps; seed 2111), on
 one cluster of 16 CTAs, each build is timed (CUDA events, median of 5
@@ -23,6 +25,21 @@ launches) at 1 and at 8 sweeps between cluster barriers:
 The committed kernel's result is held against 4,000 sweeps of the plain
 version (the same bits).  Each build's ptxas lines for the float32
 cluster kernel, and the card's name and power limit, are printed.
+
+The tiled kernel (the route past the cluster), at PolyBench 4.2.1
+EXTRALARGE's 2,800 x 2,800 grid, 1,000 sweeps (seed 2111), float32 and
+bfloat16, CUDA events around one call (median of 3):
+
+- the committed kernel under other ``k`` (sweeps a launch), tiles (the
+  shared buffers' rows x columns) and CTA sizes, through
+  ``jacobi2d.tiled``, each result held against the plan's bit for bit;
+- copies of the source (``build/variants/``): ``tiled-no-sweeps`` (the
+  loads and the tile's store, no sweep) and ``tiled-loads-only`` (the
+  loads alone), at the plan's tile and k;
+- the loop route (1,000 launches of the one-sweep kernel) beside them;
+- the routes on the grids the plan's thresholds separate: just past the
+  cluster, narrow ones, and one sweep (tiled at k 1 against one launch of
+  the one-sweep kernel).
 """
 from __future__ import annotations
 
@@ -52,6 +69,19 @@ NO_EXCHANGE_SYNC = ("      cluster.sync();\n    }\n  }\n",
 # into it, so the variant without the barrier has no exchange either)
 NO_CLUSTER_BARRIER = ("    if (done < iters) cluster.sync();",
                       "    if (done < iters) __syncthreads();")
+# the tiled kernel: no sweep; and no store of the tile either (whole
+# chunks, or point by point)
+TILED_NO_SWEEPS = ("      for (int c = clo + tx; c <= chi && ty < by; "
+                   "c += bx) {",
+                   "      for (int c = clo + tx; c <= chi && ty < by && "
+                   "kb < 0; c += bx) {")
+TILED_NO_STORE = ("        *reinterpret_cast<uint4*>(out + (long long)",
+                  "        if (kb < 0) *reinterpret_cast<uint4*>(out + "
+                  "(long long)")
+TILED_NO_STORE1 = ("        out[(long long)(r0 + lr) * C + c0 + lc] =",
+                   "        if (kb < 0) out[(long long)(r0 + lr) * C + c0 "
+                   "+ lc] =")
+BIG, BIG_SWEEPS = 2_800, 1_000
 
 
 def substitute(text: str, old: str, new: str) -> str:
@@ -91,6 +121,9 @@ def build(build_mod, variants: dict) -> dict:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.jacobi2d_cluster_launch.argtypes = [p, p, i, i, i, i, i, i, p]
         lib.jacobi2d_cluster_launch.restype = ctypes.c_int
+        lib.jacobi2d_tiled_launch.argtypes = [p, p, p, i, i, i, i, i, i, i,
+                                              i, p]
+        lib.jacobi2d_tiled_launch.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -112,6 +145,93 @@ def events_ms(torch, fn, reps: int = 5) -> float:
     return statistics.median(samples)
 
 
+def tiled_variants(torch, build_mod, j2_mod, ref) -> None:
+    """The tiled kernel at PolyBench's grid under other k and tiles, its
+    loads and stores alone, the loop beside it, and the routes on the
+    grids the plan's thresholds separate."""
+    src = (build_mod.CSRC / "jacobi2d.cu").read_text()
+    no_sweeps = substitute(src, *TILED_NO_SWEEPS)
+    libs = build(build_mod, {"tiled-no-sweeps": no_sweeps,
+                             "tiled-loads-only": substitute(substitute(
+                                 no_sweeps, *TILED_NO_STORE),
+                                 *TILED_NO_STORE1)})
+    gen = np.random.default_rng(2111)
+    grid32 = torch.from_numpy(gen.uniform(size=(BIG, BIG)).astype(
+        np.float32)).cuda()
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    for g in (grid32, grid32.bfloat16()):
+        dtype = g.dtype
+        rt = j2_mod.route(BIG, BIG, dtype, iters=BIG_SWEEPS)
+        want = j2_mod.tiled(g, BIG_SWEEPS, rt.k, rt.tile)
+        if not torch.equal(want, ref.jacobi2d(g, BIG_SWEEPS)):
+            raise SystemExit(f"tiled {dtype}: differs from the plain version")
+        out, tmp = torch.empty_like(g), torch.empty_like(g)
+        code = j2_mod.DTYPES[dtype]
+        print(f"{BIG} x {BIG} {dtype}, {BIG_SWEEPS} sweeps (ms; the plan: "
+              f"k {rt.k}, tile {rt.tile}, equal to the plain version):")
+        t_loop = events_ms(torch, lambda: (j2_mod.loop(g, BIG_SWEEPS), 0)[1],
+                           reps=3)
+        print(f"  loop route (one launch a sweep): {t_loop:.4f}")
+        rows, cols = j2_mod.TILED_BUFS[dtype.itemsize][0]
+        plans = [(k, (rows - 2 * k, cols - 2 * k), 512)
+                 for k in (1, 2, 4, 6, 8, 12, 16)]
+        half = cols // 2   # rows of 256 bytes
+        plans += [(8, (rows - 16, cols - 16), 256),
+                  (8, (56 - 16, cols - 16), 256),
+                  (8, (2 * rows - 16, cols - 16), 512),   # one CTA an SM
+                  (8, (rows - 16, half - 16), 512),
+                  (8, (2 * rows - 16, half - 16), 512)]
+        for k, tile, threads in plans:
+            if j2_mod.tiled_bytes(tile, k, dtype.itemsize) > j2_mod.MAX_SMEM:
+                continue
+            got = j2_mod.tiled(g, BIG_SWEEPS, k, tile, threads=threads)
+            if not torch.equal(got, want):
+                raise SystemExit(f"tiled k {k} tile {tile}: differs")
+            t = events_ms(torch, lambda: (j2_mod.tiled(
+                g, BIG_SWEEPS, k, tile, threads=threads), 0)[1], reps=3)
+            kb = j2_mod.tiled_bytes(tile, k, dtype.itemsize) / 1024
+            print(f"  tiled k {k}, tile {tile[0]} x {tile[1]} ({kb:.0f} KB a "
+                  f"CTA, {threads} threads): {t:.4f} "
+                  f"({t * 1e3 / BIG_SWEEPS:.4f} us a sweep, "
+                  f"{-(-BIG_SWEEPS // k)} launches)")
+        for name, lib in libs.items():
+            run = lambda: lib.jacobi2d_tiled_launch(
+                g.data_ptr(), out.data_ptr(), tmp.data_ptr(), BIG, BIG, code,
+                BIG_SWEEPS, *rt.tile, rt.k, j2_mod.TILED_THREADS, stream())
+            print(f"  {name} (k {rt.k}, the plan's tile): "
+                  f"{events_ms(torch, run, reps=3):.4f}")
+    # the plan's thresholds: the routes a sweep on grids past the cluster
+    print("the routes a sweep (us), 64 sweeps unless said:")
+    for (R, C), dtype in (((619, 619), torch.float32),
+                          ((721, 721), torch.bfloat16),
+                          ((1_000, 1_000), torch.float32),
+                          ((16, 5_812), torch.float32),
+                          ((17, 3_000), torch.float32),
+                          ((3_000, 17), torch.float32),
+                          ((100_000, 16), torch.float32),
+                          ((100_000, 8), torch.float32),
+                          ((2_097_123, 3), torch.float32)):
+        g = torch.rand(R, C, device="cuda").to(dtype)
+        rt = j2_mod.tiled_route(R, C, dtype, 64)
+        t_tiled = events_ms(torch, lambda: (
+            j2_mod.tiled(g, 64, rt.k, rt.tile), 0)[1], reps=3) * 1e3 / 64
+        t_loop = events_ms(torch, lambda: (j2_mod.loop(g, 64), 0)[1],
+                           reps=3) * 1e3 / 64
+        if not torch.equal(j2_mod.tiled(g, 64, rt.k, rt.tile),
+                           j2_mod.loop(g, 64)):
+            raise SystemExit(f"{R} x {C}: the routes differ")
+        print(f"  {R} x {C} {dtype} (the plan: "
+              f"{j2_mod.route(R, C, dtype, iters=64).name}): tiled "
+              f"{t_tiled:.4f}, loop {t_loop:.4f}")
+    g = grid32
+    one = j2_mod.tiled_route(BIG, BIG, torch.float32, 1)
+    t1 = events_ms(torch, lambda: (j2_mod.tiled(g, 1, one.k, one.tile),
+                                   0)[1])
+    t_step = events_ms(torch, lambda: (j2_mod.loop(g, 1), 0)[1])
+    print(f"  one sweep of {BIG} x {BIG} float32: tiled (k 1, tile "
+          f"{one.tile}) {t1 * 1e3:.4f}, one-sweep kernel {t_step * 1e3:.4f}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -119,10 +239,17 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import _build
+    from repro_torch.kernels import jacobi2d as j2_mod
     from repro_torch.kernels import ref
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    only = sys.argv[sys.argv.index("--only") + 1] \
+        if "--only" in sys.argv else None
+    if only in (None, "tiled"):
+        tiled_variants(torch, _build, j2_mod, ref)
+    if only == "tiled":
+        return 0
     src = (_build.CSRC / "jacobi2d.cu").read_text()
     no_exchange = substitute(substitute(substitute(src, *NO_EXCHANGE),
                                         *NO_EXCHANGE_PUSH), *NO_EXCHANGE_SYNC)

@@ -33,10 +33,11 @@ COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The engine scan must reproduce the reference's float32 arithmetic bit for
 # bit, and swaptions and Jacobi-2D their plain versions' term by term: no
-# contraction of a*b+c into one rounding.  Flash attention looks up
-# libcuda's tensor-map encoder with dlopen (no -lcuda).
+# contraction of a*b+c into one rounding.  Flash attention and streamcluster
+# look up libcuda's tensor-map encoder with dlopen (no -lcuda).
 EXTRA_FLAGS = {"engine_scan": ("-fmad=false",), "swaptions": ("-fmad=false",),
-               "jacobi2d": ("-fmad=false",), "flash_attention": ("-ldl",)}
+               "jacobi2d": ("-fmad=false",), "flash_attention": ("-ldl",),
+               "streamcluster": ("-ldl",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -8,8 +8,9 @@
 // thread reads its four neighbours straight from the input (the block's
 // rows share them through L1) and writes a fresh output, for any R and C.
 // The reference's many-sweep function (repro/kernels/ref.py:29,
-// jacobi2d(a, iters)) has no Pallas kernel; its port is the cluster kernel
-// below.
+// jacobi2d(a, iters)) has no Pallas kernel; its ports are the cluster
+// kernel (grids that fit one cluster) and the tiled kernel (grids past
+// it) below.
 //
 // One sweep (jacobi2d_kernel).  Bound on an H100: bytes.  Each point is
 // read once and written once (8 B a point: 62.7 MB, 18.7 us, on PolyBench
@@ -45,7 +46,32 @@
 // shared-memory loads a point).  Bound: the dependent cluster barriers
 // (4,000 / K for the app), not bytes (the grid is read and written once).
 //
-// Both kernels are built with -fmad=false and sum in the plain version's
+// Many sweeps of a grid past the cluster (jacobi2d_tiled_kernel):
+// temporal blocking.  PolyBench's 2,800 x 2,800 float32 grid does not fit
+// a cluster's shared memory, and one launch a sweep reads and writes it
+// (62.7 MB) every sweep.  Here a launch runs k sweeps: each CTA loads its
+// output tile and k halo rows and columns on every side (as far as they
+// lie in the grid) into two shared buffers, runs the k sweeps on the
+// shrinking region (the first sweep updates the tile and k - 1 halo rows
+// and columns a side, the next k - 2, ...: the same arithmetic on the same
+// values as the CTA that owns those points, so the same bits), with a CTA
+// barrier between sweeps, and stores only its own tile.  ceil(iters / k)
+// launches ping-pong between two global buffers, the last one running the
+// remaining sweeps; each reads the grid once with its halos and writes it
+// once.  The tile comes in by 16-byte cp.async where its rows fall on
+// 16-byte boundaries, into one buffer; the other gets only the grid's
+// boundary points (held, so read from both), since every other point a
+// sweep reads the sweep before it wrote.  A thread walks a column down a
+// run of rows with the rows above and below in registers, as the cluster
+// kernel does (three shared loads and a store a point: the sweeps are
+// bound by shared memory's 128 bytes a clock, ~8 points a clock an SM).
+// Two CTAs an SM.  Tiles go on a 1-D order that the CTAs stride over, so
+// any R and C are taken.  Bound: the sweeps' operations (5 a point a
+// sweep: 0.58 ms for PolyBench's 1,000 sweeps at 67 TFLOP/s); what holds
+// it is shared memory in the sweeps, then the ceil(iters / k) passes over
+// the grid and the halo's redundant updates.
+//
+// All three kernels are built with -fmad=false and sum in the plain version's
 // order (((((c + l) + r) + u) + d) * 0.2f, repro_torch/kernels/ref.py:
 // jacobi2d): every sweep equals its plain version bit for bit.  A bfloat16
 // or float16 grid is widened as it is loaded, summed in float32 in the same
@@ -56,6 +82,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace cg = cooperative_groups;
 
@@ -66,6 +93,7 @@ constexpr int MAX_GRID_Y = 65535;
 constexpr int SMEM_MAX = 232448;           // a block's opt-in shared memory
 constexpr int MAX_CLUSTER = 16;            // non-portable past 8
 constexpr int CLUSTER_THREADS = 1024;
+constexpr int TILED_THREADS = 512;         // at most, two CTAs an SM
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -223,6 +251,127 @@ jacobi2d_cluster_kernel(const T* __restrict__ a, T* __restrict__ out, int R,
     out[(long long)r0 * C + i] = fin[K * C + i];
 }
 
+// 16 bytes from global to shared memory, not through registers
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// `kb` sweeps of the [R, C] grid `a` into `out`, on tiles of tr x tc
+// output points (tiles_x a row of tiles), each held in shared memory with
+// K (>= kb) halo rows and columns a side: two buffers of (tr + 2 K) rows
+// of (tc + 2 K) points, `pitch` (that rounded up to whole 16-byte chunks)
+// apart.  `vec`: the tile's rows move between the grid and shared memory
+// as whole chunks (the host checks the alignment), else point by point.
+// blockDim.x threads: a thread a column of a buffer row (in whole warps),
+// the rest in runs of rows.
+template <typename T>
+__global__ void __launch_bounds__(TILED_THREADS, 2)
+jacobi2d_tiled_kernel(const T* __restrict__ a, T* __restrict__ out, int R,
+                      int C, int tr, int tc, int K, int kb, int pitch,
+                      int vec, int tiles_x, long long tiles) {
+  constexpr int V = 16 / sizeof(T);             // points a chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const buf = reinterpret_cast<T*>(smem_raw);
+  const int W = tc + 2 * K, H = tr + 2 * K;   // a buffer's points, rows
+  const int span = H * pitch, wc = pitch / V;   // chunks a row
+  // signed copies: a signed row split below
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int bx = min((W + 31) / 32 * 32, nthreads), by = nthreads / bx;
+  const int tx = tid % bx, ty = tid / bx;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int r0 = (int)(t / tiles_x) * tr, c0 = (int)(t % tiles_x) * tc;
+    // rows r0 - K .. r0 + tr + K - 1 and columns c0 - K .. c0 + tc + K - 1,
+    // as far as they lie in the grid, into the first buffer; no point
+    // outside the grid is read
+    if (vec) {
+      for (int i = tid; i < H * wc; i += nthreads) {
+        const int lr = i / wc, lc = (i % wc) * V;
+        const int g = r0 - K + lr, gc = c0 - K + lc;
+        if (g >= 0 && g < R && gc >= 0 && gc < C)
+          cp_async16(buf + lr * pitch + lc, a + (long long)g * C + gc);
+      }
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" :::
+                       "memory");
+    } else {
+      for (int i = tid; i < H * W; i += nthreads) {
+        const int lr = i / W, lc = i % W;
+        const int g = r0 - K + lr, gc = c0 - K + lc;
+        if (g >= 0 && g < R && gc >= 0 && gc < C)
+          buf[lr * pitch + lc] = a[(long long)g * C + gc];
+      }
+    }
+    __syncthreads();
+    // the grid's boundary rows and columns in the tile into the second
+    // buffer too: held, they are read from both (every other point a
+    // sweep reads, the sweep before wrote)
+    auto hold = [&](int lr, int lc) {
+      const int g = r0 - K + lr, gc = c0 - K + lc;
+      if (lr >= 0 && lr < H && lc >= 0 && lc < W && g >= 0 && g < R &&
+          gc >= 0 && gc < C)
+        buf[span + lr * pitch + lc] = buf[lr * pitch + lc];
+    };
+    for (int i = tid; i < 2 * W; i += nthreads)   // rows 0 and R - 1
+      hold(i < W ? K - r0 : K + R - 1 - r0, i % W);
+    for (int i = tid; i < 2 * H; i += nthreads)   // columns 0 and C - 1
+      hold(i % H, i < H ? K - c0 : K + C - 1 - c0);
+    __syncthreads();
+    // local rows and columns of the grid's interior (1 .. R - 2, 1 .. C - 2)
+    const int lo_r = K + 1 - r0, hi_r = K + R - 2 - r0;
+    const int lo_c = K + 1 - c0, hi_c = K + C - 2 - c0;
+    int cur = 0;                               // the buffer read next
+    for (int j = 1; j <= kb; ++j) {
+      const T* const src = buf + cur;
+      T* const dst = buf + (span - cur);
+      const int ext = kb - j;                  // halo rows and columns too
+      const int lo = max(K - ext, lo_r), hi = min(K + tr - 1 + ext, hi_r);
+      const int clo = max(K - ext, lo_c), chi = min(K + tc - 1 + ext, hi_c);
+      const int run = hi >= lo ? (hi - lo + by) / by : 0;   // rows a thread
+      const int first = lo + ty * run;
+      const int last = min(hi, first + run - 1);
+      for (int c = clo + tx; c <= chi && ty < by; c += bx) {
+        if (first > last) break;
+        const T* col = src + c;
+        float up = to_f(col[(first - 1) * pitch]);
+        float mid = to_f(col[first * pitch]);
+#pragma unroll 4
+        for (int lr = first; lr <= last; ++lr) {
+          const float down = to_f(col[(lr + 1) * pitch]);
+          const float v = 0.2f * ((((mid + to_f(col[lr * pitch - 1])) +
+                                    to_f(col[lr * pitch + 1])) +
+                                   up) +
+                                  down);
+          dst[lr * pitch + c] = from_f<T>(v);
+          up = mid;
+          mid = down;
+        }
+      }
+      cur = span - cur;
+      __syncthreads();
+    }
+    // this tile's own points
+    const T* const fin = buf + cur;
+    const int nr = min(tr, R - r0), nc = min(tc, C - c0);
+    if (vec) {
+      const int ncc = (nc + V - 1) / V;
+      for (int i = tid; i < nr * ncc; i += nthreads) {
+        const int lr = i / ncc, lc = (i % ncc) * V;
+        *reinterpret_cast<uint4*>(out + (long long)(r0 + lr) * C + c0 + lc) =
+            *reinterpret_cast<const uint4*>(fin + (K + lr) * pitch + K + lc);
+      }
+    } else {
+      for (int i = tid; i < nr * nc; i += nthreads) {
+        const int lr = i / nc, lc = i % nc;
+        out[(long long)(r0 + lr) * C + c0 + lc] =
+            fin[(K + lr) * pitch + K + lc];
+      }
+    }
+    __syncthreads();   // the buffers are loaded again for the next tile
+  }
+}
+
 int set_smem(const void* kern, size_t bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
@@ -308,6 +457,52 @@ int clusters_fit(int r, int c, int ctas, int k, int* count) {
       count, (const void*)jacobi2d_cluster_kernel<T>, &L.cfg));
 }
 
+// The tiled launch's shared memory: two buffers of (tr + 2 k) rows of
+// (tc + 2 k) points, each row padded to whole 16-byte chunks.
+size_t tiled_pitch(int tc, int k, size_t elem) {
+  const size_t v = 16 / elem;
+  return ((size_t)tc + 2 * (size_t)k + v - 1) / v * v;
+}
+size_t tiled_bytes(int tr, int tc, int k, size_t elem) {
+  return 2 * (size_t)(tr + 2 * k) * tiled_pitch(tc, k, elem) * elem;
+}
+
+// `kb` sweeps from `a` into `out` on tr x tc tiles with k halo rows and
+// columns, `threads` a CTA.  Whole chunks move between the grid and shared
+// memory where the grid's rows and the tile's and halo's columns fall on
+// 16-byte boundaries.
+template <typename T>
+int launch_tiled(const void* a, void* out, int r, int c, int tr, int tc,
+                 int k, int kb, int threads, cudaStream_t st) {
+  const void* kern = (const void*)jacobi2d_tiled_kernel<T>;
+  const size_t bytes = tiled_bytes(tr, tc, k, sizeof(T));
+  const int e = set_smem(kern, bytes);
+  if (e) return e;
+  constexpr int v = 16 / sizeof(T);
+  const int pitch = (int)tiled_pitch(tc, k, sizeof(T));
+  const bool vec = c % v == 0 && tc % v == 0 && k % v == 0 &&
+                   reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int tiles_x = (c + tc - 1) / tc;
+  const long long tiles = (long long)((r + tr - 1) / tr) * tiles_x;
+  const unsigned grid = (unsigned)(tiles < 0x7fffffffll ? tiles : 0x7fffffffll);
+  jacobi2d_tiled_kernel<T><<<grid, threads, bytes, st>>>(
+      static_cast<const T*>(a), static_cast<T*>(out), r, c, tr, tc, k, kb,
+      pitch, vec ? 1 : 0, tiles_x, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_tiled_typed(const void* a, void* out, int r, int c, int dtype,
+                       int tr, int tc, int k, int kb, int threads,
+                       cudaStream_t st) {
+  if (dtype == 1)
+    return launch_tiled<__nv_bfloat16>(a, out, r, c, tr, tc, k, kb, threads,
+                                       st);
+  if (dtype == 2)
+    return launch_tiled<__half>(a, out, r, c, tr, tc, k, kb, threads, st);
+  return launch_tiled<float>(a, out, r, c, tr, tc, k, kb, threads, st);
+}
+
 bool bad_dims(int r, int c, int dtype) {
   return r < 1 || c < 1 || dtype < 0 || dtype > 2;
 }
@@ -378,4 +573,32 @@ extern "C" int jacobi2d_clusters_fit(int r, int c, int dtype, int ctas,
   if (dtype == 1) return clusters_fit<__nv_bfloat16>(r, c, ctas, k, count);
   if (dtype == 2) return clusters_fit<__half>(r, c, ctas, k, count);
   return clusters_fit<float>(r, c, ctas, k, count);
+}
+
+// The tiled route: `iters` (>= 1) sweeps from `a` in ceil(iters / k)
+// launches of k sweeps (the last one the rest), between `out` and `tmp` in
+// turns so that the last lands in `out`; tiles of tr x tc points with k
+// halo rows and columns a side, whose two buffers must fit a CTA's shared
+// memory, and `threads` (a multiple of 32, 32 to 512) a CTA.
+extern "C" int jacobi2d_tiled_launch(const void* a, void* out, void* tmp,
+                                     int r, int c, int dtype, int iters,
+                                     int tr, int tc, int k, int threads,
+                                     void* stream) {
+  const size_t elem = dtype == 0 ? 4 : 2;
+  if (bad_dims(r, c, dtype) || iters < 1 || tr < 1 || tc < 1 || k < 1 ||
+      threads < 32 || threads > TILED_THREADS || threads % 32 ||
+      tiled_bytes(tr, tc, k, elem) > (size_t)SMEM_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n = (iters + k - 1) / k;
+  const void* src = a;
+  for (int i = 0; i < n; ++i) {
+    void* dst = (n - 1 - i) % 2 == 0 ? out : tmp;
+    const int kb = i + 1 < n ? k : iters - (n - 1) * k;
+    const int e = launch_tiled_typed(src, dst, r, c, dtype, tr, tc, k, kb,
+                                     threads, st);
+    if (e) return e;
+    src = dst;
+  }
+  return 0;
 }

@@ -13,7 +13,7 @@ read, one write).
 
 ``jacobi2d(a, iters)`` is the port's counterpart of the reference's
 ``repro/kernels/ref.py:29`` (``jacobi2d(a, iters=1)``), which has no Pallas
-kernel.  It takes one of two routes, which ``route`` picks on the host:
+kernel.  It takes one of three routes, which ``route`` picks on the host:
 
 - ``cluster``: all sweeps in one launch of one thread-block cluster of up
   to 16 CTAs, the grid double-buffered in their shared memory with K halo
@@ -21,10 +21,16 @@ kernel.  It takes one of two routes, which ``route`` picks on the host:
   buffers fit the cluster with K >= 2 and whose CTAs hold at most 32,768
   points (float32 to 618 x 618, 16-bit to 720 x 720), where it ran faster
   than the loop.  Counted by ``jacobi2d.launches``.
-- ``loop``: the one-sweep kernel ``iters`` times, for the other grids;
-  counted by ``jacobi2d.loop_launches``, one a sweep.
+- ``tiled``: temporal blocking for the grids past the cluster, as
+  ``iters >= 2`` sweeps: ``ceil(iters / k)`` launches of the tiled kernel,
+  each running ``k`` sweeps (the last the rest) on tiles held in shared
+  memory with ``k`` halo rows and columns a side, between two buffers in
+  device memory; counted by ``jacobi2d.tiled_launches``.
+- ``loop``: the one-sweep kernel ``iters`` times, for one sweep and for
+  the grids too narrow for a tile; counted by ``jacobi2d.loop_launches``,
+  one a sweep.
 
-Both kernels are built with ``-fmad=false``, sum in the plain version's
+The kernels are built with ``-fmad=false``, sum in the plain version's
 order and round a 16-bit grid at the end of every sweep, so ``iters``
 sweeps equal ``iters`` sweeps of the plain version bit for bit.
 """
@@ -55,13 +61,32 @@ MAX_K = 8
 # the loop's 4.52-4.59 us a sweep; 618 x 618 float32, 24,102: 2.94-2.97
 # against 4.04-4.29; chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W)
 MAX_CTA_POINTS = 32_768
+# The tiled route: each of a CTA's two shared buffers holds (rows,
+# columns) points, a tile and k halo rows and columns a side, the first of
+# TILED_BUFS[itemsize] that cuts the grid into N_SMS tiles or more (else
+# the last): 112 KB in all, two CTAs of TILED_THREADS an SM, or 56 KB.  Up
+# to MAX_K_TILED sweeps a launch.  PolyBench's 1,000 sweeps of 2,800 x
+# 2,800 took 9.38 ms at k 8 (float32, 96 x 112 tiles), 9.74 at 12, 10.09
+# at 16 and 11.45 at 4; 10.11 with 256 threads, 9.99 on 40 x 112 tiles and
+# 10.97 on buffers of 224 KB (one CTA an SM); bfloat16 on 96 x 240 tiles
+# 9.05 at k 8 (scripts/jacobi2d_variants.py, NVIDIA H100 80GB HBM3, 700 W).
+TILED_BUFS = {4: ((112, 128), (56, 128)),
+              2: ((112, 256), (112, 128), (56, 128))}
+MAX_K_TILED, TILED_THREADS, N_SMS = 8, 512, 132
+# the narrowest side of a grid the plan gives the tiled route: 100,000 x 8
+# float32 took 9.35 us a sweep there against the loop's 9.73 (100,000 x
+# 16: 9.46 against 9.30, 8.55 against 9.08 in another run), 2,097,123 x 3
+# 233.1 against 137.3 (the same script and card)
+MIN_TILED_SIDE = 8
 
 
 class Route(NamedTuple):
     """How ``jacobi2d`` runs a grid (``route``)."""
-    name: str          # "cluster" or "loop"
-    ctas: int          # the cluster's CTAs (0 on the loop route)
-    k: int             # sweeps between cluster barriers (0: loop route)
+    name: str          # "cluster", "tiled" or "loop"
+    ctas: int          # the cluster's CTAs (0 on the other routes)
+    k: int             # sweeps between cluster barriers, or a launch of
+                       # the tiled route (0: loop route)
+    tile: tuple = (0, 0)   # the tiled route's tile, rows x columns
 
 
 def cluster_bytes(R: int, C: int, itemsize: int, ctas: int, k: int) -> int:
@@ -71,18 +96,50 @@ def cluster_bytes(R: int, C: int, itemsize: int, ctas: int, k: int) -> int:
     return (2 * (-(-R // ctas) + 2 * k) + 4 * k) * C * itemsize
 
 
-def route(R: int, C: int, dtype: torch.dtype, ctas: int | None = None
-          ) -> Route:
+def tiled_pitch(tile: tuple, k: int, itemsize: int) -> int:
+    """Points a row of a tiled CTA's buffer: the tile's columns and ``k``
+    halo columns a side, rounded up to whole 16-byte chunks."""
+    v = 16 // itemsize
+    return -(-(tile[1] + 2 * k) // v) * v
+
+
+def tiled_bytes(tile: tuple, k: int, itemsize: int) -> int:
+    """One CTA's shared memory on the tiled route: two buffers of a
+    ``tile`` with ``k`` halo rows and columns a side."""
+    return 2 * (tile[0] + 2 * k) * tiled_pitch(tile, k, itemsize) * itemsize
+
+
+def tiled_route(R: int, C: int, dtype: torch.dtype,
+                iters: int | None = None) -> Route:
+    """The tiled route for ``iters`` sweeps (many where None) of an [R, C]
+    grid: up to MAX_K_TILED sweeps a launch, on the tile that leaves room
+    for their halos in the first of TILED_BUFS that gives N_SMS tiles or
+    more (a 721 x 721 bfloat16 grid took 2.98 us a sweep on 40 x 112
+    tiles, against the loop's 6.84, where on 96 x 240 tiles, 32 CTAs, the
+    kernel's first form took 4.36 against 3.78; scripts/
+    jacobi2d_variants.py, NVIDIA H100 80GB HBM3, 700 W)."""
+    k = MAX_K_TILED if iters is None else max(1, min(MAX_K_TILED, iters))
+    for rows, cols in TILED_BUFS[dtype.itemsize]:
+        tile = (rows - 2 * k, cols - 2 * k)
+        if -(-R // tile[0]) * -(-C // tile[1]) >= N_SMS:
+            break
+    return Route("tiled", 0, k, tile)
+
+
+def route(R: int, C: int, dtype: torch.dtype, ctas: int | None = None,
+          iters: int | None = None) -> Route:
     """The cluster route with ``ctas`` CTAs (by default the largest power
     of two up to 16 and R) and the most sweeps between barriers, up to
-    MAX_K and a CTA's rows, whose buffers fit a CTA's shared memory; else
-    the loop route.  By default the loop route also takes a grid whose
-    CTAs would hold more than MAX_CTA_POINTS points, or that leaves room
-    for one sweep between barriers only where a CTA holds more than one
-    row: one launch a sweep ran faster there (645 x 645 float32 at one
-    sweep between barriers: 3.68 against 3.98 us a sweep, where 512 x 512
-    at six took 2.20 against the loop's 3.38; chip_smoke.py, NVIDIA H100
-    80GB HBM3, 700 W)."""
+    MAX_K and a CTA's rows, whose buffers fit a CTA's shared memory.  By
+    default a grid whose CTAs would hold more than MAX_CTA_POINTS points,
+    or that leaves room for one sweep between barriers only where a CTA
+    holds more than one row, does not take the cluster: one launch a sweep
+    ran faster there (645 x 645 float32 at one sweep between barriers:
+    3.68 against 3.98 us a sweep, where 512 x 512 at six took 2.20 against
+    the loop's 3.38; chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).  Such a
+    grid takes the tiled route (``tiled_route``) for ``iters`` sweeps (many
+    where None) when both its sides are at least MIN_TILED_SIDE and there
+    are two sweeps or more, else the loop route."""
     plan = ctas is None
     if plan:
         ctas = 1 << min(MAX_CTAS.bit_length() - 1, R.bit_length() - 1)
@@ -92,6 +149,9 @@ def route(R: int, C: int, dtype: torch.dtype, ctas: int | None = None
             if plan and (k < min(2, rpc) or rpc * C > MAX_CTA_POINTS):
                 break
             return Route("cluster", ctas, k)
+    if plan and min(R, C) >= MIN_TILED_SIDE and (iters is None
+                                                  or iters >= 2):
+        return tiled_route(R, C, dtype, iters)
     return Route("loop", 0, 0)
 
 
@@ -104,8 +164,11 @@ def _lib():
         lib.jacobi2d_cluster_launch.argtypes = [p, p, i, i, i, i, i, i, p]
         lib.jacobi2d_clusters_fit.argtypes = [i, i, i, i, i,
                                               ctypes.POINTER(i)]
+        lib.jacobi2d_tiled_launch.argtypes = [p, p, p, i, i, i, i, i, i, i,
+                                              i, p]
         for fn in (lib.jacobi2d_launch, lib.jacobi2d_loop_launch,
-                   lib.jacobi2d_cluster_launch, lib.jacobi2d_clusters_fit):
+                   lib.jacobi2d_cluster_launch, lib.jacobi2d_clusters_fit,
+                   lib.jacobi2d_tiled_launch):
             fn.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
@@ -166,7 +229,7 @@ def jacobi2d(a, iters: int = 1):
     if a.numel() == 0:
         return out
     R, C = a.shape
-    rt = route(R, C, a.dtype)
+    rt = route(R, C, a.dtype, iters=iters)
     # the plan's cluster halves where the card cannot schedule it (16 CTAs
     # take 16 SMs of one GPC)
     while rt.name == "cluster" and rt.ctas > 1 and clusters_fit(
@@ -174,6 +237,8 @@ def jacobi2d(a, iters: int = 1):
         rt = route(R, C, a.dtype, rt.ctas // 2)
     if rt.name == "cluster":
         return cluster(a, iters, rt.ctas, rt.k, out)
+    if rt.name == "tiled":
+        return tiled(a, iters, rt.k, rt.tile, out)
     return loop(a, iters, out)
 
 
@@ -210,6 +275,37 @@ def cluster(a, iters: int, ctas: int, k: int, out=None):
     return out
 
 
+def tiled(a, iters: int, k: int, tile: tuple, out=None,
+          threads: int = TILED_THREADS):
+    """The tiled route on a CUDA grid: ``iters`` sweeps in
+    ``ceil(iters / k)`` launches of ``k`` sweeps (the last the rest) on
+    tiles of ``tile`` (rows, columns) points with ``k`` halo rows and
+    columns a side, ``threads`` a CTA, into ``out`` (new where None),
+    counted by ``jacobi2d.tiled_launches``; any tile and ``k`` whose
+    buffers fit, so it also times the plan's alternatives."""
+    _check_grid(a)
+    R, C = a.shape
+    tr, tc = tile
+    if min(tr, tc, k) < 1 or not 32 <= threads <= TILED_THREADS or \
+            threads % 32 or \
+            tiled_bytes(tile, k, a.element_size()) > MAX_SMEM:
+        raise ValueError(f"jacobi2d: no tiled route of {tr} x {tc} tiles "
+                         f"with {k} sweeps a launch ({threads} threads)")
+    _check_cuda(a)
+    out = torch.empty_like(a) if out is None else out
+    if iters == 0 or a.numel() == 0:
+        return out.copy_(a)
+    n = -(-iters // k)
+    tmp = torch.empty_like(a) if n > 1 else out
+    lib = _lib()
+    code = _device.launch(lib.jacobi2d_tiled_launch, a, a.data_ptr(),
+                          out.data_ptr(), tmp.data_ptr(), R, C,
+                          DTYPES[a.dtype], iters, tr, tc, k, threads)
+    _build.check(lib, code, "jacobi2d")
+    jacobi2d.tiled_launches += n
+    return out
+
+
 def loop(a, iters: int, out=None):
     """The loop route on a CUDA grid: ``iters`` launches of the one-sweep
     kernel into ``out`` (new where None), counted by
@@ -232,3 +328,4 @@ def loop(a, iters: int, out=None):
 jacobi2d_step.launches = 0
 jacobi2d.launches = 0
 jacobi2d.loop_launches = 0
+jacobi2d.tiled_launches = 0

@@ -74,8 +74,9 @@ def jacobi2d(a, iters=1, *, device=None):
     """``iters`` 5-point Jacobi sweeps of a float32, bfloat16 or float16
     ``[R, C]`` grid, into a new tensor of its type, rounded to it at the end
     of every sweep (the reference's ``ref.jacobi2d(a, iters)``): one launch
-    where the grid fits a thread-block cluster's shared memory, else one a
-    sweep (``jacobi2d.route``)."""
+    where the grid fits a thread-block cluster's shared memory, else one
+    launch every few sweeps on tiles in shared memory, or one a sweep
+    (``jacobi2d.route``)."""
     return _j2.jacobi2d(_grid(a, device), iters)
 
 

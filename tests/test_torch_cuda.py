@@ -196,9 +196,10 @@ def test_streamcluster_kernel_matches_plain(cuda, m, n, d, dtype):
     p = torch.from_numpy(rng.uniform(size=(m, d)).astype(np.float32))
     c = torch.from_numpy(rng.uniform(size=(n, d)).astype(np.float32))
     p, c = p.to(cuda, tdt), c.to(cuda, tdt)
-    before = sc_mod.streamcluster_dist.launches
+    counter = sc_mod.COUNTERS[sc_mod.path(p, c)]
+    before = getattr(sc_mod.streamcluster_dist, counter)
     got = sc_mod.streamcluster_dist(p, c)
-    assert sc_mod.streamcluster_dist.launches == before + 1
+    assert getattr(sc_mod.streamcluster_dist, counter) == before + 1
     tol = 2e-4 if dtype == "float32" else 1e-2
     torch.testing.assert_close(got, ref.streamcluster_dist(p, c), rtol=tol,
                                atol=tol)
@@ -1094,7 +1095,7 @@ def test_widened_operands_launch_the_kernel(cuda, case):
                 "sc_f64": (p.double(), c.double())}[case]
         fn, plain, mod = sc_mod.streamcluster_dist, ref.streamcluster_dist, \
             sc_mod.streamcluster_dist
-        counter, dtypes, tol = "launches", sc_mod.DTYPES, 2e-4
+        counter, dtypes, tol = "tf32_launches", sc_mod.DTYPES, 2e-4
     else:
         x, dt, A, B, C = (t.to(cuda) for t in ssd_inputs(1, 128, 2, 16, 32,
                                                          3))
@@ -1271,8 +1272,9 @@ def test_jacobi2d_sweeps_match_plain_bitwise(cuda, dtype, side, iters):
     """Square grids on the cluster route (3, 5, RiVec's 164, 165 and the
     widest it takes) and on the loop route just past it: ``iters`` sweeps
     equal ``iters`` sweeps of the plain version bit for bit, a 16-bit grid
-    rounded every sweep; the cluster route launches once, the loop route
-    once a sweep."""
+    rounded every sweep; the cluster route launches once, the tiled route
+    (past the cluster, two sweeps or more) once every k sweeps, the loop
+    route (past the cluster, one sweep) once a sweep."""
     t = half(dtype)
     assert largest_square(t) == J2_SIDES[dtype]
     n = {"largest": J2_SIDES[dtype],
@@ -1280,13 +1282,18 @@ def test_jacobi2d_sweeps_match_plain_bitwise(cuda, dtype, side, iters):
     rng = np.random.RandomState(n + iters)
     a = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32))
     a = a.to(cuda, t)
-    rt = j2_mod.route(n, n, t)
-    assert rt.name == ("loop" if side == "past-largest" else "cluster")
-    before = (j2_mod.jacobi2d.launches, j2_mod.jacobi2d.loop_launches)
+    rt = j2_mod.route(n, n, t, iters=iters)
+    assert rt.name == ("cluster" if side != "past-largest" else
+                       "tiled" if iters > 1 else "loop")
+    counters = lambda: (j2_mod.jacobi2d.launches,
+                        j2_mod.jacobi2d.tiled_launches,
+                        j2_mod.jacobi2d.loop_launches)
+    before = counters()
     got = j2_mod.jacobi2d(a, iters)
-    after = (j2_mod.jacobi2d.launches, j2_mod.jacobi2d.loop_launches)
-    assert [x - y for x, y in zip(after, before)] == (
-        [1, 0] if rt.name == "cluster" else [0, iters])
+    want = ([1, 0, 0] if rt.name == "cluster" else
+            [0, -(-iters // rt.k), 0] if rt.name == "tiled" else
+            [0, 0, iters])
+    assert [x - y for x, y in zip(counters(), before)] == want
     assert got.dtype == t and torch.equal(got, ref.jacobi2d(a, iters))
 
 
@@ -1316,3 +1323,156 @@ def test_jacobi2d_zero_sweeps_and_ops(cuda):
     got = ops.jacobi2d(g, 7)
     assert got.is_cuda and got.dtype == torch.float16
     assert torch.equal(got, ref.jacobi2d(torch.from_numpy(g).to(cuda), 7))
+
+
+# ---- Jacobi-2D's tiled route past the cluster ------------------------------
+
+J2_TILED_SHAPES = {"smaller-than-a-tile": (40, 50),
+                   "tile-1": (95, 111), "tile": (96, 112),
+                   "tile+1": (97, 113), "ragged": (300, 457),
+                   "tall-narrow": (2_097_123, 3)}
+
+
+@pytest.mark.parametrize("iters", ["0", "1", "k-1", "k+1", "1000"])
+@pytest.mark.parametrize("shape", sorted(J2_TILED_SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_jacobi2d_tiled_matches_plain_bitwise(cuda, dtype, shape, iters):
+    """The tiled kernel at the plan's tile and k, on grids smaller than a
+    tile, a tile and one off it each way, ragged ones and 2,097,123 rows of
+    3: ``iters`` sweeps equal the plain version's bit for bit, in
+    ceil(iters / k) launches, the same bits on a second call."""
+    t = half(dtype)
+    rt = j2_mod.tiled_route(2_800, 2_800, t)
+    R, C = J2_TILED_SHAPES[shape]
+    n = {"k-1": rt.k - 1, "k+1": rt.k + 1}.get(iters) or int(iters)
+    if shape == "tall-narrow" and n == 1000:
+        n = 2 * rt.k + 3                      # the plain loop's own time
+    rng = np.random.RandomState(R + C + n)
+    a = torch.from_numpy(rng.standard_normal((R, C)).astype(np.float32))
+    a = a.to(cuda, t)
+    before = j2_mod.jacobi2d.tiled_launches
+    got = j2_mod.tiled(a, n, rt.k, rt.tile)
+    assert j2_mod.jacobi2d.tiled_launches == before + -(-n // rt.k)
+    assert got.dtype == t and torch.equal(got, ref.jacobi2d(a, n))
+    assert torch.equal(j2_mod.tiled(a, n, rt.k, rt.tile), got)
+
+
+@pytest.mark.parametrize("k,tile,threads", [(1, (64, 64), 512),
+                                            (3, (40, 100), 256),
+                                            (8, (8, 8), 32),
+                                            (5, (100, 30), 128)])
+def test_jacobi2d_tiled_other_plans_match_plain_bitwise(cuda, k, tile,
+                                                        threads):
+    """Other tiles, k and CTA sizes (the variants script's), 23 sweeps of
+    a 261 x 333 float32 grid."""
+    rng = np.random.RandomState(k)
+    a = torch.from_numpy(rng.standard_normal((261, 333)).astype(
+        np.float32)).to(cuda)
+    assert torch.equal(j2_mod.tiled(a, 23, k, tile, threads=threads),
+                       ref.jacobi2d(a, 23))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jacobi2d_polybench_on_the_tiled_route(cuda, dtype):
+    """PolyBench EXTRALARGE through ``ops.jacobi2d``: 1,000 sweeps of
+    2,800 x 2,800 in 125 launches, bit for bit."""
+    t = half(dtype)
+    a = torch.rand(2_800, 2_800, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(22)).to(t)
+    assert j2_mod.route(2_800, 2_800, t, iters=1_000).name == "tiled"
+    before = j2_mod.jacobi2d.tiled_launches
+    got = ops.jacobi2d(a, 1_000)
+    assert j2_mod.jacobi2d.tiled_launches == before + 125
+    assert torch.equal(got, ref.jacobi2d(a, 1_000))
+
+
+# ---- streamcluster on the tensor cores --------------------------------------
+
+SC_MN = [(1, 1), (127, 129), (129, 127), (1_000, 4_097), (4_097, 1_000)]
+
+
+@pytest.mark.parametrize("d", [8, 64, 128, 136, 200])
+@pytest.mark.parametrize("mn", SC_MN, ids=lambda mn: f"{mn[0]}x{mn[1]}")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_streamcluster_routes_match_plain(cuda, dtype, mn, d):
+    """bfloat16 and float16 on wgmma (TMA), float32 on 3xTF32, ragged M and
+    N around the 128 x 128 tile and D off the 64- and 32-column panels:
+    within the reference's bar (2e-4 float32, 1e-2 16-bit) of the plain
+    version and of float64, the route's counter moved, the same bits on a
+    second call."""
+    m, n = mn
+    rng = np.random.RandomState(m + n + d)
+    t = half(dtype)
+    p = torch.from_numpy(rng.uniform(size=(m, d)).astype(np.float32))
+    c = torch.from_numpy(rng.uniform(size=(n, d)).astype(np.float32))
+    p, c = p.to(cuda, t), c.to(cuda, t)
+    route = sc_mod.path(p, c)
+    assert route == ("3xtf32/tma" if dtype == "float32"
+                     else "wgmma/tma")
+    counter = sc_mod.COUNTERS[route]
+    before = getattr(sc_mod.streamcluster_dist, counter)
+    got = sc_mod.streamcluster_dist(p, c)
+    assert getattr(sc_mod.streamcluster_dist, counter) == before + 1
+    tol = 2e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got, ref.streamcluster_dist(p, c), rtol=tol,
+                               atol=tol)
+    rows = slice(0, 64)
+    exact = ((p[rows, None, :].double() - c[None].double()) ** 2).sum(-1)
+    torch.testing.assert_close(got[rows].double(), exact, rtol=tol, atol=tol)
+    assert torch.equal(sc_mod.streamcluster_dist(p, c), got)
+
+
+@pytest.mark.parametrize("case", ["f32-offset", "f32-d130", "bf16-offset",
+                                  "f16-d100", "bf16-d127", "f16-d1"])
+def test_streamcluster_unaligned_routes_match_plain(cuda, case):
+    """Operands TMA or 16-byte cp.async cannot take (a base off 16 bytes,
+    rows not a multiple of 16 bytes): the plain-load and 4-byte cp.async
+    routes, counted apart, within the bar of the plain version."""
+    dtype, d, off = {"f32-offset": ("float32", 128, 1),
+                     "f32-d130": ("float32", 130, 0),
+                     "bf16-offset": ("bfloat16", 128, 3),
+                     "f16-d100": ("float16", 100, 0),
+                     "bf16-d127": ("bfloat16", 127, 0),
+                     "f16-d1": ("float16", 1, 0)}[case]
+    t = half(dtype)
+    rng = np.random.RandomState(d + off)
+    m, n = 300, 257
+    raw = torch.from_numpy(rng.uniform(size=m * d + off).astype(np.float32))
+    p = raw.to(cuda, t)[off:].view(m, d)
+    c = torch.from_numpy(rng.uniform(size=(n, d)).astype(np.float32)).to(
+        cuda, t)
+    route = sc_mod.path(p, c)
+    assert route == ("3xtf32/ld" if dtype == "float32"
+                     else "wgmma/ld")
+    counter = sc_mod.COUNTERS[route]
+    before = getattr(sc_mod.streamcluster_dist, counter)
+    got = sc_mod.streamcluster_dist(p, c)
+    assert getattr(sc_mod.streamcluster_dist, counter) == before + 1
+    tol = 2e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got, ref.streamcluster_dist(p, c), rtol=tol,
+                               atol=tol)
+    assert torch.equal(sc_mod.streamcluster_dist(p, c), got)
+
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_streamcluster_centers_among_the_points(cuda, dtype):
+    """PARSEC's centers are points of the stream, so some distances are 0
+    and |p|^2 + |c|^2 ~ 43 cancels 2 p.c: every distance within the bar
+    (an absolute 2e-4 there in float32) of the plain version and of
+    float64, at D 128 and 200."""
+    rng = np.random.RandomState(5)
+    t = half(dtype)
+    tol = 2e-4 if dtype == "float32" else 1e-2
+    for d in (128, 200):
+        pts = rng.uniform(size=(3_000, d)).astype(np.float32)
+        idx = rng.choice(3_000, 700, replace=False)
+        p = torch.from_numpy(pts).to(cuda, t)
+        c = p[torch.from_numpy(idx).to(cuda)].contiguous()
+        got = sc_mod.streamcluster_dist(p, c)
+        torch.testing.assert_close(got, ref.streamcluster_dist(p, c),
+                                   rtol=tol, atol=tol)
+        rows = torch.from_numpy(idx[:64]).to(cuda)
+        exact = ((p[rows, None].double() - c[None].double()) ** 2).sum(-1)
+        torch.testing.assert_close(got[rows].double(), exact, rtol=tol,
+                                   atol=tol)

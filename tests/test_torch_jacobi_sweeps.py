@@ -9,9 +9,9 @@ bfloat16 and float16.  The reference adds the five terms in the 16-bit type
 itself, so a 16-bit grid is held to it at 1e-6 plus one unit of the type
 over a few sweeps; the two round apart one unit at a time, so more sweeps
 drift further (about two units after 50).  The route each grid takes on the
-card (one cluster launch, or one launch a sweep) is chosen on the host and
-checked here; the kernels are held against the plain version on the card by
-``tests/test_torch_cuda.py``.
+card (one cluster launch, a launch every few sweeps on tiles, or one launch a
+sweep) is chosen on the host and checked here; the kernels are held against
+the plain version on the card by ``tests/test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -127,21 +127,24 @@ def largest_square(dtype):
     (1, 5, torch.bfloat16, ("cluster", 1, 1)),
     (5, 5, torch.float16, ("cluster", 4, 2)),
     (600, 600, torch.float32, ("cluster", 16, 2)),   # k shrinks to fit
-    (2_800, 2_800, torch.float32, ("loop", 0, 0)),   # PolyBench EXTRALARGE
+    (2_800, 2_800, torch.float32, ("tiled", 0, 8)),  # PolyBench EXTRALARGE
     (16, 5_811, torch.float32, ("cluster", 16, 1)),  # one row a CTA
-    (16, 5_812, torch.float32, ("loop", 0, 0)),
-    (17, 3_000, torch.float32, ("loop", 0, 0))])     # room for k = 1 only
+    (16, 5_812, torch.float32, ("tiled", 0, 8)),
+    (17, 3_000, torch.float32, ("tiled", 0, 8))])    # room for k = 1 only
 def test_jacobi2d_route(R, C, dtype, want):
     """The largest power of two up to 16 and R of CTAs, and the most
     sweeps between barriers up to MAX_K and a CTA's rows, where two
     buffers of a CTA's rows and halo rows and its neighbours' inboxes fit
-    227 KB, two at least where a CTA holds two rows or more; else the loop
-    route."""
+    227 KB, two at least where a CTA holds two rows or more; else, for
+    many sweeps, the tiled route (MAX_K_TILED sweeps a launch, on the
+    tile its halos leave)."""
     rt = j2_mod.route(R, C, dtype)
-    assert tuple(rt) == want
+    assert (rt.name, rt.ctas, rt.k) == want
     if rt.name == "cluster":
         assert j2_mod.cluster_bytes(R, C, dtype.itemsize, rt.ctas, rt.k) \
             <= j2_mod.MAX_SMEM
+    if rt.name == "tiled":
+        assert rt == j2_mod.tiled_route(R, C, dtype)
 
 
 @pytest.mark.parametrize("dtype,n,past", [(torch.float32, 618, "k"),
@@ -151,10 +154,11 @@ def test_jacobi2d_cluster_takes_grids_to_618_float32(dtype, n, past):
     """The plan's cluster takes a float32 grid to 618 x 618, past which 16
     CTAs' shared memory (3.6 MB) holds it twice with one halo row a side
     only, and a 16-bit one to 720 x 720, past which a CTA would hold more
-    than MAX_CTA_POINTS points; the loop route ran faster past both, so
-    the plan sends such grids there, unless the cluster is asked for."""
+    than MAX_CTA_POINTS points; one launch a sweep ran faster past both,
+    so the plan sends such grids to the tiled route, unless the cluster
+    is asked for."""
     assert largest_square(dtype) == n
-    assert j2_mod.route(n + 1, n + 1, dtype).name == "loop"
+    assert j2_mod.route(n + 1, n + 1, dtype).name == "tiled"
     forced = j2_mod.route(n + 1, n + 1, dtype, 16)
     assert forced.name == "cluster"
     if past == "k":
