@@ -40,7 +40,10 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    route asserted), particle filter (Rodinia's
    monotone CDF, on the search path, and the same CDF shuffled, on the
    count path; the path each took read from the kernel's flags),
-   canneal, pathfinder, flash attention (float32, bfloat16, bfloat16 at
+   canneal (PARSEC simlarge on the tile kernel; its first 65,536 rows
+   padded to 128 slots on the row kernel), pathfinder (Rodinia's wall and
+   its float32 copy with a row of +inf on the strip route, one cooperative
+   launch each; its first 21 rows on the pyramid route), flash attention (float32, bfloat16, bfloat16 at
    llama3-8b's and at gemma-7b's attention width, the last on the wgmma
    kernel's D-256 instantiation, bfloat16 at D 512 on its D-512
    instantiation, float32 at gemma's width on the 3xTF32 kernel's D-256
@@ -63,7 +66,8 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
 6. those kernels against their plain versions on the card at the
    reference's bars (Jacobi-2D on a PolyBench EXTRALARGE grid), timed
    beside their plain versions, the nearest single PyTorch call and their
-   bounds, and the input types and widths the reference computes beyond
+   bounds (pathfinder on its strip route beside the pyramid route on the
+   same wall, canneal's tile kernel beside its row kernel), and the input types and widths the reference computes beyond
    them: flash attention in float16 at the app's width and in bfloat16 and
    float16 at gemma-7b's (D 256), bfloat16 at D 512 (``wgmma512``),
    float32 at gemma's width (S 1,024, ``3xtf32_256``), bfloat16 and
@@ -89,8 +93,11 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    and PolyBench's 1,000 sweeps in float32 and bfloat16 on the tiled route
    beside the old loop of 1,000 launches, each in device and wall time
    with its launches, beside the bound;
-7. the ``kernels`` JSON line (twenty-three entries: Jacobi-2D's cluster,
-   loop and tiled routes, streamcluster's 16-bit (its own entry) and
+7. the ``kernels`` JSON line (twenty-five entries: Jacobi-2D's cluster,
+   loop and tiled routes, pathfinder's pyramid route (its strip route is
+   the ``pathfinder`` entry), canneal's row kernel (its tile kernel is the
+   ``canneal`` entry; an entry timed on other inputs than its main-path
+   call says so in ``timed_on``), streamcluster's 16-bit (its own entry) and
    float32 3xTF32 instantiations and the SSD scan's N-panel route; flash
    attention's D-256
    and D-512 wgmma instantiations, its sliced kernel, its float32 D-256
@@ -154,6 +161,10 @@ SW_N = 64 * 20_000 * 11 * 3
 SC_M, SC_N, SC_D = 16_384, 4_096, 128
 PF_N = PF_M = 100_000
 CA_N, CA_B, CA_F, CA_MEAN_FAN = 400_000, 1_920_000, 22, 10.15
+# and its first CA_WIDE_B swaps with each row padded (-1) to CA_WIDE_F
+# slots, as a netlist whose widest element has that many pads every row:
+# past the tile kernel's 96 slots, so the row kernel; the same costs
+CA_WIDE_B, CA_WIDE_F = 65_536, 128
 # Operations per element as written, each log/division/select one: the
 # swaptions chain (central 17, tail 21, selects and clamps 8); canneal per
 # valid fan entry (4 subtractions, 4 abs, 2 adds, 2 accumulations).
@@ -176,7 +187,11 @@ J2_BIG_SWEEPS, J2_WIDEST = 1_000, 1_000
 # pathfinder: Rodinia's 100,000 columns (tracegen.py:317) x the rows that
 # _PATH_CHUNK8 implies (20,054,016 x 8 / 100,000 = 1,604), wall
 # rand() % 10; 3 operations per cell after the first row (2 min, 1 add).
+# The main path also runs the same wall in float32 with row PATH_INF_ROW all
+# +inf (the costs reach the ends' 3.0e38 from both sides after it) and its
+# first PATH_SHORT rows (the pyramid route's walls).
 PATH_R, PATH_C, PATH_OPS = 1_604, 100_000, 3
+PATH_INF_ROW, PATH_SHORT = 1_504, 21
 # flash attention at the app's scale (workloads_ml.py:46: B 4, S 2,048, H 8,
 # D 64, causal) and at llama3-8b's attention width (configs/llama3_8b.py:9:
 # 32 heads of 128) at S 4,096, B 1, with K/V given all 32 heads (the kernel
@@ -445,6 +460,9 @@ def suite_inputs(torch, dev) -> dict:
     cdf_shuffled = gen.permutation(cdf)
     fa_d640 = tuple(normal(FA_D640).to(torch.bfloat16) for _ in range(3))
     fa_f32_d512 = tuple(normal(FA_F32_D512) for _ in range(3))
+    # pathfinder's float32 wall with a row of +inf (no new draw)
+    path_inf = wall.astype(np.float32)
+    path_inf[PATH_INF_ROW] = np.inf
     # the SSD scan on N-panels (its own seed, as every SSD input)
     panels = {key: ssd_inputs(torch, dev, *dims,
                               check=((0, 0), (dims[0] - 1, dims[2] - 1)))
@@ -474,12 +492,17 @@ def suite_inputs(torch, dev) -> dict:
                          da[2].to(torch.float16), da[3]),
             "ssd_wide": ssd_wide,
             "pf": (t(cdf), t(q)), "ca": tuple(map(t, (locs, fan, ca, cb))),
-            "j2": t(j2), "j2_big": t(j2_big), "path": t(wall), "fa": fa,
+            "ca_wide": (t(locs), torch.nn.functional.pad(
+                t(fan[:CA_WIDE_B]), (0, CA_WIDE_F - CA_F), value=-1),
+                t(ca[:CA_WIDE_B]), t(cb[:CA_WIDE_B])),
+            "j2": t(j2), "j2_big": t(j2_big), "path": t(wall),
+            "path_inf": t(path_inf), "fa": fa,
             "fa_bf16": tuple(x.to(torch.bfloat16) for x in fa),
             "fa_llama": fa_llama, "da": da, "ssd": ssd,
             "host": {"pf": (cdf, q), "pf_shuffled": cdf_shuffled,
                      "ca": (locs, fan, ca, cb), "j2": j2,
-                     "path": wall, "da_lens": lens, "da_lens_d512": lens5,
+                     "path": wall, "path_inf": path_inf, "da_lens": lens,
+                     "da_lens_d512": lens5,
                      "ssd": ssd_host,
                      **{key: host for key, (_, host) in panels.items()}}}
 
@@ -596,13 +619,19 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
         if got.shape != (CA_B,) or not np.array_equal(
                 got[:20_000].cpu().numpy().astype(np.float64), cost):
             fail("canneal: differs from the float64 host sums")
+    for got, want in zip(outs["canneal_wide"], outs["canneal"]):
+        if not torch.equal(got, want[:CA_WIDE_B]):
+            fail(f"canneal: rows padded to {CA_WIDE_F} slots differ from "
+                 f"the same rows at {CA_F}")
     print(f"phase 5 outputs: swaptions cndf round trip {sw_back:.3g} "
           f"(5e-4); streamcluster vs float64 on 128 rows "
           f"{worst['streamcluster']:.3g} (2e-4), bf16 "
           f"{worst['streamcluster_bf16']:.3g} (1e-2), f16 "
           f"{worst['streamcluster_f16']:.3g} (1e-2); particlefilter equal "
           f"to numpy searchsorted, shuffled equal to numpy's count on 2,000 "
-          f"queries; canneal equal to float64 sums on 20,000 swaps")
+          f"queries; canneal equal to float64 sums on 20,000 swaps, and "
+          f"its first {CA_WIDE_B:,} rows padded to {CA_WIDE_F} slots (the "
+          f"row kernel) equal to them at {CA_F}")
 
     # Jacobi-2D: the 4,000 sweeps again through numpy's float32 on the host
     # (same order of sums), then the plain version on the card
@@ -635,19 +664,28 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
                                                              plain):
             fail(f"{key}: {sweeps} kernel sweeps differ from the plain "
                  "version's")
-    # pathfinder: numpy's row-by-row program on the host; integer walls
-    # keep every sum exact
-    wall = data["host"]["path"]
-    cost = wall[0].astype(np.float32)
-    inf = np.full(1, np.inf, np.float32)
-    for row in wall[1:]:
-        near = np.minimum(cost, np.minimum(np.concatenate([inf, cost[:-1]]),
-                                           np.concatenate([cost[1:], inf])))
-        cost = row.astype(np.float32) + near
-    got = outs["pathfinder"]
-    if got.dtype != torch.float32 or not np.array_equal(got.cpu().numpy(),
-                                                        cost):
-        fail("pathfinder: differs from numpy's row-by-row program")
+    # pathfinder: numpy's row-by-row program on the host, the columns past
+    # both ends at the Pallas kernel's float32 3.0e38; integer walls keep
+    # every sum exact; the wall with a row of +inf, and the short wall
+    for key, wall in (("pathfinder", data["host"]["path"]),
+                      ("pathfinder_inf", data["host"]["path_inf"]),
+                      ("pathfinder_short",
+                       data["host"]["path"][:PATH_SHORT])):
+        cost = wall[0].astype(np.float32)
+        end = np.full(1, 3.0e38, np.float32)
+        for row in wall[1:]:
+            near = np.minimum(cost, np.minimum(
+                np.concatenate([end, cost[:-1]]),
+                np.concatenate([cost[1:], end])))
+            cost = row.astype(np.float32) + near
+        got = outs[key]
+        if got.dtype != torch.float32 or not np.array_equal(
+                got.cpu().numpy(), cost):
+            fail(f"{key}: differs from numpy's row-by-row program")
+    path_ends = int((outs["pathfinder_inf"] == 3.0e38).sum())
+    if path_ends != 2 * (PATH_R - 1 - PATH_INF_ROW):
+        fail(f"pathfinder_inf: {path_ends} columns at 3.0e38, not "
+             f"{2 * (PATH_R - 1 - PATH_INF_ROW)}")
     # attention: float64 softmax on 64 query rows of the first and the last
     # (b, h); decoding: every (b, h) in float64, kv_len = 0 the mean of V
     att = {}
@@ -704,7 +742,10 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
           "the plain version's sweeps; vs numpy's "
           f"{J2_SWEEPS} sweeps "
           f"{j2_err:.3g} (1e-6), equal to the plain version's sweeps; "
-          f"pathfinder equal to numpy's row program; flash attention vs "
+          f"pathfinder equal to numpy's row program (3.0e38 past the ends; "
+          f"Rodinia's wall, its float32 copy with row {PATH_INF_ROW} all "
+          f"+inf: {path_ends} columns at 3.0e38, the rest inf; its first "
+          f"{PATH_SHORT} rows); flash attention vs "
           f"float64 on 2 x 64 rows {att['flash_attention']:.3g} (2e-4), "
           f"bf16 {att['flash_attention_bf16']:.3g} (2e-2), llama width "
           f"{att['flash_attention_llama']:.3g} (2e-2), gemma width (D 256) "
@@ -844,12 +885,24 @@ def suite_specs(torch, ref, data, mods):
         library=None, tol=None, peak=PEAK_F32_S,
         nbytes=(PF_N + 2 * PF_M) * 4, ops=2 * PF_N * PF_M, per=10,
         took=took, want_path="count"))
-    specs.append(dict(
-        name="canneal", kernel=lambda: ca_k(locs, fan, ca, cb),
-        plain=lambda: ref.canneal_swap_cost(locs, fan, ca, cb),
-        library=None, tol=(1e-6, 0.0), peak=PEAK_F32_S,
-        nbytes=CA_N * 8 + CA_B * CA_F * 4 + 2 * CA_B * 8 + 2 * CA_B * 4,
-        ops=n_valid * CA_OPS, per=25))
+    # canneal on the route of its 22 slots (the tile kernel), and the row
+    # kernel on the same inputs (the kernel the tile kernel replaced; the
+    # main path's call to it is the rows padded to CA_WIDE_F slots)
+    from repro_torch.kernels import canneal as ca_mod
+    wide = data["ca_wide"]
+    for name, fn in (("canneal", ca_k), ("canneal_rows", ca_mod.rows)):
+        specs.append(dict(
+            name=name, kernel=lambda fn=fn: fn(locs, fan, ca, cb),
+            plain=lambda: ref.canneal_swap_cost(locs, fan, ca, cb),
+            library=None, tol=(1e-6, 0.0), peak=PEAK_F32_S,
+            nbytes=CA_N * 8 + CA_B * CA_F * 4 + 2 * CA_B * 8 + 2 * CA_B * 4,
+            ops=n_valid * CA_OPS, per=25,
+            route=ca_mod.route(CA_F) if fn is ca_k else "rows"))
+    specs[-1].update(
+        timed_on=f"PARSEC simlarge's {CA_B:,} swaps x {CA_F} slots (the "
+        f"main path's call: its first {CA_WIDE_B:,} rows padded to "
+        f"{CA_WIDE_F} slots, ms_wide)",
+        also_timed={"ms_wide": lambda: ca_mod.rows(*wide)})
     for name, key in (("jacobi2d", "j2_big"),
                       ("jacobi2d_bf16", "j2_big_bf16")):
         big = data[key]
@@ -878,12 +931,28 @@ def suite_specs(torch, ref, data, mods):
             tol=None, peak=PEAK_F32_S, nbytes=g.numel() * 2 * g.element_size(),
             ops=J2_OPS * (g.shape[0] - 2) * (g.shape[1] - 2) * sweeps, per=1,
             plain_reps=1))
+    # pathfinder on the plan's strip route, and Rodinia's pyramid route on
+    # the same wall in the same run (the route the strips replaced)
+    from repro_torch.kernels import pathfinder as path_mod
     wall = data["path"]
-    specs.append(dict(
-        name="pathfinder", kernel=lambda: path_k(wall),
-        plain=lambda: ref.pathfinder(wall), library=None, tol=None,
-        peak=PEAK_F32_S, nbytes=PATH_R * PATH_C * 4 + PATH_C * 4,
-        ops=PATH_OPS * (PATH_R - 1) * PATH_C, per=5, plain_reps=2))
+    for name, fn in (("pathfinder", path_k), ("pathfinder_pyramid",
+                                              path_mod.pyramid)):
+        specs.append(dict(
+            name=name, kernel=lambda fn=fn: fn(wall),
+            plain=lambda: ref.pathfinder(wall), library=None, tol=None,
+            peak=PEAK_F32_S, nbytes=PATH_R * PATH_C * 4 + PATH_C * 4,
+            ops=PATH_OPS * (PATH_R - 1) * PATH_C, per=5, plain_reps=2,
+            route=(path_mod.route(PATH_R, PATH_C, *path_mod.card(wall.device))
+                   if fn is path_k
+                   else f"pyramid, {path_mod.pyramid_launches(PATH_R)} "
+                   "launches")))
+    # the pyramid's main-path call is the wall's first PATH_SHORT rows
+    specs[-1].update(
+        timed_on=f"Rodinia's {PATH_R:,} x {PATH_C:,} wall, "
+        f"{path_mod.pyramid_launches(PATH_R)} launches a call (the main "
+        f"path's call: its first {PATH_SHORT} rows, "
+        f"{path_mod.pyramid_launches(PATH_SHORT)} launch, ms_short)",
+        also_timed={"ms_short": lambda: path_mod.pyramid(wall[:PATH_SHORT])})
     # attention: 4 D flops a kept (query, key) pair on the tensor cores
     # (3 TF32 products each in float32, beside the float32 SIMT rate the
     # earlier slices bounded it by), and one exponential a pair
@@ -1215,6 +1284,14 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
         print(f"phase 6 {name}: path {extra['path']} (the kernel's flags)")
     if "route" in spec:
         print(f"phase 6 {name}: route {spec['route']}")
+    if "timed_on" in spec:
+        # what "ms" timed, where it is not the main path's call, and that
+        # call's own time
+        extra["timed_on"] = spec["timed_on"]
+        for key, fn in spec["also_timed"].items():
+            extra[key] = timed(fn)
+        print(f"phase 6 {name}: ms timed on {spec['timed_on']}; "
+              + ", ".join(f"{k} {extra[k]:.4f}" for k in spec["also_timed"]))
     if "passes" in spec:
         extra["pass_ms"] = {n: cuda_ms(torch, fn, reps=5)
                             for n, fn in spec["passes"]}
@@ -1419,11 +1496,14 @@ def main() -> int:
           f"{entry_lines(report, 'ssd_scan', 'ssd_chunk_kernel')}")
     print(f"phase 1 jacobi2d cluster kernel: "
           f"{entry_lines(report, 'jacobi2d', 'jacobi2d_cluster_kernel')}")
-    # the kernels of this slice: Jacobi-2D's tiled kernel, streamcluster's
-    # kernel (16-bit and 3xTF32 instantiations); none may spill, and the
-    # streamcluster library must hold wgmma (HGMMA) where it was counted
+    # Jacobi-2D's tiled kernel, streamcluster's kernel (16-bit and 3xTF32
+    # instantiations), pathfinder's strip kernel and canneal's tile kernel;
+    # none may spill, and the streamcluster library must hold wgmma (HGMMA)
+    # where it was counted
     for source, entry in (("jacobi2d", "jacobi2d_tiled_kernel"),
-                          ("streamcluster", "streamcluster_kernel")):
+                          ("streamcluster", "streamcluster_kernel"),
+                          ("pathfinder", "pathfinder_strips_kernel"),
+                          ("canneal", "swap_cost_tiles_kernel")):
         lines = entry_lines(report, source, entry)
         print(f"phase 1 {entry}: {lines}")
         if any(int(n) for n in re.findall(r"(\d+) bytes spill", lines)):
@@ -1683,6 +1763,8 @@ def main() -> int:
     j2_mod.jacobi2d.launches = j2_mod.jacobi2d.loop_launches = 0
     j2_mod.jacobi2d.tiled_launches = 0
     sc_mod.streamcluster_dist.tf32_launches = 0
+    path_mod.pathfinder.pyramid_launches = 0
+    ca_mod.swap_cost.rows_launches = 0
     t0 = time.perf_counter()
     outs = {"swaptions": ops.cum_normal_inv(data["sw"]),
             "streamcluster": ops.streamcluster_dist(*data["sc"]),
@@ -1694,7 +1776,10 @@ def main() -> int:
                 *data["pf_shuffled"]),
             "pf_shuffled_flags": pf_mod.find_index.last_flags,
             "canneal": ops.canneal_swap_cost(*data["ca"]),
+            "canneal_wide": ops.canneal_swap_cost(*data["ca_wide"]),
             "pathfinder": ops.pathfinder(data["path"]),
+            "pathfinder_inf": ops.pathfinder(data["path_inf"]),
+            "pathfinder_short": ops.pathfinder(data["path"][:PATH_SHORT]),
             "flash_attention": ops.flash_attention(*data["fa"]),
             "flash_attention_bf16": ops.flash_attention(*data["fa_bf16"]),
             "flash_attention_llama": ops.flash_attention(*data["fa_llama"]),
@@ -1749,6 +1834,11 @@ def main() -> int:
     launches["streamcluster_3xtf32"] = \
         sc_mod.streamcluster_dist.tf32_launches
     launches["ssd_scan_panels"] = ssd_mod.ssd_scan.panel_launches
+    # pathfinder's pyramid route (its strip route counts as
+    # pathfinder.launches, the edges' memset included)
+    launches["pathfinder_pyramid"] = path_mod.pathfinder.pyramid_launches
+    # canneal's row kernel (its tile kernel counts as swap_cost.launches)
+    launches["canneal_rows"] = ca_mod.swap_cost.rows_launches
     # flash attention's routes past D 128, each its own counter
     for name, counter in FA_ROUTES.items():
         launches[name] = getattr(fa_mod.flash_attention, counter)
@@ -1764,7 +1854,8 @@ def main() -> int:
                              "ssd_scan_chunk_pass", "ssd_scan_state_pass",
                              "jacobi2d_cluster", "jacobi2d_loop",
                              "jacobi2d_tiled", "streamcluster_3xtf32",
-                             "ssd_scan_panels")}
+                             "ssd_scan_panels", "pathfinder_pyramid",
+                             "canneal_rows")}
     # the particle filter's two calls: the path each took, from its flags
     pf_paths = {key: "search" if pf_mod.searched(outs.pop(flags)) else
                 "count" for key, flags in
@@ -1794,6 +1885,22 @@ def main() -> int:
     if launches["jacobi2d_tiled"] != want_tiled:
         fail(f"jacobi2d: {launches['jacobi2d_tiled']} tiled launches, not "
              f"{want_tiled}")
+    for F, want in ((CA_F, "tiles"), (CA_WIDE_F, "rows")):
+        if ca_mod.route(F) != want:
+            fail(f"canneal, {F} slots: the {ca_mod.route(F)} route, not the "
+                 f"{want} route")
+    path_card = path_mod.card(data["path"].device)
+    for key, rows, want in (("path", PATH_R, "strips"),
+                            ("path_inf", PATH_R, "strips"),
+                            ("path", PATH_SHORT, "pyramid")):
+        got = path_mod.route(rows, PATH_C, *path_card)
+        if got.name != want:
+            fail(f"pathfinder {key}, {rows} rows: the {got.name} route, not "
+                 f"the {want} route")
+    want_path = 2 * path_mod.route(PATH_R, PATH_C, *path_card).launches
+    if launches["pathfinder"] != want_path:
+        fail(f"pathfinder: {launches['pathfinder']} device operations on the "
+             f"strip route, not {want_path}")
     for key, want in (("sc", "3xtf32/tma"), ("sc_bf16", "wgmma/tma"),
                       ("sc_f16", "wgmma/tma")):
         if sc_mod.path(*data[key]) != want:
@@ -1885,7 +1992,11 @@ def main() -> int:
             ("streamcluster_3xtf32", "streamcluster", "streamcluster",
              "streamcluster", "streamcluster_3xtf32"),
             ("ssd_scan_panels", "ssd_scan", "ssd_scan_n512", "ssd_scan",
-             "ssd_scan_panels")):
+             "ssd_scan_panels"),
+            ("pathfinder_pyramid", "pathfinder", "pathfinder_pyramid",
+             "pathfinder", "pathfinder_pyramid"),
+            ("canneal_rows", "canneal", "canneal_rows", "canneal",
+             "canneal_rows")):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/csrc/{source}.cu",
                         "replaces": SUITE_REPLACES[of],

@@ -5,23 +5,58 @@
 // pallas_call at :46), which kept the running cost row in VMEM across a
 // sequential grid of one step per wall row: cost = wall[0], then for every
 // later row cost = wall[i] + min(cost, cost shifted left, cost shifted
-// right), the ends treated as +inf; the result is the last cost row, float32
-// [C], from an int32 or float32 wall [R, C].
+// right), the columns past both ends holding the Pallas kernel's _INF,
+// 3.0e38 (END below; not +inf, which repro/kernels/ref.py pads with); the
+// result is the last cost row, float32 [C], from an int32 or float32 wall
+// [R, C].
 //
 // Bound on an H100: bytes.  The wall is read once (642 MB at 1,604 rows x
 // 100,000 columns of int32: 0.19 ms) against 3 operations a cell.  The rows
-// are a sequential dependency, and blocks cannot wait for each other, so
-// the design is Rodinia's ghost-zone pyramid: a block of 256 threads owns
-// a strip of 256 columns and advances PYRAMID rows in shared memory with
-// one __syncthreads per row.  After h rows only the columns at least h from
-// the strip's ends are right, so strips overlap by PYRAMID on each side and
-// each writes its middle 256 - 2 * PYRAMID columns; one launch advances
-// PYRAMID rows (ceil((R - 1) / PYRAMID) launches, all from one call).  Each
-// thread loads its PYRAMID wall values before the first row, so a block
-// keeps 20 loads a thread in flight.  Columns outside [0, C) hold +inf.
+// are a sequential dependency; two routes carry it across the card.
 //
-// min is exact and each row adds once, so the result equals the plain
-// version (repro_torch/kernels/ref.py:pathfinder) bit for bit.
+// The strip route (pathfinder_strips_kernel), one cooperative launch for
+// all rows.  CTA g owns the columns [g S, (g + 1) S) of every row and holds
+// them in registers from row 0 to the end.  The rows go in phases of H:
+// each row warp holds a window of 256 columns, eight a lane (neighbours by
+// shuffles), and runs the phase's H rows over it, so after H rows its
+// middle 256 - 2 H columns are right (Rodinia's ghost zone, at the scale
+// of a warp); the warps' middles tile the strip and no warp waits on
+// another inside a phase.  Between phases the middles meet in shared
+// memory (one barrier of the row warps), and a CTA needs only its two
+// neighbours' H edge values of the row the phase starts from: the lanes
+// holding a strip's first and last H columns store them into a slot of
+// device memory (two slots, by the phase's parity), each value beside its
+// phase number in one 8-byte word, so a single-copy-atomic relaxed store
+// publishes it and a relaxed load that sees the tag sees the value (no
+// flag, no fence).  A slot is written again two phases later only after
+// the writer has read the reader's next edges, which the reader writes
+// after reading the slot.  One more warp loads: the wall streams in by TMA
+// bulk copies, one a row of the window, into a ring of slabs of SR rows
+// with a "full" and an "empty" mbarrier each, so the row warps never
+// issue a copy (at Rodinia's size: 0.62 ms with per-phase tiles by
+// cp.async from the computing warps and flags, 0.35 with TMA issued by one
+// of them, 0.29 with the loading warp; scripts/pathfinder_variants.py,
+// NVIDIA H100 80GB HBM3, 700 W).  Where C or the wall is not 16-byte
+// aligned, the loading warp copies 4 bytes at a time.  Co-residency: the
+// launch is cooperative, so a grid that cannot be resident fails
+// (cudaErrorCooperativeLaunchTooLarge) instead of deadlocking.  The edge
+// words are zeroed by a memset on the same stream before the kernel: two
+// device operations a call.  The host picks S, H, SR and the CTA count
+// (repro_torch/kernels/pathfinder.py:route).
+//
+// The pyramid route (pathfinder_kernel), Rodinia's own: a block of 256
+// threads owns a strip of 256 columns and advances PYRAMID rows in shared
+// memory with one __syncthreads per row; strips overlap by PYRAMID on each
+// side and each writes its middle 256 - 2 * PYRAMID columns; one launch
+// advances PYRAMID rows (ceil((R - 1) / PYRAMID) launches, all from one
+// call).  Each thread loads its PYRAMID wall values before the first row.
+// It takes walls of at most 41 rows (two launches), where it measured
+// faster, and the walls whose strips do not fit a CTA (pathfinder.py:
+// route).
+//
+// Both take min in the plain version's order with torch.minimum's NaN rule
+// and add each row once, so both equal the plain version
+// (repro_torch/kernels/ref.py:pathfinder) bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -29,8 +64,9 @@
 
 namespace {
 
-constexpr int TILE = 256;      // columns (threads) per block
-constexpr int PYRAMID = 20;    // rows per launch (Rodinia's pyramid_height)
+constexpr float END = 3.0e38f;   // past both ends: the Pallas kernel's _INF
+constexpr int TILE = 256;        // columns (threads) per pyramid block
+constexpr int PYRAMID = 20;      // rows per launch (Rodinia's pyramid_height)
 constexpr int STRIDE = TILE - 2 * PYRAMID;   // columns a block writes
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -39,6 +75,11 @@ __device__ __forceinline__ float to_f(int32_t v) { return (float)v; }
 // torch.minimum: NaN if either operand is NaN
 __device__ __forceinline__ float tmin(float a, float b) {
   return (a < b || a != a) ? a : b;
+}
+
+// One row of the dynamic program at a column: w + min(v, min(l, r)).
+__device__ __forceinline__ float step(float w, float v, float l, float r) {
+  return w + tmin(v, tmin(l, r));
 }
 
 // Rows row0 .. row0 + nrows - 1 (nrows <= PYRAMID) over the cost row `in`
@@ -55,7 +96,7 @@ pathfinder_kernel(const W* __restrict__ wall, const float* __restrict__ in,
 #pragma unroll
   for (int i = 0; i < PYRAMID; ++i)
     w[i] = (live && i < nrows) ? to_f(wall[(row0 + i) * C + col]) : 0.0f;
-  float v = INFINITY;
+  float v = END;
   if (live) v = in ? in[col] : to_f(wall[col]);
   buf[0][t] = v;
 #pragma unroll
@@ -63,9 +104,9 @@ pathfinder_kernel(const W* __restrict__ wall, const float* __restrict__ in,
     if (i >= nrows) break;   // nrows is the same for the whole block
     __syncthreads();
     const float* cur = buf[i & 1];
-    const float left = t > 0 ? cur[t - 1] : INFINITY;
-    const float right = t < TILE - 1 ? cur[t + 1] : INFINITY;
-    v = live ? w[i] + tmin(v, tmin(left, right)) : INFINITY;
+    const float left = t > 0 ? cur[t - 1] : END;
+    const float right = t < TILE - 1 ? cur[t + 1] : END;
+    v = live ? step(w[i], v, left, right) : END;
     buf[(i + 1) & 1][t] = v;
   }
   if (live && t >= PYRAMID && t < TILE - PYRAMID) out[col] = v;
@@ -96,24 +137,444 @@ int launch(const W* wall, float* out, float* scratch, long long r, int c,
   return 0;
 }
 
+// ---- the strip route --------------------------------------------------------
+
+constexpr int K = 8;               // window columns a lane
+constexpr int WARP_COLS = 32 * K;  // a warp's window: 256 columns
+constexpr int MAX_WARPS = 15;         // row warps; one more loads the wall
+constexpr int SLABS = 4;           // the wall ring: SLABS slabs of SR rows
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// The slab's mbarrier arrives once every earlier cp.async of this thread
+// has landed (its count includes this thread's arrival).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the mbarrier's phase of `parity` has completed; trap after
+// ~2^35 cycles (~17 s), so a copy that never lands fails the launch
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 35)) __trap();
+  }
+}
+
+// One bulk copy (TMA) of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory, counted by `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// An edge value with its phase tag in one 8-byte word: a single-copy-
+// atomic store and load, so a reader that sees the tag sees the value,
+// with no fence and no flag.
+__device__ __forceinline__ void put_edge(unsigned long long* p, float v,
+                                         int tag) {
+  const unsigned long long w =
+      ((unsigned long long)(unsigned)tag << 32) | __float_as_uint(v);
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(w)
+               : "memory");
+}
+
+// Four edge values of phase `tag` (16-byte aligned), spinning until all
+// four carry the tag.  A wait of ~2^35 cycles (~17 s) is a fault, not a
+// wait: trap, so the launch fails instead of hanging the card.
+__device__ __forceinline__ float4 get_edges(const unsigned long long* p,
+                                            int tag) {
+  const long long t0 = clock64();
+  for (;;) {
+    unsigned long long a, b, c, d;
+    asm volatile("ld.relaxed.gpu.global.v2.b64 {%0, %1}, [%2];"
+                 : "=l"(a), "=l"(b)
+                 : "l"(p)
+                 : "memory");
+    asm volatile("ld.relaxed.gpu.global.v2.b64 {%0, %1}, [%2];"
+                 : "=l"(c), "=l"(d)
+                 : "l"(p + 2)
+                 : "memory");
+    const unsigned t = (unsigned)tag;
+    if ((a >> 32) == t && (b >> 32) == t && (c >> 32) == t &&
+        (d >> 32) == t)
+      return make_float4(__uint_as_float((unsigned)a),
+                         __uint_as_float((unsigned)b),
+                         __uint_as_float((unsigned)c),
+                         __uint_as_float((unsigned)d));
+    __nanosleep(20);
+    if (clock64() - t0 > (1ll << 35)) __trap();
+  }
+}
+
+// Eight wall values as floats from shared memory (16-byte aligned).
+__device__ __forceinline__ void load8(const float* p, float* w) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+}
+__device__ __forceinline__ void load8(const int32_t* p, float* w) {
+  const int4 a = reinterpret_cast<const int4*>(p)[0];
+  const int4 b = reinterpret_cast<const int4*>(p)[1];
+  w[0] = (float)a.x; w[1] = (float)a.y; w[2] = (float)a.z; w[3] = (float)a.w;
+  w[4] = (float)b.x; w[5] = (float)b.y; w[6] = (float)b.z; w[7] = (float)b.w;
+}
+
+// The wall rows [row, row + rows) of the window's columns [0, E) that lie
+// in [0, C) (window column j is wall column x0 + j) into `slab`, rows P
+// apart, counted by the slab's mbarrier `bar`; run by the loading warp.
+// Where `vec` (x0, E and C multiples of 4, the wall 16-byte aligned), one
+// bulk copy a row issued by lane 0, which arrives with the bytes to
+// expect; else 4-byte cp.async by every lane, each arriving once its
+// copies land.
+template <typename W>
+__device__ __forceinline__ void stage(W* slab, const W* __restrict__ wall,
+                                      long long row, int rows, long long x0,
+                                      int E, int P, int C, bool vec,
+                                      uint64_t* bar, int lane) {
+  const int lo = x0 < 0 ? (int)-x0 : 0;
+  const int hi = C - x0 < E ? (int)(C - x0) : E;
+  if (vec) {
+    if (lane == 0) {
+      const uint32_t bytes = (uint32_t)(hi - lo) * sizeof(W);
+      mbar_expect_tx(bar, bytes * rows);
+      for (int r = 0; r < rows; ++r)
+        bulk_copy(slab + r * P + lo, wall + (row + r) * C + x0 + lo, bytes,
+                  bar);
+    }
+  } else {
+    for (int r = 0; r < rows; ++r)
+      for (int j = lo + lane; j < hi; j += 32)
+        cp_async4(slab + r * P + j, wall + (row + r) * C + x0 + j);
+    cp_async_arrive(bar);
+  }
+}
+
+// All R - 1 row steps of the strip [g S, (g + 1) S) of CTA g, in phases of
+// H rows.  The CTA's window is the strip and H ghost columns a side (E =
+// S + 2 H columns, window column j = wall column g S - H + j).  Row warp q
+// holds the window columns [q V, q V + 256), eight a lane, V = 256 - 2 H:
+// after a phase of H rows its middle V columns, [q V + H, q V + H + V),
+// are right (its own ghost zone), and the warps' middles tile the strip,
+// so the row warps never exchange values inside a phase.  At a phase's end
+// the middles meet in shared memory (`crow`, by the phase's parity, behind
+// a barrier of the row warps) and the lanes holding the strip's first and
+// last H columns store them, with the phase's tag, into `edges` [2 slots]
+// [G][2 sides][H] (zero at the launch); at the next phase's start each
+// row warp reads its window back, the lanes of the ghost columns from the
+// neighbours' edges once their tags show.  The last warp loads: the wall
+// streams through a ring of SLABS slabs of SR rows, each behind a "full"
+// mbarrier (the copies landed) and an "empty" one (every row warp is done
+// with it), so no row warp waits on a copy's issue.  A column past the
+// wall's ends (or the window's) holds END: its bits are masked in after
+// every row (no predicate, so the mins keep the predicate registers).
+// Dynamic shared memory: the ring [SLABS][SR][P], two cost rows [P] (P =
+// row warps V + 2 H) and 2 SLABS mbarriers.
+template <typename W>
+__global__ void __launch_bounds__((MAX_WARPS + 1) * 32)
+pathfinder_strips_kernel(const W* __restrict__ wall, float* __restrict__ out,
+                         unsigned long long* edges, long long R, int C, int S,
+                         int H, int SR, int vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warps = (blockDim.x >> 5) - 1;   // row warps
+  const int V = WARP_COLS - 2 * H;
+  const int P = warps * V + 2 * H;
+  const int E = S + 2 * H;
+  W* ring = reinterpret_cast<W*>(smem);
+  float* crow = reinterpret_cast<float*>(ring + SLABS * SR * P);
+  uint64_t* full = reinterpret_cast<uint64_t*>(crow + 2 * P);
+  uint64_t* empty = full + SLABS;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = blockIdx.x, G = gridDim.x;
+  const long long x0 = (long long)g * S - H;
+  const long long nsteps = R - 1;
+  const int phases = (int)((nsteps + H - 1) / H);
+  const long long slabs = (nsteps + SR - 1) / SR;
+  if (t == 0) {
+    for (int b = 0; b < SLABS; ++b) {
+      mbar_init(full + b, vec ? 1 : 32);
+      mbar_init(empty + b, warps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == warps) {   // the loading warp
+    for (long long k = 0; k < slabs; ++k) {
+      const int b = (int)(k % SLABS);
+      if (k >= SLABS) mbar_wait(empty + b, (int)((k / SLABS - 1) & 1));
+      const long long left = nsteps - k * SR;
+      stage(ring + b * SR * P, wall, 1 + k * SR, (int)(left < SR ? left : SR),
+            x0, E, P, C, vec != 0, full + b, lane);
+    }
+    return;
+  }
+  const int j0 = warp * V + lane * K;   // this lane's window columns
+  const int m0 = lane * K;              // ... within its warp's window
+  // column c of this lane: v = (v & keep[c]) | end[c], END where outside
+  unsigned keep[K], end[K];
+  float v[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const long long col = x0 + j0 + c;
+    const bool o = j0 + c >= E || col < 0 || col >= C;
+    keep[c] = o ? 0u : ~0u;
+    end[c] = o ? __float_as_uint(END) : 0u;
+    v[c] = o ? END : to_f(wall[col]);
+  }
+  auto mask = [&](int c, float x) {
+    return __uint_as_float((__float_as_uint(x) & keep[c]) | end[c]);
+  };
+  long long k = 0;   // the slab of the next row
+  for (int p = 0; p < phases; ++p) {
+    const long long r0 = (long long)p * H;
+    const int rows = (int)(nsteps - r0 < H ? nsteps - r0 : H);
+    if (p > 0) {   // this lane's window of cost row r0
+      const float* cr = crow + (p & 1) * P;
+      const unsigned long long* slot = edges + (long long)(p & 1) * G * 2 * H;
+#pragma unroll
+      for (int q = 0; q < K; q += 4) {
+        const int j = j0 + q;
+        float4 e;
+        if (j < H && g > 0)
+          e = get_edges(slot + ((g - 1) * 2 + 1) * H + j, p);
+        else if (j >= H + S && j < E && g < G - 1)
+          e = get_edges(slot + (g + 1) * 2 * H + (j - H - S), p);
+        else
+          e = *reinterpret_cast<const float4*>(cr + j);
+        v[q] = mask(q, e.x);
+        v[q + 1] = mask(q + 1, e.y);
+        v[q + 2] = mask(q + 2, e.z);
+        v[q + 3] = mask(q + 3, e.w);
+      }
+    }
+    for (int i0 = 0; i0 < rows; i0 += SR, ++k) {
+      const int b = (int)(k % SLABS);
+      mbar_wait(full + b, (int)((k / SLABS) & 1));
+      const W* slab = ring + b * SR * P + j0;
+      const int n_rows = rows - i0 < SR ? rows - i0 : SR;
+      for (int i = 0; i < n_rows; ++i) {
+        float w[K];
+        load8(slab + i * P, w);
+        float l = __shfl_up_sync(0xffffffffu, v[K - 1], 1);
+        float r = __shfl_down_sync(0xffffffffu, v[0], 1);
+        if (lane == 0) l = END;    // the warp window's ends: its ghost zone
+        if (lane == 31) r = END;
+        float n[K];
+        n[0] = step(w[0], v[0], l, v[1]);
+#pragma unroll
+        for (int c = 1; c < K - 1; ++c)
+          n[c] = step(w[c], v[c], v[c - 1], v[c + 1]);
+        n[K - 1] = step(w[K - 1], v[K - 1], v[K - 2], r);
+#pragma unroll
+        for (int c = 0; c < K; ++c) v[c] = mask(c, n[c]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + b);   // this warp is done with it
+    }
+    if (p + 1 < phases) {
+      // the strip's edges of row r0 + H to the neighbours, then the
+      // warp's middle into the next cost row
+      unsigned long long* slot =
+          edges + (long long)((p + 1) & 1) * G * 2 * H;
+      float* cr = crow + ((p + 1) & 1) * P;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const int j = j0 + c;
+        if (m0 + c < H || m0 + c >= H + V) continue;   // not its middle
+        if (j >= H && j < 2 * H) put_edge(slot + g * 2 * H + (j - H), v[c], p + 1);
+        if (j >= S && j < S + H)
+          put_edge(slot + (g * 2 + 1) * H + (j - S), v[c], p + 1);
+        cr[j] = v[c];
+      }
+      // the row warps' barrier: the cost row is whole
+      asm volatile("bar.sync 1, %0;" ::"r"(warps * 32) : "memory");
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const int j = j0 + c;
+    if (m0 + c >= H && m0 + c < H + V && j >= H && j < H + S && keep[c])
+      out[x0 + j] = v[c];
+  }
+}
+
+// The strip launch's row warps (eight window columns a lane, the warps'
+// middles covering the strip; one more warp loads) and dynamic shared
+// memory.
+int strip_warps(int s, int h) {
+  const int v = WARP_COLS - 2 * h;
+  return (s + v - 1) / v;
+}
+
+size_t strip_smem(int s, int h, int sr) {
+  const size_t p = (size_t)strip_warps(s, h) * (WARP_COLS - 2 * h) + 2 * h;
+  return (size_t)SLABS * sr * p * 4 + 2 * p * 4 + 2 * SLABS * 8;
+}
+
+template <typename W>
+int strips_prepare(size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      (const void*)pathfinder_strips_kernel<W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+}
+
+template <typename W>
+int strips_launch(const W* wall, float* out, unsigned long long* edges,
+                  long long r, int c, int s, int h, int sr, int ctas, int vec,
+                  cudaStream_t stream) {
+  if (s <= 0 || h <= 0 || sr <= 0 || s % 4 || h % 4 || h % sr || s < h ||
+      2 * h >= WARP_COLS || ctas <= 0 || strip_warps(s, h) > MAX_WARPS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int e = strips_prepare<W>(strip_smem(s, h, sr));
+  if (e) return e;
+  // the edges' tags start at 0; phases are numbered from 1
+  if ((e = static_cast<int>(cudaMemsetAsync(
+           edges, 0, sizeof(unsigned long long) * 4 * (size_t)ctas * h,
+           stream))))
+    return e;
+  // cooperative: the launch fails (cudaErrorCooperativeLaunchTooLarge)
+  // where the CTAs cannot all be resident, instead of deadlocking
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.gridDim = dim3((unsigned)ctas);
+  cfg.blockDim = dim3((unsigned)(32 * (strip_warps(s, h) + 1)));
+  cfg.dynamicSmemBytes = strip_smem(s, h, sr);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, pathfinder_strips_kernel<W>, wall, out, edges, r, c, s, h, sr,
+      vec);
+  // a refused launch is reported here, not again by the next launch's
+  // cudaGetLastError
+  if (err != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+template <typename W>
+int strips_fit(int s, int h, int sr, int* count) {
+  int e = strips_prepare<W>(strip_smem(s, h, sr)), per_sm = 0, dev = 0,
+      sms = 0;
+  if (e) return e;
+  if ((e = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, pathfinder_strips_kernel<W>, 32 * (strip_warps(s, h) + 1),
+           strip_smem(s, h, sr)))))
+    return e;
+  if ((e = static_cast<int>(cudaGetDevice(&dev)))) return e;
+  if ((e = static_cast<int>(cudaDeviceGetAttribute(
+           &sms, cudaDevAttrMultiProcessorCount, dev))))
+    return e;
+  *count = per_sm * sms;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The number of kernel launches pathfinder_launch makes for r rows.
-extern "C" long long pathfinder_launches(long long r) { return steps(r); }
+// The number of kernel launches pathfinder_pyramid_launch makes for r rows.
+extern "C" long long pathfinder_pyramid_launches(long long r) {
+  return steps(r);
+}
 
-// The last cost row of the [r, c] wall (int32 if `is_int`, else float32)
-// into `out` [c]; `scratch` is a second [c] float buffer.  Launches on
-// `stream`; returns cudaGetLastError() of the first failed launch (0 on
-// success).
-extern "C" int pathfinder_launch(const void* wall, int is_int, float* out,
-                                 float* scratch, long long r, int c,
-                                 void* stream) {
+// The pyramid route: the last cost row of the [r, c] wall (int32 if
+// `is_int`, else float32) into `out` [c]; `scratch` is a second [c] float
+// buffer.  Launches on `stream`; returns cudaGetLastError() of the first
+// failed launch (0 on success).
+extern "C" int pathfinder_pyramid_launch(const void* wall, int is_int,
+                                         float* out, float* scratch,
+                                         long long r, int c, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_int)
     return launch(static_cast<const int32_t*>(wall), out, scratch, r, c, s);
   return launch(static_cast<const float*>(wall), out, scratch, r, c, s);
+}
+
+// How many strip CTAs of `strip` columns, `h` rows a phase and slabs of
+// `sr` rows the card holds at once (the occupancy of one SM times the
+// SMs) into *count; 0 or a CUDA error code.
+extern "C" int pathfinder_strips_fit(int strip, int h, int sr, int is_int,
+                                     int* count) {
+  return is_int ? strips_fit<int32_t>(strip, h, sr, count)
+                : strips_fit<float>(strip, h, sr, count);
+}
+
+// The current device's SMs and the most dynamic shared memory a CTA may
+// opt in to, into *sms and *smem; 0 or a CUDA error code.
+extern "C" int pathfinder_card(int* sms, int* smem) {
+  int dev = 0, e = static_cast<int>(cudaGetDevice(&dev));
+  if (e) return e;
+  if ((e = static_cast<int>(cudaDeviceGetAttribute(
+           sms, cudaDevAttrMultiProcessorCount, dev))))
+    return e;
+  return static_cast<int>(cudaDeviceGetAttribute(
+      smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+}
+
+// The strip route: a memset of `edges` (4 * ctas * h 8-byte words, 16-byte
+// aligned) and one cooperative launch of `ctas` CTAs of `strip` columns,
+// `h` rows a phase, the wall in slabs of `sr` rows.  `vec`: the wall's
+// rows are read in 16-byte chunks (c % 4 == 0 and a 16-byte aligned
+// wall).  Returns 0 or the first CUDA error
+// (cudaErrorCooperativeLaunchTooLarge where the CTAs cannot all be
+// resident).
+extern "C" int pathfinder_strips_launch(const void* wall, int is_int,
+                                        float* out, void* edges, long long r,
+                                        int c, int strip, int h, int sr,
+                                        int ctas, int vec, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* e = static_cast<unsigned long long*>(edges);
+  if (is_int)
+    return strips_launch(static_cast<const int32_t*>(wall), out, e, r, c,
+                         strip, h, sr, ctas, vec, s);
+  return strips_launch(static_cast<const float*>(wall), out, e, r, c, strip,
+                       h, sr, ctas, vec, s);
 }

@@ -1,4 +1,4 @@
-"""Canneal swap_cost: CUDA kernel + wrapper.
+"""Canneal swap_cost: CUDA kernels + wrapper.
 
 Replaces ``repro/kernels/canneal.py:34`` (``swap_cost``, ``pallas_call`` at
 ``:41``): for each of B candidate swaps, the manhattan distance of its F
@@ -6,16 +6,28 @@ fan-in locations (``fan_idx < 0`` is padding) to two candidate locations,
 summed over the valid entries.  Indices ``>= N`` read row N-1, as the
 reference's gather clamps them.
 
-The CUDA kernel (``csrc/canneal.cu``) gives each swap one thread, which
-walks its index row and gathers the locations through L2: the Pallas kernel
-kept the whole table in VMEM, but PARSEC simlarge's 400,000-entry table
-(3.2 MB) does not fit a block's shared memory.  Bound on an H100: memory
-bandwidth, ~218 MB moved at simlarge (1,920,000 swaps x 22 fan slots), 65
-us at 3.35 TB/s.  The Pallas kernel's ``B % block`` requirement is gone.
-With integer-valued coordinates every sum is exact, so the kernel equals
-the plain version bit for bit.  Locations and candidates in bfloat16,
-float16 or int32 are widened to float32 first, as the reference's kernel
-widens them (``repro/kernels/canneal.py:19,25-26``); the costs are float32
+The Pallas kernel kept the whole table in VMEM, but PARSEC simlarge's
+400,000-entry table (3.2 MB) does not fit a block's shared memory, so both
+CUDA kernels (``csrc/canneal.cu``) gather the locations through L2, one
+swap a thread.  ``route`` picks one on the host:
+
+- ``tiles`` (rows of 1 to ``MAX_F`` slots; counted by
+  ``swap_cost.launches``): persistent CTAs take tiles of ``TILE`` swaps,
+  each tile's contiguous ``[TILE, F]`` index block staged coalesced in
+  shared memory by 16-byte cp.async (4-byte copies at an unaligned head or
+  tail), double-buffered;
+- ``rows`` (wider rows, or none; ``swap_cost.rows_launches``; ``rows``
+  runs it at any F): a thread reads its index row from device memory.
+
+Both keep every gather of eight slots in flight before any sum uses them.
+
+Bound on an H100: memory bandwidth, ~218 MB moved at simlarge (1,920,000
+swaps x 22 fan slots), 65 us at 3.35 TB/s.  The Pallas kernel's ``B %
+block`` requirement is gone.  Each row sums in slot order; with
+integer-valued coordinates every sum is exact, so both kernels equal the
+plain version bit for bit.  Locations and candidates in bfloat16, float16
+or int32 are widened to float32 first, as the reference's kernel widens
+them (``repro/kernels/canneal.py:19,25-26``); the costs are float32
 whatever the inputs.
 """
 from __future__ import annotations
@@ -28,6 +40,10 @@ from repro_torch import _build
 from repro_torch.kernels import _check, _promote, ref
 
 NAME = "swap_cost"
+# swaps a tile (one a thread) and the widest row the tile kernel stages
+# (csrc/canneal.cu TILE, MAX_F: two buffers of 256 rows of 96 slots fill
+# 192 KB of a CTA's shared memory)
+TILE, MAX_F = 256, 96
 # coordinate types the reference widens to float32 inside its kernel
 WIDENED = (torch.bfloat16, torch.float16, torch.int32)
 
@@ -50,27 +66,37 @@ def _check_args(locs, fan_idx, cand_a, cand_b):
                              f"({B}, 2)")
 
 
+def route(F: int) -> str:
+    """``"tiles"`` for rows of 1 to MAX_F slots, else ``"rows"``."""
+    return "tiles" if 1 <= F <= MAX_F else "rows"
+
+
+def tile_words(F: int) -> int:
+    """int32 words of one of a tile CTA's two shared buffers: a tile's
+    index block and up to 3 words ahead of it (its offset mod 16)."""
+    return -(-(TILE * F + 3) // 4) * 4
+
+
 def _lib():
     lib = _build.load("canneal")
     if not getattr(lib, "_repro_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.swap_cost_launch.argtypes = [p, p, p, p, p, p, ll, i, i, p]
-        lib.swap_cost_launch.restype = ctypes.c_int
+        for fn in (lib.swap_cost_tiles_launch, lib.swap_cost_rows_launch):
+            fn.argtypes = [p, p, p, p, p, p, ll, i, i, p]
+            fn.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
 
 
-def swap_cost(locs, fan_idx, cand_a, cand_b):
-    """``(cost_a, cost_b)``, float32 ``[B]`` each, for float32 ``locs``
-    ``[N,2]``, int32 ``fan_idx`` ``[B,F]`` and float32 ``cand_a``/``cand_b``
-    ``[B,2]`` (bfloat16, float16 or int32 coordinates widened to float32
-    first).  CUDA tensors launch the kernel; CPU tensors take the plain
-    version."""
+def _checked(locs, fan_idx, cand_a, cand_b):
     locs, cand_a, cand_b = (_promote.widen(t, WIDENED)
                             for t in (locs, cand_a, cand_b))
     _check_args(locs, fan_idx, cand_a, cand_b)
-    if _check.device_kind(NAME, locs) == "cpu":
-        return ref.canneal_swap_cost(locs, fan_idx, cand_a, cand_b)
+    return locs, fan_idx, cand_a, cand_b
+
+
+def _launch(kernel, locs, fan_idx, cand_a, cand_b):
+    """The ``kernel`` ("tiles" or "rows") on checked CUDA tensors."""
     for name, t in (("locs", locs), ("cand_a", cand_a), ("cand_b", cand_b)):
         _check.aligned(NAME, name, t, 8)       # read as float2
     B, F = fan_idx.shape
@@ -79,14 +105,41 @@ def swap_cost(locs, fan_idx, cand_a, cand_b):
     if B == 0:
         return out_a, out_b
     lib = _lib()
+    launch = getattr(lib, f"swap_cost_{kernel}_launch")
     with torch.cuda.device(locs.device):
-        code = lib.swap_cost_launch(
+        code = launch(
             locs.data_ptr(), fan_idx.data_ptr(), cand_a.data_ptr(),
             cand_b.data_ptr(), out_a.data_ptr(), out_b.data_ptr(), B, F,
             locs.shape[0], torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, NAME)
-    swap_cost.launches += 1
+    if kernel == "tiles":
+        swap_cost.launches += 1
+    else:
+        swap_cost.rows_launches += 1
     return out_a, out_b
 
 
+def rows(locs, fan_idx, cand_a, cand_b):
+    """The row kernel on CUDA tensors, whatever F (checked and widened as
+    ``swap_cost``); counted by ``swap_cost.rows_launches``."""
+    args = _checked(locs, fan_idx, cand_a, cand_b)
+    if args[0].device.type != "cuda":
+        raise ValueError(f"{NAME}: the row kernel takes CUDA tensors, got "
+                         f"{args[0].device}")
+    return _launch("rows", *args)
+
+
+def swap_cost(locs, fan_idx, cand_a, cand_b):
+    """``(cost_a, cost_b)``, float32 ``[B]`` each, for float32 ``locs``
+    ``[N,2]``, int32 ``fan_idx`` ``[B,F]`` and float32 ``cand_a``/``cand_b``
+    ``[B,2]`` (bfloat16, float16 or int32 coordinates widened to float32
+    first).  CUDA tensors launch the kernel of ``route(F)``; CPU tensors
+    take the plain version."""
+    args = _checked(locs, fan_idx, cand_a, cand_b)
+    if _check.device_kind(NAME, args[0]) == "cpu":
+        return ref.canneal_swap_cost(*args)
+    return _launch(route(fan_idx.shape[1]), *args)
+
+
 swap_cost.launches = 0
+swap_cost.rows_launches = 0

@@ -133,14 +133,26 @@ def jacobi2d(a, iters=1):
     return a
 
 
+# The value past both ends of a pathfinder cost row: the Pallas kernel's
+# ``_INF`` (``repro/kernels/pathfinder.py:17``), 3.0e38 as a float32.
+PATH_END = 3.0e38
+
+
 def pathfinder(wall):
     """Rodinia pathfinder: min-cost path, row by row (dynamic programming).
-    One row at a time on the wall's device; no ``[R, C]`` intermediate."""
+    One row at a time on the wall's device; no ``[R, C]`` intermediate.
+
+    Follows the Pallas kernel, which ``repro.kernels.ops.pathfinder``
+    reaches: the columns past both ends hold ``PATH_END`` (float32 3.0e38)
+    in every row.  ``repro.kernels.ref.pathfinder`` pads with ``inf``
+    instead, so the two part where a cost and both its neighbours reach
+    3e38 (a column of ``inf`` beside an end: Pallas ``3e38``, ``ref``
+    ``inf``).  The min propagates NaN, as ``torch.minimum`` does."""
     cost = wall[0].float()
-    inf = torch.full((1,), float("inf"), device=wall.device)
+    end = torch.full((1,), PATH_END, device=wall.device)
     for i in range(1, wall.shape[0]):
-        left = torch.cat([inf, cost[:-1]])
-        right = torch.cat([cost[1:], inf])
+        left = torch.cat([end, cost[:-1]])
+        right = torch.cat([cost[1:], end])
         cost = wall[i].float() + torch.minimum(cost,
                                                torch.minimum(left, right))
     return cost

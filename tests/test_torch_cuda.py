@@ -289,6 +289,87 @@ def test_find_index_without_queries(cuda):
     assert pf_mod.find_index.last_flags is None
 
 
+def canneal_args(N, b, F, seed, device, lo=-1, hi=None):
+    rng = np.random.RandomState(seed)
+    locs = rng.randint(0, 1000, (N, 2)).astype(np.float32)
+    fan = rng.randint(lo, N + 100 if hi is None else hi,
+                      (b, F)).astype(np.int32)
+    cand = [rng.randint(0, 1000, (b, 2)).astype(np.float32) for _ in "ab"]
+    return [torch.from_numpy(a).to(device) for a in (locs, fan, *cand)]
+
+
+@pytest.mark.parametrize("b", [1, 255, 256, 257, 5_000])
+@pytest.mark.parametrize("F", [1, 22, 33, 64, 96])
+def test_swap_cost_tiles_ragged(cuda, b, F):
+    """The tile kernel: B below, at and off a multiple of the 256-swap
+    tile; F of one slot, PARSEC's 22, past one and several 8-slot chunks;
+    padding (-1 and below) anywhere in a row, indices past N."""
+    args = canneal_args(4_000, b, F, b + F, cuda, lo=-9)
+    assert ca_mod.route(F) == "tiles"
+    before = ca_mod.swap_cost.launches
+    got = ca_mod.swap_cost(*args)
+    assert ca_mod.swap_cost.launches == before + 1
+    for g, w in zip(got, ref.canneal_swap_cost(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 37 * 22])
+def test_swap_cost_tiles_misaligned_fan(cuda, offset):
+    """A fan_idx view ``offset`` words into its buffer (a row slice that
+    starts mid-tile at 37 * 22): the unaligned head and tail of every
+    tile's block come in word by word."""
+    N, b, F = 4_000, 3_001, 22
+    locs, fan, ca, cb = canneal_args(N, b, F, offset, cuda)
+    buf = torch.empty(b * F + offset, dtype=torch.int32, device=cuda)
+    view = buf[offset:].view(b, F)
+    view.copy_(fan)
+    before = ca_mod.swap_cost.launches
+    got = ca_mod.swap_cost(locs, view, ca, cb)
+    assert ca_mod.swap_cost.launches == before + 1
+    for g, w in zip(got, ref.canneal_swap_cost(locs, fan, ca, cb)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("F", [1, 8, 9, 22, 96])
+def test_swap_cost_rows_entry_any_width(cuda, F):
+    """The row kernel through its own entry at widths the tile kernel
+    takes on the main path (one chunk of eight gathers, a ragged chunk),
+    bit for bit, counted as a row launch."""
+    args = canneal_args(4_000, 1_000, F, 7 * F, cuda, lo=-9)
+    before = ca_mod.swap_cost.launches, ca_mod.swap_cost.rows_launches
+    got = ca_mod.rows(*args)
+    assert (ca_mod.swap_cost.launches,
+            ca_mod.swap_cost.rows_launches) == (before[0], before[1] + 1)
+    for g, w in zip(got, ref.canneal_swap_cost(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("F", [0, 97, 200])
+def test_swap_cost_rows_route(cuda, F):
+    """Rows wider than the tile kernel stages (or none) take the row
+    kernel, bit for bit."""
+    args = canneal_args(4_000, 1_000, F, F, cuda)
+    assert ca_mod.route(F) == "rows"
+    before = ca_mod.swap_cost.rows_launches
+    got = ca_mod.swap_cost(*args)
+    assert ca_mod.swap_cost.rows_launches == before + 1
+    for g, w in zip(got, ref.canneal_swap_cost(*args)):
+        assert torch.equal(g, w)
+
+
+def test_swap_cost_middle_padding_and_clamp(cuda):
+    """Padding in the middle of rows and indices past N in them, by
+    construction: every third slot -1 or -5, every fifth N + 7."""
+    N, b, F = 1_000, 2_000, 22
+    locs, fan, ca, cb = canneal_args(N, b, F, 77, cuda, lo=0, hi=N)
+    fan[:, 1::3] = -1
+    fan[::2, 2::3] = -5
+    fan[:, 4::5] = N + 7
+    got = ca_mod.swap_cost(locs, fan, ca, cb)
+    for g, w in zip(got, ref.canneal_swap_cost(locs, fan, ca, cb)):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("b", [1, 1000, 65_537])
 def test_swap_cost_kernel_matches_plain_bitwise(cuda, b):
     """Integer coordinates make every sum exact; -1 padding and indices
@@ -338,20 +419,190 @@ def test_jacobi2d_kernel_bfloat16_matches_plain_bitwise(cuda, shape):
         assert torch.equal(got, want)
 
 
+def path_wall(R, C, dtype, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, 10, (R, C)).astype(np.int32) if dtype == "int32"
+            else rng.uniform(0, 10, (R, C)).astype(np.float32))
+
+
+def path_launches():
+    return path_mod.pathfinder.launches + path_mod.pathfinder.pyramid_launches
+
+
+def assert_same_bits(got, want):
+    """Equal values, NaN where NaN (the kernels keep the plain version's
+    NaN from torch.minimum)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
 @pytest.mark.parametrize("R,C", [(1, 7), (2, 1), (21, 3), (45, 255),
                                  (41, 1000), (62, 100_003)])
 @pytest.mark.parametrize("dtype", ["int32", "float32"])
 def test_pathfinder_kernel_matches_plain_bitwise(cuda, R, C, dtype):
-    """R across the 20-row pyramid (one row, one launch, a ragged last
-    launch), C off the 216-column stride down to 1; int and float walls."""
-    rng = np.random.RandomState(R + C)
-    w = (rng.randint(0, 10, (R, C)).astype(np.int32) if dtype == "int32"
-         else rng.uniform(0, 10, (R, C)).astype(np.float32))
-    w = torch.from_numpy(w).to(cuda)
-    before = path_mod.pathfinder.launches
+    """Through the plan: R from one row to 41 (the pyramid route) and
+    past them (the strip route), C off the strip width down to 1; int and
+    float walls; the device operations the route states."""
+    w = torch.from_numpy(path_wall(R, C, dtype, R + C)).to(cuda)
+    before = path_launches()
     got = path_mod.pathfinder(w)
-    assert path_mod.pathfinder.launches == before + max(1, -(-(R - 1) // 20))
+    assert path_launches() == before + path_mod.route(R, C).launches
     assert torch.equal(got, ref.pathfinder(w))
+
+
+@pytest.mark.parametrize("R,C", [(1, 7), (2, 1), (21, 3), (45, 255),
+                                 (41, 1000), (62, 100_003)])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_pathfinder_pyramid_matches_plain_bitwise(cuda, R, C, dtype):
+    """The pyramid route on its own: R across the 20-row pyramid (one row,
+    one launch, a ragged last launch), C off the 216-column stride."""
+    w = torch.from_numpy(path_wall(R, C, dtype, R + C)).to(cuda)
+    before = path_mod.pathfinder.pyramid_launches
+    got = path_mod.pyramid(w)
+    assert path_mod.pathfinder.pyramid_launches == before + max(
+        1, -(-(R - 1) // 20))
+    assert torch.equal(got, ref.pathfinder(w))
+
+
+@pytest.mark.parametrize("R", [1, 2, 20, 32, 33, 34, 65, 100])
+@pytest.mark.parametrize("C", [1, 3, 31, 760, 5_001, 100_000, 100_003])
+def test_pathfinder_strips_rows_and_columns(cuda, R, C):
+    """The strip route: one row (wall[0] as float32), R - 1 short of, at
+    and off a multiple of the 32-row phase; C within one strip, down to 1,
+    off a multiple of the strip and of 4 (4-byte copies)."""
+    w = torch.from_numpy(path_wall(R, C, "int32", 3 * R + C)).to(cuda)
+    rt = path_mod.strips(C)
+    before = path_mod.pathfinder.launches
+    got = path_mod.strip_run(w, rt)
+    assert path_mod.pathfinder.launches == before + 2
+    assert torch.equal(got, ref.pathfinder(w))
+    if R == 1:
+        assert torch.equal(got, w[0].float())
+
+
+@pytest.mark.parametrize("C,h,ctas", [
+    (3_000, 4, 1), (3_000, 8, 1), (3_000, 16, 7), (3_000, 32, 7),
+    (3_000, 16, 132), (3_000, 64, 132), (20_000, 64, 132),
+    (100_000, 32, 132), (100_000, 16, 264), (100_000, 8, 264)])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_pathfinder_strips_any_phase_and_ctas(cuda, C, h, ctas, dtype):
+    """The strip route under other rows a phase and CTA counts (one CTA;
+    strips of h columns, whose two edges overlap; two CTAs an SM), 149
+    row steps (a ragged last phase at each h), bit for bit."""
+    R = 150
+    rt = path_mod.strips(C, h, ctas)
+    assert rt is not None
+    assert path_mod.strips_fit(rt) >= rt.ctas
+    w = torch.from_numpy(path_wall(R, C, dtype, h + ctas)).to(cuda)
+    assert torch.equal(path_mod.strip_run(w, rt), ref.pathfinder(w))
+
+
+def test_pathfinder_strips_misaligned_wall(cuda):
+    """A wall view one element into its buffer: 4-byte copies."""
+    R, C = 77, 4_000
+    buf = torch.from_numpy(path_wall(1, R * C + 1, "int32", 9)[0]).to(cuda)
+    w = buf[1:].view(R, C)
+    assert w.data_ptr() % 16
+    assert torch.equal(path_mod.pathfinder(w), ref.pathfinder(w))
+
+
+def test_pathfinder_card_sizes_the_plan(cuda):
+    """The plan takes the card's SMs and shared memory a CTA (``card``):
+    Rodinia's strips, one CTA an SM, are all resident at once (an SM's
+    occupancy times the SMs); a plan for a card of 114 SMs (an H100
+    PCIe's count) runs here too, bit for bit."""
+    sms, smem = path_mod.card(cuda)
+    assert sms == torch.cuda.get_device_properties(cuda).multi_processor_count
+    rt = path_mod.route(1_604, 100_000, sms, smem)
+    assert rt.ctas == sms and path_mod.strips_fit(rt) >= rt.ctas
+    w = torch.from_numpy(path_wall(150, 100_003, "int32", 114)).to(cuda)
+    want = ref.pathfinder(w)
+    for n in (sms, 114):
+        rt = path_mod.route(*w.shape, n, smem)
+        assert rt.name == "strips" and rt.ctas == n
+        assert torch.equal(path_mod.strip_run(w, rt), want)
+
+
+def test_pathfinder_strips_not_resident_raises(cuda):
+    """More CTAs than the card holds at once: the launch fails loudly (no
+    hang, no other route)."""
+    rt = path_mod.strips(200_000, 64, 264)
+    assert rt is not None
+    assert path_mod.strips_fit(rt) < rt.ctas
+    w = torch.zeros(40, 200_000, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="cooperative|too large|CUDA"):
+        path_mod.strip_run(w, rt)
+
+
+@pytest.mark.parametrize("C", [380_160, 380_161, 443_521, 475_200, 475_201,
+                               1_000_003])
+def test_pathfinder_wide_walls(cuda, C):
+    """Walls at the edges of each phase height's strips (h 32 to 380,160
+    columns, 16 to 443,520, 8 to 475,200) and past the widest strips (the
+    pyramid route), bit for bit."""
+    R = 45
+    w = torch.randint(0, 10, (R, C), dtype=torch.int32, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(C))
+    rt = path_mod.route(R, C)
+    assert (rt.name == "pyramid") == (C > 475_200)
+    before = path_launches()
+    assert torch.equal(path_mod.pathfinder(w), ref.pathfinder(w))
+    assert path_launches() == before + rt.launches
+
+
+def test_pathfinder_widest_columns(cuda):
+    """C past 2^30 (the wall's byte offsets past 32 bits), on the pyramid
+    route; three rows."""
+    R, C = 3, 2 ** 30 + 5
+    w = torch.randint(0, 10, (R, C), dtype=torch.int32, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(3))
+    assert path_mod.route(R, C).name == "pyramid"
+    got = path_mod.pathfinder(w)
+    want = ref.pathfinder(w)
+    assert torch.equal(got, want)
+
+
+# the walls of the end-value fault (the Pallas kernel's 3.0e38 past both
+# ends), and walls of NaN, +-inf and values near 3e38
+PATH_END_WALLS = {
+    "inf_column": [[float("inf")], [1.0], [1.0]],
+    "inf_row": [[float("inf"), float("inf")], [1.0, 1.0]],
+    "nan": [[1.0, float("nan"), 3.0, 4.0], [1.0, 2.0, 3.0, 4.0],
+            [5.0, 5.0, 5.0, 5.0]],
+    "near_end": [[3e38, 2.9e38, 1.0], [1e38, 3.3e38, float("-inf")],
+                 [1.0, 2.0, float("inf")]],
+}
+
+
+@pytest.mark.parametrize("name", sorted(PATH_END_WALLS))
+@pytest.mark.parametrize("route", ["strips", "pyramid"])
+def test_pathfinder_ends_match_plain(cuda, name, route):
+    """Both routes hold the columns past the ends at float32 3.0e38, as the
+    plain version (and the Pallas kernel) do: bit for bit, NaN where
+    NaN."""
+    w = torch.tensor(PATH_END_WALLS[name], dtype=torch.float32, device=cuda)
+    got = (path_mod.strip_run(w, path_mod.strips(w.shape[1]))
+           if route == "strips" else path_mod.pyramid(w))
+    want = ref.pathfinder(w)
+    assert_same_bits(got, want)
+    if name in ("inf_column", "inf_row"):
+        assert torch.equal(got, torch.full_like(got, 3e38))
+
+
+@pytest.mark.parametrize("route", ["strips", "pyramid"])
+def test_pathfinder_special_values_wide(cuda, route):
+    """A 5,000-column float wall with NaN, +-inf and near-3e38 cells
+    scattered, and a row of +inf: bit for bit, NaN where NaN."""
+    rng = np.random.RandomState(23)
+    R, C = 90, 5_000
+    w = rng.uniform(0, 10, (R, C)).astype(np.float32)
+    for v in (np.nan, np.inf, -np.inf, 3e38, 2.99e38, 3.01e38):
+        w[rng.randint(0, R, 20), rng.randint(0, C, 20)] = v
+    w[40] = np.inf
+    w = torch.from_numpy(w).to(cuda)
+    assert path_mod.route(R, C).name == "strips"
+    fn = path_mod.pathfinder if route == "strips" else path_mod.pyramid
+    assert_same_bits(fn(w), ref.pathfinder(w))
 
 
 def fa_inputs(B, S, H, D, dtype, device, offset=0, seed=0):
