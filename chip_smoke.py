@@ -59,7 +59,9 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    through ``ops.jacobi2d`` (one cluster launch each), PolyBench's 1,000
    sweeps of 2,800 x 2,800 in float32 and bfloat16 (the tiled route, 125
    launches each, timed on the host clock), one sweep of it (the loop
-   route) and one float16 sweep; each
+   route) and one through ``ops.jacobi2d_step`` (the one-sweep kernel's
+   vector route), and one float16 sweep of the app's grid (its width-one
+   route); each
    output checked on its own terms (shape, range, a float64 or numpy
    reference that shares no code with the port, and each Jacobi-2D route
    bit for bit against as many sweeps of the plain version);
@@ -68,7 +70,10 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    beside their plain versions, the nearest single PyTorch call and their
    bounds (pathfinder on its strip route beside the pyramid route on the
    same wall, canneal's tile kernel beside its row kernel), and the input types and widths the reference computes beyond
-   them: flash attention in float16 at the app's width and in bfloat16 and
+   them: Jacobi-2D's one sweep in float32, bfloat16 and float16 on its
+   vector route and on its width-one route (a 2,799 x 2,801 grid, a
+   float16 view one point into its buffer), both routes bit for bit in the
+   three types; flash attention in float16 at the app's width and in bfloat16 and
    float16 at gemma-7b's (D 256), bfloat16 at D 512 (``wgmma512``),
    float32 at gemma's width (S 1,024, ``3xtf32_256``), bfloat16 and
    float16 at D 640 (``wgmma_sliced``), float32 at D 512
@@ -93,8 +98,18 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    and PolyBench's 1,000 sweeps in float32 and bfloat16 on the tiled route
    beside the old loop of 1,000 launches, each in device and wall time
    with its launches, beside the bound;
-7. the ``kernels`` JSON line (twenty-five entries: Jacobi-2D's cluster,
-   loop and tiled routes, pathfinder's pyramid route (its strip route is
+7. the scalar-scorecard gate (``scalar_pipeline.main(["--check",
+   "--device", "cuda"])``, every line it prints, ending on
+   ``scalar-scorecard: PASS``) and the sweep driver's rows
+   (``repro_torch.study``: the steady-state table of the 20 golden names
+   and the 480-cell batched sweep against the sequential one, which must
+   show ``max_rel_diff=0.00e+00``);
+8. the code generator on the host: the ten apps emitted and held to
+   ``src/repro_torch/asm`` after the 4-line header, and the emit-decode
+   round trip at the six MVLs of ``rvv.CHECK_MVLS`` (60 of 60);
+9. the ``kernels`` JSON line (twenty-six entries: Jacobi-2D's cluster,
+   loop and tiled routes and the one-sweep kernel's width-one route,
+   pathfinder's pyramid route (its strip route is
    the ``pathfinder`` entry), canneal's row kernel (its tile kernel is the
    ``canneal`` entry; an entry timed on other inputs than its main-path
    call says so in ``timed_on``), streamcluster's 16-bit (its own entry) and
@@ -106,7 +121,7 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    and decoding's combine kernel, each their own;
    the particle filter's rows name their path), launch counts from phases
    4 and 5;
-8. the last line: ``{"ok": true, "device": {...}}``.
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no CUDA device or when
 the port's sources are not beside this script.
@@ -184,6 +199,10 @@ J2_N, J2_SWEEPS, J2_BIG, J2_OPS = 164, 4_000, 2_800, 5
 # times the cluster route on the widest float32 and bfloat16 grids it takes
 # (J2_WIDEST sweeps each).
 J2_BIG_SWEEPS, J2_WIDEST = 1_000, 1_000
+# The one-sweep kernel's width-one route (one point a chunk) runs where C is
+# no multiple of 16 bytes' points or a pointer is off 16 bytes: phase 6
+# times it on a 2,799 x 2,801 grid and on a view one point into its buffer.
+J2_ODD = (J2_BIG - 1, J2_BIG + 1)
 # pathfinder: Rodinia's 100,000 columns (tracegen.py:317) x the rows that
 # _PATH_CHUNK8 implies (20,054,016 x 8 / 100,000 = 1,604), wall
 # rand() % 10; 3 operations per cell after the first row (2 min, 1 add).
@@ -467,7 +486,18 @@ def suite_inputs(torch, dev) -> dict:
     panels = {key: ssd_inputs(torch, dev, *dims,
                               check=((0, 0), (dims[0] - 1, dims[2] - 1)))
               for key, dims in SSD_PANELS.items()}
+    # Jacobi-2D's width-one route: a grid whose C is no multiple of 16
+    # bytes' points, and a float16 copy of PolyBench's one point into its
+    # buffer (drawn last)
+    j2_odd = t(gen.uniform(size=J2_ODD).astype(np.float32))
+    j2_buf = torch.empty(J2_BIG * J2_BIG + 1, dtype=torch.float16,
+                         device=dev)
+    j2_view = j2_buf[1:].view(J2_BIG, J2_BIG)
+    j2_view.copy_(t(j2_big))
     return {"sw": t(u), "sc": sc,
+            "j2_big_f16": t(j2_big).to(torch.float16),
+            "j2_odd": j2_odd, "j2_odd_bf16": j2_odd.to(torch.bfloat16),
+            "j2_odd_f16": j2_odd.to(torch.float16), "j2_view_f16": j2_view,
             "j2_bf16": t(j2).to(torch.bfloat16),
             "j2_f16": t(j2).to(torch.float16),
             **{key: args for key, (args, _) in panels.items()},
@@ -656,6 +686,7 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
                              ("jacobi2d_big_bf16", "j2_big_bf16",
                               J2_BIG_SWEEPS),
                              ("jacobi2d_big_step", "j2_big", 1),
+                             ("jacobi2d_big_sweep", "j2_big", 1),
                              ("jacobi2d_f16_step", "j2_f16", 1)):
         plain = data[src]
         for _ in range(sweeps):
@@ -738,8 +769,9 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
     da_err = da["decode_attention"]
     print(f"phase 5 outputs: jacobi2d (cluster route, float32 and bfloat16; "
           f"tiled route at {J2_BIG} x {J2_BIG} x {J2_BIG_SWEEPS}, float32 and "
-          "bfloat16; loop route, one sweep of it; a float16 sweep) equal to "
-          "the plain version's sweeps; vs numpy's "
+          "bfloat16; loop route, one sweep of it; the one-sweep kernel's "
+          "vector route on it; its width-one route on a float16 sweep) equal "
+          "to the plain version's sweeps; vs numpy's "
           f"{J2_SWEEPS} sweeps "
           f"{j2_err:.3g} (1e-6), equal to the plain version's sweeps; "
           f"pathfinder equal to numpy's row program (3.0e38 past the ends; "
@@ -903,21 +935,38 @@ def suite_specs(torch, ref, data, mods):
         f"main path's call: its first {CA_WIDE_B:,} rows padded to "
         f"{CA_WIDE_F} slots, ms_wide)",
         also_timed={"ms_wide": lambda: ca_mod.rows(*wide)})
+    # Jacobi-2D's one sweep on its vector route (PolyBench's grid in three
+    # types) and on its width-one route (the odd grid, and the float16 view
+    # one point into its buffer)
+    from repro_torch.kernels import jacobi2d as j2_mod
     for name, key in (("jacobi2d", "j2_big"),
-                      ("jacobi2d_bf16", "j2_big_bf16")):
-        big = data[key]
+                      ("jacobi2d_bf16", "j2_big_bf16"),
+                      ("jacobi2d_f16", "j2_big_f16"),
+                      ("jacobi2d_width1", "j2_odd"),
+                      ("jacobi2d_width1_bf16", "j2_odd_bf16"),
+                      ("jacobi2d_width1_view", "j2_view_f16")):
+        g = data[key]
+        width = j2_mod.step_width(g.shape[1], g.dtype, g.data_ptr())
         specs.append(dict(
-            name=name, kernel=lambda big=big: j2_k(big),
-            plain=lambda big=big: ref.jacobi2d(big), library=None, tol=None,
-            peak=PEAK_F32_S, nbytes=J2_BIG * J2_BIG * 2 * big.element_size(),
-            ops=J2_OPS * (J2_BIG - 2) ** 2, per=25))
+            name=name, kernel=lambda g=g: j2_k(g),
+            plain=lambda g=g: ref.jacobi2d(g), library=None, tol=None,
+            peak=PEAK_F32_S, nbytes=g.numel() * 2 * g.element_size(),
+            ops=J2_OPS * (g.shape[0] - 2) * (g.shape[1] - 2), per=25,
+            route=f"{'vector' if width > 1 else 'width-one'} route, "
+            f"{width} point(s) a chunk, {g.dtype}"))
+        if name == "jacobi2d_width1":
+            # its main-path call is RiVec's float16 164 x 164 sweep
+            specs[-1].update(
+                timed_on=f"a {J2_ODD[0]:,} x {J2_ODD[1]:,} float32 grid (the "
+                f"main path's call: RiVec's float16 {J2_N} x {J2_N} sweep, "
+                "ms_main)",
+                also_timed={"ms_main": lambda: j2_k(data["j2_f16"])})
     # Jacobi-2D's many-sweep routes: the app's 4,000 sweeps of 164 x 164 on
     # the cluster route (one launch), PolyBench's 1,000 of 2,800 x 2,800 on
     # the tiled route (8 sweeps a launch) in float32 and bfloat16 and on the
     # loop route (one launch a sweep, the route the tiled one replaced); the
     # grid read once and written once, 5 operations an interior point a
     # sweep
-    from repro_torch.kernels import jacobi2d as j2_mod
     for name, key, sweeps, fn in (
             ("jacobi2d_cluster", "j2", J2_SWEEPS, j2_mod.jacobi2d),
             ("jacobi2d_tiled", "j2_big", J2_BIG_SWEEPS, j2_mod.jacobi2d),
@@ -1337,9 +1386,11 @@ def jacobi_routes(torch, j2_mod, ops, small, j2_app_s, sm_clock_hz) -> None:
 
     launch_ms = device_ms(torch, lambda: j2_mod.jacobi2d_step(small),
                           reps=10, per=25, sm_clock_hz=sm_clock_hz)
-    before = j2_mod.jacobi2d_step.launches
+    step_launches = lambda: (j2_mod.jacobi2d_step.launches
+                             + j2_mod.jacobi2d_step.width1_launches)
+    before = step_launches()
     old_wall = wall_clock_ms(torch, old_loop, reps=3)
-    old_launches = (j2_mod.jacobi2d_step.launches - before) // 3
+    old_launches = (step_launches() - before) // 3
     route = lambda: ops.jacobi2d(small, iters=J2_SWEEPS)
     before = j2_mod.jacobi2d.launches
     new_wall = wall_clock_ms(torch, route, reps=5)
@@ -1401,6 +1452,31 @@ def jacobi_routes(torch, j2_mod, ops, small, j2_app_s, sm_clock_hz) -> None:
               f"({J2_WIDEST} sweeps, bit for bit alike)")
 
 
+def jacobi_step_routes(torch, j2_mod, ref, data) -> None:
+    """The one-sweep kernel's two routes bit for bit with the plain version
+    in float32, bfloat16 and float16: the vector route on PolyBench's grid,
+    the width-one route on the odd grid and on a view one point into a
+    buffer holding PolyBench's grid."""
+    checked = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        big = data["j2_big"].to(dtype)
+        buf = torch.empty(big.numel() + 1, dtype=dtype, device=big.device)
+        view = buf[1:].view(big.shape)
+        view.copy_(big)
+        for label, g, want in (("vector", big, 16 // big.element_size()),
+                               ("odd", data["j2_odd"].to(dtype), 1),
+                               ("view", view, 1)):
+            width = j2_mod.step_width(g.shape[1], dtype, g.data_ptr())
+            if width != want:
+                fail(f"jacobi2d {label} {dtype}: width {width}, not {want}")
+            if not torch.equal(j2_mod.jacobi2d_step(g), ref.jacobi2d(g)):
+                fail(f"jacobi2d {label} {dtype}: the sweep differs from the "
+                     "plain version's")
+            checked.append(f"{label} {str(dtype)[6:]} (width {width})")
+    print("phase 6 jacobi2d one sweep, both routes equal to the plain "
+          "version bit for bit: " + ", ".join(checked))
+
+
 def jacobi_polybench(torch, j2_mod, data, rows) -> None:
     """PolyBench's 1,000 sweeps of 2,800 x 2,800 in float32 and bfloat16:
     the tiled route (the plan) beside the old loop of one launch a sweep,
@@ -1430,6 +1506,63 @@ def jacobi_polybench(torch, j2_mod, data, rows) -> None:
               f"launches; bound {bound:.4f} ms "
               f"({rows[tiled_row]['bound_by']}), {bound / dev[0] * 100:.1f} % "
               "of it")
+
+
+def scalar_gate_and_study(sp) -> None:
+    """The scalar-scorecard gate (``python -m repro_torch.core.scalar_pipeline
+    --check``, the anchors' speedups on the card) and the sweep driver's
+    rows (``python -m repro_torch.study``: the 480-cell batched sweep
+    against the sequential per-cell path, and the steady-state table)."""
+    import contextlib
+    import io
+
+    from repro_torch import study
+    for label, run in (("scalar gate", lambda: sp.main(["--check",
+                                                         "--device", "cuda"])),
+                       ("study", lambda: study.main([]))):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = run()
+        lines = buf.getvalue().splitlines()
+        for ln in lines:
+            print(f"phase 7 {label}: {ln.strip()}")
+        print(f"phase 7 {label}: exit {rc}, "
+              f"{time.perf_counter() - t0:.2f} s wall")
+        if rc:
+            fail(f"{label}: exit {rc}")
+    if lines[0] != "name,us_per_call,derived" or not any(
+            ln.startswith("sweep_full_480cfg_batched") for ln in lines):
+        fail("study: not the 480-cell sweep rows")
+    if not any("max_rel_diff=0.00e+00" in ln for ln in lines):
+        fail("study: batched and sequential sweeps differ")
+
+
+def codegen_round_trip(tracegen) -> None:
+    """The code generator on the host: every app emitted and held to the
+    committed corpus (``src/repro_torch/asm``) after the 4-line header, then
+    ``python -m repro_torch.core.codegen --check-all``'s round trip (decode
+    at every MVL of ``rvv.CHECK_MVLS``, fingerprint-equal to the torch.fx
+    lowering)."""
+    from repro_torch.core import codegen, crossval
+    t0 = time.perf_counter()
+    apps = sorted(a for a in tracegen.APPS if tracegen.APPS[a].kernel)
+    texts = {a: codegen.emit_app(a) for a in apps}
+    emit_s = time.perf_counter() - t0
+    differ = [a for a, text in texts.items()
+              if text.splitlines()[4:] != (
+                  ROOT / "src" / "repro_torch" / "asm"
+                  / tracegen.APPS[a].asm).read_text().splitlines()[4:]]
+    t0 = time.perf_counter()
+    reports = [r for a in apps
+               for r in crossval.round_trip_app(a, text=texts[a])]
+    bad = [f"{r.app}@{r.mvl}: {r.problems}" for r in reports if not r.ok]
+    print(f"phase 8 codegen: {len(apps) - len(differ)}/{len(apps)} emitted "
+          f"files equal to the committed corpus after the header "
+          f"({emit_s:.1f} s); round trips {len(reports) - len(bad)}/"
+          f"{len(reports)} ok ({time.perf_counter() - t0:.1f} s)")
+    if differ or bad or len(apps) != 10 or len(reports) != 60:
+        fail(f"codegen: corpus differs for {differ}; round trips {bad}")
 
 
 def main() -> int:
@@ -1762,6 +1895,7 @@ def main() -> int:
     ssd_mod.ssd_scan.panel_launches = 0
     j2_mod.jacobi2d.launches = j2_mod.jacobi2d.loop_launches = 0
     j2_mod.jacobi2d.tiled_launches = 0
+    j2_mod.jacobi2d_step.width1_launches = 0
     sc_mod.streamcluster_dist.tf32_launches = 0
     path_mod.pathfinder.pyramid_launches = 0
     ca_mod.swap_cost.rows_launches = 0
@@ -1810,7 +1944,9 @@ def main() -> int:
     j2_app_s = time.perf_counter() - t0
     # and in bfloat16; PolyBench's 1,000 sweeps on the tiled route, timed
     # on the host clock (wall), in float32 and bfloat16; one sweep of its
-    # grid (the loop route); one float16 sweep
+    # grid (the loop route), and one through the one-sweep kernel's own
+    # entry (its vector route); one float16 sweep of the app's grid (its
+    # width-one route: 164 is no multiple of 8)
     outs["jacobi2d_bf16"] = ops.jacobi2d(data["j2_bf16"], iters=J2_SWEEPS)
     j2_big_s = {}
     for key in ("j2_big", "j2_big_bf16"):
@@ -1820,6 +1956,7 @@ def main() -> int:
         torch.cuda.synchronize()
         j2_big_s[key] = time.perf_counter() - t0
     outs["jacobi2d_big_step"] = ops.jacobi2d(data["j2_big"], iters=1)
+    outs["jacobi2d_big_sweep"] = ops.jacobi2d_step(data["j2_big"])
     outs["jacobi2d_f16_step"] = ops.jacobi2d_step(data["j2_f16"])
     torch.cuda.synchronize()
     for name, mod in zip(SUITE_REPLACES, suite_mods):
@@ -1829,6 +1966,9 @@ def main() -> int:
     launches["jacobi2d_cluster"] = j2_mod.jacobi2d.launches
     launches["jacobi2d_loop"] = j2_mod.jacobi2d.loop_launches
     launches["jacobi2d_tiled"] = j2_mod.jacobi2d.tiled_launches
+    # the one-sweep kernel's width-one route (its vector route counts as
+    # jacobi2d_step.launches)
+    launches["jacobi2d_width1"] = j2_mod.jacobi2d_step.width1_launches
     # streamcluster's 3xTF32 instantiation (float32; its 16-bit ones count as
     # streamcluster.launches)
     launches["streamcluster_3xtf32"] = \
@@ -1853,7 +1993,8 @@ def main() -> int:
                              "decode_attention_combine",
                              "ssd_scan_chunk_pass", "ssd_scan_state_pass",
                              "jacobi2d_cluster", "jacobi2d_loop",
-                             "jacobi2d_tiled", "streamcluster_3xtf32",
+                             "jacobi2d_tiled", "jacobi2d_width1",
+                             "streamcluster_3xtf32",
                              "ssd_scan_panels", "pathfinder_pyramid",
                              "canneal_rows")}
     # the particle filter's two calls: the path each took, from its flags
@@ -1881,6 +2022,12 @@ def main() -> int:
         if got != want:
             fail(f"jacobi2d {key}, {iters} sweeps: the {got} route, not the "
                  f"{want} route")
+    for key, want in (("j2_big", 4), ("j2_f16", 1)):
+        g = data[key]
+        if j2_mod.step_width(g.shape[1], g.dtype, g.data_ptr()) != want:
+            fail(f"jacobi2d {key}: one sweep at width "
+                 f"{j2_mod.step_width(g.shape[1], g.dtype, g.data_ptr())}, "
+                 f"not {want}")
     want_tiled = 2 * -(-J2_BIG_SWEEPS // j2_mod.MAX_K_TILED)
     if launches["jacobi2d_tiled"] != want_tiled:
         fail(f"jacobi2d: {launches['jacobi2d_tiled']} tiled launches, not "
@@ -1927,10 +2074,17 @@ def main() -> int:
     # ---- 6. suite kernels against their plain versions, times, bounds -------
     rows = {spec["name"]: run_suite_kernel(torch, spec, sm_clock_hz)
             for spec in suite_specs(torch, ref, data, suite_mods)}
+    jacobi_step_routes(torch, j2_mod, ref, data)
     jacobi_routes(torch, j2_mod, ops, data["j2"], j2_app_s, sm_clock_hz)
     jacobi_polybench(torch, j2_mod, data, rows)
 
-    # ---- 7. kernels line ------------------------------------------------------
+    # ---- 7. the scalar-scorecard gate and the sweep driver -------------------
+    scalar_gate_and_study(sp)
+
+    # ---- 8. the RVV code generator: corpus and round trip --------------------
+    codegen_round_trip(tracegen)
+
+    # ---- 9. kernels line ------------------------------------------------------
     kernels = [
         {"name": "engine_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/engine_scan.cu",
@@ -1989,6 +2143,8 @@ def main() -> int:
              "jacobi2d_loop"),
             ("jacobi2d_tiled", "jacobi2d", "jacobi2d_tiled", "jacobi2d",
              "jacobi2d_tiled"),
+            ("jacobi2d_width1", "jacobi2d", "jacobi2d_width1", "jacobi2d",
+             "jacobi2d_width1"),
             ("streamcluster_3xtf32", "streamcluster", "streamcluster",
              "streamcluster", "streamcluster_3xtf32"),
             ("ssd_scan_panels", "ssd_scan", "ssd_scan_n512", "ssd_scan",
@@ -2002,7 +2158,7 @@ def main() -> int:
                         "replaces": SUITE_REPLACES[of],
                         "launches": launches[counter], **rows[row]})
     print(json.dumps({"kernels": kernels}))
-    # ---- 8. last line -----------------------------------------------------------
+    # ---- 10. last line ----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,8 +4,9 @@ Every non-hand trace frontend — the torch.fx lowering (``core.frontend``)
 and the RVV assembly decoder (``core.rvv``) — must reproduce the
 hand-coded characterization bodies in ``tracegen`` before its apps are
 trusted in sweeps.  This module is the one shared contract, the port of
-``repro/core/crossval.py`` (its codegen round trip waits for the code
-generator's port):
+``repro/core/crossval.py``, with the code generator's round trip
+(``round_trip_all``: ``core.codegen``'s assembly decoded back by
+``core.rvv`` and held to the torch.fx lowering):
 
 | property | tolerance |
 |---|---|
@@ -114,6 +115,84 @@ def cross_validate(derive, apps, cfgs, device=None) -> list[CrossValReport]:
     for r, i in zip(reports, range(0, len(times), 2)):
         r.time_hand, r.time_derived = times[i], times[i + 1]
     return reports
+
+
+@dataclass
+class RoundTripReport:
+    """One emit→decode round trip: the codegen-emitted assembly decoded at
+    one configuration vs the direct torch.fx lowering of the same kernel."""
+    app: str
+    mvl: int
+    fingerprint_eq: bool     # decoded body bitwise-equal to the lowering
+    chunks_eq: bool          # decoder trip count == characterized closed form
+    valid: bool              # isa.validate_trace clean (prologue defs live)
+    problems: list
+
+    @property
+    def ok(self) -> bool:
+        return self.fingerprint_eq and self.chunks_eq and self.valid
+
+
+def round_trip_app(app_name: str, text: str | None = None,
+                   mvls=None) -> list[RoundTripReport]:
+    """Round-trip one app: emit (or take ``text``), decode at every MVL,
+    and hold the decoded chunk body to the direct torch.fx lowering —
+    fingerprint-equal trace, bitwise-equal chunk count, clean invariants."""
+    from repro_torch.core import codegen, engine as eng, frontend, rvv, suite
+    from repro_torch.core import tracegen
+    if text is None:
+        text = codegen.emit_app(app_name)
+    if mvls is None:
+        mvls = rvv.CHECK_MVLS
+    app = tracegen.app_for(app_name)
+    out = []
+    for m in mvls:
+        cfg = eng.VectorEngineConfig(mvl=m, lanes=4)
+        eff = suite.effective_mvl(app.name, cfg)
+        problems: list[str] = []
+        d = rvv.decode(text, eff, cfg, path=f"<emit:{app.name}>")
+        want = frontend.derived_body(app.name, eff, cfg).trace
+        fp_eq = (len(d.trace) == len(want)
+                 and isa.trace_fingerprint(d.trace)
+                 == isa.trace_fingerprint(want))
+        if not fp_eq:
+            problems.append("decoded body != torch.fx lowering")
+        chunks_eq = d.chunks == float(app.chunks(eff))
+        if not chunks_eq:
+            problems.append(f"chunks {d.chunks!r} != "
+                            f"{float(app.chunks(eff))!r}")
+        invariants = d.validate()
+        problems += invariants
+        out.append(RoundTripReport(app.name, m, fp_eq, chunks_eq,
+                                   not invariants, problems))
+    return out
+
+
+def round_trip_all(apps=None, mvls=None) -> list[RoundTripReport]:
+    """The codegen-roundtrip contract over every app with a torch
+    ``kernel=`` spec (``python -m repro_torch.core.codegen --check-all``)."""
+    from repro_torch.core import tracegen
+    if apps is None:
+        apps = [a for a in sorted(tracegen.APPS)
+                if tracegen.APPS[a].kernel is not None]
+    reports = []
+    for app in apps:
+        reports += round_trip_app(app, mvls=mvls)
+    return reports
+
+
+def print_round_trips(reports: list[RoundTripReport], title: str) -> bool:
+    """Render the round-trip gate table; returns the overall verdict."""
+    print(f"{'app':16s} {'mvl':>4s} {'fingerprint':>12s} {'chunks':>7s} "
+          f"{'valid':>6s}  ok")
+    ok = True
+    for r in reports:
+        ok &= r.ok
+        print(f"{r.app:16s} {r.mvl:4d} {str(r.fingerprint_eq):>12s} "
+              f"{str(r.chunks_eq):>7s} {str(r.valid):>6s}  "
+              f"{'ok' if r.ok else 'FAIL: ' + '; '.join(r.problems)}")
+    print(f"\n{title}:", "ROUND-TRIPS" if ok else "MISMATCH")
+    return ok
 
 
 def print_reports(reports: list[CrossValReport], title: str) -> bool:

@@ -259,6 +259,26 @@ def trace_fingerprint(trace: Trace) -> str:
     return h.hexdigest()[:16]
 
 
+def trace_records(trace: Trace) -> list[dict]:
+    """The inverse of ``Trace.from_records``: one plain dict per instruction.
+
+    Every field is materialized as a Python scalar (no numpy types), so
+    ``Trace.from_records(trace_records(t))`` reproduces ``t`` bitwise —
+    the record view the RVV code generator walks when spelling a trace
+    back out as assembly.
+    """
+    return [
+        dict(kind=int(trace.kind[i]), vl=int(trace.vl[i]),
+             fu=int(trace.fu[i]), n_src=int(trace.n_src[i]),
+             src1=int(trace.src1[i]), src2=int(trace.src2[i]),
+             dst=int(trace.dst[i]), mem_pattern=int(trace.mem_pattern[i]),
+             footprint_kb=float(trace.footprint_kb[i]),
+             scalar_count=int(trace.scalar_count[i]),
+             dep_scalar=bool(trace.dep_scalar[i]))
+        for i in range(len(trace))
+    ]
+
+
 def trace_registers(trace: Trace) -> int:
     """Number of distinct logical vector registers a trace touches — the
     register-pressure figure the cross-validation contract compares."""

@@ -108,6 +108,11 @@ def _fold_one(app_name: str, params: tuple):
     return cyc[0], ev[0]
 
 
+def scalar_cycles(app_name: str, cfg=None) -> float:
+    """Total modeled scalar-core cycles of the app's scalar-version ROI."""
+    return float(_fold_one(app_name, cfg_scalar_params(cfg))[0])
+
+
 def scalar_events(app_name: str, cfg=None) -> dict:
     """Per-event-kind accumulators (cycles for stall kinds, counts for
     ``bmiss``/``bhit``/``fused``)."""
@@ -137,3 +142,94 @@ def scalar_runtime_ns_batch(apps, cfgs) -> list[float]:
     cols = [cfg_scalar_params(c) for c in cfgs]
     cyc, _ = fold(segs, torch.tensor(cols, dtype=torch.float32))
     return [float(c) / float(p[3]) for c, p in zip(cyc.numpy(), cols)]
+
+
+# --------------------------------------------------------------------------
+# --check: the scalar-scorecard gate
+# --------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    import argparse
+
+    from repro_torch.core import engine as eng
+    from repro_torch.core import suite
+
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.core.scalar_pipeline",
+        description=__doc__.splitlines()[0])
+    ap.add_argument("--check", action="store_true",
+                    help="verify the §5 anchors, batched-vs-sequential "
+                         "bitwise equivalence and knob monotonicity "
+                         "(the scalar-scorecard gate)")
+    ap.add_argument("--device", default=None,
+                    help="engine device for the anchors' speedups (default: "
+                         "the CUDA device; 'cpu' runs the plain PyTorch "
+                         "scan)")
+    args = ap.parse_args(argv)
+    if not args.check:
+        ap.print_help()
+        return 0
+
+    failures = []
+    # 1. all 11 paper §5 anchors within the documented tolerance
+    from repro_torch.core.anchors import ANCHORS, EQ_LO, EQ_HI, LT_SLACK
+    print("== anchors ==")
+    for app, mvl, lanes, target, kind in ANCHORS:
+        cfg = eng.VectorEngineConfig(mvl=mvl, lanes=lanes)
+        got = suite.speedup(app, cfg, device=args.device)
+        if kind == "eq":
+            ok = EQ_LO <= got / target <= EQ_HI
+        else:
+            ok = got <= target * LT_SLACK
+        mark = "ok" if ok else "MISS"
+        print(f"  {app:16s} mvl={mvl:3d} L={lanes} model={got:5.2f} "
+              f"paper={target:5.2f} [{kind}] {mark}")
+        if not ok:
+            failures.append(f"anchor {app}@{mvl}x{lanes}")
+
+    # 2. batched == sequential, bitwise
+    apps = sorted(tracegen.APPS)
+    cfgs = [eng.VectorEngineConfig(issue_width=1 + i % 3,
+                                   branch_miss_penalty=float(4 + 2 * (i % 4)),
+                                   fusion=bool(i % 2))
+            for i in range(len(apps))]
+    batched = scalar_runtime_ns_batch(apps, cfgs)
+    seq = [scalar_runtime_ns(a, c) for a, c in zip(apps, cfgs)]
+    if batched == seq:
+        print("== batched-vs-sequential: bitwise-equal "
+              f"({len(apps)} pairs) ==")
+    else:
+        failures.append("batched != sequential")
+
+    # 3. knob monotonicity + physical-CPI floor on every app
+    for a in apps:
+        t1 = scalar_runtime_ns(a, eng.VectorEngineConfig(issue_width=1))
+        t2 = scalar_runtime_ns(a)
+        t4 = scalar_runtime_ns(a, eng.VectorEngineConfig(issue_width=4))
+        bp = scalar_runtime_ns(
+            a, eng.VectorEngineConfig(branch_miss_penalty=20.0))
+        fu = scalar_runtime_ns(a, eng.VectorEngineConfig(fusion=True))
+        if not (t1 > t2 >= t4 and bp > t2 and fu < t2):
+            failures.append(f"monotonicity {a}")
+        prof = tracegen.scalar_profile_for(a)
+        counts = tracegen.app_for(a).counts(8)
+        n_roi = counts.scalar_code_total * prof.roi_instr_fraction
+        cpi = scalar_cycles(a) / n_roi
+        if cpi < 0.5:
+            failures.append(f"non-physical CPI {a}: {cpi:.3f}")
+    if not any(f.startswith(("monotonicity", "non-physical"))
+               for f in failures):
+        print("== knob monotonicity + CPI floor: ok "
+              f"({len(apps)} apps) ==")
+
+    if failures:
+        print("FAILURES:", ", ".join(failures))
+        return 1
+    print("scalar-scorecard: PASS")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

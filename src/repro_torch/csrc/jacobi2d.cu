@@ -4,22 +4,34 @@
 // pallas_call at :45): every interior point of a float32 [R, C] grid
 // becomes 0.2 * (center + left + right + up + down); the boundary rows and
 // columns keep their values.  The Pallas wrapper materialised overlapping
-// halo strips (a[idx]) and needed (R - 2) % rows_per_block == 0; here each
-// thread reads its four neighbours straight from the input (the block's
-// rows share them through L1) and writes a fresh output, for any R and C.
+// halo strips (a[idx]) and needed (R - 2) % rows_per_block == 0; here the
+// one-sweep kernel reads the rows around each tile straight from the input
+// and writes a fresh output, for any R and C.
 // The reference's many-sweep function (repro/kernels/ref.py:29,
 // jacobi2d(a, iters)) has no Pallas kernel; its ports are the cluster
 // kernel (grids that fit one cluster) and the tiled kernel (grids past
 // it) below.
 //
 // One sweep (jacobi2d_kernel).  Bound on an H100: bytes.  Each point is
-// read once and written once (8 B a point: 62.7 MB, 18.7 us, on PolyBench
-// EXTRALARGE's 2,800 x 2,800 grid) against 5 float operations a point.
-// Design: a 32 x 8 thread block covers 32 columns x 32 rows.  A thread owns
-// four rows of one column and loads the six rows around them once, so
-// every up/down neighbour is its own load; a warp's loads are 128-byte row
-// segments.  Row blocks go on gridDim.y and, past its 65,535, round again
-// in a loop, so any R is taken.
+// read once and written once (8 B a point in float32: 62.7 MB, 18.7 us, on
+// PolyBench EXTRALARGE's 2,800 x 2,800 grid; 4 B, 9.4 us, in 16 bits)
+// against 5 float operations a point.  Design: few instructions and many
+// bytes in flight a thread.  A thread holds chunks of a row, on the vector
+// route two 16-byte chunks (8 16-bit or 4 float32 points each: one load
+// and one store instruction a chunk), and walks down a tile of 16 rows
+// (fewer where a grid's tiles would not give every SM a CTA's warps), the
+// rows above, at and below in a ring of registers with 3 rows loaded
+// ahead (loads that do not allocate in L1, stores with a streaming hint).
+// The left and right neighbours of a chunk's end points come from the
+// adjacent lanes by shuffles; the two edge lanes of a warp load the
+// columns past its strip.  Tiles (a warp's strip of columns x 16 rows) go
+// in a 1-D order over CTAs sized from the SM count and an occupancy query,
+// so any R and C are taken in about one wave.  The vector route runs where
+// C is a multiple of 16 bytes' points and both pointers are 16-byte
+// aligned; elsewhere the same kernel runs at a width of one point a chunk
+// (4 chunks a thread in float32, 2 in 16 bits).  A ring of rows in shared
+// memory fed by cp.async from a loading warp was no faster
+// (scripts/jacobi2d_ring.cu).
 //
 // Many sweeps (jacobi2d_cluster_kernel).  A grid of a few hundred rows
 // takes ~2.5 us a launch against a fraction of that in bytes, so RiVec's
@@ -88,8 +100,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TX = 32, TY = 8, ROWS = 4;   // a block: 32 cols x 32 rows
-constexpr int MAX_GRID_Y = 65535;
+// The one-sweep kernel: a CTA's threads; on each route (16-byte chunks,
+// and one-point chunks) the rows of a tile, the rows loaded ahead of the
+// one below the row computed, and the chunks a thread holds of a row (at
+// width one, of a float32 or a 16-bit grid).
+constexpr int STEP_THREADS = 256;
+constexpr int VEC_RUN = 16, VEC_AHEAD = 3, VEC_CHUNKS = 2;
+constexpr int ONE_RUN = 16, ONE_AHEAD = 3, ONE_CHUNKS_32 = 4, ONE_CHUNKS_16 = 2;
+constexpr int MAX_DEVICES = 64;
 constexpr int SMEM_MAX = 232448;           // a block's opt-in shared memory
 constexpr int MAX_CLUSTER = 16;            // non-portable past 8
 constexpr int CLUSTER_THREADS = 1024;
@@ -114,35 +132,208 @@ template <> __device__ __forceinline__ __half from_f<__half>(float v) {
   return __float2half(v);
 }
 
+// A row's chunk as a thread holds it: V elements' raw bits in W 32-bit
+// words (16 bytes on the vector route; one element, in the low bits of one
+// word, at width one).
+template <typename T, int V>
+struct Chunk {
+  static constexpr int W = V * (int)sizeof(T) < 4 ? 1 : V * (int)sizeof(T) / 4;
+  uint32_t w[W];
+};
+
+// element j's raw bits
+template <typename T, int V>
+__device__ __forceinline__ uint32_t bits_at(const Chunk<T, V>& c, int j) {
+  if constexpr (sizeof(T) == 4) return c.w[j];
+  else return (c.w[j / 2] >> (16 * (j & 1))) & 0xffffu;
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void set_bits(Chunk<T, V>& c, int j, uint32_t b) {
+  if constexpr (sizeof(T) == 4) {
+    c.w[j] = b;
+  } else {
+    const int s = 16 * (j & 1);
+    c.w[j / 2] = (c.w[j / 2] & ~(0xffffu << s)) | (b << s);
+  }
+}
+
+template <typename T> __device__ __forceinline__ float widen(uint32_t b);
+template <> __device__ __forceinline__ float widen<float>(uint32_t b) {
+  return __uint_as_float(b);
+}
+template <> __device__ __forceinline__ float widen<__nv_bfloat16>(uint32_t b) {
+  return __uint_as_float(b << 16);
+}
+template <> __device__ __forceinline__ float widen<__half>(uint32_t b) {
+  return __half2float(__ushort_as_half((unsigned short)b));
+}
+
+// rounded to T as torch's cast rounds, as raw bits
+template <typename T> __device__ __forceinline__ uint32_t narrow(float v);
+template <> __device__ __forceinline__ uint32_t narrow<float>(float v) {
+  return __float_as_uint(v);
+}
+template <> __device__ __forceinline__ uint32_t narrow<__nv_bfloat16>(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16(v));
+}
+template <> __device__ __forceinline__ uint32_t narrow<__half>(float v) {
+  return __half_as_ushort(__float2half(v));
+}
+
+// Read-only loads that do not allocate in L1 (nothing is read twice from
+// there), and stores marked streaming.
+__device__ __forceinline__ uint32_t load_elem(const float* p) {
+  uint32_t b;
+  asm("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(b) : "l"(p));
+  return b;
+}
 template <typename T>
-__global__ void __launch_bounds__(TX * TY)
-jacobi2d_kernel(const T* __restrict__ a, T* __restrict__ out, int R, int C) {
-  const int c = blockIdx.x * TX + threadIdx.x;
-  if (c >= C) return;
-  const int nby = (R + TY * ROWS - 1) / (TY * ROWS);
-  const bool edge_col = (c == 0 || c == C - 1);
-  for (int by = blockIdx.y; by < nby; by += gridDim.y) {
-    const int r0 = (by * TY + threadIdx.y) * ROWS;
-    // rows r0 - 1 .. r0 + ROWS of this column, as far as they exist
-    float col[ROWS + 2];
+__device__ __forceinline__ uint32_t load_elem(const T* p) {
+  unsigned short h;
+  asm("ld.global.nc.L1::no_allocate.b16 %0, [%1];" : "=h"(h) : "l"(p));
+  return h;
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void load_chunk(const T* p, Chunk<T, V>& c) {
+  if constexpr (Chunk<T, V>::W == 4) {
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(c.w[0]), "=r"(c.w[1]), "=r"(c.w[2]), "=r"(c.w[3])
+        : "l"(p));
+  } else {
+    c.w[0] = load_elem(p);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_chunk(T* p, const Chunk<T, V>& c) {
+  if constexpr (Chunk<T, V>::W == 4) {
+    asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};"
+                 :: "l"(p), "r"(c.w[0]), "r"(c.w[1]), "r"(c.w[2]),
+                    "r"(c.w[3]) : "memory");
+  } else if constexpr (sizeof(T) == 4) {
+    asm volatile("st.global.cs.b32 [%0], %1;" :: "l"(p), "r"(c.w[0])
+                 : "memory");
+  } else {
+    asm volatile("st.global.cs.b16 [%0], %1;"
+                 :: "l"(p), "h"((unsigned short)c.w[0]) : "memory");
+  }
+}
+
+// Row g_row's chunks of a thread (at p + 32 V k where `have` has bit k)
+// and, for an edge lane, its point at p + eo, where the row lies in the
+// grid; p is the row's chunk 0.
+template <typename T, int V, int G>
+__device__ __forceinline__ void load_row(const T* p, int g_row, int R,
+                                         unsigned have, bool edge, int eo,
+                                         Chunk<T, V> (&row)[G],
+                                         uint32_t& erow) {
+  if (g_row < 0 || g_row >= R) return;
 #pragma unroll
-    for (int i = 0; i < ROWS + 2; ++i) {
-      const int r = r0 - 1 + i;
-      col[i] = (r >= 0 && r < R) ? to_f(__ldg(a + (long long)r * C + c))
-                                 : 0.0f;
+  for (int k = 0; k < G; ++k)
+    if (have >> k & 1) load_chunk<T, V>(p + 32 * V * k, row[k]);
+  if (edge) erow = load_elem(p + eo);
+}
+
+// One sweep.  A thread holds G chunks of V points of a row; a warp's 32 G
+// chunks are a strip of 32 V G columns, chunk k of lane l at columns
+// c0 + (32 k + l) V .. + V - 1, so each of a warp's loads is 32 chunks side
+// by side.  A warp takes tiles of `run` (<= RUN) rows x a strip in a 1-D
+// order, strips fastest; CTA b's warp w takes tiles b + gridDim.x (w +
+// STEP_THREADS / 32 n), so the busy warps spread evenly over the CTAs.  It
+// walks down a tile with the rows above, at and below in a ring of AHEAD +
+// 3 rows of registers, loading AHEAD rows past the one below.  The left
+// neighbour of a chunk's first point is the last point of the chunk before
+// it in the strip (the previous lane's, or for lane 0 lane 31's of the
+// chunk before), the right neighbour of its last the first of the chunk
+// after it: one rotating shuffle each a chunk.  Lane 0 loads the column
+// left of the strip, lane 31 the one right of it.  What a tile's chunks
+// are (in the grid, holding column 0 or C - 1) is worked out once a tile.
+template <typename T, int V, int G, int RUN, int AHEAD>
+__global__ void __launch_bounds__(STEP_THREADS)
+jacobi2d_kernel(const T* __restrict__ a, T* __restrict__ out, int R, int C,
+                int run) {
+  constexpr int S = AHEAD + 3;
+  constexpr unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const long long strip_w = 32LL * V * G;
+  const long long nstrips = (C + strip_w - 1) / strip_w;
+  const long long tiles = (R + run - 1) / run * nstrips;
+  const long long stride = (long long)gridDim.x * (STEP_THREADS / 32);
+  for (long long t = (long long)(threadIdx.x / 32) * gridDim.x + blockIdx.x;
+       t < tiles; t += stride) {
+    const int r0 = (int)(t / nstrips) * run;
+    const long long c0 = t % nstrips * strip_w;
+    const long long cl = c0 + (long long)lane * V;   // chunk 0's first column
+    unsigned have = 0, hold_first = 0, hold_last = 0;   // bit k: chunk k
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const long long c = cl + 32LL * V * k;
+      have |= (unsigned)(c < C) << k;
+      hold_first |= (unsigned)(c == 0) << k;
+      hold_last |= (unsigned)(c + V == C) << k;
     }
+    const int eo = lane == 0 ? -1 : (int)(strip_w - 31 * V);  // from cl
+    const bool edge = (lane == 0 || lane == 31) && cl + eo >= 0 &&
+                      cl + eo < C;
+    // local row i is grid row r0 - 1 + i, i = 0 .. run + 1; its chunk 0 at
+    // a + (r0 - 1 + i) C + cl
+    const T* src = a + ((long long)r0 - 1) * C + cl;
+    T* dst = out + ((long long)r0 - 1) * C + cl;
+    Chunk<T, V> ring[S][G] = {};
+    uint32_t ering[S] = {};
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int r = r0 + i;
-      if (r >= R) break;
-      const long long at = (long long)r * C + c;
-      if (!edge_col && r > 0 && r < R - 1) {
-        const float left = to_f(__ldg(a + at - 1));
-        const float right = to_f(__ldg(a + at + 1));
-        out[at] = from_f<T>(
-            0.2f * ((((col[i + 1] + left) + right) + col[i]) + col[i + 2]));
-      } else {
-        out[at] = a[at];
+    for (int i = 0; i < AHEAD + 2 && i <= RUN + 1; ++i)
+      if (i <= run + 1)
+        load_row<T, V, G>(src + (long long)i * C, r0 - 1 + i, R, have, edge,
+                          eo, ring[i % S], ering[i % S]);
+#pragma unroll
+    for (int i = 1; i <= RUN; ++i) {
+      if (i > run) break;
+      if (i + AHEAD + 1 <= RUN + 1 && i + AHEAD + 1 <= run + 1)
+        load_row<T, V, G>(src + (long long)(i + AHEAD + 1) * C,
+                          r0 + i + AHEAD, R, have, edge, eo,
+                          ring[(i + AHEAD + 1) % S],
+                          ering[(i + AHEAD + 1) % S]);
+      const int row = r0 - 1 + i;
+      if (row >= R) break;
+      // lane l gets lane l - 1's last points and lane l + 1's first
+      uint32_t last[G], first[G];
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        last[k] = __shfl_sync(FULL, bits_at(ring[i % S][k], V - 1),
+                              (lane + 31) & 31);
+        first[k] = __shfl_sync(FULL, bits_at(ring[i % S][k], 0),
+                               (lane + 1) & 31);
+      }
+      const bool interior = row > 0 && row < R - 1;
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        if (!(have >> k & 1)) continue;
+        const uint32_t lft =
+            lane != 0 ? last[k] : k == 0 ? ering[i % S] : last[k - 1];
+        const uint32_t rgt =
+            lane != 31 ? first[k] : k == G - 1 ? ering[i % S] : first[k + 1];
+        const Chunk<T, V>& mid = ring[i % S][k];
+        Chunk<T, V> res = mid;   // held points are copied
+        if (interior) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            // only a chunk's first point can be column 0, only its last
+            // column C - 1
+            if ((j == 0 && (hold_first >> k & 1)) ||
+                (j == V - 1 && (hold_last >> k & 1)))
+              continue;
+            const float l = widen<T>(j > 0 ? bits_at(mid, j - 1) : lft);
+            const float r = widen<T>(j < V - 1 ? bits_at(mid, j + 1) : rgt);
+            const float sum = (((widen<T>(bits_at(mid, j)) + l) + r) +
+                               widen<T>(bits_at(ring[(i - 1) % S][k], j))) +
+                              widen<T>(bits_at(ring[(i + 1) % S][k], j));
+            set_bits(res, j, narrow<T>(sum * 0.2f));
+          }
+        }
+        store_chunk<T, V>(dst + (long long)i * C + 32 * V * k, res);
       }
     }
   }
@@ -377,21 +568,76 @@ int set_smem(const void* kern, size_t bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
 }
 
-template <typename T>
+// The launch of a one-sweep kernel on the current device: rows a tile, RUN
+// or, where the grid's tiles would give the card's SMs fewer warps than a
+// CTA each, as few as give them that many (a tile's rows are walked one
+// after another, so a small grid's few long tiles would set its time); and
+// CTAs, the card's SMs times as many an SM as the tiles fill, at most as
+// many as an SM holds (the occupancy query, cached by device).
+template <typename T, int V, int G, int RUN, int AHEAD>
+int step_plan(int r, int c, int* run, int* ctas) {
+  static int sms[MAX_DEVICES], per_sm[MAX_DEVICES];
+  int dev = 0;
+  int e = static_cast<int>(cudaGetDevice(&dev));
+  if (e) return e;
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (per_sm[dev] == 0) {
+    int n = 0, m = 0;
+    e = static_cast<int>(cudaDeviceGetAttribute(
+        &n, cudaDevAttrMultiProcessorCount, dev));
+    if (!e)
+      e = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &m, jacobi2d_kernel<T, V, G, RUN, AHEAD>, STEP_THREADS, 0));
+    if (e) return e;
+    sms[dev] = n;
+    per_sm[dev] = m > 0 ? m : 1;
+  }
+  constexpr int warps = STEP_THREADS / 32;
+  const long long nstrips = (c + 32LL * V * G - 1) / (32LL * V * G);
+  const long long runs = (sms[dev] * (long long)warps + nstrips - 1) / nstrips;
+  long long rows = (r + runs - 1) / runs;
+  *run = (int)(rows < 1 ? 1 : rows > RUN ? RUN : rows);
+  const long long tiles = (r + *run - 1) / *run * nstrips;
+  long long per = ((tiles + warps - 1) / warps + sms[dev] - 1) / sms[dev];
+  if (per > per_sm[dev]) per = per_sm[dev];
+  if (per < 1) per = 1;
+  *ctas = (int)(per * sms[dev]);
+  return 0;
+}
+
+template <typename T, int V, int G, int RUN, int AHEAD>
 int launch_step(const void* a, void* out, int r, int c, cudaStream_t st) {
-  const int nby = (r + TY * ROWS - 1) / (TY * ROWS);
-  const dim3 grid((unsigned)((c + TX - 1) / TX),
-                  (unsigned)(nby < MAX_GRID_Y ? nby : MAX_GRID_Y));
-  jacobi2d_kernel<T><<<grid, dim3(TX, TY), 0, st>>>(
-      static_cast<const T*>(a), static_cast<T*>(out), r, c);
+  int run = RUN, ctas = 0;
+  const int e = step_plan<T, V, G, RUN, AHEAD>(r, c, &run, &ctas);
+  if (e) return e;
+  jacobi2d_kernel<T, V, G, RUN, AHEAD><<<ctas, STEP_THREADS, 0, st>>>(
+      static_cast<const T*>(a), static_cast<T*>(out), r, c, run);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_step_typed(const void* a, void* out, int r, int c, int dtype,
+// The vector route (16 bytes a chunk) where c is a multiple of it and both
+// pointers are 16-byte aligned; the width-one route (one point a chunk).
+template <typename T>
+int launch_step_width(const void* a, void* out, int r, int c, int width,
                       cudaStream_t st) {
-  if (dtype == 1) return launch_step<__nv_bfloat16>(a, out, r, c, st);
-  if (dtype == 2) return launch_step<__half>(a, out, r, c, st);
-  return launch_step<float>(a, out, r, c, st);
+  constexpr int v = 16 / sizeof(T);
+  constexpr int g = sizeof(T) == 4 ? ONE_CHUNKS_32 : ONE_CHUNKS_16;
+  if (width == 1)
+    return launch_step<T, 1, g, ONE_RUN, ONE_AHEAD>(a, out, r, c, st);
+  if (width == v && c % v == 0 &&
+      reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0)
+    return launch_step<T, v, VEC_CHUNKS, VEC_RUN, VEC_AHEAD>(a, out, r, c,
+                                                             st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_step_typed(const void* a, void* out, int r, int c, int dtype,
+                      int width, cudaStream_t st) {
+  if (dtype == 1)
+    return launch_step_width<__nv_bfloat16>(a, out, r, c, width, st);
+  if (dtype == 2) return launch_step_width<__half>(a, out, r, c, width, st);
+  return launch_step_width<float>(a, out, r, c, width, st);
 }
 
 // The cluster launch's configuration: one cluster of `ctas`, rows of
@@ -519,27 +765,29 @@ extern "C" const char* repro_cuda_error_string(int code) {
 }
 
 // One sweep of the [r, c] grid `a` into `out` (distinct buffers), float32
-// (`dtype` 0), bfloat16 (1) or float16 (2).  Launches on `stream`;
-// returns cudaGetLastError() (0 on success).
+// (`dtype` 0), bfloat16 (1) or float16 (2), `width` elements a thread: 1,
+// or 16 bytes' worth where c is a multiple of it and both pointers are
+// 16-byte aligned.  Launches on `stream`; returns cudaGetLastError() (0 on
+// success).
 extern "C" int jacobi2d_launch(const void* a, void* out, int r, int c,
-                               int dtype, void* stream) {
+                               int dtype, int width, void* stream) {
   if (bad_dims(r, c, dtype)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_step_typed(a, out, r, c, dtype,
+  return launch_step_typed(a, out, r, c, dtype, width,
                            static_cast<cudaStream_t>(stream));
 }
 
 // The loop route: `iters` (>= 1) one-sweep launches from `a`, between
-// `out` and `tmp` in turns so that the last lands in `out`.
+// `out` and `tmp` in turns so that the last lands in `out`, at `width`.
 extern "C" int jacobi2d_loop_launch(const void* a, void* out, void* tmp,
-                                    int r, int c, int dtype, int iters,
-                                    void* stream) {
+                                    int r, int c, int dtype, int width,
+                                    int iters, void* stream) {
   if (bad_dims(r, c, dtype) || iters < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* src = a;
   for (int k = 0; k < iters; ++k) {
     void* dst = (iters - 1 - k) % 2 == 0 ? out : tmp;
-    const int e = launch_step_typed(src, dst, r, c, dtype, st);
+    const int e = launch_step_typed(src, dst, r, c, dtype, width, st);
     if (e) return e;
     src = dst;
   }

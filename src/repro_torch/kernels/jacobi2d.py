@@ -9,7 +9,9 @@ halo strips and its ``(R - 2) % rows_per_block`` requirement are gone: the
 one-sweep kernel (``csrc/jacobi2d.cu``) reads the neighbouring rows in
 place, writes a fresh output and takes any ``R, C``; a grid with no
 interior comes back as a copy.  Bound on an H100: bytes, 8 B a point (one
-read, one write).
+read, one write).  Its threads take a row in 16-byte chunks (8 16-bit or 4
+float32 points) where ``step_width`` allows, else in one-point chunks (the
+width-one route, counted apart by ``jacobi2d_step.width1_launches``).
 
 ``jacobi2d(a, iters)`` is the port's counterpart of the reference's
 ``repro/kernels/ref.py:29`` (``jacobi2d(a, iters=1)``), which has no Pallas
@@ -155,12 +157,22 @@ def route(R: int, C: int, dtype: torch.dtype, ctas: int | None = None,
     return Route("loop", 0, 0)
 
 
+def step_width(C: int, dtype: torch.dtype, *pointers: int) -> int:
+    """Points a chunk of the one-sweep kernel for a grid of ``C`` columns
+    whose buffers start at ``pointers``: 16 bytes' worth (8 16-bit or 4
+    float32 points, the vector route) where ``C`` is a multiple of that and
+    every pointer is 16-byte aligned, else 1 (the width-one route: the
+    same kernel, one point a chunk)."""
+    v = 16 // dtype.itemsize
+    return v if C % v == 0 and all(p % 16 == 0 for p in pointers) else 1
+
+
 def _lib():
     lib = _build.load("jacobi2d")
     if not getattr(lib, "_repro_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.jacobi2d_launch.argtypes = [p, p, i, i, i, p]
-        lib.jacobi2d_loop_launch.argtypes = [p, p, p, i, i, i, i, p]
+        lib.jacobi2d_launch.argtypes = [p, p, i, i, i, i, p]
+        lib.jacobi2d_loop_launch.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.jacobi2d_cluster_launch.argtypes = [p, p, i, i, i, i, i, i, p]
         lib.jacobi2d_clusters_fit.argtypes = [i, i, i, i, i,
                                               ctypes.POINTER(i)]
@@ -184,19 +196,25 @@ def _check_grid(a):
 
 def jacobi2d_step(a):
     """One sweep of the float32, bfloat16 or float16 ``[R, C]`` grid ``a``
-    into a new tensor of its type.  CUDA tensors launch the kernel; CPU
-    tensors take the plain version."""
+    into a new tensor of its type.  CUDA tensors launch the kernel at
+    ``step_width`` (counted by ``jacobi2d_step.launches`` on the vector
+    route, ``.width1_launches`` at width one); CPU tensors take the plain
+    version."""
     _check_grid(a)
     if _check.device_kind(NAME, a) == "cpu":
         return ref.jacobi2d(a)
     out = torch.empty_like(a)
     if a.numel() == 0:
         return out
+    width = step_width(a.shape[1], a.dtype, a.data_ptr(), out.data_ptr())
     lib = _lib()
     code = _device.launch(lib.jacobi2d_launch, a, a.data_ptr(),
-                          out.data_ptr(), *a.shape, DTYPES[a.dtype])
+                          out.data_ptr(), *a.shape, DTYPES[a.dtype], width)
     _build.check(lib, code, NAME)
-    jacobi2d_step.launches += 1
+    if width == 1:
+        jacobi2d_step.width1_launches += 1
+    else:
+        jacobi2d_step.launches += 1
     return out
 
 
@@ -308,7 +326,7 @@ def tiled(a, iters: int, k: int, tile: tuple, out=None,
 
 def loop(a, iters: int, out=None):
     """The loop route on a CUDA grid: ``iters`` launches of the one-sweep
-    kernel into ``out`` (new where None), counted by
+    kernel at ``step_width`` into ``out`` (new where None), counted by
     ``jacobi2d.loop_launches``; any grid, so it also times the route a
     cluster replaces."""
     _check_cuda(a)
@@ -316,16 +334,18 @@ def loop(a, iters: int, out=None):
     if iters == 0 or a.numel() == 0:
         return out.copy_(a)
     tmp = torch.empty_like(a) if iters > 1 else out
+    ptrs = (a.data_ptr(), out.data_ptr(), tmp.data_ptr())
     lib = _lib()
-    code = _device.launch(lib.jacobi2d_loop_launch, a, a.data_ptr(),
-                          out.data_ptr(), tmp.data_ptr(), *a.shape,
-                          DTYPES[a.dtype], iters)
+    code = _device.launch(lib.jacobi2d_loop_launch, a, *ptrs, *a.shape,
+                          DTYPES[a.dtype],
+                          step_width(a.shape[1], a.dtype, *ptrs), iters)
     _build.check(lib, code, "jacobi2d")
     jacobi2d.loop_launches += iters
     return out
 
 
 jacobi2d_step.launches = 0
+jacobi2d_step.width1_launches = 0
 jacobi2d.launches = 0
 jacobi2d.loop_launches = 0
 jacobi2d.tiled_launches = 0

@@ -397,11 +397,98 @@ def test_jacobi2d_kernel_matches_plain_bitwise(cuda, shape):
     a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     got = want = a.to(cuda)
     for _ in range(3):
-        before = j2_mod.jacobi2d_step.launches
+        before = step_counts()
         got = j2_mod.jacobi2d_step(got)
-        assert j2_mod.jacobi2d_step.launches == before + 1
+        assert sum(step_counts()) == sum(before) + 1
         want = ref.jacobi2d(want)
         assert torch.equal(got, want)
+
+
+def step_counts():
+    """The one-sweep kernel's launches: (vector route, width-one route)."""
+    return (j2_mod.jacobi2d_step.launches,
+            j2_mod.jacobi2d_step.width1_launches)
+
+
+def step_and_route(a):
+    """One sweep of ``a`` and the route its launch was counted on."""
+    before = step_counts()
+    got = j2_mod.jacobi2d_step(a)
+    after = step_counts()
+    assert sum(after) == sum(before) + 1
+    return got, "vector" if after[0] > before[0] else "width1"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("shape", [(40, 256), (1001, 2800), (33, 136),
+                                   (17, 8), (2, 16), (300, 264)])
+def test_jacobi2d_step_both_routes_bitwise(cuda, dtype, shape):
+    """C a multiple of 8: the vector route on the grid itself (16 bytes a
+    thread), the width-one route on the same values in a view one element
+    into a buffer; each sweep bit for bit with the plain version."""
+    t = getattr(torch, dtype)
+    rng = np.random.RandomState(sum(shape))
+    a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda, t)
+    buf = torch.empty(a.numel() + 1, dtype=t, device=cuda)
+    view = buf[1:].view(shape)
+    view.copy_(a)
+    assert view.data_ptr() % 16 and j2_mod.step_width(shape[1], t,
+                                                      view.data_ptr()) == 1
+    want = ref.jacobi2d(a)
+    for grid, route in ((a, "vector"), (view, "width1")):
+        got, took = step_and_route(grid)
+        assert took == route and got.dtype == t
+        assert torch.equal(got, want), route
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_jacobi2d_step_grids_of_one_to_four(cuda, dtype):
+    """R and C of 1, 2, 3 and 4: no interior, one point of it, a strip's
+    lanes mostly idle; three sweeps each, bit for bit, on the route
+    ``step_width`` names."""
+    t = getattr(torch, dtype)
+    for R in range(1, 5):
+        for C in range(1, 5):
+            rng = np.random.RandomState(10 * R + C)
+            got = want = torch.from_numpy(rng.standard_normal(
+                (R, C)).astype(np.float32)).to(cuda, t)
+            for _ in range(3):
+                width = j2_mod.step_width(C, t, got.data_ptr())
+                got, took = step_and_route(got)
+                want = ref.jacobi2d(want)
+                assert took == ("width1" if width == 1 else "vector")
+                assert torch.equal(got, want), (R, C)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("C", [2804, 2802, 2801, 263, 9])
+def test_jacobi2d_step_columns_off_the_vector(cuda, dtype, C):
+    """C not a multiple of 8 (float32 at 2,804 still a multiple of its 4):
+    the route ``step_width`` picks, three sweeps bit for bit."""
+    t = getattr(torch, dtype)
+    rng = np.random.RandomState(C)
+    got = want = torch.from_numpy(rng.standard_normal((65, C)).astype(
+        np.float32)).to(cuda, t)
+    for _ in range(3):
+        width = j2_mod.step_width(C, t, got.data_ptr())
+        got, took = step_and_route(got)
+        want = ref.jacobi2d(want)
+        assert took == ("width1" if width == 1 else "vector")
+        assert width == (1 if C % (16 // t.itemsize) else 16 // t.itemsize)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_jacobi2d_loop_route_from_an_offset_view(cuda, dtype):
+    """The loop route from a view one element into its buffer runs every
+    sweep at width one; ten sweeps bit for bit."""
+    t = getattr(torch, dtype)
+    rng = np.random.RandomState(5)
+    buf = torch.from_numpy(rng.standard_normal(97 * 64 + 1).astype(
+        np.float32)).to(cuda, t)
+    a = buf[1:].view(97, 64)
+    assert torch.equal(j2_mod.loop(a, 10), ref.jacobi2d(a, 10))
 
 
 @pytest.mark.parametrize("shape", [(3, 3), (2, 5), (130, 3), (1001, 67),
@@ -1501,6 +1588,18 @@ def test_jacobi2d_past_2097120_rows(cuda):
     assert torch.equal(j2_mod.jacobi2d_step(a), ref.jacobi2d(a))
     assert j2_mod.route(*a.shape, a.dtype).name == "loop"
     assert torch.equal(j2_mod.jacobi2d(a, 2), ref.jacobi2d(a, 2))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jacobi2d_vector_route_past_2097120_rows(cuda, dtype):
+    """R 2,097,123 x C 8 on the vector route: 131,071 tiles of 16 rows,
+    more than the CTAs' warps, which stride over them; bit for bit."""
+    t = getattr(torch, dtype)
+    rng = np.random.RandomState(22)
+    a = torch.from_numpy(rng.standard_normal((2_097_123, 8)).astype(
+        np.float32)).to(cuda, t)
+    got, took = step_and_route(a)
+    assert took == "vector" and torch.equal(got, ref.jacobi2d(a))
 
 
 # ---- Jacobi-2D's sweeps in one cluster launch (R4) ------------------------
