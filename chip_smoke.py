@@ -16,7 +16,8 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    spill of these), and the count of tensor-core instructions (HGMMA,
    HMMA) in the flash-attention and streamcluster libraries' SASS where
    the toolkit has ``cuobjdump`` (failing if streamcluster's holds no
-   HGMMA);
+   HGMMA); and the engine scan's default and collect instantiations'
+   lines apart (failing if the collect build spills);
 2. Black-Scholes at its PARSEC-large size (65,536 options x 100 runs =
    6,553,600 evaluations): kernel against the plain version on the card at
    rtol = atol = 3e-5, times and bound;
@@ -24,7 +25,12 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    bit: the short-body RiVec apps x the 24 Table-10 configs, seeded random
    traces under ooo / crossbar / mshrs=1 / 1 MB LLC configs, and the
    study's own 168-lane launch, timed as its two kernels (the pre-pass and
-   the scan) and their sum;
+   the scan) and their sum (against the kernel table's 2.5565 ms); then
+   the collect build (``engine_scan.scan_collect``) against
+   ``scan_plain(..., collect=True)`` bit for bit on the same three sets
+   (timing outputs, accumulators, timeline) with its timing outputs bit
+   for bit the default kernel's, timed on the 168 lanes beside the
+   default call, with its plain version's time and its bound;
 4. the study (the main path, with every launch counter set to 0 first):
    the Black-Scholes app on the card, ``suite.sweep_all`` over the seven
    RiVec apps x Table 10 checked against ``tests/golden_sweep.json`` at
@@ -107,7 +113,26 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
 8. the code generator on the host: the ten apps emitted and held to
    ``src/repro_torch/asm`` after the 4-line header, and the emit-decode
    round trip at the six MVLs of ``rvv.CHECK_MVLS`` (60 of 60);
-9. the ``kernels`` JSON line (twenty-six entries: Jacobi-2D's cluster,
+9. the profiler, the collect build's path (its launch counter set to 0
+   first): ``telemetry.main(["--smoke", "--scorecard"])`` on the card
+   (every app x the reference's two configs, bodies tiled 6 times: collect
+   timings bitwise the default path's, the event-sum identity within 1e-4
+   with the worst printed, blackscholes' Chrome trace, the histogram; the
+   ten-app scorecard) and ``module_stress.main`` (last line
+   ``CONSISTENT``);
+10. design-space exploration at full width: ``SPACE_FULL`` (1,536
+   configs) x the ten apps, 15,360 cells, cold through a JSONL cache in a
+   temporary directory (one engine scan launch), then again through a
+   fresh ``ResultCache`` re-reading the file (hit rate 1.0, nothing
+   simulated, the same frontier fingerprint); its 240 Table-10 cells
+   bitwise equal to ``suite.speedup_batch`` and within rtol 1e-2 of the
+   golden table, 64 seeded cells bitwise equal to the plain scan on the
+   card; the phases' rows (key, dispatch, derive), the cells simulated and
+   the in-run dedup, and the cold pass's dispatch split on the host clock
+   (body lookup, pack, H2D, launch, D2H, derivation) beside the launch's
+   device time;
+11. the ``kernels`` JSON line (twenty-seven entries: the engine scan's
+   collect build ``engine_scan_collect``, Jacobi-2D's cluster,
    loop and tiled routes and the one-sweep kernel's width-one route,
    pathfinder's pyramid route (its strip route is
    the ``pathfinder`` entry), canneal's row kernel (its tile kernel is the
@@ -120,8 +145,8 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    shuffled row,
    and decoding's combine kernel, each their own;
    the particle filter's rows name their path), launch counts from phases
-   4 and 5;
-10. the last line: ``{"ok": true, "device": {...}}``.
+   4, 5 and 9;
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no CUDA device or when
 the port's sources are not beside this script.
@@ -162,6 +187,11 @@ MUFU_PER_CLOCK_SM, N_SM = 16, 132
 # the FP32 dependent-issue latency (4 cycles on Hopper).
 SCAN_CHAIN = {"vector": 4, "scalar": 1}
 FP32_LATENCY_CYCLES = 4
+# The default scan's time on the study's 168 lanes in PERF.md §6's kernel
+# table before the collect build existed (pre-pass + scan); the collect
+# build must leave it within +-5 %.
+SCAN_TABLE_MS = 2.5565
+
 # Black-Scholes: operations per option as written (each sqrt/log/exp/erf
 # counted as one), bytes per option (5 float32 + 1 int32 in, 1 float32 out).
 BS_OPS, BS_BYTES = 40, 28
@@ -392,11 +422,13 @@ def random_trace(isa, seed: int, n_ops: int = 60):
     return b.build()
 
 
-def scan_bound(inp, sm_clock_hz: float) -> tuple[float, str]:
+def scan_bound(inp, sm_clock_hz: float,
+               extra_bytes: int = 0) -> tuple[float, str]:
     """(bound_ms, bound_by) of one scan launch: the larger of the bytes
     bound and the latency bound.  The latency bound is the dependent
     operations on the longest lane's chain, one per FP32 latency, so it is
-    reported as an operations bound."""
+    reported as an operations bound.  ``extra_bytes`` are outputs beyond
+    the [8, B] one (the collect build's timeline and accumulators)."""
     kind = inp.xi[0].cpu().numpy()                      # [P, B]
     period, n = inp.period.cpu().numpy(), inp.n_steps.cpu().numpy()
     per_kind = np.zeros(9, np.int64)
@@ -409,7 +441,7 @@ def scan_bound(inp, sm_clock_hz: float) -> tuple[float, str]:
         chain = max(chain, full * int(ops.sum()) + int(ops[:rem].sum()))
     t_latency = chain * FP32_LATENCY_CYCLES / sm_clock_hz
     nbytes = sum(t.numel() * t.element_size() for t in inp.args())
-    nbytes += 8 * inp.xf.shape[1] * 4                     # the [8, B] output
+    nbytes += 8 * inp.xf.shape[1] * 4 + extra_bytes       # the [8, B] output
     t_bytes = nbytes / PEAK_BYTES_S
     return (max(t_bytes, t_latency) * 1e3,
             "bytes" if t_bytes >= t_latency else "operations")
@@ -1513,29 +1545,207 @@ def scalar_gate_and_study(sp) -> None:
     --check``, the anchors' speedups on the card) and the sweep driver's
     rows (``python -m repro_torch.study``: the 480-cell batched sweep
     against the sequential per-cell path, and the steady-state table)."""
-    import contextlib
-    import io
-
     from repro_torch import study
-    for label, run in (("scalar gate", lambda: sp.main(["--check",
-                                                         "--device", "cuda"])),
-                       ("study", lambda: study.main([]))):
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = run()
-        lines = buf.getvalue().splitlines()
-        for ln in lines:
-            print(f"phase 7 {label}: {ln.strip()}")
-        print(f"phase 7 {label}: exit {rc}, "
-              f"{time.perf_counter() - t0:.2f} s wall")
-        if rc:
-            fail(f"{label}: exit {rc}")
+    run_captured("phase 7 scalar gate", lambda: sp.main(["--check",
+                                                         "--device", "cuda"]))
+    lines = run_captured("phase 7 study", lambda: study.main([]))
     if lines[0] != "name,us_per_call,derived" or not any(
             ln.startswith("sweep_full_480cfg_batched") for ln in lines):
         fail("study: not the 480-cell sweep rows")
     if not any("max_rel_diff=0.00e+00" in ln for ln in lines):
         fail("study: batched and sequential sweeps differ")
+
+
+def run_captured(label: str, run) -> list[str]:
+    """``run()`` (a command's ``main``) with its standard output captured:
+    every line printed under ``label``, then its exit code and wall time;
+    fails on a nonzero exit.  Returns the lines."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = run()
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print(f"{label}: {ln.rstrip()}")
+    print(f"{label}: exit {rc}, {time.perf_counter() - t0:.2f} s wall")
+    if rc:
+        fail(f"{label}: exit {rc}")
+    return lines
+
+
+def profiler_phase(engine_scan) -> int:
+    """The profiler on the card, the collect build's path: ``python -m
+    repro_torch.core.telemetry --smoke --scorecard`` (every app at the
+    reference's two configs, each body tiled 6 times: collect timings
+    bitwise equal to the default path's, the event-sum identity within
+    1e-4 with the worst printed, a Chrome trace of blackscholes, the
+    histogram; then the ten-app scorecard) and ``python -m
+    repro_torch.module_stress`` (last line CONSISTENT).  Returns the collect
+    build's launches, counted from 0 over the phase."""
+    from repro_torch import module_stress
+    from repro_torch.core import telemetry
+    t0 = time.perf_counter()
+    engine_scan.scan_collect.launches = 0
+    lines = run_captured("phase 9 profiler", lambda: telemetry.main(
+        ["--smoke", "--scorecard", "--device", "cuda"]))
+    ident = [ln for ln in lines if ln.startswith("identity:")]
+    if (not ident or "10 apps x 2 cfgs" not in ident[0]
+            or "profile-smoke: PASS" not in lines):
+        fail("profiler: the smoke did not run every app at both configs")
+    lines = run_captured("phase 9 module_stress", lambda: module_stress.main(
+        ["--device", "cuda"]))
+    if lines[-1] != "mechanistic <-> differential: CONSISTENT (10/10 apps)":
+        fail(f"module_stress: {lines[-1]}")
+    launches = engine_scan.scan_collect.launches
+    print(f"phase 9 launches on the profiler's path: engine_scan_collect "
+          f"{launches}; phase wall {time.perf_counter() - t0:.2f} s")
+    if launches <= 0:
+        fail("the collect build was not launched on the profiler's path")
+    return launches
+
+
+def dse_phase(torch, eng, suite, engine_scan, ve, golden, dev) -> None:
+    """Design-space exploration at full width: ``SPACE_FULL`` (1,536
+    configs) x the ten apps, cold through a JSONL cache in a temporary
+    directory, then again through a fresh ``ResultCache`` that re-reads
+    the file (hit rate 1.0, nothing simulated, the same frontier
+    fingerprint).  Checked two ways: the 240 Table-10 cells (every
+    Table-10 config is a point of the space) against
+    ``suite.speedup_batch`` bit for bit and the golden table at rtol 1e-2,
+    and 64 seeded cells against the plain scan on the card bit for bit.
+    Then the cold pass's dispatch taken apart on the host clock."""
+    import tempfile
+    from repro_torch.core import dse
+    t_phase = time.perf_counter()
+    space = ve.SPACE_FULL
+    suite.clear_caches()
+    engine_scan.scan.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "dse.jsonl")
+        t0 = time.perf_counter()
+        res = dse.explore(space, cache=dse.ResultCache(path), device=dev)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res2 = dse.explore(space, cache=dse.ResultCache(path), device=dev)
+        warm_s = time.perf_counter() - t0
+        n_lines = len(Path(path).read_text().splitlines())
+    launches = engine_scan.scan.launches
+    st, st2 = res.stats, res2.stats
+    fp, fp2 = dse._frontier_fingerprint(res), dse._frontier_fingerprint(res2)
+    phases = lambda stats: "; ".join(
+        f"{p['phase']} {p['wall_s']:.3f} s" for p in stats["phases"])
+    print(f"phase 10 dse: {space.name} {res.n_configs} configs x "
+          f"{len(res.apps)} apps = {len(res.records)} cells, cold "
+          f"{cold_s:.2f} s: simulated {st['simulated']} lanes in {launches} "
+          f"launch, in-run dedup {st['in_run_dedup']}, hit rate "
+          f"{st['hit_rate']:.3f}, {n_lines} cache lines; phases "
+          f"{phases(st)}; frontier_fp {fp}")
+    for row in st["phases"]:
+        print(f"phase 10 dse cold phase row: {json.dumps(row)}")
+    print(f"phase 10 dse repeat (a fresh ResultCache re-reading the file): "
+          f"{warm_s:.2f} s, simulated {st2['simulated']}, hit rate "
+          f"{st2['hit_rate']:.3f}; phases {phases(st2)}; frontier_fp {fp2} "
+          f"({'equal' if fp == fp2 else 'DIFFERENT'})")
+    if (len(res.records) != 15_360 or launches != 1
+            or st["simulated"] + st["in_run_dedup"] != 15_360
+            or st2["hit_rate"] != 1.0 or st2["simulated"] != 0 or fp != fp2):
+        fail("dse: not 15,360 cells in one launch, or the repeat pass missed "
+             "the cache or moved the frontier")
+
+    # the Table-10 configs are points of the space (unlisted knobs at
+    # their defaults, dram_bw_bytes_cycle 4.0): 240 cells
+    points = set(space.configs())
+    t10 = set(ve.TABLE10)
+    if not t10 <= points or any(c.dram_bw_bytes_cycle != 4.0 for c in t10):
+        fail("dse: a Table-10 config is not a point of SPACE_FULL")
+    cells = [r for r in res.records if r.cfg in t10]
+    want = suite.speedup_batch([(r.app, r.cfg) for r in cells])
+    worst, off = 0.0, []
+    for r in cells:
+        g = golden[r.app][f"{r.cfg.mvl}x{r.cfg.lanes}"]
+        rel = abs(r.speedup - g) / abs(g)
+        worst = max(worst, rel)
+        if rel > 1e-2:
+            off.append(f"{r.app} {r.label}: {r.speedup} vs {g}")
+    same = [r.speedup for r in cells] == want
+    print(f"phase 10 dse Table-10 cells: {len(cells)}, bitwise equal to "
+          f"suite.speedup_batch {same}, worst rel vs golden {worst:.3g} "
+          f"(rtol 1e-2, {len(cells) - len(off)}/{len(cells)})")
+    if len(cells) != 240 or not same or off:
+        fail(f"dse Table-10 cells: {len(cells)}, equal {same}, off {off[:5]}")
+
+    # 64 seeded cells against the plain scan on the card
+    rng = np.random.RandomState(2025)
+    picked = [res.records[i] for i in
+              sorted(rng.choice(len(res.records), 64, replace=False))]
+    inp = eng.pack_steady_state([dse.cell_body(r.app, r.cfg)[0]
+                                 for r in picked], [r.cfg for r in picked],
+                                8, 24, dev)
+    k = engine_scan.scan(*inp.args())
+    t0 = time.perf_counter()
+    p = engine_scan.scan_plain(*inp.args())
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    pc = p.cpu().numpy()
+    steady = [(float(pc[0, b]) - float(pc[5, b])) / 24
+              for b in range(len(picked))]
+    same = torch.equal(k, p) and steady == [r.steady_ns for r in picked]
+    print(f"phase 10 dse seeded cells: 64 (apps "
+          f"{sorted({r.app for r in picked})}, T_max "
+          f"{int(inp.n_steps.max())}), kernel and records bitwise equal to "
+          f"the plain scan on the card {same} (plain {plain_s:.1f} s)")
+    if not same:
+        fail("dse seeded cells: the kernel or the records differ from the "
+             "plain scan")
+
+    # the cold pass's dispatch, stage by stage, on its lanes
+    t = [time.perf_counter()]
+    need = {}
+    for app in res.apps:
+        for cfg in space.configs():
+            body, key = dse.cell_key(app, cfg)
+            need.setdefault(key, (body, cfg))
+    t.append(time.perf_counter())
+    host = eng.pack_steady_state([b for b, _ in need.values()],
+                                 [c for _, c in need.values()], 8, 24,
+                                 torch.device("cpu"))
+    t.append(time.perf_counter())
+    inp = eng.ScanInputs(*(x.to(dev) for x in host.args()))
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    out = engine_scan.scan(*inp.args())
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    out.cpu().numpy()
+    t.append(time.perf_counter())
+    derived = []
+    for r in res.records:
+        body = dse.cell_body(r.app, r.cfg)[0]
+        rt = suite.vector_runtime_from_per_chunk(r.app, r.cfg, body,
+                                                 r.steady_ns)
+        derived.append((r.cfg.label(), rt,
+                        suite.scalar_runtime_ns(r.app, r.cfg) / rt,
+                        dse.area_proxy_kb(r.cfg)))
+    t.append(time.perf_counter())
+    if derived != [(r.label, r.runtime_ns, r.speedup, r.area_kb)
+                   for r in res.records]:
+        fail("dse dispatch split: the derivation differs from explore's")
+    split = dict(zip(("body lookup", "pack", "H2D", "launch", "D2H",
+                      "derivation"),
+                     ((b - a) * 1e3 for a, b in zip(t, t[1:]))))
+    launch_ms = cuda_ms(torch, lambda: engine_scan.scan(*inp.args()), reps=3)
+    P, B = inp.xf.shape
+    print(f"phase 10 dse dispatch split (host ms, warm memos, {B} lanes x "
+          f"P {P}, {sum(x.numel() * x.element_size() for x in host.args()) / 1e6:.0f}"
+          f" MB of operands): " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in split.items())
+          + f"; the launch's device time {launch_ms:.4f} ms "
+          f"({int(inp.n_steps.long().sum())} records, T_max "
+          f"{int(inp.n_steps.max())}); largest stage "
+          f"{max(split, key=split.get)}; phase wall "
+          f"{time.perf_counter() - t_phase:.2f} s")
 
 
 def codegen_round_trip(tracegen) -> None:
@@ -1641,6 +1851,17 @@ def main() -> int:
         print(f"phase 1 {entry}: {lines}")
         if any(int(n) for n in re.findall(r"(\d+) bytes spill", lines)):
             fail(f"{entry}: ptxas spills ({lines})")
+    # the engine scan's two instantiations: the default build (its line
+    # as before the collect build existed) and the collect build, which
+    # must not spill
+    for label, entry, no_spill in (
+            ("default", "engine_scan_kernelILb0E", False),
+            ("collect", "engine_scan_kernelILb1E", True)):
+        lines = entry_lines(report, "engine_scan", entry)
+        print(f"phase 1 engine_scan {label} build: {lines}")
+        if no_spill and any(int(n) for n in
+                            re.findall(r"(\d+) bytes spill", lines)):
+            fail(f"engine_scan collect build: ptxas spills ({lines})")
     sc_sass = sass_counts(_build, "streamcluster")
     print(f"phase 1 streamcluster SASS: {sc_sass}")
     if sc_sass.startswith("HGMMA 0"):
@@ -1690,9 +1911,21 @@ def main() -> int:
           f" MB at 3.35 TB/s, H100 SXM)")
 
     # ---- 3. engine scan, kernel against plain --------------------------------
+    def timed(fn):
+        """``fn()`` once between CUDA events: (result, ms)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
     def compare(tag, inp):
+        """The default kernel against the plain version, bit for bit:
+        (max abs err, the plain version's ms)."""
         k = engine_scan.scan(*inp.args())
-        p = engine_scan.scan_plain(*inp.args())
+        p, plain_ms = timed(lambda: engine_scan.scan_plain(*inp.args()))
         torch.cuda.synchronize()
         if not torch.isfinite(k).all():
             fail(f"engine_scan {tag}: non-finite output")
@@ -1704,7 +1937,38 @@ def main() -> int:
         if not torch.equal(k, p):
             fail(f"engine_scan {tag}: kernel differs from plain in "
                  f"{int(diff.sum())} lanes")
-        return err
+        return err, plain_ms
+
+    def compare_collect(tag, inp):
+        """The collect build against ``scan_plain(collect=True)``: timing
+        outputs, accumulators and timeline bit for bit, and its timing
+        outputs bit for bit the default kernel's: (max abs err, the plain
+        version's ms)."""
+        got = engine_scan.scan_collect(*inp.args())
+        want, plain_ms = timed(lambda: engine_scan.scan_plain(
+            *inp.args(), collect=True))
+        default = engine_scan.scan(*inp.args())
+        torch.cuda.synchronize()
+        bits = lambda t: t.view(torch.int32)
+        same = [torch.equal(bits(g), bits(w)) for g, w in zip(got, want)]
+        # the float outputs (the timeline's last word is the cause's bits)
+        floats = [(got[0], want[0]), (got[1], want[1]),
+                  (got[2][..., :3], want[2][..., :3])]
+        err = max(float((g - w).abs().max()) if g.numel() else 0.0
+                  for g, w in floats)
+        n_rec = int(inp.n_steps.long().sum())
+        print(f"phase 3 engine_scan collect {tag}: {got[0].shape[1]} lanes, "
+              f"{n_rec} records, T_max={int(inp.n_steps.max())}: timing "
+              f"outputs / stalls + occupancy / timeline bitwise equal to the "
+              f"plain version {same}, timing outputs bitwise equal to the "
+              f"default kernel's {torch.equal(got[0], default)}; max abs "
+              f"{err:.3g} (bar: bit for bit)")
+        if not all(same) or not torch.equal(got[0], default):
+            fail(f"engine_scan collect {tag}: differs from the plain version "
+                 f"or from the default kernel")
+        if not torch.isfinite(got[0]).all() or not torch.isfinite(got[1]).all():
+            fail(f"engine_scan collect {tag}: non-finite output")
+        return err, plain_ms
 
     def scan_times(inp):
         """Device ms of one launch's pre-pass, of its scan, and their sum."""
@@ -1718,11 +1982,14 @@ def main() -> int:
                         reps=10, per=3)
         return pre, steps, pre + steps
 
-    scan_err = 0.0
+    scan_err = collect_err = 0.0
     short = ("jacobi-2d", "pathfinder", "swaptions", "streamcluster")
     pairs = [(a, c) for a in short for c in ve.TABLE10]
+    short_inp = suite.scan_inputs(pairs, device=dev)
     scan_err = max(scan_err, compare("short-body apps x Table 10",
-                   suite.scan_inputs(pairs, device=dev)))
+                                     short_inp)[0])
+    collect_err = max(collect_err, compare_collect(
+        "short-body apps x Table 10", short_inp)[0])
     variants = [dict(ooo_issue=True), dict(interconnect="crossbar"),
                 dict(mshrs=1), dict(l2_kb=1024),
                 dict(ooo_issue=True, interconnect="crossbar", mshrs=1,
@@ -1732,18 +1999,20 @@ def main() -> int:
         base = ve.TABLE10[(7 * seed) % len(ve.TABLE10)]
         cfgs.append(dataclasses.replace(base, **variants[seed % len(variants)]))
         traces.append(random_trace(isa, seed))
-    scan_err = max(scan_err, compare("random traces x ooo/crossbar/mshrs1/1MB",
-                   eng.pack(traces, cfgs, [3 * len(t) for t in traces],
-                            [len(t) for t in traces], dev)))
+    random_inp = eng.pack(traces, cfgs, [3 * len(t) for t in traces],
+                          [len(t) for t in traces], dev)
+    scan_err = max(scan_err, compare(
+        "random traces x ooo/crossbar/mshrs1/1MB", random_inp)[0])
+    collect_err = max(collect_err, compare_collect(
+        "random traces x ooo/crossbar/mshrs1/1MB", random_inp)[0])
     study_pairs = [(a, c) for a in tracegen.RIVEC_APPS for c in ve.TABLE10]
     study_inp = suite.scan_inputs(study_pairs, device=dev)
-    scan_err = max(scan_err, compare("study (7 apps x Table 10)", study_inp))
+    # the plain version's time is its one run in the comparison
+    err, scan_plain_ms = compare("study (7 apps x Table 10)", study_inp)
+    scan_err = max(scan_err, err)
     pre_ms, steps_ms, scan_ms = scan_times(study_inp)
     call_ms = cuda_ms(torch, lambda: engine_scan.scan(*study_inp.args()),
                       reps=10, per=3)
-    scan_plain_ms = cuda_ms(
-        torch, lambda: engine_scan.scan_plain(*study_inp.args()), reps=1,
-        warmup=0)
     scan_bound_ms, scan_bound_by = scan_bound(study_inp, sm_clock_hz)
     n_rec = int(study_inp.n_steps.long().sum())
     print(f"phase 3 engine_scan time (168 lanes, {n_rec} records, T_max="
@@ -1753,7 +2022,36 @@ def main() -> int:
           f"{steps_ms * 1e-3 * sm_clock_hz / int(study_inp.n_steps.max()):.1f}"
           f" cycles a step at the max SM clock; scan() call {call_ms:.4f} "
           f"ms), plain {scan_plain_ms:.1f} ms, bound {scan_bound_ms:.4f} ms "
-          f"({scan_bound_by})")
+          f"({scan_bound_by}); against the kernel table's {SCAN_TABLE_MS} ms "
+          f"{(scan_ms / SCAN_TABLE_MS - 1) * 100:+.1f} % (held to +-5 %: "
+          f"{'yes' if abs(scan_ms / SCAN_TABLE_MS - 1) <= 0.05 else 'no'})")
+    # the collect build on the same operands: bit for bit against its plain
+    # version (whose one run is its time), then timed beside the default
+    err, collect_plain_ms = compare_collect("study (7 apps x Table 10)",
+                                            study_inp)
+    collect_err = max(collect_err, err)
+    xi, xf, params, consts, period, n, ck = study_inp.args()
+    recs = engine_scan.prepass(xi, xf, params, consts, collect=True)
+    collect_pre_ms = cuda_ms(torch, lambda: engine_scan.prepass(
+        xi, xf, params, consts, collect=True), reps=10, per=10)
+    collect_steps_ms = cuda_ms(torch, lambda: engine_scan.steps_collect(
+        *recs, params, period, n, ck), reps=10, per=3)
+    collect_ms = cuda_ms(torch, lambda: engine_scan.scan_collect(
+        *study_inp.args()), reps=10, per=3)
+    default_ms = cuda_ms(torch, lambda: engine_scan.scan(*study_inp.args()),
+                         reps=10, per=3)
+    acc_rows = engine_scan.N_STALL + engine_scan.N_OCC
+    collect_bound_ms, collect_bound_by = scan_bound(
+        study_inp, sm_clock_hz, extra_bytes=16 * n_rec + 4 * acc_rows * len(n))
+    print(f"phase 3 engine_scan collect time (168 lanes, {n_rec} records): "
+          f"call {collect_ms:.4f} ms (pre-pass {collect_pre_ms:.4f} + scan "
+          f"{collect_steps_ms:.4f}; the zeroed timeline the rest) against "
+          f"the default call's {default_ms:.4f} ms in turn "
+          f"({collect_ms / default_ms:.2f}x); "
+          f"{collect_steps_ms * 1e-3 * sm_clock_hz / int(n.max()):.1f} cycles "
+          f"a step at the max SM clock; plain {collect_plain_ms:.1f} ms; "
+          f"bound {collect_bound_ms:.4f} ms ({collect_bound_by}), "
+          f"{collect_bound_ms / collect_ms:.1%} of it")
 
     # ---- 4. the study: the main path ----------------------------------------
     engine_scan.scan.launches = 0
@@ -2084,7 +2382,13 @@ def main() -> int:
     # ---- 8. the RVV code generator: corpus and round trip --------------------
     codegen_round_trip(tracegen)
 
-    # ---- 9. kernels line ------------------------------------------------------
+    # ---- 9. the profiler: the collect build's path ---------------------------
+    collect_launches = profiler_phase(engine_scan)
+
+    # ---- 10. design-space exploration at full width --------------------------
+    dse_phase(torch, eng, suite, engine_scan, ve, golden, dev)
+
+    # ---- 11. kernels line -----------------------------------------------------
     kernels = [
         {"name": "engine_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/engine_scan.cu",
@@ -2092,6 +2396,13 @@ def main() -> int:
          "launches": launches["engine_scan"], "max_abs_err": scan_err,
          "ms": scan_ms, "plain_ms": scan_plain_ms, "bound_ms": scan_bound_ms,
          "bound_by": scan_bound_by, "library_ms": None},
+        {"name": "engine_scan_collect", "route": "cuda",
+         "source": "src/repro_torch/csrc/engine_scan.cu",
+         "replaces": "src/repro/core/engine.py:435",
+         "launches": collect_launches, "max_abs_err": collect_err,
+         "ms": collect_ms, "plain_ms": collect_plain_ms,
+         "bound_ms": collect_bound_ms, "bound_by": collect_bound_by,
+         "library_ms": None},
         {"name": "blackscholes", "route": "cuda",
          "source": "src/repro_torch/csrc/blackscholes.cu",
          "replaces": "src/repro/kernels/blackscholes.py:38",
@@ -2158,7 +2469,7 @@ def main() -> int:
                         "replaces": SUITE_REPLACES[of],
                         "launches": launches[counter], **rows[row]})
     print(json.dumps({"kernels": kernels}))
-    # ---- 10. last line ----------------------------------------------------------
+    # ---- 12. last line ----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

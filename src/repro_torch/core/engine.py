@@ -117,14 +117,11 @@ SC_BLOCK_BMISS_RATE = 0.08     # mispredict rate of those branches
 DEFAULT_BRANCH_MISS_PENALTY = 6.0
 FUSION_SIMPLE_SAVE = 0.15      # simple-class cycles removed by macro-op fusion
 
-# The causes the reference's profiling scan attributes cycles to; the port's
-# profiler is a later slice, the names are shared now.
-STALL_KINDS = (
-    "scalar_work", "dep_scalar", "dispatch", "rob_full", "phys_full",
-    "aq_full", "mq_full", "raw", "lane_wait", "vmu_wait", "inorder",
-    "exec_simple", "exec_mul", "exec_div", "exec_trans",
-    "exec_interconnect", "exec_mask", "exec_move", "exec_mem",
-)
+# Every stall/execution cause the collect build of the scan attributes
+# cycles to, in accumulator order (the reference's; ``kernels/engine_scan``
+# documents the attribution).
+STALL_KINDS = engine_scan.STALL_KINDS
+N_STALL = engine_scan.N_STALL
 
 # The kernel's calibration operand: one source of truth for both versions.
 CONSTS = np.concatenate([SCALAR_CYCLES, VEC_PIPE_DEPTH, VEC_ELEM_CYCLES,
@@ -267,9 +264,33 @@ def simulate_batch(traces, cfgs, device=None) -> list[dict]:
             for b in range(len(traces))]
 
 
-def simulate(trace: isa.Trace, cfg: VectorEngineConfig, device=None) -> dict:
-    """Run the timing model on one trace; times in vector-engine cycles."""
-    return simulate_batch([trace], [cfg], device=device)[0]
+def simulate(trace: isa.Trace, cfg: VectorEngineConfig,
+             collect_stats: bool = False, device=None) -> dict:
+    """Run the timing model on one trace; times in vector-engine cycles.
+
+    With ``collect_stats=True`` the collect build of the scan runs instead
+    (``engine_scan.scan_collect``: the same step arithmetic, so the timing
+    metrics are bitwise the default's) and the result also carries:
+
+    * ``stalls``: ``{cause: cycles}`` over ``STALL_KINDS``, summing to
+      ``time`` (the event-sum identity);
+    * ``occ_lane_fu``: lane-busy cycles per arithmetic FU class;
+    * ``records``: per-record ``start`` / ``issue`` / ``complete`` numpy
+      float32 arrays and the int32 ``cause`` index (the timeline's
+      feedstock, ``repro_torch.core.telemetry``).
+    """
+    if not collect_stats:
+        return simulate_batch([trace], [cfg], device=device)[0]
+    dev = _device.resolve(device)
+    inp = pack([trace], [cfg], [len(trace)], [0], dev)
+    out, acc, rec = engine_scan.scan_collect(*inp.args())
+    out, acc = out.cpu().numpy(), acc.cpu().numpy()
+    res = {k: float(out[j, 0]) for j, k in enumerate(METRICS)}
+    res["stalls"] = {k: float(v) for k, v in zip(STALL_KINDS, acc[:N_STALL, 0])}
+    res["occ_lane_fu"] = [float(v) for v in acc[N_STALL:, 0]]
+    res["records"] = {k: v[:, 0].cpu().numpy()
+                      for k, v in engine_scan.records(rec).items()}
+    return res
 
 
 def steady_state_time_batch(bodies, cfgs, warmup: int = 8, measure: int = 24,

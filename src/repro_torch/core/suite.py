@@ -66,8 +66,10 @@ def clear_caches() -> None:
     """Forget the memoized loop bodies (hand-coded, lowered and decoded)
     and scalar baselines, so the next call builds them anew as a fresh
     process would."""
-    from repro_torch.core import frontend, rvv, workloads_ml
+    from repro_torch.core import dse, frontend, rvv, workloads_ml
     tracegen._BODY_CACHE.clear()
+    dse._BODY_FPS.clear()
+    dse._CFG_FPS.clear()
     workloads_ml._TRACE_CACHE.clear()
     frontend._DERIVED_CACHE.clear()
     rvv._DECODE_CACHE.clear()
@@ -137,3 +139,26 @@ def sweep_all(apps=None, mvls=(8, 16, 32, 64, 128, 256), lanes=(1, 2, 4, 8),
     flat = run(pairs, device=device)
     return {a: dict(zip(grid, flat[i * len(grid):(i + 1) * len(grid)]))
             for i, a in enumerate(apps)}
+
+
+def dse_explore(space, apps=None, cache=None, warmup: int = 8,
+                measure: int = 24, device=None):
+    """Design-space exploration over the suite: evaluate ``apps`` (default:
+    all 10) on every config of ``space`` in one engine scan launch, deduped
+    through ``cache`` — ``repro_torch.core.dse.explore``.  Returns a
+    ``dse.DseResult``; ``.frontiers()`` gives the per-app Pareto frontier
+    (runtime vs. area proxy)."""
+    from repro_torch.core import dse
+    return dse.explore(space, apps=apps, cache=cache, warmup=warmup,
+                       measure=measure, device=device)
+
+
+def dse_best_under_budget(space, budget_kb: float, apps=None, cache=None,
+                          device=None) -> dict:
+    """Per-app "best config under an area budget": the fastest explored
+    config whose ``dse.area_proxy_kb`` fits ``budget_kb`` (``None`` when
+    nothing fits)."""
+    from repro_torch.core import dse
+    res = dse.explore(space, apps=apps, cache=cache, device=device)
+    return {a: dse.best_under_budget(recs, budget_kb)
+            for a, recs in res.by_app().items()}

@@ -50,6 +50,43 @@
 // plus ~14 a record for the cp.async stream (a tile's wait and copies)
 // -- ~158 cycles a step on an H100 (PERF.md).
 //
+// The collect build (engine_scan_kernel<true>, with the pre-pass's
+// engine_prepass_kernel<true>) replaces repro/core/engine.py:435
+// _profile_core: _make_step(collect=True) under lax.scan, the cycle
+// attribution of engine.simulate(collect_stats=True).  It is the same
+// template as the default build, instantiated with COLLECT, so the two
+// recurrences cannot drift; every collect-only line sits under
+// `if constexpr (COLLECT)` and the default instantiation compiles to the
+// kernel it was.  What it adds to a step:
+//  * a third record word from the pre-pass (rec_x: the record's execution
+//    class and FU class; the flag word has no room for them), streamed
+//    through the same cp.async ring;
+//  * the frontier F = max(t_scalar, last_commit) before the step and the
+//    visible pieces of the step's advance (dep / work for a scalar block;
+//    wait / exec / tail for a vector instruction), in the reference's
+//    float32 operations;
+//  * the wait's cause: the candidates the issue time is the max of (the
+//    ROB, rename and queue slots, operand readiness, the FU, the in-order
+//    gate) compared with it in the reference's precedence, read before
+//    this step's stores overwrite the forwarded slots;
+//  * 19 STALL_KINDS accumulators and 4 lane-busy sums per FU class:
+//    scalar_work and dep_scalar, which most steps touch, in registers; the
+//    wait causes, execution classes and FU sums in rows of this thread's
+//    column of shared memory, each range with a dummy row a record without
+//    such a term adds to.  A step reads its three rows together and writes
+//    them back (they never coincide) -- one read-modify-write a touched
+//    slot, where predicated adds into 23 registers cost 420 cycles a step
+//    against 285 (scripts/engine_scan_variants.py --collect).  Adding the
+//    reference's zeros to the untouched slots changes no bit, so they are
+//    not touched;
+//  * one 16-byte streaming store a record, rec[step][lane] = (start,
+//    issue, complete, cause bits): a warp's 32 lanes store 512
+//    neighbouring bytes.
+// It is bound like the default build (one serial chain a lane, the step's
+// instructions issued by one warp a scheduler) plus the timeline's bytes
+// (16 B a record), which at the study's 1.1 M records is ~5 us of the
+// card's 3.35 TB/s: the extra instructions of a step are its cost.
+//
 // Bitwise parity with the plain version (and so with the reference's step):
 //  * FMA contraction.  Build with -fmad=false: every a*b+c is two
 //    roundings.  Float literals carry the f suffix; division is IEEE
@@ -100,6 +137,22 @@ constexpr int SCALAR_BLOCK = 0, VARITH = 1, VLOAD = 2, VSTORE = 3, VSLIDE = 4,
               VREDUCE = 5, VMASK_SCALAR = 6, VMOVE = 7, NOP = 8;
 constexpr int MEM_UNIT = 0, MEM_INDEXED = 2;
 
+// the collect build's accumulators, in STALL_KINDS order; a vector
+// record's execution class is an offset from S_EXEC (the FU class for an
+// arithmetic record, then X_*)
+constexpr int S_SCALAR_WORK = 0, S_DEP_SCALAR = 1, S_DISPATCH = 2,
+              S_ROB_FULL = 3, S_PHYS_FULL = 4, S_AQ_FULL = 5, S_MQ_FULL = 6,
+              S_RAW = 7, S_LANE_WAIT = 8, S_VMU_WAIT = 9, S_INORDER = 10,
+              S_EXEC = 11, N_STALL = 19, N_OCC = 4;
+constexpr int X_INTERCONNECT = 4, X_MASK = 5, X_MOVE = 6, X_MEM = 7;
+// the collect build's accumulator rows in shared memory: the wait causes
+// (S_DISPATCH..S_INORDER), the execution classes, the FU sums, each range
+// followed by its dummy row
+constexpr int A_WAIT = 0, A_WAIT_NONE = A_WAIT + S_EXEC - S_DISPATCH;
+constexpr int A_EXEC = A_WAIT_NONE + 1, A_EXEC_NONE = A_EXEC + N_STALL - S_EXEC;
+constexpr int A_OCC = A_EXEC_NONE + 1, A_OCC_NONE = A_OCC + N_OCC;
+constexpr int ACC_ROWS = A_OCC_NONE + 1;
+
 // A record's int32 word: flag bits, then the state slots it reads (src1,
 // src2: the register, or ZERO when absent) and writes (dst: the register
 // of a vector instruction, else DUMMY), each as slot x 128, the byte offset
@@ -146,13 +199,16 @@ __device__ __forceinline__ float vector_access_cycles(
 
 // ---- 1. the pre-pass ---------------------------------------------------------
 
+// COLLECT also writes rec_x: the execution class (bits 0-3) and the FU
+// class (bits 4-5) of the record.
+template <bool COLLECT>
 __global__ void __launch_bounds__(256)
 engine_prepass_kernel(const int32_t* __restrict__ xi,
                       const float* __restrict__ xf,
                       const float* __restrict__ params,
                       const float* __restrict__ consts,
                       float4* __restrict__ rec_f, int32_t* __restrict__ rec_w,
-                      long long PB, int B) {
+                      int32_t* __restrict__ rec_x, long long PB, int B) {
   const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= PB) return;
   const int b = (int)(o % B);
@@ -225,6 +281,15 @@ engine_prepass_kernel(const int32_t* __restrict__ xi,
   rec_f[o] = make_float4(is_scalar ? sc_time : sv_add, startup, exec_c,
                          startup + exec_c);
   rec_w[o] = w;
+  if constexpr (COLLECT) {
+    // the reference's exec_idx: memory, slides and reductions,
+    // vfirst/vpopc, moves, else the FU class
+    const int x = is_mem ? X_MEM
+                  : kind == VSLIDE || kind == VREDUCE ? X_INTERCONNECT
+                  : kind == VMASK_SCALAR ? X_MASK
+                  : kind == VMOVE ? X_MOVE : fu;
+    rec_x[o] = x | fu << 4;
+  }
 }
 
 // ---- 2. the scan ---------------------------------------------------------------
@@ -263,8 +328,8 @@ __device__ __forceinline__ float& at(char* col, int off) {
 }
 
 // This lane's record stream: the ring of STAGES x K records (this thread's
-// column of it: ring row i at f[i * WARP], w[i * WARP]) and the row of the
-// next record to request.
+// column of it: ring row i at f[i * WARP], w[i * WARP], and for the collect
+// build x[i * WARP]) and the row of the next record to request.
 struct Stream {
   float4* f;
   int32_t* w;
@@ -272,26 +337,43 @@ struct Stream {
   const int32_t* src_w;
   int pos, per;
   long long stride;      // B: one row of rec_f / rec_w
+  int32_t* x;            // the collect build's rec_x ring and source
+  const int32_t* src_x;
 };
 
 // Request tile `tile` (steps tile * K ..) in the lane's loop order; one
 // commit group a tile.  Rows past n_steps are copied too (they are valid
 // rows of the lane's body and are never read), so there is no branch.
+template <bool COLLECT>
 __device__ __forceinline__ void fetch_tile(Stream& s, int tile) {
   const int s0 = (tile % STAGES) * K;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     cp_async<16>(s.f + (s0 + k) * WARP, s.src_f);
     cp_async<4>(s.w + (s0 + k) * WARP, s.src_w);
+    if constexpr (COLLECT) cp_async<4>(s.x + (s0 + k) * WARP, s.src_x);
     const bool wrap = ++s.pos == s.per;
     const long long step = wrap ? -(s.per - 1) * s.stride : s.stride;
     s.pos = wrap ? 0 : s.pos;
     s.src_f += step;
     s.src_w += step;
+    if constexpr (COLLECT) s.src_x += step;
   }
   cp_async_commit();
 }
 
+// The dynamic shared memory: the record ring, a float4 and an int32 a
+// record, and for the collect build the rec_x word and the accumulator rows.
+template <bool COLLECT>
+constexpr int ring_bytes() {
+  return STAGES * K * WARP *
+             (int)(sizeof(float4) + sizeof(int32_t) * (COLLECT ? 2 : 1)) +
+         (COLLECT ? ACC_ROWS * WARP * (int)sizeof(float) : 0);
+}
+
+// COLLECT also takes rec_x and writes acc [N_STALL + N_OCC, B] and
+// rec [n_steps, B] float4 (only rows below the lane's n_steps).
+template <bool COLLECT>
 __global__ void __launch_bounds__(WARP)
 engine_scan_kernel(const float4* __restrict__ rec_f,
                    const int32_t* __restrict__ rec_w,
@@ -299,7 +381,9 @@ engine_scan_kernel(const float4* __restrict__ rec_f,
                    const int32_t* __restrict__ period,
                    const int32_t* __restrict__ n_steps,
                    const int32_t* __restrict__ ckpt, float* __restrict__ out,
-                   int B) {
+                   int B, const int32_t* __restrict__ rec_x,
+                   float* __restrict__ acc_out,
+                   float4* __restrict__ rec_out) {
   __shared__ float st[N_SLOTS][WARP];
   extern __shared__ float4 ring_raw[];
   const int t = threadIdx.x;
@@ -321,17 +405,28 @@ engine_scan_kernel(const float4* __restrict__ rec_f,
         last_mq = 0.0f, last_commit = 0.0f, scalar_res = 0.0f,
         busy_lane = 0.0f, busy_vmu = 0.0f;
   float ck_time = 0.0f, ck_lane = 0.0f, ck_vmu = 0.0f;
+  // the collect build's accumulators (two registers and this thread's
+  // column of the rows A_*) and its record pointer
+  int32_t* ring_w = reinterpret_cast<int32_t*>(ring_raw + STAGES * K * WARP);
+  float acc_work = 0.0f, acc_dep = 0.0f;
+  float* acc_rows =
+      reinterpret_cast<float*>(ring_w + 2 * STAGES * K * WARP) + t;
+  if constexpr (COLLECT)
+    for (int k = 0; k < ACC_ROWS; ++k) acc_rows[k * WARP] = 0.0f;
+  float4* rec_o = rec_out + b;
   if (T > 0) {   // a lane with no steps reads no record (P may be 0)
-    Stream in{ring_raw + t,
-              reinterpret_cast<int32_t*>(ring_raw + STAGES * K * WARP) + t,
-              rec_f + b, rec_w + b, 0, max(period[b], 1), B};
-    for (int j = 0; j < TILES_AHEAD; ++j) fetch_tile(in, j);
+    Stream in{ring_raw + t, ring_w + t, rec_f + b, rec_w + b,
+              0, max(period[b], 1), B,
+              COLLECT ? ring_w + STAGES * K * WARP + t : nullptr,
+              COLLECT ? rec_x + b : nullptr};
+    for (int j = 0; j < TILES_AHEAD; ++j) fetch_tile<COLLECT>(in, j);
 
     // the current record and the five state reads it needs, read before
     // the previous step's stores and forwarded (all zero at step 0)
     cp_async_wait<TILES_AHEAD - 1>();  // tile 0 has landed
     float4 xf = in.f[0];
     int xw = in.w[0];
+    int xx = COLLECT ? in.x[0] : 0;
     float r1 = 0.0f, r2 = 0.0f, rob_slot = 0.0f, phys_slot = 0.0f,
           q_slot = 0.0f;
 
@@ -343,6 +438,7 @@ engine_scan_kernel(const float4* __restrict__ rec_f,
       // ---- the next record and its state reads, before this step's stores
       const float4 nf = in.f[rn * WARP];
       const int nw = in.w[rn * WARP];
+      const int nx = COLLECT ? in.x[rn * WARP] : 0;
       const int nv2 = nv + (xw & F_VEC) * (ROW / F_VEC);
       const int na2 = na + (xw & F_ARITH) * (ROW / F_ARITH);
       const int nm2 = nm + (xw & F_MEM) * (ROW / F_MEM);
@@ -369,6 +465,50 @@ engine_scan_kernel(const float4* __restrict__ rec_f,
           fmaxf(fmaxf(dispatch, inorder), fmaxf(fmaxf(r1, r2), fu_free));
       const float complete = (issue + xf.y) + xf.z;
       const float commit = fmaxf(complete, last_commit);
+
+      // ---- the collect build: attribute the frontier's advance
+      if constexpr (COLLECT) {
+        const bool dep = xw & F_DEP;
+        const float f_old = fmaxf(t_scalar, last_commit);
+        const float t_wait = fmaxf(t_scalar, dep ? scalar_res : -INFINITY);
+        // a scalar block (t_new = its end): the wait on a vector result
+        // and the work beyond the frontier, one sum into one slot
+        const float dep_vis = fmaxf(t_wait - f_old, 0.0f);
+        const float work_vis = fmaxf(t_new - fmaxf(t_wait, f_old), 0.0f);
+        const float sc_vis = dep_vis + work_vis;
+        // a vector instruction (t_new = its scalar commit): the wait
+        // before issue, the execution and the scalar pipe beyond it
+        const float wait_vis = fmaxf(issue - f_old, 0.0f);
+        const float exec_vis = fmaxf(complete - fmaxf(issue, f_old), 0.0f);
+        const float tail_vis = fmaxf(t_new - fmaxf(complete, f_old), 0.0f);
+        // the binding constraint, lowest precedence first
+        int cause = issue == inorder ? S_INORDER : S_DISPATCH;
+        cause = issue == fu_free ? (mem ? S_VMU_WAIT : S_LANE_WAIT) : cause;
+        cause = issue == fmaxf(r1, r2) ? S_RAW : cause;
+        cause = issue == q_slot ? (mem ? S_MQ_FULL : S_AQ_FULL) : cause;
+        cause = issue == phys_slot ? S_PHYS_FULL : cause;
+        cause = issue == rob_slot ? S_ROB_FULL : cause;
+        acc_work = acc_work + (vec ? tail_vis : dep ? 0.0f : sc_vis);
+        if (dep) acc_dep = acc_dep + sc_vis;
+        // the three rows (a scalar record's are the dummies) read together,
+        // then written back: they never coincide
+        float* const aw =
+            acc_rows + (vec ? A_WAIT + cause - S_DISPATCH : A_WAIT_NONE) * WARP;
+        float* const ae =
+            acc_rows + (vec ? A_EXEC + (xx & 15) : A_EXEC_NONE) * WARP;
+        float* const ao =
+            acc_rows + (arith ? A_OCC + (xx >> 4) : A_OCC_NONE) * WARP;
+        const float w0 = *aw, e0 = *ae, o0 = *ao;
+        *aw = w0 + wait_vis;
+        *ae = e0 + exec_vis;
+        *ao = o0 + xf.w;
+        const int rec_cause = vec ? cause : dep ? S_DEP_SCALAR : S_SCALAR_WORK;
+        __stcs(rec_o, make_float4(vec ? t_new : t_scalar,
+                                  vec ? issue : t_wait,
+                                  vec ? complete : t_new,
+                                  __int_as_float(rec_cause)));
+        rec_o += B;
+      }
 
       // ---- stores, and the same values forwarded into the next reads
       const int w_reg = (xw >> 16) & SLOT_BITS;   // DUMMY without a dst
@@ -401,6 +541,7 @@ engine_scan_kernel(const float4* __restrict__ rec_f,
       nm = nm2;
       xf = nf;
       xw = nw;
+      if constexpr (COLLECT) xx = nx;
       if (r + 1 == ck) {
         ck_time = fmaxf(t_scalar, last_commit);
         ck_lane = busy_lane;
@@ -412,7 +553,7 @@ engine_scan_kernel(const float4* __restrict__ rec_f,
       // tiles <= j + 1 have landed (the last step of tile j reads the
       // first record of j + 1); the stage of tile j - 1 is free for j + 3
       cp_async_wait<TILES_AHEAD - 2>();
-      fetch_tile(in, j + TILES_AHEAD);
+      fetch_tile<COLLECT>(in, j + TILES_AHEAD);
       const int r0 = j * K, s1 = (j % STAGES) * K + 1;
       if (r0 + K <= T) {   // a whole tile: no end test a step
 #pragma unroll
@@ -432,10 +573,50 @@ engine_scan_kernel(const float4* __restrict__ rec_f,
   out[5 * B + b] = ck_time;
   out[6 * B + b] = ck_lane;
   out[7 * B + b] = ck_vmu;
+  if constexpr (COLLECT) {
+    acc_out[S_SCALAR_WORK * B + b] = acc_work;
+    acc_out[S_DEP_SCALAR * B + b] = acc_dep;
+    for (int k = S_DISPATCH; k < S_EXEC; ++k)
+      acc_out[k * B + b] = acc_rows[(A_WAIT + k - S_DISPATCH) * WARP];
+    for (int k = S_EXEC; k < N_STALL; ++k)
+      acc_out[k * B + b] = acc_rows[(A_EXEC + k - S_EXEC) * WARP];
+    for (int k = 0; k < N_OCC; ++k)
+      acc_out[(N_STALL + k) * B + b] = acc_rows[(A_OCC + k) * WARP];
+  }
 }
 
-constexpr int RING_BYTES = STAGES * K * WARP * (int)(sizeof(float4) +
-                                                     sizeof(int32_t));
+template <bool COLLECT>
+int prepass_launch(const int32_t* xi, const float* xf, const float* params,
+                   const float* consts, void* rec_f, int32_t* rec_w,
+                   int32_t* rec_x, int P, int B, void* stream) {
+  const long long PB = (long long)P * B;
+  if (PB == 0) return 0;
+  const long long blocks = (PB + 255) / 256;
+  engine_prepass_kernel<COLLECT><<<(unsigned)blocks, 256, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      xi, xf, params, consts, static_cast<float4*>(rec_f), rec_w, rec_x, PB,
+      B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool COLLECT>
+int steps_launch(const void* rec_f, const int32_t* rec_w,
+                 const int32_t* rec_x, const float* params,
+                 const int32_t* period, const int32_t* n_steps,
+                 const int32_t* ckpt, float* out, float* acc, void* rec,
+                 int B, void* stream) {
+  constexpr int bytes = ring_bytes<COLLECT>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      engine_scan_kernel<COLLECT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (B + WARP - 1) / WARP;
+  engine_scan_kernel<COLLECT><<<blocks, WARP, bytes,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(rec_f), rec_w, params, period, n_steps, ckpt,
+      out, B, rec_x, acc, static_cast<float4*>(rec));
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -449,13 +630,17 @@ extern "C" int engine_prepass_launch(const int32_t* xi, const float* xf,
                                      const float* params, const float* consts,
                                      void* rec_f, int32_t* rec_w, int P,
                                      int B, void* stream) {
-  const long long PB = (long long)P * B;
-  if (PB == 0) return 0;
-  const long long blocks = (PB + 255) / 256;
-  engine_prepass_kernel<<<(unsigned)blocks, 256, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      xi, xf, params, consts, static_cast<float4*>(rec_f), rec_w, PB, B);
-  return static_cast<int>(cudaGetLastError());
+  return prepass_launch<false>(xi, xf, params, consts, rec_f, rec_w, nullptr,
+                               P, B, stream);
+}
+
+// The collect build's pre-pass: also rec_x int32 [P, B].
+extern "C" int engine_prepass_collect_launch(
+    const int32_t* xi, const float* xf, const float* params,
+    const float* consts, void* rec_f, int32_t* rec_w, int32_t* rec_x, int P,
+    int B, void* stream) {
+  return prepass_launch<true>(xi, xf, params, consts, rec_f, rec_w, rec_x, P,
+                              B, stream);
 }
 
 // The scan over the pre-pass's records into out float32 [8, B].  Launches
@@ -465,14 +650,19 @@ extern "C" int engine_steps_launch(const void* rec_f, const int32_t* rec_w,
                                    const int32_t* n_steps,
                                    const int32_t* ckpt, float* out, int B,
                                    void* stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      engine_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      RING_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + WARP - 1) / WARP;
-  engine_scan_kernel<<<blocks, WARP, RING_BYTES,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(rec_f), rec_w, params, period, n_steps, ckpt,
-      out, B);
-  return static_cast<int>(cudaGetLastError());
+  return steps_launch<false>(rec_f, rec_w, nullptr, params, period, n_steps,
+                             ckpt, out, nullptr, nullptr, B, stream);
+}
+
+// The collect build's scan: also acc float32 [23, B] (the 19 STALL_KINDS
+// accumulators, then the lane-busy cycles per FU class) and rec float4
+// [T, B] (rows below each lane's n_steps written; the caller zeroes the
+// rest).
+extern "C" int engine_steps_collect_launch(
+    const void* rec_f, const int32_t* rec_w, const int32_t* rec_x,
+    const float* params, const int32_t* period, const int32_t* n_steps,
+    const int32_t* ckpt, float* out, float* acc, void* rec, int B,
+    void* stream) {
+  return steps_launch<true>(rec_f, rec_w, rec_x, params, period, n_steps,
+                            ckpt, out, acc, rec, B, stream);
 }

@@ -1,6 +1,7 @@
-"""The port's sweep driver: ``benchmarks/run.py``'s sweep rows, 20 names.
+"""The port's sweep driver: ``benchmarks/run.py``'s sweep and DSE rows.
 
     python -m repro_torch.study [--device cuda|cpu] [--quick]
+    python -m repro_torch.study --dse [--quick] [--dse-cache PATH]
 
 Prints ``name,us_per_call,derived`` rows, as ``benchmarks/run.py`` does,
 for two of its studies, over the golden table's 20 names (the RiVec seven,
@@ -18,12 +19,24 @@ the three ML apps and the ten ``"<app>:asm"`` variants):
   64 x 4 lanes, with the lane and VMU utilization over the measurement
   window, from one ``steady_state_time_batch`` call.
 
+With ``--dse`` it prints ``benchmarks/run.py --dse``'s rows instead
+(``dse_study``): the design-space exploration of ``SPACE_FULL`` (1,536
+configs) over all ten apps, or with ``--quick`` ``SPACE_QUICK`` (384) over
+``SPACE_PRESET_APPS["quick"]``, through the persistent result cache
+``--dse-cache`` (default ``results/dse_cache.jsonl`` at the repository
+root, the reference's file: the keys are the same): one row
+``dse_<space>_<n>cfg_<k>apps`` with the cells simulated, the hit rate and
+the frontier fingerprint, then ``dse_frontier_<app>`` per app.  A repeat
+run with the same cache reports ``hit_rate=1.000`` and the same
+``frontier_fp``.
+
 The engine runs on the CUDA device unless ``--device cpu`` is given.
-Nothing is written to disk.
+Only ``--dse`` writes to disk (its cache).
 """
 from __future__ import annotations
 
 import time
+from pathlib import Path
 
 from repro_torch.core import engine as eng
 from repro_torch.core import suite, tracegen
@@ -86,6 +99,38 @@ def steady_state_table(names=NAMES, device=None) -> list[tuple]:
             for a, r in zip(names, rows)]
 
 
+DSE_CACHE = Path(__file__).resolve().parents[2] / "results" / "dse_cache.jsonl"
+
+
+def dse_study(quick: bool = False, cache_path=DSE_CACHE,
+              budget_kb: float = 512.0, device=None) -> list[tuple]:
+    """``benchmarks/run.py``'s DSE rows through the port: the space's
+    exploration through the cache at ``cache_path``, reduced to per-app
+    Pareto frontiers and the best config under ``budget_kb``."""
+    from repro_torch.configs import vector_engine as vcfg
+    from repro_torch.core import dse
+    space = vcfg.SPACE_QUICK if quick else vcfg.SPACE_FULL
+    apps = vcfg.SPACE_PRESET_APPS["quick" if quick else "full"]
+    cache = dse.ResultCache(str(cache_path) if cache_path else None)
+    t0 = time.perf_counter()
+    res = dse.explore(space, apps, cache=cache, device=device)
+    wall = time.perf_counter() - t0
+    frontiers = res.frontiers()
+    fp = dse._frontier_fingerprint(res)
+    rows = [(f"dse_{res.space}_{res.n_configs}cfg_{len(res.apps)}apps",
+             wall * 1e6,
+             f"wall_s={wall:.2f}|simulated={res.stats['simulated']}"
+             f"|hit_rate={res.stats['hit_rate']:.3f}"
+             f"|devices={res.stats['devices']}|frontier_fp={fp}")]
+    by_app = res.by_app()
+    for app in res.apps:
+        best = dse.best_under_budget(by_app[app], budget_kb)
+        rows.append((f"dse_frontier_{app}", 0.0,
+                     f"{len(frontiers[app])}pts|best{budget_kb:g}kb="
+                     f"{best.label if best else 'none'}"))
+    return rows
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(prog="python -m repro_torch.study",
@@ -96,10 +141,22 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="engine device (default: the CUDA device; 'cpu' "
                          "runs the plain PyTorch scan)")
+    ap.add_argument("--dse", action="store_true",
+                    help="the DSE rows only: SPACE_FULL x 10 apps (with "
+                         "--quick SPACE_QUICK x 3) through --dse-cache")
+    ap.add_argument("--dse-cache", default=str(DSE_CACHE),
+                    help="persistent DSE result cache (JSONL)")
+    ap.add_argument("--dse-budget-kb", type=float, default=512.0)
     args = ap.parse_args(argv)
     print("name,us_per_call,derived")
-    for rows in (steady_state_table(device=args.device),
-                 sweep_wallclock(quick=args.quick, device=args.device)):
+    if args.dse:
+        studies = (dse_study(quick=args.quick, cache_path=args.dse_cache,
+                             budget_kb=args.dse_budget_kb,
+                             device=args.device),)
+    else:
+        studies = (steady_state_table(device=args.device),
+                   sweep_wallclock(quick=args.quick, device=args.device))
+    for rows in studies:
         for name, us, derived in rows:
             print(f"{name},{us:.1f},{derived}")
     return 0

@@ -163,6 +163,73 @@ def test_engine_scan_redesign_bitwise(cuda, case):
     assert torch.equal(got, engine_scan.scan_plain(*inp.args()))
 
 
+COLLECT_CASES = SCAN_CASES[:-1] + ["ragged B 168"]
+
+
+def _assert_same_bits(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", COLLECT_CASES)
+def test_engine_scan_collect_bitwise(cuda, case):
+    """The collect build against ``scan_plain(..., collect=True)``: its
+    pre-pass words, the timing outputs, the STALL_KINDS accumulators, the
+    lane-busy sums and the timeline, bit for bit; its timing outputs equal
+    the default kernel's; one launch counted a call on its own counter."""
+    inp = _scan_case(case, cuda)
+    xi, xf, params, consts = inp.args()[:4]
+    got_x = engine_scan.prepass(xi, xf, params, consts, collect=True)
+    want_x = engine_scan.prepass_plain(xi, xf, params, consts, collect=True)
+    for g, w in zip(got_x, want_x):
+        _assert_same_bits(g, w)
+    before, default = engine_scan.scan_collect.launches, engine_scan.scan.launches
+    out, acc, rec = engine_scan.scan_collect(*inp.args())
+    assert engine_scan.scan_collect.launches == before + 1
+    assert engine_scan.scan.launches == default
+    p_out, p_acc, p_rec = engine_scan.scan_plain(*inp.args(), collect=True)
+    for g, w in ((out, p_out), (acc, p_acc), (rec, p_rec)):
+        _assert_same_bits(g, w)
+    _assert_same_bits(out, engine_scan.scan(*inp.args()))
+
+
+def test_engine_scan_collect_without_steps(cuda):
+    """Lanes that run no record: zero accumulators, an empty timeline, and
+    no lanes at all."""
+    inp = _scan_case("ragged B 33", cuda)
+    inp.n_steps.zero_()
+    inp.ckpt.zero_()
+    out, acc, rec = engine_scan.scan_collect(*inp.args())
+    assert rec.shape == (0, 33, 4) and not acc.any()
+    _assert_same_bits(out, engine_scan.scan(*inp.args()))
+    i32 = dict(dtype=torch.int32, device=cuda)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    out, acc, rec = engine_scan.scan_collect(
+        torch.zeros(10, 5, 0, **i32), torch.zeros(5, 0, **f32),
+        torch.zeros(0, 20, **f32), inp.consts, *(torch.zeros(0, **i32)
+                                                 for _ in range(3)))
+    assert out.shape == (8, 0) and acc.shape == (23, 0)
+    assert rec.shape == (0, 0, 4)
+
+
+def test_simulate_collect_stats_on_the_card(cuda):
+    """``simulate(collect_stats=True)`` on the card equals the CPU's, every
+    stall, occupancy and record, and its timings equal the default's."""
+    cfg = eng.VectorEngineConfig(mvl=64, lanes=4)
+    for app in ("blackscholes", "canneal", "ssd_scan"):
+        body = tracegen.body_for(app, suite.effective_mvl(app, cfg), cfg)
+        tr = body.tile(3)
+        got = eng.simulate(tr, cfg, collect_stats=True)
+        want = eng.simulate(tr, cfg, collect_stats=True, device="cpu")
+        base = eng.simulate(tr, cfg)
+        assert got["stalls"] == want["stalls"]
+        assert got["occ_lane_fu"] == want["occ_lane_fu"]
+        for k, v in base.items():
+            assert got[k] == v == want[k]
+        for k, v in want["records"].items():
+            assert np.array_equal(got["records"][k], v)
+
+
 def test_kernel_launch_errors_raise(cuda):
     """A wrapper checks its operands before launching: a CPU operand beside
     CUDA ones is refused, never silently run on the host."""
