@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py          # from the repository root
+    python3 chip_smoke.py                  # from the repository root
+    python3 chip_smoke.py --parent DIR     # also time DIR's collect build
 
 Phases, one line each; any failure exits nonzero and nothing is caught:
 
@@ -16,8 +17,10 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    spill of these), and the count of tensor-core instructions (HGMMA,
    HMMA) in the flash-attention and streamcluster libraries' SASS where
    the toolkit has ``cuobjdump`` (failing if streamcluster's holds no
-   HGMMA); and the engine scan's default and collect instantiations'
-   lines apart (failing if the collect build spills);
+   HGMMA); and the engine scan's default instantiation's line (and
+   whether it is the one before the collect build: 72 registers, 28,928
+   bytes) and the collect build's scan and pre-pass lines apart (failing if
+   either spills);
 2. Black-Scholes at its PARSEC-large size (65,536 options x 100 runs =
    6,553,600 evaluations): kernel against the plain version on the card at
    rtol = atol = 3e-5, times and bound;
@@ -26,11 +29,15 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    traces under ooo / crossbar / mshrs=1 / 1 MB LLC configs, and the
    study's own 168-lane launch, timed as its two kernels (the pre-pass and
    the scan) and their sum (against the kernel table's 2.5565 ms); then
-   the collect build (``engine_scan.scan_collect``) against
-   ``scan_plain(..., collect=True)`` bit for bit on the same three sets
-   (timing outputs, accumulators, timeline) with its timing outputs bit
-   for bit the default kernel's, timed on the 168 lanes beside the
-   default call, with its plain version's time and its bound;
+   the collect build (``engine_scan.scan_collect``: the recurrence on one
+   warp, the attribution on two more) against ``scan_plain(...,
+   collect=True)`` bit for bit on the same three sets and on ragged lanes
+   at B 1, 31 and 33 with lanes of no step (timing outputs, accumulators,
+   timeline with its causes) with its timing outputs bit for bit the
+   default kernel's, timed on the 168 lanes beside the default call, with
+   its plain version's time, its bound and its share of it; with
+   ``--parent DIR`` also DIR's collect build on the same records, timed
+   beside it and bit for bit equal;
 4. the study (the main path, with every launch counter set to 0 first):
    the Black-Scholes app on the card, ``suite.sweep_all`` over the seven
    RiVec apps x Table 10 checked against ``tests/golden_sweep.json`` at
@@ -106,10 +113,16 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    with its launches, beside the bound;
 7. the scalar-scorecard gate (``scalar_pipeline.main(["--check",
    "--device", "cuda"])``, every line it prints, ending on
-   ``scalar-scorecard: PASS``) and the sweep driver's rows
-   (``repro_torch.study``: the steady-state table of the 20 golden names
-   and the 480-cell batched sweep against the sequential one, which must
-   show ``max_rel_diff=0.00e+00``);
+   ``scalar-scorecard: PASS``), then the study driver's full row list
+   (``repro_torch.study``, benchmarks/run.py's row groups, each group's
+   rows and wall time): the characterization equal to a host run's, every
+   frontend, rvv and codegen row ok, the scalar anchors in their bands,
+   every profile row's event-sum identity within 1e-4, every kernel row on
+   its CUDA kernel (its launch counters), the 480-cell batched sweep
+   against the sequential one (``max_rel_diff=0.00e+00``); then
+   ``repro_torch.calibrate`` (the fit a fixed point of the committed
+   profiles) and its ``--scorecard``, ``repro_torch.futurework_study`` and
+   ``repro_torch.vector_engine_study``;
 8. the code generator on the host: the ten apps emitted and held to
    ``src/repro_torch/asm`` after the 4-line header, and the emit-decode
    round trip at the six MVLs of ``rvv.CHECK_MVLS`` (60 of 60);
@@ -119,7 +132,11 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    timings bitwise the default path's, the event-sum identity within 1e-4
    with the worst printed, blackscholes' Chrome trace, the histogram; the
    ten-app scorecard) and ``module_stress.main`` (last line
-   ``CONSISTENT``);
+   ``CONSISTENT``), each collect call's device time with its T (CUDA events
+   around the wrapper's call), their sum and median, the phase's wall and
+   the host split of one ``simulate(collect_stats=True)`` (pack, copies,
+   launch, records); with ``--parent DIR`` the same path of DIR's tree, in
+   a process of its own;
 10. design-space exploration at full width: ``SPACE_FULL`` (1,536
    configs) x the ten apps, 15,360 cells, cold through a JSONL cache in a
    temporary directory (one engine scan launch), then again through a
@@ -132,7 +149,8 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    (body lookup, pack, H2D, launch, D2H, derivation) beside the launch's
    device time;
 11. the ``kernels`` JSON line (twenty-seven entries: the engine scan's
-   collect build ``engine_scan_collect``, Jacobi-2D's cluster,
+   collect build ``engine_scan_collect`` with its two kernels and launches
+   a call, Jacobi-2D's cluster,
    loop and tiled routes and the one-sweep kernel's width-one route,
    pathfinder's pyramid route (its strip route is
    the ``pathfinder`` entry), canneal's row kernel (its tile kernel is the
@@ -187,6 +205,9 @@ MUFU_PER_CLOCK_SM, N_SM = 16, 132
 # the FP32 dependent-issue latency (4 cycles on Hopper).
 SCAN_CHAIN = {"vector": 4, "scalar": 1}
 FP32_LATENCY_CYCLES = 4
+# The collect build's 168-lane call in its first design (one warp a block;
+# PERF.md's kernel table): the time the three-warp design is held against.
+COLLECT_FIRST_DESIGN_MS = 4.7024
 # The default scan's time on the study's 168 lanes in PERF.md §6's kernel
 # table before the collect build existed (pre-pass + scan); the collect
 # build must leave it within +-5 %.
@@ -420,6 +441,57 @@ def random_trace(isa, seed: int, n_ops: int = 60):
             b.scalar(int(rng.randint(1, 40)), fu=int(rng.randint(4)),
                      dep_scalar=bool(rng.randint(2)))
     return b.build()
+
+
+def ragged_inputs(eng, isa, ve, B: int, dev):
+    """Scan operands of B ragged lanes, as the card tests build them: seeded
+    random traces, every seventh lane with no step, the rest 300 to 499
+    steps over bodies of 5 to 54 records (the record ring wraps many
+    times), tiny ROB and queue capacities, checkpoints at 0, at n_steps and
+    half of it."""
+    traces = [random_trace(isa, 100 + k % 40, 5 + k % 50) for k in range(B)]
+    cfgs = [dataclasses.replace(
+        ve.TABLE10[k % len(ve.TABLE10)], rob_entries=1 + k % 4,
+        queue_entries=1 + k % 3, phys_regs=33 + k % 2,
+        ooo_issue=bool(k % 2)) for k in range(B)]
+    n = [0 if k % 7 == 3 else 300 + (37 * k) % 200 for k in range(B)]
+    ck = [0 if k % 3 == 0 else n[k] if k % 3 == 1 else n[k] // 2
+          for k in range(B)]
+    return eng.pack(traces, cfgs, n, ck, dev)
+
+
+def parent_collect(torch, _build, parent: Path, recs, args, out_like):
+    """Another tree's collect build (``parent``: a checkout's root) on the
+    same pre-pass records: its ``engine_scan.cu`` built with this tree's
+    flags into ``build/parent_scan/``, its C entry point called with the
+    same operands.  Returns ``(ms, outputs)``: device ms a scan (CUDA
+    events, median of 10 samples of 3) and its ``(out, acc, rec)``."""
+    import ctypes
+    src = parent / "src" / "repro_torch" / "csrc" / "engine_scan.cu"
+    lib = ROOT / "build" / "parent_scan" / "libengine_scan.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc(), *_build.flags("engine_scan"), "-o",
+                    str(lib), str(src)], check=True, capture_output=True)
+    so = ctypes.CDLL(str(lib))
+    so.engine_steps_collect_launch.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_int, ctypes.c_void_p]
+    params, period, n, ck = args
+    out, acc, rec = (torch.empty_like(t) for t in out_like)
+
+    def call():
+        code = so.engine_steps_collect_launch(
+            *(r.data_ptr() for r in recs), params.data_ptr(),
+            period.data_ptr(), n.data_ptr(), ck.data_ptr(), out.data_ptr(),
+            acc.data_ptr(), rec.data_ptr(), n.numel(),
+            torch.cuda.current_stream().cuda_stream)
+        if code:
+            fail(f"the parent's collect build: CUDA error {code}")
+
+    rec.zero_()
+    call()
+    torch.cuda.synchronize()
+    outputs = (out.clone(), acc.clone(), rec.clone())
+    return cuda_ms(torch, call, reps=10, per=3), outputs
 
 
 def scan_bound(inp, sm_clock_hz: float,
@@ -1540,20 +1612,114 @@ def jacobi_polybench(torch, j2_mod, data, rows) -> None:
               "of it")
 
 
-def scalar_gate_and_study(sp) -> None:
+# Phase 7's kernel rows (study.kernel_microbench) -> the launch counters
+# of the kernels each runs on the card (any route counts).
+KERNEL_ROWS = {
+    "kernel_blackscholes": ("blackscholes", ("launches",)),
+    "kernel_jacobi2d": ("jacobi2d_step", ("launches", "width1_launches")),
+    "kernel_pathfinder": ("pathfinder", ("launches", "pyramid_launches")),
+    "kernel_streamcluster_dist": ("streamcluster",
+                                  ("launches", "ld_launches",
+                                   "tf32_launches")),
+    "kernel_swaptions_cni": ("swaptions", ("launches",)),
+    "kernel_canneal_swapcost": ("canneal", ("launches", "rows_launches")),
+    "kernel_pf_findindex": ("particlefilter", ("launches",)),
+    "kernel_flash_attention": ("flash_attention",
+                               tuple(sorted({"launches",
+                                             *FA_ROUTES.values()}))),
+    "kernel_ssd_scan": ("ssd_scan", ("launches",)),
+}
+
+
+def scalar_gate_and_study(sp, wrappers: dict) -> None:
     """The scalar-scorecard gate (``python -m repro_torch.core.scalar_pipeline
-    --check``, the anchors' speedups on the card) and the sweep driver's
-    rows (``python -m repro_torch.study``: the 480-cell batched sweep
-    against the sequential per-cell path, and the steady-state table)."""
-    from repro_torch import study
+    --check``, the anchors' speedups on the card), then the study driver's
+    full row list (``python -m repro_torch.study``: run.py's row groups),
+    each group's wall time and gate: the characterization equal to a host
+    run's, every rvv and codegen row ``ok``, the scalar anchors in their
+    bands, every profile row's identity within 1e-4, every kernel row on
+    its CUDA kernel (``wrappers``: a name -> the kernel's wrapper, whose
+    launch counters must rise), the 480-cell batched sweep equal to the
+    sequential one; then ``python -m repro_torch.calibrate`` (the fit a
+    fixed point of the committed profiles) and ``--scorecard``, and the
+    future-work and vector-engine studies."""
+    import tempfile
+    from repro_torch import calibrate, futurework_study, study
+    from repro_torch import vector_engine_study
+    from repro_torch.core import anchors
     run_captured("phase 7 scalar gate", lambda: sp.main(["--check",
                                                          "--device", "cuda"]))
-    lines = run_captured("phase 7 study", lambda: study.main([]))
-    if lines[0] != "name,us_per_call,derived" or not any(
-            ln.startswith("sweep_full_480cfg_batched") for ln in lines):
-        fail("study: not the 480-cell sweep rows")
-    if not any("max_rel_diff=0.00e+00" in ln for ln in lines):
-        fail("study: batched and sequential sweeps differ")
+    counters = lambda: {row: sum(getattr(wrappers[k], c, 0) for c in cs)
+                        for row, (k, cs) in KERNEL_ROWS.items()}
+    before = counters()
+    groups = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        args = study.parse_args(["--device", "cuda", "--bench-json",
+                                 f"{tmp}/bench.json", "--timeline",
+                                 f"{tmp}/timeline.json"])
+        study._BENCH.clear()
+        print("phase 7 study: name,us_per_call,derived")
+        for name, group in study.row_groups(args):
+            t0 = time.perf_counter()
+            rows = group()
+            wall = time.perf_counter() - t0
+            for r in rows:
+                print(f"phase 7 study: {r[0]},{r[1]:.1f},{r[2]}")
+            print(f"phase 7 study group {name}: {len(rows)} rows, "
+                  f"{wall:.2f} s wall")
+            groups[name] = rows
+        study.write_bench(args.bench_json)
+    after = counters()
+    host = study.table_3_to_9_characterization()
+    if [r[2] for r in groups["characterization"]] != [r[2] for r in host]:
+        fail("study: the characterization differs from a host run's")
+    bad = [r[0] for g in ("rvv", "codegen", "frontend") for r in groups[g]
+           if "FAIL" in r[2] or "DIVERGED" in r[2]]
+    if bad or not all(r[2].endswith("|ok") for r in groups["rvv"][:-1]
+                      if r[0].startswith("rvv_crossval_")):
+        fail(f"study: rvv / codegen / frontend rows not ok: {bad[:5]}")
+    for r in groups["scalar"]:
+        if r[0].startswith("scalar_anchor_"):
+            f = dict(kv.split("=") for kv in r[2].split("|")[:2])
+            model, paper = float(f["model"]), float(f["paper"])
+            ok = (anchors.EQ_LO <= model / paper <= anchors.EQ_HI
+                  if r[2].endswith("|eq") else
+                  model <= paper * anchors.LT_SLACK)
+            if not ok:
+                fail(f"study: anchor out of its band: {r}")
+    worst = max(float(r[2].rsplit("ident_err=", 1)[1])
+                for r in groups["profile"][:-1])
+    if worst > 1e-4:
+        fail(f"study: a profile row's identity is {worst:.2e} (bar 1e-4)")
+    idle = [row for row in KERNEL_ROWS if after[row] <= before[row]]
+    if idle or [r[0] for r in groups["kernels"]] != list(KERNEL_ROWS):
+        fail(f"study: kernel rows not run on their CUDA kernels: {idle}")
+    sweep = groups["sweep"]
+    if not (sweep[0][0] == "sweep_full_480cfg_batched"
+            and sweep[-1][2].endswith("max_rel_diff=0.00e+00")):
+        fail("study: the 480-cell sweep rows differ from the sequential "
+             "ones or are missing")
+    print(f"phase 7 study gates: characterization equal to the host run, "
+          f"{sum(len(groups[g]) for g in ('rvv', 'codegen'))} rvv and "
+          f"codegen rows ok, anchors in band, worst profile identity "
+          f"{worst:.2e}, {len(KERNEL_ROWS)} kernel rows on the card "
+          f"(launches {dict((k, after[k] - before[k]) for k in KERNEL_ROWS)})")
+    lines = run_captured("phase 7 calibrate", lambda: calibrate.main(
+        ["--device", "cuda"]))
+    if not any("fixed point: committed values reproduce the fit" in ln
+               for ln in lines):
+        fail("calibrate: the fit is not a fixed point of the committed "
+             "profiles")
+    run_captured("phase 7 calibrate --scorecard", lambda: calibrate.main(
+        ["--scorecard", "--device", "cuda"]))
+    lines = run_captured("phase 7 futurework_study", lambda:
+                         futurework_study.main(["--device", "cuda"]))
+    if len(lines) != len(futurework_study.VARIANTS) + 3:
+        fail("futurework_study: not one row a variant")
+    lines = run_captured("phase 7 vector_engine_study", lambda:
+                         vector_engine_study.main(["--device", "cuda"]))
+    if sum(ln.startswith("  MVL=") for ln in lines) != 6 * 10:
+        fail("vector_engine_study: not the 24-config table of every app")
 
 
 def run_captured(label: str, run) -> list[str]:
@@ -1575,35 +1741,126 @@ def run_captured(label: str, run) -> list[str]:
     return lines
 
 
-def profiler_phase(engine_scan) -> int:
+def timed_collect_calls(torch, engine_scan, run):
+    """``run()`` with every ``engine_scan.scan_collect`` call timed on the
+    card: CUDA events on the current stream around the wrapper's call (its
+    pre-pass, the zeroed timeline and its scan, with whatever the device
+    idles between them).  Returns ``(run's result, [(T, B, ms), ...])`` in
+    call order, T the call's longest lane.  The wrapper's launch counter
+    counts as without the timing."""
+    orig = engine_scan.scan_collect
+    marks = []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(*args)
+        end.record()
+        marks.append((args[5], start, end))
+        return out
+
+    # the wrapper counts its launches through the module's name, so the
+    # stand-in carries the counter while it is in place
+    timed.launches = orig.launches
+    engine_scan.scan_collect = timed
+    try:
+        res = run()
+    finally:
+        engine_scan.scan_collect = orig
+        orig.launches = timed.launches
+    torch.cuda.synchronize()
+    return res, [(int(n.max()) if n.numel() else 0, n.numel(),
+                  s.elapsed_time(e)) for n, s, e in marks]
+
+
+def simulate_host_split(torch, eng, engine_scan, trace, cfg, dev,
+                        reps: int = 5) -> dict:
+    """One ``engine.simulate(trace, cfg, collect_stats=True)`` taken apart
+    on the host clock, median ms of ``reps``: ``pack`` (the operands built
+    on the host), ``h2d`` (copied to the card), ``launch`` (the wrapper's
+    call until the card is done), ``d2h`` (the timing outputs and the
+    accumulators to numpy) and ``records`` (the timeline's four views to
+    numpy, their copies included), as ``engine.simulate`` runs them."""
+    times = {k: [] for k in ("pack", "h2d", "launch", "d2h", "records")}
+    for _ in range(reps + 1):
+        t = [time.perf_counter()]
+        inp = eng.pack([trace], [cfg], [len(trace)], [0], "cpu")
+        t.append(time.perf_counter())
+        inp = dataclasses.replace(inp, **{
+            f.name: getattr(inp, f.name).to(dev)
+            for f in dataclasses.fields(inp)})
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out, acc, rec = engine_scan.scan_collect(*inp.args())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out, acc = out.cpu().numpy(), acc.cpu().numpy()
+        t.append(time.perf_counter())
+        {k: v[:, 0].cpu().numpy()
+         for k, v in engine_scan.records(rec).items()}
+        t.append(time.perf_counter())
+        for k, a, b in zip(times, t, t[1:]):
+            times[k].append((b - a) * 1e3)
+    # the first pass is a warm-up (allocator, first launch)
+    return {k: statistics.median(v[1:]) for k, v in times.items()}
+
+
+def profiler_phase(torch, eng, engine_scan, dev, label="phase 9") -> dict:
     """The profiler on the card, the collect build's path: ``python -m
     repro_torch.core.telemetry --smoke --scorecard`` (every app at the
     reference's two configs, each body tiled 6 times: collect timings
     bitwise equal to the default path's, the event-sum identity within
     1e-4 with the worst printed, a Chrome trace of blackscholes, the
     histogram; then the ten-app scorecard) and ``python -m
-    repro_torch.module_stress`` (last line CONSISTENT).  Returns the collect
-    build's launches, counted from 0 over the phase."""
+    repro_torch.module_stress`` (last line CONSISTENT), with each collect
+    call's device time and T (``timed_collect_calls``), their sum and
+    median, and the host split of one ``simulate(collect_stats=True)`` of
+    the smoke's first cell (``simulate_host_split``).  Returns the collect
+    build's launches, counted from 0 over the phase, and the timings."""
     from repro_torch import module_stress
-    from repro_torch.core import telemetry
+    from repro_torch.core import suite, telemetry, tracegen
     t0 = time.perf_counter()
     engine_scan.scan_collect.launches = 0
-    lines = run_captured("phase 9 profiler", lambda: telemetry.main(
-        ["--smoke", "--scorecard", "--device", "cuda"]))
-    ident = [ln for ln in lines if ln.startswith("identity:")]
-    if (not ident or "10 apps x 2 cfgs" not in ident[0]
-            or "profile-smoke: PASS" not in lines):
-        fail("profiler: the smoke did not run every app at both configs")
-    lines = run_captured("phase 9 module_stress", lambda: module_stress.main(
-        ["--device", "cuda"]))
-    if lines[-1] != "mechanistic <-> differential: CONSISTENT (10/10 apps)":
-        fail(f"module_stress: {lines[-1]}")
+
+    def run():
+        lines = run_captured(f"{label} profiler", lambda: telemetry.main(
+            ["--smoke", "--scorecard", "--device", "cuda"]))
+        ident = [ln for ln in lines if ln.startswith("identity:")]
+        if (not ident or "10 apps x 2 cfgs" not in ident[0]
+                or "profile-smoke: PASS" not in lines):
+            fail("profiler: the smoke did not run every app at both configs")
+        lines = run_captured(f"{label} module_stress",
+                             lambda: module_stress.main(["--device", "cuda"]))
+        if lines[-1] != "mechanistic <-> differential: CONSISTENT (10/10 apps)":
+            fail(f"module_stress: {lines[-1]}")
+
+    _, calls = timed_collect_calls(torch, engine_scan, run)
+    wall = time.perf_counter() - t0
     launches = engine_scan.scan_collect.launches
-    print(f"phase 9 launches on the profiler's path: engine_scan_collect "
-          f"{launches}; phase wall {time.perf_counter() - t0:.2f} s")
-    if launches <= 0:
-        fail("the collect build was not launched on the profiler's path")
-    return launches
+    ms = [c[2] for c in calls]
+    print(f"{label} collect calls (T, B, device ms from CUDA events around "
+          f"the wrapper's call), in call order: "
+          + " ".join(f"{T}/{B}/{m:.4f}" for T, B, m in calls))
+    print(f"{label} collect calls: {len(calls)}, sum {sum(ms):.4f} ms, median "
+          f"{statistics.median(ms):.4f} ms, sum of T {sum(c[0] for c in calls)}"
+          f", {sum(ms) / 1e3 / wall:.1%} of the phase wall {wall:.3f} s")
+    cfg = telemetry.SMOKE_CFGS[0]
+    body = tracegen.body_for("blackscholes",
+                             suite.effective_mvl("blackscholes", cfg), cfg)
+    split = simulate_host_split(torch, eng, engine_scan, body.tile(6), cfg,
+                                dev)
+    print(f"{label} host split of one simulate(collect_stats=True) "
+          f"(blackscholes {cfg.label()}, tiled 6: {len(body) * 6} records; "
+          f"median of 5, ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    print(f"{label} launches on the profiler's path: engine_scan_collect "
+          f"{launches}; phase wall {wall:.2f} s")
+    if launches <= 0 or launches != len(calls):
+        fail(f"the collect build's launches on the profiler's path: "
+             f"{launches}, calls timed {len(calls)}")
+    return {"launches": launches, "calls": calls, "wall_s": wall,
+            "split": split}
 
 
 def dse_phase(torch, eng, suite, engine_scan, ve, golden, dev) -> None:
@@ -1775,7 +2032,14 @@ def codegen_round_trip(tracegen) -> None:
         fail(f"codegen: corpus differs for {differ}; round trips {bad}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="another checkout's root: phase 3 also times its "
+                         "collect build and phase 9 its profiler path, in "
+                         "this run")
+    parent = ap.parse_args(argv).parent
     sys.stdout.reconfigure(line_buffering=True)   # phase lines survive a kill
     import torch
     if not torch.cuda.is_available():
@@ -1851,17 +2115,22 @@ def main() -> int:
         print(f"phase 1 {entry}: {lines}")
         if any(int(n) for n in re.findall(r"(\d+) bytes spill", lines)):
             fail(f"{entry}: ptxas spills ({lines})")
-    # the engine scan's two instantiations: the default build (its line
-    # as before the collect build existed) and the collect build, which
-    # must not spill
+    # the engine scan's instantiations: the default build (its line as
+    # before the collect build existed: 72 registers, 28,928 bytes) and the
+    # collect build's scan (three warps) and pre-pass, which must not spill
     for label, entry, no_spill in (
             ("default", "engine_scan_kernelILb0E", False),
-            ("collect", "engine_scan_kernelILb1E", True)):
+            ("collect scan (three warps)", "engine_scan_kernelILb1E", True),
+            ("collect pre-pass", "engine_prepass_kernelILb1E", True)):
         lines = entry_lines(report, "engine_scan", entry)
         print(f"phase 1 engine_scan {label} build: {lines}")
         if no_spill and any(int(n) for n in
                             re.findall(r"(\d+) bytes spill", lines)):
-            fail(f"engine_scan collect build: ptxas spills ({lines})")
+            fail(f"engine_scan {label}: ptxas spills ({lines})")
+        if label == "default" and lines != "not in this run's build log":
+            same = "Used 72 registers" in lines and "28928 bytes smem" in lines
+            print(f"phase 1 engine_scan default build as before the collect "
+                  f"build (72 registers, 28,928 B): {'yes' if same else 'no'}")
     sc_sass = sass_counts(_build, "streamcluster")
     print(f"phase 1 streamcluster SASS: {sc_sass}")
     if sc_sass.startswith("HGMMA 0"):
@@ -2005,6 +2274,11 @@ def main() -> int:
         "random traces x ooo/crossbar/mshrs1/1MB", random_inp)[0])
     collect_err = max(collect_err, compare_collect(
         "random traces x ooo/crossbar/mshrs1/1MB", random_inp)[0])
+    # the collect build's block edges: a lone lane, a block short of and
+    # just past 32 lanes, ragged n_steps with lanes of none
+    for B in (1, 31, 33):
+        collect_err = max(collect_err, compare_collect(
+            f"ragged B {B}", ragged_inputs(eng, isa, ve, B, dev))[0])
     study_pairs = [(a, c) for a in tracegen.RIVEC_APPS for c in ve.TABLE10]
     study_inp = suite.scan_inputs(study_pairs, device=dev)
     # the plain version's time is its one run in the comparison
@@ -2052,6 +2326,24 @@ def main() -> int:
           f"a step at the max SM clock; plain {collect_plain_ms:.1f} ms; "
           f"bound {collect_bound_ms:.4f} ms ({collect_bound_by}), "
           f"{collect_bound_ms / collect_ms:.1%} of it")
+    if parent is None:
+        print(f"phase 3 engine_scan collect, the parent tree's build: not "
+              f"timed in this run (--parent DIR times it here; the first "
+              f"design took {COLLECT_FIRST_DESIGN_MS} ms)")
+    else:
+        ours = engine_scan.steps_collect(*recs, params, period, n, ck)
+        parent_ms, theirs = parent_collect(torch, _build, parent, recs,
+                                           (params, period, n, ck), ours)
+        bits = lambda t: t.view(torch.int32)
+        same = all(torch.equal(bits(a), bits(b))
+                   for a, b in zip(ours, theirs))
+        print(f"phase 3 engine_scan collect, the parent tree's build "
+              f"({parent}): scan {parent_ms:.4f} ms against this tree's "
+              f"{collect_steps_ms:.4f} ms ({parent_ms / collect_steps_ms:.2f}x"
+              f"); outputs bit for bit equal: {same}")
+        if not same:
+            fail("engine_scan collect: this tree's build differs from the "
+                 "parent tree's")
 
     # ---- 4. the study: the main path ----------------------------------------
     engine_scan.scan.launches = 0
@@ -2376,14 +2668,34 @@ def main() -> int:
     jacobi_routes(torch, j2_mod, ops, data["j2"], j2_app_s, sm_clock_hz)
     jacobi_polybench(torch, j2_mod, data, rows)
 
-    # ---- 7. the scalar-scorecard gate and the sweep driver -------------------
-    scalar_gate_and_study(sp)
+    # ---- 7. the scalar-scorecard gate and the study drivers ------------------
+    scalar_gate_and_study(sp, {
+        "blackscholes": bs_mod.blackscholes, "jacobi2d_step":
+        j2_mod.jacobi2d_step, "pathfinder": path_mod.pathfinder,
+        "streamcluster": sc_mod.streamcluster_dist, "swaptions":
+        sw_mod.cum_normal_inv, "canneal": ca_mod.swap_cost,
+        "particlefilter": pf_mod.find_index, "flash_attention":
+        fa_mod.flash_attention, "ssd_scan": ssd_mod.ssd_scan})
 
     # ---- 8. the RVV code generator: corpus and round trip --------------------
     codegen_round_trip(tracegen)
 
     # ---- 9. the profiler: the collect build's path ---------------------------
-    collect_launches = profiler_phase(engine_scan)
+    collect_launches = profiler_phase(torch, eng, engine_scan,
+                                      dev)["launches"]
+    if parent is not None:
+        # the parent tree's build on the same path, in a process of its own
+        run = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "collect_path_timing.py"),
+             "--src", str(parent / "src"), "--label", "phase 9 parent"],
+            capture_output=True, text=True, timeout=600)
+        for ln in run.stdout.splitlines():
+            if "collect calls (T, B" not in ln and " profiler: " not in ln \
+                    and " module_stress: " not in ln:
+                print(ln)
+        if run.returncode:
+            fail(f"the parent tree's profiler path: exit {run.returncode}\n"
+                 f"{run.stderr[-2000:]}")
 
     # ---- 10. design-space exploration at full width --------------------------
     dse_phase(torch, eng, suite, engine_scan, ve, golden, dev)
@@ -2402,7 +2714,13 @@ def main() -> int:
          "launches": collect_launches, "max_abs_err": collect_err,
          "ms": collect_ms, "plain_ms": collect_plain_ms,
          "bound_ms": collect_bound_ms, "bound_by": collect_bound_by,
-         "library_ms": None},
+         "library_ms": None,
+         # each call (one counted launch) is these two kernels, the scan
+         # three warps a block (the recurrence, and the attribution on two
+         # more)
+         "kernels": ["engine_prepass_kernel<true>",
+                     "engine_scan_kernel<true>, three warps a block"],
+         "launches_per_call": 2},
         {"name": "blackscholes", "route": "cuda",
          "source": "src/repro_torch/csrc/blackscholes.cu",
          "replaces": "src/repro/kernels/blackscholes.py:38",

@@ -57,35 +57,50 @@
 // template as the default build, instantiated with COLLECT, so the two
 // recurrences cannot drift; every collect-only line sits under
 // `if constexpr (COLLECT)` and the default instantiation compiles to the
-// kernel it was.  What it adds to a step:
-//  * a third record word from the pre-pass (rec_x: the record's execution
-//    class and FU class; the flag word has no room for them), streamed
-//    through the same cp.async ring;
-//  * the frontier F = max(t_scalar, last_commit) before the step and the
-//    visible pieces of the step's advance (dep / work for a scalar block;
-//    wait / exec / tail for a vector instruction), in the reference's
-//    float32 operations;
-//  * the wait's cause: the candidates the issue time is the max of (the
-//    ROB, rename and queue slots, operand readiness, the FU, the in-order
-//    gate) compared with it in the reference's precedence, read before
-//    this step's stores overwrite the forwarded slots;
-//  * 19 STALL_KINDS accumulators and 4 lane-busy sums per FU class:
-//    scalar_work and dep_scalar, which most steps touch, in registers; the
-//    wait causes, execution classes and FU sums in rows of this thread's
-//    column of shared memory, each range with a dummy row a record without
-//    such a term adds to.  A step reads its three rows together and writes
-//    them back (they never coincide) -- one read-modify-write a touched
-//    slot, where predicated adds into 23 registers cost 420 cycles a step
-//    against 285 (scripts/engine_scan_variants.py --collect).  Adding the
-//    reference's zeros to the untouched slots changes no bit, so they are
-//    not touched;
-//  * one 16-byte streaming store a record, rec[step][lane] = (start,
-//    issue, complete, cause bits): a warp's 32 lanes store 512
-//    neighbouring bytes.
-// It is bound like the default build (one serial chain a lane, the step's
-// instructions issued by one warp a scheduler) plus the timeline's bytes
-// (16 B a record), which at the study's 1.1 M records is ~5 us of the
-// card's 3.35 TB/s: the extra instructions of a step are its cost.
+// kernel it was.  None of the attribution feeds back into the recurrence,
+// and a study's block is one warp on one of an SM's four schedulers, so
+// the collect build takes the attribution off the recurrence's warp (warp
+// specialization: three warps a block of 32 lanes, on three schedulers,
+// thread t of each on lane t):
+//  * warp 0, the producer, runs the default step and adds only the step's
+//    records, two 16-byte shared stores into a ring of C_TILES tiles of K
+//    steps: (t_new, issue, complete, the record's flag word) and the issue
+//    time's candidates it holds (the ROB, rename and queue slots it read
+//    and max(r1, r2), read before this step's stores overwrite the
+//    forwarded slots);
+//  * warps 1 and 2, the consumers, read the ring behind it in step order,
+//    each with its own copies of the producer's carry that the records
+//    give (t_scalar, last_commit, scalar_res: the same float32 operations
+//    on the same values, so the same bits), the frontier
+//    F = max(t_scalar, last_commit) before a step and the visible pieces of
+//    the step's advance (dep / work for a scalar block; wait / exec / tail
+//    for a vector instruction).  Warp 1 finds the wait's cause -- the
+//    binding candidate in the reference's precedence, the FU and in-order
+//    candidates from its copies of lane_free, vmu_free, last_aq and
+//    last_mq -- adds the nine wait causes and makes the timeline's
+//    streaming store, rec[step][lane] = (start, issue, complete, cause),
+//    512 neighbouring bytes a warp; warp 2 adds scalar_work, dep_scalar,
+//    the eight execution classes and the 4 lane-busy sums per FU class,
+//    the record's classes (rec_x) and busy term (rec_f.w) streamed by
+//    cp.async from the pre-pass's records into its own stage.  Each slot's
+//    sum is a register and gets one select-add a step in step order;
+//    adding the reference's zeros to the untouched slots changes no bit,
+//    so they are not touched.  The consumers' steps are a loop that is not
+//    unrolled: the SM's instruction cache is shared, and unrolled consumers
+//    made the producer's warp wait on it (scripts/engine_scan_variants.py
+//    --collect, PERF.md).
+//  * The hand-off is a tile at a time on named barriers, one pair a ring
+//    slot: the producer arrives on FULL(s) after its tile's records and,
+//    C_TILES tiles later, syncs on EMPTY(s) before it writes the slot again;
+//    the consumers sync on FULL(s) and arrive on EMPTY(s) when they are
+//    done with a tile the producer will write again.  Every thread of the
+//    three warps runs the block's longest lane's tiles (a lane past B or
+//    past its own n_steps runs no step in them), so every barrier sees all
+//    three warps.
+// Its producer is bound like the default build (one serial chain a lane,
+// the step's instructions issued by one warp a scheduler), plus the two
+// stores; the timeline's bytes (16 B a record, ~5 us at the study's 1.1 M
+// records at 3.35 TB/s) and the consumers' work run beside it.
 //
 // Bitwise parity with the plain version (and so with the reference's step):
 //  * FMA contraction.  Build with -fmad=false: every a*b+c is two
@@ -145,13 +160,14 @@ constexpr int S_SCALAR_WORK = 0, S_DEP_SCALAR = 1, S_DISPATCH = 2,
               S_RAW = 7, S_LANE_WAIT = 8, S_VMU_WAIT = 9, S_INORDER = 10,
               S_EXEC = 11, N_STALL = 19, N_OCC = 4;
 constexpr int X_INTERCONNECT = 4, X_MASK = 5, X_MOVE = 6, X_MEM = 7;
-// the collect build's accumulator rows in shared memory: the wait causes
-// (S_DISPATCH..S_INORDER), the execution classes, the FU sums, each range
-// followed by its dummy row
-constexpr int A_WAIT = 0, A_WAIT_NONE = A_WAIT + S_EXEC - S_DISPATCH;
-constexpr int A_EXEC = A_WAIT_NONE + 1, A_EXEC_NONE = A_EXEC + N_STALL - S_EXEC;
-constexpr int A_OCC = A_EXEC_NONE + 1, A_OCC_NONE = A_OCC + N_OCC;
-constexpr int ACC_ROWS = A_OCC_NONE + 1;
+// the collect build's record ring between its two warps: C_TILES tiles of
+// K records a lane; the named barriers FULL(s) and EMPTY(s) of ring slot s
+// (barrier 0 is __syncthreads'), each counted by both warps
+constexpr int C_TILES = 4, BAR_FULL = 1, BAR_EMPTY = BAR_FULL + C_TILES;
+constexpr int C_THREADS = 3 * WARP;
+// the stage of class words and busy terms of the collect build's third
+// warp: X_STAGES tiles, requested X_STAGES - 1 tiles ahead
+constexpr int X_STAGES = 3;
 
 // A record's int32 word: flag bits, then the state slots it reads (src1,
 // src2: the register, or ZERO when absent) and writes (dst: the register
@@ -327,9 +343,20 @@ __device__ __forceinline__ float& at(char* col, int off) {
   return *reinterpret_cast<float*>(col + off);
 }
 
+// Named barrier `id` of `n` threads: wait for the others, or only arrive.
+// The forms without .aligned: a warp's threads may reach them apart (after
+// steps of lanes of different lengths).
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("barrier.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("barrier.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
 // This lane's record stream: the ring of STAGES x K records (this thread's
-// column of it: ring row i at f[i * WARP], w[i * WARP], and for the collect
-// build x[i * WARP]) and the row of the next record to request.
+// column of it: ring row i at f[i * WARP], w[i * WARP]) and the row of the
+// next record to request.
 struct Stream {
   float4* f;
   int32_t* w;
@@ -337,44 +364,216 @@ struct Stream {
   const int32_t* src_w;
   int pos, per;
   long long stride;      // B: one row of rec_f / rec_w
-  int32_t* x;            // the collect build's rec_x ring and source
-  const int32_t* src_x;
 };
 
 // Request tile `tile` (steps tile * K ..) in the lane's loop order; one
 // commit group a tile.  Rows past n_steps are copied too (they are valid
 // rows of the lane's body and are never read), so there is no branch.
-template <bool COLLECT>
 __device__ __forceinline__ void fetch_tile(Stream& s, int tile) {
   const int s0 = (tile % STAGES) * K;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     cp_async<16>(s.f + (s0 + k) * WARP, s.src_f);
     cp_async<4>(s.w + (s0 + k) * WARP, s.src_w);
-    if constexpr (COLLECT) cp_async<4>(s.x + (s0 + k) * WARP, s.src_x);
     const bool wrap = ++s.pos == s.per;
     const long long step = wrap ? -(s.per - 1) * s.stride : s.stride;
     s.pos = wrap ? 0 : s.pos;
     s.src_f += step;
     s.src_w += step;
-    if constexpr (COLLECT) s.src_x += step;
   }
   cp_async_commit();
 }
 
 // The dynamic shared memory: the record ring, a float4 and an int32 a
-// record, and for the collect build the rec_x word and the accumulator rows.
+// record; for the collect build then the ring of records between its warps
+// (two float4s a step) and its third warp's stage of class words and busy
+// terms.
 template <bool COLLECT>
 constexpr int ring_bytes() {
-  return STAGES * K * WARP *
-             (int)(sizeof(float4) + sizeof(int32_t) * (COLLECT ? 2 : 1)) +
-         (COLLECT ? ACC_ROWS * WARP * (int)sizeof(float) : 0);
+  return STAGES * K * WARP * (int)(sizeof(float4) + sizeof(int32_t)) +
+         (COLLECT ? 2 * C_TILES * K * WARP * (int)sizeof(float4) +
+                        X_STAGES * 2 * K * WARP * (int)sizeof(int32_t)
+                  : 0);
+}
+
+// The collect build's consumer warps (warps 1 and 2): the cycle
+// attribution of lane b from the producer's records, in step order, for
+// the block's `tiles` tiles.  A step's records are two float4s in the ring
+// `ring` (this thread's column): (t_new, issue, complete, the record's flag
+// word) and, C_TILES * K rows on, the issue time's candidates the producer
+// holds (the ROB, rename and queue slots it read, max(r1, r2)).  Each warp
+// keeps its own copy of the producer's carry that the records give (the
+// same float32 operations on the same values, so the same bits) and the
+// frontier F = max(t_scalar, last_commit) before a step.  ROLE 0 (warp 1)
+// finds the wait's cause -- the binding candidate in the reference's
+// precedence, the FU and in-order candidates from its copies of lane_free,
+// vmu_free, last_aq and last_mq -- adds the wait causes and writes the
+// timeline, rec [n_steps, B] float4 (only rows below the lane's n_steps);
+// ROLE 1 (warp 2) adds scalar_work, dep_scalar, the execution classes and
+// the FU sums, with the record's class word (rec_x) and busy term
+// (rec_f.w) copied by cp.async from the pre-pass's records into `stage`
+// (this thread's column of X_STAGES tiles of K pairs), two tiles ahead.
+// Each writes its slots of acc [N_STALL + N_OCC, B].  The sums are
+// registers and every add is a select (no branch), each slot its own
+// chain.  A step is a loop iteration (the loop is not unrolled: three
+// warps' unrolled loops outgrow what the SM's instruction cache keeps, and
+// the recurrence's warp then waits on it, scripts/engine_scan_variants.py
+// --collect), the next step's words read from shared memory a step ahead.
+template <int ROLE>
+__device__ __forceinline__ void attribute_lane(
+    const float4* ring, int32_t* stage, const float* __restrict__ params,
+    const float4* __restrict__ rec_f, const int32_t* __restrict__ rec_x,
+    const int32_t* __restrict__ period, int b, int bp, int T, int tiles,
+    int B, float* __restrict__ acc_out, float4* __restrict__ rec_out) {
+  // this warp's slots: ROLE 0 the wait causes (S_DISPATCH..); ROLE 1
+  // scalar_work and dep_scalar, then S_EXEC.. (the execution classes and
+  // the FU sums)
+  constexpr int NX = N_STALL + N_OCC - S_EXEC;
+  constexpr int NA = ROLE == 0 ? S_EXEC - S_DISPATCH : S_DISPATCH + NX;
+  float acc[NA];
+#pragma unroll
+  for (int k = 0; k < NA; ++k) acc[k] = 0.0f;
+  float t_scalar = 0.0f, last_commit = 0.0f, scalar_res = 0.0f;
+  float lane_free = 0.0f, vmu_free = 0.0f, last_aq = 0.0f, last_mq = 0.0f;
+  const bool ooo = params[(size_t)bp * N_PARAMS + 12] > 0.0f;
+  float4* rec_o = rec_out + b;
+  // ROLE 1: the lane's pre-pass rows in its loop order (row r % period at
+  // step r; a lane past B reads lane B - 1's, a lane without steps row 0),
+  // a tile's class words then its busy terms into stage slot tile % X_STAGES
+  const int per = max(period[bp], 1);
+  const float4* src_f = rec_f + bp;
+  const int32_t* src_x = rec_x + bp;
+  int pos = 0;
+  auto fetch = [&](int tile) {
+    int32_t* dst = stage + (tile % X_STAGES) * 2 * K * WARP;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      cp_async<4>(dst + k * WARP, src_x);
+      cp_async<4>(dst + (K + k) * WARP, &src_f->w);
+      const bool wrap = ++pos == per;
+      const long long d = wrap ? -(long long)(per - 1) * B : B;
+      pos = wrap ? 0 : pos;
+      src_f += d;
+      src_x += d;
+    }
+    cp_async_commit();
+  };
+
+  auto step = [&](float4 ra, float4 rb, int xx, float busy) {
+    const int xw = __float_as_int(ra.w);
+    const bool vec = xw & F_VEC, dep = xw & F_DEP, mem = xw & F_MEM,
+               arith = xw & F_ARITH, res = xw & F_RES;
+    const float t_new = ra.x, issue = ra.y, complete = ra.z;
+    const float f_old = fmaxf(t_scalar, last_commit);
+    const float t_wait = fmaxf(t_scalar, dep ? scalar_res : -INFINITY);
+    if constexpr (ROLE == 0) {
+      // the binding constraint, lowest precedence first
+      const float inorder = ooo ? -INFINITY : (mem ? last_mq : last_aq);
+      const float fu_free = mem ? vmu_free : lane_free;
+      int cause = issue == inorder ? S_INORDER : S_DISPATCH;
+      cause = issue == fu_free ? (mem ? S_VMU_WAIT : S_LANE_WAIT) : cause;
+      cause = issue == rb.w ? S_RAW : cause;
+      cause = issue == rb.z ? (mem ? S_MQ_FULL : S_AQ_FULL) : cause;
+      cause = issue == rb.y ? S_PHYS_FULL : cause;
+      cause = issue == rb.x ? S_ROB_FULL : cause;
+      // a vector instruction: the wait before issue
+      const float wait_vis = fmaxf(issue - f_old, 0.0f);
+      const int wait_k = vec ? cause - S_DISPATCH : -1;
+#pragma unroll
+      for (int k = 0; k < NA; ++k)
+        acc[k] = wait_k == k ? acc[k] + wait_vis : acc[k];
+      const int rec_cause = vec ? cause : dep ? S_DEP_SCALAR : S_SCALAR_WORK;
+      __stcs(rec_o, make_float4(vec ? t_new : t_scalar, vec ? issue : t_wait,
+                                vec ? complete : t_new,
+                                __int_as_float(rec_cause)));
+      rec_o += B;
+      lane_free = arith ? complete : lane_free;
+      vmu_free = mem ? complete : vmu_free;
+      last_aq = arith ? issue : last_aq;
+      last_mq = mem ? issue : last_mq;
+    } else {
+      // a scalar block (t_new = its end): the wait on a vector result and
+      // the work beyond the frontier, one sum into one slot
+      const float dep_vis = fmaxf(t_wait - f_old, 0.0f);
+      const float work_vis = fmaxf(t_new - fmaxf(t_wait, f_old), 0.0f);
+      const float sc_vis = dep_vis + work_vis;
+      // a vector instruction (t_new = its scalar commit): the execution
+      // and the scalar pipe beyond it, and the lanes' busy cycles of an
+      // arithmetic record's FU class
+      const float exec_vis = fmaxf(complete - fmaxf(issue, f_old), 0.0f);
+      const float tail_vis = fmaxf(t_new - fmaxf(complete, f_old), 0.0f);
+      acc[0] = acc[0] + (vec ? tail_vis : dep ? 0.0f : sc_vis);
+      acc[1] = dep ? acc[1] + sc_vis : acc[1];
+      const int exec_k = vec ? S_DISPATCH + (xx & 15) : -1;
+      const int occ_k = arith ? S_DISPATCH + N_STALL - S_EXEC + (xx >> 4) : -1;
+#pragma unroll
+      for (int k = S_DISPATCH; k < S_DISPATCH + N_STALL - S_EXEC; ++k)
+        acc[k] = exec_k == k ? acc[k] + exec_vis : acc[k];
+#pragma unroll
+      for (int k = S_DISPATCH + N_STALL - S_EXEC; k < NA; ++k)
+        acc[k] = occ_k == k ? acc[k] + busy : acc[k];
+    }
+    // the producer's carry, from the same values
+    t_scalar = t_new;
+    last_commit = vec ? fmaxf(complete, last_commit) : last_commit;
+    scalar_res = res ? complete : scalar_res;
+  };
+
+  if constexpr (ROLE == 1) {
+    for (int j = 0; j < X_STAGES - 1; ++j)
+      if (j < tiles) fetch(j); else cp_async_commit();
+  }
+  for (int j = 0; j < tiles; ++j) {
+    const int n = min(max(T - j * K, 0), K);
+    const int* sx = stage + (j % X_STAGES) * 2 * K * WARP;
+    if constexpr (ROLE == 1) {
+      // tile j's group has landed; tile j + X_STAGES - 1 is requested
+      if (j + X_STAGES - 1 < tiles) fetch(j + X_STAGES - 1);
+      else cp_async_commit();
+      cp_async_wait<X_STAGES - 1>();
+    }
+    const int slot = j % C_TILES;
+    bar_sync(BAR_FULL + slot, C_THREADS);
+    const float4* ra = ring + slot * K * WARP;
+    const float4* rb = ra + C_TILES * K * WARP;
+    // step k's words, read one step ahead (the last read past the tile
+    // is of a word of the ring that is not used)
+    const float4 none = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 r = ra[0], q = ROLE == 0 ? rb[0] : none;
+    int x = ROLE == 1 ? sx[0] : 0;
+    float w = ROLE == 1 ? __int_as_float(sx[K * WARP]) : 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < n; ++k) {
+      const int kn = (k + 1) % K;
+      const float4 rn = ra[kn * WARP];
+      const float4 qn = ROLE == 0 ? rb[kn * WARP] : none;
+      const int xn = ROLE == 1 ? sx[kn * WARP] : 0;
+      const float wn = ROLE == 1 ? __int_as_float(sx[(K + kn) * WARP]) : 0.0f;
+      step(r, q, x, w);
+      r = rn;
+      q = qn;
+      x = xn;
+      w = wn;
+    }
+    // free the slot where the producer writes it again
+    if (j + C_TILES < tiles) bar_arrive(BAR_EMPTY + slot, C_THREADS);
+  }
+  if constexpr (ROLE == 1) cp_async_wait<0>();  // no copy outlives the block
+  if (b < B) {
+#pragma unroll
+    for (int k = 0; k < NA; ++k) {
+      const int slot = ROLE == 0 ? S_DISPATCH + k
+                       : k < S_DISPATCH ? k : S_EXEC + k - S_DISPATCH;
+      acc_out[slot * B + b] = acc[k];
+    }
+  }
 }
 
 // COLLECT also takes rec_x and writes acc [N_STALL + N_OCC, B] and
-// rec [n_steps, B] float4 (only rows below the lane's n_steps).
+// rec [n_steps, B] float4 (only rows below the lane's n_steps): warp 0 runs
+// the recurrence, warp 1 attribute_lane.
 template <bool COLLECT>
-__global__ void __launch_bounds__(WARP)
+__global__ void __launch_bounds__(COLLECT ? C_THREADS : WARP)
 engine_scan_kernel(const float4* __restrict__ rec_f,
                    const int32_t* __restrict__ rec_w,
                    const float* __restrict__ params,
@@ -386,49 +585,72 @@ engine_scan_kernel(const float4* __restrict__ rec_f,
                    float4* __restrict__ rec_out) {
   __shared__ float st[N_SLOTS][WARP];
   extern __shared__ float4 ring_raw[];
-  const int t = threadIdx.x;
+  const int t = COLLECT ? threadIdx.x % WARP : threadIdx.x;
   const int b = blockIdx.x * WARP + t;
-  if (b >= B) return;  // no block-wide barrier below: safe to leave early
+  int32_t* ring_w = reinterpret_cast<int32_t*>(ring_raw + STAGES * K * WARP);
+  // the collect build: a lane past B keeps its thread for the barriers
+  // (it reads lane B - 1's parameters and runs no step); both warps run
+  // the block's longest lane's tiles, and the ring between them follows
+  // the record ring
+  const int bp = COLLECT ? min(b, B - 1) : b;
+  int tiles = 0;
+  float4* c_ring = nullptr;
+  if constexpr (COLLECT) {
+    c_ring = reinterpret_cast<float4*>(ring_w + STAGES * K * WARP);
+    const int T = b < B ? n_steps[bp] : 0;
+    tiles = (__reduce_max_sync(0xffffffffu, T) + K - 1) / K;
+    int32_t* const stage =
+        reinterpret_cast<int32_t*>(c_ring + 2 * C_TILES * K * WARP) + t;
+    if (threadIdx.x >= 2 * WARP) {
+      attribute_lane<1>(c_ring + t, stage, params, rec_f, rec_x, period, b,
+                        bp, T, tiles, B, acc_out, rec_out);
+      return;
+    }
+    if (threadIdx.x >= WARP) {
+      attribute_lane<0>(c_ring + t, stage, params, rec_f, rec_x, period, b,
+                        bp, T, tiles, B, acc_out, rec_out);
+      return;
+    }
+  } else {
+    if (b >= B) return;  // no block-wide barrier below: safe to leave early
+  }
   char* col = reinterpret_cast<char*>(&st[0][t]);
   for (int s = 0; s < N_SLOTS; ++s) st[s][t] = 0.0f;
 
-  const float* p = params + (size_t)b * N_PARAMS;
+  const float* p = params + (size_t)bp * N_PARAMS;
   const int phys_cap = (int)p[1] * ROW, rob_cap = (int)p[2] * ROW,
             q_cap = (int)p[3] * ROW;   // capacities, in ring bytes
   const float dispatch_lat = p[11];
   const bool ooo = p[12] > 0.0f;
 
-  const int T = n_steps[b], ck = ckpt[b];
+  const int T = COLLECT && b >= B ? 0 : n_steps[bp], ck = ckpt[bp];
+  // the steps the loop runs: the lane's, or for the collect build the
+  // block's tiles (a lane runs none past its own T)
+  const int T_loop = COLLECT ? tiles * K : T;
   // vector, arithmetic, memory allocations so far, in ring bytes
   int nv = 0, na = 0, nm = 0;
   float t_scalar = 0.0f, lane_free = 0.0f, vmu_free = 0.0f, last_aq = 0.0f,
         last_mq = 0.0f, last_commit = 0.0f, scalar_res = 0.0f,
         busy_lane = 0.0f, busy_vmu = 0.0f;
   float ck_time = 0.0f, ck_lane = 0.0f, ck_vmu = 0.0f;
-  // the collect build's accumulators (two registers and this thread's
-  // column of the rows A_*) and its record pointer
-  int32_t* ring_w = reinterpret_cast<int32_t*>(ring_raw + STAGES * K * WARP);
-  float acc_work = 0.0f, acc_dep = 0.0f;
-  float* acc_rows =
-      reinterpret_cast<float*>(ring_w + 2 * STAGES * K * WARP) + t;
-  if constexpr (COLLECT)
-    for (int k = 0; k < ACC_ROWS; ++k) acc_rows[k * WARP] = 0.0f;
-  float4* rec_o = rec_out + b;
-  if (T > 0) {   // a lane with no steps reads no record (P may be 0)
-    Stream in{ring_raw + t, ring_w + t, rec_f + b, rec_w + b,
-              0, max(period[b], 1), B,
-              COLLECT ? ring_w + STAGES * K * WARP + t : nullptr,
-              COLLECT ? rec_x + b : nullptr};
-    for (int j = 0; j < TILES_AHEAD; ++j) fetch_tile<COLLECT>(in, j);
+  if (T_loop > 0) {   // a lane with no steps reads no record (P may be 0)
+    Stream in{ring_raw + t, ring_w + t, rec_f + bp, rec_w + bp,
+              0, max(period[bp], 1), B};
+    // the collect build's lanes without steps copy nothing (their commit
+    // groups are empty)
+    const bool fetch = !COLLECT || T > 0;
+    for (int j = 0; j < TILES_AHEAD; ++j)
+      if (fetch) fetch_tile(in, j); else cp_async_commit();
 
     // the current record and the five state reads it needs, read before
     // the previous step's stores and forwarded (all zero at step 0)
     cp_async_wait<TILES_AHEAD - 1>();  // tile 0 has landed
     float4 xf = in.f[0];
     int xw = in.w[0];
-    int xx = COLLECT ? in.x[0] : 0;
     float r1 = 0.0f, r2 = 0.0f, rob_slot = 0.0f, phys_slot = 0.0f,
           q_slot = 0.0f;
+    // the collect build's next record in the ring between the warps
+    float4* c_rec = nullptr;
 
     // one step: record r (xf, xw) with its state reads; reads record r + 1
     // (ring row rn) and its state reads before this step's stores
@@ -438,7 +660,6 @@ engine_scan_kernel(const float4* __restrict__ rec_f,
       // ---- the next record and its state reads, before this step's stores
       const float4 nf = in.f[rn * WARP];
       const int nw = in.w[rn * WARP];
-      const int nx = COLLECT ? in.x[rn * WARP] : 0;
       const int nv2 = nv + (xw & F_VEC) * (ROW / F_VEC);
       const int na2 = na + (xw & F_ARITH) * (ROW / F_ARITH);
       const int nm2 = nm + (xw & F_MEM) * (ROW / F_MEM);
@@ -466,48 +687,14 @@ engine_scan_kernel(const float4* __restrict__ rec_f,
       const float complete = (issue + xf.y) + xf.z;
       const float commit = fmaxf(complete, last_commit);
 
-      // ---- the collect build: attribute the frontier's advance
+      // ---- the collect build: the step's records for the consumer warps,
+      // its times and flag word, and the issue time's candidates read
+      // before this step's stores overwrite the forwarded slots
       if constexpr (COLLECT) {
-        const bool dep = xw & F_DEP;
-        const float f_old = fmaxf(t_scalar, last_commit);
-        const float t_wait = fmaxf(t_scalar, dep ? scalar_res : -INFINITY);
-        // a scalar block (t_new = its end): the wait on a vector result
-        // and the work beyond the frontier, one sum into one slot
-        const float dep_vis = fmaxf(t_wait - f_old, 0.0f);
-        const float work_vis = fmaxf(t_new - fmaxf(t_wait, f_old), 0.0f);
-        const float sc_vis = dep_vis + work_vis;
-        // a vector instruction (t_new = its scalar commit): the wait
-        // before issue, the execution and the scalar pipe beyond it
-        const float wait_vis = fmaxf(issue - f_old, 0.0f);
-        const float exec_vis = fmaxf(complete - fmaxf(issue, f_old), 0.0f);
-        const float tail_vis = fmaxf(t_new - fmaxf(complete, f_old), 0.0f);
-        // the binding constraint, lowest precedence first
-        int cause = issue == inorder ? S_INORDER : S_DISPATCH;
-        cause = issue == fu_free ? (mem ? S_VMU_WAIT : S_LANE_WAIT) : cause;
-        cause = issue == fmaxf(r1, r2) ? S_RAW : cause;
-        cause = issue == q_slot ? (mem ? S_MQ_FULL : S_AQ_FULL) : cause;
-        cause = issue == phys_slot ? S_PHYS_FULL : cause;
-        cause = issue == rob_slot ? S_ROB_FULL : cause;
-        acc_work = acc_work + (vec ? tail_vis : dep ? 0.0f : sc_vis);
-        if (dep) acc_dep = acc_dep + sc_vis;
-        // the three rows (a scalar record's are the dummies) read together,
-        // then written back: they never coincide
-        float* const aw =
-            acc_rows + (vec ? A_WAIT + cause - S_DISPATCH : A_WAIT_NONE) * WARP;
-        float* const ae =
-            acc_rows + (vec ? A_EXEC + (xx & 15) : A_EXEC_NONE) * WARP;
-        float* const ao =
-            acc_rows + (arith ? A_OCC + (xx >> 4) : A_OCC_NONE) * WARP;
-        const float w0 = *aw, e0 = *ae, o0 = *ao;
-        *aw = w0 + wait_vis;
-        *ae = e0 + exec_vis;
-        *ao = o0 + xf.w;
-        const int rec_cause = vec ? cause : dep ? S_DEP_SCALAR : S_SCALAR_WORK;
-        __stcs(rec_o, make_float4(vec ? t_new : t_scalar,
-                                  vec ? issue : t_wait,
-                                  vec ? complete : t_new,
-                                  __int_as_float(rec_cause)));
-        rec_o += B;
+        *c_rec = make_float4(t_new, issue, complete, __int_as_float(xw));
+        c_rec[C_TILES * K * WARP] =
+            make_float4(rob_slot, phys_slot, q_slot, fmaxf(r1, r2));
+        c_rec += WARP;
       }
 
       // ---- stores, and the same values forwarded into the next reads
@@ -541,7 +728,6 @@ engine_scan_kernel(const float4* __restrict__ rec_f,
       nm = nm2;
       xf = nf;
       xw = nw;
-      if constexpr (COLLECT) xx = nx;
       if (r + 1 == ck) {
         ck_time = fmaxf(t_scalar, last_commit);
         ck_lane = busy_lane;
@@ -549,11 +735,16 @@ engine_scan_kernel(const float4* __restrict__ rec_f,
       }
     };
 
-    for (int j = 0; j * K < T; ++j) {
+    for (int j = 0; j * K < T_loop; ++j) {
       // tiles <= j + 1 have landed (the last step of tile j reads the
       // first record of j + 1); the stage of tile j - 1 is free for j + 3
       cp_async_wait<TILES_AHEAD - 2>();
-      fetch_tile<COLLECT>(in, j + TILES_AHEAD);
+      if (fetch) fetch_tile(in, j + TILES_AHEAD); else cp_async_commit();
+      if constexpr (COLLECT) {
+        // the consumer is done with this ring slot's last tile
+        if (j >= C_TILES) bar_sync(BAR_EMPTY + j % C_TILES, C_THREADS);
+        c_rec = c_ring + (j % C_TILES) * K * WARP + t;
+      }
       const int r0 = j * K, s1 = (j % STAGES) * K + 1;
       if (r0 + K <= T) {   // a whole tile: no end test a step
 #pragma unroll
@@ -562,9 +753,11 @@ engine_scan_kernel(const float4* __restrict__ rec_f,
         for (int k = 0; r0 + k < T; ++k)
           step(r0 + k, (s1 + k) % (STAGES * K));
       }
+      if constexpr (COLLECT) bar_arrive(BAR_FULL + j % C_TILES, C_THREADS);
     }
     cp_async_wait<0>();  // no copy outlives the block
   }
+  if (COLLECT && b >= B) return;
   out[0 * B + b] = fmaxf(t_scalar, last_commit);
   out[1 * B + b] = t_scalar;
   out[2 * B + b] = last_commit;
@@ -573,16 +766,6 @@ engine_scan_kernel(const float4* __restrict__ rec_f,
   out[5 * B + b] = ck_time;
   out[6 * B + b] = ck_lane;
   out[7 * B + b] = ck_vmu;
-  if constexpr (COLLECT) {
-    acc_out[S_SCALAR_WORK * B + b] = acc_work;
-    acc_out[S_DEP_SCALAR * B + b] = acc_dep;
-    for (int k = S_DISPATCH; k < S_EXEC; ++k)
-      acc_out[k * B + b] = acc_rows[(A_WAIT + k - S_DISPATCH) * WARP];
-    for (int k = S_EXEC; k < N_STALL; ++k)
-      acc_out[k * B + b] = acc_rows[(A_EXEC + k - S_EXEC) * WARP];
-    for (int k = 0; k < N_OCC; ++k)
-      acc_out[(N_STALL + k) * B + b] = acc_rows[(A_OCC + k) * WARP];
-  }
 }
 
 template <bool COLLECT>
@@ -611,7 +794,7 @@ int steps_launch(const void* rec_f, const int32_t* rec_w,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (B + WARP - 1) / WARP;
-  engine_scan_kernel<COLLECT><<<blocks, WARP, bytes,
+  engine_scan_kernel<COLLECT><<<blocks, COLLECT ? C_THREADS : WARP, bytes,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(rec_f), rec_w, params, period, n_steps, ckpt,
       out, B, rec_x, acc, static_cast<float4*>(rec));

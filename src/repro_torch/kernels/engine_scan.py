@@ -35,7 +35,11 @@ The collect build (``scan_collect``: ``prepass(..., collect=True)`` and
 same kernels, instantiated with the cycle attribution, which adds the
 ``STALL_KINDS`` accumulators, the lane-busy cycles per FU class and a
 per-record timeline (``scan_plain(..., collect=True)`` documents the
-outputs).  It counts its own launches (``scan_collect.launches``).
+outputs).  Its scan runs three warps a block: the recurrence's warp adds
+only two shared stores a step (the step's times and the issue time's
+candidates), and two more warps find the wait's cause and attribute the
+records from that ring in shared memory (``csrc/engine_scan.cu``).  It counts its own launches
+(``scan_collect.launches``).
 
 Bound on an H100: the scan is latency-bound.  Each lane is one serial chain
 of ``n_steps`` dependent steps, and a study has a few hundred lanes where

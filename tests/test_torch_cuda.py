@@ -133,6 +133,13 @@ def _scan_case(name, device):
                         [len(t) for t in traces], device)
     B = int(name.split()[-1])
     traces = [random_trace(100 + k % 40, 5 + k % 50) for k in range(B)]
+    if name.startswith("skewed"):
+        # one long lane in each block of 32 among lanes of 0 to 3 steps:
+        # the collect build's two warps run the long lane's tiles, the
+        # other lanes none past their own
+        n = [2000 + 7 * k if k % 32 == 5 else k % 4 for k in range(B)]
+        return eng.pack(traces, [ve.TABLE10[k % len(ve.TABLE10)]
+                                 for k in range(B)], n, n, device)
     cfgs = [dataclasses.replace(
         ve.TABLE10[k % len(ve.TABLE10)], rob_entries=1 + k % 4,
         queue_entries=1 + k % 3, phys_regs=33 + k % 2,
@@ -163,7 +170,7 @@ def test_engine_scan_redesign_bitwise(cuda, case):
     assert torch.equal(got, engine_scan.scan_plain(*inp.args()))
 
 
-COLLECT_CASES = SCAN_CASES[:-1] + ["ragged B 168"]
+COLLECT_CASES = SCAN_CASES[:-1] + ["ragged B 168", "skewed B 70"]
 
 
 def _assert_same_bits(got, want):

@@ -27,12 +27,14 @@ def test_dse_smoke_gate(tmp_path, capsys):
 def _rows(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0] == "name,us_per_call,derived"
-    return {ln.split(",")[0]: ln.split(",", 2)[2] for ln in lines[1:]}
+    assert lines[-1].startswith("# wrote ")     # the bench sections' file
+    return {ln.split(",")[0]: ln.split(",", 2)[2] for ln in lines[1:-1]}
 
 
 def test_study_dse_quick_repeats_from_the_cache(tmp_path, capsys):
     cache = str(tmp_path / "dse.jsonl")
-    args = ["--dse", "--quick", "--device", CPU, "--dse-cache", cache]
+    args = ["--dse", "--quick", "--device", CPU, "--dse-cache", cache,
+            "--bench-json", str(tmp_path / "bench.json")]
     assert study.main(args) == 0
     first = _rows(capsys)
     apps = vcfg.SPACE_PRESET_APPS["quick"]

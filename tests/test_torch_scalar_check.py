@@ -95,16 +95,41 @@ def test_check_without_flag_prints_help(capsys):
     assert "--check" in capsys.readouterr().out
 
 
-def test_study_quick_prints_run_py_rows(capsys):
-    assert study.main(["--quick", "--device", "cpu"]) == 0
+def test_study_quick_prints_run_py_rows(capsys, tmp_path):
+    """``--quick`` prints run.py's smoke list, group by group in run.py's
+    order, and writes its sections to ``--bench-json``."""
+    bench = tmp_path / "bench.json"
+    assert study.main(["--quick", "--device", "cpu", "--bench-json",
+                       str(bench), "--timeline",
+                       str(tmp_path / "timeline.json")]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "name,us_per_call,derived"
-    names = [ln.split(",")[0] for ln in lines[1:]]
-    assert names == [f"steady_state_{a}_mvl64_l4" for a in study.NAMES] + [
-        "sweep_quick_8cfg_batched", "sweep_quick_8cfg_sequential",
-        "sweep_quick_batched_speedup"]
+    assert lines[-1] == f"# wrote {bench}"
+    names = [ln.split(",")[0] for ln in lines[1:-1]]
+    prefixes = ("table_characterization_", "vao_speedup_", "fig_scalability_",
+                "fig10_", "sweep_llc_", "sweep_mshr_", "frontend_crossval_",
+                "rvv_", "codegen_", "steady_state_", "scalar_", "profile_",
+                "sweep_quick_")
+    group = lambda n: next(p for p in prefixes if n.startswith(p))
+    order = []
+    for n in names:
+        if not order or order[-1] != group(n):
+            order.append(group(n))
+    assert order == ["table_characterization_", "vao_speedup_"] * 7 + [
+        "fig_scalability_", "fig10_", "sweep_llc_", "sweep_mshr_",
+        "frontend_crossval_", "rvv_", "codegen_", "steady_state_",
+        "scalar_", "profile_", "sweep_quick_"]
+    assert [n for n in names if n.startswith("steady_state_")] == \
+        [f"steady_state_{a}_mvl64_l4" for a in study.NAMES]
+    assert names[-3:] == ["sweep_quick_8cfg_batched",
+                          "sweep_quick_8cfg_sequential",
+                          "sweep_quick_batched_speedup"]
     assert len(study.NAMES) == 20
-    assert lines[-1].endswith("|max_rel_diff=0.00e+00")
+    assert lines[-2].endswith("|max_rel_diff=0.00e+00")
+    import json
+    assert {"frontend_crossval", "rvv", "codegen", "steady_state_ns",
+            "scalar", "profile", "sweep"} <= set(json.loads(
+                bench.read_text()))
 
 
 def test_study_steady_state_matches_reference_engine():
