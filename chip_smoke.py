@@ -148,7 +148,29 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    the in-run dedup, and the cold pass's dispatch split on the host clock
    (body lookup, pack, H2D, launch, D2H, derivation) beside the launch's
    device time;
-11. the ``kernels`` JSON line (twenty-seven entries: the engine scan's
+11. the surrogate-guided search at full width (the engine scan's launch
+   counter set to 0 first): phase 10's cache file read back into its
+   15,360 training rows (nothing simulated), four 2,000-step fits on the
+   card (seed 0 twice, bitwise equal; seed 1, different; the hold-out
+   model without the last app) with their walls, final losses and
+   scorecards (p50, p90, p99, max, Spearman), ``SPACE_HUGE``'s 1,244,160
+   points scored for one app (host time, CUDA events, the device time of a
+   batch behind a spin, points/s, the operations bound; 64 seeded points
+   against the row path and the exact area), the search of ``SPACE_HUGE``
+   x the ten apps through the same cache (mode, points scored, the three
+   phases' walls, each app's re-simulated, refined and simulated counts),
+   every frontier point exact-verified, each app's recall of phase 10's
+   exhaustive frontier (mean >= 0.9), a repeat search with the same
+   frontier fingerprint, and ``search.main(["--smoke"])`` (exit 0);
+12. the simulation service (the counter set to 0 first):
+   ``sim_service.main(["--smoke"])`` (exit 0) and the full serving study
+   (``serve_bench.serve_study``: 400 requests at 200 Hz in real time,
+   ``max_batch`` 16, through a JSONL cache, then the same stream against
+   it): its rows, prewarm's batch sizes and wall time, the build count
+   before and after prewarm, each pass's throughput, p50 / p99 / p99.9,
+   hits, coalesced, dispatched and batches; no rebuild after prewarm, no
+   request shed, the repeat >= 99 % hits, bitwise;
+13. the ``kernels`` JSON line (twenty-seven entries: the engine scan's
    collect build ``engine_scan_collect`` with its two kernels and launches
    a call, Jacobi-2D's cluster,
    loop and tiled routes and the one-sweep kernel's width-one route,
@@ -163,8 +185,9 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    shuffled row,
    and decoding's combine kernel, each their own;
    the particle filter's rows name their path), launch counts from phases
-   4, 5 and 9;
-12. the last line: ``{"ok": true, "device": {...}}``.
+   4, 5 and 9, the engine scan's also by path (``launches_by_path``: the
+   study's, phase 11's and phase 12's);
+14. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no CUDA device or when
 the port's sources are not beside this script.
@@ -1038,7 +1061,12 @@ def suite_specs(torch, ref, data, mods):
         timed_on=f"PARSEC simlarge's {CA_B:,} swaps x {CA_F} slots (the "
         f"main path's call: its first {CA_WIDE_B:,} rows padded to "
         f"{CA_WIDE_F} slots, ms_wide)",
-        also_timed={"ms_wide": lambda: ca_mod.rows(*wide)})
+        also_timed={"ms_wide": lambda: ca_mod.rows(*wide)},
+        # the bound of that call: its inputs and outputs, its valid slots
+        main_bound=("ms_wide",
+                    CA_N * 8 + CA_WIDE_B * CA_WIDE_F * 4 + 2 * CA_WIDE_B * 8
+                    + 2 * CA_WIDE_B * 4,
+                    int((wide[1] >= 0).sum()) * CA_OPS))
     # Jacobi-2D's one sweep on its vector route (PolyBench's grid in three
     # types) and on its width-one route (the odd grid, and the float16 view
     # one point into its buffer)
@@ -1105,7 +1133,9 @@ def suite_specs(torch, ref, data, mods):
         f"{path_mod.pyramid_launches(PATH_R)} launches a call (the main "
         f"path's call: its first {PATH_SHORT} rows, "
         f"{path_mod.pyramid_launches(PATH_SHORT)} launch, ms_short)",
-        also_timed={"ms_short": lambda: path_mod.pyramid(wall[:PATH_SHORT])})
+        also_timed={"ms_short": lambda: path_mod.pyramid(wall[:PATH_SHORT])},
+        main_bound=("ms_short", PATH_SHORT * PATH_C * 4 + PATH_C * 4,
+                    PATH_OPS * (PATH_SHORT - 1) * PATH_C))
     # attention: 4 D flops a kept (query, key) pair on the tensor cores
     # (3 TF32 products each in float32, beside the float32 SIMT rate the
     # earlier slices bounded it by), and one exponential a pair
@@ -1445,6 +1475,18 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
             extra[key] = timed(fn)
         print(f"phase 6 {name}: ms timed on {spec['timed_on']}; "
               + ", ".join(f"{k} {extra[k]:.4f}" for k in spec["also_timed"]))
+    if "main_bound" in spec:
+        # bound_ms is for the inputs "ms" timed; this is the main path's
+        # call's own (the same rule: bytes once, its operations)
+        key, nbytes, n_ops = spec["main_bound"]
+        mb, mo = nbytes / PEAK_BYTES_S, n_ops / spec["peak"]
+        extra["bound_main_ms"] = max(mb, mo) * 1e3
+        extra["bound_main_by"] = "bytes" if mb >= mo else "operations"
+        print(f"phase 6 {name}: the main path's call ({key} "
+              f"{extra[key]:.4f} ms): bound {extra['bound_main_ms']:.4f} ms "
+              f"({extra['bound_main_by']}; {nbytes / 1e6:.1f} MB, "
+              f"{n_ops / 1e9:.4f} G ops), "
+              f"{extra['bound_main_ms'] / extra[key]:.1%} of it")
     if "passes" in spec:
         extra["pass_ms"] = {n: cuda_ms(torch, fn, reps=5)
                             for n, fn in spec["passes"]}
@@ -1863,31 +1905,30 @@ def profiler_phase(torch, eng, engine_scan, dev, label="phase 9") -> dict:
             "split": split}
 
 
-def dse_phase(torch, eng, suite, engine_scan, ve, golden, dev) -> None:
+def dse_phase(torch, eng, suite, engine_scan, ve, golden, dev, tmp):
     """Design-space exploration at full width: ``SPACE_FULL`` (1,536
-    configs) x the ten apps, cold through a JSONL cache in a temporary
-    directory, then again through a fresh ``ResultCache`` that re-reads
+    configs) x the ten apps, cold through a JSONL cache in the directory
+    ``tmp``, then again through a fresh ``ResultCache`` that re-reads
     the file (hit rate 1.0, nothing simulated, the same frontier
     fingerprint).  Checked two ways: the 240 Table-10 cells (every
     Table-10 config is a point of the space) against
     ``suite.speedup_batch`` bit for bit and the golden table at rtol 1e-2,
     and 64 seeded cells against the plain scan on the card bit for bit.
-    Then the cold pass's dispatch taken apart on the host clock."""
-    import tempfile
+    Then the cold pass's dispatch taken apart on the host clock.  Returns
+    the exploration and its cache file (phase 11's truth and rows)."""
     from repro_torch.core import dse
     t_phase = time.perf_counter()
     space = ve.SPACE_FULL
     suite.clear_caches()
     engine_scan.scan.launches = 0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = str(Path(tmp) / "dse.jsonl")
-        t0 = time.perf_counter()
-        res = dse.explore(space, cache=dse.ResultCache(path), device=dev)
-        cold_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        res2 = dse.explore(space, cache=dse.ResultCache(path), device=dev)
-        warm_s = time.perf_counter() - t0
-        n_lines = len(Path(path).read_text().splitlines())
+    path = str(Path(tmp) / "dse.jsonl")
+    t0 = time.perf_counter()
+    res = dse.explore(space, cache=dse.ResultCache(path), device=dev)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res2 = dse.explore(space, cache=dse.ResultCache(path), device=dev)
+    warm_s = time.perf_counter() - t0
+    n_lines = len(Path(path).read_text().splitlines())
     launches = engine_scan.scan.launches
     st, st2 = res.stats, res2.stats
     fp, fp2 = dse._frontier_fingerprint(res), dse._frontier_fingerprint(res2)
@@ -2003,6 +2044,212 @@ def dse_phase(torch, eng, suite, engine_scan, ve, golden, dev) -> None:
           f"{int(inp.n_steps.max())}); largest stage "
           f"{max(split, key=split.get)}; phase wall "
           f"{time.perf_counter() - t_phase:.2f} s")
+    return res, path
+
+
+# The surrogate's MLP a point: 53 -> 64 -> 64 -> 1, two operations a
+# multiply-add (phase 11's scoring bound); its bytes a point: the int64
+# index in, the float32 prediction and area out.
+SURR_FLOP_PER_POINT = 2 * (53 * 64 + 64 * 64 + 64)
+SURR_BYTES_PER_POINT = 8 + 4 + 4
+
+
+def surrogate_phase(torch, engine_scan, ve, truth, cache_path, dev,
+                    sm_clock_hz) -> int:
+    """Surrogate-guided search at full width: phase 10's ``SPACE_FULL`` x
+    ten-apps cache file read back (all 15,360 cells present, nothing
+    simulated) into the training rows; four 2,000-step fits (seed 0 twice,
+    bitwise equal; seed 1, different; seed 0 without the last app, the
+    hold-out model) with their scorecards; ``SPACE_HUGE`` scored for one
+    app (host time, device time, points/s and the bound); the search of
+    ``SPACE_HUGE`` for the ten apps through the same cache, every frontier
+    point exact-verified, each app's recall of phase 10's exhaustive
+    frontier (mean >= 0.9, run.py's acceptance), a repeat search with the
+    same frontier fingerprint; then ``search.main(["--smoke"])``.  Returns
+    the engine scan's launches on this path."""
+    from repro_torch.core import dse, search, surrogate
+    from repro_torch.kernels import ref
+    t_phase = time.perf_counter()
+    engine_scan.scan.launches = 0
+    apps = truth.apps
+    space, huge = ve.SPACE_FULL, ve.SPACE_HUGE
+    cache = dse.ResultCache(cache_path)
+    t0 = time.perf_counter()
+    rows = cache.export_training_rows(apps, space)
+    rows_s = time.perf_counter() - t0
+    print(f"phase 11 search training rows: {len(rows)} of phase 10's "
+          f"{len(apps)} apps x {space.size()} configs from its cache file "
+          f"({len(cache)} entries, {cache.corrupt_lines} corrupt lines, "
+          f"hits {cache.hits}, misses {cache.misses}; nothing simulated) in "
+          f"{rows_s:.2f} s")
+    if (len(rows) != len(apps) * space.size() or cache.corrupt_lines
+            or engine_scan.scan.launches):
+        fail("search: phase 10's cache file does not hold every cell")
+
+    holdout = apps[-1]
+    fits = {}
+    for label, seed, rs in (("fit", 0, rows), ("repeat", 0, rows),
+                            ("seed 1", 1, rows),
+                            ("hold-out", 0, [r for r in rows
+                                             if r["app"] != holdout])):
+        t0 = time.perf_counter()
+        m = surrogate.fit(rs, steps=2000, seed=seed, device=dev)
+        fits[label] = (m, time.perf_counter() - t0)
+    model = fits["fit"][0]
+    same = all(torch.equal(model.params[k], fits["repeat"][0].params[k])
+               for k in surrogate.PARAM_NAMES)
+    differs = any(not torch.equal(model.params[k],
+                                  fits["seed 1"][0].params[k])
+                  for k in surrogate.PARAM_NAMES)
+    print("phase 11 search fits (2,000 full-batch steps, host wall incl. "
+          "the final loss's copy): " + "; ".join(
+              f"{k} {w:.3f} s, {m.meta['n_rows']} rows, final loss "
+              f"{m.meta['final_loss']:.4e}" for k, (m, w) in fits.items())
+          + f"; seed 0 twice bitwise equal {same}, seed 1 differs {differs}")
+    if not same or not differs:
+        fail("search: the fit is not bitwise repeatable in its seed")
+    fit_card = surrogate.scorecard(model, rows)
+    ho_card = surrogate.scorecard(
+        fits["hold-out"][0], [r for r in rows if r["app"] == holdout],
+        holdout_app=holdout)
+    for label, card in (("fit set", fit_card),
+                        (f"hold-out {holdout}", ho_card)):
+        print(f"phase 11 search scorecard {label}: n {card['n_rows']}, rel "
+              f"err p50 {card['rel_err_p50']:.4f}, p90 "
+              f"{card['rel_err_p90']:.4f}, p99 {card['rel_err_p99']:.4f}, "
+              f"max {card['rel_err_max']:.4f}, spearman "
+              f"{card['spearman_all']:.4f}")
+    if ho_card["per_app"][holdout]["trained_on"]:
+        fail("search: the hold-out model saw its hold-out app")
+
+    # scoring one app over the whole search space
+    scorer = surrogate.SpaceScorer(model, huge, apps[0])
+    n = huge.size()
+    idx = np.arange(n, dtype=np.int64)
+    scorer.score(idx[:surrogate.SCORE_BATCH])          # warm
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    pred, area = scorer.score(idx)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    events_ms = start.elapsed_time(end)
+    n_batches = -(-n // surrogate.SCORE_BATCH)
+    batch = torch.arange(surrogate.SCORE_BATCH, device=dev)
+    with ref._full_float32_matmul():
+        busy_ms = device_ms(torch, lambda: scorer._score_batch(batch),
+                            reps=5, per=1,
+                            sm_clock_hz=sm_clock_hz) * n_batches
+    bound_ms = max(n * SURR_FLOP_PER_POINT / PEAK_F32_S,
+                   n * SURR_BYTES_PER_POINT / PEAK_BYTES_S) * 1e3
+    picks = np.random.RandomState(11).randint(n, size=64)
+    cfgs = [huge.config_at(int(i)) for i in picks]
+    row_pred = model.predict_runtime_ns([{"app": apps[0], "cfg": c}
+                                         for c in cfgs])
+    pred_ok = (np.isfinite(pred).all() and (pred > 0).all()
+               and np.allclose(pred[picks], row_pred, rtol=1e-5, atol=0)
+               and np.allclose(area[picks],
+                               [dse.area_proxy_kb(c) for c in cfgs],
+                               rtol=1e-6, atol=0))
+    print(f"phase 11 search score {huge.name} for {apps[0]}: {n} points in "
+          f"{n_batches} batches of {surrogate.SCORE_BATCH}, host "
+          f"{host_ms:.2f} ms (events around the call {events_ms:.2f} ms), "
+          f"device busy {busy_ms:.3f} ms ({busy_ms / n_batches:.4f} ms a "
+          f"batch behind a spin), {n / host_ms * 1e3:,.0f} points/s; bound "
+          f"{bound_ms:.4f} ms (operations: {SURR_FLOP_PER_POINT} flop a "
+          f"point at 67 TFLOP/s); 64 seeded points against the row path "
+          f"and the exact area {pred_ok}")
+    if not pred_ok:
+        fail("search: the scorer disagrees with the row path or the area")
+
+    launches0 = engine_scan.scan.launches
+    t0 = time.perf_counter()
+    res = search.search(huge, apps, model, cache=cache, device=dev)
+    search_s = time.perf_counter() - t0
+    search_launches = engine_scan.scan.launches - launches0
+    n_checked = search._verify_exact(res, cache)
+    tf = truth.frontiers()
+    recall = {a: search.frontier_recall(res.frontiers[a], tf[a])
+              for a in apps}
+    rmean = float(np.mean(list(recall.values())))
+    st = res.stats
+    print(f"phase 11 search {huge.name} x {len(apps)} apps: {search_s:.2f} s"
+          f", mode {st['mode']}, n_scored {st['n_scored']}, phases "
+          + "; ".join(f"{p['phase']} {p['wall_s']:.3f} s"
+                      for p in st["phases"])
+          + f"; {search_launches} scan launches; {n_checked} frontier points "
+          f"exact-verified; recall mean {rmean:.4f}, min "
+          f"{min(recall.values()):.4f}")
+    for a in apps:
+        r = st["resim"][a]
+        print(f"phase 11 search {a}: resim {r['resim']}, refined "
+              f"{r['refined']}, simulated {r['simulated']}, frontier "
+              f"{len(res.frontiers[a])} points, recall of the exhaustive "
+              f"{space.name} frontier ({len(tf[a])} points) {recall[a]:.4f}")
+    if st["mode"] != "exhaustive-score" or rmean < 0.9 or not n_checked:
+        fail(f"search: mode {st['mode']}, recall mean {rmean}")
+    fp = search.frontier_fingerprint(res)
+    t0 = time.perf_counter()
+    res2 = search.search(huge, apps, model, cache=cache, device=dev)
+    fp2 = search.frontier_fingerprint(res2)
+    print(f"phase 11 search repeat: {time.perf_counter() - t0:.2f} s, "
+          f"simulated {sum(r['simulated'] for r in res2.stats['resim'].values())}"
+          f", frontier_fp {fp} / {fp2} ({'equal' if fp == fp2 else 'DIFFERENT'})")
+    if fp != fp2:
+        fail("search: the repeat search moved the frontier")
+    run_captured("phase 11 search --smoke",
+                 lambda: search.main(["--smoke"]))
+    launches = engine_scan.scan.launches
+    print(f"phase 11 search: {launches} engine scan launches on this path; "
+          f"phase wall {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def serve_phase(engine_scan, tmp) -> int:
+    """The simulation service on the card: ``sim_service.main(["--smoke"])``
+    and the full serving study (``serve_bench.serve_study``: 400 requests
+    at 200 Hz in real time over blackscholes, canneal, ssd_scan and
+    pathfinder:asm x 32 configs of ``SPACE_QUICK``, ``max_batch`` 16,
+    through a JSONL cache in ``tmp``, then the same stream against the
+    persisted cache): no rebuild after prewarm, no request shed, the
+    repeat pass >= 99 % hits with bitwise times.  Returns the engine scan's
+    launches on this path."""
+    from repro_torch import serve_bench
+    from repro_torch.serve import sim_service
+    t_phase = time.perf_counter()
+    engine_scan.scan.launches = 0
+    run_captured("phase 12 serve --smoke", lambda: sim_service.main(
+        ["--smoke", "--cache", str(Path(tmp) / "serve_smoke.jsonl")]))
+    rows, bench = serve_bench.serve_study(
+        quick=False, cache_path=str(Path(tmp) / "serve.jsonl"))
+    for name, us, derived in rows:
+        print(f"phase 12 serve study: {name},{us:.1f},{derived}")
+    p1, p2, b = bench["pass1"], bench["repeat"], bench["builds"]
+    print(f"phase 12 serve prewarm: {bench['prewarmed_buckets']} batch sizes "
+          f"in {bench['prewarm_s'] * 1e3:.1f} ms; builds before prewarm "
+          f"{b['before_prewarm']}, after {b['after_prewarm']}, after the "
+          f"repeat {b['after_repeat']}")
+    for label, r in (("pass 1", p1), ("repeat", p2)):
+        print(f"phase 12 serve {label}: {r['n']} requests in "
+              f"{r['wall_s']:.3f} s, {r['throughput_rps']:.1f} req/s, p50 "
+              f"{r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms, p99.9 "
+              f"{r['p999_ms']:.3f} ms, mean {r['mean_ms']:.3f} ms; hits "
+              f"{r['hits']}, coalesced {r['coalesced']}, dispatched "
+              f"{r['dispatched']}, batches {r['batches']}, shed {r['shed']}, "
+              f"recompiles {r['recompiles']}, hit fraction "
+              f"{r['hit_fraction']:.3f}")
+    launches = engine_scan.scan.launches
+    print(f"phase 12 serve: ok {bench['ok']} (bitwise repeat "
+          f"{bench['bitwise_repeat']}); {launches} engine scan launches on "
+          f"this path; phase wall {time.perf_counter() - t_phase:.2f} s")
+    if not (bench["ok"] and p1["recompiles"] == 0 and p1["shed"] == 0
+            and p2["hit_fraction"] >= 0.99 and bench["bitwise_repeat"]):
+        fail("serve: rebuilds after prewarm, a shed request, a repeat below "
+             "99 % hits or times not bitwise")
+    return launches
 
 
 def codegen_round_trip(tracegen) -> None:
@@ -2697,17 +2944,28 @@ def main(argv=None) -> int:
             fail(f"the parent tree's profiler path: exit {run.returncode}\n"
                  f"{run.stderr[-2000:]}")
 
-    # ---- 10. design-space exploration at full width --------------------------
-    dse_phase(torch, eng, suite, engine_scan, ve, golden, dev)
+    # ---- 10-12. DSE at full width, the surrogate search, the service --------
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        truth, dse_cache = dse_phase(torch, eng, suite, engine_scan, ve,
+                                     golden, dev, tmp)
+        search_launches = surrogate_phase(torch, engine_scan, ve, truth,
+                                          dse_cache, dev, sm_clock_hz)
+        serve_launches = serve_phase(engine_scan, tmp)
 
-    # ---- 11. kernels line -----------------------------------------------------
+    # ---- 13. kernels line -----------------------------------------------------
     kernels = [
         {"name": "engine_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/engine_scan.cu",
          "replaces": "src/repro/core/engine.py:198",
          "launches": launches["engine_scan"], "max_abs_err": scan_err,
          "ms": scan_ms, "plain_ms": scan_plain_ms, "bound_ms": scan_bound_ms,
-         "bound_by": scan_bound_by, "library_ms": None},
+         "bound_by": scan_bound_by, "library_ms": None,
+         # launches is the study's (phase 4); the search's and the
+         # service's paths launch the same kernel (phases 11 and 12)
+         "launches_by_path": {"study": launches["engine_scan"],
+                              "search": search_launches,
+                              "serve": serve_launches}},
         {"name": "engine_scan_collect", "route": "cuda",
          "source": "src/repro_torch/csrc/engine_scan.cu",
          "replaces": "src/repro/core/engine.py:435",
@@ -2787,7 +3045,7 @@ def main(argv=None) -> int:
                         "replaces": SUITE_REPLACES[of],
                         "launches": launches[counter], **rows[row]})
     print(json.dumps({"kernels": kernels}))
-    # ---- 12. last line ----------------------------------------------------------
+    # ---- 14. last line ----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

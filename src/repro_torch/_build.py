@@ -10,6 +10,12 @@ starts one ``nvcc`` per source at once and waits for all of them.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a nonzero code into an exception naming the CUDA error.
+
+``builds()`` counts the libraries this process compiled (one a source
+``build_all`` ran nvcc on) and loaded (one a ``load`` that opened a
+library): the port's counterpart of the reference's jit-cache size
+(``engine.jit_cache_size``).  Nothing is compiled per shape or batch size,
+so after the first load of each source the count stays put.
 """
 from __future__ import annotations
 
@@ -41,6 +47,18 @@ EXTRA_FLAGS = {"engine_scan": ("-fmad=false",), "swaptions": ("-fmad=false",),
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_BUILDS = 0    # libraries compiled + libraries loaded, this process
+
+
+def _count_build() -> None:
+    global _BUILDS
+    _BUILDS += 1
+
+
+def builds() -> int:
+    """Libraries compiled by ``build_all`` plus libraries opened by
+    ``load`` in this process (0 where nothing ran on the card)."""
+    return _BUILDS
 
 
 def nvcc() -> str:
@@ -100,6 +118,7 @@ def build_all(names=SOURCES) -> dict[str, dict]:
             failures.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
+        _count_build()
         report[name] = {"seconds": seconds, "log": log, "path": str(out)}
     if failures:
         raise RuntimeError("\n".join(failures))
@@ -115,6 +134,7 @@ def load(name: str) -> ctypes.CDLL:
             if not path.exists():
                 build_all((name,))
             lib = _LIBS[name] = ctypes.CDLL(str(path))
+            _count_build()
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
         return lib

@@ -337,6 +337,28 @@ def steady_state_time(body: isa.Trace, cfg: VectorEngineConfig,
                                    device=device)[0]
 
 
+def jit_cache_size() -> int:
+    """The reference's recompile count, in the port: the CUDA libraries
+    this process built with nvcc or loaded (``_build.builds``).  The port
+    compiles nothing per shape, batch size or trace length: each source is
+    built once (or found built) and loaded once, so after a path's first
+    call the count no longer grows.  The CPU path builds nothing and
+    leaves it 0."""
+    from repro_torch import _build
+    return _build.builds()
+
+
+def batch_bucket(n: int) -> int:
+    """The power-of-two batch size (>= 8) a batch of ``n`` pairs rounds up
+    to: the reference's jit key of the batched path.  The port's scan takes
+    any batch in one launch, so it is no compile key here; the simulation
+    service uses it to pick the batch sizes it prewarms."""
+    b = 8
+    while b < n:
+        b *= 2
+    return b
+
+
 def scalar_time(trace: isa.Trace, cfg: VectorEngineConfig) -> float:
     """Latency-weighted scalar-core time for a pure-scalar trace (ns), with
     the knob deltas the scan applies to residual scalar blocks (host numpy,

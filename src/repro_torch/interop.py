@@ -1,11 +1,15 @@
-"""What crosses over from the JAX package: traces, configs, calibration.
+"""What crosses over from the JAX package: traces, configs, calibration,
+the surrogate's weights.
 
-The simulator has no weights.  The state the two packages share is the
-trace records a workload is lowered to and the engine configuration a
+The simulator itself has no weights.  The state the two packages share is
+the trace records a workload is lowered to and the engine configuration a
 study sweeps; the calibration constants are copied, and
 ``engine.model_fingerprint()`` equal to the reference's proves the copy
-bitwise.  These helpers take the reference's plain data (numpy arrays, a
-dict of config fields) without importing it.
+bitwise.  The one model with weights is the surrogate cost model
+(``core.surrogate``): its MLP parameters and standardization statistics
+carry across by name (``surrogate_from_numpy``).  These helpers take the
+reference's plain data (numpy arrays, a dict of config fields) without
+importing it.
 """
 from __future__ import annotations
 
@@ -43,3 +47,41 @@ def config_from_fields(d: dict) -> VectorEngineConfig:
     """A port config from ``dataclasses.asdict`` of a reference config
     (the same field names; ``__post_init__`` applies the same checks)."""
     return VectorEngineConfig(**d)
+
+
+def surrogate_from_numpy(params: dict, feat_mean, feat_std, apps, meta,
+                         device=None):
+    """A port ``Surrogate`` from a reference ``Surrogate``'s fields:
+    ``params`` as ``{k: np.asarray(v)}`` of its parameters (``w1``...``b3``),
+    its ``feat_mean`` / ``feat_std``, ``apps`` and ``meta``.  Every array
+    must be float32 of the reference's shapes (``N_FEATURES`` inputs, one
+    hidden width, one output); the parameters go to ``device`` (default:
+    the CUDA device) unchanged."""
+    import torch
+    from repro_torch import _device
+    from repro_torch.core import surrogate
+    dev = _device.resolve(device)
+    names = set(surrogate.PARAM_NAMES)
+    if set(params) != names:
+        raise ValueError(f"surrogate params {sorted(params)}, want "
+                         f"{sorted(names)}")
+    F = surrogate.N_FEATURES
+    w1 = np.asarray(params["w1"])
+    if w1.ndim != 2 or w1.shape[0] != F:
+        raise ValueError(f"surrogate w1 of shape {w1.shape}, want ({F}, H)")
+    H = w1.shape[1]
+    shapes = {"w1": (F, H), "b1": (H,), "w2": (H, H), "b2": (H,),
+              "w3": (H, 1), "b3": (1,), "feat_mean": (F,), "feat_std": (F,)}
+    arrays = dict(params, feat_mean=feat_mean, feat_std=feat_std)
+    out = {}
+    for name, shape in shapes.items():
+        a = np.asarray(arrays[name])
+        if a.dtype != np.float32 or a.shape != shape:
+            raise ValueError(f"surrogate {name}: {a.dtype} {a.shape}, want "
+                             f"float32 {shape}")
+        out[name] = a
+    return surrogate.Surrogate(
+        feat_mean=out["feat_mean"].copy(), feat_std=out["feat_std"].copy(),
+        params={k: torch.from_numpy(out[k].copy()).to(dev)
+                for k in surrogate.PARAM_NAMES},
+        apps=tuple(apps), meta=dict(meta))

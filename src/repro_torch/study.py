@@ -3,6 +3,8 @@
     python -m repro_torch.study [--device cuda|cpu] [--quick]
     python -m repro_torch.study --scalar | --rvv | --profile [--quick]
     python -m repro_torch.study --dse [--quick] [--dse-cache PATH]
+    python -m repro_torch.study --surrogate [--quick] [--surrogate-cache PATH]
+    python -m repro_torch.study --serve [--quick] [--serve-cache PATH]
 
 Prints ``name,us_per_call,derived`` rows, as ``benchmarks/run.py`` does,
 with its row names, order and ``derived`` formats, one function a row
@@ -27,10 +29,12 @@ group:
 - ``profile_rows``: the telemetry scorecard (the top bottleneck, the
   module fractions and the event-sum identity error a row) and a Chrome
   trace of blackscholes, written to ``results/timeline_blackscholes.json``
-  at the repository root (``--timeline``; never ``examples/``).  The
-  reference's ``jit_cache`` field has no counterpart (nothing is compiled
-  per shape): its place holds ``collect_launches``, the collect build's
-  launches (``engine_scan.scan_collect.launches``) over the group;
+  at the repository root (``--timeline``; never ``examples/``).  Where the
+  reference records its jit cache's size (``jit_cache``), the port compiles
+  nothing per shape and its build count (``engine.jit_cache_size``) does
+  not move over a group, so the place holds ``collect_launches``, the
+  collect build's launches (``engine_scan.scan_collect.launches``) over
+  the group;
 - ``kernel_microbench``: the suite's kernels through
   ``repro_torch.kernels.ops`` at run.py's shapes, inputs from numpy with a
   fixed seed, each timed by CUDA events around 3 calls after a warm one
@@ -42,7 +46,9 @@ group:
   wall time each and the worst relative difference (``max_rel_diff``),
   which in the port is 0; full: the 20 names x Table 10 (480 cells),
   ``--quick``: run.py's two apps x MVL (8, 64) x lanes (1, 8).  The
-  ``jit_cache`` field is left out, as above;
+  ``jit_cache`` field is left out, as above: the build count
+  (``engine.jit_cache_size``) is what the simulation service reads as its
+  recompiles (``serve_rows``);
 - ``dse_study`` (``--dse``): the design-space exploration of ``SPACE_FULL``
   (1,536 configs) over all ten apps, or with ``--quick`` ``SPACE_QUICK``
   (384) over ``SPACE_PRESET_APPS["quick"]``, through the persistent result
@@ -51,14 +57,28 @@ group:
   ``dse_<space>_<n>cfg_<k>apps`` with the cells simulated, the hit rate and
   the frontier fingerprint, then ``dse_frontier_<app>`` per app.  A repeat
   run with the same cache reports ``hit_rate=1.000`` and the same
-  ``frontier_fp``.
+  ``frontier_fp``;
+- ``surrogate_rows`` (``--surrogate``): the surrogate-guided search's
+  acceptance rows through the cache ``--surrogate-cache`` (default
+  ``results/surrogate_cache.jsonl``): the exhaustive truth explore
+  (``SPACE_FULL`` x the ten apps, or with ``--quick`` ``SPACE_QUICK`` x
+  ``SPACE_PRESET_APPS["quick"]``), the MLP fitted on its rows (2,000 or
+  800 steps) and a hold-out model without the last app, the scoring
+  throughput over the search space (``SPACE_HUGE``, or ``SPACE_10K``), the
+  search with every frontier point exact-verified, and each app's recall
+  of the exhaustive frontier;
+- ``serve_rows`` (``--serve``): the simulation service under a seeded
+  Poisson stream (``serve_bench.serve_study``: 400 requests at 200 Hz, or
+  with ``--quick`` 96 at 400 Hz, realtime) through ``--serve-cache``
+  (default ``results/serve_cache.jsonl``): throughput, latency,
+  batching with the rebuilds after prewarm, and the repeat pass's hit
+  fraction.
 
 Without a flag it runs run.py's full list, with ``--quick`` its smoke list
-(no kernel microbenchmarks, the small sweep), with ``--scalar``, ``--rvv``
-or ``--profile`` that group alone.  run.py's ``roofline_table``,
-``surrogate_rows`` and ``serve_rows`` have no counterpart yet: they come
-with the port of the surrogate search, the simulation service and the
-system seed (ROADMAP Queue 1, items 2-4).
+(no kernel microbenchmarks, the small sweep), with ``--scalar``, ``--rvv``,
+``--profile``, ``--dse``, ``--surrogate`` or ``--serve`` that group alone.
+run.py's ``roofline_table`` has no counterpart yet: it comes with the
+port of the system seed (ROADMAP Queue 1, item 4).
 
 The machine-readable sections (run.py's ``_BENCH``) are merged into
 ``--bench-json`` (default ``results/bench_torch.json`` at the repository
@@ -322,7 +342,10 @@ def profile_rows(quick: bool = False, timeline_path=None,
     error, and a Chrome-trace timeline of blackscholes at
     ``timeline_path`` (default ``results/timeline_blackscholes.json``).
     Where run.py records the jit cache's size, the port records the
-    collect build's launches over the group (``collect_launches``)."""
+    collect build's launches over the group (``collect_launches``): its
+    counterpart of the jit cache, the build count
+    (``engine.jit_cache_size``), does not move over a group once the scan's
+    library is loaded."""
     from repro_torch.core import telemetry
     from repro_torch.kernels import engine_scan
     cfgs = [eng.VectorEngineConfig(mvl=64, lanes=4)]
@@ -448,7 +471,9 @@ def kernel_microbench(device=None) -> list[tuple]:
 
 
 def sweep_wallclock(quick: bool = False, device=None) -> list[tuple]:
-    """The batched sweep against the sequential per-cell path."""
+    """The batched sweep against the sequential per-cell path.  run.py's
+    ``jit_cache`` field is left out: the port's build count
+    (``engine.jit_cache_size``) does not move with the batch size."""
     apps, mvls, lanes = QUICK if quick else FULL
     n = len(apps) * len(mvls) * len(lanes)
     t0 = time.perf_counter()
@@ -511,7 +536,9 @@ def steady_state_table(names=NAMES, device=None) -> list[tuple]:
             for a, r in zip(names, rows)]
 
 
-DSE_CACHE = Path(__file__).resolve().parents[2] / "results" / "dse_cache.jsonl"
+DSE_CACHE = RESULTS / "dse_cache.jsonl"
+SURROGATE_CACHE = RESULTS / "surrogate_cache.jsonl"
+SERVE_CACHE = RESULTS / "serve_cache.jsonl"
 
 
 def dse_study(quick: bool = False, cache_path=DSE_CACHE,
@@ -552,10 +579,149 @@ def dse_study(quick: bool = False, cache_path=DSE_CACHE,
     return rows
 
 
+def surrogate_rows(quick: bool = False, cache_path=SURROGATE_CACHE,
+                   seed: int = 0, device=None) -> list[tuple]:
+    """Surrogate-guided search acceptance rows (run.py's).
+
+    Full mode: exhaustively explore the 1536-point ``SPACE_FULL`` over all
+    10 apps (the truth frontiers AND the ~15k training rows), fit the MLP
+    surrogate, then surrogate-search the 1,244,160-point ``SPACE_HUGE`` and
+    measure (a) wall-clock vs the exact explore, (b) surrogate scoring
+    throughput vs exact simulation throughput, and (c) recall of each
+    exact-verified search frontier against the exhaustive truth frontier
+    (acceptance: >= 0.9).  A second model trained WITHOUT the last app
+    provides the honest held-out-app error CDF.  Quick mode: the same
+    pipeline on SPACE_QUICK -> SPACE_10K with 3 apps.
+    """
+    from repro_torch import _device
+    from repro_torch.configs import vector_engine as vcfg
+    from repro_torch.core import dse, search, surrogate
+    dev = _device.resolve(device)
+    if quick:
+        truth_space, search_space = vcfg.SPACE_QUICK, vcfg.SPACE_10K
+        apps = vcfg.SPACE_PRESET_APPS["quick"]
+        steps = 800
+    else:
+        truth_space, search_space = vcfg.SPACE_FULL, vcfg.SPACE_HUGE
+        apps = tuple(sorted(tracegen.APPS))
+        steps = 2000
+    cache_path = str(cache_path) if cache_path else None
+    cache = dse.ResultCache(cache_path)
+
+    t0 = time.perf_counter()
+    truth = dse.explore(truth_space, apps, cache=cache, device=dev)
+    t_exact = time.perf_counter() - t0
+    rows_lab = cache.export_training_rows(apps, truth_space)
+
+    t0 = time.perf_counter()
+    model = surrogate.fit(rows_lab, steps=steps, seed=seed, device=dev)
+    t_fit = time.perf_counter() - t0
+    fit_card = surrogate.scorecard(model, rows_lab)
+
+    # honest generalization: a second model that never saw the last app
+    holdout = apps[-1]
+    t0 = time.perf_counter()
+    ho_model = surrogate.fit([r for r in rows_lab if r["app"] != holdout],
+                             steps=steps, seed=seed, device=dev)
+    t_fit_ho = time.perf_counter() - t0
+    ho_rows = [r for r in rows_lab if r["app"] == holdout]
+    # the error CDF over ONLY the never-seen app's cells — the honest
+    # unseen-workload generalization number
+    ho_card = surrogate.scorecard(ho_model, ho_rows, holdout_app=holdout)
+
+    # pure scoring throughput: one app across the whole search space
+    scorer = surrogate.SpaceScorer(model, search_space, apps[0])
+    idx = np.arange(search_space.size(), dtype=np.int64)
+    scorer.score(idx[: surrogate.SCORE_BATCH])          # warm
+    t0 = time.perf_counter()
+    scorer.score(idx)
+    t_score = time.perf_counter() - t0
+    score_pts_s = search_space.size() / t_score
+    exact_cells_s = len(truth.records) / t_exact
+
+    t0 = time.perf_counter()
+    res = search.search(search_space, apps, model, cache=cache, seed=seed,
+                        device=dev)
+    t_search = time.perf_counter() - t0
+    n_checked = search._verify_exact(res, cache)
+
+    tf = truth.frontiers()
+    recall = {a: search.frontier_recall(res.frontiers[a], tf[a])
+              for a in apps}
+    rmean = float(np.mean(list(recall.values())))
+    rmin = min(recall.values())
+    t_pipeline = t_fit + t_search
+    _BENCH["surrogate"] = {
+        "truth_space": truth_space.name,
+        "search_space": search_space.name,
+        "search_space_size": search_space.size(),
+        "apps": list(apps),
+        "n_training_rows": len(rows_lab),
+        "exact_wall_s": t_exact,
+        "train_s": t_fit,
+        "train_holdout_s": t_fit_ho,
+        "search_wall_s": t_search,
+        "pipeline_wall_s": t_pipeline,
+        "score_throughput_pts_s": score_pts_s,
+        "exact_throughput_cells_s": exact_cells_s,
+        "recall_at_frontier": recall,
+        "recall_mean": rmean,
+        "recall_min": rmin,
+        "frontier_points_exact_verified": n_checked,
+        "frontier_fingerprint": search.frontier_fingerprint(res),
+        "search_stats": res.stats,
+        "fit_error_cdf": {k: fit_card[k] for k in
+                          ("rel_err_p50", "rel_err_p90", "rel_err_p99",
+                           "rel_err_max", "spearman_all")},
+        "holdout_app": holdout,
+        "holdout_error_cdf": {k: ho_card[k] for k in
+                              ("rel_err_p50", "rel_err_p90", "rel_err_p99",
+                               "rel_err_max", "spearman_all")},
+        "device": str(dev),
+    }
+    return [
+        (f"surrogate_train_{len(rows_lab)}rows", t_fit * 1e6,
+         f"steps={steps}|final_loss={model.meta['final_loss']:.2e}"
+         f"|p50={fit_card['rel_err_p50']:.4f}"
+         f"|p90={fit_card['rel_err_p90']:.4f}"),
+        (f"surrogate_score_{search_space.name}", t_score * 1e6,
+         f"{score_pts_s:,.0f}pts/s_vs_exact_{exact_cells_s:.0f}cells/s"
+         f"|x{score_pts_s / exact_cells_s:,.0f}"),
+        (f"surrogate_search_{search_space.name}_{search_space.size()}cfg",
+         t_search * 1e6,
+         f"pipeline_s={t_pipeline:.1f}|exact_s={t_exact:.1f}"
+         f"|scored={res.stats['n_scored']}|verified={n_checked}"),
+        (f"surrogate_recall_{truth_space.name}_truth", 0.0,
+         f"mean={rmean:.3f}|min={rmin:.3f}"
+         f"|holdout_{holdout}_p50={ho_card['rel_err_p50']:.4f}"
+         f"|holdout_spearman={ho_card['spearman_all']:.4f}"),
+    ]
+
+
+def serve_rows(quick: bool = False, cache_path=SERVE_CACHE, seed: int = 0,
+               device=None) -> list[tuple]:
+    """Simulation-service acceptance rows: sustained throughput and p50/p99
+    latency under a (seeded) Poisson arrival workload with zero rebuilds
+    after prewarm; the repeated identical stream must answer >= 99 % of
+    requests from the ResultCache with bitwise-identical times."""
+    from repro_torch import serve_bench
+    rows, bench = serve_bench.serve_study(
+        quick=quick, cache_path=str(cache_path) if cache_path else None,
+        seed=seed, device=device)
+    _BENCH["serve"] = bench
+    return rows
+
+
 def row_groups(args) -> list[tuple]:
     """``(name, rows function)`` of each row group a command line runs, in
     run.py's order."""
     dev, quick = args.device, args.quick
+    if args.surrogate:
+        return [("surrogate", lambda: surrogate_rows(
+            quick=quick, cache_path=args.surrogate_cache, device=dev))]
+    if args.serve:
+        return [("serve", lambda: serve_rows(
+            quick=quick, cache_path=args.serve_cache, device=dev))]
     if args.dse:
         return [("dse", lambda: dse_study(
             quick=quick, cache_path=args.dse_cache,
@@ -622,8 +788,23 @@ def parse_args(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="the profiler's rows only (scorecard and the "
                          "blackscholes timeline)")
+    ap.add_argument("--surrogate", action="store_true",
+                    help="the surrogate-search rows only: the exhaustive "
+                         "truth explore (SPACE_FULL x 10 apps, with --quick "
+                         "SPACE_QUICK x 3), the fit, the search of "
+                         "SPACE_HUGE (SPACE_10K), recall against the truth")
+    ap.add_argument("--serve", action="store_true",
+                    help="the simulation-service rows only: a Poisson "
+                         "stream through the service, then its repeat "
+                         "against the persisted cache")
     ap.add_argument("--dse-cache", default=str(DSE_CACHE),
                     help="persistent DSE result cache (JSONL)")
+    ap.add_argument("--surrogate-cache", default=str(SURROGATE_CACHE),
+                    help="persistent result cache of the surrogate study's "
+                         "truth explore and exact re-simulation (JSONL)")
+    ap.add_argument("--serve-cache", default=str(SERVE_CACHE),
+                    help="persistent simulation-service result cache "
+                         "(JSONL)")
     ap.add_argument("--dse-budget-kb", type=float, default=512.0)
     ap.add_argument("--timeline", default=str(TIMELINE),
                     help="where the profile rows write the blackscholes "

@@ -1900,3 +1900,85 @@ def test_streamcluster_centers_among_the_points(cuda, dtype):
         exact = ((p[rows, None].double() - c[None].double()) ** 2).sum(-1)
         torch.testing.assert_close(got[rows].double(), exact, rtol=tol,
                                    atol=tol)
+
+
+# --------------------------------------------- the surrogate and the service
+
+@pytest.fixture(scope="module")
+def smoke_rows():
+    """SPACE_SMOKE x the smoke apps explored on the card (one scan launch):
+    the 128 training rows of the surrogate tests."""
+    from repro_torch.core import dse
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the engine scan runs on the card")
+    apps = ("blackscholes", "canneal")
+    cache = dse.ResultCache()
+    dse.explore(ve.SPACE_SMOKE, apps, cache=cache, device="cuda")
+    return cache.export_training_rows(apps, ve.SPACE_SMOKE)
+
+
+def test_surrogate_fit_is_bitwise_repeatable_on_the_card(cuda, smoke_rows):
+    """Two fits with one seed give the same bits on the card (no
+    deterministic-algorithms switch needed); another seed does not."""
+    from repro_torch.core import surrogate
+    m1, m2, m3 = (surrogate.fit(smoke_rows, steps=300, seed=s, device=cuda)
+                  for s in (0, 0, 1))
+    for k in surrogate.PARAM_NAMES:
+        assert m1.params[k].is_cuda and torch.equal(m1.params[k],
+                                                    m2.params[k]), k
+    assert any(not torch.equal(m1.params[k], m3.params[k])
+               for k in surrogate.PARAM_NAMES)
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_space_scorer_on_the_card_matches_the_cpu(cuda, smoke_rows):
+    """The same model scored on the card and on the CPU: predictions at
+    rtol 1e-5, the area at rtol 1e-6."""
+    import dataclasses
+    from repro_torch.core import surrogate
+    model = surrogate.fit(smoke_rows, steps=300, seed=0, device=cuda)
+    on_cpu = dataclasses.replace(
+        model, params={k: v.cpu() for k, v in model.params.items()})
+    idx = np.random.RandomState(3).randint(ve.SPACE_HUGE.size(), size=4096)
+    got = surrogate.SpaceScorer(model, ve.SPACE_HUGE, "canneal").score(idx)
+    want = surrogate.SpaceScorer(on_cpu, ve.SPACE_HUGE, "canneal").score(idx)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6)
+
+
+def test_build_count_grows_at_the_first_load_only(cuda):
+    """``engine.jit_cache_size`` (``_build.builds``) counts a library's
+    load once; loading it again, or launching it, adds nothing."""
+    from repro_torch import _build
+    _build.build_all(("swaptions",))
+    _build._LIBS.pop("swaptions", None)      # as if never loaded here
+    n0 = eng.jit_cache_size()
+    _build.load("swaptions")
+    assert eng.jit_cache_size() == n0 + 1 == _build.builds()
+    _build.load("swaptions")
+    sw_mod.cum_normal_inv(torch.rand(1000, device=cuda))
+    assert eng.jit_cache_size() == n0 + 1
+
+
+def test_service_on_the_card_serves_without_rebuilds(cuda):
+    """After prewarm, a Poisson stream through the service on the card
+    builds nothing and answers bitwise as the engine does."""
+    from repro_torch.serve.sim_service import (SimService, poisson_arrivals,
+                                               run_workload)
+    svc = SimService(max_batch=16)
+    assert svc.prewarm() == 2
+    cfgs = tuple(ve.SPACE_SMOKE.sample(8, seed=1))
+    rep = run_workload(svc, poisson_arrivals(
+        48, 400.0, ("blackscholes", "canneal", "pathfinder:asm"), cfgs,
+        seed=0))
+    assert rep.recompiles == 0 and rep.shed == 0 and rep.dispatched > 0
+    for r in rep.results[:8]:
+        body = tracegen.body_for(r.app, suite.effective_mvl(
+            r.app, _cfg_of(cfgs, r.label)), _cfg_of(cfgs, r.label))
+        want = eng.steady_state_time_batch([body], [_cfg_of(cfgs, r.label)],
+                                           device=cuda)[0]
+        assert r.steady_ns == want
+
+
+def _cfg_of(cfgs, label):
+    return next(c for c in cfgs if c.label() == label)
