@@ -170,7 +170,24 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    before and after prewarm, each pass's throughput, p50 / p99 / p99.9,
    hits, coalesced, dispatched and batches; no rebuild after prewarm, no
    request shed, the repeat >= 99 % hits, bitwise;
-13. the ``kernels`` JSON line (twenty-seven entries: the engine scan's
+13. the model server (the attention kernels' counters set to 0 first):
+   llama3-8b whole at its published widths in bfloat16 (8.03 B
+   parameters drawn on the card from seed 0) through ``ServeEngine``, the
+   launcher's defaults (8 requests of 3-9 tokens, batch 4, 8 new tokens,
+   ``max_seq`` 64) and a long-prompt round (4 requests of 1,024-2,048
+   tokens, 16 new, ``max_seq`` 4,096): tokens/s, each prefill's and the
+   decode steps' host times beside their bounds, the flash-attention and
+   decoding launches of each round (failing at 0) and the peak memory;
+   the nine other configs at their published widths, whole where weights
+   and cache fit 60 GB and cut in depth only otherwise (each cut
+   printed), 4 requests of 4 new tokens each, logits finite and tokens in
+   the padded vocabulary; the kernel route against the plain route
+   (llama3-8b at full width, 2 layers, float32: the card's prefill logits
+   and four teacher-forced decode steps against the port's CPU path on
+   the same weights, within 1e-4 of the largest logit); and the two
+   kernels at the long round's shapes against their plain versions,
+   timed beside SDPA and bounded;
+14. the ``kernels`` JSON line (twenty-seven entries: the engine scan's
    collect build ``engine_scan_collect`` with its two kernels and launches
    a call, Jacobi-2D's cluster,
    loop and tiled routes and the one-sweep kernel's width-one route,
@@ -186,8 +203,11 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    and decoding's combine kernel, each their own;
    the particle filter's rows name their path), launch counts from phases
    4, 5 and 9, the engine scan's also by path (``launches_by_path``: the
-   study's, phase 11's and phase 12's);
-14. the last line: ``{"ok": true, "device": {...}}``.
+   study's, phase 11's and phase 12's), flash attention's, decoding's and
+   its combine kernel's too (the suite's, phase 5, and the model
+   server's, phase 13), the first two with their phase-13 row
+   (``serve``);
+15. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no CUDA device or when
 the port's sources are not beside this script.
@@ -1402,7 +1422,8 @@ def scalar_fold_time(sp, ve, names) -> None:
           f"{batch_ms:.3f} ms")
 
 
-def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
+def run_suite_kernel(torch, spec, sm_clock_hz: float,
+                     label: str = "phase 6") -> dict:
     """Hold one suite kernel against its plain version on the card (exactly
     where ``tol`` is None), then time the kernel, the plain version and the
     library call, and bound the kernel from its bytes and operations."""
@@ -1444,7 +1465,7 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
     if lib_ms is None and spec.get("library_none"):
         lib += f" ({spec['library_none']})"
-    print(f"phase 6 {name}: max_abs_err={err:.3g} (bar "
+    print(f"{label} {name}: max_abs_err={err:.3g} (bar "
           f"{spec['tol'] or 'exact'}) kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
           f"({bound_by}; {spec['nbytes'] / 1e6:.1f} MB, "
@@ -1458,22 +1479,22 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
         extra["device_ms"] = spun(spec["kernel"])
         lib_dev = spun(spec["library"]) if spec["library"] else None
         extra["library_device_ms"] = lib_dev
-        print(f"phase 6 {name}: device time behind a spin: kernel "
+        print(f"{label} {name}: device time behind a spin: kernel "
               f"{extra['device_ms']:.4f} ms, library "
               + ("none" if lib_dev is None else f"{lib_dev:.4f} ms")
               + f"; host issue {host_issue_ms(torch, spec['kernel'], per=20):.4f}"
               " ms a call")
     if "path" in extra:
-        print(f"phase 6 {name}: path {extra['path']} (the kernel's flags)")
+        print(f"{label} {name}: path {extra['path']} (the kernel's flags)")
     if "route" in spec:
-        print(f"phase 6 {name}: route {spec['route']}")
+        print(f"{label} {name}: route {spec['route']}")
     if "timed_on" in spec:
         # what "ms" timed, where it is not the main path's call, and that
         # call's own time
         extra["timed_on"] = spec["timed_on"]
         for key, fn in spec["also_timed"].items():
             extra[key] = timed(fn)
-        print(f"phase 6 {name}: ms timed on {spec['timed_on']}; "
+        print(f"{label} {name}: ms timed on {spec['timed_on']}; "
               + ", ".join(f"{k} {extra[k]:.4f}" for k in spec["also_timed"]))
     if "main_bound" in spec:
         # bound_ms is for the inputs "ms" timed; this is the main path's
@@ -1482,7 +1503,7 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
         mb, mo = nbytes / PEAK_BYTES_S, n_ops / spec["peak"]
         extra["bound_main_ms"] = max(mb, mo) * 1e3
         extra["bound_main_by"] = "bytes" if mb >= mo else "operations"
-        print(f"phase 6 {name}: the main path's call ({key} "
+        print(f"{label} {name}: the main path's call ({key} "
               f"{extra[key]:.4f} ms): bound {extra['bound_main_ms']:.4f} ms "
               f"({extra['bound_main_by']}; {nbytes / 1e6:.1f} MB, "
               f"{n_ops / 1e9:.4f} G ops), "
@@ -1490,7 +1511,7 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
     if "passes" in spec:
         extra["pass_ms"] = {n: cuda_ms(torch, fn, reps=5)
                             for n, fn in spec["passes"]}
-        print(f"phase 6 {name}: passes "
+        print(f"{label} {name}: passes "
               + ", ".join(f"{n} {t:.4f} ms"
                           for n, t in extra["pass_ms"].items())
               + f" (sum {sum(extra['pass_ms'].values()):.4f} ms); bytes "
@@ -1504,7 +1525,7 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float) -> dict:
         # the wrapper's host time a call (checks, path choice, tensor maps
         # on the TMA path, launch), which a lone call adds to its time
         issue_ms = host_issue_ms(torch, spec["kernel"], per=20)
-        print(f"phase 6 {name}: path {spec['path']}, host issue "
+        print(f"{label} {name}: path {spec['path']}, host issue "
               f"{issue_ms:.4f} ms a call, "
               f"{spec['ops'] / ms / 1e9:.1f} TFLOP/s, tensor bound "
               f"{t_ops * 1e3:.4f} ms, exponential co-bound "
@@ -2252,6 +2273,377 @@ def serve_phase(engine_scan, tmp) -> int:
     return launches
 
 
+# ---- 13. the model server ---------------------------------------------------
+# llama3-8b served whole at its published widths (configs/llama3_8b.py: 32
+# layers, d 4,096, 32 heads, GQA 8, of 128, vocab 128,256) in bfloat16:
+# first the launcher's defaults (launch/serve.py: 8 requests of 3-9 seeded
+# tokens, batch 4, 8 new tokens, max_seq 64), then a long-prompt round (4
+# requests of 1,024-2,048 seeded tokens, 16 new tokens, max_seq 4,096).
+SERVE_ARCH = "llama3-8b"
+SERVE_ROUNDS = (
+    ("launcher defaults", dict(requests=8, batch=4, lo=3, hi=10, new=8,
+                               max_seq=64, seed=0)),
+    ("long prompts", dict(requests=4, batch=4, lo=1024, hi=2049, new=16,
+                          max_seq=4096, seed=1)),
+)
+# every other config at its published widths, 4 requests of 4 new tokens:
+# whole where weights and cache fit 60 GB, else cut in depth only (layers
+# kept; jamba: one period of 8, every kind of layer in its ratio)
+SERVE_OTHERS = (("qwen2.5-3b", None), ("mamba2-130m", None),
+                ("granite-moe-3b-a800m", None), ("whisper-small", None),
+                ("mistral-large-123b", 2), ("dbrx-132b", 2),
+                ("qwen1.5-32b", 2), ("internvl2-76b", 2),
+                ("jamba-v0.1-52b", 8))
+SERVE_OTHERS_MAX_SEQ = 64
+# the kernel route against the plain route: llama3-8b at full width, 2
+# layers, float32 (weights from seed 2), a B 2 x S 64 prompt and four
+# teacher-forced decode steps, the card's logits against the port's CPU
+# path on the same weights within 1e-4 of the largest logit magnitude (the
+# CPU tests' bar against the reference: products summed in other orders,
+# attention in 3xTF32, no reduced-precision product anywhere)
+SERVE_PARITY = dict(layers=2, B=2, S=64, steps=4, seed=2, tol=1e-4)
+
+
+class TimedModel:
+    """A model whose prefill and decode steps are timed on the host clock
+    (a synchronize each side) and whose logits are checked finite."""
+
+    def __init__(self, torch, model):
+        self.torch, self.model, self.cfg = torch, model, model.cfg
+        self.prefill_ms, self.decode_ms, self.shapes = [], [], []
+
+    def _timed(self, times, fn, *args):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = fn(*args)
+        self.torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not bool(self.torch.isfinite(logits).all()):
+            fail(f"serve {self.cfg.name}: logits not finite")
+        return logits, cache
+
+    def prefill(self, params, batch, max_seq):
+        self.shapes.append(tuple(batch["tokens"].shape))
+        return self._timed(self.prefill_ms, self.model.prefill, params,
+                           batch, max_seq)
+
+    def decode_step(self, params, cache, tokens, pos):
+        return self._timed(self.decode_ms, self.model.decode_step, params,
+                           cache, tokens, pos)
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.models import layers as L
+    return sum(t.numel() * t.element_size() for t in L.tree_leaves(tree))
+
+
+def serve_requests(torch, model, params, r, extra=None):
+    """Serve ``r["requests"]`` seeded requests through ``ServeEngine``;
+    returns the engine, the timed model, the wall time and the tokens."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    timed = TimedModel(torch, model)
+    eng = ServeEngine(timed, params, r["batch"], r["max_seq"], extra=extra)
+    rng = np.random.default_rng(r["seed"])
+    for i in range(r["requests"]):
+        eng.submit(Request(uid=i, prompt=rng.integers(
+            0, model.cfg.vocab_size, rng.integers(r["lo"], r["hi"])).astype(
+                np.int32), max_new_tokens=r["new"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    toks = [t for q in done for t in q.out_tokens]
+    if len(done) != r["requests"] or any(
+            len(q.out_tokens) != r["new"] for q in done) or not all(
+            0 <= t < model.cfg.padded_vocab for t in toks):
+        fail(f"serve {model.cfg.name}: {len(done)} requests done, tokens "
+             "missing or out of the vocabulary")
+    return eng, timed, wall, len(toks)
+
+
+def decode_step_split(torch, model, params, steps=3):
+    """One decode step at the launcher's shapes (B 4, a 9-token prompt,
+    max_seq 64), ``steps`` times: the host's issue time (the call's
+    return, no synchronize) and the wall time to the synchronize, medians;
+    then ``steps`` more under ``torch.profiler`` (CPU and CUDA activities):
+    the device time of their kernels (the CUDA events' self times, summed)
+    and the kernel launches (``cudaLaunchKernel`` / ``cuLaunchKernelEx``
+    calls), each a step.  A step launches more kernels than the launch
+    queue holds, so no spin ahead of it hides the host; the profiler's
+    kernel sum is the device's busy time.  Returns (issue ms, wall ms,
+    device ms, launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.engine import params_device
+    toks = torch.arange(36, device=params_device(params),
+                        dtype=torch.int32).view(4, 9)
+    logits, cache = model.prefill(params, {"tokens": toks}, 64)
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    issue, wall = [], []
+    for t in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.decode_step(params, cache, tok, 9 + t)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        issue.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for t in range(steps):
+            model.decode_step(params, cache, tok, 9 + steps + t)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in ka
+                    if e.device_type == DeviceType.CUDA)
+    launches = sum(e.count for e in ka
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                                "cudaLaunchKernelExC"))
+    return (statistics.median(issue), statistics.median(wall),
+            device_us / 1e3 / steps, launches / steps)
+
+
+def serve_bounds(cfg, params, B, S, max_seq, kv_len):
+    """(prefill bound ms, its kind, decode-step bound ms, its kind) of the
+    dense model: the prefill's products (2 x block parameters a token, the
+    last position's unembedding, 4 x hd a kept causal pair a head) at 989
+    TFLOP/s against its bytes (the weights but the embedding table read
+    once, the rows gathered, the cache written); a decode step's bytes (the
+    same weights read once, the cache rows below ``kv_len``) at 3.35
+    TB/s."""
+    from repro_torch.models import layers as L
+    el = cfg.torch_dtype.itemsize
+    emb = params["embed"]["embedding"].numel() * el
+    weights = _nbytes(params) - emb
+    blocks = sum(t.numel() for t in L.tree_leaves(params["blocks"]))
+    L_, KV, hd, H = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.num_heads
+    ops = (2 * blocks * B * S + 2 * cfg.d_model * cfg.padded_vocab * B
+           + 4 * hd * H * L_ * B * S * (S + 1) // 2)
+    cache_w = 2 * L_ * B * max_seq * KV * hd * el
+    pre_b = (weights + B * S * cfg.d_model * el + cache_w) / PEAK_BYTES_S
+    pre_o = ops / PEAK_BF16_S
+    dec_b = (weights + B * cfg.d_model * el
+             + 2 * L_ * B * kv_len * KV * hd * el) / PEAK_BYTES_S
+    return (max(pre_b, pre_o) * 1e3, "bytes" if pre_b >= pre_o
+            else "operations", dec_b * 1e3, "bytes")
+
+
+def serve_kernel_rows(torch, ref, fa_mod, da_mod, sm_clock_hz, dev, cfg, B,
+                      S, max_seq, kv_len) -> dict:
+    """The two kernels at the long round's shapes, seeded operands: flash
+    attention over the prefill's [B, S, 32, 128] bf16 q, k, v (K/V repeated
+    to 32 heads), causal; decoding of [B, 32, 128] against the repeated
+    [B, max_seq, 32, 128] bf16 cache at ``kv_len``.  Each against its plain
+    version, timed beside it and SDPA, and bounded (``run_suite_kernel``)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    bf = torch.bfloat16
+    H, D = cfg.num_heads, cfg.head_dim
+    q, k, v = (torch.randn(B, S, H, D, generator=g, device=dev).to(bf)
+               for _ in range(3))
+    dq = torch.randn(B, H, D, generator=g, device=dev).to(bf)
+    dk, dv = (torch.randn(B, max_seq, H, D, generator=g, device=dev)
+              .to(bf) for _ in range(2))
+    lens = torch.full((B,), kv_len, dtype=torch.int32, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = (torch.arange(max_seq, device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
+    pairs = B * H * S * (S + 1) // 2
+    specs = {
+        "flash_attention": dict(
+            name="flash_attention serving", kernel=lambda: fa_mod
+            .flash_attention(q, k, v, True),
+            plain=lambda: ref.flash_attention(q, k, v, True),
+            library=lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), is_causal=True),
+            tol=(2e-2, 2e-2), peak=PEAK_BF16_S, nbytes=4 * q.numel() * 2,
+            ops=4 * D * pairs, exps=pairs, per=5, plain_reps=2),
+        "decode_attention": dict(
+            name="decode_attention serving", kernel=lambda: da_mod
+            .decode_attention(dq, dk, dv, lens),
+            plain=lambda: ref.decode_attention(dq, dk, dv, lens),
+            library=lambda: sdpa(dq[:, :, None], dk.transpose(1, 2),
+                                 dv.transpose(1, 2), attn_mask=mask),
+            tol=(2e-4 + 2.0 ** -7,) * 2, peak=PEAK_F32_S,
+            nbytes=2 * B * kv_len * H * D * 2 + 2 * dq.numel() * 2 + B * 4,
+            ops=4 * D * kv_len * B * H, per=10, device_time=True),
+    }
+    rows = {n: run_suite_kernel(torch, spec, sm_clock_hz, label="phase 13")
+            for n, spec in specs.items()}
+    shape = {"flash_attention": f"B {B}, S {S}, H {H}, D {D}, bf16, causal",
+             "decode_attention": f"B {B}, S {max_seq}, H {H}, D {D}, bf16, "
+                                 f"kv_len {kv_len}"}
+    return {n: dict(shape=shape[n], **row) for n, row in rows.items()}
+
+
+def model_server_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
+    """13. The model server on the card: llama3-8b whole in bfloat16 through
+    ``ServeEngine`` (the launcher's defaults, then the long-prompt round),
+    every other config at full width (depth cut where it must be), and the
+    kernel route against the plain route.  Returns the attention kernels'
+    launches on the served path (counters zeroed before it) and their rows
+    at the long round's shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.serve.engine import serve_batch
+    t_phase = time.perf_counter()
+    # float32 products in full float32 (the reference's); phase 5 set this
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = lambda: (fa_mod.flash_attention.launches,
+                        da_mod.decode_attention.launches,
+                        da_mod.decode_attention.combine_launches)
+
+    # (a) llama3-8b whole; what earlier phases still hold on the card is
+    # counted apart from each peak
+    held = torch.cuda.memory_allocated() / 1e9
+    cfg = get_config(SERVE_ARCH)
+    model = build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in L.tree_leaves(params))
+    print(f"phase 13 {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads} heads (GQA {cfg.num_kv_heads}) of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+          f"(padded {cfg.padded_vocab}); {n_params:,} parameters, "
+          f"{_nbytes(params) / 1e9:.2f} GB bf16, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    # warm-up (cuBLAS handles, the kernels' first calls), not counted
+    serve_batch(model, params, [np.arange(3, dtype=np.int32)], 2, 8)
+    torch.cuda.synchronize()
+    # where a decode step's time goes, before the counted rounds
+    issue, wall, device, n_launch = decode_step_split(torch, model, params)
+    print(f"phase 13 {cfg.name} decode step (B 4, max_seq 64): host issue "
+          f"{issue:.2f} ms, wall to the synchronize {wall:.2f} ms (medians "
+          f"of 3); under the profiler {n_launch:.0f} kernel launches and "
+          f"{device:.2f} ms of kernel time a step: the device busy "
+          f"{device / wall:.1%} of the wall")
+    fa_mod.flash_attention.launches = 0
+    da_mod.decode_attention.launches = 0
+    da_mod.decode_attention.combine_launches = 0
+    long_shape = None
+    for label, r in SERVE_ROUNDS:
+        before = counters()
+        torch.cuda.reset_peak_memory_stats()
+        eng, timed, wall, n_tok = serve_requests(torch, model, params, r)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        fa_n, da_n, co_n = (a - b for a, b in zip(counters(), before))
+        B, S = timed.shapes[-1]
+        kv_mid = S + r["new"] // 2
+        pre_b, pre_by, dec_b, dec_by = serve_bounds(
+            cfg, params, B, S, r["max_seq"], kv_mid)
+        dec_med = statistics.median(timed.decode_ms)
+        print(f"phase 13 {cfg.name} {label}: {r['requests']} requests, "
+              f"batch {r['batch']}, prompts {r['lo']}-{r['hi'] - 1} tokens, "
+              f"{r['new']} new each, max_seq {r['max_seq']}: {n_tok} tokens "
+              f"in {wall:.3f} s, {n_tok / wall:.1f} tok/s; "
+              f"{eng.prefill_rounds} prefill rounds, {eng.decode_steps} "
+              f"decode steps")
+        print(f"phase 13 {cfg.name} {label}: prefill ms "
+              + ", ".join(f"{t:.2f} ({s[0]} x {s[1]})" for t, s in
+                          zip(timed.prefill_ms, timed.shapes))
+              + f"; last prefill bound {pre_b:.2f} ms ({pre_by}); decode "
+              f"step median {dec_med:.2f} ms (min {min(timed.decode_ms):.2f}"
+              f", max {max(timed.decode_ms):.2f}), bound {dec_b:.2f} ms "
+              f"({dec_by}: the weights once, the cache below kv_len "
+              f"{kv_mid}); peak memory {peak:.2f} GB ({peak - held:.2f} "
+              f"GB above the {held:.2f} GB earlier phases hold)")
+        print(f"phase 13 {cfg.name} {label}: launches flash_attention "
+              f"{fa_n}, decode_attention split {da_n}, combine {co_n}")
+        if fa_n <= 0 or da_n <= 0 or co_n <= 0:
+            fail(f"serve {cfg.name} {label}: an attention kernel was not "
+                 f"launched ({fa_n}, {da_n}, {co_n})")
+        long_shape = (B, S, r["max_seq"], kv_mid)
+    del params, model
+    torch.cuda.empty_cache()
+
+    # (b) every other config at full width
+    for arch, layers in SERVE_OTHERS:
+        cfg = get_config(arch)
+        cut = "whole"
+        if layers is not None:
+            cfg = cfg.scaled(num_layers=layers)
+            cut = (f"{layers} of {get_config(arch).num_layers} layers "
+                   "(depth cut only)")
+        model = build(cfg)
+        before = counters()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        max_seq = SERVE_OTHERS_MAX_SEQ + cfg.num_patches
+        r = dict(requests=4, batch=4, lo=3, hi=10, new=4, max_seq=max_seq,
+                 seed=0)
+        eng, timed, wall, n_tok = serve_requests(
+            torch, model, params, r, extra=stub_inputs(cfg, 4, dev))
+        fa_n, da_n, co_n = (a - b for a, b in zip(counters(), before))
+        n_params = sum(t.numel() for t in L.tree_leaves(params))
+        print(f"phase 13 {cfg.name}: {cut}; d {cfg.d_model}, "
+              f"{n_params:,} parameters, {_nbytes(params) / 1e9:.2f} GB; "
+              f"{n_tok} tokens in "
+              f"{wall:.3f} s ({n_tok / wall:.1f} tok/s), prefill "
+              f"{timed.prefill_ms[0]:.2f} ms, decode step median "
+              f"{statistics.median(timed.decode_ms):.2f} ms; launches flash "
+              f"{fa_n}, decode {da_n}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9 - held:.2f} GB "
+              "above what earlier phases hold")
+        if cfg.family != "ssm" and (fa_n <= 0 or da_n <= 0):
+            fail(f"serve {cfg.name}: an attention kernel was not launched")
+        del params, model
+        torch.cuda.empty_cache()
+    launches = dict(zip(("flash_attention", "decode_attention",
+                         "decode_attention_combine"), counters()))
+    print(f"phase 13 launches on the served path: {launches}")
+
+    # (c) the kernel route against the plain route
+    p = SERVE_PARITY
+    cfg = get_config(SERVE_ARCH).scaled(num_layers=p["layers"],
+                                        dtype="float32",
+                                        cache_dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(p["seed"]))
+    cpu_params = L.tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(p["seed"])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        p["B"], p["S"] + p["steps"])).astype(np.int32))
+    max_seq = p["S"] + p["steps"]
+    before = counters()
+    card = [model.prefill(params, {"tokens": toks[:, :p["S"]].to(dev)},
+                          max_seq)]
+    plain = [model.prefill(cpu_params, {"tokens": toks[:, :p["S"]]},
+                           max_seq)]
+    for t in range(p["steps"]):
+        tok = toks[:, p["S"] + t:p["S"] + t + 1]
+        card.append(model.decode_step(params, card[-1][1], tok.to(dev),
+                                      p["S"] + t))
+        plain.append(model.decode_step(cpu_params, plain[-1][1], tok,
+                                       p["S"] + t))
+    fa_n, da_n, _ = (a - b for a, b in zip(counters(), before))
+    errs = [float((c[0].cpu() - w[0]).abs().max()) for c, w in
+            zip(card, plain)]
+    scale = max(float(w[0].abs().max()) for w in plain)
+    print(f"phase 13 kernel route vs plain route ({cfg.name} at full width, "
+          f"{p['layers']} layers, float32, B {p['B']}, S {p['S']}, "
+          f"{p['steps']} teacher-forced decode steps; {fa_n} flash and "
+          f"{da_n} decode launches on the card): max abs err prefill "
+          f"{errs[0]:.3g}, decode " + ", ".join(f"{e:.3g}" for e in errs[1:])
+          + f"; largest |logit| {scale:.4g}, bar {p['tol']:g} of it "
+          f"({p['tol'] * scale:.3g})")
+    if max(errs) > p["tol"] * scale or fa_n != p["layers"] \
+            or da_n != p["layers"] * p["steps"]:
+        fail("the kernel route differs from the plain route, or did not "
+             "run on the kernels")
+    del params, cpu_params, card, plain, model
+    torch.cuda.empty_cache()
+
+    rows = serve_kernel_rows(torch, ref, fa_mod, da_mod, sm_clock_hz, dev,
+                             get_config(SERVE_ARCH), *long_shape)
+    print(f"phase 13 model server: ok; phase wall "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return {"launches": launches, "rows": rows}
+
+
 def codegen_round_trip(tracegen) -> None:
     """The code generator on the host: every app emitted and held to the
     committed corpus (``src/repro_torch/asm``) after the 4-line header, then
@@ -2953,7 +3345,11 @@ def main(argv=None) -> int:
                                           dse_cache, dev, sm_clock_hz)
         serve_launches = serve_phase(engine_scan, tmp)
 
-    # ---- 13. kernels line -----------------------------------------------------
+    # ---- 13. the model server -------------------------------------------------
+    server = model_server_phase(torch, ref, fa_mod, da_mod, dev,
+                                sm_clock_hz)
+
+    # ---- 14. kernels line -----------------------------------------------------
     kernels = [
         {"name": "engine_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/engine_scan.cu",
@@ -3044,8 +3440,18 @@ def main(argv=None) -> int:
                         "source": f"src/repro_torch/csrc/{source}.cu",
                         "replaces": SUITE_REPLACES[of],
                         "launches": launches[counter], **rows[row]})
+    # the attention kernels also run on the model server's path (phase 13):
+    # its launches (launches stays the suite's, phase 5), and the two
+    # kernels at the long round's llama3-8b shapes
+    for entry in kernels:
+        if entry["name"] in server["launches"]:
+            entry["launches_by_path"] = {
+                "suite": entry["launches"],
+                "model_server": server["launches"][entry["name"]]}
+        if entry["name"] in server["rows"]:
+            entry["serve"] = server["rows"][entry["name"]]
     print(json.dumps({"kernels": kernels}))
-    # ---- 14. last line ----------------------------------------------------------
+    # ---- 15. last line ----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

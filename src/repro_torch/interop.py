@@ -1,5 +1,5 @@
 """What crosses over from the JAX package: traces, configs, calibration,
-the surrogate's weights.
+the surrogate's weights, the model families' weights.
 
 The simulator itself has no weights.  The state the two packages share is
 the trace records a workload is lowered to and the engine configuration a
@@ -7,9 +7,10 @@ study sweeps; the calibration constants are copied, and
 ``engine.model_fingerprint()`` equal to the reference's proves the copy
 bitwise.  The one model with weights is the surrogate cost model
 (``core.surrogate``): its MLP parameters and standardization statistics
-carry across by name (``surrogate_from_numpy``).  These helpers take the
-reference's plain data (numpy arrays, a dict of config fields) without
-importing it.
+carry across by name (``surrogate_from_numpy``), and so do the model
+families' parameter trees (``model_params_from_numpy``).  These helpers
+take the reference's plain data (numpy arrays, a dict of config fields)
+without importing it.
 """
 from __future__ import annotations
 
@@ -85,3 +86,46 @@ def surrogate_from_numpy(params: dict, feat_mean, feat_std, apps, meta,
         params={k: torch.from_numpy(out[k].copy()).to(dev)
                 for k in surrogate.PARAM_NAMES},
         apps=tuple(apps), meta=dict(meta))
+
+
+def model_params_from_numpy(cfg, tree: dict, device=None) -> dict:
+    """The port's parameter tree of ``cfg``'s model from the reference's
+    (``init`` of ``repro.models.build(cfg)``, as nested dicts of numpy
+    arrays: ``jax.tree.map(np.asarray, params)``).  Every name, shape and
+    type is checked against the port's ``defs``: each leaf must have the
+    shape of its ``PD`` and the config's ``dtype`` (bfloat16 and float8
+    arrays keep their ml_dtypes type names); anything else raises
+    ``ValueError``.  The arrays go to ``device`` (default: the CUDA device)
+    bit for bit."""
+    import torch
+    from repro_torch import _device
+    from repro_torch.configs.base import torch_dtype
+    from repro_torch.models import build
+    from repro_torch.models.layers import PD
+    dev = _device.resolve(device)
+    want = torch_dtype(cfg.dtype)
+
+    def convert(defs, sub, path):
+        if isinstance(defs, PD):
+            a = np.asarray(sub)
+            if a.dtype.name != cfg.dtype:
+                raise ValueError(f"model param {path}: dtype {a.dtype.name}, "
+                                 f"want {cfg.dtype}")
+            if a.shape != tuple(defs.shape):
+                raise ValueError(f"model param {path}: shape {a.shape}, "
+                                 f"want {tuple(defs.shape)}")
+            a = np.ascontiguousarray(a)
+            if a.dtype.name in ("float32", "float16"):
+                t = torch.from_numpy(a.copy())
+            else:  # bfloat16 / float8: the bits through an unsigned view
+                bits = {1: np.uint8, 2: np.uint16}[a.dtype.itemsize]
+                t = torch.from_numpy(a.view(bits).copy()).view(want)
+            return t.to(dev)
+        if not isinstance(sub, dict) or set(sub) != set(defs):
+            have = sorted(sub) if isinstance(sub, dict) else type(sub).__name__
+            raise ValueError(f"model params at {path or '/'}: {have}, want "
+                             f"{sorted(defs)}")
+        return {k: convert(defs[k], sub[k], f"{path}/{k}")
+                for k in sorted(defs)}
+
+    return convert(build(cfg).defs(), tree, "")

@@ -1,1 +1,4 @@
-"""Model building blocks of the port (so far the Mamba-2 SSD oracle)."""
+"""The model families of the port (``transformer``, ``moe``, ``ssm``,
+``hybrid``, ``encdec``, ``vlm``) behind one API (``api``), and their shared
+layers."""
+from repro_torch.models.api import Model, batch_logical, build, input_specs

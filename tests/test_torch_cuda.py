@@ -1982,3 +1982,88 @@ def test_service_on_the_card_serves_without_rebuilds(cuda):
 
 def _cfg_of(cfgs, label):
     return next(c for c in cfgs if c.label() == label)
+
+
+# ---- the model server: the families on the card ----------------------------
+
+# one smoke-width config of each family, float32
+MODEL_ARCHS = ("llama3-8b", "dbrx-132b", "mamba2-130m", "jamba-v0.1-52b",
+               "whisper-small", "internvl2-76b")
+
+
+def _smoke_batch(cfg, B, S, seed):
+    """Seeded tokens (and the stub frames / patches) on the CPU."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.num_frames, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.num_patches, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_model_on_the_card_matches_the_cpu(cuda, arch):
+    """The card's prefill logits, caches and three decode steps (attention
+    on the flash and decoding kernels) against the CPU's plain route on the
+    same weights, within 1e-4 of the largest logit magnitude (float32
+    throughout: products in other orders, attention in 3xTF32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    cfg = get_config(arch).smoke()
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    card_params = L.tree_map(lambda t: t.to(cuda), params)
+    batch = _smoke_batch(cfg, 2, 8, seed=1)
+    card_batch = {k: v.to(cuda) for k, v in batch.items()}
+    pos = 8 + cfg.num_patches
+    fa0, da0 = fa_mod.flash_attention.launches, \
+        da_mod.decode_attention.launches
+    want, cache = model.prefill(params, batch, 16 + cfg.num_patches)
+    got, card_cache = model.prefill(card_params, card_batch,
+                                    16 + cfg.num_patches)
+    pairs = [(got, want)] + [(card_cache[k], cache[k]) for k in cache]
+    rng = np.random.default_rng(2)
+    for t in range(3):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1))
+                               .astype(np.int32))
+        want, cache = model.decode_step(params, cache, tok, pos + t)
+        got, card_cache = model.decode_step(card_params, card_cache,
+                                            tok.to(cuda), pos + t)
+        pairs.append((got, want))
+    pairs += [(card_cache[k], cache[k]) for k in cache]
+    bar = 1e-4 * max(float(w.abs().max()) for _, w in pairs)
+    for g, w in pairs:
+        assert float((g.cpu().double() - w.double()).abs().max()) <= bar
+    if cfg.family != "ssm":
+        assert fa_mod.flash_attention.launches > fa0
+        assert da_mod.decode_attention.launches > da0
+
+
+def test_serve_engine_runs_on_the_attention_kernels(cuda):
+    """A continuous-batching run on the card (qwen2.5-3b smoke, 5 requests
+    through 2 slots) launches the flash and decoding kernels, and each
+    request gets its budget of tokens in the padded vocabulary."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config("qwen2.5-3b").smoke()
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    fa0, da0 = fa_mod.flash_attention.launches, \
+        da_mod.decode_attention.launches
+    eng = ServeEngine(model, params, batch_size=2, max_seq=16)
+    for i in range(5):
+        eng.submit(Request(uid=i, prompt=np.arange(4, dtype=np.int32) + i,
+                           max_new_tokens=3))
+    done = eng.run()
+    assert [len(r.out_tokens) for r in done] == [3] * 5
+    assert all(0 <= t < cfg.padded_vocab for r in done for t in r.out_tokens)
+    assert fa_mod.flash_attention.launches - fa0 == \
+        eng.prefill_rounds * cfg.num_layers
+    assert da_mod.decode_attention.launches - da0 == \
+        eng.decode_steps * cfg.num_layers
