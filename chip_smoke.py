@@ -187,7 +187,30 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    the same weights, within 1e-4 of the largest logit); and the two
    kernels at the long round's shapes against their plain versions,
    timed beside SDPA and bounded;
-14. the ``kernels`` JSON line (twenty-seven entries: the engine scan's
+14. the trainer (the suite's inputs freed first): what qwen2.5-3b's
+   training should show, stated before the run (``TRAIN_EXPECT``), then
+   qwen2.5-3b whole in bfloat16 with remat through
+   ``trainstep.build_train_step`` and the port's AdamW at B 2 x S 4,096,
+   three steps on one batch and one of two microbatches, each step's
+   wall, tokens/s, loss, gradient norm, peak memory and flash launches
+   (72 a batch, failing otherwise; losses finite); the step's time split
+   (the loss forward, the block stack's forward, forward + backward and
+   the optimizer by CUDA events, one forward + backward under the
+   profiler: wall against kernel time); flash attention at the training
+   shape held row by row to the float32 plain version on the same bf16
+   inputs, timed beside its bf16 plain version and SDPA and bounded, and
+   the attention backward a layer (``layers.FlashAttention``'s plain VJP)
+   beside SDPA's forward and backward and its bound; every gradient leaf
+   through the kernel route against the plain route's on the same weights
+   (qwen2.5-3b's width at 2 layers in bf16 at S 4,096, lm-10m in float32;
+   ``TRAIN_PARITY``'s bars, and the bf16 plain route's within the same bar
+   of the float32 gradient; the attention weights' gradients nonzero);
+   ``examples.train_lm`` (60 steps, the loss falls), a run stopped at 30
+   and resumed to 60 against the uninterrupted one, an injected failure
+   retried and an out-of-memory error raised past its retries,
+   ``examples.quickstart --arch llama3-8b`` and ``launch.train --smoke``;
+   the attention kernels' launches on the trained path;
+15. the ``kernels`` JSON line (twenty-seven entries: the engine scan's
    collect build ``engine_scan_collect`` with its two kernels and launches
    a call, Jacobi-2D's cluster,
    loop and tiled routes and the one-sweep kernel's width-one route,
@@ -205,9 +228,11 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    4, 5 and 9, the engine scan's also by path (``launches_by_path``: the
    study's, phase 11's and phase 12's), flash attention's, decoding's and
    its combine kernel's too (the suite's, phase 5, and the model
-   server's, phase 13), the first two with their phase-13 row
-   (``serve``);
-15. the last line: ``{"ok": true, "device": {...}}``.
+   server's, phase 13, and the trainer's, phase 14), the first two with
+   their phase-13 row (``serve``), flash attention also with its phase-14
+   row (``train``: the kernel at the training shape and the attention
+   backward beside it);
+16. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no CUDA device or when
 the port's sources are not beside this script.
@@ -1425,25 +1450,38 @@ def scalar_fold_time(sp, ve, names) -> None:
 def run_suite_kernel(torch, spec, sm_clock_hz: float,
                      label: str = "phase 6") -> dict:
     """Hold one suite kernel against its plain version on the card (exactly
-    where ``tol`` is None), then time the kernel, the plain version and the
-    library call, and bound the kernel from its bytes and operations."""
+    where ``tol`` is None; against ``want`` where the spec gives one, each
+    row of the last axis within ``tol`` of that row's norm where ``rows``
+    is set), then time the kernel, the plain version and the library call,
+    and bound the kernel from its bytes and operations."""
     name = spec["name"]
-    got, want = spec["kernel"](), spec["plain"]()
+    got, want = spec["kernel"](), spec.get("want", spec["plain"])()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = max(float((g.double() - w.double()).abs().max())
               for g, w in zip(got, want))
+    extra = {}
     if spec["tol"] is None:
         ok = all(torch.equal(g, w) for g, w in zip(got, want))
+    elif spec.get("rows"):
+        extra["row_rel_err"] = max(
+            float(((g.double() - w.double()).norm(dim=-1)
+                   / w.double().norm(dim=-1).clamp_min(1e-30)).max())
+            for g, w in zip(got, want))
+        ok = extra["row_rel_err"] <= spec["tol"]
+        print(f"{label} {name}: worst row's error "
+              f"{extra['row_rel_err']:.4g} of its norm (bar {spec['tol']:g})"
+              f" against {spec['want_is']}")
     else:
         rtol, atol = spec["tol"]
         ok = all(torch.allclose(g, w, rtol=rtol, atol=atol)
                  for g, w in zip(got, want))
     if not ok:
-        fail(f"{name} kernel vs plain: max abs err {err} "
-             f"(bar {spec['tol'] or 'exact'})")
-    extra = {}
+        fail(f"{name} kernel vs plain: max abs err {err}, "
+             + (f"worst row {extra['row_rel_err']} of its norm "
+                if spec.get("rows") else "")
+             + f"(bar {spec['tol'] or 'exact'})")
     if "took" in spec:
         # the particle filter's flags: which path that call took
         extra["path"] = spec["took"]()
@@ -1465,8 +1503,10 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float,
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
     if lib_ms is None and spec.get("library_none"):
         lib += f" ({spec['library_none']})"
-    print(f"{label} {name}: max_abs_err={err:.3g} (bar "
-          f"{spec['tol'] or 'exact'}) kernel {ms:.4f} ms, plain "
+    bar = ("rows, above" if spec.get("rows")
+           else spec["tol"] or "exact")
+    print(f"{label} {name}: max_abs_err={err:.3g} (bar {bar}) kernel "
+          f"{ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
           f"({bound_by}; {spec['nbytes'] / 1e6:.1f} MB, "
           f"{spec['ops'] / 1e9:.3f} G ops)")
@@ -2644,6 +2684,428 @@ def model_server_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
     return {"launches": launches, "rows": rows}
 
 
+# ---- 14. the trainer --------------------------------------------------------
+# qwen2.5-3b trained whole at its published widths (configs/qwen2_5_3b.py: 36
+# layers, d 2,048, 16 heads with 2 KV heads of 128, d_ff 11,008, vocab
+# 151,936, QKV bias) in bfloat16 with remat on, through
+# trainstep.build_train_step and the port's AdamW at B 2 x S 4,096: three
+# steps on one batch, then one of two microbatches.  A step runs the
+# flash-attention kernel once a layer in the forward and once in the remat
+# recompute (72 launches a batch); the attention backward is the plain
+# route's VJP (layers.FlashAttention).
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_B, TRAIN_S = 2, 4096
+# flash attention at the training shape against the float32 plain version
+# on the same bf16 inputs: each (b, s, h) row of D within this share of the
+# row's norm.  The kernel rounds its probabilities to bf16 for the product
+# with V and its output to bf16, 2^-9 each: a float64 emulation of that
+# arithmetic on the CPU (standard-normal bf16 inputs, S 4,096, D 128,
+# causal, 4 heads) puts the worst row at 3.1e-3 of its norm (median
+# 2.3e-3); the bar is one bf16 unit, 2^-7
+FLASH_TRAIN_ROW_TOL = 2 ** -7
+TRAIN_STEPS = ((1, 3), (2, 1))         # (microbatches, steps)
+# what the run should show, stated before it (PERF.md, trainer phase):
+# parameters, bytes of parameters + gradients (bf16) + float32 moments, the
+# peak (with the 5 GB float32 logits, their gradient and the chunked
+# backward's ~0.5 GB score tensors a chunk), a step's FLOP and its bound
+TRAIN_EXPECT = dict(params=3.40e9, state_gb=40.8, peak_gb=(60, 70),
+                    flop=2.2e14, bound_s=0.22)
+# the kernel route's gradients against the plain route's (native autograd
+# through _plain_attn) on the same weights and batch: every leaf's largest
+# difference within this share of the plain leaf's largest magnitude.
+# bfloat16 at qwen2.5-3b's width (2 layers, B 2 x S 4,096, the chunked
+# route): the kernel's output differs from the plain route's by an ulp of
+# bfloat16 (2^-8) here and there, and the backward carries it through two
+# layers' bf16 products, ~8 ulps.  The same bar holds the bf16 plain
+# route's gradients to the float32 ones (the same weights upcast): the
+# embedding's gradient, summed over ~2,100 positions of the batch's first
+# token, is summed in float32 (layers.embed_fwd), and each other leaf is
+# rounded products.  float32 at lm-10m's width (4 layers, train_lm's B 8
+# x S 128, the exact route): the kernel's 3xTF32 products against float32
+# ones (~1e-6), grown through the backward
+TRAIN_PARITY = (("qwen2.5-3b", dict(num_layers=2), 2, 4096, 3e-2),
+                ("lm-10m", {}, 8, 128, 1e-3))
+# train_lm's resume: the losses of a run stopped at step 30 and resumed to
+# 60 against the uninterrupted run's, within this relative difference (the
+# embedding gradient's atomic adds sum in another order from run to run)
+TRAIN_RESUME_RTOL = 1e-4
+
+
+def train_flop(cfg, params, B, S) -> float:
+    """A rematted step's products: 8 x block parameters a token (forward,
+    recompute, backward twice), 6 x the unembedding, and a layer's
+    attention at 4 D a kept causal pair a head forward (twice) and 10 D
+    backward."""
+    from repro_torch.models import layers as L
+    blocks = sum(t.numel() for t in L.tree_leaves(params["blocks"]))
+    T = B * S
+    pairs = B * cfg.num_heads * S * (S + 1) // 2
+    return (8 * blocks * T + 6 * cfg.d_model * cfg.padded_vocab * T
+            + cfg.num_layers * pairs * (4 + 4 + 10) * cfg.head_dim)
+
+
+def train_step_split(torch, model, params, opt_state, batch, opt_cfg):
+    """Where a full-width step's time goes: the loss forward alone, the
+    block stack's forward alone (what remat recomputes), the forward and
+    backward (``value_and_grad``) and the optimizer (``apply_``), each by
+    CUDA events (warm: the counted steps ran first); then one forward and
+    backward under ``torch.profiler``: its wall time and its kernels'
+    device time.  The optimizer step is a real one (the parameters
+    move)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainstep as ts
+    cfg = model.cfg
+    with torch.no_grad():
+        fwd = cuda_ms(torch, lambda: model.loss(params, batch), reps=3,
+                      warmup=1)
+        blocks = cuda_ms(torch, lambda: model.mod.forward(
+            params, batch["tokens"], cfg), reps=3, warmup=1)
+    out = {}
+    vg = cuda_ms(torch, lambda: out.update(
+        g=ts.value_and_grad(model, params, batch)[1]), reps=1, warmup=0)
+    opt_ms = cuda_ms(torch, lambda: opt.apply_(opt_cfg, params, out["g"],
+                                               opt_state), reps=1, warmup=0)
+    out.clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ts.value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    return dict(forward_ms=fwd, blocks_forward_ms=blocks, value_and_grad_ms=vg,
+                optimizer_ms=opt_ms, profiled_wall_ms=wall,
+                profiled_device_ms=device)
+
+
+def attention_backward_rows(torch, ref, fa_mod, sm_clock_hz, dev, cfg, B,
+                            S) -> dict:
+    """Flash attention at the training shape ([B, S, H, D] bf16, causal,
+    K / V repeated to H heads as the model gives them): the kernel held
+    row by row to the float32 plain version (``FLASH_TRAIN_ROW_TOL``),
+    timed beside its bf16 plain version and SDPA's forward and bounded
+    (``run_suite_kernel``); then the attention backward a layer
+    (``FlashAttention``'s, the plain route's VJP) by CUDA events beside
+    SDPA's forward and backward, and its bound (10 D flops a kept pair a
+    head at 989 TFLOP/s against q, k, v, dout read and dq, dk, dv
+    written)."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=dev).manual_seed(17)
+    bf, f32 = torch.bfloat16, torch.float32
+    H, D = cfg.num_heads, cfg.head_dim
+    q, k, v, dout = (torch.randn(B, S, H, D, generator=g, device=dev)
+                     .to(bf) for _ in range(4))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = B * H * S * (S + 1) // 2
+    row = run_suite_kernel(torch, dict(
+        name="flash_attention training", kernel=lambda: fa_mod
+        .flash_attention(q, k, v, True),
+        plain=lambda: ref.flash_attention(q, k, v, True),
+        want=lambda: ref.flash_attention(q.to(f32), k.to(f32), v.to(f32),
+                                          True),
+        want_is="the float32 plain version on the same bf16 inputs",
+        rows=True, tol=FLASH_TRAIN_ROW_TOL,
+        library=lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), is_causal=True),
+        peak=PEAK_BF16_S, nbytes=4 * q.numel() * 2,
+        ops=4 * D * pairs, exps=pairs, per=5, plain_reps=2), sm_clock_hz,
+        label="phase 14")
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = L.FlashAttention.apply(qg, kg, vg, True)
+    bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), dout, retain_graph=True), reps=5)
+    del out
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dt_ = dout.transpose(1, 2)
+
+    def sdpa_fb():
+        o = sdpa(qt, kt, vt, is_causal=True)
+        return torch.autograd.grad(o, (qt, kt, vt), dt_)
+
+    sdpa_ms = cuda_ms(torch, sdpa_fb, reps=5)
+    t_ops = 10 * D * pairs / PEAK_BF16_S
+    t_bytes = 7 * q.numel() * 2 / PEAK_BYTES_S
+    bound = max(t_ops, t_bytes) * 1e3
+    print(f"phase 14 attention backward a layer (B {B}, S {S}, H {H}, D {D}"
+          f", bf16, causal; the plain route's VJP, recomputed): "
+          f"{bwd_ms:.3f} ms; SDPA forward + backward {sdpa_ms:.3f} ms; "
+          f"bound {bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}"
+          f"; {10 * D * pairs / 1e9:.1f} G ops); {cfg.num_layers} layers "
+          f"{bwd_ms * cfg.num_layers:.1f} ms a step")
+    return dict(shape=f"B {B}, S {S}, H {H}, D {D}, bf16, causal", **row,
+                backward_plain_ms=bwd_ms, backward_sdpa_fwd_bwd_ms=sdpa_ms,
+                backward_bound_ms=bound)
+
+
+def grad_route_parity(torch, fa_mod, dev) -> None:
+    """Every leaf's gradient through the kernel route (``FlashAttention``)
+    against the plain route's (native autograd through ``_plain_attn``,
+    ``layers.PlainAttention``) on the same weights and batch, at
+    ``TRAIN_PARITY``'s widths, and in bf16 the plain route's against the
+    float32 gradient (the same weights upcast), each within the bar; the
+    attention weights' gradients nonzero."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline as dpipe
+    from repro_torch.examples import train_lm
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.train import trainstep as ts
+    from repro_torch.train.checkpoint import _flatten_with_names as named
+    for arch, over, B, S, tol in TRAIN_PARITY:
+        cfg = (train_lm.small_cfg() if arch == "lm-10m"
+               else get_config(arch)).scaled(**over)
+        model = build(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(2))
+        batch = dpipe.batch_at(dpipe.DataConfig(cfg.vocab_size, S, B, 2), 0,
+                               dev)
+        n0 = fa_mod.flash_attention.launches
+        loss_k, g_k = ts.value_and_grad(model, params, batch)
+        n_k = fa_mod.flash_attention.launches - n0
+        flash = L.FlashAttention
+        L.FlashAttention = L.PlainAttention
+        try:
+            n0 = fa_mod.flash_attention.launches
+            loss_p, g_p = ts.value_and_grad(model, params, batch)
+            n_p = fa_mod.flash_attention.launches - n0
+            to_f32 = {}
+            if cfg.dtype != "float32":
+                f32 = L.tree_map(lambda t: t.float(), params)
+                g_f = ts.value_and_grad(build(cfg.scaled(dtype="float32")),
+                                        f32, batch)[1]
+                for (name, b), (_, f) in zip(named(g_p), named(g_f)):
+                    to_f32[name] = float((b.float() - f).abs().max()
+                                         / f.abs().max().clamp_min(1e-30))
+                del f32, g_f
+        finally:
+            L.FlashAttention = flash
+        errs = {}
+        for (name, a), (_, b) in zip(named(g_k), named(g_p)):
+            scale = float(b.float().abs().max())
+            errs[name] = (float((a.float() - b.float()).abs().max())
+                          / max(scale, 1e-30), scale)
+        over = {n: e for n, (e, _) in errs.items() if e > tol}
+        far = {n: e for n, e in to_f32.items() if e > tol}
+        worst = max(errs, key=lambda n: errs[n][0])
+        attn = {n: e for n, e in errs.items()
+                if n.split("/")[-1] in ("wq", "wk", "wv", "bq", "bk", "bv")}
+        print(f"phase 14 gradient route parity {cfg.name} ({cfg.num_layers} "
+              f"layers, d {cfg.d_model}, {cfg.dtype}, B {B} x S {S}, "
+              f"{'chunked' if S > L.EXACT_ATTN_MAX_SEQ else 'exact'} plain "
+              f"route; flash launches {n_k} kernel route, {n_p} plain): "
+              f"loss {float(loss_k):.6f} vs {float(loss_p):.6f}; worst leaf "
+              f"{worst} rel {errs[worst][0]:.3g} (bar {tol:g})"
+              + (f"; the bf16 plain route's worst leaf against float32 "
+                 f"{max(to_f32.values()):.3g} (bar {tol:g})"
+                 if to_f32 else "")
+              + "; attention "
+              + ", ".join(f"{n.split('/')[-1]} {e:.3g} (|g| {s:.3g})"
+                          for n, (e, s) in attn.items()))
+        print(f"phase 14 gradient route parity {cfg.name} per leaf "
+              "(kernel vs plain; bf16 plain vs float32): "
+              + json.dumps({n: [round(e, 6), round(to_f32.get(n, 0.0), 6)]
+                            for n, (e, _) in errs.items()}))
+        if over or far or any(s <= 0 for _, s in attn.values()) \
+                or n_k != (cfg.num_layers if not cfg.remat
+                           else 2 * cfg.num_layers) or n_p != 0 \
+                or len(attn) != (6 if cfg.qkv_bias else 3):
+            fail(f"gradient route parity {cfg.name}: over the bar {over}, "
+                 f"bf16 plain route off float32 {far}, attention {attn}, "
+                 f"launches {n_k} / {n_p}")
+        del params, g_k, g_p, model
+        torch.cuda.empty_cache()
+
+
+def loop_and_entry_points(torch, dev, tmp) -> dict:
+    """train_lm (lm-10m, 60 steps: the loss falls), a run stopped at step
+    30 and resumed to 60 against an uninterrupted one, a retried injected
+    failure and an out-of-memory error raised past its retries, then
+    ``quickstart --arch llama3-8b`` and the launcher's ``--smoke``."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.examples import quickstart, train_lm
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build
+    from repro_torch.train.loop import LoopConfig, train
+    t0 = time.perf_counter()
+    run_captured("phase 14 train_lm", lambda: train_lm.main(
+        ["--ckpt", f"{tmp}/train_lm"]))
+    model = build(train_lm.small_cfg())
+    shape = InputShape("train", seq_len=128, global_batch=8, kind="train")
+    lc = lambda d, n: LoopConfig(total_steps=n, ckpt_every=20,
+                                 ckpt_dir=f"{tmp}/{d}", log_every=1000)
+    whole = train(model, shape, None, None, lc("whole", 60), device=dev)
+    first = train(model, shape, None, None, lc("split", 30), device=dev)
+    second = train(model, shape, None, None, lc("split", 60), device=dev)
+    resumed = np.asarray(first.losses + second.losses)
+    rel = float(np.abs(resumed - whole.losses).max()
+                / np.abs(whole.losses).max())
+    print(f"phase 14 train_lm resume: stopped at 30, resumed to 60 "
+          f"(restarts {second.restarts}): losses {whole.losses[0]:.4f} -> "
+          f"{whole.losses[-1]:.4f}, largest relative difference from the "
+          f"uninterrupted run {rel:.3g} (bar {TRAIN_RESUME_RTOL:g}); "
+          f"bitwise {bool((resumed == whole.losses).all())}; median step "
+          f"{statistics.median(whole.step_times) * 1e3:.2f} ms")
+    if rel > TRAIN_RESUME_RTOL or second.restarts != 1 \
+            or not whole.losses[-1] < whole.losses[0]:
+        fail("train_lm's resume does not follow the uninterrupted run")
+    calls = []
+
+    def flaky(step, attempt):
+        if step == 1 and attempt == 0:
+            calls.append(step)
+            raise RuntimeError("injected preemption")
+
+    st = train(model, shape, None, None,
+               LoopConfig(total_steps=3, ckpt_every=10,
+                          ckpt_dir=f"{tmp}/retry", retry_backoff_s=0.01),
+               fail_injector=flaky, device=dev)
+    attempts = []
+
+    def oom(step, attempt):
+        attempts.append(attempt)
+        raise torch.cuda.OutOfMemoryError("injected out of memory")
+
+    try:
+        train(model, shape, None, None,
+              LoopConfig(total_steps=1, ckpt_dir=f"{tmp}/oom", max_retries=2,
+                         retry_backoff_s=0.01), fail_injector=oom,
+              device=dev)
+        fail("an out-of-memory error past the retries was swallowed")
+    except torch.cuda.OutOfMemoryError:
+        pass
+    print(f"phase 14 retry: injected failure at step 1 retried "
+          f"({len(calls)} call, {st.step} steps, restarts {st.restarts}); "
+          f"an out-of-memory error raised after attempts {attempts}")
+    if calls != [1] or st.step != 3 or attempts != [0, 1, 2]:
+        fail("the loop's retry")
+    run_captured("phase 14 quickstart llama3-8b", lambda: quickstart.main(
+        ["--arch", "llama3-8b", "--ckpt", f"{tmp}/quickstart"]))
+    run_captured("phase 14 launch.train --smoke", lambda: launch_train.main(
+        ["--arch", TRAIN_ARCH, "--smoke", "--steps", "4", "--ckpt",
+         f"{tmp}/launch"]))
+    return {"wall_s": time.perf_counter() - t0}
+
+
+def trainer_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
+    """14. The trainer on the card: qwen2.5-3b whole (``TRAIN_STEPS`` steps
+    at B 2 x S 4,096), the step's time split, the attention backward and
+    the kernel at the training shape, the kernel route's gradients
+    against the plain route's, and the loop with its entry points.
+    Returns the attention kernels' launches on the trained path (the
+    full-width steps, the loop runs and quickstart's serving; counters
+    zeroed before) and the flash-attention row at the training shape."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import pipeline as dpipe
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainstep as ts
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = lambda: (fa_mod.flash_attention.launches,
+                        da_mod.decode_attention.launches,
+                        da_mod.decode_attention.combine_launches)
+    held = torch.cuda.memory_allocated() / 1e9
+    cfg = get_config(TRAIN_ARCH)
+    model = build(cfg)
+    e = TRAIN_EXPECT
+    print(f"phase 14 {cfg.name} expected: {e['params'] / 1e9:.2f} B "
+          f"parameters; {e['state_gb']:.1f} GB of parameters, gradients "
+          f"and float32 moments; peak {e['peak_gb'][0]}-{e['peak_gb'][1]} "
+          f"GB; {e['flop']:.2g} FLOP a step, bound {e['bound_s']:.2f} s at "
+          f"989 TFLOP/s bf16; {2 * cfg.num_layers} flash launches a batch")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in L.tree_leaves(params))
+    state_gb = (2 * _nbytes(params) + 2 * _nbytes(opt_state.mu)) / 1e9
+    flop = train_flop(cfg, params, TRAIN_B, TRAIN_S)
+    bound_s = flop / PEAK_BF16_S
+    print(f"phase 14 {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads} heads (GQA {cfg.num_kv_heads}) of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, QKV "
+          f"bias {cfg.qkv_bias}, {cfg.dtype}, remat {cfg.remat}; "
+          f"{n_params:,} parameters; parameters + gradients + moments "
+          f"{state_gb:.2f} GB; drawn in {time.perf_counter() - t0:.2f} s; "
+          f"{flop:.4g} FLOP a step, bound {bound_s * 1e3:.1f} ms; "
+          f"{held:.2f} GB held by earlier phases")
+    opt_cfg = opt.OptConfig()
+    dcfg = dpipe.DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+    shape = InputShape("train", TRAIN_S, TRAIN_B, "train")
+    fa_mod.flash_attention.launches = 0
+    da_mod.decode_attention.launches = 0
+    da_mod.decode_attention.combine_launches = 0
+    step_rows, step = [], 0
+    for micro, n in TRAIN_STEPS:
+        fn = ts.build_train_step(model, shape, None, opt_cfg=opt_cfg,
+                                 microbatches=micro)[0]
+        for _ in range(n):
+            batch = dpipe.batch_at(dcfg, step, dev)
+            before = fa_mod.flash_attention.launches
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, m = fn(params, opt_state, batch)
+            loss = float(m["loss"])
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            fa_n = fa_mod.flash_attention.launches - before
+            row = dict(step=step, microbatches=micro, wall_ms=wall * 1e3,
+                       tokens_s=TRAIN_B * TRAIN_S / wall, loss=loss,
+                       grad_norm=float(m["grad_norm"]), peak_gb=peak,
+                       flash_launches=fa_n)
+            step_rows.append(row)
+            print(f"phase 14 {cfg.name} step {step} (microbatches {micro}):"
+                  f" {wall * 1e3:.1f} ms, {row['tokens_s']:.0f} tokens/s, "
+                  f"loss {loss:.5f}, grad_norm {row['grad_norm']:.4f}, "
+                  f"peak {peak:.2f} GB, flash launches {fa_n}")
+            if not (np.isfinite(loss) and np.isfinite(row["grad_norm"])) \
+                    or fa_n != 2 * cfg.num_layers * micro:
+                fail(f"train {cfg.name} step {step}: loss {loss}, "
+                     f"{fa_n} flash launches")
+            step += 1
+    full_launches = counters()
+    split = train_step_split(torch, model, params, opt_state,
+                             dpipe.batch_at(dcfg, step, dev), opt_cfg)
+    s = split
+    print(f"phase 14 {cfg.name} step split (CUDA events, ms): loss forward "
+          f"{s['forward_ms']:.1f}, block stack forward (what remat "
+          f"recomputes) {s['blocks_forward_ms']:.1f}, forward + backward "
+          f"{s['value_and_grad_ms']:.1f}, optimizer {s['optimizer_ms']:.1f};"
+          f" under the profiler one forward + backward {s['profiled_wall_ms']:.1f}"
+          f" ms wall, {s['profiled_device_ms']:.1f} ms of kernels "
+          f"({1 - s['profiled_device_ms'] / s['profiled_wall_ms']:.1%} idle)")
+    del params, opt_state, model
+    torch.cuda.empty_cache()
+    row = attention_backward_rows(torch, ref, fa_mod, sm_clock_hz, dev, cfg,
+                                  TRAIN_B, TRAIN_S)
+    grad_route_parity(torch, fa_mod, dev)
+    before = counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = loop_and_entry_points(torch, dev, tmp)
+    launches = dict(zip(("flash_attention", "decode_attention",
+                         "decode_attention_combine"),
+                        (a + c - b for a, b, c in
+                         zip(counters(), before, full_launches))))
+    print(f"phase 14 loop and entry points: {loop['wall_s']:.1f} s; "
+          f"launches on the trained path (full width, loop, quickstart's "
+          f"serving): {launches}")
+    if min(launches.values()) <= 0:
+        fail(f"trainer: an attention kernel was not launched: {launches}")
+    print(f"phase 14 trainer: ok; phase wall "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return {"launches": launches, "row": row, "steps": step_rows,
+            "split": split}
+
+
 def codegen_round_trip(tracegen) -> None:
     """The code generator on the host: every app emitted and held to the
     committed corpus (``src/repro_torch/asm``) after the 4-line header, then
@@ -3349,7 +3811,15 @@ def main(argv=None) -> int:
     server = model_server_phase(torch, ref, fa_mod, da_mod, dev,
                                 sm_clock_hz)
 
-    # ---- 14. kernels line -----------------------------------------------------
+    # ---- 14. the trainer ------------------------------------------------------
+    # the suite's inputs and outputs are not read past phase 6; the
+    # full-width step needs the card's memory
+    data.clear()
+    outs.clear()
+    torch.cuda.empty_cache()
+    trainer = trainer_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz)
+
+    # ---- 15. kernels line -----------------------------------------------------
     kernels = [
         {"name": "engine_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/engine_scan.cu",
@@ -3443,15 +3913,20 @@ def main(argv=None) -> int:
     # the attention kernels also run on the model server's path (phase 13):
     # its launches (launches stays the suite's, phase 5), and the two
     # kernels at the long round's llama3-8b shapes
+    # and on the trainer's path (phase 14), flash attention with its row at
+    # qwen2.5-3b's training shape and the attention backward beside it
     for entry in kernels:
         if entry["name"] in server["launches"]:
             entry["launches_by_path"] = {
                 "suite": entry["launches"],
-                "model_server": server["launches"][entry["name"]]}
+                "model_server": server["launches"][entry["name"]],
+                "trainer": trainer["launches"][entry["name"]]}
         if entry["name"] in server["rows"]:
             entry["serve"] = server["rows"][entry["name"]]
+        if entry["name"] == "flash_attention":
+            entry["train"] = trainer["row"]
     print(json.dumps({"kernels": kernels}))
-    # ---- 15. last line ----------------------------------------------------------
+    # ---- 16. last line ----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

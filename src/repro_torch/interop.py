@@ -8,9 +8,11 @@ study sweeps; the calibration constants are copied, and
 bitwise.  The one model with weights is the surrogate cost model
 (``core.surrogate``): its MLP parameters and standardization statistics
 carry across by name (``surrogate_from_numpy``), and so do the model
-families' parameter trees (``model_params_from_numpy``).  These helpers
-take the reference's plain data (numpy arrays, a dict of config fields)
-without importing it.
+families' parameter trees (``model_params_from_numpy``) and the trainer's
+optimizer state (``opt_state_from_numpy``: the reference's ``OptState``
+step and float32 moments, so both trainers start a step from one state).
+These helpers take the reference's plain data (numpy arrays, a dict of
+config fields) without importing it.
 """
 from __future__ import annotations
 
@@ -129,3 +131,37 @@ def model_params_from_numpy(cfg, tree: dict, device=None) -> dict:
                 for k in sorted(defs)}
 
     return convert(build(cfg).defs(), tree, "")
+
+
+def opt_state_from_numpy(step, mu: dict, nu: dict, device=None):
+    """The port's ``train.optimizer.OptState`` from the reference's
+    ``OptState`` fields: ``step`` (an int or an int32 scalar) and the
+    moments as nested dicts of float32 numpy arrays
+    (``jax.tree.map(np.asarray, state.mu)``).  Both trees must have the
+    same names and shapes and be float32, else ``ValueError``; the arrays
+    go to ``device`` (default: the CUDA device) bit for bit."""
+    import torch
+    from repro_torch import _device
+    from repro_torch.train.optimizer import OptState
+    dev = _device.resolve(device)
+
+    def convert(m, v, path):
+        if isinstance(m, dict) or isinstance(v, dict):
+            if not (isinstance(m, dict) and isinstance(v, dict)
+                    and set(m) == set(v)):
+                raise ValueError(f"optimizer moments differ at {path or '/'}")
+            out = [convert(m[k], v[k], f"{path}/{k}") for k in sorted(m)]
+            return ({k: o[0] for k, o in zip(sorted(m), out)},
+                    {k: o[1] for k, o in zip(sorted(m), out)})
+        a, b = np.asarray(m), np.asarray(v)
+        if a.dtype != np.float32 or b.dtype != np.float32 \
+                or a.shape != b.shape:
+            raise ValueError(f"optimizer moments at {path}: {a.dtype} "
+                             f"{a.shape} and {b.dtype} {b.shape}, want "
+                             "float32 of one shape")
+        return (torch.from_numpy(a.copy()).to(dev),
+                torch.from_numpy(b.copy()).to(dev))
+
+    mu_t, nu_t = convert(mu, nu, "")
+    return OptState(step=torch.tensor(int(step), dtype=torch.int32,
+                                      device=dev), mu=mu_t, nu=nu_t)

@@ -74,14 +74,17 @@ def encode(params, frames, cfg):
     F_ = frames.shape[1]
     positions = _arange(F_, frames.device)
     h = frames.to(dtype) + sinusoid(positions, cfg.d_model, dtype)
-    for i in range(T.num_stacked(params["enc_blocks"])):
-        bp = T.layer(params["enc_blocks"], i)
+
+    def body(h, bp):
         a, _ = L.attention_fwd(bp["attn"], L.rmsnorm(h, bp["attn_norm"],
                                                      cfg.norm_eps),
                                cfg, positions=positions, causal=False)
         h = h + a
-        h = h + L.mlp_fwd(bp["mlp"], L.rmsnorm(h, bp["mlp_norm"],
-                                               cfg.norm_eps))
+        return h + L.mlp_fwd(bp["mlp"], L.rmsnorm(h, bp["mlp_norm"],
+                                                  cfg.norm_eps))
+
+    for bp in L.unstacked(params["enc_blocks"]):
+        h = L.run_layer(body, cfg.remat, h, bp)
     return L.rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -120,9 +123,10 @@ def _dec_input(params, tokens, cfg):
 def forward(params, frames, tokens, cfg):
     enc_out = encode(params, frames, cfg)
     h, positions = _dec_input(params, tokens, cfg)
-    for i in range(T.num_stacked(params["dec_blocks"])):
-        bp = T.layer(params["dec_blocks"], i)
-        h = _dec_block(bp, h, _cross_kv(bp, enc_out, cfg), cfg, positions)
+    body = lambda h, bp, enc_out: _dec_block(
+        bp, h, _cross_kv(bp, enc_out, cfg), cfg, positions)
+    for bp in L.unstacked(params["dec_blocks"]):
+        h = L.run_layer(body, cfg.remat, h, bp, enc_out)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
 
 

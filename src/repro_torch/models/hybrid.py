@@ -77,13 +77,17 @@ def _n_periods(params):
 def forward(params, tokens, cfg):
     h = L.embed_fwd(params["embed"], tokens, cfg.torch_dtype)
     positions = torch.arange(tokens.shape[1], device=h.device)[None, :]
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for pi in range(_n_periods(params)):
-        pp = T.layer(params["periods"], pi)
+
+    def body(h, aux, pp):
         for i, (mixer, ffn) in enumerate(layout(cfg)):
             h, a = _apply_pos(pp[f"pos{i}"], h, cfg, mixer, ffn, positions)
             if a is not None:
                 aux = aux + a
+        return h, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for pp in L.unstacked(params["periods"]):
+        h, aux = L.run_layer(body, cfg.remat, h, aux, pp)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps), \
         aux / cfg.num_layers
 
@@ -161,18 +165,15 @@ def prefill(params, tokens, cfg, max_seq):
     h = L.embed_fwd(params["embed"], tokens, cfg.torch_dtype)
     positions = torch.arange(tokens.shape[1], device=h.device)[None, :]
     B = tokens.shape[0]
-    ks, vs, ssm_all = [], [], []
-    for pi in range(_n_periods(params)):
-        pp = T.layer(params["periods"], pi)
-        states = []
+
+    def body(h, pp):
+        kv, states = (), []
         for i, (mixer, ffn) in enumerate(layout(cfg)):
             p = pp[f"pos{i}"]
             hn = L.rmsnorm(h, p["mixer_norm"], cfg.norm_eps)
             if mixer == "attn":
-                a, (k, v) = L.attention_fwd(p["mixer"], hn, cfg,
-                                            positions=positions)
-                ks.append(k)
-                vs.append(v)
+                a, kv = L.attention_fwd(p["mixer"], hn, cfg,
+                                        positions=positions)
             else:
                 a, st = S.ssd_block_fwd(p["mixer"], hn, cfg,
                                         return_state=True)
@@ -181,7 +182,15 @@ def prefill(params, tokens, cfg, max_seq):
             f, _ = _ffn(p, L.rmsnorm(h, p["ffn_norm"], cfg.norm_eps), cfg,
                         ffn)
             h = h + f
-        ssm_all.append(torch.stack(states))
+        return (h, torch.stack(states)) + tuple(kv)
+
+    ks, vs, ssm_all = [], [], []
+    for pp in L.unstacked(params["periods"]):
+        h, states, *kv = L.run_layer(body, cfg.remat, h, pp)
+        if kv:
+            ks.append(kv[0])
+            vs.append(kv[1])
+        ssm_all.append(states)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = L.unembed_fwd(params["embed"], h[:, -1:])
     ck, cv = T.padded_kv(ks, vs, max_seq)

@@ -15,13 +15,28 @@ Attention routes by device, decided from the operands before the call:
   kernel (``ops.flash_attention``) on CUDA tensors, after ``_repeat_kv``
   as the reference repeats (the kernel has no GQA); on CPU tensors the
   plain ``_exact_attn`` up to ``EXACT_ATTN_MAX_SEQ`` and ``_chunked_attn``
-  past it, the reference's split (``layers.py:216``);
+  past it, the reference's split (``layers.py:216``).  While autograd
+  records, the CUDA route goes through ``FlashAttention``: the kernel
+  forward, and for the backward the vector-Jacobian product of that plain
+  split, recomputed (the reference differentiates the plain formula; it
+  has no backward kernel);
 - the cached self-attention of a decode step (``attention_decode``) runs
   the port's flash-decoding kernel (``ops.decode_attention``) on CUDA
   tensors and the plain ``_exact_attn`` with ``kv_len`` on CPU tensors;
 - cross-attention (``attention_fwd`` with ``kv``, Sq != Sk, which the flash
   kernel refuses as the Pallas one does) is plain torch on every device
   (``_exact_attn`` / ``_chunked_attn``, the plain cross-attention route).
+
+The embedding's gradient is summed in float32 while autograd records
+(``embed_fwd``), where the reference's bfloat16 scatter rounds after every
+add; in float32 the two are the same.
+
+Remat (``run_layer``): where the reference wraps a layer body in
+``jax.checkpoint`` under ``cfg.remat``, the port calls it through
+``torch.utils.checkpoint`` (non-reentrant) while autograd records, and
+directly otherwise; the values are the same either way.  A training
+forward takes its stacked layers apart with ``unstacked`` (one ``unbind``
+a leaf, so the backward stacks each leaf's gradients once).
 
 ``fsdp_gather`` and ``constraint`` are identities on one device and are left
 out, as is the mesh branch of ``attention_decode``; ``distributed/`` brings
@@ -32,6 +47,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 
@@ -58,6 +74,30 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     return [tree]
+
+
+def recording(*trees) -> bool:
+    """Whether autograd records an operation on any leaf of ``trees``."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for tree in trees for t in tree_leaves(tree))
+
+
+def run_layer(body, remat: bool, *args):
+    """``body(*args)``, through ``torch.utils.checkpoint`` when ``remat``
+    is set and autograd records on ``args`` (its activations recomputed in
+    the backward, as ``jax.checkpoint`` does)."""
+    if remat and recording(*args):
+        return torch.utils.checkpoint.checkpoint(
+            body, *args, use_reentrant=False, preserve_rng_state=False)
+    return body(*args)
+
+
+def unstacked(tree) -> list:
+    """The per-layer trees of a stacked tree (its leading axis), by one
+    ``unbind`` a leaf."""
+    parts = tree_map(torch.unbind, tree)     # leaves: tuples of tensors
+    n = len(tree_leaves(parts)[0])
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
 
 
 def init_params(defs, generator: torch.Generator, dtype: torch.dtype):
@@ -236,11 +276,44 @@ def _plain_attn(q, k, v, causal):
     return _chunked_attn(q, k, v, causal)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Self-attention whose forward is the flash-attention kernel
+    (``ops.flash_attention``) and whose backward is the vector-Jacobian
+    product of the plain route (``_plain_attn``), recomputed from the saved
+    q and repeated k and v: the gradient the reference's autodiff takes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return ops.flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = _plain_attn(q, k, v, ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+        return dq, dk, dv, None
+
+
+class PlainAttention:
+    """Stands in for ``FlashAttention`` where the plain route's gradient is
+    wanted: ``_plain_attn`` under native autograd, the yardstick the card
+    checks hold the kernel route's gradients to (they swap it in for
+    ``FlashAttention``)."""
+
+    @staticmethod
+    def apply(q, k, v, causal):
+        return _plain_attn(q, k, v, causal)
+
+
 def attention_fwd(p, h, cfg, *, positions, causal=True, kv=None):
     """Full-sequence attention (train / prefill).  Returns (out, (k, v)).
 
-    Self-attention runs the flash-attention kernel on a CUDA tensor;
-    cross-attention (``kv`` given) is the plain route on every device."""
+    Self-attention runs the flash-attention kernel on a CUDA tensor (as
+    ``FlashAttention`` while autograd records); cross-attention (``kv``
+    given) is the plain route on every device."""
     q, k, v = _project_qkv(p, h, cfg)
     if cfg.rope_theta > 0:
         cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
@@ -254,8 +327,11 @@ def attention_fwd(p, h, cfg, *, positions, causal=True, kv=None):
         causal = False
     k2, v2 = _repeat_kv(k, v, cfg)
     if kv is None and q.is_cuda:
-        out = ops.flash_attention(q.contiguous(), k2.contiguous(),
-                                  v2.contiguous(), causal=causal)
+        qkv = (q.contiguous(), k2.contiguous(), v2.contiguous())
+        if recording(*qkv):
+            out = FlashAttention.apply(*qkv, causal)
+        else:
+            out = ops.flash_attention(*qkv, causal=causal)
     else:
         out = _plain_attn(q, k2, v2, causal)
     out = out.reshape(*h.shape[:2], cfg.num_heads * cfg.head_dim)
@@ -323,7 +399,17 @@ def embed_defs(cfg):
 
 
 def embed_fwd(p, tokens, dtype):
-    return p["embedding"].to(dtype)[tokens]
+    """The rows of ``tokens`` in ``dtype``.  While autograd records, the
+    rows are read from a float32 copy of the table, so the backward sums
+    each token's positions in float32 and rounds the sum to the table's
+    type once.  (The reference scatters in the table's type: in bfloat16
+    the sum of a token seen thousands of times, as the Zipf batches' first
+    tokens are, stops taking in small terms and ends ~0.5 of the leaf's
+    largest magnitude from the float32 sum.)"""
+    w = p["embedding"]
+    if recording(w):
+        return w.float()[tokens].to(dtype)
+    return w.to(dtype)[tokens]
 
 
 def unembed_fwd(p, h):

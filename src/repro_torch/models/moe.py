@@ -142,8 +142,9 @@ def forward(params, tokens, cfg):
     h = L.embed_fwd(params["embed"], tokens, cfg.torch_dtype)
     positions = torch.arange(tokens.shape[1], device=h.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(T.num_stacked(params["blocks"])):
-        h, a = block_fwd(T.layer(params["blocks"], i), h, cfg, positions)
+    body = lambda h, bp: block_fwd(bp, h, cfg, positions)
+    for bp in L.unstacked(params["blocks"]):
+        h, a = L.run_layer(body, cfg.remat, h, bp)
         aux = aux + a
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps), \
         aux / cfg.num_layers

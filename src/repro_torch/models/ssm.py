@@ -184,10 +184,10 @@ def model_defs(cfg):
 
 def forward(params, tokens, cfg):
     h = L.embed_fwd(params["embed"], tokens, cfg.torch_dtype)
-    for i in range(num_stacked(params["blocks"])):
-        bp = layer(params["blocks"], i)
-        h = h + ssd_block_fwd(bp["ssd"], L.rmsnorm(h, bp["norm"],
-                                                   cfg.norm_eps), cfg)
+    body = lambda h, bp: h + ssd_block_fwd(
+        bp["ssd"], L.rmsnorm(h, bp["norm"], cfg.norm_eps), cfg)
+    for bp in L.unstacked(params["blocks"]):
+        h = L.run_layer(body, cfg.remat, h, bp)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
 
 

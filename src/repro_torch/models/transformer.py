@@ -3,9 +3,10 @@
 The port of ``repro/models/transformer.py``.  The parameter tree is the
 reference's: nested dicts with the layer axis stacked first
 (``stacked``), so weights carry across name for name.  Where the
-reference scans over that axis the port loops over the layer index
-(``layer``); remat has no counterpart (no autodiff through the serve
-path).  Decode steps update the cache in place.
+reference scans over that axis the port loops over the layers
+(``L.unstacked``, or ``layer`` for one), each body through
+``L.run_layer`` where the reference remats it.  Decode steps update the
+cache in place.
 """
 from __future__ import annotations
 
@@ -66,8 +67,9 @@ def forward(params, tokens, cfg):
     """tokens [B,S] -> hidden [B,S,D] (pre-unembed)."""
     h = L.embed_fwd(params["embed"], tokens, cfg.torch_dtype)
     positions = _positions(tokens.shape[1], h.device)
-    for i in range(num_stacked(params["blocks"])):
-        h = block_fwd(layer(params["blocks"], i), h, cfg, positions)
+    body = lambda h, bp: block_fwd(bp, h, cfg, positions)
+    for bp in L.unstacked(params["blocks"]):
+        h = L.run_layer(body, cfg.remat, h, bp)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
 
 
@@ -116,15 +118,19 @@ def prefill(params, tokens, cfg, max_seq):
     The cache is in the compute type, zero-padded to ``max_seq``."""
     h = L.embed_fwd(params["embed"], tokens, cfg.torch_dtype)
     positions = _positions(tokens.shape[1], h.device)
-    ks, vs = [], []
-    for i in range(num_stacked(params["blocks"])):
-        bp = layer(params["blocks"], i)
+
+    def body(h, bp):
         a, (k, v) = L.attention_fwd(
             bp["attn"], L.rmsnorm(h, bp["attn_norm"], cfg.norm_eps), cfg,
             positions=positions)
         h = h + a
         h = h + L.mlp_fwd(bp["mlp"], L.rmsnorm(h, bp["mlp_norm"],
                                                cfg.norm_eps))
+        return h, k, v
+
+    ks, vs = [], []
+    for bp in L.unstacked(params["blocks"]):
+        h, k, v = L.run_layer(body, cfg.remat, h, bp)
         ks.append(k)
         vs.append(v)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)

@@ -34,8 +34,9 @@ def _combine(params, patches, tokens, cfg):
 def forward(params, patches, tokens, cfg):
     h = _combine(params, patches, tokens, cfg)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    for i in range(T.num_stacked(params["blocks"])):
-        h = T.block_fwd(T.layer(params["blocks"], i), h, cfg, positions)
+    body = lambda h, bp: T.block_fwd(bp, h, cfg, positions)
+    for bp in L.unstacked(params["blocks"]):
+        h = L.run_layer(body, cfg.remat, h, bp)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
 
 

@@ -2067,3 +2067,174 @@ def test_serve_engine_runs_on_the_attention_kernels(cuda):
         eng.prefill_rounds * cfg.num_layers
     assert da_mod.decode_attention.launches - da0 == \
         eng.decode_steps * cfg.num_layers
+
+
+# ---- the trainer -------------------------------------------------------------
+
+def _route_grads(monkeypatch, model, params, batch):
+    """(kernel route's, plain route's) loss and gradients, and the flash
+    launches of each."""
+    from repro_torch.models import layers as L
+    from repro_torch.train import trainstep as ts
+    n0 = fa_mod.flash_attention.launches
+    kernel = ts.value_and_grad(model, params, batch)
+    n_k = fa_mod.flash_attention.launches - n0
+    with monkeypatch.context() as m:
+        m.setattr(L, "FlashAttention", L.PlainAttention)
+        plain = ts.value_and_grad(model, params, batch)
+    return kernel, plain, n_k
+
+
+# the bars of chip_smoke.py's TRAIN_PARITY: every gradient leaf within this
+# share of the plain leaf's largest magnitude
+GRAD_ROUTE_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("arch,dtype,S", [
+    ("qwen2.5-3b", "float32", 16), ("qwen2.5-3b", "bfloat16", 16),
+    ("qwen2.5-3b", "bfloat16", 2304), ("dbrx-132b", "float32", 16),
+    ("jamba-v0.1-52b", "float32", 16), ("whisper-small", "float32", 16),
+    ("internvl2-76b", "float32", 16)])
+def test_gradient_route_matches_the_plain_route(cuda, monkeypatch, arch,
+                                                dtype, S):
+    """Every gradient through the kernel route (``FlashAttention``: the
+    flash kernel forward, the plain VJP backward) against native autograd
+    through the plain route on the same weights and batch (remat on); the
+    attention weights' gradients nonzero.  S 2,304 takes the chunked plain
+    route."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    cfg = get_config(arch).smoke().scaled(dtype=dtype, remat=True)
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    batch = {k: v.to(cuda) for k, v in _smoke_batch(cfg, 2, S, 1).items()}
+    batch["labels"] = batch["tokens"].roll(-1, 1)
+    if "frames" in batch:
+        batch["frames"] = batch["frames"].to(cfg.torch_dtype)
+    if "patches" in batch:
+        batch["patches"] = batch["patches"].to(cfg.torch_dtype)
+    (lk, gk), (lp, gp), n_k = _route_grads(monkeypatch, model, params, batch)
+    assert n_k > 0
+    tol = GRAD_ROUTE_TOL[cfg.torch_dtype]
+    assert abs(float(lk) - float(lp)) <= tol * abs(float(lp))
+    for (a, b) in zip(L.tree_leaves(gk), L.tree_leaves(gp)):
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= tol * scale
+
+    def attention_grads(tree):
+        if not isinstance(tree, dict):
+            return []
+        return [g for k, sub in tree.items() for g in (
+            [sub] if k in ("wq", "wk", "wv", "bq", "bk", "bv")
+            and not isinstance(sub, dict) else attention_grads(sub))]
+
+    attn = attention_grads(gk)
+    assert attn and all(float(g.float().abs().max()) > 0 for g in attn)
+
+
+def test_bf16_embedding_gradient_is_summed_in_float32_on_the_card(cuda):
+    """On a Zipf batch of B 2 x S 4,096 (its first token ~2,100 times) the
+    bf16 embedding gradient (qwen2.5-3b smoke, plain route) stays within
+    ``GRAD_ROUTE_TOL``'s bf16 bar of the float32 gradient of the same
+    weights upcast: ``embed_fwd`` sums it in float32, as on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline as dpipe
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.train import trainstep as ts
+    cfg = get_config("qwen2.5-3b").smoke().scaled(dtype="bfloat16")
+    params = build(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    batch = dpipe.batch_at(dpipe.DataConfig(cfg.vocab_size, 4096, 2, 2), 0,
+                           cuda)
+    assert int(batch["tokens"].flatten().bincount().max()) > 2000
+    g16 = ts.value_and_grad(build(cfg), params, batch)[1]
+    g32 = ts.value_and_grad(build(cfg.scaled(dtype="float32")),
+                            L.tree_map(lambda t: t.float(), params),
+                            batch)[1]
+    a, b = g16["embed"]["embedding"].float(), g32["embed"]["embedding"]
+    assert float((a - b).abs().max()) \
+        <= GRAD_ROUTE_TOL[torch.bfloat16] * float(b.abs().max())
+
+
+def test_flash_attention_function_backward_is_the_plain_vjp(cuda):
+    """``FlashAttention``'s gradients are the plain route's VJP from the
+    same saved inputs (float32, the chunked route); its forward is the
+    kernel's, counted."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, dout = (torch.randn(1, 2304, 2, 32, generator=g, device=cuda)
+                     for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = fa_mod.flash_attention.launches
+    out = L.FlashAttention.apply(*leaves, True)
+    assert fa_mod.flash_attention.launches == n0 + 1
+    got = torch.autograd.grad(out, leaves, dout)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want_out = L._plain_attn(*plain, True)
+    want = torch.autograd.grad(want_out, plain, dout)
+    assert torch.allclose(out, want_out, rtol=1e-4, atol=1e-4)
+    for a, b in zip(got, want):
+        assert torch.allclose(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_full_width_train_step_on_the_card(cuda):
+    """qwen2.5-3b whole (bf16, remat) takes one step of B 2 x S 4,096
+    through ``build_train_step``: a finite loss near ln(vocab) for random
+    weights, a finite gradient norm, the parameters moved, 72 flash
+    launches (36 forward, 36 in the recompute), the moments nonzero.
+    (At step 1 the warmup's rate, 3e-6, is below a bf16 weight's ulp:
+    the weights themselves may not move yet, on either side.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import pipeline as dpipe
+    from repro_torch.models import build
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainstep as ts
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen2.5-3b")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    state = opt.init(params)
+    batch = dpipe.batch_at(dpipe.DataConfig(cfg.vocab_size, 4096, 2), 0,
+                           cuda)
+    step = ts.build_train_step(model, InputShape("t", 4096, 2, "train"))[0]
+    n0 = fa_mod.flash_attention.launches
+    params, state, m = step(params, state, batch)
+    assert fa_mod.flash_attention.launches - n0 == 2 * cfg.num_layers
+    loss = float(m["loss"])
+    assert np.isfinite(loss) and np.isfinite(float(m["grad_norm"]))
+    assert abs(loss - np.log(cfg.padded_vocab)) < 3.0
+    assert int(state.step) == 1
+    for name in ("wq", "wk", "wv", "bq", "bk", "bv"):
+        mu = state.mu["blocks"]["attn"][name]
+        assert bool(torch.isfinite(mu).all()) and float(mu.abs().max()) > 0
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def test_checkpoint_round_trip_of_card_tensors(cuda, tmp_path):
+    """A bf16 tree on the card saved and restored onto the card bit for
+    bit, and the loop resumes it."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import LoopConfig, train
+    cfg = get_config("qwen2.5-3b").smoke().scaled(dtype="bfloat16")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    ckpt.save(str(tmp_path / "ck"), 0, params, opt.init(params))
+    like = model.param_structs()
+    got, st, _ = ckpt.restore(str(tmp_path / "ck"), 0, like, opt.init(like),
+                              device=cuda)
+    for a, b in zip(L.tree_leaves(params), L.tree_leaves(got)):
+        assert b.device.type == "cuda" and torch.equal(a, b)
+    state = train(model, InputShape("t", 16, 4, "train"), None,
+                  loop_cfg=LoopConfig(total_steps=2, ckpt_every=1,
+                                      ckpt_dir=str(tmp_path / "ck")),
+                  device=cuda)
+    assert state.restarts == 1 and state.step == 2
+    assert all(np.isfinite(state.losses))
