@@ -210,7 +210,28 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    retried and an out-of-memory error raised past its retries,
    ``examples.quickstart --arch llama3-8b`` and ``launch.train --smoke``;
    the attention kernels' launches on the trained path;
-15. the ``kernels`` JSON line (twenty-seven entries: the engine scan's
+15. the device mesh, on a one-rank NCCL mesh (data 1, model 1): llama3-8b
+   whole through ``build_prefill_step`` / ``build_decode_step`` in phase
+   13's launcher round, the mesh steps' logits bit for bit the mesh=None
+   steps' (every decode step through ``collectives.flash_decode_attention``
+   on row 5's split and combine kernels), tokens/s and the decode step's
+   median beside phase 13's; granite-moe-3b whole, a prefill through the
+   MoE's ``shard_map`` branch against the local branch (phase 13's bar,
+   the local branch's own call-to-call spread printed); qwen2.5-3b whole,
+   three sharded steps from phase 14's initial state against phase 14's
+   steps (``TRAIN_PARITY``'s bf16 bar on the loss and every leaf, the
+   gradient norm within ``MESH_GRAD_NORM_RTOL``; 72 flash launches a step;
+   wall and peak beside phase 14's); two gloo ranks on
+   the one card (``scripts/mesh_two_ranks.py``: which collective gloo ran
+   on a CUDA tensor, then the decode over a sequence sharded over model 2,
+   the MoE's expert parallelism and a two-stage pipeline against one
+   rank, or by name the paths a refused collective keeps on the CPU
+   tests); the dry run in subprocesses (qwen2.5-3b x train_4k on the 16 x
+   16 fake mesh: its record, fit and roofline row; phase 14's step shape
+   on one rank: its FLOPs beside ``train_flop`` and the prediction); the
+   attention kernels' launches in the calls that went through the mesh
+   (each counted around its call); the phase's wall;
+16. the ``kernels`` JSON line (twenty-seven entries: the engine scan's
    collect build ``engine_scan_collect`` with its two kernels and launches
    a call, Jacobi-2D's cluster,
    loop and tiled routes and the one-sweep kernel's width-one route,
@@ -228,11 +249,12 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    4, 5 and 9, the engine scan's also by path (``launches_by_path``: the
    study's, phase 11's and phase 12's), flash attention's, decoding's and
    its combine kernel's too (the suite's, phase 5, and the model
-   server's, phase 13, and the trainer's, phase 14), the first two with
+   server's, phase 13, the trainer's, phase 14, and the mesh's, phase
+   15), the first two with
    their phase-13 row (``serve``), flash attention also with its phase-14
    row (``train``: the kernel at the training shape and the attention
    backward beside it);
-16. the last line: ``{"ok": true, "device": {...}}``.
+17. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no CUDA device or when
 the port's sources are not beside this script.
@@ -243,6 +265,7 @@ import dataclasses
 import json
 import re
 import statistics
+import os
 import subprocess
 import sys
 import time
@@ -2564,7 +2587,7 @@ def model_server_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
     fa_mod.flash_attention.launches = 0
     da_mod.decode_attention.launches = 0
     da_mod.decode_attention.combine_launches = 0
-    long_shape = None
+    long_shape, decode_ms = None, {}
     for label, r in SERVE_ROUNDS:
         before = counters()
         torch.cuda.reset_peak_memory_stats()
@@ -2597,6 +2620,7 @@ def model_server_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
             fail(f"serve {cfg.name} {label}: an attention kernel was not "
                  f"launched ({fa_n}, {da_n}, {co_n})")
         long_shape = (B, S, r["max_seq"], kv_mid)
+        decode_ms.setdefault(label, dec_med)
     del params, model
     torch.cuda.empty_cache()
 
@@ -2681,7 +2705,8 @@ def model_server_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
                              get_config(SERVE_ARCH), *long_shape)
     print(f"phase 13 model server: ok; phase wall "
           f"{time.perf_counter() - t_phase:.2f} s")
-    return {"launches": launches, "rows": rows}
+    return {"launches": launches, "rows": rows,
+            "decode_ms": decode_ms[SERVE_ROUNDS[0][0]]}
 
 
 # ---- 14. the trainer --------------------------------------------------------
@@ -3043,7 +3068,7 @@ def trainer_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
     fa_mod.flash_attention.launches = 0
     da_mod.decode_attention.launches = 0
     da_mod.decode_attention.combine_launches = 0
-    step_rows, step = [], 0
+    step_rows, step, after = [], 0, None
     for micro, n in TRAIN_STEPS:
         fn = ts.build_train_step(model, shape, None, opt_cfg=opt_cfg,
                                  microbatches=micro)[0]
@@ -3072,6 +3097,11 @@ def trainer_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
                 fail(f"train {cfg.name} step {step}: loss {loss}, "
                      f"{fa_n} flash launches")
             step += 1
+        if after is None:
+            # phase 15's sharded steps start from the same state and
+            # batches: the parameters after these steps, on the host
+            after = {"steps": list(step_rows),
+                     "params": L.tree_map(lambda t: t.cpu(), params)}
     full_launches = counters()
     split = train_step_split(torch, model, params, opt_state,
                              dpipe.batch_at(dcfg, step, dev), opt_cfg)
@@ -3103,7 +3133,493 @@ def trainer_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
     print(f"phase 14 trainer: ok; phase wall "
           f"{time.perf_counter() - t_phase:.2f} s")
     return {"launches": launches, "row": row, "steps": step_rows,
-            "split": split}
+            "split": split, "after": after}
+
+
+# ---- 15. the device mesh ----------------------------------------------------
+# The mesh branches at published widths on a one-rank NCCL mesh (data 1,
+# model 1), the reference's single-device baseline: llama3-8b served through
+# build_prefill_step / build_decode_step (every decode step through
+# collectives.flash_decode_attention on the split and combine kernels),
+# granite-moe-3b's prefill through the MoE's shard_map branch (expert
+# parallelism at model 1), and qwen2.5-3b's sharded train step from phase
+# 14's initial state; then two gloo ranks on the one card at .smoke() widths
+# (scripts/mesh_two_ranks.py) and the dry run in subprocesses.
+MESH_SERVE_ROUND = SERVE_ROUNDS[0]          # the launcher's defaults
+MESH_MOE_ARCH = "granite-moe-3b-a800m"
+MESH_MOE_SHAPE = (4, 64)                    # a prefill's B x S
+# the sharded step's gradient norm against phase 14's, relative: the
+# parameters move by ~lr (3e-6 to 9e-6 in these warm-up steps), far inside
+# TRAIN_PARITY's bar, so this is what holds the step's gradient
+MESH_GRAD_NORM_RTOL = 1e-4
+# the two-rank check against the one-rank results on the card: the
+# reference's bars (tests/test_distributed.py)
+MESH_TWO_RANK_TOL = dict(logits=3e-4, cache=1e-5, moe=2e-4, pipeline=1e-5)
+# the dry run's predictions for the phase-14 step (one rank, B 2 x S 4,096),
+# stated before the run (PERF.md, the mesh's findings): the counted FLOPs
+# over train_flop's products, and the bound
+MESH_DRYRUN_EXPECT = dict(flop_ratio=(1.0, 1.25), bound="memory")
+
+
+class StepModel:
+    """A model whose prefill and decode go through the step builders
+    (``trainstep.build_prefill_step`` / ``build_decode_step``) on ``mesh``
+    (None: the one-device steps), one step function a shape; the logits of
+    every call are kept (gathered whole) for the comparison."""
+
+    def __init__(self, torch, model, mesh):
+        self.torch, self.model, self.mesh, self.cfg = torch, model, mesh, \
+            model.cfg
+        self.steps, self.logits = {}, []
+
+    def _step(self, kind, B, max_seq):
+        from repro_torch.configs.base import InputShape
+        from repro_torch.train import trainstep as ts
+        key = (kind, B, max_seq)
+        if key not in self.steps:
+            build = (ts.build_prefill_step if kind == "prefill"
+                     else ts.build_decode_step)
+            self.steps[key] = build(self.model, InputShape(
+                "serve", max_seq, B, kind), self.mesh)[0]
+        return self.steps[key]
+
+    def _keep(self, logits):
+        from repro_torch.distributed import sharding as shd
+        logits = shd.full(logits)
+        self.logits.append(logits.clone())
+        return logits
+
+    def prefill(self, params, batch, max_seq):
+        self.max_seq = max_seq
+        fn = self._step("prefill", batch["tokens"].shape[0], max_seq)
+        logits, cache = fn(params, batch)
+        return self._keep(logits), cache
+
+    def decode_step(self, params, cache, tokens, pos):
+        fn = self._step("decode", tokens.shape[0], self.max_seq)
+        logits, cache = fn(params, cache, tokens, pos)
+        return self._keep(logits), cache
+
+
+def mesh_serve(torch, fa_mod, da_mod, mesh, dev, phase13_decode_ms) -> dict:
+    """(a) llama3-8b whole through the step builders, the launcher's round
+    with mesh=None steps and then on the mesh: the logits bit for bit.
+    Returns the mesh round's row, with the attention kernels' launches in
+    that round alone (``flash``, ``split``, ``combine``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import build
+    from repro_torch.train import trainstep as ts
+    cfg = get_config(SERVE_ARCH)
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    placed = shd.place_tree(params, ts.param_shardings(model, mesh))
+    r = MESH_SERVE_ROUND[1]
+    runs = {}
+    for label, m, p in (("mesh=None", None, params), ("mesh", mesh, placed)):
+        steps = StepModel(torch, model, m)
+        serve_requests(torch, steps, p, dict(r, requests=2, new=2))  # warm
+        steps.logits.clear()
+        n0 = (da_mod.decode_attention.launches,
+              da_mod.decode_attention.combine_launches,
+              fa_mod.flash_attention.launches)
+        torch.cuda.reset_peak_memory_stats()
+        eng, timed, wall, n_tok = serve_requests(torch, steps, p, r)
+        runs[label] = dict(
+            logits=steps.logits, wall=wall, tokens=n_tok,
+            decode_ms=statistics.median(timed.decode_ms),
+            prefill_ms=statistics.median(timed.prefill_ms),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            split=da_mod.decode_attention.launches - n0[0],
+            combine=da_mod.decode_attention.combine_launches - n0[1],
+            flash=fa_mod.flash_attention.launches - n0[2],
+            steps=eng.decode_steps)
+        print(f"phase 15 {cfg.name} served ({MESH_SERVE_ROUND[0]}, "
+              f"{label} steps): {n_tok} tokens in {wall:.3f} s, "
+              f"{n_tok / wall:.1f} tok/s; prefill median "
+              f"{runs[label]['prefill_ms']:.2f} ms, decode step median "
+              f"{runs[label]['decode_ms']:.2f} ms (phase 13's "
+              f"{phase13_decode_ms:.2f}); {eng.decode_steps} decode steps, "
+              f"split {runs[label]['split']}, combine "
+              f"{runs[label]['combine']} launches; peak "
+              f"{runs[label]['peak_gb']:.2f} GB")
+    host_rows(torch, model, placed, mesh)
+    a, b = runs["mesh=None"]["logits"], runs["mesh"]["logits"]
+    same = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    print(f"phase 15 {cfg.name} mesh steps against mesh=None steps: "
+          f"{len(b)} logits tensors, bit for bit {same}")
+    if not same or runs["mesh"]["split"] != \
+            runs["mesh"]["steps"] * cfg.num_layers \
+            or runs["mesh"]["combine"] != runs["mesh"]["split"]:
+        fail(f"mesh serve: logits equal {same}, launches "
+             f"{runs['mesh']['split']} / {runs['mesh']['combine']} for "
+             f"{runs['mesh']['steps']} decode steps")
+    del params, placed, model
+    torch.cuda.empty_cache()
+    return runs["mesh"]
+
+
+def host_rows(torch, model, params, mesh, top: int = 8) -> None:
+    """One decode step on the mesh (B 4, max_seq 64) under the profiler:
+    its wall, its kernels' device time, and the operators with the most
+    host time (self CPU time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import InputShape
+    from repro_torch.train import trainstep as ts
+    shape = InputShape("serve", 64, 4, "decode")
+    pf = ts.build_prefill_step(model, InputShape("serve", 64, 4, "prefill"),
+                               mesh)[0]
+    dec = ts.build_decode_step(model, shape, mesh)[0]
+    toks = torch.zeros(4, 9, dtype=torch.int32, device="cuda")
+    _, cache = pf(params, {"tokens": toks})
+    tok = toks[:, :1]
+    dec(params, cache, tok, 9)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dec(params, cache, tok, 10)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    device = sum(e.self_device_time_total for e in ev
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    cpu = sorted((e for e in ev if e.device_type == DeviceType.CPU),
+                 key=lambda e: -e.self_cpu_time_total)[:top]
+    print(f"phase 15 one mesh decode step under the profiler: {wall:.2f} "
+          f"ms wall, {device:.2f} ms of kernels; most host time: "
+          + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.2f} ms x "
+                      f"{e.count}" for e in cpu))
+    # the Python side of the same step: the functions with the most
+    # cumulative time, three steps under cProfile
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    for t in range(3):
+        dec(params, cache, tok, 11 + t)
+    torch.cuda.synchronize()
+    prof.disable()
+    st = pstats.Stats(prof).stats
+    rows = sorted(((v[3] / 3e-3, f"{Path(k[0]).name}:{k[1]}({k[2]})")
+                   for k, v in st.items() if "repro_torch" in k[0]
+                   or "distributed_c10d" in k[0]), reverse=True)[:top]
+    print("phase 15 one mesh decode step, cumulative host ms a step "
+          "(cProfile): " + ", ".join(f"{n} {ms:.2f}" for ms, n in rows))
+
+
+def mesh_moe(torch, fa_mod, mesh, dev) -> int:
+    """(b) granite-moe-3b whole: a prefill step on the mesh (every layer's
+    MoE through the shard_map branch, expert parallelism at model 1)
+    against the one-device step, bit for bit, with torch's deterministic
+    algorithms on: without them the local branch's combine
+    (``index_add_``) differs from call to call (by 0.188 of a largest
+    logit of 4.69 on an H100 80GB HBM3 at 700 W).  Returns the flash
+    kernel's launches in the mesh call alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import build
+    from repro_torch.models import moe as M
+    from repro_torch.train import trainstep as ts
+    cfg = get_config(MESH_MOE_ARCH)
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    B, S = MESH_MOE_SHAPE
+    shape = InputShape("prefill", S, B, "prefill")
+    toks = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(3)).to(dev)
+    local = ts.build_prefill_step(model, shape)[0]
+    fn, (p_sh, _), _, _ = ts.build_prefill_step(model, shape, mesh)
+    placed = shd.place_tree(params, p_sh)
+    calls = []
+    sharded = M._moe_sharded
+    M._moe_sharded = lambda *a: calls.append(1) or sharded(*a)
+    # the combine's index_add_ adds a token's experts by atomics unless
+    # torch's deterministic algorithms are on (warn_only: cuBLAS warns)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        local(params, {"tokens": toks})               # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l0, _ = local(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        f0 = fa_mod.flash_attention.launches
+        l1, c1 = fn(placed, {"tokens": toks})
+        flash = fa_mod.flash_attention.launches - f0
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        again, _ = local(params, {"tokens": toks})
+    finally:
+        M._moe_sharded = sharded
+        torch.use_deterministic_algorithms(False)
+    err = float((shd.full(l1) - l0).abs().max())
+    noise = float((again - l0).abs().max())
+    print(f"phase 15 {cfg.name} whole ({cfg.num_layers} layers, "
+          f"{cfg.num_experts} experts top-{cfg.experts_per_token}) prefill "
+          f"B {B} x S {S}, deterministic algorithms on: {len(calls)} MoE "
+          f"calls on the shard_map branch (expert parallelism at model 1), "
+          f"{flash} flash launches; "
+          f"mesh {(t2 - t1) * 1e3:.1f} ms, mesh=None {(t1 - t0) * 1e3:.1f} "
+          f"ms; logits max abs err {err:.3g} against the local branch, "
+          f"whose own two calls differ by {noise:.3g}; bar: bit for bit")
+    if err > 0 or noise > 0 or len(calls) != cfg.num_layers \
+            or flash != cfg.num_layers:
+        fail(f"mesh MoE: {err} off the local branch (its own spread "
+             f"{noise}), {len(calls)} sharded calls, {flash} flash launches")
+    del params, placed, model, c1
+    torch.cuda.empty_cache()
+    return flash
+
+
+def mesh_train(torch, fa_mod, mesh, dev, trainer) -> dict:
+    """(c) qwen2.5-3b whole: three sharded steps from phase 14's initial
+    state and batches, against phase 14's mesh=None steps (its parameters
+    after them, on the host)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import pipeline as dpipe
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import build
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainstep as ts
+    from repro_torch.train.checkpoint import _flatten_with_names as named
+    tol = dict((a, t) for a, _, _, _, t in TRAIN_PARITY)[TRAIN_ARCH]
+    cfg = get_config(TRAIN_ARCH)
+    model = build(cfg)
+    shape = InputShape("train", TRAIN_S, TRAIN_B, "train")
+    fn, (p_sh, o_sh, _), _, _ = ts.build_train_step(
+        model, shape, mesh, opt_cfg=opt.OptConfig(), microbatches=1)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    state = shd.place_tree(opt.init(params), o_sh)
+    params = shd.place_tree(params, p_sh)
+    dcfg = dpipe.DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+    want = trainer["after"]
+    rows = []
+    for step, ref in enumerate(want["steps"]):
+        batch = dpipe.batch_at(dcfg, step, dev)
+        before = fa_mod.flash_attention.launches
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = fn(params, state, batch)
+        loss = float(m["loss"])
+        wall = time.perf_counter() - t0
+        row = dict(wall_ms=wall * 1e3, loss=loss,
+                   grad_norm=float(m["grad_norm"]),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   flash_launches=fa_mod.flash_attention.launches - before)
+        rows.append(row)
+        print(f"phase 15 {cfg.name} sharded step {step} (mesh 1x1): "
+              f"{row['wall_ms']:.1f} ms (phase 14 {ref['wall_ms']:.1f}), "
+              f"loss {loss:.5f} (phase 14 {ref['loss']:.5f}), grad_norm "
+              f"{row['grad_norm']:.6f} (phase 14 {ref['grad_norm']:.6f}), peak "
+              f"{row['peak_gb']:.2f} GB (phase 14 {ref['peak_gb']:.2f}), "
+              f"flash launches {row['flash_launches']}")
+        gn_err = abs(row["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        if row["flash_launches"] != 2 * cfg.num_layers \
+                or abs(loss - ref["loss"]) > tol * abs(ref["loss"]) \
+                or gn_err > MESH_GRAD_NORM_RTOL:
+            fail(f"sharded step {step}: loss {loss} against "
+                 f"{ref['loss']}, grad_norm {row['grad_norm']} against "
+                 f"{ref['grad_norm']}, {row['flash_launches']} flash "
+                 f"launches")
+    worst, worst_name = 0.0, ""
+    for (name, a), (_, b) in zip(named(params), named(want["params"])):
+        a = shd.full(a).float()
+        b = b.to(dev).float()
+        e = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        if e > worst:
+            worst, worst_name = e, name
+    print(f"phase 15 {cfg.name} parameters after {len(rows)} sharded steps "
+          f"against phase 14's: worst leaf {worst_name} rel {worst:.3g} "
+          f"(bar {tol:g}); step wall median "
+          f"{statistics.median(r['wall_ms'] for r in rows):.1f} ms against "
+          f"{statistics.median(r['wall_ms'] for r in want['steps']):.1f}: "
+          f"the DTensor host overhead")
+    if worst > tol:
+        fail(f"sharded train step: {worst_name} off by {worst:.3g}")
+    del params, state, model
+    torch.cuda.empty_cache()
+    return {"steps": rows, "worst": worst}
+
+
+def mesh_two_ranks(torch, dev, tmp) -> None:
+    """(d) two gloo ranks on the one card (scripts/mesh_two_ranks.py), a
+    pair of processes a job, every job at once: each collective of the
+    mesh path alone, then the decode over a sequence sharded over model 2,
+    the MoE's expert parallelism and a two-stage pipeline, each held to
+    the one-rank result on the card; a path that failed where one of its
+    collectives failed alone is named, with them, as kept on the CPU
+    tests."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import mesh_two_ranks as w
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models import moe as M
+    jobs = list(w.PROBES) + list(w.USES)
+    procs = {}
+    for job in jobs:
+        d = Path(tmp) / job.replace("/", "_")
+        d.mkdir()
+        procs[job] = (d, [subprocess.Popen(
+            [sys.executable, str(ROOT / "scripts" / "mesh_two_ranks.py"),
+             str(r), str(d), str(dev), job], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)])
+    status = {}
+    try:
+        for job, (d, ps) in procs.items():
+            outs = [p.communicate(timeout=600) for p in ps]
+            codes = [p.returncode for p in ps]
+            status[job] = "ok" if codes == [0, 0] else (
+                f"exit {codes}: " + next(
+                    (ln for _, se in outs for ln in reversed(
+                        se.strip().splitlines()) if ln.strip()), "")[:160])
+    finally:
+        for _, ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    print("phase 15 two ranks on one card (gloo), each collective alone "
+          "on a CUDA tensor: " + json.dumps({j: status[j]
+                                             for j in w.PROBES}))
+    x = w.inputs(torch, dev)
+    one = w.decode_cases(torch, build(get_config("llama3-8b").smoke()
+                                      .scaled(**w.LLAMA_SMOKE)),
+                         x["llama"], x)
+    moe_local = M.moe_fwd(x["moe"], x["moe_h"],
+                          get_config("granite-moe-3b-a800m").smoke())[0]
+    pipe = x["pipe_x"]
+    for s in range(2):
+        pipe = torch.tanh(pipe @ x["pipe_w"][s])
+    t = MESH_TWO_RANK_TOL
+    for name, uses in w.USES.items():
+        if status[name] != "ok":
+            failed = [c for c in uses if status[c] != "ok"]
+            if not failed:
+                fail(f"two-rank {name}: {status[name]}")
+            print(f"phase 15 two ranks: {name} not run on the card: gloo "
+                  f"failed {', '.join(failed)} on a CUDA tensor; its "
+                  f"two-rank check stays on the CPU tests "
+                  f"(tests/test_torch_distributed.py)")
+            continue
+        errs = []
+        for r in range(2):
+            res = torch.load(procs[name][0] / f"rank{r}.pt")
+            if name == "decode":
+                for S, (l1, k1, v1) in one.items():
+                    l, k, v = res[f"decode{S}"]
+                    kr, vr = (c.chunk(2, dim=2)[r].cpu() for c in (k1, v1))
+                    errs.append(max(float((l - l1.cpu()).abs().max())
+                                    / t["logits"],
+                                    float((k - kr).abs().max()) / t["cache"],
+                                    float((v - vr).abs().max()) / t["cache"]))
+            elif name == "moe":
+                errs.append(float((res["moe"][0] - moe_local.cpu()).abs()
+                                  .max()) / t["moe"])
+            else:
+                errs.append(float((res["pipeline"] - pipe.cpu()).abs()
+                                  .max()) / t["pipeline"])
+        print(f"phase 15 two ranks: {name} on {dev} against one rank: "
+              f"worst error {max(errs):.3g} of the bar")
+        if max(errs) > 1:
+            fail(f"two-rank {name} differs from one rank")
+
+
+def mesh_dryrun(cfg_flop, tmp) -> dict:
+    """(e) the dry run, in subprocesses: qwen2.5-3b x train_4k on the
+    single-pod 16 x 16 fake mesh, and phase 14's step shape on one rank."""
+    out = Path(tmp) / "dryrun_torch.jsonl"
+    cells = (["--shape", "train_4k", "--mesh", "single"],
+             ["--shape", "train_4k", "--mesh", "one", "--batch",
+              str(TRAIN_B), "--seq", str(TRAIN_S)])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for args in cells:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             TRAIN_ARCH, *args, "--out", str(out)], capture_output=True,
+            text=True, env=env, timeout=600)
+        if run.returncode:
+            fail(f"dry run {args}: exit {run.returncode}\n"
+                 f"{run.stderr[-3000:]}")
+        print(f"phase 15 dry run {' '.join(args)} "
+              f"({time.perf_counter() - t0:.1f} s): "
+              f"{run.stdout.strip().splitlines()[0]}")
+    recs = [json.loads(ln) for ln in out.read_text().splitlines()]
+    pod, one = recs
+    for r in recs:
+        print(f"phase 15 dry run record {r['arch']} {r['shape']} "
+              f"{r['mesh']}: " + json.dumps(
+                  {"per_device": {k: v for k, v in r["per_device"].items()
+                                  if k != "ici_by_op"},
+                   "roofline": r["roofline"]}))
+    if not (pod["per_device"]["fits_80GB"] and min(
+            pod["roofline"]["t_compute_s"], pod["roofline"]["t_memory_s"],
+            pod["roofline"]["t_collective_s"]) > 0):
+        fail(f"dry run train_4k: {pod['per_device']}")
+    ratio = one["per_device"]["flops"] / cfg_flop
+    lo, hi = MESH_DRYRUN_EXPECT["flop_ratio"]
+    print(f"phase 15 dry run of phase 14's step (B {TRAIN_B} x S "
+          f"{TRAIN_S}, one rank): {one['per_device']['flops']:.4g} FLOP "
+          f"counted against train_flop's {cfg_flop:.4g} (ratio "
+          f"{ratio:.3f}; predicted {lo}-{hi}); bound "
+          f"{one['roofline']['bound']} (predicted "
+          f"{MESH_DRYRUN_EXPECT['bound']}), t_compute "
+          f"{one['roofline']['t_compute_s'] * 1e3:.1f} ms, t_memory "
+          f"{one['roofline']['t_memory_s'] * 1e3:.1f} ms")
+    return {"pod": pod, "one": one, "ratio": ratio}
+
+
+def mesh_phase(torch, fa_mod, da_mod, dev, server, trainer) -> dict:
+    """15. The device mesh on the card (see the section's comment).
+    Returns the attention kernels' launches in the calls that went through
+    the mesh (a's mesh round, b's mesh prefill, c's sharded steps; each
+    counted around its call, so the mesh=None runs they are held to add
+    nothing)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(torch.cuda.current_device())
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            mesh = make_host_mesh(data=1, model=1)
+            print(f"phase 15 mesh {mesh} on the {dist.get_backend()} "
+                  f"backend")
+            serve = mesh_serve(torch, fa_mod, da_mod, mesh, dev,
+                               server["decode_ms"])
+            moe_flash = mesh_moe(torch, fa_mod, mesh, dev)
+            train = mesh_train(torch, fa_mod, mesh, dev, trainer)
+            launches = {
+                "flash_attention": serve["flash"] + moe_flash + sum(
+                    r["flash_launches"] for r in train["steps"]),
+                "decode_attention": serve["split"],
+                "decode_attention_combine": serve["combine"]}
+            print(f"phase 15 launches on the mesh paths: {launches}")
+            if min(launches.values()) <= 0:
+                fail(f"mesh: an attention kernel was not launched: "
+                     f"{launches}")
+        finally:
+            dist.destroy_process_group()
+        two = Path(tmp) / "two"
+        two.mkdir()
+        mesh_two_ranks(torch, dev, two)
+        cfg = get_config(TRAIN_ARCH)
+        dry = mesh_dryrun(train_flop(cfg, build(cfg).param_structs(),
+                                     TRAIN_B, TRAIN_S), tmp)
+    print(f"phase 15 device mesh: ok; phase wall "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return {"launches": launches, "train": train, "dryrun": dry}
 
 
 def codegen_round_trip(tracegen) -> None:
@@ -3819,7 +4335,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     trainer = trainer_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz)
 
-    # ---- 15. kernels line -----------------------------------------------------
+    # ---- 15. the device mesh ----------------------------------------------------
+    mesh = mesh_phase(torch, fa_mod, da_mod, dev, server, trainer)
+    del trainer["after"]
+
+    # ---- 16. kernels line -----------------------------------------------------
     kernels = [
         {"name": "engine_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/engine_scan.cu",
@@ -3920,13 +4440,14 @@ def main(argv=None) -> int:
             entry["launches_by_path"] = {
                 "suite": entry["launches"],
                 "model_server": server["launches"][entry["name"]],
-                "trainer": trainer["launches"][entry["name"]]}
+                "trainer": trainer["launches"][entry["name"]],
+                "mesh": mesh["launches"][entry["name"]]}
         if entry["name"] in server["rows"]:
             entry["serve"] = server["rows"][entry["name"]]
         if entry["name"] == "flash_attention":
             entry["train"] = trainer["row"]
     print(json.dumps({"kernels": kernels}))
-    # ---- 16. last line ----------------------------------------------------------
+    # ---- 17. last line ----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -90,7 +90,8 @@ def surrogate_from_numpy(params: dict, feat_mean, feat_std, apps, meta,
         apps=tuple(apps), meta=dict(meta))
 
 
-def model_params_from_numpy(cfg, tree: dict, device=None) -> dict:
+def model_params_from_numpy(cfg, tree: dict, device=None,
+                            mesh=None) -> dict:
     """The port's parameter tree of ``cfg``'s model from the reference's
     (``init`` of ``repro.models.build(cfg)``, as nested dicts of numpy
     arrays: ``jax.tree.map(np.asarray, params)``).  Every name, shape and
@@ -98,7 +99,8 @@ def model_params_from_numpy(cfg, tree: dict, device=None) -> dict:
     shape of its ``PD`` and the config's ``dtype`` (bfloat16 and float8
     arrays keep their ml_dtypes type names); anything else raises
     ``ValueError``.  The arrays go to ``device`` (default: the CUDA device)
-    bit for bit."""
+    bit for bit; with a ``mesh`` each is laid out as a DTensor by the
+    parameter shardings (``trainstep.param_shardings``)."""
     import torch
     from repro_torch import _device
     from repro_torch.configs.base import torch_dtype
@@ -130,16 +132,24 @@ def model_params_from_numpy(cfg, tree: dict, device=None) -> dict:
         return {k: convert(defs[k], sub[k], f"{path}/{k}")
                 for k in sorted(defs)}
 
-    return convert(build(cfg).defs(), tree, "")
+    model = build(cfg)
+    params = convert(model.defs(), tree, "")
+    if mesh is None:
+        return params
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import trainstep
+    return shd.place_tree(params, trainstep.param_shardings(model, mesh))
 
 
-def opt_state_from_numpy(step, mu: dict, nu: dict, device=None):
+def opt_state_from_numpy(step, mu: dict, nu: dict, device=None,
+                         shardings=None):
     """The port's ``train.optimizer.OptState`` from the reference's
     ``OptState`` fields: ``step`` (an int or an int32 scalar) and the
     moments as nested dicts of float32 numpy arrays
     (``jax.tree.map(np.asarray, state.mu)``).  Both trees must have the
     same names and shapes and be float32, else ``ValueError``; the arrays
-    go to ``device`` (default: the CUDA device) bit for bit."""
+    go to ``device`` (default: the CUDA device) bit for bit, laid out by
+    ``shardings`` (``trainstep.opt_shardings(model, mesh)``) where given."""
     import torch
     from repro_torch import _device
     from repro_torch.train.optimizer import OptState
@@ -163,5 +173,9 @@ def opt_state_from_numpy(step, mu: dict, nu: dict, device=None):
                 torch.from_numpy(b.copy()).to(dev))
 
     mu_t, nu_t = convert(mu, nu, "")
-    return OptState(step=torch.tensor(int(step), dtype=torch.int32,
-                                      device=dev), mu=mu_t, nu=nu_t)
+    state = OptState(step=torch.tensor(int(step), dtype=torch.int32,
+                                       device=dev), mu=mu_t, nu=nu_t)
+    if shardings is None:
+        return state
+    from repro_torch.distributed import sharding as shd
+    return shd.place_tree(state, shardings)

@@ -10,7 +10,11 @@ weights are drawn from seed 0 on the device, the stub frames / patches of
 whisper and InternVL2 from seed 1.  ``--smoke`` serves the reduced
 config.  The default device is the CUDA device (the model's attention on
 the port's kernels); without one the launcher raises; ``--device cpu``
-runs the plain PyTorch path.
+runs the plain PyTorch path.  The reference shards its serving over the
+production mesh without ``--smoke``; in the port the prefill and decode
+step builders of ``repro_torch.train.trainstep`` carry that mesh (a
+``torchrun`` world, ``launch.mesh``), and this launcher serves on one
+device.
 """
 from __future__ import annotations
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import torch_dtype
+from repro_torch.distributed.sharding import constraint
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import PD
@@ -76,12 +77,14 @@ def encode(params, frames, cfg):
     h = frames.to(dtype) + sinusoid(positions, cfg.d_model, dtype)
 
     def body(h, bp):
+        bp = L.fsdp_gather(bp, enc_block_defs(cfg))
         a, _ = L.attention_fwd(bp["attn"], L.rmsnorm(h, bp["attn_norm"],
                                                      cfg.norm_eps),
                                cfg, positions=positions, causal=False)
         h = h + a
-        return h + L.mlp_fwd(bp["mlp"], L.rmsnorm(h, bp["mlp_norm"],
-                                                  cfg.norm_eps))
+        h = h + L.mlp_fwd(bp["mlp"], L.rmsnorm(h, bp["mlp_norm"],
+                                               cfg.norm_eps))
+        return constraint(h, ("batch", "seq_sp", None))
 
     for bp in L.unstacked(params["enc_blocks"]):
         h = L.run_layer(body, cfg.remat, h, bp)
@@ -97,8 +100,8 @@ def _dec_block(bp, h, enc_kv, cfg, positions):
                                                        cfg.norm_eps),
                            cfg, positions=positions, kv=enc_kv)
     h = h + c
-    return h + L.mlp_fwd(bp["mlp"], L.rmsnorm(h, bp["mlp_norm"],
-                                              cfg.norm_eps))
+    h = h + L.mlp_fwd(bp["mlp"], L.rmsnorm(h, bp["mlp_norm"], cfg.norm_eps))
+    return constraint(h, ("batch", "seq_sp", None))
 
 
 def _cross_kv(bp, enc_out, cfg):
@@ -123,8 +126,11 @@ def _dec_input(params, tokens, cfg):
 def forward(params, frames, tokens, cfg):
     enc_out = encode(params, frames, cfg)
     h, positions = _dec_input(params, tokens, cfg)
-    body = lambda h, bp, enc_out: _dec_block(
-        bp, h, _cross_kv(bp, enc_out, cfg), cfg, positions)
+    def body(h, bp, enc_out):
+        bp = L.fsdp_gather(bp, dec_block_defs(cfg))
+        return _dec_block(bp, h, _cross_kv(bp, enc_out, cfg), cfg,
+                          positions)
+
     for bp in L.unstacked(params["dec_blocks"]):
         h = L.run_layer(body, cfg.remat, h, bp, enc_out)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
@@ -162,7 +168,8 @@ def prefill(params, frames, tokens, cfg, max_seq):
     h, positions = _dec_input(params, tokens, cfg)
     ks, vs, xks, xvs = [], [], [], []
     for i in range(T.num_stacked(params["dec_blocks"])):
-        bp = T.layer(params["dec_blocks"], i)
+        bp = L.fsdp_gather(T.layer(params["dec_blocks"], i),
+                           dec_block_defs(cfg))
         xk, xv = _cross_kv(bp, enc_out, cfg)
         a, (k, v) = L.attention_fwd(
             bp["self_attn"], L.rmsnorm(h, bp["self_norm"], cfg.norm_eps),
@@ -194,7 +201,8 @@ def decode_step(params, cache, tokens, pos, cfg):
                                 device=h.device), cfg.d_model, dtype)
     B = h.shape[0]
     for i in range(T.num_stacked(params["dec_blocks"])):
-        bp = T.layer(params["dec_blocks"], i)
+        bp = L.fsdp_gather(T.layer(params["dec_blocks"], i),
+                           dec_block_defs(cfg))
         a, _, _ = L.attention_decode(
             bp["self_attn"], L.rmsnorm(h, bp["self_norm"], cfg.norm_eps),
             cfg, cache["k"][i], cache["v"][i], pos)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import torch_dtype
+from repro_torch.distributed.sharding import constraint
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -60,6 +61,7 @@ def _ffn(p, hn, cfg, ffn):
 
 
 def _apply_pos(p, h, cfg, mixer, ffn, positions):
+    p = L.fsdp_gather(p, _pos_defs(cfg, mixer, ffn))
     hn = L.rmsnorm(h, p["mixer_norm"], cfg.norm_eps)
     if mixer == "attn":
         a, _ = L.attention_fwd(p["mixer"], hn, cfg, positions=positions)
@@ -67,7 +69,7 @@ def _apply_pos(p, h, cfg, mixer, ffn, positions):
         a = S.ssd_block_fwd(p["mixer"], hn, cfg)
     h = h + a
     f, aux = _ffn(p, L.rmsnorm(h, p["ffn_norm"], cfg.norm_eps), cfg, ffn)
-    return h + f, aux
+    return constraint(h + f, ("batch", "seq_sp", None)), aux
 
 
 def _n_periods(params):
@@ -140,7 +142,7 @@ def decode_step(params, cache, tokens, pos, cfg):
         pp = T.layer(params["periods"], pi)
         mi = 0
         for i, (mixer, ffn) in enumerate(layout(cfg)):
-            p = pp[f"pos{i}"]
+            p = L.fsdp_gather(pp[f"pos{i}"], _pos_defs(cfg, mixer, ffn))
             hn = L.rmsnorm(h, p["mixer_norm"], cfg.norm_eps)
             if mixer == "attn":
                 a, _, _ = L.attention_decode(p["mixer"], hn, cfg,
@@ -169,7 +171,7 @@ def prefill(params, tokens, cfg, max_seq):
     def body(h, pp):
         kv, states = (), []
         for i, (mixer, ffn) in enumerate(layout(cfg)):
-            p = pp[f"pos{i}"]
+            p = L.fsdp_gather(pp[f"pos{i}"], _pos_defs(cfg, mixer, ffn))
             hn = L.rmsnorm(h, p["mixer_norm"], cfg.norm_eps)
             if mixer == "attn":
                 a, kv = L.attention_fwd(p["mixer"], hn, cfg,
@@ -181,7 +183,7 @@ def prefill(params, tokens, cfg, max_seq):
             h = h + a
             f, _ = _ffn(p, L.rmsnorm(h, p["ffn_norm"], cfg.norm_eps), cfg,
                         ffn)
-            h = h + f
+            h = constraint(h + f, ("batch", "seq_sp", None))
         return (h, torch.stack(states)) + tuple(kv)
 
     ks, vs, ssm_all = [], [], []

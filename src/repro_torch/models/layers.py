@@ -38,9 +38,13 @@ directly otherwise; the values are the same either way.  A training
 forward takes its stacked layers apart with ``unstacked`` (one ``unbind``
 a leaf, so the backward stacks each leaf's gradients once).
 
-``fsdp_gather`` and ``constraint`` are identities on one device and are left
-out, as is the mesh branch of ``attention_decode``; ``distributed/`` brings
-them back.
+Under a mesh (``distributed.sharding.use_mesh``) a layer computes on this
+rank's local tensors: ``fsdp_gather`` gathers a layer's weights whole from
+their shards (its backward reduce-scatters their gradients), ``constraint``
+redistributes a DTensor and leaves a local activation in the step's layout,
+and ``attention_decode`` takes the flash decode over a sequence-sharded
+cache (``distributed.collectives``) where the reference does.  Without a
+mesh all three are as before: identities and the one-device decode.
 """
 from __future__ import annotations
 
@@ -49,6 +53,9 @@ from typing import NamedTuple, Optional
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import constraint
 from repro_torch.kernels import ops
 
 
@@ -135,6 +142,32 @@ def param_logical(defs):
 # ---------------------------------------------------------------------------
 # Norms / RoPE
 # ---------------------------------------------------------------------------
+
+def fsdp_gather(block_params, block_defs):
+    """A block's weights gathered whole from this rank's shards, inside the
+    layer body (so remat gathers again in the backward, and one layer's
+    weights are whole at a time); the identity without a mesh.
+
+    The reference drops only the "embed" (fsdp) axis here and leaves the
+    tensor-parallel axes to GSPMD's partition of the products; the port has
+    no propagation, so its layers take every weight whole and split the
+    batch instead (``distributed/sharding.py``).  The MoE's expert weights
+    are the exception: they stay sharded over "model" (the experts under
+    expert parallelism, their d_ff under expert-TP), as the reference's
+    ``shard_map`` takes them, and ``moe._moe_sharded`` computes on this
+    rank's part, so no rank holds every expert."""
+    mesh = shd.active_mesh()
+    if mesh is None:
+        return block_params
+    return tree_map(lambda x, pd: shd.gather(
+        x, pd.logical, pd.shape, mesh,
+        keep=("model",) if _EXPERT_AXES & set(pd.logical) else ()),
+        block_params, block_defs)
+
+
+# the logical axes of the MoE's expert weights (moe.moe_defs)
+_EXPERT_AXES = frozenset(("expert", "expert_ff"))
+
 
 def rmsnorm(x, w, eps):
     x32 = x.float()
@@ -326,6 +359,7 @@ def attention_fwd(p, h, cfg, *, positions, causal=True, kv=None):
         cache_kv = kv
         causal = False
     k2, v2 = _repeat_kv(k, v, cfg)
+    q = constraint(q, ("batch", None, "heads", None))
     if kv is None and q.is_cuda:
         qkv = (q.contiguous(), k2.contiguous(), v2.contiguous())
         if recording(*qkv):
@@ -345,7 +379,10 @@ def attention_decode(p, h, cfg, cache_k, cache_v, pos: int):
     one-hot select gives the same values) in the cache's type, reads them
     back in h's type, and attends over the keys below ``pos + 1``: the
     flash-decoding kernel on a CUDA tensor, the plain ``_exact_attn`` on a
-    CPU one.  Returns (out, cache_k, cache_v)."""
+    CPU one.  Under a mesh whose decode step shards the cache's sequence
+    over "model" (the reference's ``collectives.applicable``), the caches
+    are this rank's rows and ``collectives.flash_decode_attention`` runs
+    instead.  Returns (out, cache_k, cache_v)."""
     q, k, v = _project_qkv(p, h, cfg)
     if cfg.rope_theta > 0:
         posv = torch.full((h.shape[0], 1), pos, dtype=torch.int32,
@@ -353,6 +390,15 @@ def attention_decode(p, h, cfg, cache_k, cache_v, pos: int):
         cos, sin = rope_tables(posv, cfg.head_dim, cfg.rope_theta, h.dtype)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    mesh = shd.active_mesh()
+    if mesh is not None and shd.active_kv_sharded() and \
+            collectives.applicable(mesh, h.shape[0],
+                                   cache_k.shape[1] * mesh.size("model"),
+                                   cfg.num_heads, cfg.num_kv_heads):
+        out, cache_k, cache_v = collectives.flash_decode_attention(
+            q, cache_k, cache_v, k, v, pos, mesh)
+        out = out.reshape(h.shape[0], 1, cfg.num_heads * cfg.head_dim)
+        return out @ p["wo"], cache_k, cache_v
     cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
     cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
     kk, vv = _repeat_kv(cache_k.to(h.dtype), cache_v.to(h.dtype), cfg)
@@ -417,7 +463,9 @@ def unembed_fwd(p, h):
     w = p.get("unembed")
     if w is None:
         w = p["embedding"].T.to(h.dtype)
-    return (h @ w).float()
+    # vocab-sharded logits in the reference (keeps the [V, D] gradient
+    # from being replicated); a local tensor stays in the step's layout
+    return constraint((h @ w).float(), ("batch", None, "vocab"))
 
 
 def cross_entropy(logits, labels, mask=None):

@@ -10,14 +10,24 @@ slices it off, so no index is ever out of range.  The combine sums in
 float32.  The experts' products are ``torch.einsum``, as the reference's
 are ``jnp.einsum``.
 
-Only the reference's local branch (no mesh, ``moe.py:107-110``) is ported;
-its ``shard_map`` branch waits for ``distributed/``.
+Under a mesh ``moe_fwd`` runs the reference's ``shard_map`` branch
+(``moe.py:104-163``) on local tensors: dispatch is local to each data shard
+(capacity from the shard's tokens), then expert parallelism (an
+all-to-all over "model" out to the experts' ranks and back) where the
+experts divide the model axis, else expert-TP (a d_ff shard of every
+expert, the partial outputs summed over "model").  The tokens are first
+brought to the reference's partition (batch over the data axes, sequence
+over "model" under EP) from the step's layout, and back after, so every
+mesh drops the tokens the reference's sharded dispatch drops.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import constraint
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import PD
@@ -98,13 +108,88 @@ def _expert_ffn(xe, w1, w3, w2):
 
 
 def moe_fwd(p, h, cfg):
-    """h [B,S,D] -> ([B,S,D], aux_loss): the dispatch of all B*S tokens on
-    this device."""
+    """h [B,S,D] -> ([B,S,D], aux_loss).  Without a mesh: the dispatch of
+    all B*S tokens on this device.  Under a mesh: ``h`` is this rank's
+    slice of the batch (split over ``sharding.active_batch_axes()``) and
+    the reference's ``shard_map`` branch runs (``_moe_sharded``)."""
+    mesh = shd.active_mesh()
+    if mesh is not None:
+        return _moe_sharded(p, h, cfg, mesh)
     B, S, D = h.shape
     xe, combine, aux = _dispatch(h.reshape(B * S, D), p["router"], cfg,
                                  capacity(B * S, cfg))
     out = combine(_expert_ffn(xe, p["w1"], p["w3"], p["w2"]))
     return out.reshape(B, S, D), aux
+
+
+def _model_part(w, dim, whole, mesh):
+    """This rank's part of an expert weight along ``dim`` over "model":
+    ``w`` as it is where it is that part already (``layers.fsdp_gather``
+    keeps the expert weights' shards over "model"), else its slice of the
+    whole (a direct caller's weights)."""
+    if w.shape[dim] != whole:
+        return w
+    n = whole // mesh.size("model")
+    return w.narrow(dim, mesh.coord("model") * n, n)
+
+
+def _moe_sharded(p, h, cfg, mesh):
+    """The reference's ``shard_map`` body on local tensors.  The expert
+    weights are this rank's experts (EP) or its d_ff shard of each
+    (expert-TP), or whole, and then sliced here (``_model_part``)."""
+    have = shd.active_batch_axes()           # axes h's batch is split over
+    B = h.shape[0] * mesh.size(have)         # the global batch
+    S, D = h.shape[1], h.shape[2]
+    dp = C._dp_axes(mesh, B)
+    ep = mesh.size("model")
+    use_ep = cfg.num_experts % ep == 0
+    seq_model = use_ep and S % ep == 0
+    # from the step's layout to the reference's partition: batch over dp,
+    # and under EP the sequence over "model"
+    extra = tuple(a for a in have if a not in dp)
+    hl = h
+    for a in reversed(extra):                # undo the split past dp
+        hl = C.all_gather(hl, 0, mesh.group(a))
+    missing = tuple(a for a in dp if a not in have)
+    if missing:                              # a caller's whole batch
+        hl = shd.Sharding(mesh, (missing,)).local(hl)
+    if seq_model:
+        hl = shd.Sharding(mesh, (None, "model")).local(hl)
+    Bl, Sl = hl.shape[0], hl.shape[1]
+    T_local = Bl * Sl
+    C_ = capacity(T_local, cfg)
+    E = cfg.num_experts
+    group = mesh.group("model")
+    if use_ep:
+        ne = E // ep
+        w1, w3, w2 = (_model_part(p[n], 0, E, mesh)
+                      for n in ("w1", "w3", "w2"))
+    else:            # w1/w3 [E, D, F] and w2 [E, F, D]: this rank's F
+        w1, w3 = (_model_part(p[n], 2, cfg.d_ff, mesh) for n in ("w1", "w3"))
+        w2 = _model_part(p["w2"], 1, cfg.d_ff, mesh)
+    xe, combine, aux = _dispatch(hl.reshape(T_local, D), p["router"], cfg, C_)
+    if use_ep:
+        # [E, C, D] -> [E/ep, ep*C, D]: capacity buckets travel to experts
+        xe = C.all_to_all(xe, group).reshape(ep, ne, C_, D) \
+            .transpose(0, 1).reshape(ne, ep * C_, D)
+        ye = _expert_ffn(xe, w1, w3, w2)
+        ye = ye.reshape(ne, ep, C_, D).transpose(0, 1).contiguous()
+        ye = C.all_to_all(ye, group).reshape(E, C_, D)
+    else:
+        ye = C.psum(_expert_ffn(xe, w1, w3, w2), group)
+    out = combine(ye).reshape(Bl, Sl, D)
+    for a in dp:
+        aux = C.pmean(aux, mesh.group(a))
+    if seq_model:
+        aux = C.pmean(aux, group)
+    # back to the step's layout
+    if seq_model:
+        out = C.all_gather(out, 1, group)
+    for a in reversed(missing):
+        out = C.all_gather(out, 0, mesh.group(a))
+    if extra:
+        out = shd.Sharding(mesh, (extra,)).local(out)
+    return out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -129,13 +214,14 @@ def model_defs(cfg):
 
 
 def block_fwd(p, h, cfg, positions):
+    p = L.fsdp_gather(p, block_defs(cfg))
     a, _ = L.attention_fwd(p["attn"], L.rmsnorm(h, p["attn_norm"],
                                                 cfg.norm_eps),
                            cfg, positions=positions)
     h = h + a
     m, aux = moe_fwd(p["moe"], L.rmsnorm(h, p["mlp_norm"], cfg.norm_eps),
                      cfg)
-    return h + m, aux
+    return constraint(h + m, ("batch", "seq_sp", None)), aux
 
 
 def forward(params, tokens, cfg):
@@ -169,7 +255,7 @@ def decode_step(params, cache, tokens, pos, cfg):
     """Returns (logits, cache), the cache updated in place."""
     h = L.embed_fwd(params["embed"], tokens, cfg.torch_dtype)
     for i in range(T.num_stacked(params["blocks"])):
-        bp = T.layer(params["blocks"], i)
+        bp = L.fsdp_gather(T.layer(params["blocks"], i), block_defs(cfg))
         a, _, _ = L.attention_decode(
             bp["attn"], L.rmsnorm(h, bp["attn_norm"], cfg.norm_eps), cfg,
             cache["k"][i], cache["v"][i], pos)
@@ -186,14 +272,14 @@ def prefill(params, tokens, cfg, max_seq):
     positions = torch.arange(tokens.shape[1], device=h.device)[None, :]
     ks, vs = [], []
     for i in range(T.num_stacked(params["blocks"])):
-        bp = T.layer(params["blocks"], i)
+        bp = L.fsdp_gather(T.layer(params["blocks"], i), block_defs(cfg))
         a, (k, v) = L.attention_fwd(
             bp["attn"], L.rmsnorm(h, bp["attn_norm"], cfg.norm_eps), cfg,
             positions=positions)
         h = h + a
         m, _ = moe_fwd(bp["moe"], L.rmsnorm(h, bp["mlp_norm"], cfg.norm_eps),
                        cfg)
-        h = h + m
+        h = constraint(h + m, ("batch", "seq_sp", None))
         ks.append(k)
         vs.append(v)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constraint
 from repro_torch.models import layers as L
 from repro_torch.models.layers import PD
 from repro_torch.models.transformer import layer, num_stacked, stacked
@@ -126,7 +127,7 @@ def ssd_block_fwd(p, h, cfg, return_state=False):
     x, Bm, Cm = torch.split(xBC, [DI, N, N], dim=-1)
     dt = F.softplus((h @ p["wdt"]).float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
-    x = x.reshape(B, S, H, P)
+    x = constraint(x.reshape(B, S, H, P), ("batch", None, "ssm_heads", None))
     y, final_state = ssd_chunked(x, dt, A, Bm, Cm, p["D_skip"],
                                  cfg.ssm_chunk)
     y = y.reshape(B, S, DI)
@@ -184,8 +185,11 @@ def model_defs(cfg):
 
 def forward(params, tokens, cfg):
     h = L.embed_fwd(params["embed"], tokens, cfg.torch_dtype)
-    body = lambda h, bp: h + ssd_block_fwd(
-        bp["ssd"], L.rmsnorm(h, bp["norm"], cfg.norm_eps), cfg)
+    def body(h, bp):
+        bp = L.fsdp_gather(bp, block_defs(cfg))
+        return h + ssd_block_fwd(bp["ssd"], L.rmsnorm(h, bp["norm"],
+                                                      cfg.norm_eps), cfg)
+
     for bp in L.unstacked(params["blocks"]):
         h = L.run_layer(body, cfg.remat, h, bp)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
@@ -220,7 +224,7 @@ def decode_step(params, cache, tokens, pos, cfg):
     del pos  # SSM state is position-free
     h = L.embed_fwd(params["embed"], tokens, cfg.torch_dtype)
     for i in range(num_stacked(params["blocks"])):
-        bp = layer(params["blocks"], i)
+        bp = L.fsdp_gather(layer(params["blocks"], i), block_defs(cfg))
         y, conv, ssm = ssd_decode_step(
             bp["ssd"], L.rmsnorm(h, bp["norm"], cfg.norm_eps), cfg,
             cache["conv"][i], cache["ssm"][i])
@@ -238,7 +242,7 @@ def prefill(params, tokens, cfg, max_seq):
     h = L.embed_fwd(params["embed"], tokens, cfg.torch_dtype)
     states = []
     for i in range(num_stacked(params["blocks"])):
-        bp = layer(params["blocks"], i)
+        bp = L.fsdp_gather(layer(params["blocks"], i), block_defs(cfg))
         y, state = ssd_block_fwd(
             bp["ssd"], L.rmsnorm(h, bp["norm"], cfg.norm_eps), cfg,
             return_state=True)

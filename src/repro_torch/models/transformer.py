@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import torch_dtype
+from repro_torch.distributed.sharding import constraint
 from repro_torch.models import layers as L
 from repro_torch.models.layers import PD
 
@@ -51,12 +52,14 @@ def model_defs(cfg):
 
 
 def block_fwd(p, h, cfg, positions):
+    p = L.fsdp_gather(p, block_defs(cfg))
     a, _ = L.attention_fwd(p["attn"], L.rmsnorm(h, p["attn_norm"],
                                                 cfg.norm_eps),
                            cfg, positions=positions)
     h = h + a
+    h = constraint(h, ("batch", "seq_sp", None))
     m = L.mlp_fwd(p["mlp"], L.rmsnorm(h, p["mlp_norm"], cfg.norm_eps))
-    return h + m
+    return constraint(h + m, ("batch", "seq_sp", None))
 
 
 def _positions(S, device):
@@ -66,6 +69,7 @@ def _positions(S, device):
 def forward(params, tokens, cfg):
     """tokens [B,S] -> hidden [B,S,D] (pre-unembed)."""
     h = L.embed_fwd(params["embed"], tokens, cfg.torch_dtype)
+    h = constraint(h, ("batch", "seq_sp", None))
     positions = _positions(tokens.shape[1], h.device)
     body = lambda h, bp: block_fwd(bp, h, cfg, positions)
     for bp in L.unstacked(params["blocks"]):
@@ -120,13 +124,14 @@ def prefill(params, tokens, cfg, max_seq):
     positions = _positions(tokens.shape[1], h.device)
 
     def body(h, bp):
+        bp = L.fsdp_gather(bp, block_defs(cfg))
         a, (k, v) = L.attention_fwd(
             bp["attn"], L.rmsnorm(h, bp["attn_norm"], cfg.norm_eps), cfg,
             positions=positions)
         h = h + a
         h = h + L.mlp_fwd(bp["mlp"], L.rmsnorm(h, bp["mlp_norm"],
                                                cfg.norm_eps))
-        return h, k, v
+        return constraint(h, ("batch", "seq_sp", None)), k, v
 
     ks, vs = [], []
     for bp in L.unstacked(params["blocks"]):
@@ -144,7 +149,7 @@ def decode_step(params, cache, tokens, pos, cfg):
     cache), the cache updated in place."""
     h = L.embed_fwd(params["embed"], tokens, cfg.torch_dtype)
     for i in range(num_stacked(params["blocks"])):
-        bp = layer(params["blocks"], i)
+        bp = L.fsdp_gather(layer(params["blocks"], i), block_defs(cfg))
         a, _, _ = L.attention_decode(
             bp["attn"], L.rmsnorm(h, bp["attn_norm"], cfg.norm_eps), cfg,
             cache["k"][i], cache["v"][i], pos)

@@ -61,7 +61,7 @@ def prefill(params, patches, tokens, cfg, max_seq):
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     ks, vs = [], []
     for i in range(T.num_stacked(params["blocks"])):
-        bp = T.layer(params["blocks"], i)
+        bp = L.fsdp_gather(T.layer(params["blocks"], i), T.block_defs(cfg))
         a, (k, v) = L.attention_fwd(
             bp["attn"], L.rmsnorm(h, bp["attn_norm"], cfg.norm_eps), cfg,
             positions=positions)

@@ -74,11 +74,16 @@ group:
   batching with the rebuilds after prewarm, and the repeat pass's hit
   fraction.
 
+- ``roofline_table`` (``--roofline``; in the full list after the kernel
+  microbenchmarks, as in run.py): a row per single-pod (16x16) record of
+  the port's dry run (``results/dryrun_torch.jsonl``, written by
+  ``python -m repro_torch.launch.dryrun``): its bound, the bound's time
+  and the roofline fraction.
+
 Without a flag it runs run.py's full list, with ``--quick`` its smoke list
-(no kernel microbenchmarks, the small sweep), with ``--scalar``, ``--rvv``,
-``--profile``, ``--dse``, ``--surrogate`` or ``--serve`` that group alone.
-run.py's ``roofline_table`` has no counterpart yet: it comes with the
-port of the system seed (ROADMAP Queue 1, item 4).
+(no kernel microbenchmarks, no roofline table, the small sweep), with
+``--scalar``, ``--rvv``, ``--profile``, ``--dse``, ``--surrogate``,
+``--serve`` or ``--roofline`` that group alone.
 
 The machine-readable sections (run.py's ``_BENCH``) are merged into
 ``--bench-json`` (default ``results/bench_torch.json`` at the repository
@@ -712,6 +717,25 @@ def serve_rows(quick: bool = False, cache_path=SERVE_CACHE, seed: int = 0,
     return rows
 
 
+def roofline_table(path=None) -> list[tuple]:
+    """run.py's roofline rows from the port's dry-run records."""
+    from repro_torch import roofline_report
+    path = Path(path) if path else RESULTS / roofline_report.FILE
+    if not path.exists():
+        return [("roofline", 0.0, f"{path.name} missing")]
+    out = []
+    for (arch, shape, mesh, _), r in sorted(
+            roofline_report.load(path).items()):
+        if mesh != "16x16":
+            continue
+        rl = r["roofline"]
+        tmax = max(rl["t_compute_s"], rl["t_memory_s"], rl["t_collective_s"])
+        out.append((f"roofline_{arch}_{shape}", 0.0,
+                    f"bound={rl['bound']}|t={tmax:.3f}s|"
+                    f"frac={rl['roofline_fraction']:.3f}"))
+    return out
+
+
 def row_groups(args) -> list[tuple]:
     """``(name, rows function)`` of each row group a command line runs, in
     run.py's order."""
@@ -722,6 +746,8 @@ def row_groups(args) -> list[tuple]:
     if args.serve:
         return [("serve", lambda: serve_rows(
             quick=quick, cache_path=args.serve_cache, device=dev))]
+    if args.roofline:
+        return [("roofline", lambda: roofline_table(args.dryrun))]
     if args.dse:
         return [("dse", lambda: dse_study(
             quick=quick, cache_path=args.dse_cache,
@@ -746,6 +772,7 @@ def row_groups(args) -> list[tuple]:
               scalar, profile]
     if not quick:
         groups.append(("kernels", lambda: kernel_microbench(device=dev)))
+        groups.append(("roofline", lambda: roofline_table(args.dryrun)))
     groups.append(("sweep", lambda: sweep_wallclock(quick=quick,
                                                     device=dev)))
     return groups
@@ -797,6 +824,11 @@ def parse_args(argv=None):
                     help="the simulation-service rows only: a Poisson "
                          "stream through the service, then its repeat "
                          "against the persisted cache")
+    ap.add_argument("--roofline", action="store_true",
+                    help="the roofline rows only, from --dryrun's records")
+    ap.add_argument("--dryrun", default=None,
+                    help="the dry run's records (default "
+                         "results/dryrun_torch.jsonl)")
     ap.add_argument("--dse-cache", default=str(DSE_CACHE),
                     help="persistent DSE result cache (JSONL)")
     ap.add_argument("--surrogate-cache", default=str(SURROGATE_CACHE),

@@ -16,16 +16,28 @@ manifest's type, so a checkpoint of either package restores here for
 every type, and for the same tree the port's files equal the
 reference's byte for byte.  (The reference's own ``restore`` cannot read
 a ``<V2`` leaf back: numpy has no cast from raw bytes to bfloat16.)
+
+Sharded state (DTensor leaves, ``distributed.sharding``): every rank calls
+``save``, and rank 0 gathers one leaf at a time to its host and writes it
+before the next: each rank that holds a distinct shard sends it to rank 0,
+which copies it into the whole leaf on the host (``_gathered``).  No rank
+holds more than its own shards and, on rank 0, one more shard on the
+device; the files are those of the same tree unsharded.  ``restore(...,
+shardings=...)`` lays each leaf out on the current mesh, which may differ
+from the one that saved it (the reference's elastic restore).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.train.optimizer import OptState
 
 # the manifest's type names of the tensors a training state holds (the
@@ -82,12 +94,67 @@ def _save_npy(path: str, t: torch.Tensor) -> None:
 
 def save(ckpt_dir: str, step: int, params, opt_state,
          extra: dict | None = None) -> str:
+    named = _flatten_with_names({"params": params, "opt": opt_state})
+    if not any(shd.is_dtensor(leaf) for _, leaf in named):
+        return _write(ckpt_dir, step, named, extra)
+    # a generator: each leaf is gathered as _write reaches it
+    gathered = ((n, _gathered(leaf)) for n, leaf in named)
+    if dist.get_rank() == 0:
+        _write(ckpt_dir, step, gathered, extra)
+    else:
+        for _ in gathered:
+            pass
+    dist.barrier()
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
+
+
+def _gathered(leaf: torch.Tensor):
+    """A leaf whole on rank 0's host (None on the other ranks).  For a
+    DTensor, the rank at coordinate 0 of every axis the leaf is replicated
+    over sends its shard to rank 0, one rank after another, and rank 0
+    copies each into its place in the whole."""
+    me = dist.get_rank()
+    if not shd.is_dtensor(leaf):
+        return leaf.detach().cpu() if me == 0 else None
+    ranks, places = leaf.device_mesh.mesh, leaf.placements
+    local = leaf.to_local().detach().contiguous()
+    whole = torch.empty(leaf.shape, dtype=leaf.dtype) if me == 0 else None
+    buf = torch.empty_like(local) if me == 0 else None
+    for coord in itertools.product(*map(range, ranks.shape)):
+        if any(c and not p.is_shard() for c, p in zip(coord, places)):
+            continue                 # a replica of a shard already taken
+        src = int(ranks[coord])
+        if me == 0:
+            if src != 0:
+                dist.recv(buf, src)
+            part = local if src == 0 else buf
+            whole[_shard_slices(leaf.shape, places, ranks.shape, coord)] \
+                .copy_(part)
+        elif me == src:
+            dist.send(local, 0)
+    return whole
+
+
+def _shard_slices(shape, placements, mesh_shape, coord) -> tuple:
+    """The slices of the whole that the rank at mesh ``coord`` holds (the
+    mesh axes that shard one dim split it row-major in mesh order, as
+    ``Sharding.local`` takes them)."""
+    out = []
+    for d, size in enumerate(shape):
+        axes = [i for i, p in enumerate(placements) if p.is_shard(d)]
+        k, n = 0, 1
+        for i in axes:
+            k, n = k * mesh_shape[i] + coord[i], n * mesh_shape[i]
+        out.append(slice(k * (size // n), (k + 1) * (size // n)))
+    return tuple(out)
+
+
+def _write(ckpt_dir: str, step: int, named, extra) -> str:
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step:08d}")
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
-    named = _flatten_with_names({"params": params, "opt": opt_state})
     manifest = {"step": step, "leaves": [], "extra": extra or {}}
     for i, (name, leaf) in enumerate(named):
         fn = f"leaf_{i:05d}.npy"
@@ -123,11 +190,13 @@ def _load_leaf(path: str, meta: dict) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir: str, step: int, like_params, like_opt, device=None):
+def restore(ckpt_dir: str, step: int, like_params, like_opt, device=None,
+            shardings=None):
     """Restore into the structure of (like_params, like_opt): each leaf in
     its like's type, on ``device`` (default: its like's; meta tensors as
-    likes give the structure without holding a second copy).  Returns
-    (params, opt_state, manifest)."""
+    likes give the structure without holding a second copy), laid out by
+    ``shardings`` (``{"params": ..., "opt": ...}`` of ``Sharding``) where
+    given.  Returns (params, opt_state, manifest)."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -137,13 +206,16 @@ def restore(ckpt_dir: str, step: int, like_params, like_opt, device=None):
         raise ValueError(f"checkpoint {d}: {len(manifest['leaves'])} "
                          f"leaves, the tree has {len(named)}")
     out = []
-    for meta, (name, like) in zip(manifest["leaves"], named):
+    sh = ([s for _, s in _flatten_with_names(shardings)]
+          if shardings is not None else [None] * len(named))
+    for meta, (name, like), s in zip(manifest["leaves"], named, sh):
         t = _load_leaf(os.path.join(d, meta["file"]), meta)
         if list(t.shape) != list(like.shape):
             raise ValueError(f"checkpoint leaf {meta['name']}: shape "
                              f"{list(t.shape)}, the tree's {name} has "
                              f"{list(like.shape)}")
-        out.append(t.to(device=like.device if device is None else device,
-                        dtype=like.dtype))
+        t = t.to(device=like.device if device is None else device,
+                 dtype=like.dtype)
+        out.append(t if s is None else s.place(t))
     restored = _unflatten_like(tree, iter(out))
     return restored["params"], restored["opt"], manifest

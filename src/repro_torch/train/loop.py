@@ -14,7 +14,9 @@ them), so one that fails after a first write raises
 reference's donated buffers are gone after a failed step too), and the
 ``float(loss)`` that waits for a step runs after the retried block.  The
 checkpoint layout is mesh-independent (``train/checkpoint``), so a restart
-may use another device.
+may use another device or another mesh: under a mesh the initial or
+restored state is laid out by the step's shardings (the batch is drawn
+whole on every rank and the step takes its rows).
 
 Fresh parameters are ``model.init`` from a ``torch.Generator`` seeded 0 on
 the device; a resume restores the checkpoint onto the device without
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch import _device
 from repro_torch.data import pipeline as dpipe
+from repro_torch.distributed import sharding as shd
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import trainstep
@@ -68,8 +71,8 @@ def train(model, shape, mesh=None, opt_cfg=None,
     loop_cfg = loop_cfg or LoopConfig()
     cfg = model.cfg
     opt_cfg = opt_cfg or opt_mod.OptConfig(total_steps=loop_cfg.total_steps)
-    step_fn, _, _, _ = trainstep.build_train_step(model, shape, mesh,
-                                                  opt_cfg=opt_cfg)
+    step_fn, in_sh, _, _ = trainstep.build_train_step(model, shape, mesh,
+                                                      opt_cfg=opt_cfg)
     dcfg = dpipe.DataConfig(cfg.vocab_size, shape.seq_len,
                             shape.global_batch, seed=data_seed)
     state = LoopState()
@@ -79,11 +82,16 @@ def train(model, shape, mesh=None, opt_cfg=None,
     if last is None:
         params = model.init(torch.Generator(device=dev).manual_seed(0))
         opt_state = opt_mod.init(params)
+        if in_sh is not None:
+            params = shd.place_tree(params, in_sh[0])
+            opt_state = shd.place_tree(opt_state, in_sh[1])
     else:
         structs = model.param_structs()
+        sh = ({"params": in_sh[0], "opt": in_sh[1]} if in_sh is not None
+              else None)
         params, opt_state, manifest = ckpt.restore(
             loop_cfg.ckpt_dir, last, structs, opt_mod.init(structs),
-            device=dev)
+            device=dev, shardings=sh)
         state.step = manifest["step"]
         state.restarts += 1
 

@@ -73,9 +73,13 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
-def _prepare(cfg: OptConfig, grads: dict, state: OptState):
-    """The step's scalars: (metrics, update of one leaf, new step)."""
-    gnorm = global_norm(grads)
+def _prepare(cfg: OptConfig, grads: dict, state: OptState, gnorm=None):
+    """The step's scalars: (metrics, update of one leaf, new step);
+    ``gnorm`` the gradient's global norm where the caller has it (a
+    sharded step: the norm of the whole gradient, not of this rank's
+    shards)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = state.step + 1
@@ -119,15 +123,18 @@ class PartialUpdateError(Exception):
     checkpoint instead."""
 
 
-def apply_(cfg: OptConfig, params: dict, grads: dict, state: OptState):
+def apply_(cfg: OptConfig, params: dict, grads: dict, state: OptState,
+           gnorm=None):
     """``apply`` with the new values written into ``params``, ``state.mu``
     and ``state.nu`` (the same elementwise arithmetic, on slices of the
     leading axis of at most ``APPLY_CHUNK`` elements at a time).  Returns
     (params, new_state, metrics).  A failure before the first write (an
     out-of-memory error in the first slice, say) leaves every tensor as it
     was and is raised as it came; one after it is raised as
-    ``PartialUpdateError``."""
-    metrics, update, step = _prepare(cfg, grads, state)
+    ``PartialUpdateError``.  ``gnorm``: the gradient's global norm where the
+    caller computed it (a sharded step, whose ``grads`` are shards)."""
+    metrics, update, step = (_prepare(cfg, grads, state) if gnorm is None
+                             else _prepare(cfg, grads, state, gnorm))
     written = False
     try:
         with torch.no_grad():

@@ -1,6 +1,6 @@
 """Train / serve step builders.
 
-The port of ``repro/train/trainstep.py`` for one device (``mesh=None``):
+The port of ``repro/train/trainstep.py``.  On one device (``mesh=None``)
 ``build_train_step`` returns ``(step_fn, None, None, (0, 1))`` as the
 reference does without a mesh.  ``step_fn(params, opt_state, batch)``
 returns ``(params, opt_state, {"loss", "grad_norm", "lr"})``; the metrics
@@ -18,29 +18,136 @@ The reference donates the parameters and the optimizer state
 values into the tensors it was given (``optimizer.apply_``), and a caller
 keeps no other use of them.  A step that fails before the optimizer's
 first write leaves them as they were and may be run again; one that fails
-after it raises ``optimizer.PartialUpdateError``.  A mesh (sharded parameters, batch and
-gradients) needs the port of ``distributed/`` and raises
-``NotImplementedError``.
+after it raises ``optimizer.PartialUpdateError``.
+
+Under a mesh (``launch.mesh``) the builders return the reference's
+``(fn, in_shardings, out_shardings, donate)``, the shardings trees of
+``sharding.Sharding`` (``param_shardings``, ``opt_shardings``,
+``batch_shardings``); the parameters and moments of a train step are
+DTensors laid out by them (``Sharding.place``, ``place_tree``): the step
+writes into their shards; a batch, and a prefill's or decode's
+parameters and cache, may also be whole tensors, laid out at each call.  Each rank computes on its local tensors
+(``distributed/sharding.py``): a train or prefill step splits the batch
+over the data axes and, where it divides, over "model" too (``batch_axes``);
+``layers.fsdp_gather`` gathers a layer's weights whole and the step the
+others (``_live``).  The objective is the mean of the ranks' losses: each
+rank differentiates its loss over the world size, every collective's
+backward is its adjoint, and a weight's gradient arrives reduce-scattered
+into its shard, inside each microbatch (the reference's ``constrain``).
+``optimizer.apply_`` updates the local shards in place, with the global
+gradient norm (``_global_norm``: each shard's squares over its replicas,
+summed over the mesh).  A decode step keeps the batch over the data axes
+and the cache as placed: its sequence over "model" where it divides, so
+each layer takes ``collectives.flash_decode_attention``.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.compression import compress_decompress
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import api as mapi
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.train import optimizer as opt
 
 
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
+def _check_mesh(mesh) -> None:
+    """A mesh is None or a ``launch.mesh.Mesh``; any other (a JAX mesh, say)
+    is refused."""
+    if mesh is not None and not isinstance(mesh, Mesh):
         raise NotImplementedError(
-            f"{what} with a device mesh needs the port of the reference's "
-            "distributed/ (sharding and collectives), ROADMAP Queue 1 item "
-            "4.5; pass mesh=None for one device")
+            f"a mesh of type {type(mesh).__name__}: the step builders take "
+            "a repro_torch.launch.mesh.Mesh (a torch.distributed "
+            "DeviceMesh, make_host_mesh / make_production_mesh) or None")
+
+
+def batch_shardings(cfg, shape, mesh):
+    specs = mapi.input_specs(cfg, shape)
+    logical = mapi.batch_logical(cfg, shape)
+    return {k: shd.named_sharding(logical[k], specs[k].shape, mesh)
+            for k in specs}
+
+
+def opt_structs(param_structs):
+    f32 = lambda t: torch.empty(t.shape, dtype=torch.float32, device="meta")
+    return opt.OptState(
+        step=torch.empty((), dtype=torch.int32, device="meta"),
+        mu=tree_map(f32, param_structs), nu=tree_map(f32, param_structs))
+
+
+def param_shardings(model, mesh):
+    return shd.tree_shardings(model.param_logical(), model.param_structs(),
+                              mesh)
+
+
+def opt_shardings(model, mesh):
+    ps = param_shardings(model, mesh)
+    return opt.OptState(step=shd.named_sharding((), (), mesh), mu=ps, nu=ps)
+
+
+def batch_axes(mesh, batch: int, split_model: bool) -> tuple:
+    """The mesh axes a step splits the batch's rows over: the data axes
+    that divide it (the reference's "batch" rule) and, for ``split_model``,
+    "model" where the rest still divides."""
+    dp = C._dp_axes(mesh, batch)
+    if split_model and "model" in mesh.axis_names and \
+            (batch // mesh.size(dp)) % mesh.size("model") == 0:
+        return dp + ("model",)
+    return dp
+
+
+def _local_batch(batch, shardings, axes, mesh) -> dict:
+    """This rank's rows of each batch leaf (placed as ``shardings``, or
+    whole), split over ``axes``."""
+    out = {}
+    for k, x in batch.items():
+        if not shd.is_dtensor(x):
+            x = shardings[k].place(x)
+        x = x.to_local()
+        extra = tuple(a for a in axes if a not in shardings[k].spec_axes())
+        if extra:
+            x = shd.Sharding(mesh, (extra,)).local(x)
+        out[k] = x
+    return out
+
+
+def _live(model, params, shardings, mesh, grad: bool):
+    """(leaves, tree) for a step on this rank: each parameter's local
+    shard (a fresh autograd leaf when ``grad``); in the tree the stacked
+    layers' shards as they are (``layers.fsdp_gather`` gathers a layer at
+    a time) and every other weight gathered whole."""
+    leaves = []
+
+    def one(p, lg, sh):
+        if not shd.is_dtensor(p):
+            p = sh.place(p)
+        x = p.to_local()
+        x = x.detach().requires_grad_() if grad else x
+        leaves.append(x)
+        if lg and lg[0] == "layers":
+            return x
+        return shd.gather(x, lg, tuple(p.shape), mesh)
+
+    live = tree_map(one, params, model.param_logical(), shardings)
+    return leaves, live
+
+
+def _global_norm(grads, shardings, mesh) -> torch.Tensor:
+    """The L2 norm of the whole gradient from this rank's shards: each
+    shard's sum of squares over the ranks that hold the same shard, summed
+    in leaf order, then over the mesh."""
+    world = mesh.size()
+    sq = sum(torch.sum(torch.square(g.float()))
+             / (world // mesh.size(sh.spec_axes()))
+             for g, sh in zip(tree_leaves(grads), tree_leaves(shardings)))
+    dist.all_reduce(sq, group=mesh.group())
+    return torch.sqrt(sq)
 
 
 def default_microbatches(cfg: ModelConfig, shape: InputShape, mesh) -> int:
@@ -82,10 +189,13 @@ def build_train_step(model: mapi.Model, shape: InputShape, mesh=None,
                      compress_grads: bool = False):
     """Returns (train_step, in_shardings, out_shardings, donate_argnums):
     ``(step_fn, None, None, (0, 1))`` on one device."""
-    _no_mesh(mesh, "build_train_step")
+    _check_mesh(mesh)
     opt_cfg = opt_cfg or opt.OptConfig()
     if microbatches is None:
         microbatches = default_microbatches(model.cfg, shape, mesh)
+    if mesh is not None:
+        return _sharded_train_step(model, shape, mesh, opt_cfg,
+                                   microbatches, compress_grads)
 
     def train_step(params, opt_state, batch):
         if microbatches > 1:
@@ -117,30 +227,183 @@ def build_train_step(model: mapi.Model, shape: InputShape, mesh=None,
     return train_step, None, None, (0, 1)
 
 
+def _sharded_train_step(model, shape, mesh, opt_cfg, microbatches,
+                        compress_grads):
+    cfg = model.cfg
+    p_sh = param_shardings(model, mesh)
+    o_sh = opt_shardings(model, mesh)
+    b_sh = batch_shardings(cfg, shape, mesh)
+    scalar = shd.named_sharding((), (), mesh)
+    world = mesh.size()
+
+    def train_step(params, opt_state, batch):
+        if not all(map(shd.is_dtensor, tree_leaves(params)
+                       + tree_leaves(opt_state.mu) + [opt_state.step])):
+            raise ValueError("a sharded train step updates its state's "
+                             "shards in place: lay the parameters and the "
+                             "optimizer state out by in_shardings first "
+                             "(sharding.place_tree)")
+        B = next(iter(batch.values())).shape[0]
+        axes = batch_axes(mesh, B, split_model=True)
+        local = _local_batch(batch, b_sh, axes, mesh)
+        # the microbatches split the rows this rank holds: as many as
+        # divide them, up to the count asked for
+        rows = B // mesh.size(axes)
+        k = max(d for d in range(1, microbatches + 1) if rows % d == 0)
+        grads, losses = None, []
+        with shd.use_mesh(mesh, axes):
+            for i in range(k):
+                leaves, live = _live(model, params, p_sh, mesh, grad=True)
+                mb = {n: x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
+                      for n, x in local.items()}
+                loss_i = model.loss(live, mb)
+                # the mean of the ranks' losses: each rank's share; the
+                # gradients arrive summed into this rank's shards
+                g = torch.autograd.grad(loss_i / world, leaves)
+                if k == 1:
+                    grads = list(g)
+                else:
+                    grads = [gi.float() for gi in g] if grads is None else \
+                        [a.add_(gi) for a, gi in zip(grads, g)]
+                del g, live, leaves
+                losses.append(loss_i.detach())
+        if k > 1:
+            for acc in grads:
+                acc.div_(k)
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), params)
+        loss = torch.stack(losses).mean() if k > 1 else losses[0]
+        loss = C.pmean(loss, mesh.group())
+        if compress_grads:
+            grads = compress_decompress(grads)
+        gnorm = _global_norm(grads, p_sh, mesh)
+        local_state = opt.OptState(shd.local(opt_state.step),
+                                   tree_map(shd.local, opt_state.mu),
+                                   tree_map(shd.local, opt_state.nu))
+        _, new_state, metrics = opt.apply_(
+            opt_cfg, tree_map(shd.local, params), grads, local_state,
+            gnorm=gnorm)
+        metrics["loss"] = loss
+        return params, opt.OptState(scalar.from_local(new_state.step, ()),
+                                    opt_state.mu, opt_state.nu), metrics
+
+    out_sh = (p_sh, o_sh, {"loss": scalar, "grad_norm": scalar,
+                           "lr": scalar})
+    return train_step, (p_sh, o_sh, b_sh), out_sh, (0, 1)
+
+
+def _to_sharding(x, local_axes_dim, axes, sharding, mesh):
+    """A DTensor laid out by ``sharding`` from this rank's local ``x``,
+    whose dim ``local_axes_dim`` is split over ``axes``."""
+    spec = [None] * x.ndim
+    spec[local_axes_dim] = axes if axes else None
+    shape = list(x.shape)
+    shape[local_axes_dim] *= mesh.size(axes)
+    dt = shd.Sharding(mesh, tuple(spec)).from_local(x, shape)
+    return dt.redistribute(mesh.device_mesh, sharding.placements)
+
+
+def _batch_dim(logical) -> int:
+    return list(logical).index("batch")
+
+
 def build_prefill_step(model: mapi.Model, shape: InputShape, mesh=None):
-    """Returns (prefill_step, None, None, ()): ``prefill_step(params,
-    batch)`` is the model's prefill to ``shape.seq_len`` positions, no
-    autograd recorded."""
-    _no_mesh(mesh, "build_prefill_step")
+    """Returns (prefill_step, in_shardings, out_shardings, ()):
+    ``prefill_step(params, batch)`` is the model's prefill to
+    ``shape.seq_len`` positions, no autograd recorded; ``(fn, None, None,
+    ())`` on one device."""
+    _check_mesh(mesh)
+    if mesh is None:
+        @torch.no_grad()
+        def prefill_step(params, batch):
+            return model.prefill(params, batch, max_seq=shape.seq_len)
+
+        return prefill_step, None, None, ()
+
+    cfg = model.cfg
+    p_sh = param_shardings(model, mesh)
+    b_sh = batch_shardings(cfg, shape, mesh)
+    c_logical = model.cache_logical()
+    c_sh = shd.tree_shardings(c_logical, model.cache_structs(
+        shape.global_batch, shape.seq_len), mesh)
+    logits_sh = shd.named_sharding(("batch", None, "vocab"),
+                                   (shape.global_batch, 1, cfg.padded_vocab),
+                                   mesh)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        return model.prefill(params, batch, max_seq=shape.seq_len)
+        B = next(iter(batch.values())).shape[0]
+        axes = batch_axes(mesh, B, split_model=True)
+        local = _local_batch(batch, b_sh, axes, mesh)
+        _, live = _live(model, params, p_sh, mesh, grad=False)
+        with shd.use_mesh(mesh, axes):
+            logits, cache = model.prefill(live, local, max_seq=shape.seq_len)
+        logits = _to_sharding(logits, 0, axes, logits_sh, mesh)
+        cache = {n: _to_sharding(c, _batch_dim(c_logical[n]), axes,
+                                 c_sh[n], mesh) for n, c in cache.items()}
+        return logits, cache
 
-    return prefill_step, None, None, ()
+    return prefill_step, (p_sh, b_sh), (logits_sh, c_sh), ()
 
 
 def build_decode_step(model: mapi.Model, shape: InputShape, mesh=None):
-    """Returns (decode_step, None, None, (1,)): ``decode_step(params,
-    cache, tokens, pos)`` updates the cache in place (the reference donates
-    it) and returns (logits, cache)."""
-    _no_mesh(mesh, "build_decode_step")
+    """Returns (decode_step, in_shardings, out_shardings, (1,)):
+    ``decode_step(params, cache, tokens, pos)`` updates the cache in place
+    (the reference donates it) and returns (logits, cache); ``(fn, None,
+    None, (1,))`` on one device."""
+    _check_mesh(mesh)
+    if mesh is None:
+        @torch.no_grad()
+        def decode_step(params, cache, tokens, pos):
+            return model.decode_step(params, cache, tokens, pos)
+
+        return decode_step, None, None, (1,)
+
+    cfg = model.cfg
+    B = shape.global_batch
+    p_sh = param_shardings(model, mesh)
+    c_logical = model.cache_logical()
+    c_sh = shd.tree_shardings(c_logical, model.cache_structs(B, shape.seq_len),
+                              mesh)
+    t_sh = shd.named_sharding(("batch", None), (B, 1), mesh)
+    pos_sh = shd.named_sharding((), (), mesh)
+    logits_sh = shd.named_sharding(("batch", None, "vocab"),
+                                   (B, 1, cfg.padded_vocab), mesh)
 
     @torch.no_grad()
     def decode_step(params, cache, tokens, pos):
-        return model.decode_step(params, cache, tokens, pos)
+        axes = batch_axes(mesh, tokens.shape[0], split_model=False)
+        _, live = _live(model, params, p_sh, mesh, grad=False)
+        tok = _local_batch({"tokens": tokens}, {"tokens": t_sh}, axes,
+                           mesh)["tokens"]
+        # each cache leaf local: its rows of the sequence over "model"
+        # (the flash decode's layout), any other dim "model" shards
+        # gathered for the step and written back after it
+        local, back = {}, {}
+        for n, c in cache.items():
+            if not shd.is_dtensor(c):
+                c = cache[n] = c_sh[n].place(c)
+            seq = "seq_kv" in c_logical[n] and \
+                c_sh[n].spec_dim("model") == c_logical[n].index("seq_kv")
+            if seq or c_sh[n].spec_dim("model") is None:
+                local[n] = c.to_local()
+            else:
+                whole = shd.Sharding(mesh, c_sh[n].without("model"))
+                local[n] = c.redistribute(mesh.device_mesh,
+                                          whole.placements).to_local()
+                back[n] = c
+        kv = "k" in c_logical and c_sh["k"].spec_dim("model") == \
+            c_logical["k"].index("seq_kv")
+        with shd.use_mesh(mesh, axes, kv_sharded=kv):
+            logits, _ = model.decode_step(live, local, tok, pos)
+        for n, c in back.items():
+            d = c_sh[n].spec_dim("model")
+            c.to_local().copy_(shd.Sharding(mesh, tuple(
+                "model" if i == d else None for i in range(d + 1)))
+                .local(local[n]))
+        return _to_sharding(logits, 0, axes, logits_sh, mesh), cache
 
-    return decode_step, None, None, (1,)
+    return decode_step, (p_sh, c_sh, t_sh, pos_sh), (logits_sh, c_sh), (1,)
 
 
 def decode_inputs(model: mapi.Model, shape: InputShape):

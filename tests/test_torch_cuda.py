@@ -2238,3 +2238,92 @@ def test_checkpoint_round_trip_of_card_tensors(cuda, tmp_path):
                   device=cuda)
     assert state.restarts == 1 and state.step == 2
     assert all(np.isfinite(state.losses))
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-rank NCCL group on the card and its (1, 1) mesh (the
+    reference's single-device baseline), destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield make_host_mesh(data=1, model=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_decode_on_the_card_equals_the_one_device_step(cuda,
+                                                            nccl_mesh):
+    """llama3-8b ``.smoke()`` in bf16: prefill and decode through the mesh
+    branches (``collectives.flash_decode_attention`` on the split and
+    combine kernels) give the bits of the mesh=None steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import build
+    from repro_torch.train import trainstep as ts
+    cfg = get_config("llama3-8b").smoke().scaled(dtype="bfloat16",
+                                                 cache_dtype="bfloat16")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    shape = InputShape("d", 64, 4, "decode")
+    pf0 = ts.build_prefill_step(model, shape)[0]
+    dec0 = ts.build_decode_step(model, shape)[0]
+    pf, (p_sh, _), _, _ = ts.build_prefill_step(model, shape, nccl_mesh)
+    dec = ts.build_decode_step(model, shape, nccl_mesh)[0]
+    placed = shd.place_tree(params, p_sh)
+    toks = torch.randint(0, cfg.vocab_size, (4, 9), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    l0, c0 = pf0(params, {"tokens": toks})
+    l1, c1 = pf(placed, {"tokens": toks})
+    assert torch.equal(l0, shd.full(l1))
+    tok = torch.argmax(l0[:, -1], -1)[:, None].to(torch.int32)
+    n0 = (da_mod.decode_attention.launches,
+          da_mod.decode_attention.combine_launches)
+    for pos in range(9, 13):
+        a, c0 = dec0(params, c0, tok, pos)
+        b, c1 = dec(placed, c1, tok, pos)
+        assert torch.equal(a, shd.full(b)), pos
+        tok = torch.argmax(a[:, -1], -1)[:, None].to(torch.int32)
+    assert (da_mod.decode_attention.launches - n0[0],
+            da_mod.decode_attention.combine_launches - n0[1]) == \
+        (2 * 4 * cfg.num_layers, 2 * 4 * cfg.num_layers)
+
+
+def test_mesh_train_step_on_the_card_matches_the_one_device_step(
+        cuda, nccl_mesh):
+    """qwen2.5-3b ``.smoke()`` in float32: a step of the sharded trainer on
+    the one-rank mesh against the mesh=None step, flash attention in the
+    forward and the remat recompute."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainstep as ts
+    cfg = get_config("qwen2.5-3b").smoke().scaled(remat=True)
+    model = build(cfg)
+    shape = InputShape("t", 16, 4, "train")
+    g = torch.Generator().manual_seed(2)
+    batch = {k: torch.randint(0, cfg.vocab_size, (4, 16), dtype=torch.int32,
+                              generator=g).to(cuda)
+             for k in ("tokens", "labels")}
+    fresh = lambda: model.init(torch.Generator(device=cuda).manual_seed(0))
+    p0 = fresh()
+    p0, s0, m0 = ts.build_train_step(model, shape)[0](p0, opt.init(p0),
+                                                      batch)
+    fn, (p_sh, o_sh, _), _, _ = ts.build_train_step(model, shape, nccl_mesh)
+    p1 = fresh()
+    s1 = shd.place_tree(opt.init(p1), o_sh)
+    p1 = shd.place_tree(p1, p_sh)
+    n0 = fa_mod.flash_attention.launches
+    p1, s1, m1 = fn(p1, s1, batch)
+    assert fa_mod.flash_attention.launches - n0 == 2 * cfg.num_layers
+    assert abs(float(m0["loss"]) - float(m1["loss"])) < 1e-5
+    for a, b in zip(L.tree_leaves(p0), L.tree_leaves(p1)):
+        torch.testing.assert_close(shd.full(b), a, rtol=1e-5, atol=1e-6)
