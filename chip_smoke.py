@@ -6,8 +6,8 @@
 
 Phases, one line each; any failure exits nonzero and nothing is caught:
 
-1. device: the card's name and power limit (nvidia-smi), then the eleven
-   CUDA sources of ``src/repro_torch/csrc`` built with nvcc, one process
+1. device: the card's name and power limit (nvidia-smi), then the
+   thirteen CUDA sources of ``src/repro_torch/csrc`` built with nvcc, one process
    per source, all at once, with each build's ptxas lines (and those of
    the flash-attention kernel's D-256 and D-512 instantiations, its
    sliced kernels and its float32 D-256 instantiation apart, failing on
@@ -199,9 +199,17 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    profiler: wall against kernel time); flash attention at the training
    shape held row by row to the float32 plain version on the same bf16
    inputs, timed beside its bf16 plain version and SDPA and bounded, and
-   the attention backward a layer (``layers.FlashAttention``'s plain VJP)
-   beside SDPA's forward and backward and its bound; every gradient leaf
-   through the kernel route against the plain route's on the same weights
+   the forward with its row log-sum-exp beside it; the attention
+   backward a layer: the backward kernel (``flash_attention_bwd``, what
+   ``layers.FlashAttention``'s backward runs) held row by row to the
+   float32 plain backward on the same bf16 inputs
+   (``FLASH_BWD_ROW_TOL``), two calls bit for bit, timed beside its plain
+   version, the plain route's VJP (the route before the kernel), SDPA's
+   forward and backward, and its bound; the embedding gradient's segment
+   sum at the step's shape against its plain version and float64, twice
+   bit for bit, timed beside ``index_put_`` with accumulate; every
+   gradient leaf through the kernel route (the flash kernel forward, the
+   backward kernel) against the plain route's on the same weights
    (qwen2.5-3b's width at 2 layers in bf16 at S 4,096, lm-10m in float32;
    ``TRAIN_PARITY``'s bars, and the bf16 plain route's within the same bar
    of the float32 gradient; the attention weights' gradients nonzero);
@@ -209,15 +217,19 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    and resumed to 60 against the uninterrupted one, an injected failure
    retried and an out-of-memory error raised past its retries,
    ``examples.quickstart --arch llama3-8b`` and ``launch.train --smoke``;
-   the attention kernels' launches on the trained path;
+   the attention kernels', the backward kernel's and the segment sum's
+   launches on the trained path (36 backward launches and one segment sum
+   a step and microbatch, failing otherwise);
 15. the device mesh, on a one-rank NCCL mesh (data 1, model 1): llama3-8b
    whole through ``build_prefill_step`` / ``build_decode_step`` in phase
    13's launcher round, the mesh steps' logits bit for bit the mesh=None
    steps' (every decode step through ``collectives.flash_decode_attention``
    on row 5's split and combine kernels), tokens/s and the decode step's
    median beside phase 13's; granite-moe-3b whole, a prefill through the
-   MoE's ``shard_map`` branch against the local branch (phase 13's bar,
-   the local branch's own call-to-call spread printed); qwen2.5-3b whole,
+   MoE's ``shard_map`` branch against the local branch, bit for bit with
+   torch's deterministic algorithms off (the combine and the dispatch
+   gather's backward sum in slot order; the local branch's own
+   call-to-call spread printed, bar 0); qwen2.5-3b whole,
    three sharded steps from phase 14's initial state against phase 14's
    steps (``TRAIN_PARITY``'s bf16 bar on the loss and every leaf, the
    gradient norm within ``MESH_GRAD_NORM_RTOL``; 72 flash launches a step;
@@ -231,7 +243,7 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    on one rank: its FLOPs beside ``train_flop`` and the prediction); the
    attention kernels' launches in the calls that went through the mesh
    (each counted around its call); the phase's wall;
-16. the ``kernels`` JSON line (twenty-seven entries: the engine scan's
+16. the ``kernels`` JSON line (twenty-nine entries: the engine scan's
    collect build ``engine_scan_collect`` with its two kernels and launches
    a call, Jacobi-2D's cluster,
    loop and tiled routes and the one-sweep kernel's width-one route,
@@ -244,7 +256,9 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    and D-512 wgmma instantiations, its sliced kernel, its float32 D-256
    instantiation and its float32 sliced kernel, the particle filter's
    shuffled row,
-   and decoding's combine kernel, each their own;
+   and decoding's combine kernel, each their own; the attention backward
+   kernel ``flash_attention_bwd`` and the embedding gradient's
+   ``segment_sum``, launched on the trainer's path;
    the particle filter's rows name their path), launch counts from phases
    4, 5 and 9, the engine scan's also by path (``launches_by_path``: the
    study's, phase 11's and phase 12's), flash attention's, decoding's and
@@ -253,7 +267,7 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    15), the first two with
    their phase-13 row (``serve``), flash attention also with its phase-14
    row (``train``: the kernel at the training shape and the attention
-   backward beside it);
+   backward beside it; its forward with lse beside it);
 17. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no CUDA device or when
@@ -1488,10 +1502,15 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float,
     if spec["tol"] is None:
         ok = all(torch.equal(g, w) for g, w in zip(got, want))
     elif spec.get("rows"):
-        extra["row_rel_err"] = max(
-            float(((g.double() - w.double()).norm(dim=-1)
-                   / w.double().norm(dim=-1).clamp_min(1e-30)).max())
-            for g, w in zip(got, want))
+        # each row's error over its norm, or over the median row's norm
+        # where the spec floors the norms there (rows whose exact value is
+        # ~0 by cancellation)
+        def row_err(g, w):
+            norms = w.double().norm(dim=-1)
+            floor = norms.median() if spec.get("row_floor") else 1e-30
+            return float(((g.double() - w.double()).norm(dim=-1)
+                          / norms.clamp_min(floor)).max())
+        extra["row_rel_err"] = max(row_err(g, w) for g, w in zip(got, want))
         ok = extra["row_rel_err"] <= spec["tol"]
         print(f"{label} {name}: worst row's error "
               f"{extra['row_rel_err']:.4g} of its norm (bar {spec['tol']:g})"
@@ -2717,7 +2736,8 @@ def model_server_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
 # steps on one batch, then one of two microbatches.  A step runs the
 # flash-attention kernel once a layer in the forward and once in the remat
 # recompute (72 launches a batch); the attention backward is the plain
-# route's VJP (layers.FlashAttention).
+# route's VJP (layers.FlashAttention) until the backward kernel, which runs
+# once a layer (36 launches a step, a launch being its two passes).
 TRAIN_ARCH = "qwen2.5-3b"
 TRAIN_B, TRAIN_S = 2, 4096
 # flash attention at the training shape against the float32 plain version
@@ -2728,13 +2748,29 @@ TRAIN_B, TRAIN_S = 2, 4096
 # causal, 4 heads) puts the worst row at 3.1e-3 of its norm (median
 # 2.3e-3); the bar is one bf16 unit, 2^-7
 FLASH_TRAIN_ROW_TOL = 2 ** -7
+# the backward kernel at the training shape against the float32 plain
+# backward (ref.flash_attention_bwd) on the same bf16 inputs, output and
+# lse: each (b, s, h) row of dq, dk and dv within this share of the row's
+# norm.  The kernel rounds P and dS to bf16 for the products with dO, K and
+# Q, and its gradients to bf16, 2^-9 each: a float32 emulation of that
+# arithmetic on the CPU (standard-normal bf16 inputs, S 4,096, D 128,
+# causal, 2 heads) puts the worst row at 4.0e-3 of its norm (dk; median
+# 2.3e-3); the bar is one bf16 unit, 2^-7, as the forward's.  A row's norm
+# is floored at the median row's: the first query's dq is 0 in exact
+# arithmetic (its one key has P = 1, so dP = Delta), and float32 sums of
+# dO V and dO O in other orders leave ~1e-7 of it (chip run 3 of PR 31:
+# 4.4e24 of the plain version's 0)
+FLASH_BWD_ROW_TOL = 2 ** -7
 TRAIN_STEPS = ((1, 3), (2, 1))         # (microbatches, steps)
 # what the run should show, stated before it (PERF.md, trainer phase):
 # parameters, bytes of parameters + gradients (bf16) + float32 moments, the
-# peak (with the 5 GB float32 logits, their gradient and the chunked
-# backward's ~0.5 GB score tensors a chunk), a step's FLOP and its bound
-TRAIN_EXPECT = dict(params=3.40e9, state_gb=40.8, peak_gb=(60, 70),
-                    flop=2.2e14, bound_s=0.22)
+# peak (with the 5 GB float32 logits and their gradient; the backward
+# kernel holds no score tensor, where the plain VJP held ~0.5 GB a chunk:
+# at or below the 60.28 GB measured with it), a step's FLOP and its bound,
+# and a step's wall with the backward kernel (36 x 39.7 ms of plain VJP
+# replaced by 36 x ~1.5 ms)
+TRAIN_EXPECT = dict(params=3.40e9, state_gb=40.8, peak_gb=(59, 60.3),
+                    flop=2.2e14, bound_s=0.22, step_s=(0.7, 0.9))
 # the kernel route's gradients against the plain route's (native autograd
 # through _plain_attn) on the same weights and batch: every leaf's largest
 # difference within this share of the plain leaf's largest magnitude.
@@ -2751,9 +2787,11 @@ TRAIN_EXPECT = dict(params=3.40e9, state_gb=40.8, peak_gb=(60, 70),
 TRAIN_PARITY = (("qwen2.5-3b", dict(num_layers=2), 2, 4096, 3e-2),
                 ("lm-10m", {}, 8, 128, 1e-3))
 # train_lm's resume: the losses of a run stopped at step 30 and resumed to
-# 60 against the uninterrupted run's, within this relative difference (the
-# embedding gradient's atomic adds sum in another order from run to run)
-TRAIN_RESUME_RTOL = 1e-4
+# 60 against the uninterrupted run's, bit for bit (0): every sum of the
+# step is in a fixed order (the embedding gradient's segment sum, the
+# attention backward without atomics); 1e-4 while the embedding gradient's
+# atomic adds summed in another order from run to run
+TRAIN_RESUME_RTOL = 0.0
 
 
 def train_flop(cfg, params, B, S) -> float:
@@ -2808,16 +2846,21 @@ def train_step_split(torch, model, params, opt_state, batch, opt_cfg):
 
 
 def attention_backward_rows(torch, ref, fa_mod, sm_clock_hz, dev, cfg, B,
-                            S) -> dict:
+                            S) -> tuple[dict, dict]:
     """Flash attention at the training shape ([B, S, H, D] bf16, causal,
     K / V repeated to H heads as the model gives them): the kernel held
     row by row to the float32 plain version (``FLASH_TRAIN_ROW_TOL``),
     timed beside its bf16 plain version and SDPA's forward and bounded
-    (``run_suite_kernel``); then the attention backward a layer
-    (``FlashAttention``'s, the plain route's VJP) by CUDA events beside
-    SDPA's forward and backward, and its bound (10 D flops a kept pair a
-    head at 989 TFLOP/s against q, k, v, dout read and dq, dk, dv
-    written)."""
+    (``run_suite_kernel``), and beside it the forward with its row
+    log-sum-exp; then the attention backward a layer: the backward kernel
+    held row by row to the float32 plain backward on the same bf16 inputs
+    (``FLASH_BWD_ROW_TOL``), two calls bit for bit, timed beside its plain
+    version, SDPA's forward and backward (and SDPA's forward alone) and
+    its bound (10 D flops a kept pair a head at 989 TFLOP/s; q, k, v, out,
+    dout and lse read once, dq, dk, dv written once), and the plain
+    route's VJP, recomputed, the route before the kernel.  Returns the
+    forward's row and the backward's."""
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.models import layers as L
     g = torch.Generator(device=dev).manual_seed(17)
     bf, f32 = torch.bfloat16, torch.float32
@@ -2839,11 +2882,11 @@ def attention_backward_rows(torch, ref, fa_mod, sm_clock_hz, dev, cfg, B,
         peak=PEAK_BF16_S, nbytes=4 * q.numel() * 2,
         ops=4 * D * pairs, exps=pairs, per=5, plain_reps=2), sm_clock_hz,
         label="phase 14")
-    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-    out = L.FlashAttention.apply(qg, kg, vg, True)
-    bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-        out, (qg, kg, vg), dout, retain_graph=True), reps=5)
-    del out
+    row["lse_ms"] = cuda_ms(torch, lambda: fa_mod.flash_attention_lse(
+        q, k, v, True), reps=10, per=5)
+    print(f"phase 14 flash_attention training: forward {row['ms']:.4f} ms, "
+          f"with the row log-sum-exp written {row['lse_ms']:.4f} ms")
+    out, lse = fa_mod.flash_attention_lse(q, k, v, True)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     dt_ = dout.transpose(1, 2)
@@ -2852,28 +2895,123 @@ def attention_backward_rows(torch, ref, fa_mod, sm_clock_hz, dev, cfg, B,
         o = sdpa(qt, kt, vt, is_causal=True)
         return torch.autograd.grad(o, (qt, kt, vt), dt_)
 
-    sdpa_ms = cuda_ms(torch, sdpa_fb, reps=5)
-    t_ops = 10 * D * pairs / PEAK_BF16_S
-    t_bytes = 7 * q.numel() * 2 / PEAK_BYTES_S
-    bound = max(t_ops, t_bytes) * 1e3
+    wide = lambda *ts: [t.to(f32) for t in ts]
+    bwd = run_suite_kernel(torch, dict(
+        name="flash_attention_bwd training",
+        kernel=lambda: fab.flash_attention_bwd(q, k, v, out, lse, dout,
+                                               True),
+        plain=lambda: ref.flash_attention_bwd(q, k, v, out, lse, dout, True),
+        want=lambda: ref.flash_attention_bwd(
+            *wide(q, k, v, out), lse, *wide(dout), True),
+        want_is="the float32 plain backward on the same bf16 inputs "
+                "(row norms floored at the median row's)",
+        rows=True, row_floor=True, tol=FLASH_BWD_ROW_TOL, library=sdpa_fb,
+        peak=PEAK_BF16_S, nbytes=8 * q.numel() * 2 + lse.numel() * 4,
+        ops=10 * D * pairs, exps=pairs, per=2, plain_reps=2), sm_clock_hz,
+        label="phase 14")
+    first = fab.flash_attention_bwd(q, k, v, out, lse, dout, True)
+    again = fab.flash_attention_bwd(q, k, v, out, lse, dout, True)
+    bwd["bitwise_repeat"] = all(torch.equal(a, b)
+                                for a, b in zip(first, again))
+    del first, again
+    if not bwd["bitwise_repeat"]:
+        fail("flash_attention_bwd: two calls on the same inputs differ")
+    bwd["sdpa_forward_ms"] = cuda_ms(torch, lambda: sdpa(
+        qt, kt, vt, is_causal=True), reps=10, per=5)
+    bwd["sdpa_backward_ms"] = bwd["library_ms"] - bwd["sdpa_forward_ms"]
+
+    def plain_vjp():
+        qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+        with torch.enable_grad():
+            o = L._plain_attn(qd, kd, vd, True)
+            return torch.autograd.grad(o, (qd, kd, vd), dout)
+
+    bwd["plain_vjp_ms"] = cuda_ms(torch, plain_vjp, reps=3, warmup=1)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    o = L.FlashAttention.apply(qg, kg, vg, True)
+    bwd["function_backward_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        o, (qg, kg, vg), dout, retain_graph=True), reps=5)
+    del o
     print(f"phase 14 attention backward a layer (B {B}, S {S}, H {H}, D {D}"
-          f", bf16, causal; the plain route's VJP, recomputed): "
-          f"{bwd_ms:.3f} ms; SDPA forward + backward {sdpa_ms:.3f} ms; "
-          f"bound {bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}"
-          f"; {10 * D * pairs / 1e9:.1f} G ops); {cfg.num_layers} layers "
-          f"{bwd_ms * cfg.num_layers:.1f} ms a step")
+          f", bf16, causal): backward kernel {bwd['ms']:.4f} ms "
+          f"(FlashAttention's backward {bwd['function_backward_ms']:.4f}; "
+          f"{14 * D * pairs / bwd['ms'] / 1e9:.1f} TFLOP/s of the 14 D it "
+          f"does, two calls bit for bit); the plain route's VJP "
+          f"{bwd['plain_vjp_ms']:.3f} ms; SDPA forward + backward "
+          f"{bwd['library_ms']:.4f} ms (forward {bwd['sdpa_forward_ms']:.4f}"
+          f", backward alone {bwd['sdpa_backward_ms']:.4f}); bound "
+          f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']}, 10 D a kept pair; "
+          f"{10 * D * pairs / 1e9:.1f} G ops); {cfg.num_layers} layers "
+          f"{bwd['ms'] * cfg.num_layers:.1f} ms a step")
     return dict(shape=f"B {B}, S {S}, H {H}, D {D}, bf16, causal", **row,
-                backward_plain_ms=bwd_ms, backward_sdpa_fwd_bwd_ms=sdpa_ms,
-                backward_bound_ms=bound)
+                backward_kernel_ms=bwd["ms"],
+                backward_plain_vjp_ms=bwd["plain_vjp_ms"],
+                backward_sdpa_fwd_bwd_ms=bwd["library_ms"],
+                backward_bound_ms=bwd["bound_ms"]), bwd
+
+
+def segment_sum_row(torch, dev, cfg, B, S, sm_clock_hz) -> dict:
+    """The embedding gradient's segment sum at the trainer's shape: the
+    step's batch of B x S tokens (the data pipeline's Zipf draw) and random
+    bf16 gradient rows of d_model into the padded vocabulary.  The kernel's
+    float32 sums within float32 rounding of float64 (n 2^-24 times the sum
+    of magnitudes, n the row's count), its bf16 output that sum rounded
+    once, two calls bit for bit; timed (bf16 out, as the trainer calls it)
+    beside its plain version, ``index_put_`` with accumulate (the gather's
+    autograd backward, the route before the kernel) and its bound (the
+    rows read once, the table written once)."""
+    from repro_torch.data import pipeline as dpipe
+    from repro_torch.kernels import segment_sum as ss
+    tokens = dpipe.batch_at(dpipe.DataConfig(cfg.vocab_size, S, B, seed=0),
+                            0, dev)["tokens"].reshape(-1)
+    V, D, N = cfg.padded_vocab, cfg.d_model, tokens.numel()
+    rows = torch.randn(N, D, generator=torch.Generator(device=dev)
+                       .manual_seed(5), device=dev).to(torch.bfloat16)
+    got = ss.segment_sum(rows, tokens, V, torch.float32)
+    again = ss.segment_sum(rows, tokens, V, torch.float32)
+    plain = ss.segment_sum_plain(rows, tokens, V, torch.float32)
+    f64 = torch.zeros(V, D, dtype=torch.float64, device=dev).index_add_(
+        0, tokens, rows.double())
+    mag = torch.zeros_like(f64).index_add_(0, tokens, rows.double().abs())
+    n = torch.bincount(tokens, minlength=V).double()[:, None]
+    worst = float(((got.double() - f64).abs() / (n * 2 ** -24 * mag)
+                   .clamp_min(1e-300)).max())
+    bf16_once = torch.equal(ss.segment_sum(rows, tokens, V),
+                            got.to(torch.bfloat16))
+    err = float((got - plain).abs().max())
+    del f64, mag, plain
+    ok = worst <= 1 and torch.equal(got, again) and bf16_once
+    ms = cuda_ms(torch, lambda: ss.segment_sum(rows, tokens, V), reps=10)
+    plain_ms = cuda_ms(torch, lambda: ss.segment_sum_plain(
+        rows, tokens, V, torch.bfloat16), reps=5)
+    lib_ms = cuda_ms(torch, lambda: torch.zeros(
+        V, D, dtype=torch.bfloat16, device=dev).index_put_(
+            (tokens,), rows, accumulate=True), reps=10)
+    bound = (N * D * 2 + V * D * 2) / PEAK_BYTES_S * 1e3
+    print(f"phase 14 segment_sum (the embedding gradient: {N} tokens, the "
+          f"most frequent {int(n.max())} times, x {D} bf16 into {V} rows): "
+          f"float32 sums off float64 by {worst:.3g} of the float32 rounding "
+          f"bound (bar 1); bf16 out the float32 sum rounded once "
+          f"{bf16_once}; two calls bit for bit {torch.equal(got, again)}; "
+          f"max abs err against the plain version {err:.3g}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_put_ with accumulate "
+          f"{lib_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
+    if not ok:
+        fail(f"segment_sum: {worst} of the rounding bound, repeat "
+             f"{torch.equal(got, again)}, bf16 rounded once {bf16_once}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms}
 
 
 def grad_route_parity(torch, fa_mod, dev) -> None:
-    """Every leaf's gradient through the kernel route (``FlashAttention``)
+    """Every leaf's gradient through the kernel route (``FlashAttention``:
+    the flash kernel forward and the backward kernel, once a layer)
     against the plain route's (native autograd through ``_plain_attn``,
     ``layers.PlainAttention``) on the same weights and batch, at
     ``TRAIN_PARITY``'s widths, and in bf16 the plain route's against the
     float32 gradient (the same weights upcast), each within the bar; the
     attention weights' gradients nonzero."""
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.configs import get_config
     from repro_torch.data import pipeline as dpipe
     from repro_torch.examples import train_lm
@@ -2889,14 +3027,18 @@ def grad_route_parity(torch, fa_mod, dev) -> None:
         batch = dpipe.batch_at(dpipe.DataConfig(cfg.vocab_size, S, B, 2), 0,
                                dev)
         n0 = fa_mod.flash_attention.launches
+        b0 = fab.flash_attention_bwd.launches
         loss_k, g_k = ts.value_and_grad(model, params, batch)
         n_k = fa_mod.flash_attention.launches - n0
+        b_k = fab.flash_attention_bwd.launches - b0
         flash = L.FlashAttention
         L.FlashAttention = L.PlainAttention
         try:
             n0 = fa_mod.flash_attention.launches
+            b0 = fab.flash_attention_bwd.launches
             loss_p, g_p = ts.value_and_grad(model, params, batch)
             n_p = fa_mod.flash_attention.launches - n0
+            b_p = fab.flash_attention_bwd.launches - b0
             to_f32 = {}
             if cfg.dtype != "float32":
                 f32 = L.tree_map(lambda t: t.float(), params)
@@ -2921,7 +3063,8 @@ def grad_route_parity(torch, fa_mod, dev) -> None:
         print(f"phase 14 gradient route parity {cfg.name} ({cfg.num_layers} "
               f"layers, d {cfg.d_model}, {cfg.dtype}, B {B} x S {S}, "
               f"{'chunked' if S > L.EXACT_ATTN_MAX_SEQ else 'exact'} plain "
-              f"route; flash launches {n_k} kernel route, {n_p} plain): "
+              f"route; flash launches {n_k} kernel route, {n_p} plain; "
+              f"backward kernel launches {b_k} kernel route, {b_p} plain): "
               f"loss {float(loss_k):.6f} vs {float(loss_p):.6f}; worst leaf "
               f"{worst} rel {errs[worst][0]:.3g} (bar {tol:g})"
               + (f"; the bf16 plain route's worst leaf against float32 "
@@ -2937,10 +3080,11 @@ def grad_route_parity(torch, fa_mod, dev) -> None:
         if over or far or any(s <= 0 for _, s in attn.values()) \
                 or n_k != (cfg.num_layers if not cfg.remat
                            else 2 * cfg.num_layers) or n_p != 0 \
+                or b_k != cfg.num_layers or b_p != 0 \
                 or len(attn) != (6 if cfg.qkv_bias else 3):
             fail(f"gradient route parity {cfg.name}: over the bar {over}, "
                  f"bf16 plain route off float32 {far}, attention {attn}, "
-                 f"launches {n_k} / {n_p}")
+                 f"launches {n_k} / {n_p}, backward {b_k} / {b_p}")
         del params, g_k, g_p, model
         torch.cuda.empty_cache()
 
@@ -2974,7 +3118,8 @@ def loop_and_entry_points(torch, dev, tmp) -> dict:
           f"uninterrupted run {rel:.3g} (bar {TRAIN_RESUME_RTOL:g}); "
           f"bitwise {bool((resumed == whole.losses).all())}; median step "
           f"{statistics.median(whole.step_times) * 1e3:.2f} ms")
-    if rel > TRAIN_RESUME_RTOL or second.restarts != 1 \
+    if rel > TRAIN_RESUME_RTOL or not (resumed == whole.losses).all() \
+            or second.restarts != 1 \
             or not whole.losses[-1] < whole.losses[0]:
         fail("train_lm's resume does not follow the uninterrupted run")
     calls = []
@@ -3030,12 +3175,18 @@ def trainer_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
     from repro_torch.models import build
     from repro_torch.models import layers as L
     from repro_torch.train import optimizer as opt
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import segment_sum as ss
     from repro_torch.train import trainstep as ts
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
+    names = ("flash_attention", "decode_attention", "decode_attention_combine",
+             "flash_attention_bwd", "segment_sum")
     counters = lambda: (fa_mod.flash_attention.launches,
                         da_mod.decode_attention.launches,
-                        da_mod.decode_attention.combine_launches)
+                        da_mod.decode_attention.combine_launches,
+                        fab.flash_attention_bwd.launches,
+                        ss.segment_sum.launches)
     held = torch.cuda.memory_allocated() / 1e9
     cfg = get_config(TRAIN_ARCH)
     model = build(cfg)
@@ -3044,7 +3195,9 @@ def trainer_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
           f"parameters; {e['state_gb']:.1f} GB of parameters, gradients "
           f"and float32 moments; peak {e['peak_gb'][0]}-{e['peak_gb'][1]} "
           f"GB; {e['flop']:.2g} FLOP a step, bound {e['bound_s']:.2f} s at "
-          f"989 TFLOP/s bf16; {2 * cfg.num_layers} flash launches a batch")
+          f"989 TFLOP/s bf16; a step {e['step_s'][0]}-{e['step_s'][1]} s; "
+          f"{2 * cfg.num_layers} flash launches, {cfg.num_layers} backward "
+          f"kernel launches and one segment sum a batch")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
@@ -3068,13 +3221,15 @@ def trainer_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
     fa_mod.flash_attention.launches = 0
     da_mod.decode_attention.launches = 0
     da_mod.decode_attention.combine_launches = 0
+    fab.flash_attention_bwd.launches = 0
+    ss.segment_sum.launches = 0
     step_rows, step, after = [], 0, None
     for micro, n in TRAIN_STEPS:
         fn = ts.build_train_step(model, shape, None, opt_cfg=opt_cfg,
                                  microbatches=micro)[0]
         for _ in range(n):
             batch = dpipe.batch_at(dcfg, step, dev)
-            before = fa_mod.flash_attention.launches
+            before = counters()
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3082,20 +3237,24 @@ def trainer_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
             loss = float(m["loss"])
             wall = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated() / 1e9
-            fa_n = fa_mod.flash_attention.launches - before
+            fa_n, bwd_n, ss_n = (counters()[i] - before[i] for i in (0, 3, 4))
             row = dict(step=step, microbatches=micro, wall_ms=wall * 1e3,
                        tokens_s=TRAIN_B * TRAIN_S / wall, loss=loss,
                        grad_norm=float(m["grad_norm"]), peak_gb=peak,
-                       flash_launches=fa_n)
+                       flash_launches=fa_n, backward_launches=bwd_n,
+                       segment_sum_launches=ss_n)
             step_rows.append(row)
             print(f"phase 14 {cfg.name} step {step} (microbatches {micro}):"
                   f" {wall * 1e3:.1f} ms, {row['tokens_s']:.0f} tokens/s, "
                   f"loss {loss:.5f}, grad_norm {row['grad_norm']:.4f}, "
-                  f"peak {peak:.2f} GB, flash launches {fa_n}")
+                  f"peak {peak:.2f} GB, flash launches {fa_n}, backward "
+                  f"kernel launches {bwd_n}, segment sums {ss_n}")
             if not (np.isfinite(loss) and np.isfinite(row["grad_norm"])) \
-                    or fa_n != 2 * cfg.num_layers * micro:
+                    or fa_n != 2 * cfg.num_layers * micro \
+                    or bwd_n != cfg.num_layers * micro or ss_n != micro:
                 fail(f"train {cfg.name} step {step}: loss {loss}, "
-                     f"{fa_n} flash launches")
+                     f"{fa_n} flash launches, {bwd_n} backward kernel "
+                     f"launches, {ss_n} segment sums")
             step += 1
         if after is None:
             # phase 15's sharded steps start from the same state and
@@ -3115,25 +3274,26 @@ def trainer_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
           f"({1 - s['profiled_device_ms'] / s['profiled_wall_ms']:.1%} idle)")
     del params, opt_state, model
     torch.cuda.empty_cache()
-    row = attention_backward_rows(torch, ref, fa_mod, sm_clock_hz, dev, cfg,
-                                  TRAIN_B, TRAIN_S)
+    row, bwd_row = attention_backward_rows(torch, ref, fa_mod, sm_clock_hz,
+                                           dev, cfg, TRAIN_B, TRAIN_S)
+    ss_row = segment_sum_row(torch, dev, cfg, TRAIN_B, TRAIN_S, sm_clock_hz)
     grad_route_parity(torch, fa_mod, dev)
     before = counters()
     with tempfile.TemporaryDirectory() as tmp:
         loop = loop_and_entry_points(torch, dev, tmp)
-    launches = dict(zip(("flash_attention", "decode_attention",
-                         "decode_attention_combine"),
-                        (a + c - b for a, b, c in
-                         zip(counters(), before, full_launches))))
+    launches = dict(zip(names, (a + c - b for a, b, c in
+                                zip(counters(), before, full_launches))))
     print(f"phase 14 loop and entry points: {loop['wall_s']:.1f} s; "
           f"launches on the trained path (full width, loop, quickstart's "
           f"serving): {launches}")
     if min(launches.values()) <= 0:
-        fail(f"trainer: an attention kernel was not launched: {launches}")
+        fail(f"trainer: a kernel of the trained path was not launched: "
+             f"{launches}")
     print(f"phase 14 trainer: ok; phase wall "
           f"{time.perf_counter() - t_phase:.2f} s")
     return {"launches": launches, "row": row, "steps": step_rows,
-            "split": split, "after": after}
+            "split": split, "after": after,
+            "rows": {"flash_attention_bwd": bwd_row, "segment_sum": ss_row}}
 
 
 # ---- 15. the device mesh ----------------------------------------------------
@@ -3313,10 +3473,10 @@ def mesh_moe(torch, fa_mod, mesh, dev) -> int:
     """(b) granite-moe-3b whole: a prefill step on the mesh (every layer's
     MoE through the shard_map branch, expert parallelism at model 1)
     against the one-device step, bit for bit, with torch's deterministic
-    algorithms on: without them the local branch's combine
-    (``index_add_``) differs from call to call (by 0.188 of a largest
-    logit of 4.69 on an H100 80GB HBM3 at 700 W).  Returns the flash
-    kernel's launches in the mesh call alone."""
+    algorithms off: the combine sums each token's slots in slot order
+    (``moe._SlotSum``; an ``index_add_`` combine differed from call to call
+    by 0.188 of a largest logit of 4.69 on an H100 80GB HBM3 at 700 W).
+    Returns the flash kernel's launches in the mesh call alone."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.distributed import sharding as shd
@@ -3336,9 +3496,8 @@ def mesh_moe(torch, fa_mod, mesh, dev) -> int:
     calls = []
     sharded = M._moe_sharded
     M._moe_sharded = lambda *a: calls.append(1) or sharded(*a)
-    # the combine's index_add_ adds a token's experts by atomics unless
-    # torch's deterministic algorithms are on (warn_only: cuBLAS warns)
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    if torch.are_deterministic_algorithms_enabled():
+        fail("mesh MoE: torch's deterministic algorithms are on")
     try:
         local(params, {"tokens": toks})               # warm
         torch.cuda.synchronize()
@@ -3354,12 +3513,11 @@ def mesh_moe(torch, fa_mod, mesh, dev) -> int:
         again, _ = local(params, {"tokens": toks})
     finally:
         M._moe_sharded = sharded
-        torch.use_deterministic_algorithms(False)
     err = float((shd.full(l1) - l0).abs().max())
     noise = float((again - l0).abs().max())
     print(f"phase 15 {cfg.name} whole ({cfg.num_layers} layers, "
           f"{cfg.num_experts} experts top-{cfg.experts_per_token}) prefill "
-          f"B {B} x S {S}, deterministic algorithms on: {len(calls)} MoE "
+          f"B {B} x S {S}, deterministic algorithms off: {len(calls)} MoE "
           f"calls on the shard_map branch (expert parallelism at model 1), "
           f"{flash} flash launches; "
           f"mesh {(t2 - t1) * 1e3:.1f} ms, mesh=None {(t1 - t0) * 1e3:.1f} "
@@ -3714,6 +3872,17 @@ def main(argv=None) -> int:
         if no_spill and any(int(n) for n in
                             re.findall(r"(\d+) bytes spill", lines)):
             fail(f"flash_attention {width}: ptxas spills ({lines})")
+    # the attention backward's two passes (16-bit on wgmma, float32 as
+    # 3xTF32) and the embedding gradient's segment sum
+    for source, entry in (("flash_attention_bwd", "dq_h16_kernel"),
+                          ("flash_attention_bwd", "dkv_h16_kernel"),
+                          ("flash_attention_bwd", "dq_f32_kernel"),
+                          ("flash_attention_bwd", "dkv_f32_kernel"),
+                          ("segment_sum", "segment_sum_kernel")):
+        print(f"phase 1 {source} {entry}: "
+              f"{entry_lines(report, source, entry)}")
+    print(f"phase 1 flash_attention_bwd SASS: "
+          f"{sass_counts(_build, 'flash_attention_bwd')}")
     # and the SSD scan's chunk kernels (its passes (a) and (c)); the chunk
     # pass, bound for two blocks an SM, spills a few bytes at 128 registers
     print(f"phase 1 ssd_scan chunk kernels: "
@@ -4430,6 +4599,25 @@ def main(argv=None) -> int:
                         "source": f"src/repro_torch/csrc/{source}.cu",
                         "replaces": SUITE_REPLACES[of],
                         "launches": launches[counter], **rows[row]})
+    # the attention backward kernel and the embedding gradient's segment
+    # sum, on the trainer's path (phase 14; launches there, counters zeroed
+    # before its full-width steps), timed at its shapes
+    kernels.append({"name": "flash_attention_bwd", "route": "cuda",
+                    "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                    "replaces": "layers.FlashAttention.backward (plain VJP); "
+                                "no Pallas kernel: the reference "
+                                "differentiates src/repro/models/layers.py:"
+                                "142 _exact_attn and :159 _chunked_attn",
+                    "launches": trainer["launches"]["flash_attention_bwd"],
+                    "launches_per_call": 2,
+                    **trainer["rows"]["flash_attention_bwd"]})
+    kernels.append({"name": "segment_sum", "route": "cuda",
+                    "source": "src/repro_torch/csrc/segment_sum.cu",
+                    "replaces": "layers.embed_fwd's gradient (autograd's "
+                                "index_put_ with accumulate); no Pallas "
+                                "kernel",
+                    "launches": trainer["launches"]["segment_sum"],
+                    **trainer["rows"]["segment_sum"]})
     # the attention kernels also run on the model server's path (phase 13):
     # its launches (launches stays the suite's, phase 5), and the two
     # kernels at the long round's llama3-8b shapes

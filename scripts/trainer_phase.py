@@ -3,14 +3,17 @@
 
     python3 scripts/trainer_phase.py   # from the root
 
-Builds the two attention libraries (flash attention, flash decoding) and
-runs ``chip_smoke.trainer_phase``: qwen2.5-3b whole in bfloat16 (three
-steps of B 2 x S 4,096, then one of two microbatches), the step's time
-split, flash attention and its backward at the training shape, the
-kernel route's gradients against the plain route's, and the loop
-(train_lm and its resume, the retry, quickstart, the launcher).  Prints
-the card's name and power limit first and the phase's launches, rows and
-steps as one JSON line last.  Exits nonzero where phase 14 fails.
+Builds the libraries the trainer's path runs (flash attention and its
+backward kernel, flash decoding, the segment sum) and runs
+``chip_smoke.trainer_phase``: qwen2.5-3b whole in bfloat16 (three steps
+of B 2 x S 4,096, then one of two microbatches), the step's time split,
+flash attention and its backward kernel at the training shape, the
+embedding gradient's segment sum, the kernel route's gradients against
+the plain route's, and the loop (train_lm and its resume, the retry,
+quickstart, the launcher).  Prints the card's name and power limit first
+and the phase's launches, rows and steps as one JSON line last (the
+parameters phase 15 starts from are left out).  Exits nonzero where
+phase 14 fails.
 """
 from __future__ import annotations
 
@@ -37,12 +40,13 @@ def main() -> int:
     from repro_torch.kernels import ref
     print(cs.nvidia_smi("name,power.limit"))
     t0 = time.perf_counter()
-    _build.load("flash_attention")
-    _build.load("decode_attention")
+    _build.build_all(("flash_attention", "flash_attention_bwd",
+                      "decode_attention", "segment_sum"))
     print(f"build {time.perf_counter() - t0:.1f} s")
     clock = float(cs.nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     out = cs.trainer_phase(torch, ref, fa_mod, da_mod, torch.device("cuda"),
                            clock)
+    del out["after"]
     print(json.dumps(out))
     return 0
 

@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so one
 ``nvcc`` call per source takes seconds.  A source is built at first use into
 ``build/repro_torch/lib<name>-<key>.so`` at the repository root, where
 ``<key>`` hashes the source text, the ``csrc`` headers it includes
-(``tf32.cuh``) and the flags: an edited source or header or a changed flag
+(``tf32.cuh``, ``hopper.cuh``) and the flags: an edited source or header or a changed flag
 gets a fresh library, an unchanged one is reused.  ``build_all``
 starts one ``nvcc`` per source at once and waits for all of them.
 
@@ -34,7 +34,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 
 SOURCES = ("engine_scan", "blackscholes", "swaptions", "streamcluster",
            "particlefilter", "canneal", "jacobi2d", "pathfinder",
-           "flash_attention", "decode_attention", "ssd_scan")
+           "flash_attention", "flash_attention_bwd", "decode_attention",
+           "ssd_scan", "segment_sum")
 COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The engine scan must reproduce the reference's float32 arithmetic bit for
@@ -43,7 +44,7 @@ COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # look up libcuda's tensor-map encoder with dlopen (no -lcuda).
 EXTRA_FLAGS = {"engine_scan": ("-fmad=false",), "swaptions": ("-fmad=false",),
                "jacobi2d": ("-fmad=false",), "flash_attention": ("-ldl",),
-               "streamcluster": ("-ldl",)}
+               "flash_attention_bwd": ("-ldl",), "streamcluster": ("-ldl",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -38,7 +38,9 @@ The routes, by type and D (any S):
   ``flash_attention.tf32_sliced_launches``.
 
 ``path`` names the route and how the tiles are loaded, from the type, D
-and the pointers' alignment.
+and the pointers' alignment.  ``flash_attention_lse`` runs the D <= 128
+route with the kernels' optional row log-sum-exp output, for the backward
+(``kernels/flash_attention_bwd.py``).
 
 Operands the kernels do not take as they are (64-bit, mixed or integer
 types) are converted first by the reference's rule (``_promote``): the
@@ -208,6 +210,9 @@ def _lib():
         lib.flash_attention_sliced_launch.argtypes = [
             p, p, p, p, i, i, i, i, f, i, i, i, i, i, i, i, i, p]
         lib.flash_attention_sliced_launch.restype = ctypes.c_int
+        lib.flash_attention_lse_launch.argtypes = [p, p, p, p, p, i, i, i, i,
+                                                   f, i, i, i, p]
+        lib.flash_attention_lse_launch.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
 
@@ -250,3 +255,32 @@ flash_attention.wgmma256_launches = 0
 flash_attention.wgmma512_launches = 0
 flash_attention.sliced_launches = 0
 flash_attention.tf32_sliced_launches = 0
+
+
+def flash_attention_lse(q, k, v, causal=True):
+    """``flash_attention`` at D <= 128 for q, k, v of one kernel type
+    (float32, bfloat16, float16), also returning the float32 row
+    log-sum-exp of the scaled scores, ``[B,H,S]`` (natural log), which the
+    backward kernel reads: the D <= 128 route's kernel with its ``lse``
+    output on (the same output bits as without it), counted by
+    ``flash_attention.launches``.  CPU tensors take the plain version."""
+    _check_args(q, k, v)
+    B, S, H, D = q.shape
+    if D > MAX_D_TC:
+        raise ValueError(f"{NAME}: the lse output is for D <= {MAX_D_TC}, "
+                         f"got D = {D}")
+    if not q.is_cuda and _check.device_kind(NAME, q) == "cpu":
+        return ref.flash_attention_lse(q, k, v, causal=causal)
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    route = path(q, k, v)
+    lib = _lib()
+    code = _device.launch(lib.flash_attention_lse_launch, q, q.data_ptr(),
+                          k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                          lse.data_ptr(), B, S, H, D, D ** -0.5,
+                          int(bool(causal)), DTYPES[q.dtype], LOADS[route])
+    _build.check(lib, code, NAME)
+    flash_attention.launches += 1
+    return out, lse

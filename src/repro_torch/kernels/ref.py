@@ -6,7 +6,10 @@ order, ``where``/``clip`` order and float32 arithmetic.  Every entry is
 carried: Black-Scholes (``repro/kernels/ref.py:19-27``),
 Jacobi-2D and pathfinder (``:29-45``), the swaptions, streamcluster,
 canneal and particle-filter kernels (``:48-106``), flash attention and
-flash decoding (``:109-126``) and the SSD scan (``:131-137``).
+flash decoding (``:109-126``) and the SSD scan (``:131-137``).  Beside
+them the plain versions of the port's own kernels that the reference has
+no counterpart of: the attention backward (``flash_attention_lse``,
+``flash_attention_bwd``).
 """
 from __future__ import annotations
 
@@ -172,6 +175,54 @@ def flash_attention(q, k, v, causal=True):
             s = torch.where(mask[None, None], s, float("-inf"))
         a = torch.softmax(s, dim=-1)
         return torch.einsum("bhqk,bkhd->bqhd", a.to(q.dtype), v)
+
+
+def _causal_mask(S, device):
+    return torch.tril(torch.ones(S, S, dtype=torch.bool, device=device))
+
+
+def flash_attention_lse(q, k, v, causal=True):
+    """``flash_attention``'s output and the row log-sum-exp of its scaled,
+    masked scores, ``[B,H,S]`` in float32 (float64 for float64 inputs):
+    the plain version of the kernel's ``lse`` output, which the backward
+    reads."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    with _full_float32_matmul():
+        s = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)) \
+            * q.shape[-1] ** -0.5
+    if causal:
+        s = torch.where(_causal_mask(q.shape[1], q.device)[None, None], s,
+                        float("-inf"))
+    return flash_attention(q, k, v, causal), torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=True):
+    """dq, dk, dv of ``softmax(q k^T * scale, causal) v`` from the forward's
+    output ``out`` and row log-sum-exp ``lse`` [B,H,S], spelled out as the
+    backward kernel (``csrc/flash_attention_bwd.cu``) computes them, in
+    float32 (float64 for float64 inputs), each rounded once to its input's
+    type:
+
+        P = exp(S * scale - lse)        dV = P^T dO
+        dP = dO V^T                     Delta = rowsum(dO * O)
+        dS = P * (dP - Delta)           dQ = dS K * scale, dK = dS^T Q * scale
+    """
+    scale = q.shape[-1] ** -0.5
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, of, dof = (t.to(ct) for t in (q, k, v, out, dout))
+    with _full_float32_matmul():
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+        p = torch.exp(s - lse.to(ct)[..., None])
+        if causal:
+            p = torch.where(_causal_mask(q.shape[1], q.device)[None, None],
+                            p, 0.0)
+        dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+        delta = (dof * of).sum(-1).transpose(1, 2)        # [B,H,S]
+        ds = p * (dp - delta[..., None])
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention(q, k, v, kv_len):

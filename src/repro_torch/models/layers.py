@@ -17,9 +17,10 @@ Attention routes by device, decided from the operands before the call:
   plain ``_exact_attn`` up to ``EXACT_ATTN_MAX_SEQ`` and ``_chunked_attn``
   past it, the reference's split (``layers.py:216``).  While autograd
   records, the CUDA route goes through ``FlashAttention``: the kernel
-  forward, and for the backward the vector-Jacobian product of that plain
-  split, recomputed (the reference differentiates the plain formula; it
-  has no backward kernel);
+  forward with its row log-sum-exp, and for the backward the port's
+  backward kernel at D <= 128 (the reference differentiates the plain
+  formula; it has no backward kernel), the vector-Jacobian product of that
+  plain split, recomputed, past it;
 - the cached self-attention of a decode step (``attention_decode``) runs
   the port's flash-decoding kernel (``ops.decode_attention``) on CUDA
   tensors and the plain ``_exact_attn`` with ``kv_len`` on CPU tensors;
@@ -29,7 +30,9 @@ Attention routes by device, decided from the operands before the call:
 
 The embedding's gradient is summed in float32 while autograd records
 (``embed_fwd``), where the reference's bfloat16 scatter rounds after every
-add; in float32 the two are the same.
+add; in float32 the two are the same.  It is a sorted segment sum, each
+token's positions in position order (``EmbedGather``), so a step's
+gradient is the same bits on every run on the card.
 
 Remat (``run_layer``): where the reference wraps a layer body in
 ``jax.checkpoint`` under ``cfg.remat``, the port calls it through
@@ -56,7 +59,10 @@ import torch.utils.checkpoint
 from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import constraint
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import ops
+from repro_torch.kernels.segment_sum import segment_sum
 
 
 class PD(NamedTuple):
@@ -310,20 +316,36 @@ def _plain_attn(q, k, v, causal):
 
 
 class FlashAttention(torch.autograd.Function):
-    """Self-attention whose forward is the flash-attention kernel
-    (``ops.flash_attention``) and whose backward is the vector-Jacobian
-    product of the plain route (``_plain_attn``), recomputed from the saved
-    q and repeated k and v: the gradient the reference's autodiff takes."""
+    """Self-attention whose forward is the flash-attention kernel and whose
+    backward, for heads up to ``flash_attention_bwd.MAX_D`` (128) columns,
+    is the backward kernel (``flash_attention_bwd``) from the saved q,
+    repeated k and v, output and row log-sum-exp (the forward runs
+    ``flash_attention_lse``); on CPU tensors both are their plain
+    versions.  Wider heads keep the vector-Jacobian product of the plain
+    route (``_plain_attn``), recomputed from the saved q, k and v, counted
+    by ``flash_attention_bwd.plain_vjp_calls``.  The route is chosen by D
+    alone (``flash_attention_bwd.route``).  Either way the gradient is the
+    one the reference's autodiff takes of its plain formula."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
         ctx.causal = causal
+        if fab.route(q.shape[-1]) == "kernel":
+            out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
         ctx.save_for_backward(q, k, v)
         return ops.flash_attention(q, k, v, causal=causal)
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        saved = ctx.saved_tensors    # unpacked once (remat's recompute)
+        if fab.route(saved[0].shape[-1]) == "kernel":
+            dq, dk, dv = fab.flash_attention_bwd(*saved, dout,
+                                                 causal=ctx.causal)
+            return dq, dk, dv, None
+        fab.flash_attention_bwd.plain_vjp_calls += 1
+        q, k, v = (t.detach().requires_grad_() for t in saved)
         with torch.enable_grad():
             out = _plain_attn(q, k, v, ctx.causal)
             dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
@@ -444,17 +466,38 @@ def embed_defs(cfg):
     return defs
 
 
+class EmbedGather(torch.autograd.Function):
+    """The table's rows of ``tokens`` in ``dtype``.  Its backward is the
+    table's gradient as a sorted segment sum (``kernels.segment_sum``):
+    each token's positions added in position order in float32 and rounded
+    once to the table's type, the same bits on every run (autograd's
+    scatter-add adds by atomics on the card)."""
+
+    @staticmethod
+    def forward(ctx, w, tokens, dtype):
+        ctx.save_for_backward(tokens)
+        ctx.rows, ctx.w_dtype = w.shape[0], w.dtype
+        return w[tokens].to(dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        tokens, = ctx.saved_tensors
+        g = dout.reshape(-1, dout.shape[-1]).contiguous()
+        return segment_sum(g, tokens.reshape(-1).contiguous(), ctx.rows,
+                           ctx.w_dtype), None, None
+
+
 def embed_fwd(p, tokens, dtype):
-    """The rows of ``tokens`` in ``dtype``.  While autograd records, the
-    rows are read from a float32 copy of the table, so the backward sums
-    each token's positions in float32 and rounds the sum to the table's
-    type once.  (The reference scatters in the table's type: in bfloat16
-    the sum of a token seen thousands of times, as the Zipf batches' first
-    tokens are, stops taking in small terms and ends ~0.5 of the leaf's
-    largest magnitude from the float32 sum.)"""
+    """The rows of ``tokens`` in ``dtype``.  While autograd records, through
+    ``EmbedGather``, whose backward sums each token's positions in float32
+    and rounds the sum to the table's type once.  (The reference scatters
+    in the table's type: in bfloat16 the sum of a token seen thousands of
+    times, as the Zipf batches' first tokens are, stops taking in small
+    terms and ends ~0.5 of the leaf's largest magnitude from the float32
+    sum.)"""
     w = p["embedding"]
     if recording(w):
-        return w.float()[tokens].to(dtype)
+        return EmbedGather.apply(w, tokens, dtype)
     return w.to(dtype)[tokens]
 
 

@@ -10,6 +10,16 @@ slices it off, so no index is ever out of range.  The combine sums in
 float32.  The experts' products are ``torch.einsum``, as the reference's
 are ``jnp.einsum``.
 
+Both scatter-adds of the dispatch are gathers in a fixed order, so a call
+gives the same bits on every run on the card (CUDA's ``index_add_`` adds
+by atomics, in an order that changes from run to run): the combine sums
+each token's kept slots in ascending slot order from 0.0 (``_SlotSum``:
+the order in which the reference's CPU scatter ``out.at[buf_src].add``
+adds them, so the sum is its own), and the dispatch gather's backward
+sums each token's slots' gradients the same way (``_SlotGather``).  Both
+read the slots through ``inv`` [T, top_k], each token's slots sorted, a
+dropped choice pointing at a zero row past the buffer.
+
 Under a mesh ``moe_fwd`` runs the reference's ``shard_map`` branch
 (``moe.py:104-163``) on local tensors: dispatch is local to each data shard
 (capacity from the shard's tokens), then expert parallelism (an
@@ -21,6 +31,8 @@ over "model" under EP) from the step's layout, and back after, so every
 mesh drops the tokens the reference's sharded dispatch drops.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -83,7 +95,11 @@ def _dispatch(x, router, cfg, C):
     buf_tok = torch.zeros(E * C + 1, dtype=torch.long, device=dev)
     buf_tok[slot] = torch.where(keep, st, 0)
     buf_tok = buf_tok[:E * C]
-    xe = x[buf_tok].reshape(E, C, D)                               # [E,C,D]
+    # each token's slots in ascending order, a dropped choice's E*C last
+    slot_of = torch.empty_like(slot)
+    slot_of[order] = slot
+    inv = slot_of.reshape(T_, K).sort(dim=-1).values
+    xe = _SlotGather.apply(x, buf_tok, inv).reshape(E, C, D)      # [E,C,D]
 
     buf_w = torch.zeros(E * C + 1, dtype=flat_w.dtype, device=dev)
     buf_w[slot] = torch.where(keep, sw, 0.0)
@@ -92,13 +108,62 @@ def _dispatch(x, router, cfg, C):
     buf_src[slot] = torch.where(keep, st, T_)
     buf_src = buf_src[:E * C]
 
-    def combine(ye):
-        # row T takes the empty slots' (zero-weight) rows
-        out = torch.zeros(T_ + 1, D, dtype=torch.float32, device=dev)
-        upd = ye.reshape(E * C, D).float() * buf_w[:, None]
-        return out.index_add_(0, buf_src, upd)[:T_].to(x.dtype)
-
+    combine = functools.partial(_combine, inv=inv, src=buf_src,
+                                weights=buf_w, dtype=x.dtype)
     return xe, combine, aux
+
+
+def _combine(ye, inv, src, weights, dtype):
+    """The experts' rows ``ye`` [E, C, D] weighted and summed into their
+    tokens in float32 (``_SlotSum``), in ``dtype``."""
+    upd = ye.reshape(-1, ye.shape[-1]).float() * weights[:, None]
+    return _SlotSum.apply(upd, inv, src).to(dtype)
+
+
+def slot_sum(rows, inv):
+    """out[t] = 0.0 + rows[inv[t, 0]] + rows[inv[t, 1]] + ..., added in
+    that order in ``rows``' type; an index of ``len(rows)`` reads zeros.
+    rows [N, D], inv [T, K] -> [T, D]."""
+    pad = torch.cat([rows, rows.new_zeros(1, rows.shape[1])])
+    out = rows.new_zeros(inv.shape[0], rows.shape[1])
+    for k in range(inv.shape[1]):
+        out = out + pad[inv[:, k]]
+    return out
+
+
+class _SlotSum(torch.autograd.Function):
+    """The combine's sum of each token's slots (``slot_sum``).  Its
+    backward hands each slot its token's gradient (``src``: the slot's
+    token, ``T`` for an empty slot, which gets zeros): a gather."""
+
+    @staticmethod
+    def forward(ctx, rows, inv, src):
+        ctx.save_for_backward(src)
+        return slot_sum(rows, inv)
+
+    @staticmethod
+    def backward(ctx, dout):
+        src, = ctx.saved_tensors
+        pad = torch.cat([dout, dout.new_zeros(1, dout.shape[1])])
+        return pad[src], None, None
+
+
+class _SlotGather(torch.autograd.Function):
+    """``x[tok]``, the dispatch gather.  Its backward sums each token's
+    slots' gradients in ascending slot order (``slot_sum`` through
+    ``inv``), where autograd's scatter-add would add by atomics on the
+    card.  An empty slot reads token 0 and its gradient is zero (its
+    combine weight is 0), so it is left out of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, tok, inv):
+        ctx.save_for_backward(inv)
+        return x[tok]
+
+    @staticmethod
+    def backward(ctx, dxe):
+        inv, = ctx.saved_tensors
+        return slot_sum(dxe, inv), None, None
 
 
 def _expert_ffn(xe, w1, w3, w2):

@@ -17,9 +17,11 @@ from repro_torch.kernels import canneal as ca_mod
 from repro_torch.kernels import decode_attention as da_mod
 from repro_torch.kernels import _promote, engine_scan, ops, ref
 from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import flash_attention_bwd as fab_mod
 from repro_torch.kernels import jacobi2d as j2_mod
 from repro_torch.kernels import particlefilter as pf_mod
 from repro_torch.kernels import pathfinder as path_mod
+from repro_torch.kernels import segment_sum as ss_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels import streamcluster as sc_mod
 from repro_torch.kernels import swaptions as sw_mod
@@ -2158,24 +2160,161 @@ def test_bf16_embedding_gradient_is_summed_in_float32_on_the_card(cuda):
 
 
 def test_flash_attention_function_backward_is_the_plain_vjp(cuda):
-    """``FlashAttention``'s gradients are the plain route's VJP from the
-    same saved inputs (float32, the chunked route); its forward is the
-    kernel's, counted."""
+    """Past 128 columns ``FlashAttention``'s gradients are the plain
+    route's VJP from the same saved inputs (float32, D 160, the chunked
+    route), counted by ``plain_vjp_calls``; its forward is the kernel's
+    (the 3xTF32 D-256 instantiation), counted."""
     from repro_torch.models import layers as L
     g = torch.Generator(device=cuda).manual_seed(3)
-    q, k, v, dout = (torch.randn(1, 2304, 2, 32, generator=g, device=cuda)
+    q, k, v, dout = (torch.randn(1, 2304, 2, 160, generator=g, device=cuda)
                      for _ in range(4))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    n0 = fa_mod.flash_attention.launches
+    n0 = fa_mod.flash_attention.tf32_256_launches
+    b0 = (fab_mod.flash_attention_bwd.launches,
+          fab_mod.flash_attention_bwd.plain_vjp_calls)
     out = L.FlashAttention.apply(*leaves, True)
-    assert fa_mod.flash_attention.launches == n0 + 1
+    assert fa_mod.flash_attention.tf32_256_launches == n0 + 1
     got = torch.autograd.grad(out, leaves, dout)
+    assert (fab_mod.flash_attention_bwd.launches,
+            fab_mod.flash_attention_bwd.plain_vjp_calls) == (b0[0], b0[1] + 1)
     plain = [t.clone().requires_grad_() for t in (q, k, v)]
     want_out = L._plain_attn(*plain, True)
     want = torch.autograd.grad(want_out, plain, dout)
     assert torch.allclose(out, want_out, rtol=1e-4, atol=1e-4)
     for a, b in zip(got, want):
         assert torch.allclose(a, b, rtol=1e-6, atol=1e-6)
+
+
+# the backward kernel against its plain version on the same inputs, as a
+# share of each gradient's largest magnitude.  float32: 3xTF32 products
+# (each split loses under 2^-20) summed in another order than the plain
+# float32 products, ~2e-5 measured at S 1,000: 1e-4.  float16 and bfloat16:
+# the kernel rounds P and dS to the inputs' type for the products with dO,
+# K and Q, where the plain version keeps them in float32 (2^-11 and 2^-8
+# relative each), and its gradients to that type: ~1e-3 (float16) and
+# ~8e-3 (bfloat16, D 16, S 200) measured: 2^-7 and 2^-5
+BWD_TOL = {torch.float32: 1e-4, torch.float16: 2 ** -7,
+           torch.bfloat16: 2 ** -5}
+
+
+def _attention_inputs(cuda, B, S, H, D, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(B, S, H, D, generator=g, device=cuda).to(dtype)
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [48, 200, 1000])
+@pytest.mark.parametrize("D", [16, 32, 64, 72, 100, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, D, S, causal):
+    """dq, dk, dv of the kernel (two passes, counted once) against
+    ``ref.flash_attention_bwd`` on the same inputs, output and lse, within
+    ``BWD_TOL``; D 72 no multiple of 16, D 100 zero-padded to 104; the
+    forward's lse output leaves its output's bits as they are."""
+    dt = getattr(torch, dtype)
+    q, k, v, dout = _attention_inputs(cuda, 2, S, 3, D, dt, seed=D + S)
+    out, lse = fa_mod.flash_attention_lse(q, k, v, causal)
+    assert torch.equal(out, fa_mod.flash_attention(q, k, v, causal))
+    torch.testing.assert_close(lse, ref.flash_attention_lse(
+        q, k, v, causal)[1], rtol=1e-5, atol=1e-5)
+    n0 = fab_mod.flash_attention_bwd.launches
+    got = fab_mod.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    assert fab_mod.flash_attention_bwd.launches == n0 + 1
+    want = ref.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == dt
+        scale = float(b.double().abs().max())
+        assert float((a.double() - b.double()).abs().max()) \
+            <= BWD_TOL[dt] * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_is_bitwise_repeatable(cuda, dtype):
+    """Two calls give the same bits (no atomics): B 2, S 2,048, H 4, D
+    128, causal."""
+    dt = getattr(torch, dtype)
+    q, k, v, dout = _attention_inputs(cuda, 2, 2048, 4, 128, dt, seed=5)
+    out, lse = fa_mod.flash_attention_lse(q, k, v, True)
+    first = fab_mod.flash_attention_bwd(q, k, v, out, lse, dout, True)
+    for _ in range(2):
+        again = fab_mod.flash_attention_bwd(q, k, v, out, lse, dout, True)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_attention_function_backward_runs_the_kernel(cuda):
+    """At D <= 128 ``FlashAttention``'s backward is the backward kernel
+    (counted; no plain VJP), and its gradients are within ``BWD_TOL`` of
+    the plain route's VJP (float32, D 32, the chunked route)."""
+    from repro_torch.models import layers as L
+    q, k, v, dout = _attention_inputs(cuda, 1, 2304, 2, 32, torch.float32,
+                                      seed=3)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    b0 = (fab_mod.flash_attention_bwd.launches,
+          fab_mod.flash_attention_bwd.plain_vjp_calls)
+    got = torch.autograd.grad(L.FlashAttention.apply(*leaves, True), leaves,
+                              dout)
+    assert (fab_mod.flash_attention_bwd.launches,
+            fab_mod.flash_attention_bwd.plain_vjp_calls) == (b0[0] + 1, b0[1])
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(L._plain_attn(*plain, True), plain, dout)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) \
+            <= BWD_TOL[torch.float32] * float(b.abs().max())
+
+
+def test_segment_sum_kernel_matches_plain_and_repeats(cuda):
+    """The segment sum of 4,096 Zipf-drawn indices x 1,000 columns (bf16 in)
+    into 50,000 rows: float32 out within float32 rounding of the float64
+    sums (n * 2^-24 * the sum of magnitudes, n the row's count), the bf16
+    out that float32 sum rounded once, two calls bit for bit, rows no index
+    points at zero."""
+    rng = np.random.default_rng(0)
+    V, N, D = 50_000, 4096, 1000
+    idx = torch.from_numpy(np.minimum(rng.zipf(1.2, N) - 1, V - 1)).to(cuda)
+    rows = torch.randn(N, D, device=cuda).to(torch.bfloat16)
+    n0 = ss_mod.segment_sum.launches
+    got = ss_mod.segment_sum(rows, idx, V, torch.float32)
+    again = ss_mod.segment_sum(rows, idx, V, torch.float32)
+    got16 = ss_mod.segment_sum(rows, idx, V)
+    assert ss_mod.segment_sum.launches == n0 + 3
+    assert torch.equal(got, again)
+    assert torch.equal(got16, got.to(torch.bfloat16))
+    f64 = torch.zeros(V, D, dtype=torch.float64, device=cuda).index_add_(
+        0, idx, rows.double())
+    mag = torch.zeros(V, D, dtype=torch.float64, device=cuda).index_add_(
+        0, idx, rows.double().abs())
+    n = torch.bincount(idx, minlength=V).double()[:, None]
+    assert bool(((got.double() - f64).abs() <= n * 2 ** -24 * mag).all())
+    assert not got[n[:, 0] == 0].any()
+
+
+def test_moe_and_embedding_gradients_repeat_bitwise(cuda):
+    """With torch's deterministic algorithms off, two forward + backward
+    passes of granite-moe (smoke widths, eight experts, top 4) give the
+    same loss and every gradient leaf bit for bit:
+    the combine and the dispatch gather's backward sum in slot order, the
+    embedding gradient is the segment-sum kernel, the attention backward
+    has no atomics."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.train import trainstep as ts
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg = get_config("granite-moe-3b-a800m").smoke().scaled(
+        num_experts=8, experts_per_token=4)
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    batch = {k: v.to(cuda) for k, v in _smoke_batch(cfg, 4, 64, 1).items()}
+    batch["labels"] = batch["tokens"].roll(-1, 1)
+    n0 = (ss_mod.segment_sum.launches, fab_mod.flash_attention_bwd.launches)
+    l1, g1 = ts.value_and_grad(model, params, batch)
+    l2, g2 = ts.value_and_grad(model, params, batch)
+    assert ss_mod.segment_sum.launches - n0[0] == 2
+    assert fab_mod.flash_attention_bwd.launches - n0[1] == 2 * cfg.num_layers
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(L.tree_leaves(g1),
+                                                 L.tree_leaves(g2)))
 
 
 def test_full_width_train_step_on_the_card(cuda):

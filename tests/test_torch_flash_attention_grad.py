@@ -2,7 +2,11 @@
 CPU: its backward against ``jax.vjp`` of the reference's ``_exact_attn``
 and ``_chunked_attn``, within 1e-5 of the largest magnitude
 (``ATTN_TOL``: float32, products summed in other orders), and the route
-that takes it.
+that takes it.  On the CPU its forward is the flash kernel's plain version
+with the row log-sum-exp (``ref.flash_attention_lse``) and its backward
+the backward kernel's plain version (``ref.flash_attention_bwd``); the
+plain version alone, at more widths and lengths:
+``test_torch_flash_attention_bwd.py``.
 """
 import jax
 import jax.numpy as jnp
