@@ -205,9 +205,12 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    float32 plain backward on the same bf16 inputs
    (``FLASH_BWD_ROW_TOL``), two calls bit for bit, timed beside its plain
    version, the plain route's VJP (the route before the kernel), SDPA's
-   forward and backward, and its bound; the embedding gradient's segment
-   sum at the step's shape against its plain version and float64, twice
-   bit for bit, timed beside ``index_put_`` with accumulate; every
+   forward and backward, and its bound, and its three kernels timed apart
+   under the profiler; the embedding gradient's segment sum at the step's
+   shape against its plain version and float64, bit for bit against
+   ``segment_sum_chunked`` (its two-level order in plain torch), twice bit
+   for bit, timed beside ``index_put_`` with accumulate, its sort, chunk
+   pass and write pass apart under the profiler; every
    gradient leaf through the kernel route (the flash kernel forward, the
    backward kernel) against the plain route's on the same weights
    (qwen2.5-3b's width at 2 layers in bf16 at S 4,096, lm-10m in float32;
@@ -440,6 +443,31 @@ def cuda_ms(torch, fn, reps: int, per: int = 1, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per)
     return statistics.median(times)
+
+
+def kernel_split(torch, fn, reps: int = 5) -> dict:
+    """Device ms a call of ``fn`` by kernel name, under ``torch.profiler``
+    (warm: one call first; ``reps`` calls profiled)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+            split[e.key] = split.get(e.key, 0.0) + \
+                e.self_device_time_total / 1e3 / reps
+    return split
+
+
+def split_ms(split: dict, name: str) -> float:
+    """The ms of the kernels in ``split`` whose names hold ``name``."""
+    return sum(v for k, v in split.items() if name in k)
 
 
 def sass_counts(build, source: str = "flash_attention") -> str:
@@ -2737,7 +2765,9 @@ def model_server_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
 # flash-attention kernel once a layer in the forward and once in the remat
 # recompute (72 launches a batch); the attention backward is the plain
 # route's VJP (layers.FlashAttention) until the backward kernel, which runs
-# once a layer (36 launches a step, a launch being its two passes).
+# once a layer (36 launches a step, a launch being a memset and three
+# kernels: the statistics pre-pass, one pass over the kept pairs, the dQ
+# post-pass).
 TRAIN_ARCH = "qwen2.5-3b"
 TRAIN_B, TRAIN_S = 2, 4096
 # flash attention at the training shape against the float32 plain version
@@ -2926,6 +2956,19 @@ def attention_backward_rows(torch, ref, fa_mod, sm_clock_hz, dev, cfg, B,
             o = L._plain_attn(qd, kd, vd, True)
             return torch.autograd.grad(o, (qd, kd, vd), dout)
 
+    # the call's kernels apart: the statistics pre-pass, the one-pass main
+    # kernel, the dQ post-pass (and the counters' memset)
+    split = kernel_split(torch, lambda: fab.flash_attention_bwd(
+        q, k, v, out, lse, dout, True))
+    bwd.update(prepass_ms=split_ms(split, "stats_kernel"),
+               main_kernel_ms=split_ms(split, "bwd_h16_kernel"),
+               postpass_ms=split_ms(split, "dq_post_kernel"),
+               device_ms=sum(split.values()))
+    rate = 10 * D * pairs / bwd["main_kernel_ms"] / 1e9
+    print(f"phase 14 attention backward's kernels (profiler, ms a call): "
+          f"pre-pass {bwd['prepass_ms']:.4f}, main kernel "
+          f"{bwd['main_kernel_ms']:.4f} ({rate:.1f} TFLOP/s), post-pass "
+          f"{bwd['postpass_ms']:.4f}; all kernels {bwd['device_ms']:.4f}")
     bwd["plain_vjp_ms"] = cuda_ms(torch, plain_vjp, reps=3, warmup=1)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     o = L.FlashAttention.apply(qg, kg, vg, True)
@@ -2935,7 +2978,7 @@ def attention_backward_rows(torch, ref, fa_mod, sm_clock_hz, dev, cfg, B,
     print(f"phase 14 attention backward a layer (B {B}, S {S}, H {H}, D {D}"
           f", bf16, causal): backward kernel {bwd['ms']:.4f} ms "
           f"(FlashAttention's backward {bwd['function_backward_ms']:.4f}; "
-          f"{14 * D * pairs / bwd['ms'] / 1e9:.1f} TFLOP/s of the 14 D it "
+          f"{10 * D * pairs / bwd['ms'] / 1e9:.1f} TFLOP/s of the 10 D it "
           f"does, two calls bit for bit); the plain route's VJP "
           f"{bwd['plain_vjp_ms']:.3f} ms; SDPA forward + backward "
           f"{bwd['library_ms']:.4f} ms (forward {bwd['sdpa_forward_ms']:.4f}"
@@ -2979,8 +3022,11 @@ def segment_sum_row(torch, dev, cfg, B, S, sm_clock_hz) -> dict:
     bf16_once = torch.equal(ss.segment_sum(rows, tokens, V),
                             got.to(torch.bfloat16))
     err = float((got - plain).abs().max())
+    # the kernel's two-level order, spelled out in plain torch
+    same_order = torch.equal(got, ss.segment_sum_chunked(
+        rows, tokens, V, torch.float32))
     del f64, mag, plain
-    ok = worst <= 1 and torch.equal(got, again) and bf16_once
+    ok = worst <= 1 and torch.equal(got, again) and bf16_once and same_order
     ms = cuda_ms(torch, lambda: ss.segment_sum(rows, tokens, V), reps=10)
     plain_ms = cuda_ms(torch, lambda: ss.segment_sum_plain(
         rows, tokens, V, torch.bfloat16), reps=5)
@@ -2988,6 +3034,18 @@ def segment_sum_row(torch, dev, cfg, B, S, sm_clock_hz) -> dict:
         V, D, dtype=torch.bfloat16, device=dev).index_put_(
             (tokens,), rows, accumulate=True), reps=10)
     bound = (N * D * 2 + V * D * 2) / PEAK_BYTES_S * 1e3
+    # the call's pieces: the sort (the cast to int32 keys and torch's
+    # stable sort), the chunk pass and the write pass
+    split = kernel_split(torch, lambda: ss.segment_sum(rows, tokens, V))
+    pieces = dict(chunk_pass_ms=split_ms(split, "chunk_kernel"),
+                  write_pass_ms=split_ms(split, "write_kernel"))
+    pieces["sort_ms"] = sum(split.values()) - sum(pieces.values())
+    print(f"phase 14 segment_sum's pieces (profiler, ms a call): sort "
+          f"{pieces['sort_ms']:.4f}, chunk pass {pieces['chunk_pass_ms']:.4f}"
+          f", write pass {pieces['write_pass_ms']:.4f} (the table's "
+          f"{V * D * 2 / 1e9:.3f} GB at "
+          f"{V * D * 2 / pieces['write_pass_ms'] / 1e6:.0f} GB/s); equal to "
+          f"segment_sum_chunked bit for bit {same_order}")
     print(f"phase 14 segment_sum (the embedding gradient: {N} tokens, the "
           f"most frequent {int(n.max())} times, x {D} bf16 into {V} rows): "
           f"float32 sums off float64 by {worst:.3g} of the float32 rounding "
@@ -2998,9 +3056,11 @@ def segment_sum_row(torch, dev, cfg, B, S, sm_clock_hz) -> dict:
           f"{lib_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
     if not ok:
         fail(f"segment_sum: {worst} of the rounding bound, repeat "
-             f"{torch.equal(got, again)}, bf16 rounded once {bf16_once}")
+             f"{torch.equal(got, again)}, bf16 rounded once {bf16_once}, "
+             f"the chunked order {same_order}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms}
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+            **pieces}
 
 
 def grad_route_parity(torch, fa_mod, dev) -> None:
@@ -3872,15 +3932,22 @@ def main(argv=None) -> int:
         if no_spill and any(int(n) for n in
                             re.findall(r"(\d+) bytes spill", lines)):
             fail(f"flash_attention {width}: ptxas spills ({lines})")
-    # the attention backward's two passes (16-bit on wgmma, float32 as
-    # 3xTF32) and the embedding gradient's segment sum
-    for source, entry in (("flash_attention_bwd", "dq_h16_kernel"),
-                          ("flash_attention_bwd", "dkv_h16_kernel"),
+    # the attention backward's kernels (16-bit: the statistics pre-pass,
+    # the one-pass main kernel on wgmma, the dQ post-pass; float32: its two
+    # 3xTF32 passes) and the embedding gradient's segment sum (the chunk
+    # pass and the write pass); the main kernel must not spill
+    for source, entry in (("flash_attention_bwd", "stats_kernel"),
+                          ("flash_attention_bwd", "bwd_h16_kernel"),
+                          ("flash_attention_bwd", "dq_post_kernel"),
                           ("flash_attention_bwd", "dq_f32_kernel"),
                           ("flash_attention_bwd", "dkv_f32_kernel"),
-                          ("segment_sum", "segment_sum_kernel")):
-        print(f"phase 1 {source} {entry}: "
-              f"{entry_lines(report, source, entry)}")
+                          ("segment_sum", "chunk_kernel"),
+                          ("segment_sum", "write_kernel")):
+        lines = entry_lines(report, source, entry)
+        print(f"phase 1 {source} {entry}: {lines}")
+        if entry == "bwd_h16_kernel" and any(
+                int(n) for n in re.findall(r"(\d+) bytes spill", lines)):
+            fail(f"flash_attention_bwd {entry}: ptxas spills ({lines})")
     print(f"phase 1 flash_attention_bwd SASS: "
           f"{sass_counts(_build, 'flash_attention_bwd')}")
     # and the SSD scan's chunk kernels (its passes (a) and (c)); the chunk
@@ -4609,7 +4676,11 @@ def main(argv=None) -> int:
                                 "differentiates src/repro/models/layers.py:"
                                 "142 _exact_attn and :159 _chunked_attn",
                     "launches": trainer["launches"]["flash_attention_bwd"],
-                    "launches_per_call": 2,
+                    # each counted call (bf16) is a memset and these three
+                    "kernels": ["stats_kernel (pre-pass)",
+                                "bwd_h16_kernel (one pass over the kept "
+                                "pairs)", "dq_post_kernel (post-pass)"],
+                    "launches_per_call": 3,
                     **trainer["rows"]["flash_attention_bwd"]})
     kernels.append({"name": "segment_sum", "route": "cuda",
                     "source": "src/repro_torch/csrc/segment_sum.cu",
@@ -4617,6 +4688,10 @@ def main(argv=None) -> int:
                                 "index_put_ with accumulate); no Pallas "
                                 "kernel",
                     "launches": trainer["launches"]["segment_sum"],
+                    # each counted call is a sort and these two
+                    "kernels": ["chunk_kernel (chunks of long rows)",
+                                "write_kernel (the table, once)"],
+                    "launches_per_call": 2,
                     **trainer["rows"]["segment_sum"]})
     # the attention kernels also run on the model server's path (phase 13):
     # its launches (launches stays the suite's, phase 5), and the two

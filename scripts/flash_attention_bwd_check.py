@@ -11,17 +11,21 @@ Builds ``flash_attention``, ``flash_attention_bwd`` and ``segment_sum``
 - checks the forward's ``lse`` output: the output bits equal to the call
   without it, lse against ``ref.flash_attention_lse``;
 - times, at qwen2.5-3b's training shape (B 2, S 4,096, H 16, D 128 bf16,
-  causal), the forward with and without lse, the backward kernel, SDPA's
-  forward and forward + backward, beside the bound (10 D flops a kept pair
-  at 989 TFLOP/s);
+  causal), the forward with and without lse, the backward kernel (a call,
+  and its kernels apart under ``torch.profiler``: the statistics pre-pass,
+  the main kernel, the dQ post-pass, the counters' memset), SDPA's forward
+  and forward + backward, beside the bound (10 D flops a kept pair at 989
+  TFLOP/s); three calls at B 4 (far more blocks than SMs) bit for bit;
 - holds the segment sum (8,192 Zipf tokens x 2,048, bf16 in, float32 and
-  bf16 out, 151,936 rows) against float64 sums, twice bit for bit, timed
-  beside ``index_add_``, and its call's pieces apart (the sort, the zero
-  fill, the kernel alone on Zipf, uniform and one-run indices).
+  bf16 out, 151,936 rows) against float64 sums and bit for bit against
+  ``segment_sum_chunked`` (the kernel's order in plain torch), twice bit
+  for bit, timed beside ``index_add_``, its call's pieces apart under
+  ``torch.profiler`` (the sort, the chunk pass, the write pass), and a
+  stable sort of int32 keys against one of int64 keys.
 
 Run on a machine with the card, from the repository root:
 ``python3 scripts/flash_attention_bwd_check.py`` (~1 min with the builds;
-``--segment`` the segment sum alone, with its call's pieces timed apart).
+``--segment`` the segment sum alone).
 """
 from __future__ import annotations
 
@@ -33,22 +37,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import cuda_ms, kernel_split, split_ms  # noqa: E402
 
 PEAK_BF16_S = 989e12
-
-
-def cuda_ms(torch, fn, reps=10, warmup=2):
-    for _ in range(warmup):
-        fn()
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    times = []
-    for _ in range(reps):
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return sorted(times)[len(times) // 2]
 
 
 def grid_errors(torch, fa, fab, ref, dev):
@@ -98,6 +91,12 @@ def grid_errors(torch, fa, fab, ref, dev):
     return worst
 
 
+def timed(fn):
+    """Median device ms of a call of ``fn`` (``chip_smoke.cuda_ms``)."""
+    import torch
+    return cuda_ms(torch, fn, reps=10)
+
+
 def training_shape(torch, fa, fab, ref, dev):
     B, S, H, D = 2, 4096, 16, 128
     g = torch.Generator(device=dev).manual_seed(17)
@@ -110,34 +109,59 @@ def training_shape(torch, fa, fab, ref, dev):
     errs = [float((a.double() - b.double()).abs().max()
                   / b.double().abs().max()) for a, b in zip(got, want)]
     del want
-    fwd = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, True))
-    fwd_lse = cuda_ms(torch, lambda: fa.flash_attention_lse(q, k, v, True))
-    bwd = cuda_ms(torch, lambda: fab.flash_attention_bwd(q, k, v, out, lse,
-                                                         dout, True))
+    fwd = timed(lambda: fa.flash_attention(q, k, v, True))
+    fwd_lse = timed(lambda: fa.flash_attention_lse(q, k, v, True))
+    bwd = timed(lambda: fab.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                True))
+    split = kernel_split(torch, lambda: fab.flash_attention_bwd(
+        q, k, v, out, lse, dout, True))
+    parts = {name: split_ms(split, name) for name in
+             ("stats_kernel", "bwd_h16_kernel", "dq_post_kernel")}
+    parts["memset"] = split_ms(split, "emset")
+    print(f"backward kernels apart (profiler, ms a call): {parts}; all "
+          f"{sum(split.values()):.4f}")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     dt_ = dout.transpose(1, 2)
-    sdpa_f = cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
+    sdpa_f = timed(lambda: sdpa(qt, kt, vt, is_causal=True))
 
     def sdpa_fb():
         o = sdpa(qt, kt, vt, is_causal=True)
         return torch.autograd.grad(o, (qt, kt, vt), dt_)
 
-    sdpa_fb_ms = cuda_ms(torch, sdpa_fb)
+    sdpa_fb_ms = timed(sdpa_fb)
     pairs = B * H * S * (S + 1) // 2
     bound = 10 * D * pairs / PEAK_BF16_S * 1e3
     print(f"training shape (B {B}, S {S}, H {H}, D {D}, bf16, causal): "
           f"forward {fwd:.4f} ms, with lse {fwd_lse:.4f} ms; backward kernel "
-          f"{bwd:.4f} ms ({14 * D * pairs / bwd / 1e9:.1f} TFLOP/s of the "
-          f"14 D it does); SDPA forward {sdpa_f:.4f}, forward + backward "
+          f"{bwd:.4f} ms ({10 * D * pairs / bwd / 1e9:.1f} TFLOP/s of the "
+          f"10 D it does); SDPA forward {sdpa_f:.4f}, forward + backward "
           f"{sdpa_fb_ms:.4f}, backward alone {sdpa_fb_ms - sdpa_f:.4f} ms; "
           f"bound {bound:.4f} ms (10 D a kept pair); gradient errors "
           f"against the float32 plain backward on the same bf16 inputs "
           f"(dq, dk, dv, share of the largest magnitude) "
           f"{[round(e, 6) for e in errs]}")
+    del q, k, v, dout, out, lse
+    # three calls at B 4: 2,048 blocks on 132 SMs, the counters' order
+    # exercised
+    same = {}
+    for causal in (True, False):
+        q, k, v, dout = (torch.randn(4, S, H, D, generator=g, device=dev)
+                         .to(torch.bfloat16) for _ in range(4))
+        out, lse = fa.flash_attention_lse(q, k, v, causal)
+        first = fab.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+        same[causal] = all(
+            all(torch.equal(a, b) for a, b in zip(
+                first, fab.flash_attention_bwd(q, k, v, out, lse, dout,
+                                               causal)))
+            for _ in range(2))
+        del q, k, v, dout, out, lse, first
+    print(f"B 4 x S {S} x H {H} x D {D} bf16: three calls bit for bit "
+          f"(causal, full) {same[True]}, {same[False]}")
     return dict(fwd=fwd, fwd_lse=fwd_lse, bwd=bwd, sdpa_fwd=sdpa_f,
-                sdpa_fb=sdpa_fb_ms, bound=bound, errs=errs)
+                sdpa_fb=sdpa_fb_ms, bound=bound, errs=errs, parts=parts,
+                b4_bitwise=same)
 
 
 def segment_check(torch, ss, dev):
@@ -153,40 +177,27 @@ def segment_check(torch, ss, dev):
     err = float((got32.double() - f64).abs().max())
     n_max = int(tok.bincount().max())
     got16 = ss.segment_sum(rows, tok, V)
-    ms = cuda_ms(torch, lambda: ss.segment_sum(rows, tok, V))
+    ms = timed(lambda: ss.segment_sum(rows, tok, V))
     r32 = rows.float()
     out = torch.zeros(V, D, device=dev)
-    lib = cuda_ms(torch, lambda: out.zero_().index_add_(0, tok, r32))
+    lib = timed(lambda: out.zero_().index_add_(0, tok, r32))
     bound = (N * D * 2 + V * D * 2) / 3.35e12 * 1e3
-    # the call's pieces: the sort and run ends, the zero fill, the kernel
-    # alone through its C entry (Zipf tokens, uniform tokens, one run of
-    # all N positions)
-    lib_ss = ss._lib()
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def runs(t):
-        keys, order = torch.sort(t.long(), stable=True)
-        return keys, order, torch.searchsorted(keys, keys, right=True)
-
-    sort_ms = cuda_ms(torch, lambda: runs(tok))
-    zero_ms = cuda_ms(torch, lambda: torch.zeros(V, D, dtype=torch.bfloat16,
-                                                 device=dev))
-    dst = torch.zeros(V, D, dtype=torch.bfloat16, device=dev)
-    alone = {}
-    for label, t in (("zipf", tok), ("uniform", torch.randint(
-            0, V, (N,), device=dev)), ("one run", torch.zeros_like(tok))):
-        keys, order, ends = runs(t)
-        alone[label] = cuda_ms(torch, lambda: lib_ss.segment_sum_launch(
-            rows.data_ptr(), 1, order.data_ptr(), keys.data_ptr(),
-            ends.data_ptr(), dst.data_ptr(), 1, N, D, stream))
-    print(f"segment sum pieces: sort and run ends {sort_ms:.4f} ms, zero "
-          f"fill {zero_ms:.4f} ms, the kernel alone "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in alone.items()))
+    chunked = ss.segment_sum_chunked(rows, tok, V, torch.float32)
+    split = kernel_split(torch, lambda: ss.segment_sum(rows, tok, V))
+    pieces = dict(chunk_pass=split_ms(split, "chunk_kernel"),
+                  write_pass=split_ms(split, "write_kernel"))
+    pieces["sort"] = sum(split.values()) - sum(pieces.values())
+    sort32 = timed(lambda: torch.sort(tok.to(torch.int32), stable=True))
+    sort64 = timed(lambda: torch.sort(tok.long(), stable=True))
+    print(f"segment sum pieces (profiler, ms a call): {pieces}; a stable "
+          f"sort of the indices as int32 keys (with the cast) {sort32:.4f} "
+          f"ms, as int64 keys {sort64:.4f} ms")
     print(f"segment sum ({N} Zipf tokens, the most frequent {n_max} times, "
           f"x {D}, bf16 in; {V} rows): float32 out max abs err {err:.3g} "
-          f"against float64; two calls bit for bit "
+          f"against float64; equal to segment_sum_chunked "
+          f"{torch.equal(got32, chunked)}; two calls bit for bit "
           f"{torch.equal(got32, again)}; bf16 out equal to the float32 sum "
-          f"rounded {torch.equal(got16, got32.to(torch.bfloat16))}; kernel "
+          f"rounded {torch.equal(got16, got32.to(torch.bfloat16))}; call "
           f"{ms:.4f} ms, index_add_ (float32) {lib:.4f} ms, bound "
           f"{bound:.4f} ms (bytes)")
 

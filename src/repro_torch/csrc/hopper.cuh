@@ -194,36 +194,6 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db
     WGMMA_SS_N128("bf16");
 }
 
-// d[32] (+)= A(smem desc) * B(smem desc), m64n64k16, both K-major (the
-// backward's score tiles of 64 keys or 64 queries).
-#define WGMMA_SS_N64(TY)                                                       \
-  asm volatile(                                                                \
-      "{\n.reg .pred p;\n"                                                     \
-      "setp.ne.b32 p, %34, 0;\n"                                               \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "              \
-      "{"                                                                      \
-      "%0, %1, %2, %3, %4, %5, %6, %7, "                                       \
-      "%8, %9, %10, %11, %12, %13, %14, %15, "                                 \
-      "%16, %17, %18, %19, %20, %21, %22, %23, "                               \
-      "%24, %25, %26, %27, %28, %29, %30, %31"                                 \
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                       \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
-        "+f"(d[30]), "+f"(d[31])                                               \
-      : "l"(da), "l"(db), "r"(acc))
-
-template <bool F16>
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int acc) {
-  if constexpr (F16)
-    WGMMA_SS_N64("f16");
-  else
-    WGMMA_SS_N64("bf16");
-}
-
 // d[32] += A(registers, 16-bit x2 a[4]) * B(smem desc), m64n64k16; B
 // MN-major (transpose bit set).
 #define WGMMA_RS_N64_TB(TY)                                                    \

@@ -10,22 +10,27 @@ for every D its forward route takes up to 128 (``route``: chosen by D
 alone); wider heads keep the plain route's VJP, counted by
 ``flash_attention_bwd.plain_vjp_calls``.
 
-The CUDA kernel (``csrc/flash_attention_bwd.cu``) is two passes with no
-atomics, so two calls give the same bits: a dQ pass (a block a 128-row
-query tile, walking the key tiles to the diagonal; it also writes each
-row's Delta = rowsum(dO * O) and lse * log2(e) to a scratch buffer) and a
-dK/dV pass (a block a 128-key tile, walking the query tiles from the
-diagonal).  bfloat16 and float16 on ``wgmma`` with TMA loads; float32 as
-3xTF32 on ``mma.sync`` with cp.async loads.  The kernel takes D a multiple
-of 8 and 16-byte aligned rows: the wrapper zero-pads other D (zero columns
-add nothing to a product; the scale stays D's) and copies a misaligned
-operand.  A call is two launches, counted once by
-``flash_attention_bwd.launches``.
+The CUDA kernel (``csrc/flash_attention_bwd.cu``), bfloat16 and float16:
+one pass over the kept (query, key) pairs on ``wgmma`` with TMA loads, in
+three kernels: a pre-pass writes each row's Delta = rowsum(dO * O) and
+lse * log2(e) to a scratch buffer; the main kernel (a block a 128-key
+tile, walking the query tiles between the causal diagonal and the last)
+forms S and dP once a pair and takes dK, dV and dQ's share from them,
+adding dQ in float32 into a workspace (``dq_acc``) in ascending key-block
+order, each (head, 64-row query tile) paced by an int32 counter; a
+post-pass writes dq = dq_acc * scale in the inputs' type.  So two calls
+give the same bits.  float32: two passes with no atomics (a dQ pass that
+also writes the scratch statistics, then a dK/dV pass) as 3xTF32 on
+``mma.sync`` with cp.async loads.  The kernel takes D a multiple of 8 and
+16-byte aligned rows: the wrapper zero-pads other D (zero columns add
+nothing to a product; the scale stays D's) and copies a misaligned
+operand.  A call is a memset and three launches (float32: two), counted
+once by ``flash_attention_bwd.launches``.
 
 Bound on an H100: operations, 10 D flops a kept (query, key) pair at the
-tensor cores' rate (the kernel does 14 D: S and dP are formed in both
-passes).  On CPU tensors the plain version (``ref.flash_attention_bwd``)
-runs.
+tensor cores' rate, the 16-bit kernel's own count (float32: 14 D, S and
+dP formed in both passes).  On CPU tensors the plain version
+(``ref.flash_attention_bwd``) runs.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_D = 128          # the widest head the kernel takes
 D_STEP = 8           # the kernel's D is a multiple of this (zero-padded)
 STAT_ROWS = 128      # the scratch buffer holds two 64-row tiles a 128 rows
+DQ_ROWS = 64         # 16-bit: query rows a tile of the dQ workspace
 
 
 def route(D: int) -> str:
@@ -54,8 +60,8 @@ def _lib():
     if not getattr(lib, "_repro_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_bwd_launch.argtypes = [
-            p, p, p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i,
-            p]
+            p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i,
+            i, p]
         lib.flash_attention_bwd_launch.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
@@ -92,8 +98,7 @@ def _kernel_operand(t, D_pad):
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=True):
     """(dq, dk, dv) of causal or full softmax attention at D <= 128, from
     the forward's output and row log-sum-exp.  CUDA tensors launch the
-    kernel (two passes, counted once); CPU tensors take the plain
-    version."""
+    kernel (counted once a call); CPU tensors take the plain version."""
     q, k, v, out, lse, dout = (t.contiguous()
                                for t in (q, k, v, out, lse, dout))
     _check_args(q, k, v, out, lse, dout)
@@ -108,10 +113,20 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True):
     grads = [torch.empty_like(t) for t in ops[:3]]
     stats = torch.empty(B * H * (-(-S // STAT_ROWS)) * 2 * STAT_ROWS,
                         dtype=torch.float32, device=q.device)
+    dq_acc = dq_count = None
+    if q.dtype != torch.float32:
+        # dQ's float32 sums, [B*H][query tiles][64-column panels][64][64],
+        # and a counter a (head, query tile); no fill: the kernel stores
+        # the first key block's share and resets the counters
+        tiles = B * H * (-(-S // DQ_ROWS))
+        dq_acc = torch.empty(tiles * (1 if D_pad <= 64 else 2) * DQ_ROWS
+                             * 64, dtype=torch.float32, device=q.device)
+        dq_count = torch.empty(tiles, dtype=torch.int32, device=q.device)
     lib = _lib()
     code = _device.launch(
         lib.flash_attention_bwd_launch, q, *(t.data_ptr() for t in ops),
-        lse.data_ptr(), *(g.data_ptr() for g in grads), stats.data_ptr(), B,
+        lse.data_ptr(), *(g.data_ptr() for g in grads), stats.data_ptr(),
+        *(0 if t is None else t.data_ptr() for t in (dq_acc, dq_count)), B,
         S, H, D_pad, D ** -0.5, int(bool(causal)), DTYPES[q.dtype])
     _build.check(lib, code, NAME)
     flash_attention_bwd.launches += 1

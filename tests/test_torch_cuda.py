@@ -2208,7 +2208,8 @@ def _attention_inputs(cuda, B, S, H, D, dtype, seed):
 @pytest.mark.parametrize("D", [16, 32, 64, 72, 100, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, D, S, causal):
-    """dq, dk, dv of the kernel (two passes, counted once) against
+    """dq, dk, dv of the kernel (16-bit: one pass over the kept pairs in
+    three launches; float32: two passes; counted once) against
     ``ref.flash_attention_bwd`` on the same inputs, output and lse, within
     ``BWD_TOL``; D 72 no multiple of 16, D 100 zero-padded to 104; the
     forward's lse output leaves its output's bits as they are."""
@@ -2231,14 +2232,30 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, D, S, causal):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_kernel_is_bitwise_repeatable(cuda, dtype):
-    """Two calls give the same bits (no atomics): B 2, S 2,048, H 4, D
-    128, causal."""
+    """Two calls give the same bits (16-bit: dQ added in ascending
+    key-block order; float32: no atomics): B 2, S 2,048, H 4, D 128,
+    causal."""
     dt = getattr(torch, dtype)
     q, k, v, dout = _attention_inputs(cuda, 2, 2048, 4, 128, dt, seed=5)
     out, lse = fa_mod.flash_attention_lse(q, k, v, True)
     first = fab_mod.flash_attention_bwd(q, k, v, out, lse, dout, True)
     for _ in range(2):
         again = fab_mod.flash_attention_bwd(q, k, v, out, lse, dout, True)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_repeats_bitwise_across_many_blocks(cuda,
+                                                                causal):
+    """B 4, S 4,096, H 16, D 128 bf16: 2,048 key blocks on the card's 132
+    SMs, so key blocks wait on the dQ counters of blocks started long
+    before them; three calls give the same bits."""
+    q, k, v, dout = _attention_inputs(cuda, 4, 4096, 16, 128,
+                                      torch.bfloat16, seed=11)
+    out, lse = fa_mod.flash_attention_lse(q, k, v, causal)
+    first = fab_mod.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    for _ in range(2):
+        again = fab_mod.flash_attention_bwd(q, k, v, out, lse, dout, causal)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
@@ -2287,6 +2304,34 @@ def test_segment_sum_kernel_matches_plain_and_repeats(cuda):
     n = torch.bincount(idx, minlength=V).double()[:, None]
     assert bool(((got.double() - f64).abs() <= n * 2 ** -24 * mag).all())
     assert not got[n[:, 0] == 0].any()
+
+
+@pytest.mark.parametrize("D", [1000, 37])
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    ("bfloat16", "float32"), ("bfloat16", "bfloat16"), ("float32", "float32"),
+    ("float16", "float16")])
+def test_segment_sum_kernel_is_the_chunked_order_bit_for_bit(cuda, in_dtype,
+                                                             out_dtype, D):
+    """The kernel's sums are ``segment_sum_chunked``'s bits (the two-level
+    order in plain torch, on the card): a row of 1,200 positions (past 4
+    chunks), Zipf-drawn rows of every count, rows of one position and
+    rows of none; D 1,000 takes the kernel's 16-byte path, D 37 its
+    one-element path."""
+    rng = np.random.default_rng(D)
+    V, N = 20_000, 4096
+    idx = np.minimum(rng.zipf(1.3, N) - 1, V - 1)
+    idx[rng.choice(N, 1200, replace=False)] = 7
+    assert np.bincount(idx).max() > 4 * ss_mod.CHUNK
+    assert (np.bincount(idx) == 1).any()
+    idx = torch.from_numpy(idx).to(cuda)
+    rows = torch.from_numpy((rng.standard_normal((N, D))
+                             * 10.0 ** rng.integers(-3, 4, (N, 1)))
+                            .astype(np.float32)).to(cuda) \
+        .to(getattr(torch, in_dtype))
+    odt = getattr(torch, out_dtype)
+    got = ss_mod.segment_sum(rows, idx, V, odt)
+    want = ss_mod.segment_sum_chunked(rows, idx, V, odt)
+    assert got.dtype == odt and torch.equal(got, want)
 
 
 def test_moe_and_embedding_gradients_repeat_bitwise(cuda):
