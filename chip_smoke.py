@@ -13,7 +13,8 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    sliced kernels and its float32 D-256 instantiation apart, failing on
    any spill of the last three, and those of the SSD scan's chunk
    kernels and the Jacobi-2D cluster kernel, and of Jacobi-2D's tiled
-   kernel and streamcluster's kernel (16-bit and 3xTF32), failing on any
+   kernel, streamcluster's kernel (16-bit and 3xTF32), pathfinder's strip
+   and pyramid kernels and canneal's tile and row kernels, failing on any
    spill of these), and the count of tensor-core instructions (HGMMA,
    HMMA) in the flash-attention and streamcluster libraries' SASS where
    the toolkit has ``cuobjdump`` (failing if streamcluster's holds no
@@ -56,7 +57,8 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    canneal (PARSEC simlarge on the tile kernel; its first 65,536 rows
    padded to 128 slots on the row kernel), pathfinder (Rodinia's wall and
    its float32 copy with a row of +inf on the strip route, one cooperative
-   launch each; its first 21 rows on the pyramid route), flash attention (float32, bfloat16, bfloat16 at
+   launch each; its first 21 rows on the pyramid route, one launch with no
+   scratch row), flash attention (float32, bfloat16, bfloat16 at
    llama3-8b's and at gemma-7b's attention width, the last on the wgmma
    kernel's D-256 instantiation, bfloat16 at D 512 on its D-512
    instantiation, float32 at gemma's width on the 3xTF32 kernel's D-256
@@ -82,7 +84,10 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    reference's bars (Jacobi-2D on a PolyBench EXTRALARGE grid), timed
    beside their plain versions, the nearest single PyTorch call and their
    bounds (pathfinder on its strip route beside the pyramid route on the
-   same wall, canneal's tile kernel beside its row kernel), and the input types and widths the reference computes beyond
+   same wall, canneal's tile kernel beside its row kernel; the pyramid and
+   the row kernel also in device time behind a spin, with L2 flushed
+   before each call and in host issue time, on those inputs and on their
+   main-path calls, whose host time is also split piece by piece), and the input types and widths the reference computes beyond
    them: Jacobi-2D's one sweep in float32, bfloat16 and float16 on its
    vector route and on its width-one route (a 2,799 x 2,801 grid, a
    float16 view one point into its buffer), both routes bit for bit in the
@@ -470,6 +475,26 @@ def split_ms(split: dict, name: str) -> float:
     return sum(v for k, v in split.items() if name in k)
 
 
+def kernel_pieces(torch, fn, names: dict, tries: int = 3) -> dict:
+    """Device ms a call of ``fn`` in each kernel of ``names`` (a key, a
+    part of the kernel's name) and in all its kernels (``all_ms``), under
+    ``torch.profiler``.  The profiler has now and then returned no record
+    of a kernel, so the split is taken again, up to ``tries`` times, until
+    it sees each of them; a kernel it never saw is None, and so is
+    ``all_ms``, which would leave that kernel out."""
+    for _ in range(tries):
+        split = kernel_split(torch, fn)
+        pieces = {k: split_ms(split, n) for k, n in names.items()}
+        if min(pieces.values()) > 0:
+            return dict(pieces, all_ms=sum(split.values()))
+    return dict({k: v or None for k, v in pieces.items()}, all_ms=None)
+
+
+def ms_text(ms) -> str:
+    """``ms`` to 4 places, or that it was not measured (None)."""
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def sass_counts(build, source: str = "flash_attention") -> str:
     """Tensor-core and copy instructions in the built library of
     ``source`` (``cuobjdump -sass``), or why they cannot be counted."""
@@ -531,6 +556,60 @@ def wall_clock_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def cold_device_ms(torch, fn, reps: int, sm_clock_hz: float) -> float:
+    """Median device time (ms) of one ``fn`` call with L2 flushed before
+    it: behind a spin, each call follows a 128 MB write and sits between
+    its own pair of events."""
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(int(5e-3 * sm_clock_hz))
+    for start, end in pairs:
+        flush.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def host_us(torch, fn, n: int = 2_000) -> float:
+    """Mean host time (us) of one ``fn`` call, synchronizing every 100."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(n // 100):
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / n * 1e6
+
+
+def call_times(torch, fn, sm_clock_hz: float, per: int = 25) -> dict:
+    """One ``fn`` call's times (ms): back to back (``b2b``), the device's
+    behind a spin (``device``), the device's with L2 flushed before each
+    call (``cold``) and the host's issue (``issue``)."""
+    return dict(b2b=cuda_ms(torch, fn, reps=10, per=per),
+                device=device_ms(torch, fn, reps=10, per=per,
+                                 sm_clock_hz=sm_clock_hz),
+                cold=cold_device_ms(torch, fn, reps=25,
+                                    sm_clock_hz=sm_clock_hz),
+                issue=host_issue_ms(torch, fn, per=50))
+
+
+def call_times_text(t: dict, bound_ms: float) -> str:
+    """``call_times`` as "b2b [device] {cold}; issue", and the bound's
+    share of the device times."""
+    return (f"{t['b2b']:.4f} [{t['device']:.4f}] {{{t['cold']:.4f}}}; issue "
+            f"{t['issue']:.4f}; bound {bound_ms / t['device']:.1%} of the "
+            f"device time, {bound_ms / t['cold']:.1%} of the flushed one")
 
 
 def host_issue_ms(torch, fn, per: int) -> float:
@@ -1076,6 +1155,54 @@ def check_suite_outputs(torch, ref, data, outs) -> None:
               "(4e-3)")
 
 
+def pyramid_host_split(torch, path_mod, wall) -> dict:
+    """The pieces of a ``pathfinder.pyramid`` call on ``wall`` on the host:
+    the wrapper whole, its checks, its plan, the output's allocation and
+    the C entry's launch alone."""
+    from repro_torch import _device
+    R, C = wall.shape
+    plan = path_mod.pyramid_plan(R, C)
+    out = torch.empty(C, dtype=torch.float32, device=wall.device)
+    lib = path_mod._lib()
+    return {
+        "wrapper": lambda: path_mod.pyramid(wall),
+        "checks": lambda: path_mod._checked(wall, cuda=True),
+        "plan": lambda: path_mod.pyramid_plan(R, C),
+        "output": lambda: torch.empty(C, dtype=torch.float32,
+                                      device=wall.device),
+        "launch": lambda: _device.launch(
+            lib.pathfinder_pyramid_launch, wall, wall.data_ptr(),
+            int(wall.dtype == torch.int32), out.data_ptr(), None, R, C,
+            plan.h, plan.ghost, plan.middle, plan.windows, plan.launches)}
+
+
+def rows_host_split(torch, ca_mod, args) -> dict:
+    """The pieces of a ``canneal.rows`` call on ``args`` on the host: the
+    wrapper whole, its checks, its plan, the CTA count, the outputs'
+    allocation and the C entry's launch alone."""
+    from repro_torch import _device
+    locs, fan = args[0], args[1]
+    B, F = fan.shape
+    plan = ca_mod.rows_plan(F)
+    oa = torch.empty(B, dtype=torch.float32, device=locs.device)
+    ob = torch.empty_like(oa)
+    lib = ca_mod._lib()
+    ptrs = [t.data_ptr() for t in args] + [oa.data_ptr(), ob.data_ptr()]
+    ctas = ca_mod._ctas(locs.get_device())
+    return {
+        "wrapper": lambda: ca_mod.rows(*args),
+        "checks": lambda: ca_mod._checked(*args),
+        "plan": lambda: ca_mod.rows_plan(F),
+        "CTA count": lambda: ca_mod._ctas(locs.get_device()),
+        "outputs": lambda: (torch.empty(B, dtype=torch.float32,
+                                        device=locs.device),
+                            torch.empty(B, dtype=torch.float32,
+                                        device=locs.device)),
+        "launch": lambda: _device.launch(
+            lib.swap_cost_rows_launch, locs, *ptrs, B, F, locs.shape[0],
+            plan.tile, plan.chunk, plan.chunks, ctas)}
+
+
 def suite_specs(torch, ref, data, mods):
     """What phase 6 runs for each suite kernel: the kernel, its plain
     version and the nearest single PyTorch call as closures, the bar, and
@@ -1165,13 +1292,16 @@ def suite_specs(torch, ref, data, mods):
             plain=lambda: ref.canneal_swap_cost(locs, fan, ca, cb),
             library=None, tol=(1e-6, 0.0), peak=PEAK_F32_S,
             nbytes=CA_N * 8 + CA_B * CA_F * 4 + 2 * CA_B * 8 + 2 * CA_B * 4,
-            ops=n_valid * CA_OPS, per=25,
-            route=ca_mod.route(CA_F) if fn is ca_k else "rows"))
+            ops=n_valid * CA_OPS, per=25, device_time=fn is not ca_k,
+            l2_flushed=fn is not ca_k,
+            route=ca_mod.route(CA_F) if fn is ca_k else
+            f"rows, {ca_mod.rows_plan(CA_F)}"))
     specs[-1].update(
         timed_on=f"PARSEC simlarge's {CA_B:,} swaps x {CA_F} slots (the "
         f"main path's call: its first {CA_WIDE_B:,} rows padded to "
-        f"{CA_WIDE_F} slots, ms_wide)",
+        f"{CA_WIDE_F} slots, ms_wide, {ca_mod.rows_plan(CA_WIDE_F)})",
         also_timed={"ms_wide": lambda: ca_mod.rows(*wide)},
+        host_split=rows_host_split(torch, ca_mod, wide),
         # the bound of that call: its inputs and outputs, its valid slots
         main_bound=("ms_wide",
                     CA_N * 8 + CA_WIDE_B * CA_WIDE_F * 4 + 2 * CA_WIDE_B * 8
@@ -1222,8 +1352,8 @@ def suite_specs(torch, ref, data, mods):
             tol=None, peak=PEAK_F32_S, nbytes=g.numel() * 2 * g.element_size(),
             ops=J2_OPS * (g.shape[0] - 2) * (g.shape[1] - 2) * sweeps, per=1,
             plain_reps=1))
-    # pathfinder on the plan's strip route, and Rodinia's pyramid route on
-    # the same wall in the same run (the route the strips replaced)
+    # pathfinder on the plan's strip route, and the pyramid route on the
+    # same wall in the same run (41 launches of 40 rows)
     from repro_torch.kernels import pathfinder as path_mod
     wall = data["path"]
     for name, fn in (("pathfinder", path_k), ("pathfinder_pyramid",
@@ -1233,17 +1363,20 @@ def suite_specs(torch, ref, data, mods):
             plain=lambda: ref.pathfinder(wall), library=None, tol=None,
             peak=PEAK_F32_S, nbytes=PATH_R * PATH_C * 4 + PATH_C * 4,
             ops=PATH_OPS * (PATH_R - 1) * PATH_C, per=5, plain_reps=2,
+            device_time=fn is not path_k, device_per=25,
+            l2_flushed=fn is not path_k,
             route=(path_mod.route(PATH_R, PATH_C, *path_mod.card(wall.device))
                    if fn is path_k
-                   else f"pyramid, {path_mod.pyramid_launches(PATH_R)} "
-                   "launches")))
+                   else f"pyramid, {path_mod.pyramid_plan(PATH_R, PATH_C)}")))
     # the pyramid's main-path call is the wall's first PATH_SHORT rows
     specs[-1].update(
         timed_on=f"Rodinia's {PATH_R:,} x {PATH_C:,} wall, "
-        f"{path_mod.pyramid_launches(PATH_R)} launches a call (the main "
-        f"path's call: its first {PATH_SHORT} rows, "
-        f"{path_mod.pyramid_launches(PATH_SHORT)} launch, ms_short)",
+        f"{path_mod.pyramid_plan(PATH_R, PATH_C).launches} launches a call "
+        f"(the main path's call: its first {PATH_SHORT} rows, "
+        f"{path_mod.pyramid_plan(PATH_SHORT, PATH_C).launches} launch, "
+        "ms_short)",
         also_timed={"ms_short": lambda: path_mod.pyramid(wall[:PATH_SHORT])},
+        host_split=pyramid_host_split(torch, path_mod, wall[:PATH_SHORT]),
         main_bound=("ms_short", PATH_SHORT * PATH_C * 4 + PATH_C * 4,
                     PATH_OPS * (PATH_SHORT - 1) * PATH_C))
     # attention: 4 D flops a kept (query, key) pair on the tensor cores
@@ -1580,12 +1713,13 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float,
           f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
           f"({bound_by}; {spec['nbytes'] / 1e6:.1f} MB, "
           f"{spec['ops'] / 1e9:.3f} G ops)")
+    spun = lambda fn: device_ms(torch, fn, reps=10,
+                                per=spec.get("device_per", spec["per"]),
+                                sm_clock_hz=sm_clock_hz)
     if spec.get("device_time"):
         # a call whose host issue may exceed its device time: the times
         # above are back-to-back calls, as every row's; these are the
         # device's alone, behind a spin
-        spun = lambda fn: device_ms(torch, fn, reps=10, per=spec["per"],
-                                    sm_clock_hz=sm_clock_hz)
         extra["device_ms"] = spun(spec["kernel"])
         lib_dev = spun(spec["library"]) if spec["library"] else None
         extra["library_device_ms"] = lib_dev
@@ -1594,6 +1728,14 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float,
               + ("none" if lib_dev is None else f"{lib_dev:.4f} ms")
               + f"; host issue {host_issue_ms(torch, spec['kernel'], per=20):.4f}"
               " ms a call")
+    cold = lambda fn: cold_device_ms(torch, fn, reps=25,
+                                     sm_clock_hz=sm_clock_hz)
+    if spec.get("l2_flushed"):
+        # inputs that fit the 50 MB L2: back to back they are read from
+        # it; these device times have it flushed before each call
+        extra["cold_ms"] = cold(spec["kernel"])
+        print(f"{label} {name}: device time with L2 flushed before each "
+              f"call: kernel {extra['cold_ms']:.4f} ms")
     if "path" in extra:
         print(f"{label} {name}: path {extra['path']} (the kernel's flags)")
     if "route" in spec:
@@ -1604,8 +1746,28 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float,
         extra["timed_on"] = spec["timed_on"]
         for key, fn in spec["also_timed"].items():
             extra[key] = timed(fn)
+            if spec.get("device_time"):
+                # and that call's device time behind a spin, and its host
+                # issue
+                extra[f"{key}_device"] = spun(fn)
+                extra[f"{key}_issue"] = host_issue_ms(torch, fn, per=20)
+            if spec.get("l2_flushed"):
+                extra[f"{key}_cold"] = cold(fn)
         print(f"{label} {name}: ms timed on {spec['timed_on']}; "
-              + ", ".join(f"{k} {extra[k]:.4f}" for k in spec["also_timed"]))
+              + ", ".join(f"{k} {extra[k]:.4f}" + (
+                  f" [device {extra[k + '_device']:.4f}; host issue "
+                  f"{extra[k + '_issue']:.4f}]" if k + "_device" in extra
+                  else "") + (
+                  f" {{L2 flushed {extra[k + '_cold']:.4f}}}"
+                  if k + "_cold" in extra else "")
+                  for k in spec["also_timed"]))
+    if "host_split" in spec:
+        # the host time of the main path's call, piece by piece
+        extra["host_split_us"] = {k: host_us(torch, fn)
+                                  for k, fn in spec["host_split"].items()}
+        print(f"{label} {name}: the main path's call on the host (us a "
+              "call, mean of 2,000): " + ", ".join(
+                  f"{k} {t:.2f}" for k, t in extra["host_split_us"].items()))
     if "main_bound" in spec:
         # bound_ms is for the inputs "ms" timed; this is the main path's
         # call's own (the same rule: bytes once, its operations)
@@ -1613,11 +1775,18 @@ def run_suite_kernel(torch, spec, sm_clock_hz: float,
         mb, mo = nbytes / PEAK_BYTES_S, n_ops / spec["peak"]
         extra["bound_main_ms"] = max(mb, mo) * 1e3
         extra["bound_main_by"] = "bytes" if mb >= mo else "operations"
+        dev, cold_dev = extra.get(f"{key}_device"), extra.get(f"{key}_cold")
         print(f"{label} {name}: the main path's call ({key} "
               f"{extra[key]:.4f} ms): bound {extra['bound_main_ms']:.4f} ms "
               f"({extra['bound_main_by']}; {nbytes / 1e6:.1f} MB, "
               f"{n_ops / 1e9:.4f} G ops), "
-              f"{extra['bound_main_ms'] / extra[key]:.1%} of it")
+              f"{extra['bound_main_ms'] / extra[key]:.1%} of it"
+              + ("" if dev is None else
+                 f", {extra['bound_main_ms'] / dev:.1%} of its device time "
+                 f"{dev:.4f} ms")
+              + ("" if cold_dev is None else
+                 f", {extra['bound_main_ms'] / cold_dev:.1%} of it with L2 "
+                 f"flushed ({cold_dev:.4f} ms)"))
     if "passes" in spec:
         extra["pass_ms"] = {n: cuda_ms(torch, fn, reps=5)
                             for n, fn in spec["passes"]}
@@ -2958,17 +3127,20 @@ def attention_backward_rows(torch, ref, fa_mod, sm_clock_hz, dev, cfg, B,
 
     # the call's kernels apart: the statistics pre-pass, the one-pass main
     # kernel, the dQ post-pass (and the counters' memset)
-    split = kernel_split(torch, lambda: fab.flash_attention_bwd(
-        q, k, v, out, lse, dout, True))
-    bwd.update(prepass_ms=split_ms(split, "stats_kernel"),
-               main_kernel_ms=split_ms(split, "bwd_h16_kernel"),
-               postpass_ms=split_ms(split, "dq_post_kernel"),
-               device_ms=sum(split.values()))
-    rate = 10 * D * pairs / bwd["main_kernel_ms"] / 1e9
+    # (a kernel the profiler did not see is None, and so is the sum)
+    pieces = kernel_pieces(torch, lambda: fab.flash_attention_bwd(
+        q, k, v, out, lse, dout, True), dict(
+            prepass_ms="stats_kernel", main_kernel_ms="bwd_h16_kernel",
+            postpass_ms="dq_post_kernel"))
+    total = pieces.pop("all_ms")
+    bwd.update(pieces, device_ms=total)
+    rate = ("" if bwd["main_kernel_ms"] is None else
+            f" ({10 * D * pairs / bwd['main_kernel_ms'] / 1e9:.1f} TFLOP/s)")
     print(f"phase 14 attention backward's kernels (profiler, ms a call): "
-          f"pre-pass {bwd['prepass_ms']:.4f}, main kernel "
-          f"{bwd['main_kernel_ms']:.4f} ({rate:.1f} TFLOP/s), post-pass "
-          f"{bwd['postpass_ms']:.4f}; all kernels {bwd['device_ms']:.4f}")
+          f"pre-pass {ms_text(bwd['prepass_ms'])}, main kernel "
+          f"{ms_text(bwd['main_kernel_ms'])}{rate}, post-pass "
+          f"{ms_text(bwd['postpass_ms'])}; all kernels "
+          f"{ms_text(bwd['device_ms'])}")
     bwd["plain_vjp_ms"] = cuda_ms(torch, plain_vjp, reps=3, warmup=1)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     o = L.FlashAttention.apply(qg, kg, vg, True)
@@ -3036,15 +3208,21 @@ def segment_sum_row(torch, dev, cfg, B, S, sm_clock_hz) -> dict:
     bound = (N * D * 2 + V * D * 2) / PEAK_BYTES_S * 1e3
     # the call's pieces: the sort (the cast to int32 keys and torch's
     # stable sort), the chunk pass and the write pass
-    split = kernel_split(torch, lambda: ss.segment_sum(rows, tokens, V))
-    pieces = dict(chunk_pass_ms=split_ms(split, "chunk_kernel"),
-                  write_pass_ms=split_ms(split, "write_kernel"))
-    pieces["sort_ms"] = sum(split.values()) - sum(pieces.values())
+    # (a pass the profiler did not see is None, and so is the sort)
+    pieces = kernel_pieces(torch, lambda: ss.segment_sum(rows, tokens, V),
+                           dict(chunk_pass_ms="chunk_kernel",
+                                write_pass_ms="write_kernel"))
+    total = pieces.pop("all_ms")
+    pieces["sort_ms"] = (None if total is None else
+                         total - pieces["chunk_pass_ms"]
+                         - pieces["write_pass_ms"])
+    rate = ("" if pieces["write_pass_ms"] is None else
+            f" at {V * D * 2 / pieces['write_pass_ms'] / 1e6:.0f} GB/s")
     print(f"phase 14 segment_sum's pieces (profiler, ms a call): sort "
-          f"{pieces['sort_ms']:.4f}, chunk pass {pieces['chunk_pass_ms']:.4f}"
-          f", write pass {pieces['write_pass_ms']:.4f} (the table's "
-          f"{V * D * 2 / 1e9:.3f} GB at "
-          f"{V * D * 2 / pieces['write_pass_ms'] / 1e6:.0f} GB/s); equal to "
+          f"{ms_text(pieces['sort_ms'])}, chunk pass "
+          f"{ms_text(pieces['chunk_pass_ms'])}, write pass "
+          f"{ms_text(pieces['write_pass_ms'])} (the table's "
+          f"{V * D * 2 / 1e9:.3f} GB{rate}); equal to "
           f"segment_sum_chunked bit for bit {same_order}")
     print(f"phase 14 segment_sum (the embedding gradient: {N} tokens, the "
           f"most frequent {int(n.max())} times, x {D} bf16 into {V} rows): "
@@ -3957,13 +4135,15 @@ def main(argv=None) -> int:
     print(f"phase 1 jacobi2d cluster kernel: "
           f"{entry_lines(report, 'jacobi2d', 'jacobi2d_cluster_kernel')}")
     # Jacobi-2D's tiled kernel, streamcluster's kernel (16-bit and 3xTF32
-    # instantiations), pathfinder's strip kernel and canneal's tile kernel;
-    # none may spill, and the streamcluster library must hold wgmma (HGMMA)
-    # where it was counted
+    # instantiations), pathfinder's strip and pyramid kernels and canneal's
+    # tile and row kernels; none may spill, and the streamcluster library
+    # must hold wgmma (HGMMA) where it was counted
     for source, entry in (("jacobi2d", "jacobi2d_tiled_kernel"),
                           ("streamcluster", "streamcluster_kernel"),
                           ("pathfinder", "pathfinder_strips_kernel"),
-                          ("canneal", "swap_cost_tiles_kernel")):
+                          ("pathfinder", "pathfinder_pyramid_kernel"),
+                          ("canneal", "swap_cost_tiles_kernel"),
+                          ("canneal", "swap_cost_rows_kernel")):
         lines = entry_lines(report, source, entry)
         print(f"phase 1 {entry}: {lines}")
         if any(int(n) for n in re.findall(r"(\d+) bytes spill", lines)):
@@ -4491,6 +4671,16 @@ def main(argv=None) -> int:
     if launches["pathfinder"] != want_path:
         fail(f"pathfinder: {launches['pathfinder']} device operations on the "
              f"strip route, not {want_path}")
+    # the pyramid's main-path call (the wall's first PATH_SHORT rows) is one
+    # launch with no scratch row, and canneal's padded rows one launch of
+    # the row kernel
+    want_pyr = path_mod.pyramid_plan(PATH_SHORT, PATH_C).launches
+    if want_pyr != 1 or launches["pathfinder_pyramid"] != want_pyr:
+        fail(f"pathfinder: {launches['pathfinder_pyramid']} pyramid launches "
+             f"for {PATH_SHORT} rows, not one")
+    if launches["canneal_rows"] != 1:
+        fail(f"canneal: {launches['canneal_rows']} row-kernel launches, not "
+             "one")
     for key, want in (("sc", "3xtf32/tma"), ("sc_bf16", "wgmma/tma"),
                       ("sc_f16", "wgmma/tma")):
         if sc_mod.path(*data[key]) != want:

@@ -19,18 +19,25 @@
 // shared memory coalesced, by 16-byte cp.async (4-byte copies for the
 // words before the first 16-byte boundary and after the last; the block
 // lands at the same offset mod 16 in shared memory), double-buffered: the
-// next tile's block is in flight during this tile's gathers.  (One thread
-// walking its row in device memory, as the row kernel does, asks for each
-// warp load's 32 sectors, 4 F bytes apart, about F / 8 times over: 0.243
-// against the tile kernel's 0.210 ms at PARSEC simlarge on an H100,
-// scripts/canneal_variants.py.)
+// next tile's block is in flight during this tile's gathers.
 //
 // The row kernel (swap_cost_rows_kernel), for wider rows, whose tiles do
-// not fit a CTA's shared memory: one thread a swap reads its index row
-// from device memory, grid-stride.
+// not fit a CTA's shared memory: the same persistent CTAs of TILE swaps,
+// but a tile's rows come into shared memory in chunks of ROW_CHUNK slots,
+// a [TILE, ROW_CHUNK] block of strided row segments at a time, by 16-byte
+// cp.async with 4-byte copies at each segment's unaligned head and tail
+// (a segment lands at its own offset mod 16); each thread carries its
+// swap's sums across the chunks.  So no width needs a case of its own and
+// no thread reads its row from device memory.  (The kernel it replaced
+// did: one thread walking its row there asks for each warp load's 32
+// sectors, 4 F bytes apart, about F / 8 times over; 0.0425 ms of device
+// time on the main path's 65,536 rows of 128 slots, 0.2504 on simlarge's
+// 22, where the tile kernel took 0.2065; scripts/canneal_variants.py,
+// which keeps it to time beside this one as `rows-parent`; NVIDIA H100
+// 80GB HBM3, 700 W.)
 //
 // Both walk a row eight slots at a time and issue all eight predicated
-// gathers before any sum uses them (row_costs).  They sum a row in slot
+// gathers before any sum uses them (costs8).  They sum a row in slot
 // order (k = 0 .. F-1), take an index < 0 anywhere in the row as padding
 // and read row N-1 for an index >= N, as the reference's gather clamps.
 // Integer-valued coordinates keep every sum exact in float32, whatever the
@@ -44,37 +51,56 @@ namespace {
 constexpr int TILE = 256;    // swaps a tile, one a thread
 constexpr int MAX_F = 96;    // widest row a tile kernel takes
 constexpr int CHUNK = 8;     // gathers in flight a thread
+constexpr int ROW_CHUNK = 32;             // slots a stage of the row kernel
+constexpr int ROW_PITCH = ROW_CHUNK + 4;  // words a staged row
 
 // a location through L2 (cached in L2, not L1)
 __device__ __forceinline__ float2 gather(const float2* p) { return __ldcg(p); }
 
+// Eight slots of one swap's row, `idx` (the first `cnt` of them in the
+// row): every valid gather in flight before any sum uses it, then the
+// sums, {to a, to c}, in slot order.  An index < 0 is padding, one >= n
+// reads location n - 1.  Eight slots of padding add nothing: a sum starts
+// at +0 and adds values >= +0 (or NaN), so adding +0 keeps its bits.
+__device__ __forceinline__ void costs8(const int (&idx)[CHUNK], int cnt,
+                                       const float2* __restrict__ locs,
+                                       int n, float2 a, float2 c, float& sa,
+                                       float& sb) {
+  int top = -1;
+#pragma unroll
+  for (int j = 0; j < CHUNK; ++j)
+    if (j < cnt) top = max(top, idx[j]);
+  if (top < 0) return;
+  float2 p[CHUNK];
+#pragma unroll
+  for (int j = 0; j < CHUNK; ++j) {
+    p[j] = make_float2(0.0f, 0.0f);
+    if (j < cnt && idx[j] >= 0)
+      p[j] = gather(locs + (idx[j] < n ? idx[j] : n - 1));
+  }
+#pragma unroll
+  for (int j = 0; j < CHUNK; ++j) {
+    if (j < cnt) {
+      const bool valid = idx[j] >= 0;
+      const float da = fabsf(p[j].x - a.x) + fabsf(p[j].y - a.y);
+      const float db = fabsf(p[j].x - c.x) + fabsf(p[j].y - c.y);
+      sa += valid ? da : 0.0f;
+      sb += valid ? db : 0.0f;
+    }
+  }
+}
+
 // The costs of one swap, {to a, to c}, from its index row `row` of f slots
-// (in shared or device memory): CHUNK slots at a time, every valid gather
-// of a chunk in flight before any sum uses it, the sums in slot order.
+// in shared memory, CHUNK slots at a time.
 __device__ __forceinline__ float2 row_costs(const int32_t* row, int f,
                                             const float2* __restrict__ locs,
                                             int n, float2 a, float2 c) {
   float sa = 0.0f, sb = 0.0f;
   for (int k0 = 0; k0 < f; k0 += CHUNK) {
     int idx[CHUNK];
-    float2 p[CHUNK];
 #pragma unroll
     for (int j = 0; j < CHUNK; ++j) idx[j] = k0 + j < f ? row[k0 + j] : -1;
-#pragma unroll
-    for (int j = 0; j < CHUNK; ++j) {
-      p[j] = make_float2(0.0f, 0.0f);
-      if (idx[j] >= 0) p[j] = gather(locs + (idx[j] < n ? idx[j] : n - 1));
-    }
-#pragma unroll
-    for (int j = 0; j < CHUNK; ++j) {
-      if (k0 + j < f) {
-        const bool valid = idx[j] >= 0;
-        const float da = fabsf(p[j].x - a.x) + fabsf(p[j].y - a.y);
-        const float db = fabsf(p[j].x - c.x) + fabsf(p[j].y - c.y);
-        sa += valid ? da : 0.0f;
-        sb += valid ? db : 0.0f;
-      }
-    }
+    costs8(idx, f - k0, locs, n, a, c, sa, sb);
   }
   return make_float2(sa, sb);
 }
@@ -155,19 +181,120 @@ swap_cost_tiles_kernel(const float2* __restrict__ locs,
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-__global__ void swap_cost_rows_kernel(const float2* __restrict__ locs,
-                                      const int32_t* __restrict__ fan,
-                                      const float2* __restrict__ cand_a,
-                                      const float2* __restrict__ cand_b,
-                                      float* __restrict__ out_a,
-                                      float* __restrict__ out_b, long long b,
-                                      int f, int n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < b;
-       i += stride) {
-    const float2 s = row_costs(fan + i * f, f, locs, n, cand_a[i], cand_b[i]);
-    out_a[i] = s.x;
-    out_b[i] = s.y;
+// The word offset mod 4 of a pointer into the index table.
+__device__ __forceinline__ int word_mod4(const int32_t* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// Slots [c0, c0 + len) (len <= ROW_CHUNK) of the index rows first ..
+// first + rows - 1 into `dst`, row r at dst[r ROW_PITCH + m_r + j], m_r
+// its words' offset mod 4: ROW_CHUNK / 4 threads a row, each a 16-byte
+// copy and at most one word of the row's unaligned head and tail.  A
+// thread's rows are TILE / (ROW_CHUNK / 4) apart, a multiple of 4 rows,
+// so they share one m_r.
+__device__ __forceinline__ void stage_rows(int32_t* dst,
+                                           const int32_t* __restrict__ fan,
+                                           long long first, int rows, int f,
+                                           int c0, int len) {
+  constexpr int NQ = ROW_CHUNK / 4;   // threads a row
+  constexpr int STRIDE = TILE / NQ;   // rows between a thread's rows
+  const int q = threadIdx.x % NQ;
+  int r = threadIdx.x / NQ;
+  const int32_t* src = fan + (first + r) * f + c0;
+  const int m = word_mod4(src);
+  const int head = ((4 - m) & 3) < len ? ((4 - m) & 3) : len;
+  const int body = (len - head) / 4;
+  const int tail = len - head - 4 * body;
+  int32_t* d = dst + r * ROW_PITCH + m;
+  for (; r < rows; r += STRIDE, src += (long long)STRIDE * f,
+                   d += STRIDE * ROW_PITCH) {
+    if (q < body) cp_async16(d + head + 4 * q, src + head + 4 * q);
+    if (q < head) cp_async4(d + q, src + q);
+    if (q < tail)
+      cp_async4(d + head + 4 * body + q, src + head + 4 * body + q);
+  }
+}
+
+// Persistent CTAs of TILE threads take tiles of TILE swaps in turn, and
+// walk each tile's index rows ROW_CHUNK slots at a time: a chunk's
+// [TILE, ROW_CHUNK] block comes into shared memory by cp.async
+// (stage_rows), then every thread sums its row's slots of it (a tile of
+// f = 0 is one empty chunk: zeros).  Thread t carries its swap's two sums
+// across its row's chunks.  It reads its chunk as aligned 16-byte quads
+// (rows ROW_PITCH words apart: a quarter warp's quads fall on distinct
+// banks) and picks its words by the row's offset mod 4.  One stage, no
+// ring: copies in flight from the summing warps hold back their shared
+// reads (a ring of two, the next chunk's copies issued before this one's
+// sums, measured slower at every width; scripts/canneal_variants.py), and
+// 36 KB a CTA leaves room for more CTAs an SM to overlap one another.
+__global__ void __launch_bounds__(TILE)
+swap_cost_rows_kernel(const float2* __restrict__ locs,
+                      const int32_t* __restrict__ fan,
+                      const float2* __restrict__ cand_a,
+                      const float2* __restrict__ cand_b,
+                      float* __restrict__ out_a, float* __restrict__ out_b,
+                      long long b, int f, int n, int chunks) {
+  __shared__ __align__(16) int32_t block[TILE * ROW_PITCH];
+  const long long tiles = (b + TILE - 1) / TILE;
+  const int t = threadIdx.x;
+  float sa = 0.0f, sb = 0.0f;
+  float2 a = make_float2(0.0f, 0.0f), c = a;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long first = tile * TILE;
+    const long long left = b - first;
+    const long long i = first + t;
+    for (int chunk = 0; chunk < chunks; ++chunk) {
+      const int c0 = chunk * ROW_CHUNK;
+      const int len = f - c0 < ROW_CHUNK ? f - c0 : ROW_CHUNK;
+      stage_rows(block, fan, first, (int)(left < TILE ? left : TILE), f, c0,
+                 len);
+      asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" :::
+                       "memory");
+      __syncthreads();   // the chunk's block is in shared memory
+      // the row's words' offset mod 4 (the same in every chunk); a warp
+      // whose rows all start on 16 bytes reads its words as they stand
+      const int m = word_mod4(fan + i * f + c0);
+      const bool flat = __all_sync(0xffffffffu, m == 0);
+      if (i < b) {
+        if (chunk == 0) {
+          sa = sb = 0.0f;
+          a = cand_a[i];
+          c = cand_b[i];
+        }
+        const int32_t* row = block + t * ROW_PITCH;
+        for (int s = 0; s < len; s += CHUNK) {
+          // slots s .. s + 7 are words m + s .. m + s + 7 of the row: its
+          // quads s / 4 .. s / 4 + 2 (the first two where m is 0)
+          int w[12], idx[CHUNK];
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            if (q == 2 && flat) break;
+            const int4 v = *reinterpret_cast<const int4*>(row + s + 4 * q);
+            w[4 * q] = v.x;
+            w[4 * q + 1] = v.y;
+            w[4 * q + 2] = v.z;
+            w[4 * q + 3] = v.w;
+          }
+          if (flat) {
+#pragma unroll
+            for (int j = 0; j < CHUNK; ++j) idx[j] = w[j];
+          } else {
+#pragma unroll
+            for (int j = 0; j < CHUNK; ++j) {
+              const int lo = m & 1 ? w[j + 1] : w[j];
+              const int hi = m & 1 ? w[j + 3] : w[j + 2];
+              idx[j] = m & 2 ? hi : lo;
+            }
+          }
+          costs8(idx, len - s, locs, n, a, c, sa, sb);
+        }
+        if (chunk == chunks - 1) {
+          out_a[i] = sa;
+          out_b[i] = sb;
+        }
+      }
+      __syncthreads();   // every row is read before the next chunk comes in
+    }
   }
 }
 
@@ -210,20 +337,44 @@ extern "C" int swap_cost_tiles_launch(const float* locs, const int32_t* fan,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The row kernel.  Launches on `stream`; returns cudaGetLastError() (0 on
-// success).
+// The row kernel's CTAs the current device holds at once, into *ctas; 0
+// or a CUDA error code.
+extern "C" int swap_cost_rows_fit(int* ctas) {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, swap_cost_rows_kernel, TILE, 0)) != cudaSuccess)
+    return static_cast<int>(e);
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return static_cast<int>(e);
+  *ctas = (per_sm > 0 ? per_sm : 1) * sms;
+  return 0;
+}
+
+// The row kernel, any f, on the host's plan
+// (repro_torch/kernels/canneal.py:rows_plan): tiles of `tile` swaps, rows
+// staged `chunk` slots at a time in `chunks` stages (one empty stage where
+// f = 0), held here to the kernel's TILE and ROW_CHUNK; `ctas` persistent
+// CTAs at most (at most one a tile; swap_cost_rows_fit's count), launched
+// on `stream`.  Returns cudaErrorInvalidValue for a plan that does not
+// fit, else cudaGetLastError() (0 on success).
 extern "C" int swap_cost_rows_launch(const float* locs, const int32_t* fan,
                                      const float* cand_a, const float* cand_b,
                                      float* out_a, float* out_b, long long b,
-                                     int f, int n, void* stream) {
-  const int threads = 256;
-  long long blocks = (b + threads - 1) / threads;
-  // enough resident warps on the 132 SMs to keep many gathers in flight
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  swap_cost_rows_kernel<<<(unsigned)blocks, threads, 0,
+                                     int f, int n, int tile, int chunk,
+                                     int chunks, int ctas, void* stream) {
+  if (f < 0 || ctas < 1 || tile != TILE || chunk != ROW_CHUNK ||
+      chunks != (f > 0 ? (f + ROW_CHUNK - 1) / ROW_CHUNK : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (b + TILE - 1) / TILE;
+  const long long blocks = ctas < tiles ? ctas : tiles;
+  swap_cost_rows_kernel<<<(unsigned)blocks, TILE, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float2*>(locs), fan,
       reinterpret_cast<const float2*>(cand_a),
-      reinterpret_cast<const float2*>(cand_b), out_a, out_b, b, f, n);
+      reinterpret_cast<const float2*>(cand_b), out_a, out_b, b, f, n,
+      chunks);
   return static_cast<int>(cudaGetLastError());
 }

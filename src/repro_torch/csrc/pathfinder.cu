@@ -44,18 +44,41 @@
 // device operations a call.  The host picks S, H, SR and the CTA count
 // (repro_torch/kernels/pathfinder.py:route).
 //
-// The pyramid route (pathfinder_kernel), Rodinia's own: a block of 256
-// threads owns a strip of 256 columns and advances PYRAMID rows in shared
-// memory with one __syncthreads per row; strips overlap by PYRAMID on each
-// side and each writes its middle 256 - 2 * PYRAMID columns; one launch
-// advances PYRAMID rows (ceil((R - 1) / PYRAMID) launches, all from one
-// call).  Each thread loads its PYRAMID wall values before the first row.
-// It takes walls of at most 41 rows (two launches), where it measured
-// faster, and the walls whose strips do not fit a CTA (pathfinder.py:
-// route).
+// The pyramid route (pathfinder_pyramid_kernel): the strip route's ghost
+// zone at the scale of a warp, with no block barrier, no shared memory and
+// no edge words.  Warp g owns a window of 32 K columns, K consecutive a
+// lane (neighbours by shuffles), from column g M - G, and runs h rows over
+// it; the ghost zone G is h rounded up to 4 columns a side, so after h
+// rows the middle M = 32 K - 2 G columns are right, and the middles tile
+// the row (K = 8: windows of 256 columns, middles of 176 or more).  The
+// wall's rows come into a ring of D = 8 rows in registers: row i + D is
+// loaded when row i is done, so D rows' loads are in flight while one is
+// computed.  The rows are a chain of dependent steps in each warp, and
+// only about C / M warps exist (3.5 an SM at Rodinia's width), so the
+// step is kept short: only the two windows that reach past the wall's
+// ends mask their outside columns to END after every row (a warp-uniform
+// branch), and over an int32 wall, whose costs are never NaN or -0, the
+// mins are the hardware's (cmin).  Loads and stores are 16 bytes wide
+// where C is a multiple of 4 and the wall starts on 16 bytes (G, M and K
+// are multiples of 4, so a window's groups of four columns are wholly in
+// or out of the wall), 4 bytes wide otherwise.  One launch runs every
+// wall of at most 41 rows (h = R - 1 <= 40: no scratch row); a longer one
+// takes ceil((R - 1) / 40) launches of equal h, each reading the cost row
+// the last wrote (two buffers in turn).  The host's plan
+// (repro_torch/kernels/pathfinder.py:pyramid_plan) gives h, G, M, the
+// windows and the launches; the launch checks it against the window of 32
+// K columns and rejects one that does not tile the row.  Rodinia's own
+// pyramid (256-column blocks, 20 rows a launch, one __syncthreads a row)
+// took 0.0069 ms of device time on the first 21 rows of its wall and
+// 0.6537 ms in 81 launches on all 1,604 (scripts/pathfinder_variants.py,
+// which keeps it to time beside this one as `rodinia`; NVIDIA H100 80GB
+// HBM3, 700 W).  The pyramid takes walls of at most 41 rows, those of at
+// most 81 rows and 100,000 columns, and the walls whose strips do not
+// fit a CTA (pathfinder.py: route).
 //
 // Both take min in the plain version's order with torch.minimum's NaN rule
-// and add each row once, so both equal the plain version
+// (the pyramid, over an int32 wall, with the hardware's min: the same
+// bits there) and add each row once, so both equal the plain version
 // (repro_torch/kernels/ref.py:pathfinder) bit for bit.
 
 #include <cuda_runtime.h>
@@ -65,9 +88,6 @@
 namespace {
 
 constexpr float END = 3.0e38f;   // past both ends: the Pallas kernel's _INF
-constexpr int TILE = 256;        // columns (threads) per pyramid block
-constexpr int PYRAMID = 20;      // rows per launch (Rodinia's pyramid_height)
-constexpr int STRIDE = TILE - 2 * PYRAMID;   // columns a block writes
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(int32_t v) { return (float)v; }
@@ -82,54 +102,190 @@ __device__ __forceinline__ float step(float w, float v, float l, float r) {
   return w + tmin(v, tmin(l, r));
 }
 
-// Rows row0 .. row0 + nrows - 1 (nrows <= PYRAMID) over the cost row `in`
-// into `out`; `in` == nullptr starts from wall row 0.
-template <typename W>
-__global__ void __launch_bounds__(TILE)
-pathfinder_kernel(const W* __restrict__ wall, const float* __restrict__ in,
-                  float* __restrict__ out, long long row0, int nrows, int C) {
-  __shared__ float buf[2][TILE];
-  const int t = threadIdx.x;
-  const long long col = (long long)blockIdx.x * STRIDE - PYRAMID + t;
-  const bool live = col >= 0 && col < C;
-  float w[PYRAMID];
+// ---- the pyramid route ------------------------------------------------------
+
+// The pyramid's windows: PYR_K columns a lane (a window of 256), a ring
+// of PYR_D wall rows in registers, one warp a block.  Four columns a
+// lane (more warps, more ghost columns), rings of 4 and 16 rows and blocks
+// of 4 warps were no faster over walls of 21 and 41 rows
+// (scripts/pathfinder_variants.py, NVIDIA H100 80GB HBM3, 700 W).
+constexpr int PYR_K = 8, PYR_D = 8, PYR_WARPS = 1;
+
+// Four columns in one 16-byte load.
+template <typename W> struct Vec4;
+template <> struct Vec4<float> { using T = float4; };
+template <> struct Vec4<int32_t> { using T = int4; };
+
+// K columns of row `p` (a wall row or a cost row) from column x into `w`,
+// the columns whose bit of `inside` is set (0 in the others): 16 bytes at
+// a time where `vec` (then a group of four columns is wholly inside or
+// wholly out), else one column at a time.
+template <int K, typename W>
+__device__ __forceinline__ void load_cols(const W* __restrict__ p,
+                                          long long x, unsigned inside,
+                                          bool vec, W* w) {
+  if (vec) {
 #pragma unroll
-  for (int i = 0; i < PYRAMID; ++i)
-    w[i] = (live && i < nrows) ? to_f(wall[(row0 + i) * C + col]) : 0.0f;
-  float v = END;
-  if (live) v = in ? in[col] : to_f(wall[col]);
-  buf[0][t] = v;
+    for (int q = 0; q < K; q += 4) {
+      typename Vec4<W>::T u = {0, 0, 0, 0};
+      if (inside >> q & 1u)
+        u = *reinterpret_cast<const typename Vec4<W>::T*>(p + x + q);
+      w[q] = u.x;
+      w[q + 1] = u.y;
+      w[q + 2] = u.z;
+      w[q + 3] = u.w;
+    }
+  } else {
 #pragma unroll
-  for (int i = 0; i < PYRAMID; ++i) {
-    if (i >= nrows) break;   // nrows is the same for the whole block
-    __syncthreads();
-    const float* cur = buf[i & 1];
-    const float left = t > 0 ? cur[t - 1] : END;
-    const float right = t < TILE - 1 ? cur[t + 1] : END;
-    v = live ? step(w[i], v, left, right) : END;
-    buf[(i + 1) & 1][t] = v;
+    for (int j = 0; j < K; ++j) w[j] = inside >> j & 1u ? p[x + j] : W(0);
   }
-  if (live && t >= PYRAMID && t < TILE - PYRAMID) out[col] = v;
 }
 
-long long steps(long long r) {
-  return r > 1 ? (r - 1 + PYRAMID - 1) / PYRAMID : 1;
+// The min of two costs as torch.minimum takes it.  Over a float wall:
+// tmin (NaN if either is NaN, else the smaller, b where they compare
+// equal: -0 and +0).  An int32 wall's costs are finite and never NaN or
+// -0 (its values widened to float, sums of them and of the ends'
+// 3.0e38), so there the hardware's min (one instruction, where tmin takes
+// three) gives the same bits.
+template <typename W> __device__ __forceinline__ float cmin(float a, float b);
+template <> __device__ __forceinline__ float cmin<float>(float a, float b) {
+  return tmin(a, b);
+}
+template <> __device__ __forceinline__ float cmin<int32_t>(float a, float b) {
+  return fminf(a, b);
+}
+
+// The rows row0 .. row0 + nrows - 1 over this lane's K columns `v`, the
+// wall's first D of them already in the ring `w` and `next` at row
+// row0 + D: row i + D is loaded as soon as row i is done, so D rows are in
+// flight while one is computed.  EDGE: some lane's columns lie past an
+// end of the wall, and hold END after every row (the bits of `inside`); a
+// window inside the wall skips that mask and loads unpredicated.
+template <typename W, int K, int D, bool EDGE>
+__device__ __forceinline__ void pyramid_rows(const W* __restrict__ next,
+                                             int nrows, int C, long long x,
+                                             unsigned inside, bool vec,
+                                             int lane, float (&v)[K],
+                                             W (&w)[D][K]) {
+  if (!EDGE) inside = (1u << K) - 1;
+  for (int i0 = 0; i0 < nrows; i0 += D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      if (i0 + d >= nrows) break;   // the same for the whole grid
+      float l = __shfl_up_sync(0xffffffffu, v[K - 1], 1);
+      float r = __shfl_down_sync(0xffffffffu, v[0], 1);
+      if (lane == 0) l = END;     // the window's ends: its ghost zone
+      if (lane == 31) r = END;
+      float n[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        n[j] = to_f(w[d][j]) +
+               cmin<W>(v[j], cmin<W>(j == 0 ? l : v[j - 1],
+                                     j == K - 1 ? r : v[j + 1]));
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        v[j] = !EDGE || inside >> j & 1u ? n[j] : END;
+      if (i0 + d + D < nrows) {
+        load_cols<K>(next, x, inside, vec, w[d]);
+        next += C;
+      }
+    }
+  }
+}
+
+// One launch of the pyramid: rows row0 .. row0 + nrows - 1 over the cost
+// row `in` (wall row 0 where `in` is null) into `out`.  Warp g owns the
+// window of 32 K columns from g M - G (M = 32 K - 2 G, G >= nrows), K
+// consecutive columns a lane, neighbours by shuffles; after nrows rows
+// the window's middle M columns are right and the middles tile the row.
+template <typename W, int K, int D>
+__global__ void __launch_bounds__(PYR_WARPS * 32)
+pathfinder_pyramid_kernel(const W* __restrict__ wall,
+                          const float* __restrict__ in,
+                          float* __restrict__ out, long long row0, int nrows,
+                          int C, int G, int M, long long windows, int vec) {
+  const int lane = threadIdx.x & 31;
+  const long long g =
+      (long long)blockIdx.x * PYR_WARPS + (threadIdx.x >> 5);
+  if (g >= windows) return;   // the whole warp
+  const long long x = g * M - G + lane * K;   // this lane's first column
+  unsigned inside = 0;
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    if (x + j >= 0 && x + j < C) inside |= 1u << j;
+  float v[K];
+  if (in) {
+    load_cols<K>(in, x, inside, vec != 0, v);
+  } else {
+    W w0[K];
+    load_cols<K>(wall, x, inside, vec != 0, w0);
+#pragma unroll
+    for (int j = 0; j < K; ++j) v[j] = to_f(w0[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) v[j] = inside >> j & 1u ? v[j] : END;
+  W w[D][K];
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+    if (d < nrows) load_cols<K>(wall + (row0 + d) * C, x, inside, vec != 0,
+                                w[d]);
+  const W* next = wall + (row0 + D) * C;
+  if (__any_sync(0xffffffffu, inside != (1u << K) - 1))
+    pyramid_rows<W, K, D, true>(next, nrows, C, x, inside, vec != 0, lane,
+                                v, w);
+  else
+    pyramid_rows<W, K, D, false>(next, nrows, C, x, inside, vec != 0, lane,
+                                 v, w);
+  // the middle: window columns [G, G + M)
+#pragma unroll
+  for (int q = 0; q < K; q += 4) {
+    const int m = lane * K + q - G;
+    if (m < 0 || m >= M) continue;   // four columns wholly in or out
+    if (vec && (inside >> q & 0xfu) == 0xfu) {
+      *reinterpret_cast<float4*>(out + x + q) =
+          make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+    } else {
+#pragma unroll
+      for (int j = q; j < q + 4; ++j)
+        if (inside >> j & 1u) out[x + j] = v[j];
+    }
+  }
+}
+
+// The host's plan (repro_torch/kernels/pathfinder.py:pyramid_plan), held
+// to this kernel's window: h rows a launch over n launches covering the r
+// - 1 rows after the first, ghost zones of g >= h columns a side (a
+// multiple of 4), middles of m = 32 PYR_K - 2 g columns, `windows` of
+// them tiling the c columns, and a scratch row where n > 1.
+bool pyramid_plan_fits(long long r, int c, int h, int g, int m,
+                       long long windows, long long n, const float* scratch) {
+  const long long rows = r > 1 ? r - 1 : 0;
+  return r >= 1 && c >= 1 && h >= 0 && h <= g && g % 4 == 0 &&
+         m == 32 * PYR_K - 2 * g && m > 0 && windows >= 1 &&
+         (windows - 1) * m < c && c <= windows * m && n >= 1 &&
+         (rows == 0 ? n == 1 : (n - 1) * h < rows && rows <= n * h) &&
+         (n == 1 || scratch != nullptr);
 }
 
 template <typename W>
-int launch(const W* wall, float* out, float* scratch, long long r, int c,
-           cudaStream_t stream) {
-  const long long n = steps(r);
-  const unsigned blocks = (unsigned)((c + STRIDE - 1) / STRIDE);
+int pyramid_launch(const W* wall, float* out, float* scratch, long long r,
+                   int c, int h, int g, int m, long long windows,
+                   long long n, cudaStream_t stream) {
+  if (!pyramid_plan_fits(r, c, h, g, m, windows, n, scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte loads and stores where every row starts on 16 bytes
+  const bool vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(wall) % 16 == 0;
+  const long long blocks = (windows + PYR_WARPS - 1) / PYR_WARPS;
   const float* in = nullptr;
   for (long long s = 0; s < n; ++s) {
-    const long long row0 = 1 + s * PYRAMID;
+    const long long row0 = 1 + s * h;
     const long long left = r - row0;
-    const int nrows = (int)(left < PYRAMID ? (left > 0 ? left : 0) : PYRAMID);
+    const int nrows = (int)(left < h ? (left > 0 ? left : 0) : h);
     // the last launch writes `out`
     float* dst = ((n - 1 - s) % 2 == 0) ? out : scratch;
-    pathfinder_kernel<W><<<blocks, TILE, 0, stream>>>(wall, in, dst, row0,
-                                                      nrows, c);
+    pathfinder_pyramid_kernel<W, PYR_K, PYR_D>
+        <<<(unsigned)blocks, PYR_WARPS * 32, 0, stream>>>(
+            wall, in, dst, row0, nrows, c, g, m, windows, vec ? 1 : 0);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     in = dst;
@@ -520,22 +676,26 @@ extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The number of kernel launches pathfinder_pyramid_launch makes for r rows.
-extern "C" long long pathfinder_pyramid_launches(long long r) {
-  return steps(r);
-}
-
 // The pyramid route: the last cost row of the [r, c] wall (int32 if
-// `is_int`, else float32) into `out` [c]; `scratch` is a second [c] float
-// buffer.  Launches on `stream`; returns cudaGetLastError() of the first
-// failed launch (0 on success).
+// `is_int`, else float32) into `out` [c], in `launches` launches of h
+// rows over `windows` windows of 256 columns, each with ghost zones of
+// `ghost` columns a side and a middle of `middle` (the host's
+// pyramid_plan, checked here against the kernel's window); `scratch`, a
+// second [c] float buffer, only where that is more than one launch (else
+// null).  Launches on `stream`; returns cudaErrorInvalidValue for a plan
+// that does not fit, else cudaGetLastError() of the first failed launch
+// (0 on success).
 extern "C" int pathfinder_pyramid_launch(const void* wall, int is_int,
                                          float* out, float* scratch,
-                                         long long r, int c, void* stream) {
+                                         long long r, int c, int h, int ghost,
+                                         int middle, long long windows,
+                                         int launches, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_int)
-    return launch(static_cast<const int32_t*>(wall), out, scratch, r, c, s);
-  return launch(static_cast<const float*>(wall), out, scratch, r, c, s);
+    return pyramid_launch(static_cast<const int32_t*>(wall), out, scratch, r,
+                          c, h, ghost, middle, windows, launches, s);
+  return pyramid_launch(static_cast<const float*>(wall), out, scratch, r, c,
+                        h, ghost, middle, windows, launches, s);
 }
 
 // How many strip CTAs of `strip` columns, `h` rows a phase and slabs of

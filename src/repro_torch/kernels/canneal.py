@@ -17,7 +17,11 @@ swap a thread.  ``route`` picks one on the host:
   shared memory by 16-byte cp.async (4-byte copies at an unaligned head or
   tail), double-buffered;
 - ``rows`` (wider rows, or none; ``swap_cost.rows_launches``; ``rows``
-  runs it at any F): a thread reads its index row from device memory.
+  runs it at any F): the same persistent CTAs, each tile's rows staged in
+  chunks of ``ROW_CHUNK`` slots, a ``[TILE, ROW_CHUNK]`` block of strided
+  row segments at a time (16-byte cp.async, 4-byte copies at each
+  segment's unaligned head and tail; ``rows_plan``); each thread carries
+  its swap's sums across the chunks.
 
 Both keep every gather of eight slots in flight before any sum uses them.
 
@@ -33,10 +37,12 @@ whatever the inputs.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
-from repro_torch import _build
+from repro_torch import _build, _device
 from repro_torch.kernels import _check, _promote, ref
 
 NAME = "swap_cost"
@@ -44,6 +50,13 @@ NAME = "swap_cost"
 # (csrc/canneal.cu TILE, MAX_F: two buffers of 256 rows of 96 slots fill
 # 192 KB of a CTA's shared memory)
 TILE, MAX_F = 256, 96
+# the row kernel: slots a stage and words a staged row (a chunk and up to 3
+# words ahead of it; csrc/canneal.cu ROW_CHUNK, ROW_PITCH, whose launch
+# rejects a plan of another tile or chunk); one stage of 256 such rows in
+# static shared memory (36 KB); a CTA's shared memory at most (an H100's
+# opt-in)
+ROW_CHUNK, ROW_PITCH, MAX_SMEM = 32, 36, 232_448
+ROW_STAGES, ROW_SMEM = 1, TILE * ROW_PITCH * 4
 # coordinate types the reference widens to float32 inside its kernel
 WIDENED = (torch.bfloat16, torch.float16, torch.int32)
 
@@ -71,6 +84,29 @@ def route(F: int) -> str:
     return "tiles" if 1 <= F <= MAX_F else "rows"
 
 
+class RowsPlan(NamedTuple):
+    """How the row kernel runs rows of F slots (``rows_plan``)."""
+    tile: int     # swaps a tile, one a thread
+    chunk: int    # slots a stage
+    chunks: int   # stages a tile (one empty stage where F = 0)
+    stages: int   # stages in shared memory at once
+    smem: int     # shared bytes a CTA
+
+
+@functools.lru_cache(maxsize=1024)
+def rows_plan(F: int, smem: int = MAX_SMEM) -> RowsPlan:
+    """The row kernel's plan for rows of ``F`` slots on a card whose CTA
+    may take ``smem`` bytes of shared memory: chunks of ROW_CHUNK slots,
+    one stage of ROW_SMEM bytes at a time (within any card's 48 KB, so
+    more CTAs an SM; a ring of two stages was slower at every width
+    measured, scripts/canneal_variants.py ``ring2``).  The launch runs
+    its tile, chunk and chunks as they stand."""
+    if F < 0 or ROW_SMEM > smem:
+        raise ValueError(f"{NAME}: no row plan for F = {F} in {smem} bytes")
+    return RowsPlan(TILE, ROW_CHUNK, max(1, -(-F // ROW_CHUNK)), ROW_STAGES,
+                    ROW_SMEM)
+
+
 def tile_words(F: int) -> int:
     """int32 words of one of a tile CTA's two shared buffers: a tile's
     index block and up to 3 words ahead of it (its offset mod 16)."""
@@ -81,11 +117,26 @@ def _lib():
     lib = _build.load("canneal")
     if not getattr(lib, "_repro_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for fn in (lib.swap_cost_tiles_launch, lib.swap_cost_rows_launch):
-            fn.argtypes = [p, p, p, p, p, p, ll, i, i, p]
+        lib.swap_cost_tiles_launch.argtypes = [p, p, p, p, p, p, ll, i, i,
+                                               p]
+        lib.swap_cost_rows_launch.argtypes = [p, p, p, p, p, p, ll, i, i, i,
+                                              i, i, i, p]
+        lib.swap_cost_rows_fit.argtypes = [p]
+        for fn in (lib.swap_cost_tiles_launch, lib.swap_cost_rows_launch,
+                   lib.swap_cost_rows_fit):
             fn.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _ctas(index: int) -> int:
+    """The row kernel's CTAs that CUDA card ``index`` holds at once."""
+    lib, ctas = _lib(), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        code = lib.swap_cost_rows_fit(ctypes.byref(ctas))
+    _build.check(lib, code, NAME)
+    return ctas.value
 
 
 def _checked(locs, fan_idx, cand_a, cand_b):
@@ -105,12 +156,16 @@ def _launch(kernel, locs, fan_idx, cand_a, cand_b):
     if B == 0:
         return out_a, out_b
     lib = _lib()
-    launch = getattr(lib, f"swap_cost_{kernel}_launch")
-    with torch.cuda.device(locs.device):
-        code = launch(
-            locs.data_ptr(), fan_idx.data_ptr(), cand_a.data_ptr(),
+    args = (locs.data_ptr(), fan_idx.data_ptr(), cand_a.data_ptr(),
             cand_b.data_ptr(), out_a.data_ptr(), out_b.data_ptr(), B, F,
-            locs.shape[0], torch.cuda.current_stream().cuda_stream)
+            locs.shape[0])
+    if kernel == "tiles":
+        code = _device.launch(lib.swap_cost_tiles_launch, locs, *args)
+    else:
+        plan = rows_plan(F)
+        code = _device.launch(lib.swap_cost_rows_launch, locs, *args,
+                              plan.tile, plan.chunk, plan.chunks,
+                              _ctas(locs.get_device()))
     _build.check(lib, code, NAME)
     if kernel == "tiles":
         swap_cost.launches += 1

@@ -19,10 +19,16 @@ columns past both ends holding the Pallas kernel's 3.0e38
   streams in through a ring of slabs of ``sr`` rows, loaded by one more
   warp with TMA bulk copies; between phases a CTA reads only its two
   neighbours' ``h`` edge values, each stored beside its phase's tag.
-- ``pyramid``: Rodinia's ghost-zone pyramid, 256-column strips advancing
-  20 rows a launch, ``ceil((R - 1) / 20)`` launches (``pyramid_launches``);
-  for walls of at most ``PYRAMID_ROWS`` rows, where it measured faster,
-  and walls whose strips do not fit a CTA.
+- ``pyramid`` (counted by ``pathfinder.pyramid_launches``): the ghost
+  zone at the scale of a warp, with no block barrier and no shared
+  memory.  Each warp owns a window of 256 columns, 8 a lane, runs ``h``
+  rows over it with the wall's next rows in flight in a ring of
+  registers, and writes the window's middle; ``pyramid_plan`` picks
+  ``h``: every wall of at most ``PYRAMID_H + 1`` rows in one launch (no
+  scratch row), longer ones in ``ceil((R - 1) / PYRAMID_H)``.  It takes
+  the walls of one launch, those of two (``PYRAMID_ROWS``) up to
+  ``PYRAMID_COLS`` columns, where it measured faster, and the walls whose
+  strips do not fit a CTA.
 
 Bound on an H100: bytes, the wall read once.  min is exact and each row
 adds once, so both routes equal the plain version bit for bit.  A wall in
@@ -37,15 +43,17 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch import _build
+from repro_torch import _build, _device
 from repro_torch.kernels import _check, _promote, ref
 
 NAME = "pathfinder"
 DTYPES = (torch.int32, torch.float32)
 # wall types the reference widens to float32, row by row
 WIDENED = (torch.bfloat16, torch.float16, torch.int16)
-# the pyramid route's rows a launch (csrc/pathfinder.cu PYRAMID)
-PYRAMID = 20
+# The pyramid route: at most PYRAMID_H rows a launch, over windows of
+# PYRAMID_WINDOW columns, 8 a lane (csrc/pathfinder.cu PYR_K), whose ghost
+# zones are h rounded up to 4 columns a side.
+PYRAMID_H, PYRAMID_WINDOW = 40, 256
 # The strip route: rows a phase and CTAs (one an SM: an H100 SXM's 132,
 # or the card's own count, ``card``); smaller h where the strip does not
 # fit.  A warp holds 8 columns a lane, WARP_COLS = 256, and after a phase
@@ -55,15 +63,19 @@ PYRAMID = 20
 # (the opt-in most of a CTA: MAX_SMEM on an H100, or the card's own).
 H, CTAS, H_CHOICES, SR_CHOICES = 32, 132, (32, 16, 8), (8, 4, 2)
 WARP_COLS, MAX_WARPS, SLABS, MAX_SMEM = 256, 15, 4, 232_448
-# The walls the pyramid takes: at most two of its launches.  Back-to-back
-# calls at 100,000 columns, the pyramid against the strips: 2 / 21 / 41
-# rows 0.0200 / 0.0208 / 0.0233 ms against 0.0251 / 0.0250 / 0.0257; 42 /
-# 61 / 100 / 200 rows 0.0259 / 0.0261 / 0.0376 / 0.0821 against 0.0257 /
-# 0.0256 / 0.0274 / 0.0466, and so at 1,000 and 10,000 columns from 61
-# rows (scripts/pathfinder_variants.py, NVIDIA H100 80GB HBM3, 700 W).
-# Calls this short are host-bound: in device time the pyramid stays ahead
-# at 1,000 and 10,000 columns to 200 rows, by 2-4 us.
-PYRAMID_ROWS = 2 * PYRAMID + 1
+# The walls the pyramid takes: every wall of one launch (PYRAMID_H + 1
+# rows), and the walls of two launches (PYRAMID_ROWS) up to PYRAMID_COLS
+# columns, the widest the crossover was measured at.  In device time behind
+# a spin at 100,000 columns, the pyramid against the strips: 2 / 21 / 41
+# rows 0.0036 / 0.0053 / 0.0081 ms against 0.0060 / 0.0086 / 0.0126; 42 /
+# 61 / 81 rows 0.0101 / 0.0115 / 0.0161 against 0.0128 / 0.0151 / 0.0191;
+# 100 rows 0.0239 against 0.0238; 150 / 200 rows 0.0409 / 0.0536 against
+# 0.0343 / 0.0435.  At 1,000 and 10,000 columns the pyramid stays ahead to
+# 200 rows; at 100 x 405,504 it was behind (0.0786 against 0.0667).
+# (scripts/pathfinder_variants.py, the crossover run PERF.md's row 10b
+# cites; NVIDIA H100 80GB HBM3, 700 W.)  Back to back, calls this short
+# are host-bound.
+PYRAMID_ROWS, PYRAMID_COLS = 2 * PYRAMID_H + 1, 100_000
 
 
 class Route(NamedTuple):
@@ -90,9 +102,28 @@ def strip_smem(strip: int, h: int, sr: int) -> int:
     return SLABS * sr * pitch * 4 + 2 * pitch * 4 + 2 * SLABS * 8
 
 
-def pyramid_launches(R: int) -> int:
-    """The pyramid route's launches for ``R`` rows."""
-    return max(1, -(-(R - 1) // PYRAMID))
+class PyramidPlan(NamedTuple):
+    """How the pyramid route runs a wall (``pyramid_plan``)."""
+    window: int     # columns a warp
+    h: int          # rows a launch (the last may take fewer)
+    ghost: int      # ghost columns a side: h rounded up to 4
+    middle: int     # columns a window writes: window - 2 ghost
+    windows: int    # warps a launch
+    launches: int
+
+
+@functools.lru_cache(maxsize=1024)
+def pyramid_plan(R: int, C: int, window: int = PYRAMID_WINDOW) -> PyramidPlan:
+    """The pyramid route's plan for an ``[R, C]`` wall: the fewest launches
+    of at most PYRAMID_H rows (one for R <= PYRAMID_H + 1), h rows each, and
+    windows of ``window`` columns whose middles tile the C columns.  The
+    kernel runs this plan as it stands (its launch rejects one that does
+    not fit its window)."""
+    launches = max(1, -(-(R - 1) // PYRAMID_H))
+    h = -(-(R - 1) // launches)
+    ghost = -(-h // 4) * 4
+    middle = window - 2 * ghost
+    return PyramidPlan(window, h, ghost, middle, -(-C // middle), launches)
 
 
 def strips(C: int, h: int = H, ctas: int = CTAS,
@@ -114,25 +145,28 @@ def strips(C: int, h: int = H, ctas: int = CTAS,
 
 
 def route(R: int, C: int, sms: int = CTAS, smem: int = MAX_SMEM) -> Route:
-    """The pyramid for walls of at most PYRAMID_ROWS rows, else the strip
-    route on a card of ``sms`` SMs and ``smem`` bytes of shared memory a
-    CTA (``card``), one CTA an SM, at the first of H_CHOICES whose strips
-    fit, else the pyramid.  At Rodinia's 100,000 columns on an H100 SXM:
-    132 strips of 760 columns, 32 rows a phase, 8-row slabs."""
-    if R <= PYRAMID_ROWS:
-        return Route("pyramid", launches=pyramid_launches(R))
+    """The pyramid for walls of at most PYRAMID_H + 1 rows, and of at most
+    PYRAMID_ROWS rows and PYRAMID_COLS columns; else the strip route on a
+    card of ``sms`` SMs and ``smem`` bytes of shared memory a CTA
+    (``card``), one CTA an SM, at the first of H_CHOICES whose strips fit,
+    else the pyramid.  At Rodinia's 100,000 columns on an H100 SXM: 132
+    strips of 760 columns, 32 rows a phase, 8-row slabs."""
+    pyr = Route("pyramid", launches=pyramid_plan(R, C).launches)
+    if R <= PYRAMID_H + 1 or (R <= PYRAMID_ROWS and C <= PYRAMID_COLS):
+        return pyr
     for h in H_CHOICES:
         rt = strips(C, h, sms, smem)
         if rt is not None:
             return rt
-    return Route("pyramid", launches=pyramid_launches(R))
+    return pyr
 
 
 def _lib():
     lib = _build.load("pathfinder")
     if not getattr(lib, "_repro_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.pathfinder_pyramid_launch.argtypes = [p, i, p, p, ll, i, p]
+        lib.pathfinder_pyramid_launch.argtypes = [p, i, p, p, ll, i, i, i,
+                                                  i, ll, i, p]
         lib.pathfinder_pyramid_launch.restype = ctypes.c_int
         lib.pathfinder_strips_launch.argtypes = [p, i, p, p, ll, i, i, i, i,
                                                  i, i, p]
@@ -162,20 +196,29 @@ def _checked(wall, cuda=False):
 
 def pyramid(wall):
     """The pyramid route on a CUDA wall (checked and widened as
-    ``pathfinder``); counted by ``pathfinder.pyramid_launches``."""
-    wall = _checked(wall, cuda=True)
+    ``pathfinder``), in ``pyramid_plan(R, C).launches`` launches, counted
+    by ``pathfinder.pyramid_launches``; a scratch cost row only where that
+    is more than one."""
+    return _pyramid(_checked(wall, cuda=True))
+
+
+def _pyramid(wall):
+    """``pyramid`` on a checked CUDA wall."""
     R, C = wall.shape
     out = torch.empty(C, dtype=torch.float32, device=wall.device)
     if C == 0:
         return out
-    scratch = torch.empty_like(out)
+    plan = pyramid_plan(R, C)
+    scratch = torch.empty_like(out) if plan.launches > 1 else None
     lib = _lib()
-    with torch.cuda.device(wall.device):
-        code = lib.pathfinder_pyramid_launch(
-            wall.data_ptr(), int(wall.dtype == torch.int32), out.data_ptr(),
-            scratch.data_ptr(), R, C, torch.cuda.current_stream().cuda_stream)
+    code = _device.launch(lib.pathfinder_pyramid_launch, wall,
+                          wall.data_ptr(), int(wall.dtype == torch.int32),
+                          out.data_ptr(),
+                          None if scratch is None else scratch.data_ptr(),
+                          R, C, plan.h, plan.ghost, plan.middle, plan.windows,
+                          plan.launches)
     _build.check(lib, code, NAME)
-    pathfinder.pyramid_launches += pyramid_launches(R)
+    pathfinder.pyramid_launches += plan.launches
     return out
 
 
@@ -226,11 +269,10 @@ def strip_run(wall, rt: Route):
                         device=wall.device)
     vec = C % 4 == 0 and wall.data_ptr() % 16 == 0
     lib = _lib()
-    with torch.cuda.device(wall.device):
-        code = lib.pathfinder_strips_launch(
-            wall.data_ptr(), int(wall.dtype == torch.int32), out.data_ptr(),
-            edges.data_ptr(), R, C, rt.strip, rt.h, rt.sr, rt.ctas, int(vec),
-            torch.cuda.current_stream().cuda_stream)
+    code = _device.launch(
+        lib.pathfinder_strips_launch, wall, wall.data_ptr(),
+        int(wall.dtype == torch.int32), out.data_ptr(), edges.data_ptr(), R,
+        C, rt.strip, rt.h, rt.sr, rt.ctas, int(vec))
     _build.check(lib, code, NAME)
     pathfinder.launches += rt.launches
     return out
@@ -245,7 +287,7 @@ def pathfinder(wall):
     if _check.device_kind(NAME, wall) == "cpu":
         return ref.pathfinder(wall)
     rt = route(*wall.shape, *card(wall.device))
-    return pyramid(wall) if rt.name == "pyramid" else strip_run(wall, rt)
+    return _pyramid(wall) if rt.name == "pyramid" else strip_run(wall, rt)
 
 
 pathfinder.launches = 0

@@ -365,12 +365,15 @@ def test_find_index_without_queries(cuda):
     assert pf_mod.find_index.last_flags is None
 
 
-def canneal_args(N, b, F, seed, device, lo=-1, hi=None):
+def canneal_args(N, b, F, seed, device, lo=-1, hi=None, span=1000):
+    """Integer coordinates in [0, span), so that every sum of a row is
+    exact in float32 (below 2^24: F * 2 span at most), whatever its
+    order."""
     rng = np.random.RandomState(seed)
-    locs = rng.randint(0, 1000, (N, 2)).astype(np.float32)
+    locs = rng.randint(0, span, (N, 2)).astype(np.float32)
     fan = rng.randint(lo, N + 100 if hi is None else hi,
                       (b, F)).astype(np.int32)
-    cand = [rng.randint(0, 1000, (b, 2)).astype(np.float32) for _ in "ab"]
+    cand = [rng.randint(0, span, (b, 2)).astype(np.float32) for _ in "ab"]
     return [torch.from_numpy(a).to(device) for a in (locs, fan, *cand)]
 
 
@@ -433,6 +436,40 @@ def test_swap_cost_rows_route(cuda, F):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("F,b", [(97, 257), (128, 257), (129, 257),
+                                 (200, 257), (1_000, 257), (30_000, 255),
+                                 (200, 1), (200, 255), (200, 65_537)])
+def test_swap_cost_rows_wide(cuda, F, b):
+    """The row kernel's chunks of 32 slots: F past the tile kernel's 96 (a
+    ragged last chunk but at 128), to 30,000 slots; B of one swap, off a
+    multiple of the 256-swap tile, and 65,537 (more tiles than CTAs);
+    padding (-1 and below) anywhere in a row, indices past N."""
+    args = canneal_args(4_000, b, F, b + F, cuda, lo=-9,
+                        span=min(1000, 2 ** 23 // F))
+    assert ca_mod.route(F) == "rows"
+    before = ca_mod.swap_cost.rows_launches
+    got = ca_mod.swap_cost(*args)
+    assert ca_mod.swap_cost.rows_launches == before + 1
+    for g, w in zip(got, ref.canneal_swap_cost(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("F", [97, 128, 130])
+def test_swap_cost_rows_misaligned_fan(cuda, offset, F):
+    """A fan_idx view 1 to 3 words into its buffer: every row segment's
+    unaligned head and tail come in word by word, at row offsets that
+    vary (F 97, 130) and that do not (128)."""
+    N, b = 4_000, 1_001
+    locs, fan, ca, cb = canneal_args(N, b, F, offset + F, cuda, lo=-3)
+    buf = torch.empty(b * F + offset, dtype=torch.int32, device=cuda)
+    view = buf[offset:].view(b, F)
+    view.copy_(fan)
+    got = ca_mod.swap_cost(locs, view, ca, cb)
+    for g, w in zip(got, ref.canneal_swap_cost(locs, fan, ca, cb)):
+        assert torch.equal(g, w)
+
+
 def test_swap_cost_middle_padding_and_clamp(cuda):
     """Padding in the middle of rows and indices past N in them, by
     construction: every third slot -1 or -5, every fifth N + 7."""
@@ -442,6 +479,22 @@ def test_swap_cost_middle_padding_and_clamp(cuda):
     fan[::2, 2::3] = -5
     fan[:, 4::5] = N + 7
     got = ca_mod.swap_cost(locs, fan, ca, cb)
+    for g, w in zip(got, ref.canneal_swap_cost(locs, fan, ca, cb)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("F", [160, 1_000])
+def test_swap_cost_rows_middle_padding_and_clamp(cuda, F):
+    """The same padding and clamping mid-row on the row kernel, in every
+    chunk of 32 slots."""
+    N, b = 1_000, 2_000
+    locs, fan, ca, cb = canneal_args(N, b, F, 78, cuda, lo=0, hi=N)
+    fan[:, 1::3] = -1
+    fan[::2, 2::3] = -5
+    fan[:, 4::5] = N + 7
+    before = ca_mod.swap_cost.rows_launches
+    got = ca_mod.swap_cost(locs, fan, ca, cb)
+    assert ca_mod.swap_cost.rows_launches == before + 1
     for g, w in zip(got, ref.canneal_swap_cost(locs, fan, ca, cb)):
         assert torch.equal(g, w)
 
@@ -600,16 +653,20 @@ def assert_same_bits(got, want):
 
 
 @pytest.mark.parametrize("R,C", [(1, 7), (2, 1), (21, 3), (45, 255),
-                                 (41, 1000), (62, 100_003)])
+                                 (41, 1000), (62, 100_003), (97, 100_003)])
 @pytest.mark.parametrize("dtype", ["int32", "float32"])
 def test_pathfinder_kernel_matches_plain_bitwise(cuda, R, C, dtype):
-    """Through the plan: R from one row to 41 (the pyramid route) and
-    past them (the strip route), C off the strip width down to 1; int and
-    float walls; the device operations the route states."""
+    """Through the plan: R from one row to 45 on the pyramid route (one
+    launch and two), 62 rows past PYRAMID_COLS columns and 97 rows past
+    PYRAMID_ROWS on the strip route, C off a window's middle down to 1;
+    int and float walls; the route the plan picks and the device
+    operations it states."""
     w = torch.from_numpy(path_wall(R, C, dtype, R + C)).to(cuda)
+    rt = path_mod.route(R, C, *path_mod.card(cuda))
+    assert rt.name == ("strips" if R > 45 else "pyramid")
     before = path_launches()
     got = path_mod.pathfinder(w)
-    assert path_launches() == before + path_mod.route(R, C).launches
+    assert path_launches() == before + rt.launches
     assert torch.equal(got, ref.pathfinder(w))
 
 
@@ -617,14 +674,78 @@ def test_pathfinder_kernel_matches_plain_bitwise(cuda, R, C, dtype):
                                  (41, 1000), (62, 100_003)])
 @pytest.mark.parametrize("dtype", ["int32", "float32"])
 def test_pathfinder_pyramid_matches_plain_bitwise(cuda, R, C, dtype):
-    """The pyramid route on its own: R across the 20-row pyramid (one row,
-    one launch, a ragged last launch), C off the 216-column stride."""
+    """The pyramid route on its own: one row, walls of one launch and of
+    two (45 and 62 rows), C off a window's middle; the launches of
+    ``pyramid_plan``."""
     w = torch.from_numpy(path_wall(R, C, dtype, R + C)).to(cuda)
     before = path_mod.pathfinder.pyramid_launches
     got = path_mod.pyramid(w)
-    assert path_mod.pathfinder.pyramid_launches == before + max(
-        1, -(-(R - 1) // 20))
+    assert path_mod.pathfinder.pyramid_launches == before + \
+        path_mod.pyramid_plan(R, C).launches
     assert torch.equal(got, ref.pathfinder(w))
+
+
+def pyramid_width(R, name):
+    """The columns a case of ``test_pathfinder_pyramid_one_launch`` names:
+    a number, or a window of R rows' plan and one column either side, or
+    one past its middle."""
+    plan = path_mod.pyramid_plan(R, 1)
+    return {"window-1": plan.window - 1, "window+1": plan.window + 1,
+            "middle+1": plan.middle + 1}.get(name) or int(name)
+
+
+@pytest.mark.parametrize("R", [1, 2, 20, 21, 22, 40, 41])
+@pytest.mark.parametrize("C", ["1", "3", "window-1", "window+1", "middle+1",
+                               "100003"])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_pathfinder_pyramid_one_launch(cuda, R, C, dtype):
+    """Every wall of at most 41 rows in one launch of the pyramid, bit for
+    bit, for C of one column, of three, a window either side of one
+    column, one past a window's middle, and 100,003 (C off a multiple of
+    4: 4-byte loads)."""
+    C = pyramid_width(R, C)
+    plan = path_mod.pyramid_plan(R, C)
+    assert plan.launches == 1 and plan.h == R - 1
+    w = torch.from_numpy(path_wall(R, C, dtype, 7 * R + C)).to(cuda)
+    before = path_mod.pathfinder.pyramid_launches
+    got = path_mod.pyramid(w)
+    assert path_mod.pathfinder.pyramid_launches == before + 1
+    assert torch.equal(got, ref.pathfinder(w))
+
+
+@pytest.mark.parametrize("R", [2, 21, 41])
+@pytest.mark.parametrize("C", [4_000, 4_003])
+def test_pathfinder_pyramid_special_and_misaligned(cuda, R, C):
+    """Float walls with NaN, +-inf and near-3e38 cells and a row of +inf,
+    and a wall view one element into its buffer (4-byte loads even where
+    C is a multiple of 4), on the pyramid: bit for bit, NaN where NaN."""
+    rng = np.random.RandomState(R + C)
+    w = rng.uniform(0, 10, (R, C)).astype(np.float32)
+    for v in (np.nan, np.inf, -np.inf, 3e38, 2.99e38):
+        w[rng.randint(0, R, 9), rng.randint(0, C, 9)] = v
+    w[R // 2] = np.inf
+    w[:, 0] = np.inf
+    t = torch.from_numpy(w).to(cuda)
+    assert_same_bits(path_mod.pyramid(t), ref.pathfinder(t))
+    buf = torch.empty(R * C + 1, dtype=torch.float32, device=cuda)
+    view = buf[1:].view(R, C)
+    view.copy_(t)
+    assert view.data_ptr() % 16
+    assert_same_bits(path_mod.pyramid(view), ref.pathfinder(t))
+
+
+@pytest.mark.parametrize("R", [45, 81])
+def test_pathfinder_pyramid_past_the_widest_strips(cuda, R):
+    """Walls past 475,200 columns (no strip fits) take the pyramid in
+    ceil((R - 1) / 40) launches of equal rows, bit for bit."""
+    C = 500_003
+    w = torch.randint(0, 10, (R, C), dtype=torch.int32, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(R))
+    rt = path_mod.route(R, C)
+    assert rt.name == "pyramid" and rt.launches == -(-(R - 1) // 40)
+    before = path_launches()
+    assert torch.equal(path_mod.pathfinder(w), ref.pathfinder(w))
+    assert path_launches() == before + rt.launches
 
 
 @pytest.mark.parametrize("R", [1, 2, 20, 32, 33, 34, 65, 100])
@@ -661,8 +782,10 @@ def test_pathfinder_strips_any_phase_and_ctas(cuda, C, h, ctas, dtype):
 
 
 def test_pathfinder_strips_misaligned_wall(cuda):
-    """A wall view one element into its buffer: 4-byte copies."""
-    R, C = 77, 4_000
+    """A wall view one element into its buffer, past the pyramid's rows:
+    4-byte copies."""
+    R, C = 97, 4_000
+    assert path_mod.route(R, C).name == "strips"
     buf = torch.from_numpy(path_wall(1, R * C + 1, "int32", 9)[0]).to(cuda)
     w = buf[1:].view(R, C)
     assert w.data_ptr() % 16
@@ -703,7 +826,7 @@ def test_pathfinder_wide_walls(cuda, C):
     """Walls at the edges of each phase height's strips (h 32 to 380,160
     columns, 16 to 443,520, 8 to 475,200) and past the widest strips (the
     pyramid route), bit for bit."""
-    R = 45
+    R = path_mod.PYRAMID_ROWS + 4
     w = torch.randint(0, 10, (R, C), dtype=torch.int32, device=cuda,
                       generator=torch.Generator(cuda).manual_seed(C))
     rt = path_mod.route(R, C)
@@ -1563,6 +1686,26 @@ def test_swap_cost_widens_coordinates(cuda, dtype):
     before = ca_mod.swap_cost.launches
     got = ca_mod.swap_cost(args[0], fan.to(cuda), *args[1:])
     assert ca_mod.swap_cost.launches == before + 1
+    want = ref.canneal_swap_cost(args[0].float(), fan.to(cuda),
+                                 *(t.float() for t in args[1:]))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "int32"])
+def test_swap_cost_rows_widen_coordinates(cuda, dtype):
+    """The row kernel on 16-bit or int32 coordinates, widened to float32
+    first: bit for bit the plain version on the widened values."""
+    rng = np.random.RandomState(6)
+    N, b, F = 4000, 1000, 130
+    locs = torch.from_numpy(rng.randint(0, 1000, (N, 2)).astype(np.float32))
+    fan = torch.from_numpy(rng.randint(-1, N, (b, F)).astype(np.int32))
+    cand = [torch.from_numpy(rng.randint(0, 1000, (b, 2)).astype(np.float32))
+            for _ in "ab"]
+    args = [t.to(cuda, half(dtype)) for t in (locs, *cand)]
+    before = ca_mod.swap_cost.rows_launches
+    got = ca_mod.swap_cost(args[0], fan.to(cuda), *args[1:])
+    assert ca_mod.swap_cost.rows_launches == before + 1
     want = ref.canneal_swap_cost(args[0].float(), fan.to(cuda),
                                  *(t.float() for t in args[1:]))
     for g, w in zip(got, want):

@@ -1,7 +1,8 @@
 """Port parity: pathfinder's strip route (all rows in one persistent launch).
 
 On the card, ``pathfinder`` runs a wall of more than ``PYRAMID_ROWS`` rows
-on the strip route where the strips fit: CTA g holds the columns
+(or of more than ``PYRAMID_H + 1`` rows and ``PYRAMID_COLS`` columns) on
+the strip route where the strips fit: CTA g holds the columns
 ``[g S, (g + 1) S)``, each of its row warps a window of 256 columns, and
 runs the rows in phases of ``h`` over the strip and ``h`` ghost columns a
 side, the wall streaming through a ring of ``sr``-row slabs; between
@@ -126,13 +127,14 @@ def test_route_at_rodinia_width():
 def test_route_short_walls_take_the_pyramid(R):
     rt = path_mod.route(R, 100_000)
     assert rt.name == "pyramid"
-    assert rt.launches == path_mod.pyramid_launches(R) <= 2
+    assert rt.launches == path_mod.pyramid_plan(R, 100_000).launches == 1
 
 
 @pytest.mark.parametrize("C", [475_201, 1_000_003, 2 ** 31 - 257])
 def test_route_past_the_widest_strips(C):
     assert path_mod.route(100, C) == path_mod.Route(
-        "pyramid", launches=path_mod.pyramid_launches(100))
+        "pyramid", launches=path_mod.pyramid_plan(100, C).launches)
+    assert path_mod.pyramid_plan(100, C).launches == 3
 
 
 # cards: an H100 SXM (the defaults), an H100 PCIe (114 SMs) and one of 78
@@ -150,7 +152,7 @@ def test_route_strips_cover_the_columns_exactly(sms, smem):
     widths = list(range(1, 400)) + list(rng.randint(400, 475_201, 300)) \
         + [100_000, 380_160, 380_161, 443_520, 443_521, 475_200]
     for C in widths:
-        rt = path_mod.route(42, int(C), sms, smem)
+        rt = path_mod.route(path_mod.PYRAMID_ROWS + 1, int(C), sms, smem)
         if rt.name == "pyramid":
             assert sms != path_mod.CTAS, C
             assert all(path_mod.strips(int(C), h, sms, smem) is None
