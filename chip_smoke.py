@@ -3541,8 +3541,13 @@ def trainer_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
 # collectives.flash_decode_attention on the split and combine kernels),
 # granite-moe-3b's prefill through the MoE's shard_map branch (expert
 # parallelism at model 1), and qwen2.5-3b's sharded train step from phase
-# 14's initial state; then two gloo ranks on the one card at .smoke() widths
-# (scripts/mesh_two_ranks.py) and the dry run in subprocesses.
+# 14's initial state (at model 1 the serve steps' tensor parallelism is the
+# identity, so the mesh serving is bit for bit the one-device steps); then
+# two gloo ranks on the one card (scripts/mesh_two_ranks.py): the
+# collectives alone, the tensor-parallel decode, the MoE and the pipeline at
+# .smoke() widths, and llama3-8b at full width cut to 2 layers through the
+# tensor-parallel prefill and decode steps on (1, 2); and the dry run in
+# subprocesses.
 MESH_SERVE_ROUND = SERVE_ROUNDS[0]          # the launcher's defaults
 MESH_MOE_ARCH = "granite-moe-3b-a800m"
 MESH_MOE_SHAPE = (4, 64)                    # a prefill's B x S
@@ -3842,14 +3847,17 @@ def mesh_train(torch, fa_mod, mesh, dev, trainer) -> dict:
     return {"steps": rows, "worst": worst}
 
 
-def mesh_two_ranks(torch, dev, tmp) -> None:
+def mesh_two_ranks(torch, dev, tmp) -> dict:
     """(d) two gloo ranks on the one card (scripts/mesh_two_ranks.py), a
     pair of processes a job, every job at once: each collective of the
-    mesh path alone, then the decode over a sequence sharded over model 2,
-    the MoE's expert parallelism and a two-stage pipeline, each held to
-    the one-rank result on the card; a path that failed where one of its
-    collectives failed alone is named, with them, as kept on the CPU
-    tests."""
+    mesh path alone, then the tensor-parallel decode over a sequence
+    sharded over model 2, llama3-8b at full width (2 layers, float32)
+    through the tensor-parallel prefill and decode steps, the MoE's expert
+    parallelism and a two-stage pipeline, each held to the one-rank result
+    on the card; a path that failed where one of its collectives failed
+    alone is named, with them, as kept on the CPU tests.  The serve jobs'
+    attention launches must not be 0.  Returns those launches, summed over
+    the jobs' ranks."""
     sys.path.insert(0, str(ROOT / "scripts"))
     import mesh_two_ranks as w
     from repro_torch.configs import get_config
@@ -3866,6 +3874,12 @@ def mesh_two_ranks(torch, dev, tmp) -> None:
             stderr=subprocess.PIPE, text=True) for r in range(2)])
     status = {}
     try:
+        # the one-rank results, while the ranks run
+        x = w.inputs(torch, dev)
+        t0 = time.perf_counter()
+        one_full = w.full_one_rank(torch, dev)
+        print(f"phase 15 llama3-8b full width ({w.FULL}) on one rank: "
+              f"{time.perf_counter() - t0:.1f} s")
         for job, (d, ps) in procs.items():
             outs = [p.communicate(timeout=600) for p in ps]
             codes = [p.returncode for p in ps]
@@ -3882,7 +3896,7 @@ def mesh_two_ranks(torch, dev, tmp) -> None:
     print("phase 15 two ranks on one card (gloo), each collective alone "
           "on a CUDA tensor: " + json.dumps({j: status[j]
                                              for j in w.PROBES}))
-    x = w.inputs(torch, dev)
+    full, full_cache = one_full
     one = w.decode_cases(torch, build(get_config("llama3-8b").smoke()
                                       .scaled(**w.LLAMA_SMOKE)),
                          x["llama"], x)
@@ -3892,6 +3906,7 @@ def mesh_two_ranks(torch, dev, tmp) -> None:
     for s in range(2):
         pipe = torch.tanh(pipe @ x["pipe_w"][s])
     t = MESH_TWO_RANK_TOL
+    tp_launches = {}
     for name, uses in w.USES.items():
         if status[name] != "ok":
             failed = [c for c in uses if status[c] != "ok"]
@@ -3905,14 +3920,38 @@ def mesh_two_ranks(torch, dev, tmp) -> None:
         errs = []
         for r in range(2):
             res = torch.load(procs[name][0] / f"rank{r}.pt")
+            if "launches" in res:
+                print(f"phase 15 two ranks: {name} rank {r}: parameters "
+                      f"{res['param_bytes'] / 1e9:.4f} GB, peak "
+                      f"{res.get('peak_bytes', 0) / 1e9:.3f} GB in the "
+                      f"steps; launches {res['launches']}")
+                want = ["decode_attention", "decode_attention_combine"] + (
+                    ["flash_attention"] if name == "llama_full" else [])
+                if min(res["launches"][k] for k in want) <= 0:
+                    fail(f"two-rank {name}: an attention kernel was not "
+                         f"launched: {res['launches']}")
+                for k, v in res["launches"].items():
+                    tp_launches[k] = tp_launches.get(k, 0) + v
             if name == "decode":
                 for S, (l1, k1, v1) in one.items():
                     l, k, v = res[f"decode{S}"]
+                    lr = l1.chunk(2, dim=-1)[r].cpu()
                     kr, vr = (c.chunk(2, dim=2)[r].cpu() for c in (k1, v1))
-                    errs.append(max(float((l - l1.cpu()).abs().max())
+                    errs.append(max(float((l - lr).abs().max())
                                     / t["logits"],
                                     float((k - kr).abs().max()) / t["cache"],
                                     float((v - vr).abs().max()) / t["cache"]))
+            elif name == "llama_full":
+                e_l = float((res["logits"] - full.chunk(2, dim=-1)[r]).abs()
+                            .max())
+                e_c = max(float((res["cache"][n] - c.chunk(2, dim=2)[r])
+                                .abs().max()) for n, c in full_cache.items())
+                print(f"phase 15 two ranks: llama_full rank {r}: "
+                      f"{len(full)} calls' logits (largest "
+                      f"{float(full.abs().max()):.3f}) max abs err "
+                      f"{e_l:.3g} (bar {t['logits']:g}), its rows of the "
+                      f"cache {e_c:.3g} (bar {t['cache']:g})")
+                errs.append(max(e_l / t["logits"], e_c / t["cache"]))
             elif name == "moe":
                 errs.append(float((res["moe"][0] - moe_local.cpu()).abs()
                                   .max()) / t["moe"])
@@ -3923,6 +3962,10 @@ def mesh_two_ranks(torch, dev, tmp) -> None:
               f"worst error {max(errs):.3g} of the bar")
         if max(errs) > 1:
             fail(f"two-rank {name} differs from one rank")
+    for name in ("decode", "llama_full"):
+        if status[name] != "ok":
+            fail(f"two-rank {name}: {status[name]}")
+    return tp_launches
 
 
 def mesh_dryrun(cfg_flop, tmp) -> dict:
@@ -3975,7 +4018,7 @@ def mesh_phase(torch, fa_mod, da_mod, dev, server, trainer) -> dict:
     Returns the attention kernels' launches in the calls that went through
     the mesh (a's mesh round, b's mesh prefill, c's sharded steps; each
     counted around its call, so the mesh=None runs they are held to add
-    nothing)."""
+    nothing), and in d's tensor-parallel serve jobs (``tp_launches``)."""
     import tempfile
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -4009,13 +4052,16 @@ def mesh_phase(torch, fa_mod, da_mod, dev, server, trainer) -> dict:
             dist.destroy_process_group()
         two = Path(tmp) / "two"
         two.mkdir()
-        mesh_two_ranks(torch, dev, two)
+        tp_launches = mesh_two_ranks(torch, dev, two)
+        print(f"phase 15 launches on the tensor-parallel serve paths (two "
+              f"ranks, both ranks' summed): {tp_launches}")
         cfg = get_config(TRAIN_ARCH)
         dry = mesh_dryrun(train_flop(cfg, build(cfg).param_structs(),
                                      TRAIN_B, TRAIN_S), tmp)
     print(f"phase 15 device mesh: ok; phase wall "
           f"{time.perf_counter() - t_phase:.2f} s")
-    return {"launches": launches, "train": train, "dryrun": dry}
+    return {"launches": launches, "tp_launches": tp_launches, "train": train,
+            "dryrun": dry}
 
 
 def codegen_round_trip(tracegen) -> None:
@@ -4894,7 +4940,9 @@ def main(argv=None) -> int:
                 "suite": entry["launches"],
                 "model_server": server["launches"][entry["name"]],
                 "trainer": trainer["launches"][entry["name"]],
-                "mesh": mesh["launches"][entry["name"]]}
+                "mesh": mesh["launches"][entry["name"]],
+                "mesh_tensor_parallel":
+                    mesh["tp_launches"].get(entry["name"], 0)}
         if entry["name"] in server["rows"]:
             entry["serve"] = server["rows"][entry["name"]]
         if entry["name"] == "flash_attention":

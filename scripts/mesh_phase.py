@@ -9,8 +9,10 @@ phase 14's three qwen2.5-3b steps on one device (mesh=None: B 2 x S
 ``chip_smoke.mesh_phase``: llama3-8b served through the mesh's step
 builders against the one-device steps, granite-moe-3b's prefill through
 the MoE's ``shard_map`` branch, qwen2.5-3b's sharded steps, two gloo ranks
-on the card, and the dry run.  Prints the card's name and power limit
-first and the phase's launches as one JSON line last.  Exits nonzero where
+on the card (among them the tensor-parallel serve steps, llama3-8b at full
+width cut to 2 layers), and the dry run.  Prints the card's name and power
+limit first and the phase's launches, the one-rank mesh's and the two
+ranks' tensor-parallel jobs', as one JSON line last.  Exits nonzero where
 phase 15 fails.
 """
 from __future__ import annotations
@@ -79,7 +81,8 @@ def main() -> int:
     trainer = one_device_steps(torch, cs, dev)
     out = cs.mesh_phase(torch, fa_mod, da_mod, dev,
                         {"decode_ms": float("nan")}, trainer)
-    print(json.dumps(out["launches"]))
+    print(json.dumps({"mesh": out["launches"],
+                      "mesh_tensor_parallel": out["tp_launches"]}))
     return 0
 
 

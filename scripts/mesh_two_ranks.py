@@ -6,22 +6,33 @@ one card under gloo.
 
 NCCL refuses two ranks on one device, so the two ranks join a gloo group
 (a file store in DIR) and compute on DEVICE (``cuda:0`` on the card,
-``cpu`` for a rehearsal).  A JOB is one pair of processes: a collective of
+``cpu`` for a rehearsal), their mesh's DTensors on DEVICE's type.  A JOB is one pair of processes: a collective of
 the mesh path tried alone on a small tensor of DEVICE (``PROBES``: gloo
 runs some on a CUDA tensor, refuses some, and some end the process), or
 one path on the
 mesh (data 1, model 2) at ``.smoke()`` widths:
 
-- ``decode``: llama3-8b's decode step over a cache whose sequence is
-  sharded over "model", the decoded position in the first shard (the
-  second shard holds no valid row: trap 1) and in the second, from the
-  seeded inputs of ``inputs(device)``;
+- ``decode``: llama3-8b's decode step (``trainstep.build_decode_step``,
+  tensor-parallel: each rank its "model" shards of the dense weights) over
+  a cache whose sequence is sharded over "model", the decoded position in
+  the first shard (the second shard holds no valid row: trap 1) and in the
+  second, from the seeded inputs of ``inputs(device)``;
+- ``llama_full``: llama3-8b at full width (d_model 4,096, 32 heads, 8 kv
+  heads, d_ff 14,336, the whole vocabulary) cut to ``FULL_LAYERS`` layers,
+  in float32, through the step builders: a prefill of ``FULL_B`` x
+  ``FULL_PROMPT`` tokens and ``FULL_STEPS`` decode steps of seeded tokens
+  (``full_inputs``), held against the same steps on one rank
+  (``full_one_rank``);
 - ``moe``: granite's MoE on the expert-parallel branch (4 experts, 2 a
   rank, the all-to-all over "model");
 - ``pipeline``: a two-stage ``pipeline_apply`` of 4 microbatches (the
   ring hand-off by send / recv).
 
-Each rank saves the job's results to ``DIR/rank{RANK}.pt``;
+The serve jobs count the attention kernels' launches in their steps
+(flash attention in the prefill, decoding's split and combine kernels in
+the decode steps) and each rank's parameter bytes (its shards) and peak
+memory in them.  Each rank saves the job's results to
+``DIR/rank{RANK}.pt``;
 ``chip_smoke.py`` runs every job at once, each in its own DIR, and holds
 each path that ran against the one-rank results on the card, naming the
 collectives (``USES``) that keep a path that failed on the CPU tests.
@@ -39,11 +50,16 @@ DECODE_PREFILLS = (8, 20)             # max_seq 32: shard 0, shard 1
 # its collectives failed alone
 PROBES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
           "all_to_all_single", "send/recv")
-USES = {"decode": ("all_gather_into_tensor",),
+USES = {"decode": ("all_gather_into_tensor", "all_reduce"),
+        "llama_full": ("all_gather_into_tensor", "all_reduce"),
         "moe": ("all_to_all_single", "all_reduce"),
         "pipeline": ("send/recv", "all_reduce")}
 TIMEOUT_S = 60            # the gloo group's: a rank whose peer died raises
 LLAMA_SMOKE = dict(cache_dtype="float32")
+# the full-width job: llama3-8b's widths, depth cut, float32
+FULL_LAYERS, FULL_B, FULL_PROMPT, FULL_STEPS = 2, 4, 64, 8
+FULL = dict(num_layers=FULL_LAYERS, dtype="float32", cache_dtype="float32")
+FULL_MAX_SEQ = FULL_PROMPT + FULL_STEPS
 
 
 def inputs(torch, device) -> dict:
@@ -68,6 +84,49 @@ def inputs(torch, device) -> dict:
     out["pipe_w"] = torch.randn(2, 16, 16, generator=g) * 0.5
     out["pipe_x"] = torch.randn(4, 8, 16, generator=g)
     return _to(torch, out, device)
+
+
+def full_inputs(torch, device):
+    """(model, params, prompt tokens, the decode steps' tokens) of the
+    full-width job, seeded, on ``device``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    model = build(get_config("llama3-8b").scaled(**FULL))
+    g = torch.Generator().manual_seed(1)
+    V = model.cfg.vocab_size
+    toks = torch.randint(0, V, (FULL_B, FULL_PROMPT), generator=g,
+                         dtype=torch.int32)
+    steps = torch.randint(0, V, (FULL_STEPS, FULL_B, 1), generator=g,
+                          dtype=torch.int32)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    return model, params, toks.to(device), steps.to(device)
+
+
+def full_steps(torch, model, params, toks, steps, mesh):
+    """The full-width job's prefill and decode steps through the step
+    builders on ``mesh`` (None: one rank): every call's logits, stacked,
+    and the cache after the last."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.train import trainstep
+    pf = trainstep.build_prefill_step(model, InputShape(
+        "p", FULL_MAX_SEQ, FULL_B, "prefill"), mesh)[0]
+    dec = trainstep.build_decode_step(model, InputShape(
+        "d", FULL_MAX_SEQ, FULL_B, "decode"), mesh)[0]
+    logits, cache = pf(params, {"tokens": toks})
+    out = [logits]
+    for t in range(FULL_STEPS):
+        logits, cache = dec(params, cache, steps[t], FULL_PROMPT + t)
+        out.append(logits)
+    return out, cache
+
+
+def full_one_rank(torch, device):
+    """The full-width job on one rank: (logits [calls, B, 1, V], cache)
+    on the host."""
+    model, params, toks, steps = full_inputs(torch, device)
+    out, cache = full_steps(torch, model, params, toks, steps, None)
+    return (torch.stack(out).cpu(),
+            {n: c.cpu() for n, c in cache.items()})
 
 
 def _to(torch, tree, device):
@@ -127,11 +186,14 @@ def main(argv) -> int:
         from repro_torch.launch.mesh import make_compat_mesh
         from repro_torch.models import build
         from repro_torch.models import moe as M
-        mesh = make_compat_mesh((1, 2), ("data", "model"))
         dev = torch.device(device)
+        mesh = make_compat_mesh((1, 2), ("data", "model"),
+                                device_type=dev.type)
         res = {}
         if job in PROBES:
             _probe(torch, dist, dev, mesh.group("model"), job)
+        elif job == "llama_full":
+            _llama_full(torch, shd, mesh, dev, res)
         else:
             x = inputs(torch, dev)
             if job == "decode":
@@ -149,27 +211,90 @@ def main(argv) -> int:
     return 0
 
 
+def _launches():
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention": fa.flash_attention.launches,
+            "decode_attention": da.decode_attention.launches,
+            "decode_attention_combine": da.decode_attention.combine_launches}
+
+
+def _since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _launches().items()}
+
+
+def _param_bytes(shd, placed) -> int:
+    from repro_torch.models.layers import tree_leaves
+    return sum(shd.local(t).numel() * t.element_size()
+               for t in tree_leaves(placed))
+
+
+def _card(placed):
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.layers import tree_leaves
+    t = shd.local(tree_leaves(placed)[0])
+    return t.device if t.is_cuda else None
+
+
+def _reset_peak(torch, placed) -> None:
+    """The card's peak counted from here (what is held now included)."""
+    if _card(placed) is not None:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(_card(placed))
+
+
+def _peak(torch, placed) -> int:
+    """This process's peak bytes on the card since ``_reset_peak`` (0 on
+    the CPU)."""
+    dev = _card(placed)
+    return torch.cuda.max_memory_allocated(dev) if dev is not None else 0
+
+
 def _decode(torch, shd, build, get_config, mesh, x, res):
-    """The decode step on this rank's shards: the stacked layers' weight
-    shards (gathered a layer at a time by ``fsdp_gather``), the other
-    weights whole (what the step's ``_live`` gives), the cache's rows of
-    the sequence."""
-    from repro_torch.models.layers import tree_map
+    """The decode step (``trainstep.build_decode_step``) on this rank's
+    shards: its "model" shards of the dense weights (tensor parallelism),
+    the cache's rows of the sequence; the prefill on one rank, whole.
+    Results: this rank's slice of the logits' vocabulary and its rows of
+    the cache."""
+    from repro_torch.configs.base import InputShape
     from repro_torch.train import trainstep
     model = build(get_config("llama3-8b").smoke().scaled(**LLAMA_SMOKE))
-    live = tree_map(lambda t, lg, s: s.local(t) if lg[0] == "layers" else t,
-                    x["llama"], model.param_logical(),
-                    trainstep.param_shardings(model, mesh))
-    rows = shd.Sharding(mesh, (None, None, "model"))
+    fn, (p_sh, c_sh, _, _), _, _ = trainstep.build_decode_step(
+        model, InputShape("d", 32, 4, "decode"), mesh)
+    placed = shd.place_tree(x["llama"], p_sh)
+    res["param_bytes"] = _param_bytes(shd, placed)
+    _reset_peak(torch, placed)
+    launches = {k: 0 for k in _launches()}
     for S in DECODE_PREFILLS:
         logits, cache = model.prefill(x["llama"], {"tokens": x[f"toks{S}"]},
                                       32)
         tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
-        cache = {n: rows.local(c).clone() for n, c in cache.items()}
-        with shd.use_mesh(mesh, ("data",), kv_sharded=True):
-            logits, cache = model.decode_step(live, cache, tok, S)
-        res[f"decode{S}"] = (logits.cpu(), cache["k"].cpu(),
-                             cache["v"].cpu())
+        cache = {n: c_sh[n].place(c) for n, c in cache.items()}
+        before = _launches()
+        logits, cache = fn(placed, cache, tok, S)
+        launches = {k: launches[k] + v for k, v in _since(before).items()}
+        res[f"decode{S}"] = tuple(t.to_local().cpu() for t in (
+            logits, cache["k"], cache["v"]))
+    res["launches"] = launches
+    res["peak_bytes"] = _peak(torch, placed)
+
+
+def _llama_full(torch, shd, mesh, dev, res):
+    """The full-width job on this rank's shards (``full_steps`` on the
+    mesh): this rank's slice of every call's logits, its rows of the
+    cache, its parameter bytes and peak memory in the steps."""
+    from repro_torch.train import trainstep
+    model, params, toks, steps = full_inputs(torch, dev)
+    placed = shd.place_tree(params, trainstep.param_shardings(model, mesh))
+    del params
+    res["param_bytes"] = _param_bytes(shd, placed)
+    _reset_peak(torch, placed)
+    before = _launches()
+    out, cache = full_steps(torch, model, placed, toks, steps, mesh)
+    res["launches"] = _since(before)
+    res["logits"] = torch.stack([t.to_local() for t in out]).cpu()
+    res["cache"] = {n: c.to_local().cpu() for n, c in cache.items()}
+    res["peak_bytes"] = _peak(torch, placed)
 
 
 def _moe(shd, M, get_config, mesh, x, res):

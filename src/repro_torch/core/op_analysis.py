@@ -10,9 +10,11 @@ instructions:
   * FLOPs: ``2*|out|*K`` for products (``mm``, ``addmm``, ``bmm``,
     ``baddbmm``; K the contracted extent; a convolution ``2*|out|*K`` with
     K its window times input channels a group), ``|out|`` for elementwise
-    operations (the ``pointwise`` tag; a type conversion too, XLA's
-    ``convert``), ``|in|`` for reductions (each reduce of a softmax and its
-    elementwise steps counted the same way: ``SOFTMAX_COUNTS``).
+    operations (the ``pointwise`` tag but ``clone``, a copy as XLA's
+    ``copy``, which the reference counts as bytes only; a type conversion
+    too, XLA's ``convert``), ``|in|`` for reductions (each reduce of a
+    softmax and its elementwise steps counted the same way:
+    ``SOFTMAX_COUNTS``).
   * HBM bytes: each operation's operand and result bytes.  Eager PyTorch
     fuses nothing, so every operation is a memory boundary (the reference
     counts at fusion boundaries); views read and write nothing.
@@ -197,7 +199,8 @@ class OpCounter(TorchDispatchMode):
             self.flops += SOFTMAX_COUNTS[func] * _numel(ins[0])
         elif func in REDUCTIONS:
             self.flops += max(_numel(ins[0]), out_n)
-        elif torch.Tag.pointwise in func.tags or (
+        elif (torch.Tag.pointwise in func.tags
+              and func not in (aten.clone.default, aten.clone.out)) or (
                 func is aten._to_copy.default and ins
                 and outs and ins[0].dtype != outs[0].dtype):
             self.flops += out_n

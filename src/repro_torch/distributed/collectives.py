@@ -14,6 +14,20 @@ of every rank's loss, ``trainstep``):
   all-to-all);
 - ``ppermute`` -> ``batch_isend_irecv``.
 
+Tensor parallelism of a serve step (``sharding.TensorParallel``) takes two
+over the "model" group, on local tensors: ``row_parallel_sum``, the
+all-reduce of a row-parallel product's partial sums (after wo, the MLP's
+w2 and the vocab-parallel lookup), and ``all_gather`` of a projection's
+heads (q's for the flash decode, which takes q whole, or columns that are
+not whole heads).
+The reference's GSPMD all-reduces there too: a decode step's residual
+(one position) does not divide the model axis, so its
+``("batch", "seq_sp", None)`` constraint leaves it replicated, and a
+prefill's reduce-scatter onto the sequence and all-gather before the next
+block move the same bytes as the all-reduce.  Each issues only
+``all_reduce`` or ``all_gather_into_tensor``, which gloo also runs on a
+CUDA tensor.
+
 ``all_gather`` and the helpers that the FSDP gather and the flash decode's
 merge call (``_all_gather``, ``_reduce_scatter``, ``_all_reduce_``) issue
 nothing over a group of one rank, where each is the identity (a mesh of
@@ -148,6 +162,16 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return _AllGather.apply(x, dim, group)
 
 
+def row_parallel_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The partial sums ``x`` of a row-parallel product (this rank's rows
+    of the weight times its columns of the input) added over ``group``:
+    in place where autograd records nothing on ``x`` (the product's own
+    result), else ``psum``."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return psum(x, group)
+    return _all_reduce_(x, group)
+
+
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """A tiled all-to-all on dim 0: the i-th of the group's equal chunks of
     ``x`` goes to rank i, and the result holds the chunks received, in
@@ -200,19 +224,27 @@ def applicable(mesh, batch, seq, num_heads, num_kv_heads) -> bool:
 
 
 def _plan(q, ck, cv) -> _da.Plan:
+    """The kernels' plan; for their plain versions (a CPU or meta tensor)
+    splits of at most the shard's rows: the kernel's least split is a
+    thread step, but it reads no row past S, and the plain split computes
+    every row of its splits."""
     if q.is_cuda:
         return _da.plan_for(q, ck, cv)
     B, S, H, D = ck.shape
-    return _da.plan(B, S, H, D, ck.element_size(), True, _CPU_SMS)
+    pl = _da.plan(B, S, H, D, ck.element_size(), True, _CPU_SMS)
+    n = min(pl.len, S)
+    return dataclasses.replace(pl, len=n, ns=-(-S // n))
 
 
 def flash_decode_attention(q, cache_k, cache_v, k_new, v_new, pos: int,
-                           mesh):
+                           mesh, heads=None):
     """Local shards: q ``[B,1,H,hd]`` (this rank's batch, every head);
     cache ``[B,S_l,KV,hd]`` (this rank's rows of the sequence, which is
-    sharded over "model"); k/v_new ``[B,1,KV,hd]``; ``pos`` an int.
+    sharded over "model"); k/v_new ``[B,1,KV,hd]``; ``pos`` an int;
+    ``heads`` (first, count) the heads whose output is wanted (a
+    tensor-parallel rank's), every head when None: only those are merged.
     Writes k/v_new into the cache in place when ``pos`` is in this shard;
-    returns (out ``[B,1,H,hd]`` in q's type, cache_k, cache_v)."""
+    returns (out ``[B,1,count,hd]`` in q's type, cache_k, cache_v)."""
     B, Sl, KV, hd = cache_k.shape
     H = q.shape[2]
     group = mesh.group("model")
@@ -237,18 +269,23 @@ def flash_decode_attention(q, cache_k, cache_v, k_new, v_new, pos: int,
         lens = torch.full((B,), n_loc, dtype=torch.int32, device=q.device)
         split = _da.split if q.is_cuda else _da.split_plain
         ws = split(q1, kk, vv, lens, pl)
-    # every rank's workspace in one all-gather, its splits then put in
-    # global split order (rank-major within each batch entry)
+    # every rank's workspace in one all-gather, the wanted heads of its
+    # splits then put in global split order (rank-major within each batch
+    # entry)
+    lo, nh = heads or (0, H)
     n_ml = B * pl.ns * H * 2
     every = _all_gather(ws, 0, group).view(ep, -1)
-    ml = every[:, :n_ml].reshape(ep, B, pl.ns * H * 2).transpose(0, 1)
-    acc = every[:, n_ml:].reshape(ep, B, pl.ns * H * hd).transpose(0, 1)
-    ws = torch.cat([ml.flatten(), acc.flatten()])
+    ml = every[:, :n_ml].reshape(ep, B, pl.ns, H, 2)[..., lo:lo + nh, :]
+    acc = every[:, n_ml:].reshape(ep, B, pl.ns, H, hd)[..., lo:lo + nh, :]
+    ws = torch.cat([ml.transpose(0, 1).flatten(),
+                    acc.transpose(0, 1).flatten()])
     glob = dataclasses.replace(pl, ns=ep * pl.ns)
     S_all = glob.ns * glob.len           # every split valid (docstring)
     lens = torch.full((B,), S_all, dtype=torch.int32, device=q.device)
     if q.is_cuda:
-        out = _da.combine(ws, lens, glob, S_all, torch.empty_like(q1))
+        out = _da.combine(ws, lens, glob, S_all,
+                          q1.new_empty((B, nh, hd)))
     else:
-        out = _da.combine_plain(ws, lens, glob, S_all, q1.shape, q.dtype)
+        out = _da.combine_plain(ws, lens, glob, S_all, (B, nh, hd),
+                                q.dtype)
     return out[:, None], cache_k, cache_v

@@ -19,33 +19,47 @@ sharding map like this:
   ``redistribute``s a DTensor to a spec.
 - **Compute** runs on local tensors, as a ``shard_map`` body does.  A step
   builder (``trainstep``) installs the mesh with ``use_mesh(mesh,
-  batch_axes)``: the activations are this rank's slice of the batch, split
-  over ``batch_axes``.  The dense layers run data-parallel on that slice
-  with whole weights: ``gather`` (``layers.fsdp_gather``, a layer at a
-  time) all-gathers a weight's shards, and its backward sums the weight's
-  gradient over every rank and keeps this rank's shard (a reduce-scatter),
-  the FSDP / ZeRO-3 schedule (the MoE's expert weights are gathered over
-  the fsdp axes only and stay sharded over "model", as the reference's
-  ``shard_map`` takes them).  Without propagation the port does not
-  partition the dense products over the model axis as GSPMD does (tensor
-  parallelism); train and prefill steps split the batch over the model
-  axis too where it divides, so a device's share of the work is GSPMD's
-  (``tests/test_torch_roofline.py`` holds the per-device FLOPs to the
-  reference's HLO).  The ``shard_map`` bodies (the MoE's expert
-  parallelism, the flash decode over a sequence-sharded cache, the
-  pipeline) keep the reference's explicit partitions and collectives
-  (``collectives``): each takes its own shards from the step's layout,
-  so the reference's ``compat_shard_map`` has no counterpart here.  A
-  plain local tensor is already in the step's layout, so ``constraint``
-  leaves it as it is, and the gradients arrive in their shards from the
-  gather's backward, where the reference constrains them with
-  ``tree_constraint``.
+  batch_axes, tp=...)``: the activations are this rank's slice of the
+  batch, split over ``batch_axes``, and ``tp`` says how the dense products
+  are split over "model".  ``gather`` (``layers.fsdp_gather``, a layer at a
+  time) all-gathers a weight's shards over the axes it does not keep, and
+  its backward sums the weight's gradient over every rank and keeps this
+  rank's shard (a reduce-scatter), the FSDP / ZeRO-3 schedule.  What a
+  weight keeps (``kept_axes``):
+
+  - a **serve step** (prefill, decode) keeps the "model" shards of the
+    tensor-parallel axes ("heads", "kv_heads", "qkv", "ff", "vocab"), as
+    the reference's ``fsdp_gather`` drops only "embed": each rank computes
+    its part of every projection, MLP and unembedding product, as GSPMD
+    partitions them (``TensorParallel``, ``tensor_parallel``; the
+    column-parallel products' row-parallel partners end in
+    ``collectives.row_parallel_sum``).  The batch is split over the data
+    axes only, the reference's "batch" rule.  Where a dim does not divide
+    the model axis the rule leaves it whole and its product runs
+    replicated, as in the reference.  The Mamba mixers' "ssm_heads" /
+    "ssm_inner" weights are still gathered whole;
+  - a **train step** gathers every dense weight whole and splits the batch
+    over "model" too where it divides, so a device's share of the work is
+    GSPMD's (``tests/test_torch_roofline.py`` holds the per-device FLOPs to
+    the reference's HLO);
+  - the MoE's expert weights stay sharded over "model" in both (the
+    experts under expert parallelism, their d_ff under expert-TP), as the
+    reference's ``shard_map`` takes them.
+
+  The ``shard_map`` bodies (the MoE's expert parallelism, the flash decode
+  over a sequence-sharded cache, the pipeline) keep the reference's
+  explicit partitions and collectives (``collectives``): each takes its
+  own shards from the step's layout, so the reference's
+  ``compat_shard_map`` has no counterpart here.  A plain local tensor is
+  already in the step's layout, so ``constraint`` leaves it as it is, and
+  the gradients arrive in their shards from the gather's backward, where
+  the reference constrains them with ``tree_constraint``.
 
 Without a mesh every function here is an identity, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence
+from typing import Mapping, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -264,13 +278,90 @@ def full(x):
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism of the dense products
+# ---------------------------------------------------------------------------
+
+# the logical axes whose "model" shards a serve step keeps (the reference's
+# "tp" rule on the dense weights; the Mamba mixers' are gathered whole)
+TP_AXES = frozenset(("heads", "kv_heads", "qkv", "ff", "vocab"))
+# the logical axes of the MoE's expert weights (moe.moe_defs)
+EXPERT_AXES = frozenset(("expert", "expert_ff"))
+
+
+class TensorParallel(NamedTuple):
+    """How a serve step splits the dense products over "model" (``n``
+    ranks; this one ``rank`` of ``group``): which products are split, from
+    the rule's own divisibility fallback on each weight's dim.
+
+    - ``heads`` / ``kv_heads``: wq's and wo's (wk's and wv's) "heads"
+      dims are split: the projections are column-parallel, wo row-parallel;
+    - ``whole_heads`` / ``whole_kv_heads``: a rank's columns are whole
+      heads (the head count divides ``n``), so it attends with its own q
+      heads (and kv heads); else the columns are all-gathered and every
+      rank attends with every head;
+    - ``ff``: the MLP's d_ff (w1 / w3 column-, w2 row-parallel);
+    - ``vocab``: the padded vocabulary (a vocab-parallel lookup, logits
+      vocab-sharded)."""
+    n: int
+    rank: int
+    group: object
+    heads: bool
+    kv_heads: bool
+    whole_heads: bool
+    whole_kv_heads: bool
+    ff: bool
+    vocab: bool
+
+
+def tensor_parallel(cfg, mesh) -> Optional[TensorParallel]:
+    """The serve steps' split of ``cfg``'s dense products on ``mesh``;
+    None where "model" has one rank (there the split is the identity, and
+    the steps run the one-device code)."""
+    n = mesh.size("model") if "model" in mesh.axis_names else 1
+    if n == 1:
+        return None
+    d, hd = cfg.d_model, cfg.head_dim
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+
+    def split(logical, shape):
+        return "model" in named_sharding(logical, shape, mesh).spec_axes()
+
+    heads = split(("embed", "heads"), (d, H * hd))
+    kv = split(("embed", "kv_heads"), (d, KV * hd))
+    return TensorParallel(
+        n=n, rank=mesh.coord("model"), group=mesh.group("model"),
+        heads=heads, kv_heads=kv, whole_heads=heads and H % n == 0,
+        whole_kv_heads=kv and KV % n == 0,
+        ff=split(("embed", "ff"), (d, cfg.d_ff)),
+        vocab=split(("vocab", "embed"), (cfg.padded_vocab, d)))
+
+
+def kept_axes(logical, tp: Optional[TensorParallel]) -> tuple:
+    """The mesh axes a weight laid out by ``logical`` keeps its shards
+    over when a step gathers it: "model" for the MoE's expert weights and,
+    under tensor parallelism, for the dense products' TP axes; none
+    else."""
+    names = set(logical)
+    if EXPERT_AXES & names or (tp is not None and TP_AXES & names):
+        return ("model",)
+    return ()
+
+
+# ---------------------------------------------------------------------------
 # active-mesh context
 # ---------------------------------------------------------------------------
 # Model code calls constraint(x, logical) without threading a mesh through
-# every layer; the step builders install the mesh (and the batch layout of
-# the local activations) here.  With no mesh active constraints are a no-op.
+# every layer; the step builders install the mesh (and the layout of the
+# local activations) here.  With no mesh active constraints are a no-op.
 
-_ACTIVE: list = [(None, (), False)]
+class _State(NamedTuple):
+    mesh: object
+    batch_axes: tuple
+    kv_sharded: bool
+    tp: Optional[TensorParallel]
+
+
+_ACTIVE: list = [_State(None, (), False, None)]
 
 
 class use_mesh:
@@ -278,30 +369,38 @@ class use_mesh:
     mesh axes the local activations' batch dim is split over (``()``: each
     rank holds the whole batch, as a direct caller of a layer passes it);
     ``kv_sharded`` says that the KV caches a decode step hands its layers
-    are this rank's rows of a sequence sharded over "model"."""
+    are this rank's rows of a sequence sharded over "model"; ``tp`` (a
+    serve step's ``tensor_parallel``) that the layers' dense weights are
+    this rank's "model" shards of the TP axes, or None (whole weights)."""
 
-    def __init__(self, mesh, batch_axes: tuple = (), kv_sharded=False):
-        self.state = ((mesh, tuple(batch_axes), kv_sharded)
-                      if mesh is not None else (None, (), False))
+    def __init__(self, mesh, batch_axes: tuple = (), kv_sharded=False,
+                 tp: Optional[TensorParallel] = None):
+        self.state = (_State(mesh, tuple(batch_axes), kv_sharded, tp)
+                      if mesh is not None else _ACTIVE[0])
 
     def __enter__(self):
         _ACTIVE.append(self.state)
-        return self.state[0]
+        return self.state.mesh
 
     def __exit__(self, *exc):
         _ACTIVE.pop()
 
 
 def active_mesh():
-    return _ACTIVE[-1][0]
+    return _ACTIVE[-1].mesh
 
 
 def active_batch_axes() -> tuple:
-    return _ACTIVE[-1][1]
+    return _ACTIVE[-1].batch_axes
 
 
 def active_kv_sharded() -> bool:
-    return _ACTIVE[-1][2]
+    return _ACTIVE[-1].kv_sharded
+
+
+def active_tp() -> Optional[TensorParallel]:
+    """The active serve step's ``TensorParallel``, or None."""
+    return _ACTIVE[-1].tp
 
 
 def constraint(x, logical, mesh=None, rules=None):

@@ -87,11 +87,15 @@ def _device_type() -> str:
     return _DEVICE_TYPE.get(dist.get_backend(), "cuda")
 
 
-def make_compat_mesh(shape, axes) -> Mesh:
+def make_compat_mesh(shape, axes, device_type=None) -> Mesh:
     """A ``Mesh`` of ``shape`` named ``axes`` over the first
-    ``prod(shape)`` ranks of the default group."""
+    ``prod(shape)`` ranks of the default group, its DTensors on
+    ``device_type`` (default: the backend's; "cuda" for gloo ranks that
+    compute on a card, since a DTensor moves its local tensor to its
+    mesh's device type)."""
     shape = tuple(shape)
-    return Mesh(DeviceMesh(_device_type(),
+    backend_type = _device_type()
+    return Mesh(DeviceMesh(device_type or backend_type,
                            torch.arange(math.prod(shape)).view(shape),
                            mesh_dim_names=tuple(axes)))
 

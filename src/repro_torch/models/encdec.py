@@ -106,14 +106,7 @@ def _dec_block(bp, h, enc_kv, cfg, positions):
 
 def _cross_kv(bp, enc_out, cfg):
     """Precompute cross-attention K/V from encoder output."""
-    B, F_, _ = enc_out.shape
-    k = enc_out @ bp["cross_attn"]["wk"]
-    v = enc_out @ bp["cross_attn"]["wv"]
-    if "bk" in bp["cross_attn"]:
-        k, v = k + bp["cross_attn"]["bk"], v + bp["cross_attn"]["bv"]
-    k = k.reshape(B, F_, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, F_, cfg.num_kv_heads, cfg.head_dim)
-    return k, v
+    return L.project_kv(bp["cross_attn"], enc_out, cfg)
 
 
 def _dec_input(params, tokens, cfg):
@@ -199,7 +192,6 @@ def decode_step(params, cache, tokens, pos, cfg):
     h = L.embed_fwd(params["embed"], tokens, dtype)
     h = h + sinusoid(torch.full((1, 1), pos, dtype=torch.int32,
                                 device=h.device), cfg.d_model, dtype)
-    B = h.shape[0]
     for i in range(T.num_stacked(params["dec_blocks"])):
         bp = L.fsdp_gather(T.layer(params["dec_blocks"], i),
                            dec_block_defs(cfg))
@@ -208,17 +200,9 @@ def decode_step(params, cache, tokens, pos, cfg):
             cfg, cache["k"][i], cache["v"][i], pos)
         h = h + a
         # cross attention against the fixed encoder K/V: the plain route
-        hn = L.rmsnorm(h, bp["cross_norm"], cfg.norm_eps)
-        q = hn @ bp["cross_attn"]["wq"]
-        if "bq" in bp["cross_attn"]:
-            q = q + bp["cross_attn"]["bq"]
-        q = q.reshape(B, 1, cfg.num_heads, cfg.head_dim)
-        kk, vv = L._repeat_kv(cache["xk"][i].to(dtype),
-                              cache["xv"][i].to(dtype), cfg)
-        c = L._exact_attn(q, kk, vv, causal=False)
-        c = c.reshape(B, 1, cfg.num_heads * cfg.head_dim) \
-            @ bp["cross_attn"]["wo"]
-        h = h + c
+        h = h + L.attention_cached(
+            bp["cross_attn"], L.rmsnorm(h, bp["cross_norm"], cfg.norm_eps),
+            cfg, cache["xk"][i], cache["xv"][i])
         h = h + L.mlp_fwd(bp["mlp"], L.rmsnorm(h, bp["mlp_norm"],
                                                cfg.norm_eps))
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)

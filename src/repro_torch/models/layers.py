@@ -42,12 +42,22 @@ forward takes its stacked layers apart with ``unstacked`` (one ``unbind``
 a leaf, so the backward stacks each leaf's gradients once).
 
 Under a mesh (``distributed.sharding.use_mesh``) a layer computes on this
-rank's local tensors: ``fsdp_gather`` gathers a layer's weights whole from
-their shards (its backward reduce-scatters their gradients), ``constraint``
+rank's local tensors: ``fsdp_gather`` gathers a layer's weights from their
+shards (its backward reduce-scatters their gradients), ``constraint``
 redistributes a DTensor and leaves a local activation in the step's layout,
 and ``attention_decode`` takes the flash decode over a sequence-sharded
-cache (``distributed.collectives``) where the reference does.  Without a
-mesh all three are as before: identities and the one-device decode.
+cache (``distributed.collectives``) where the reference does.  Under a
+serve step's tensor parallelism (``sharding.active_tp``) the weights keep
+their "model" shards and each product is this rank's part, as GSPMD
+partitions the reference's: the q / k / v projections column-parallel
+(``_project_q``, ``project_kv``; columns that are not whole heads are
+all-gathered), attention on this rank's q heads (``_repeat_kv`` picks each
+one's kv head of whole K/V), wo row-parallel (``_out_proj``), the MLP's
+w1 / w3 column- and w2 row-parallel, a vocab-parallel lookup
+(``embed_fwd``) and vocab-sharded logits (``unembed_fwd``); each
+row-parallel product ends in ``collectives.row_parallel_sum``.  Without a
+mesh, or with one rank on "model", all of this is as before: identities
+and the one-device code.
 """
 from __future__ import annotations
 
@@ -150,29 +160,28 @@ def param_logical(defs):
 # ---------------------------------------------------------------------------
 
 def fsdp_gather(block_params, block_defs):
-    """A block's weights gathered whole from this rank's shards, inside the
-    layer body (so remat gathers again in the backward, and one layer's
-    weights are whole at a time); the identity without a mesh.
+    """A block's weights gathered from this rank's shards, inside the layer
+    body (so remat gathers again in the backward, and one layer's weights
+    are gathered at a time); the identity without a mesh.
 
-    The reference drops only the "embed" (fsdp) axis here and leaves the
-    tensor-parallel axes to GSPMD's partition of the products; the port has
-    no propagation, so its layers take every weight whole and split the
-    batch instead (``distributed/sharding.py``).  The MoE's expert weights
-    are the exception: they stay sharded over "model" (the experts under
-    expert parallelism, their d_ff under expert-TP), as the reference's
-    ``shard_map`` takes them, and ``moe._moe_sharded`` computes on this
-    rank's part, so no rank holds every expert."""
+    Under a serve step's tensor parallelism only the data (fsdp) axes are
+    gathered and each weight keeps its "model" shards of the TP axes
+    ("heads", "kv_heads", "qkv", "ff", "vocab"), as the reference's
+    ``fsdp_gather`` drops only the "embed" axis: the layer functions
+    compute this rank's part of each product.  A train step gathers every
+    dense weight whole and splits the batch instead
+    (``distributed/sharding.py``).  The MoE's expert weights stay sharded
+    over "model" under both (the experts under expert parallelism, their
+    d_ff under expert-TP), as the reference's ``shard_map`` takes them, and
+    ``moe._moe_sharded`` computes on this rank's part, so no rank holds
+    every expert.  The Mamba mixers' weights are gathered whole."""
     mesh = shd.active_mesh()
     if mesh is None:
         return block_params
+    tp = shd.active_tp()
     return tree_map(lambda x, pd: shd.gather(
-        x, pd.logical, pd.shape, mesh,
-        keep=("model",) if _EXPERT_AXES & set(pd.logical) else ()),
+        x, pd.logical, pd.shape, mesh, keep=shd.kept_axes(pd.logical, tp)),
         block_params, block_defs)
-
-
-# the logical axes of the MoE's expert weights (moe.moe_defs)
-_EXPERT_AXES = frozenset(("expert", "expert_ff"))
 
 
 def rmsnorm(x, w, eps):
@@ -226,26 +235,91 @@ def attention_defs(cfg, d_model=None):
     return defs
 
 
-def _project_qkv(p, h, cfg):
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+def _heads(x, hd: int, part: bool):
+    """A projection's output [B,S,cols] as [B,S,heads,hd]; where ``part``
+    (under tensor parallelism, this rank's columns are a part of a head)
+    every rank's columns, all-gathered."""
+    if part:
+        x = collectives.all_gather(x, -1, shd.active_tp().group)
+    return x.reshape(*x.shape[:2], -1, hd)
+
+
+def _project_q(p, h, cfg):
     q = h @ p["wq"]
-    k = h @ p["wk"]
-    v = h @ p["wv"]
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    B, S = h.shape[:2]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+        q = q + p["bq"]
+    tp = shd.active_tp()
+    return _heads(q, cfg.head_dim,
+                  tp is not None and tp.heads and not tp.whole_heads)
+
+
+def project_kv(p, x, cfg):
+    """K and V of ``x`` [B,S,D] as [B,S,kv,hd]: every kv head, or this
+    rank's under tensor parallelism where they are whole heads."""
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    tp = shd.active_tp()
+    part = tp is not None and tp.kv_heads and not tp.whole_kv_heads
+    return _heads(k, cfg.head_dim, part), _heads(v, cfg.head_dim, part)
+
+
+def _project_qkv(p, h, cfg):
+    q = _project_q(p, h, cfg)
+    k, v = project_kv(p, h, cfg)
     return q, k, v
 
 
+def _q_heads(cfg) -> tuple:
+    """(first, count) of the q heads this rank attends with: under tensor
+    parallelism those whose outputs its rows of wo take (its own, or where
+    its columns are not whole heads the heads they fall in), else all."""
+    H, hd = cfg.num_heads, cfg.head_dim
+    tp = shd.active_tp()
+    if tp is None or not tp.heads:
+        return 0, H
+    c = H * hd // tp.n
+    lo = tp.rank * c // hd
+    return lo, -(-(tp.rank + 1) * c // hd) - lo
+
+
+def _own_heads(q, cfg):
+    """q [B,S,heads,hd] at this rank's q heads (``_q_heads``): as it is
+    where it holds those alone, else their slice of every head."""
+    lo, n = _q_heads(cfg)
+    return q if q.shape[2] == n else q[:, :, lo:lo + n]
+
+
 def _repeat_kv(k, v, cfg):
+    """K/V [..., kv, hd] at this rank's q heads: each kv head repeated for
+    its group, or, where the q heads are this rank's and K/V whole, each q
+    head j's kv head j // group picked."""
     g = cfg.num_heads // cfg.num_kv_heads
+    lo, n = _q_heads(cfg)
+    if n < cfg.num_heads and k.shape[-2] == cfg.num_kv_heads:
+        idx = torch.arange(lo, lo + n, device=k.device) // g
+        return k.index_select(-2, idx), v.index_select(-2, idx)
     if g > 1:
         k = torch.repeat_interleave(k, g, dim=-2)
         v = torch.repeat_interleave(v, g, dim=-2)
     return k, v
+
+
+def _out_proj(p, out, cfg):
+    """``wo`` on the attention's output [B,S,heads,hd] of this rank's q
+    heads (``_q_heads``); under tensor parallelism this rank's rows of wo
+    times its columns of the output (where they are not whole heads, its
+    slice of its heads'), the partial sums added over "model"."""
+    o = out.reshape(*out.shape[:2], -1)
+    tp = shd.active_tp()
+    if tp is None or not tp.heads:
+        return o @ p["wo"]
+    if not tp.whole_heads:
+        c = cfg.num_heads * cfg.head_dim // tp.n
+        first = tp.rank * c - _q_heads(cfg)[0] * cfg.head_dim
+        o = o[..., first:first + c]
+    return collectives.row_parallel_sum(o @ p["wo"], tp.group)
 
 
 def _exact_attn(q, k, v, causal, q_offset=0, kv_len=None):
@@ -380,6 +454,7 @@ def attention_fwd(p, h, cfg, *, positions, causal=True, kv=None):
         k, v = kv
         cache_kv = kv
         causal = False
+    q = _own_heads(q, cfg)
     k2, v2 = _repeat_kv(k, v, cfg)
     q = constraint(q, ("batch", None, "heads", None))
     if kv is None and q.is_cuda:
@@ -390,8 +465,7 @@ def attention_fwd(p, h, cfg, *, positions, causal=True, kv=None):
             out = ops.flash_attention(*qkv, causal=causal)
     else:
         out = _plain_attn(q, k2, v2, causal)
-    out = out.reshape(*h.shape[:2], cfg.num_heads * cfg.head_dim)
-    return out @ p["wo"], cache_kv
+    return _out_proj(p, out, cfg), cache_kv
 
 
 def attention_decode(p, h, cfg, cache_k, cache_v, pos: int):
@@ -404,7 +478,11 @@ def attention_decode(p, h, cfg, cache_k, cache_v, pos: int):
     CPU one.  Under a mesh whose decode step shards the cache's sequence
     over "model" (the reference's ``collectives.applicable``), the caches
     are this rank's rows and ``collectives.flash_decode_attention`` runs
-    instead.  Returns (out, cache_k, cache_v)."""
+    instead, on q and the new K/V whole (under tensor parallelism their
+    heads all-gathered, and this rank's heads of the output kept).  Under
+    tensor parallelism a cache of this rank's kv heads (its "model" shard
+    of "kv_heads") or of every kv head is attended with this rank's q
+    heads.  Returns (out, cache_k, cache_v)."""
     q, k, v = _project_qkv(p, h, cfg)
     if cfg.rope_theta > 0:
         posv = torch.full((h.shape[0], 1), pos, dtype=torch.int32,
@@ -417,10 +495,16 @@ def attention_decode(p, h, cfg, cache_k, cache_v, pos: int):
             collectives.applicable(mesh, h.shape[0],
                                    cache_k.shape[1] * mesh.size("model"),
                                    cfg.num_heads, cfg.num_kv_heads):
+        tp = shd.active_tp()
+        if tp is not None and tp.whole_heads:
+            q = collectives.all_gather(q, 2, tp.group)
+        if tp is not None and tp.whole_kv_heads:
+            k = collectives.all_gather(k, 2, tp.group)
+            v = collectives.all_gather(v, 2, tp.group)
         out, cache_k, cache_v = collectives.flash_decode_attention(
-            q, cache_k, cache_v, k, v, pos, mesh)
-        out = out.reshape(h.shape[0], 1, cfg.num_heads * cfg.head_dim)
-        return out @ p["wo"], cache_k, cache_v
+            q, cache_k, cache_v, k, v, pos, mesh, heads=_q_heads(cfg))
+        return _out_proj(p, out, cfg), cache_k, cache_v
+    q = _own_heads(q, cfg)
     cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
     cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
     kk, vv = _repeat_kv(cache_k.to(h.dtype), cache_v.to(h.dtype), cfg)
@@ -432,8 +516,16 @@ def attention_decode(p, h, cfg, cache_k, cache_v, pos: int):
                                    vv.contiguous(), lens)[:, None]
     else:
         out = _exact_attn(q, kk, vv, causal=False, kv_len=pos + 1)
-    out = out.reshape(h.shape[0], 1, cfg.num_heads * cfg.head_dim)
-    return out @ p["wo"], cache_k, cache_v
+    return _out_proj(p, out, cfg), cache_k, cache_v
+
+
+def attention_cached(p, h, cfg, k, v):
+    """h's queries against fixed K/V [B,Sk,kv,hd] with no mask or
+    positions (a decoder's cross-attention to the encoder's cached K/V):
+    the plain route on every device."""
+    q = _own_heads(_project_q(p, h, cfg), cfg)
+    kk, vv = _repeat_kv(k.to(h.dtype), v.to(h.dtype), cfg)
+    return _out_proj(p, _exact_attn(q, kk, vv, causal=False), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -450,8 +542,13 @@ def mlp_defs(cfg, d_ff=None):
 
 
 def mlp_fwd(p, h):
+    """SwiGLU; under tensor parallelism on this rank's d_ff columns (w1,
+    w3) and rows (w2), the partial sums added over "model"."""
     g = torch.nn.functional.silu(h @ p["w1"]) * (h @ p["w3"])
-    return g @ p["w2"]
+    y = g @ p["w2"]
+    tp = shd.active_tp()
+    return collectives.row_parallel_sum(y, tp.group) \
+        if tp is not None and tp.ff else y
 
 
 # ---------------------------------------------------------------------------
@@ -494,15 +591,27 @@ def embed_fwd(p, tokens, dtype):
     in the table's type: in bfloat16 the sum of a token seen thousands of
     times, as the Zipf batches' first tokens are, stops taking in small
     terms and ends ~0.5 of the leaf's largest magnitude from the float32
-    sum.)"""
+    sum.)  Under tensor parallelism the table is this rank's rows of the
+    vocabulary: the rows of the tokens in them, zeros for the others, added
+    over "model"."""
     w = p["embedding"]
+    tp = shd.active_tp()
+    if tp is not None and tp.vocab:
+        n = w.shape[0]
+        idx = tokens.long() - tp.rank * n
+        hit = ((idx >= 0) & (idx < n))[..., None]
+        rows = w.to(dtype)[idx.clamp(0, n - 1)]
+        return collectives.row_parallel_sum(torch.where(hit, rows, 0.0),
+                                            tp.group)
     if recording(w):
         return EmbedGather.apply(w, tokens, dtype)
     return w.to(dtype)[tokens]
 
 
 def unembed_fwd(p, h):
-    """Float32 logits over the padded vocabulary."""
+    """Float32 logits over the padded vocabulary; under tensor parallelism
+    over this rank's slice of it (the table's rows, or the unembedding's
+    columns, it holds)."""
     w = p.get("unembed")
     if w is None:
         w = p["embedding"].T.to(h.dtype)

@@ -26,19 +26,25 @@ Under a mesh (``launch.mesh``) the builders return the reference's
 ``batch_shardings``); the parameters and moments of a train step are
 DTensors laid out by them (``Sharding.place``, ``place_tree``): the step
 writes into their shards; a batch, and a prefill's or decode's
-parameters and cache, may also be whole tensors, laid out at each call.  Each rank computes on its local tensors
-(``distributed/sharding.py``): a train or prefill step splits the batch
-over the data axes and, where it divides, over "model" too (``batch_axes``);
-``layers.fsdp_gather`` gathers a layer's weights whole and the step the
-others (``_live``).  The objective is the mean of the ranks' losses: each
+parameters and cache, may also be whole tensors, laid out at each call.
+Each rank computes on its local tensors (``distributed/sharding.py``).  A
+train step splits the batch over the data axes and, where it divides, over
+"model" too (``batch_axes``); ``layers.fsdp_gather`` gathers a layer's
+weights whole and the step the others (``_live``).  The serve steps
+(prefill, decode) split the batch over the data axes only and split the
+dense products over "model" instead (``sharding.tensor_parallel``, the
+reference's "tp" rule): the weights keep their "model" shards of the TP
+axes, and the logits come out of the step as this rank's slice of the
+vocabulary.  The objective is the mean of the ranks' losses: each
 rank differentiates its loss over the world size, every collective's
 backward is its adjoint, and a weight's gradient arrives reduce-scattered
 into its shard, inside each microbatch (the reference's ``constrain``).
 ``optimizer.apply_`` updates the local shards in place, with the global
 gradient norm (``_global_norm``: each shard's squares over its replicas,
-summed over the mesh).  A decode step keeps the batch over the data axes
-and the cache as placed: its sequence over "model" where it divides, so
-each layer takes ``collectives.flash_decode_attention``.
+summed over the mesh).  A decode step keeps the cache as placed: its
+sequence over "model" where it divides, so each layer takes
+``collectives.flash_decode_attention``, else its kv heads over "model"
+where they divide, which are the kv heads of this rank's q heads.
 """
 from __future__ import annotations
 
@@ -117,11 +123,12 @@ def _local_batch(batch, shardings, axes, mesh) -> dict:
     return out
 
 
-def _live(model, params, shardings, mesh, grad: bool):
+def _live(model, params, shardings, mesh, grad: bool, tp=None):
     """(leaves, tree) for a step on this rank: each parameter's local
     shard (a fresh autograd leaf when ``grad``); in the tree the stacked
     layers' shards as they are (``layers.fsdp_gather`` gathers a layer at
-    a time) and every other weight gathered whole."""
+    a time) and every other weight gathered, whole or, under the tensor
+    parallelism ``tp``, but for its "model" shard of a TP axis."""
     leaves = []
 
     def one(p, lg, sh):
@@ -132,7 +139,8 @@ def _live(model, params, shardings, mesh, grad: bool):
         leaves.append(x)
         if lg and lg[0] == "layers":
             return x
-        return shd.gather(x, lg, tuple(p.shape), mesh)
+        return shd.gather(x, lg, tuple(p.shape), mesh,
+                          keep=shd.kept_axes(lg, tp))
 
     live = tree_map(one, params, model.param_logical(), shardings)
     return leaves, live
@@ -292,19 +300,35 @@ def _sharded_train_step(model, shape, mesh, opt_cfg, microbatches,
     return train_step, (p_sh, o_sh, b_sh), out_sh, (0, 1)
 
 
-def _to_sharding(x, local_axes_dim, axes, sharding, mesh):
-    """A DTensor laid out by ``sharding`` from this rank's local ``x``,
-    whose dim ``local_axes_dim`` is split over ``axes``."""
+def _to_sharding(x, logical, axes, sharding, mesh, tp=None):
+    """A DTensor laid out by ``sharding`` from this rank's local ``x`` of a
+    step, laid out by ``logical``: its "batch" dim split over ``axes`` and,
+    under the tensor parallelism ``tp``, its "vocab" dim and its
+    "kv_heads" dim where they are whole heads this rank's "model" shard.
+    A kv-heads shard that ``sharding`` does not keep is all-gathered here
+    (the redistribution would take an all-to-all, which gloo does not run
+    on every device); every other change of layout is a local slice."""
+    logical = list(logical)
     spec = [None] * x.ndim
-    spec[local_axes_dim] = axes if axes else None
+    spec[logical.index("batch")] = axes if axes else None
+    if tp is not None and tp.vocab and "vocab" in logical:
+        spec[logical.index("vocab")] = "model"
+    if tp is not None and tp.whole_kv_heads and "kv_heads" in logical:
+        d = logical.index("kv_heads")
+        if sharding.spec_dim("model") == d:
+            spec[d] = "model"
+        else:
+            x = C._all_gather(x, d, tp.group)
     shape = list(x.shape)
-    shape[local_axes_dim] *= mesh.size(axes)
+    for d, e in enumerate(spec):
+        if e:
+            shape[d] *= mesh.size(e)
     dt = shd.Sharding(mesh, tuple(spec)).from_local(x, shape)
     return dt.redistribute(mesh.device_mesh, sharding.placements)
 
 
-def _batch_dim(logical) -> int:
-    return list(logical).index("batch")
+# the logical axes of a serve step's logits (the reference's constraint)
+LOGITS = ("batch", None, "vocab")
 
 
 def build_prefill_step(model: mapi.Model, shape: InputShape, mesh=None):
@@ -321,26 +345,26 @@ def build_prefill_step(model: mapi.Model, shape: InputShape, mesh=None):
         return prefill_step, None, None, ()
 
     cfg = model.cfg
+    tp = shd.tensor_parallel(cfg, mesh)
     p_sh = param_shardings(model, mesh)
     b_sh = batch_shardings(cfg, shape, mesh)
     c_logical = model.cache_logical()
     c_sh = shd.tree_shardings(c_logical, model.cache_structs(
         shape.global_batch, shape.seq_len), mesh)
-    logits_sh = shd.named_sharding(("batch", None, "vocab"),
-                                   (shape.global_batch, 1, cfg.padded_vocab),
-                                   mesh)
+    logits_sh = shd.named_sharding(LOGITS, (shape.global_batch, 1,
+                                            cfg.padded_vocab), mesh)
 
     @torch.no_grad()
     def prefill_step(params, batch):
         B = next(iter(batch.values())).shape[0]
-        axes = batch_axes(mesh, B, split_model=True)
+        axes = batch_axes(mesh, B, split_model=False)
         local = _local_batch(batch, b_sh, axes, mesh)
-        _, live = _live(model, params, p_sh, mesh, grad=False)
-        with shd.use_mesh(mesh, axes):
+        _, live = _live(model, params, p_sh, mesh, grad=False, tp=tp)
+        with shd.use_mesh(mesh, axes, tp=tp):
             logits, cache = model.prefill(live, local, max_seq=shape.seq_len)
-        logits = _to_sharding(logits, 0, axes, logits_sh, mesh)
-        cache = {n: _to_sharding(c, _batch_dim(c_logical[n]), axes,
-                                 c_sh[n], mesh) for n, c in cache.items()}
+        logits = _to_sharding(logits, LOGITS, axes, logits_sh, mesh, tp)
+        cache = {n: _to_sharding(c, c_logical[n], axes, c_sh[n], mesh, tp)
+                 for n, c in cache.items()}
         return logits, cache
 
     return prefill_step, (p_sh, b_sh), (logits_sh, c_sh), ()
@@ -360,6 +384,7 @@ def build_decode_step(model: mapi.Model, shape: InputShape, mesh=None):
         return decode_step, None, None, (1,)
 
     cfg = model.cfg
+    tp = shd.tensor_parallel(cfg, mesh)
     B = shape.global_batch
     p_sh = param_shardings(model, mesh)
     c_logical = model.cache_logical()
@@ -367,25 +392,26 @@ def build_decode_step(model: mapi.Model, shape: InputShape, mesh=None):
                               mesh)
     t_sh = shd.named_sharding(("batch", None), (B, 1), mesh)
     pos_sh = shd.named_sharding((), (), mesh)
-    logits_sh = shd.named_sharding(("batch", None, "vocab"),
-                                   (B, 1, cfg.padded_vocab), mesh)
+    logits_sh = shd.named_sharding(LOGITS, (B, 1, cfg.padded_vocab), mesh)
 
     @torch.no_grad()
     def decode_step(params, cache, tokens, pos):
         axes = batch_axes(mesh, tokens.shape[0], split_model=False)
-        _, live = _live(model, params, p_sh, mesh, grad=False)
+        _, live = _live(model, params, p_sh, mesh, grad=False, tp=tp)
         tok = _local_batch({"tokens": tokens}, {"tokens": t_sh}, axes,
                            mesh)["tokens"]
         # each cache leaf local: its rows of the sequence over "model"
-        # (the flash decode's layout), any other dim "model" shards
-        # gathered for the step and written back after it
+        # (the flash decode's layout), or under tensor parallelism its kv
+        # heads over "model" (this rank's q heads' own); any other dim
+        # "model" shards gathered for the step and written back after it
         local, back = {}, {}
         for n, c in cache.items():
             if not shd.is_dtensor(c):
                 c = cache[n] = c_sh[n].place(c)
-            seq = "seq_kv" in c_logical[n] and \
-                c_sh[n].spec_dim("model") == c_logical[n].index("seq_kv")
-            if seq or c_sh[n].spec_dim("model") is None:
+            d = c_sh[n].spec_dim("model")
+            if d is None or c_logical[n][d] == "seq_kv" or (
+                    tp is not None and tp.whole_kv_heads
+                    and c_logical[n][d] == "kv_heads"):
                 local[n] = c.to_local()
             else:
                 whole = shd.Sharding(mesh, c_sh[n].without("model"))
@@ -394,14 +420,14 @@ def build_decode_step(model: mapi.Model, shape: InputShape, mesh=None):
                 back[n] = c
         kv = "k" in c_logical and c_sh["k"].spec_dim("model") == \
             c_logical["k"].index("seq_kv")
-        with shd.use_mesh(mesh, axes, kv_sharded=kv):
+        with shd.use_mesh(mesh, axes, kv_sharded=kv, tp=tp):
             logits, _ = model.decode_step(live, local, tok, pos)
         for n, c in back.items():
             d = c_sh[n].spec_dim("model")
             c.to_local().copy_(shd.Sharding(mesh, tuple(
                 "model" if i == d else None for i in range(d + 1)))
                 .local(local[n]))
-        return _to_sharding(logits, 0, axes, logits_sh, mesh), cache
+        return _to_sharding(logits, LOGITS, axes, logits_sh, mesh, tp), cache
 
     return decode_step, (p_sh, c_sh, t_sh, pos_sh), (logits_sh, c_sh), (1,)
 

@@ -359,7 +359,68 @@ def case_moe_train(rank, world, mesh, d_ff, aux_weight):
     return out
 
 
-CASES = {"families": case_families, "moe_train": case_moe_train, "moe": case_moe, "decode": case_decode, "train": case_train,
+def case_tp(rank, world, npz, cases):
+    """The serve steps under tensor parallelism, each case
+    ``(name, arch, overrides, mesh, max_seq, positions)`` from the
+    ``.npz``'s reference weights, tokens and prefill cache: the prefill's
+    logits and cache, and a decode step at each position from the
+    reference's prefill cache; with the shapes of the weights the layers
+    were handed in the decode steps (``{name}/held/{leaf}``)."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.train import trainstep
+    d = dict(np.load(npz))
+    held = {}
+
+    def spy(fn, leaves):
+        def wrapped(p, *a, **k):
+            if shd.active_tp() is not None:
+                held.update({n: tuple(p[n].shape) for n in leaves if n in p})
+            return fn(p, *a, **k)
+        return wrapped
+
+    L.attention_decode = spy(L.attention_decode, ("wq", "wk", "wo"))
+    L.mlp_fwd = spy(L.mlp_fwd, ("w1", "w2", "w3"))
+    L.embed_fwd = spy(L.embed_fwd, ("embedding",))
+    L.unembed_fwd = spy(L.unembed_fwd, ("unembed",))
+    out = {}
+    for name, arch, overrides, shape, max_seq, positions in cases:
+        cfg = get_config(arch).smoke().scaled(**overrides)
+        model = build(cfg)
+        mesh = _mesh(tuple(shape), ("data", "model"))
+        params = interop.model_params_from_numpy(
+            cfg, unflat(d, f"{name}/params/"), device="cpu", mesh=mesh)
+        toks = torch.from_numpy(d[f"{name}/toks"])
+        B = toks.shape[0]
+        pf = trainstep.build_prefill_step(
+            model, InputShape("p", max_seq, B, "prefill"), mesh)[0]
+        dec, (_, c_sh, _, _), _, _ = trainstep.build_decode_step(
+            model, InputShape("d", max_seq, B, "decode"), mesh)
+        logits, cache = pf(params, {"tokens": toks})
+        out[f"{name}/prefill/logits"] = shd.full(logits)
+        for n, c in cache.items():
+            out[f"{name}/prefill/cache/{n}"] = shd.full(c)
+        tok = torch.from_numpy(d[f"{name}/tok"])
+        for pos in positions:
+            held.clear()
+            cache = {n: c_sh[n].place(torch.from_numpy(
+                d[f"{name}/cache/{n}"])) for n in c_sh}
+            logits, cache = dec(params, cache, tok, pos)
+            out[f"{name}/{pos}/logits"] = shd.full(logits)
+            for n, c in cache.items():
+                out[f"{name}/{pos}/cache/{n}"] = shd.full(c)
+        for n, s in held.items():
+            out[f"{name}/held/{n}"] = torch.tensor(s)
+    return out
+
+
+CASES = {"tp": case_tp,
+         "families": case_families, "moe_train": case_moe_train, "moe": case_moe, "decode": case_decode, "train": case_train,
          "pipeline": case_pipeline, "ckpt": case_ckpt, "loop": case_loop}
 
 

@@ -9,11 +9,13 @@
   ``InputShape("tiny", 32, 8, "train")``, mesh (2, 4)) against the
   reference's ``hlo_analysis.analyze`` of the same cell's compiled HLO:
   per-device FLOPs within 10 %.  The HBM and collective bytes are printed
-  as ratios to the reference's, with no bar: eager PyTorch fuses nothing
-  and the port's mesh path moves other collectives than GSPMD's
-  (``distributed/sharding.py``).  Each side runs in its own process: the
-  reference with 8 fake host devices, the port as rank 0 of a fake
-  process group of 8.
+  as ratios to the reference's, with no bar: eager PyTorch fuses nothing,
+  and the port's train step gathers its dense weights whole and splits
+  the batch over "model" where GSPMD partitions the products (its serve
+  steps do, ``tests/test_torch_tensor_parallel.py``), so it moves other
+  collectives (``distributed/sharding.py``).  Each side runs in its own
+  process: the reference with 8 fake host devices, the port as rank 0 of
+  a fake process group of 8.
 - ``python -m repro_torch.launch.dryrun`` on one small cell in a
   subprocess: a record with a positive roofline row, rendered by
   ``roofline_report`` and read by ``study.roofline_table``.
