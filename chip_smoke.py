@@ -246,11 +246,18 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    on a CUDA tensor, then the decode over a sequence sharded over model 2,
    the MoE's expert parallelism and a two-stage pipeline against one
    rank, or by name the paths a refused collective keeps on the CPU
-   tests); the dry run in subprocesses (qwen2.5-3b x train_4k on the 16 x
+   tests; the tensor-parallel train jobs ``train_full``, qwen2.5-3b at full
+   width cut to 2 layers in float32, two steps of 2 x 1,024 tokens, and
+   ``mamba_full``, mamba2-130m whole in float32, a prefill, 8 decode steps
+   and two train steps, each held on its rank to one rank at the
+   reference's bars, each rank's parameter bytes and peak, and flash
+   attention's, its backward's and the segment sum's launches on each
+   rank); the dry run in subprocesses (qwen2.5-3b x train_4k on the 16 x
    16 fake mesh: its record, fit and roofline row; phase 14's step shape
    on one rank: its FLOPs beside ``train_flop`` and the prediction); the
    attention kernels' launches in the calls that went through the mesh
-   (each counted around its call); the phase's wall;
+   (each counted around its call), and the train jobs' kernels' launches
+   on each rank; the phase's wall;
 16. the ``kernels`` JSON line (twenty-nine entries: the engine scan's
    collect build ``engine_scan_collect`` with its two kernels and launches
    a call, Jacobi-2D's cluster,
@@ -272,7 +279,9 @@ Phases, one line each; any failure exits nonzero and nothing is caught:
    study's, phase 11's and phase 12's), flash attention's, decoding's and
    its combine kernel's too (the suite's, phase 5, and the model
    server's, phase 13, the trainer's, phase 14, and the mesh's, phase
-   15), the first two with
+   15), flash attention's, the attention backward's and the segment sum's
+   also the two-rank tensor-parallel train jobs' (phase 15,
+   ``mesh_tensor_parallel_train``), the first two with
    their phase-13 row (``serve``), flash attention also with its phase-14
    row (``train``: the kernel at the training shape and the attention
    backward beside it; its forward with lse beside it);
@@ -3545,9 +3554,11 @@ def trainer_phase(torch, ref, fa_mod, da_mod, dev, sm_clock_hz) -> dict:
 # identity, so the mesh serving is bit for bit the one-device steps); then
 # two gloo ranks on the one card (scripts/mesh_two_ranks.py): the
 # collectives alone, the tensor-parallel decode, the MoE and the pipeline at
-# .smoke() widths, and llama3-8b at full width cut to 2 layers through the
-# tensor-parallel prefill and decode steps on (1, 2); and the dry run in
-# subprocesses.
+# .smoke() widths, llama3-8b at full width cut to 2 layers through the
+# tensor-parallel prefill and decode steps on (1, 2), and the
+# tensor-parallel train step (qwen2.5-3b at full width cut to 2 layers;
+# mamba2-130m whole with its serve steps, the SSD heads over "model"); and
+# the dry run in subprocesses.
 MESH_SERVE_ROUND = SERVE_ROUNDS[0]          # the launcher's defaults
 MESH_MOE_ARCH = "granite-moe-3b-a800m"
 MESH_MOE_SHAPE = (4, 64)                    # a prefill's B x S
@@ -3558,6 +3569,13 @@ MESH_GRAD_NORM_RTOL = 1e-4
 # the two-rank check against the one-rank results on the card: the
 # reference's bars (tests/test_distributed.py)
 MESH_TWO_RANK_TOL = dict(logits=3e-4, cache=1e-5, moe=2e-4, pipeline=1e-5)
+# the kernels each two-rank job's path must launch on each rank
+MESH_TWO_RANK_KERNELS = {
+    "decode": ("decode_attention", "decode_attention_combine"),
+    "llama_full": ("decode_attention", "decode_attention_combine",
+                   "flash_attention"),
+    "train_full": ("flash_attention", "flash_attention_bwd", "segment_sum"),
+    "mamba_full": ("segment_sum",)}
 # the dry run's predictions for the phase-14 step (one rank, B 2 x S 4,096),
 # stated before the run (PERF.md, the mesh's findings): the counted FLOPs
 # over train_flop's products, and the bound
@@ -3853,11 +3871,14 @@ def mesh_two_ranks(torch, dev, tmp) -> dict:
     mesh path alone, then the tensor-parallel decode over a sequence
     sharded over model 2, llama3-8b at full width (2 layers, float32)
     through the tensor-parallel prefill and decode steps, the MoE's expert
-    parallelism and a two-stage pipeline, each held to the one-rank result
-    on the card; a path that failed where one of its collectives failed
-    alone is named, with them, as kept on the CPU tests.  The serve jobs'
-    attention launches must not be 0.  Returns those launches, summed over
-    the jobs' ranks."""
+    parallelism, a two-stage pipeline and the tensor-parallel train jobs
+    (``train_full``, ``mamba_full``; each rank holds itself to one rank in
+    its own process), each held to the one-rank result on the card; a
+    path that failed where one of its collectives failed alone is named,
+    with them, as kept on the CPU tests.  The kernels of each job's path
+    (``MESH_TWO_RANK_KERNELS``) must be launched on each rank.  Returns
+    the serve jobs' launches and the train jobs', each summed over the
+    jobs' ranks."""
     sys.path.insert(0, str(ROOT / "scripts"))
     import mesh_two_ranks as w
     from repro_torch.configs import get_config
@@ -3906,7 +3927,7 @@ def mesh_two_ranks(torch, dev, tmp) -> dict:
     for s in range(2):
         pipe = torch.tanh(pipe @ x["pipe_w"][s])
     t = MESH_TWO_RANK_TOL
-    tp_launches = {}
+    tp_launches, train_launches = {}, {}
     for name, uses in w.USES.items():
         if status[name] != "ok":
             failed = [c for c in uses if status[c] != "ok"]
@@ -3917,7 +3938,7 @@ def mesh_two_ranks(torch, dev, tmp) -> dict:
                   f"two-rank check stays on the CPU tests "
                   f"(tests/test_torch_distributed.py)")
             continue
-        errs = []
+        errs, floor = [], {}
         for r in range(2):
             res = torch.load(procs[name][0] / f"rank{r}.pt")
             if "launches" in res:
@@ -3925,14 +3946,38 @@ def mesh_two_ranks(torch, dev, tmp) -> dict:
                       f"{res['param_bytes'] / 1e9:.4f} GB, peak "
                       f"{res.get('peak_bytes', 0) / 1e9:.3f} GB in the "
                       f"steps; launches {res['launches']}")
-                want = ["decode_attention", "decode_attention_combine"] + (
-                    ["flash_attention"] if name == "llama_full" else [])
+                want = MESH_TWO_RANK_KERNELS[name]
                 if min(res["launches"][k] for k in want) <= 0:
-                    fail(f"two-rank {name}: an attention kernel was not "
-                         f"launched: {res['launches']}")
+                    fail(f"two-rank {name}: a kernel of its path was not "
+                         f"launched on rank {r}: {res['launches']}")
+                into = train_launches if name in w.TRAIN_JOBS \
+                    else tp_launches
                 for k, v in res["launches"].items():
-                    tp_launches[k] = tp_launches.get(k, 0) + v
-            if name == "decode":
+                    into[k] = into.get(k, 0) + v
+            if name in w.TRAIN_JOBS:
+                big = (f"largest magnitudes {res['largest']}; "
+                       if res["largest"] else "")
+                print(f"phase 15 two ranks: {name} rank {r}: (loss, "
+                      f"grad_norm) a step {res['metrics']} against one "
+                      f"rank's {res['one_metrics']}; {big}worst error of "
+                      f"each bar {w.TRAIN_BARS}: " + json.dumps(
+                          {k: float(f"{v:.4g}")
+                           for k, v in res["worst"].items()}))
+                if r == 0 and "floor" in res:
+                    floor = res["floor"]
+                    print(f"phase 15 two ranks: {name}: one rank on the "
+                          f"host against one rank on the card, the float32 "
+                          f"floor at this scale, in the same bars: "
+                          + json.dumps({k: float(f"{v:.4g}")
+                                        for k, v in floor.items()})
+                          + f"; host (loss, grad_norm) a step "
+                          f"{res['host_metrics']}")
+                # a bar, or the floor where one rank's own float32 spread
+                # passes it (w.FLOORED)
+                scale = floor if name in w.FLOORED else {}
+                errs.append(max(v / max(1.0, scale.get(k, 0.0))
+                                for k, v in res["worst"].items()))
+            elif name == "decode":
                 for S, (l1, k1, v1) in one.items():
                     l, k, v = res[f"decode{S}"]
                     lr = l1.chunk(2, dim=-1)[r].cpu()
@@ -3962,10 +4007,10 @@ def mesh_two_ranks(torch, dev, tmp) -> dict:
               f"worst error {max(errs):.3g} of the bar")
         if max(errs) > 1:
             fail(f"two-rank {name} differs from one rank")
-    for name in ("decode", "llama_full"):
+    for name in ("decode", "llama_full") + w.TRAIN_JOBS:
         if status[name] != "ok":
             fail(f"two-rank {name}: {status[name]}")
-    return tp_launches
+    return tp_launches, train_launches
 
 
 def mesh_dryrun(cfg_flop, tmp) -> dict:
@@ -4052,16 +4097,18 @@ def mesh_phase(torch, fa_mod, da_mod, dev, server, trainer) -> dict:
             dist.destroy_process_group()
         two = Path(tmp) / "two"
         two.mkdir()
-        tp_launches = mesh_two_ranks(torch, dev, two)
+        tp_launches, train_launches = mesh_two_ranks(torch, dev, two)
         print(f"phase 15 launches on the tensor-parallel serve paths (two "
               f"ranks, both ranks' summed): {tp_launches}")
+        print(f"phase 15 launches on the tensor-parallel train paths (two "
+              f"ranks, both ranks' summed): {train_launches}")
         cfg = get_config(TRAIN_ARCH)
         dry = mesh_dryrun(train_flop(cfg, build(cfg).param_structs(),
                                      TRAIN_B, TRAIN_S), tmp)
     print(f"phase 15 device mesh: ok; phase wall "
           f"{time.perf_counter() - t_phase:.2f} s")
-    return {"launches": launches, "tp_launches": tp_launches, "train": train,
-            "dryrun": dry}
+    return {"launches": launches, "tp_launches": tp_launches,
+            "train_launches": train_launches, "train": train, "dryrun": dry}
 
 
 def codegen_round_trip(tracegen) -> None:
@@ -4943,6 +4990,13 @@ def main(argv=None) -> int:
                 "mesh": mesh["launches"][entry["name"]],
                 "mesh_tensor_parallel":
                     mesh["tp_launches"].get(entry["name"], 0)}
+        if entry["name"] in ("flash_attention_bwd", "segment_sum"):
+            entry["launches_by_path"] = {
+                "trainer": entry["launches"]}
+        if entry["name"] in ("flash_attention", "flash_attention_bwd",
+                             "segment_sum"):
+            entry["launches_by_path"]["mesh_tensor_parallel_train"] = \
+                mesh["train_launches"].get(entry["name"], 0)
         if entry["name"] in server["rows"]:
             entry["serve"] = server["rows"][entry["name"]]
         if entry["name"] == "flash_attention":

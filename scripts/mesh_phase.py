@@ -3,16 +3,19 @@
 
     python3 scripts/mesh_phase.py   # from the root
 
-Builds the two attention libraries (flash attention, flash decoding), runs
+Builds the libraries of the mesh's paths (flash attention, its backward,
+flash decoding, the segment sum), runs
 phase 14's three qwen2.5-3b steps on one device (mesh=None: B 2 x S
 4,096, bf16, remat) as the comparison for the sharded steps, then
 ``chip_smoke.mesh_phase``: llama3-8b served through the mesh's step
 builders against the one-device steps, granite-moe-3b's prefill through
 the MoE's ``shard_map`` branch, qwen2.5-3b's sharded steps, two gloo ranks
 on the card (among them the tensor-parallel serve steps, llama3-8b at full
-width cut to 2 layers), and the dry run.  Prints the card's name and power
-limit first and the phase's launches, the one-rank mesh's and the two
-ranks' tensor-parallel jobs', as one JSON line last.  Exits nonzero where
+width cut to 2 layers, and the tensor-parallel train jobs, qwen2.5-3b at
+full width cut to 2 layers and mamba2-130m whole), and the dry run.
+Prints the card's name and power limit first and the phase's launches, the
+one-rank mesh's and the two ranks' tensor-parallel serve and train jobs',
+as one JSON line last.  Exits nonzero where
 phase 15 fails.
 """
 from __future__ import annotations
@@ -74,15 +77,17 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa_mod
     print(cs.nvidia_smi("name,power.limit"))
     t0 = time.perf_counter()
-    _build.load("flash_attention")
-    _build.load("decode_attention")
+    for lib in ("flash_attention", "flash_attention_bwd", "decode_attention",
+                "segment_sum"):
+        _build.load(lib)
     print(f"build {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
     trainer = one_device_steps(torch, cs, dev)
     out = cs.mesh_phase(torch, fa_mod, da_mod, dev,
                         {"decode_ms": float("nan")}, trainer)
     print(json.dumps({"mesh": out["launches"],
-                      "mesh_tensor_parallel": out["tp_launches"]}))
+                      "mesh_tensor_parallel": out["tp_launches"],
+                      "mesh_tensor_parallel_train": out["train_launches"]}))
     return 0
 
 

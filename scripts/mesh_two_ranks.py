@@ -23,6 +23,17 @@ mesh (data 1, model 2) at ``.smoke()`` widths:
   ``FULL_PROMPT`` tokens and ``FULL_STEPS`` decode steps of seeded tokens
   (``full_inputs``), held against the same steps on one rank
   (``full_one_rank``);
+- ``train_full``: qwen2.5-3b at full width (d_model 2,048, 16 heads, 2
+  kv heads of 128, d_ff 11,008, the whole vocabulary) cut to
+  ``TRAIN_LAYERS`` layers, in float32: ``TRAIN_STEPS`` train steps of
+  ``TRAIN_B`` x ``TRAIN_S`` tokens from one state through
+  ``trainstep.build_train_step`` (tensor-parallel, the residual split over
+  the sequence, the vocab-parallel lookup and cross-entropy);
+- ``mamba_full``: mamba2-130m whole (24 layers, d_model 768, 24 SSD heads
+  of 64, state 128), in float32: a prefill of ``MAMBA_B`` x
+  ``MAMBA_PROMPT`` tokens, ``MAMBA_DECODES`` decode steps, and
+  ``TRAIN_STEPS`` train steps of ``MAMBA_B`` x ``MAMBA_TRAIN_S`` tokens,
+  the SSD heads split over "model";
 - ``moe``: granite's MoE on the expert-parallel branch (4 experts, 2 a
   rank, the all-to-all over "model");
 - ``pipeline``: a two-stage ``pipeline_apply`` of 4 microbatches (the
@@ -30,8 +41,15 @@ mesh (data 1, model 2) at ``.smoke()`` widths:
 
 The serve jobs count the attention kernels' launches in their steps
 (flash attention in the prefill, decoding's split and combine kernels in
-the decode steps) and each rank's parameter bytes (its shards) and peak
-memory in them.  Each rank saves the job's results to
+the decode steps), the train jobs flash attention's, its backward's and
+the embedding gradient's segment sum's in theirs, each counted around the
+mesh steps alone; each rank's parameter bytes (its shards) and peak memory
+in them.  The train jobs hold their mesh steps to the same steps on one
+rank in the same process after them (``held_to_one_rank``: the loss and
+gradient norm of each step, the parameters and first moments after the
+last, the logits and caches of the serve calls, each rank's shards
+against the one-rank tensors' slices), at the reference's bars
+(``TRAIN_BARS``).  Each rank saves the job's results to
 ``DIR/rank{RANK}.pt``;
 ``chip_smoke.py`` runs every job at once, each in its own DIR, and holds
 each path that ran against the one-rank results on the card, naming the
@@ -52,14 +70,33 @@ PROBES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
           "all_to_all_single", "send/recv")
 USES = {"decode": ("all_gather_into_tensor", "all_reduce"),
         "llama_full": ("all_gather_into_tensor", "all_reduce"),
+        "train_full": ("all_gather_into_tensor", "all_reduce"),
+        "mamba_full": ("all_gather_into_tensor", "all_reduce"),
         "moe": ("all_to_all_single", "all_reduce"),
         "pipeline": ("send/recv", "all_reduce")}
-TIMEOUT_S = 60            # the gloo group's: a rank whose peer died raises
+TIMEOUT_S = 180           # the gloo group's: a rank whose peer died raises
 LLAMA_SMOKE = dict(cache_dtype="float32")
 # the full-width job: llama3-8b's widths, depth cut, float32
 FULL_LAYERS, FULL_B, FULL_PROMPT, FULL_STEPS = 2, 4, 64, 8
 FULL = dict(num_layers=FULL_LAYERS, dtype="float32", cache_dtype="float32")
 FULL_MAX_SEQ = FULL_PROMPT + FULL_STEPS
+TRAIN_JOBS = ("train_full", "mamba_full")
+# the train jobs: qwen2.5-3b's widths, depth cut, and mamba2-130m whole,
+# float32, two steps from one state
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2, 1024, 2
+TRAIN_FULL = dict(num_layers=TRAIN_LAYERS, dtype="float32")
+MAMBA_FULL = dict(dtype="float32")
+MAMBA_B, MAMBA_PROMPT, MAMBA_DECODES, MAMBA_TRAIN_S = 2, 256, 8, 512
+# tests/test_torch_distributed.py's bars: the loss (absolute), the
+# gradient norm (relative), the parameters (rtol, atol), the first moment
+# (of each leaf's largest magnitude), logits, caches
+TRAIN_BARS = dict(loss=5e-3, grad_norm=1e-4, param_rtol=2e-2,
+                  param_atol=2e-3, mu=1e-4, logits=3e-4, cache=1e-5)
+# the jobs whose bars are also read against the float32 floor of their
+# scale (``_train_job``): mamba2-130m whole from its own init has logits
+# in the hundreds (its tied table is drawn at scale 1.0), where two valid
+# float32 orders of the same sums differ by more than the absolute bars
+FLOORED = ("mamba_full",)
 
 
 def inputs(torch, device) -> dict:
@@ -174,6 +211,8 @@ def main(argv) -> int:
     rank, tmp, device, job = int(argv[1]), argv[2], argv[3], argv[4]
     sys.path.insert(0, str(ROOT / "src"))
     import datetime
+    import faulthandler
+    faulthandler.enable()          # a crash in a collective names its line
     import torch
     import torch.distributed as dist
     dist.init_process_group("gloo", init_method="file://" + os.path.join(
@@ -194,6 +233,8 @@ def main(argv) -> int:
             _probe(torch, dist, dev, mesh.group("model"), job)
         elif job == "llama_full":
             _llama_full(torch, shd, mesh, dev, res)
+        elif job in ("train_full", "mamba_full"):
+            _train_job(torch, shd, mesh, dev, job, res)
         else:
             x = inputs(torch, dev)
             if job == "decode":
@@ -214,9 +255,13 @@ def main(argv) -> int:
 def _launches():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import segment_sum as ss
     return {"flash_attention": fa.flash_attention.launches,
             "decode_attention": da.decode_attention.launches,
-            "decode_attention_combine": da.decode_attention.combine_launches}
+            "decode_attention_combine": da.decode_attention.combine_launches,
+            "flash_attention_bwd": fab.flash_attention_bwd.launches,
+            "segment_sum": ss.segment_sum.launches}
 
 
 def _since(before: dict) -> dict:
@@ -295,6 +340,172 @@ def _llama_full(torch, shd, mesh, dev, res):
     res["logits"] = torch.stack([t.to_local() for t in out]).cpu()
     res["cache"] = {n: c.to_local().cpu() for n, c in cache.items()}
     res["peak_bytes"] = _peak(torch, placed)
+
+
+def train_job_inputs(torch, device, job, init_device=None):
+    """(model, params, the train steps' batches, the prompt, the decode
+    steps' tokens) of a train job, seeded, on ``device``; the prompt and
+    decode tokens None for ``train_full``.  The weights are drawn on
+    ``init_device`` (default ``device``; a generator draws other numbers on
+    another device type)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    if job == "train_full":
+        model = build(get_config("qwen2.5-3b").scaled(**TRAIN_FULL))
+        B, S = TRAIN_B, TRAIN_S
+    else:
+        model = build(get_config("mamba2-130m").scaled(**MAMBA_FULL))
+        B, S = MAMBA_B, MAMBA_TRAIN_S
+    V = model.cfg.vocab_size
+    g = torch.Generator().manual_seed(2)
+    draw = lambda *shape: torch.randint(0, V, shape, generator=g,
+                                        dtype=torch.int32).to(device)
+    batches = [{"tokens": draw(B, S), "labels": draw(B, S)}
+               for _ in range(TRAIN_STEPS)]
+    prompt = steps = None
+    if job == "mamba_full":
+        prompt = draw(MAMBA_B, MAMBA_PROMPT)
+        steps = draw(MAMBA_DECODES, MAMBA_B, 1)
+    params = model.init(torch.Generator(
+        device=init_device or device).manual_seed(0))
+    if init_device is not None:
+        params = _to(torch, params, device)
+    return model, params, batches, prompt, steps
+
+
+def train_job_steps(torch, shd, job, dev, mesh, init_device=None):
+    """A train job's calls through the step builders on ``mesh`` (None:
+    one rank), from ``train_job_inputs``: the serve calls first
+    where there is a prompt (each call's logits, the cache after the
+    last), then the train steps from zero moments.  Returns {"metrics":
+    [(loss, grad_norm)], "params", "mu", "logits", "cache",
+    "param_bytes", "peak_bytes"}, on a mesh each tensor a DTensor; the
+    peak is the card's from the placed state to the last step (0 on the
+    CPU)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainstep
+    model, params, batches, prompt, steps = train_job_inputs(
+        torch, dev, job, init_device)
+    B, S = batches[0]["tokens"].shape
+    fn, in_sh, _, _ = trainstep.build_train_step(
+        model, InputShape("t", S, B, "train"), mesh, opt_cfg=opt.OptConfig(),
+        microbatches=1)
+    state = opt.init(params)
+    if mesh is not None:                 # the whole tensors freed here
+        params = shd.place_tree(params, in_sh[0])
+        state = shd.place_tree(state, in_sh[1])
+    out = {"logits": [], "cache": {},
+           "param_bytes": _param_bytes(shd, params)}
+    _reset_peak(torch, params)
+    if prompt is not None:
+        Bp, P = prompt.shape
+        pf = trainstep.build_prefill_step(model, InputShape(
+            "p", P, Bp, "prefill"), mesh)[0]
+        dec = trainstep.build_decode_step(model, InputShape(
+            "d", P, Bp, "decode"), mesh)[0]
+        logits, cache = pf(params, {"tokens": prompt})
+        out["logits"].append(logits)
+        for t in range(len(steps)):
+            logits, cache = dec(params, cache, steps[t], P + t)
+            out["logits"].append(logits)
+        out["cache"] = cache
+    out["metrics"] = []
+    for b in batches:
+        params, state, m = fn(params, state, b)
+        out["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
+    out["params"], out["mu"] = params, state.mu
+    out["peak_bytes"] = _peak(torch, params)
+    return out
+
+
+def _pairs(shd, tree, prefix=""):
+    """(name, this rank's shard, its "model" dim or None) of a tree of
+    DTensors; (name, tensor, None) of whole tensors."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _pairs(shd, tree[k], f"{prefix}{k}/")
+        return
+    if shd.is_dtensor(tree):
+        from torch.distributed.tensor import Shard
+        dims = [p.dim for p, a in zip(tree.placements,
+                                      tree.device_mesh.mesh_dim_names)
+                if a == "model" and isinstance(p, Shard)]
+        yield prefix[:-1], tree.to_local(), dims[0] if dims else None
+    else:
+        yield prefix[:-1], tree, None
+
+
+def held_to_one_rank(torch, shd, got, want, rank) -> dict:
+    """Each bar's worst ratio (1 is the bar) of a run ``got`` against the
+    one-rank run ``want`` (``train_job_steps``), on the host: a mesh run's
+    shards against the slices of the one-rank tensors they hold, a whole
+    run's tensors against the whole."""
+    b = TRAIN_BARS
+
+    def host(t):
+        return shd.local(t).float().cpu()
+
+    def part(w, d):
+        return host(w if d is None else w.chunk(2, dim=d)[rank])
+
+    def worst(got_tree, want_tree, err):
+        return max(float(err(host(a), part(w, d))) for (_, a, d), (_, w, _)
+                   in zip(_pairs(shd, got_tree), _pairs(shd, want_tree)))
+
+    got_m, want_m = got["metrics"], want["metrics"]
+    r = {"loss": max(abs(a[0] - w[0]) for a, w in zip(got_m, want_m))
+         / b["loss"],
+         "grad_norm": max(abs(a[1] - w[1]) / abs(w[1])
+                          for a, w in zip(got_m, want_m)) / b["grad_norm"],
+         "params": worst(got["params"], want["params"], lambda a, w: (
+             (a - w).abs() / (b["param_atol"] + b["param_rtol"] * w.abs()))
+             .max()),
+         "mu": worst(got["mu"], want["mu"], lambda a, w: (a - w).abs().max()
+                     / (b["mu"] * w.abs().max().clamp_min(1e-30)))}
+    if got["logits"]:
+        r["logits"] = max(float((host(a) - part(
+            w, -1 if shd.is_dtensor(a) else None)).abs().max())
+            for a, w in zip(got["logits"], want["logits"])) / b["logits"]
+        r["cache"] = worst(got["cache"], want["cache"],
+                           lambda a, w: (a - w).abs().max()) / b["cache"]
+    return r
+
+
+def largest(torch, shd, run) -> dict:
+    """The largest magnitude of a run's logits and of each cache leaf."""
+    out = {"logits": max(float(shd.local(t).abs().max())
+                         for t in run["logits"])} if run["logits"] else {}
+    out.update({n: float(shd.local(t).abs().max())
+                for n, t in run["cache"].items()})
+    return out
+
+
+def _train_job(torch, shd, mesh, dev, job, res):
+    """A train job on this rank's shards, then on one rank in this process
+    from the same seeded inputs (``held_to_one_rank``): the worst ratio of
+    each bar, the steps' metrics, this rank's parameter bytes, its peak
+    memory and the kernels' launches in the mesh calls.  For the jobs of
+    ``FLOORED`` rank 0 also runs the one-rank calls on the host and holds
+    them to the card's one-rank calls the same way (``floor``): the
+    float32 spread of two valid orders of the same sums, at the job's
+    scale."""
+    before = _launches()
+    got = train_job_steps(torch, shd, job, dev, mesh)
+    res["launches"] = _since(before)
+    res["peak_bytes"] = got["peak_bytes"]
+    res["param_bytes"] = got["param_bytes"]
+    res["metrics"] = got["metrics"]
+    want = train_job_steps(torch, shd, job, dev, None)
+    res["one_metrics"] = want["metrics"]
+    res["largest"] = largest(torch, shd, want)
+    res["worst"] = held_to_one_rank(torch, shd, got, want,
+                                    mesh.coord("model"))
+    if job in FLOORED and dev.type == "cuda" and mesh.coord("model") == 0:
+        host = train_job_steps(torch, shd, job, torch.device("cpu"), None,
+                               init_device=dev)
+        res["floor"] = held_to_one_rank(torch, shd, host, want, 0)
+        res["host_metrics"] = host["metrics"]
 
 
 def _moe(shd, M, get_config, mesh, x, res):

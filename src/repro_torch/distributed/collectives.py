@@ -14,19 +14,30 @@ of every rank's loss, ``trainstep``):
   all-to-all);
 - ``ppermute`` -> ``batch_isend_irecv``.
 
-Tensor parallelism of a serve step (``sharding.TensorParallel``) takes two
-over the "model" group, on local tensors: ``row_parallel_sum``, the
-all-reduce of a row-parallel product's partial sums (after wo, the MLP's
-w2 and the vocab-parallel lookup), and ``all_gather`` of a projection's
-heads (q's for the flash decode, which takes q whole, or columns that are
-not whole heads).
-The reference's GSPMD all-reduces there too: a decode step's residual
-(one position) does not divide the model axis, so its
-``("batch", "seq_sp", None)`` constraint leaves it replicated, and a
-prefill's reduce-scatter onto the sequence and all-gather before the next
-block move the same bytes as the all-reduce.  Each issues only
-``all_reduce`` or ``all_gather_into_tensor``, which gloo also runs on a
-CUDA tensor.
+Tensor parallelism (``sharding.TensorParallel``) takes these over the
+"model" group, on local tensors:
+
+- ``row_parallel_sum``, the all-reduce of a row-parallel product's partial
+  sums (after wo, the MLP's w2, the SSD mixer's wo and the vocab-parallel
+  lookup) where the residual is whole on every model rank (a serve step,
+  or a train step whose sequence does not divide the model axis), and
+  ``psum`` of the gated norm's sums of squares and of the vocab-parallel
+  cross-entropy's sums;
+- ``all_gather`` of a projection's heads (q's for the flash decode, which
+  takes q whole, or columns that are not whole heads);
+- the sequence-parallel pair of a train step: ``all_gather`` on the
+  sequence (dim 1) of a block's normed input before its column-parallel
+  products (backward: a reduce-scatter), and ``reduce_scatter`` of a
+  row-parallel product's partial sums onto the sequence (backward: an
+  all-gather).
+
+The reference's GSPMD all-reduces where the residual is whole too: a
+decode step's residual (one position) does not divide the model axis, so
+its ``("batch", "seq_sp", None)`` constraint leaves it replicated.  Each
+issues only ``all_reduce``, ``all_gather_into_tensor`` or
+``reduce_scatter_tensor``, which gloo also runs on a CUDA tensor (its
+reduce-scatter an all-reduce and a slice, below).  The cross-entropy's row
+maxima are taken by an all-gather, not an all-reduce MAX.
 
 ``all_gather`` and the helpers that the FSDP gather and the flash decode's
 merge call (``_all_gather``, ``_reduce_scatter``, ``_all_reduce_``) issue
@@ -93,8 +104,11 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     if n == 1:
         return x
+    src = x
     x = x.movedim(dim, 0).contiguous()
     if _gloo(group):
+        if x.data_ptr() == src.data_ptr():    # summed in place: not src
+            x = x.clone()
         dist.all_reduce(x, group=group)
         out = x.chunk(n)[dist.get_group_rank(group, dist.get_rank())]
         return out.movedim(0, dim).contiguous()
@@ -130,6 +144,17 @@ class _AllGather(torch.autograd.Function):
         return _reduce_scatter(g, ctx.dim, ctx.group), None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -160,6 +185,13 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in group-rank order (a
     tiled all-gather)."""
     return _AllGather.apply(x, dim, group)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``x`` summed, and this rank's one of the group's equal
+    chunks of the sum along ``dim`` (a tiled reduce-scatter; backward: the
+    all-gather)."""
+    return _ReduceScatter.apply(x, dim, group)
 
 
 def row_parallel_sum(x: torch.Tensor, group) -> torch.Tensor:

@@ -20,28 +20,31 @@ sharding map like this:
 - **Compute** runs on local tensors, as a ``shard_map`` body does.  A step
   builder (``trainstep``) installs the mesh with ``use_mesh(mesh,
   batch_axes, tp=...)``: the activations are this rank's slice of the
-  batch, split over ``batch_axes``, and ``tp`` says how the dense products
-  are split over "model".  ``gather`` (``layers.fsdp_gather``, a layer at a
-  time) all-gathers a weight's shards over the axes it does not keep, and
-  its backward sums the weight's gradient over every rank and keeps this
-  rank's shard (a reduce-scatter), the FSDP / ZeRO-3 schedule.  What a
-  weight keeps (``kept_axes``):
+  batch, split over the data axes (the reference's "batch" rule), and
+  ``tp`` says how the dense products are split over "model".  ``gather``
+  (``layers.fsdp_gather``, a layer at a time) all-gathers a weight's
+  shards over the axes it does not keep, and its backward sums the
+  weight's gradient over every rank and keeps this rank's shard (a
+  reduce-scatter), the FSDP / ZeRO-3 schedule.  Every step keeps the
+  "model" shards of the tensor-parallel axes ("heads", "kv_heads", "qkv",
+  "ff", "vocab", "ssm_heads", "ssm_inner"), as the reference's
+  ``fsdp_gather`` drops only "embed": each rank computes its part of every
+  projection, MLP, SSD mixer and unembedding product, as GSPMD partitions
+  them (``TensorParallel``, ``tensor_parallel``; the column-parallel
+  products' row-parallel partners end in a sum over "model").  Where a dim
+  does not divide the model axis the rule leaves it whole and its product
+  runs replicated, as in the reference.
 
-  - a **serve step** (prefill, decode) keeps the "model" shards of the
-    tensor-parallel axes ("heads", "kv_heads", "qkv", "ff", "vocab"), as
-    the reference's ``fsdp_gather`` drops only "embed": each rank computes
-    its part of every projection, MLP and unembedding product, as GSPMD
-    partitions them (``TensorParallel``, ``tensor_parallel``; the
-    column-parallel products' row-parallel partners end in
-    ``collectives.row_parallel_sum``).  The batch is split over the data
-    axes only, the reference's "batch" rule.  Where a dim does not divide
-    the model axis the rule leaves it whole and its product runs
-    replicated, as in the reference.  The Mamba mixers' "ssm_heads" /
-    "ssm_inner" weights are still gathered whole;
-  - a **train step** gathers every dense weight whole and splits the batch
-    over "model" too where it divides, so a device's share of the work is
-    GSPMD's (``tests/test_torch_roofline.py`` holds the per-device FLOPs to
-    the reference's HLO);
+  - a **serve step** (prefill, decode) holds the residual whole on every
+    model rank: a row-parallel product ends in
+    ``collectives.row_parallel_sum`` (an all-reduce);
+  - a **train step** also takes the reference's sequence parallelism
+    (``TensorParallel.seq``, its ``("batch", "seq_sp", None)`` constraint
+    between blocks): where the sequence divides the model axis the
+    residual is this rank's slice of it, a block's normed input is
+    all-gathered on the sequence before its column-parallel products, and
+    each row-parallel product ends in a reduce-scatter onto the sequence
+    (``collectives.reduce_scatter``);
   - the MoE's expert weights stay sharded over "model" in both (the
     experts under expert parallelism, their d_ff under expert-TP), as the
     reference's ``shard_map`` takes them.
@@ -281,27 +284,37 @@ def full(x):
 # tensor parallelism of the dense products
 # ---------------------------------------------------------------------------
 
-# the logical axes whose "model" shards a serve step keeps (the reference's
-# "tp" rule on the dense weights; the Mamba mixers' are gathered whole)
-TP_AXES = frozenset(("heads", "kv_heads", "qkv", "ff", "vocab"))
+# the logical axes whose "model" shards a step keeps (the reference's "tp"
+# rule on the dense weights)
+TP_AXES = frozenset(("heads", "kv_heads", "qkv", "ff", "vocab", "ssm_heads",
+                     "ssm_inner"))
 # the logical axes of the MoE's expert weights (moe.moe_defs)
 EXPERT_AXES = frozenset(("expert", "expert_ff"))
 
 
 class TensorParallel(NamedTuple):
-    """How a serve step splits the dense products over "model" (``n``
-    ranks; this one ``rank`` of ``group``): which products are split, from
-    the rule's own divisibility fallback on each weight's dim.
+    """How a step splits the dense products over "model" (``n`` ranks;
+    this one ``rank`` of ``group``): which products are split, from the
+    rule's own divisibility fallback on each weight's dim.
 
     - ``heads`` / ``kv_heads``: wq's and wo's (wk's and wv's) "heads"
       dims are split: the projections are column-parallel, wo row-parallel;
     - ``whole_heads`` / ``whole_kv_heads``: a rank's columns are whole
       heads (the head count divides ``n``), so it attends with its own q
-      heads (and kv heads); else the columns are all-gathered and every
-      rank attends with every head;
+      heads (and kv heads); else the columns are all-gathered and a rank
+      attends with the heads its columns fall in;
     - ``ff``: the MLP's d_ff (w1 / w3 column-, w2 row-parallel);
     - ``vocab``: the padded vocabulary (a vocab-parallel lookup, logits
-      vocab-sharded)."""
+      vocab-sharded, a vocab-parallel cross-entropy);
+    - ``ssm_inner``: the SSD mixer's d_inner (wz / wx column-, wo
+      row-parallel, the gated norm's sum of squares added over "model"), a
+      rank computing the SSD heads its columns fall in;
+    - ``ssm_heads``: those are whole heads (the SSD head count divides
+      ``n``): wdt, dt_bias, A_log and D_skip are this rank's heads, else
+      whole and the rank picks its heads from them;
+    - ``seq``: the residual between blocks is this rank's slice of the
+      sequence (a train step's sequence parallelism, where the sequence
+      divides ``n``); else it is whole on every model rank."""
     n: int
     rank: int
     group: object
@@ -311,12 +324,18 @@ class TensorParallel(NamedTuple):
     whole_kv_heads: bool
     ff: bool
     vocab: bool
+    ssm_inner: bool
+    ssm_heads: bool
+    seq: bool
 
 
-def tensor_parallel(cfg, mesh) -> Optional[TensorParallel]:
-    """The serve steps' split of ``cfg``'s dense products on ``mesh``;
-    None where "model" has one rank (there the split is the identity, and
-    the steps run the one-device code)."""
+def tensor_parallel(cfg, mesh, seq_len: Optional[int] = None
+                    ) -> Optional[TensorParallel]:
+    """The split of ``cfg``'s dense products on ``mesh``; with
+    ``seq_len`` (a train step's residual length) the sequence split too,
+    where it divides the model axis.  None where "model" has one rank
+    (there the split is the identity, and the steps run the one-device
+    code)."""
     n = mesh.size("model") if "model" in mesh.axis_names else 1
     if n == 1:
         return None
@@ -328,12 +347,17 @@ def tensor_parallel(cfg, mesh) -> Optional[TensorParallel]:
 
     heads = split(("embed", "heads"), (d, H * hd))
     kv = split(("embed", "kv_heads"), (d, KV * hd))
+    ssm_inner = split(("embed", "ssm_inner"), (d, cfg.d_inner))
     return TensorParallel(
         n=n, rank=mesh.coord("model"), group=mesh.group("model"),
         heads=heads, kv_heads=kv, whole_heads=heads and H % n == 0,
         whole_kv_heads=kv and KV % n == 0,
         ff=split(("embed", "ff"), (d, cfg.d_ff)),
-        vocab=split(("vocab", "embed"), (cfg.padded_vocab, d)))
+        vocab=split(("vocab", "embed"), (cfg.padded_vocab, d)),
+        ssm_inner=ssm_inner,
+        ssm_heads=ssm_inner and split(("embed", "ssm_heads"),
+                                      (d, cfg.ssm_nheads)),
+        seq=seq_len is not None and seq_len % n == 0)
 
 
 def kept_axes(logical, tp: Optional[TensorParallel]) -> tuple:
@@ -364,19 +388,11 @@ class _State(NamedTuple):
 _ACTIVE: list = [_State(None, (), False, None)]
 
 
-class use_mesh:
-    """Context manager installing the active mesh.  ``batch_axes`` are the
-    mesh axes the local activations' batch dim is split over (``()``: each
-    rank holds the whole batch, as a direct caller of a layer passes it);
-    ``kv_sharded`` says that the KV caches a decode step hands its layers
-    are this rank's rows of a sequence sharded over "model"; ``tp`` (a
-    serve step's ``tensor_parallel``) that the layers' dense weights are
-    this rank's "model" shards of the TP axes, or None (whole weights)."""
+class _Push:
+    """Context manager installing an active state."""
 
-    def __init__(self, mesh, batch_axes: tuple = (), kv_sharded=False,
-                 tp: Optional[TensorParallel] = None):
-        self.state = (_State(mesh, tuple(batch_axes), kv_sharded, tp)
-                      if mesh is not None else _ACTIVE[0])
+    def __init__(self, state: _State):
+        self.state = state
 
     def __enter__(self):
         _ACTIVE.append(self.state)
@@ -384,6 +400,34 @@ class use_mesh:
 
     def __exit__(self, *exc):
         _ACTIVE.pop()
+
+
+class use_mesh(_Push):
+    """Context manager installing the active mesh.  ``batch_axes`` are the
+    mesh axes the local activations' batch dim is split over (``()``: each
+    rank holds the whole batch, as a direct caller of a layer passes it);
+    ``kv_sharded`` says that the KV caches a decode step hands its layers
+    are this rank's rows of a sequence sharded over "model"; ``tp`` (a
+    step's ``tensor_parallel``) that the layers' dense weights are this
+    rank's "model" shards of the TP axes, or None (whole weights)."""
+
+    def __init__(self, mesh, batch_axes: tuple = (), kv_sharded=False,
+                 tp: Optional[TensorParallel] = None):
+        super().__init__(_State(mesh, tuple(batch_axes), kv_sharded, tp)
+                         if mesh is not None else _ACTIVE[0])
+
+
+def whole_sequence() -> _Push:
+    """The active state with the residual whole on every model rank
+    (``TensorParallel.seq`` off), for a part of a train step whose
+    sequence the step does not split: Whisper's encoder, whose frames the
+    decoder's cross-attention takes whole, and a VLM's text embeddings and
+    logits, which sit beside the patches' positions.  Entered inside a
+    layer body, so that remat's recompute runs under it too."""
+    st = _ACTIVE[-1]
+    if st.tp is not None and st.tp.seq:
+        st = st._replace(tp=st.tp._replace(seq=False))
+    return _Push(st)
 
 
 def active_mesh():
@@ -399,7 +443,7 @@ def active_kv_sharded() -> bool:
 
 
 def active_tp() -> Optional[TensorParallel]:
-    """The active serve step's ``TensorParallel``, or None."""
+    """The active step's ``TensorParallel``, or None."""
     return _ACTIVE[-1].tp
 
 

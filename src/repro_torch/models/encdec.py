@@ -12,12 +12,19 @@ cached self-attention of a decode step the flash-decoding kernel
 (``layers``).  Cross-attention (Sq != Sk: ``_dec_block`` and ``prefill``
 through ``attention_fwd(kv=...)``, ``decode_step`` through
 ``_exact_attn``) is the plain cross-attention route on every device.
+
+Under a train step's sequence parallelism (``sharding.TensorParallel``)
+the decoder's residual is this rank's slice of the token sequence (its
+positions' sinusoids with it) and the encoder runs with its residual whole
+(``sharding.whole_sequence``): the decoder's cross-attention takes the
+encoder's output whole.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import torch_dtype
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import constraint
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -77,14 +84,15 @@ def encode(params, frames, cfg):
     h = frames.to(dtype) + sinusoid(positions, cfg.d_model, dtype)
 
     def body(h, bp):
-        bp = L.fsdp_gather(bp, enc_block_defs(cfg))
-        a, _ = L.attention_fwd(bp["attn"], L.rmsnorm(h, bp["attn_norm"],
-                                                     cfg.norm_eps),
-                               cfg, positions=positions, causal=False)
-        h = h + a
-        h = h + L.mlp_fwd(bp["mlp"], L.rmsnorm(h, bp["mlp_norm"],
-                                               cfg.norm_eps))
-        return constraint(h, ("batch", "seq_sp", None))
+        with shd.whole_sequence():
+            bp = L.fsdp_gather(bp, enc_block_defs(cfg))
+            a, _ = L.attention_fwd(bp["attn"], L.rmsnorm(h, bp["attn_norm"],
+                                                         cfg.norm_eps),
+                                   cfg, positions=positions, causal=False)
+            h = h + a
+            h = h + L.mlp_fwd(bp["mlp"], L.rmsnorm(h, bp["mlp_norm"],
+                                                   cfg.norm_eps))
+            return constraint(h, ("batch", "seq_sp", None))
 
     for bp in L.unstacked(params["enc_blocks"]):
         h = L.run_layer(body, cfg.remat, h, bp)
@@ -110,10 +118,13 @@ def _cross_kv(bp, enc_out, cfg):
 
 
 def _dec_input(params, tokens, cfg):
+    """The decoder's input (this rank's slice of the sequence under
+    sequence parallelism) and every position."""
     dtype = cfg.torch_dtype
     h = L.embed_fwd(params["embed"], tokens, dtype)
     positions = _arange(tokens.shape[1], h.device)
-    return h + sinusoid(positions, cfg.d_model, dtype), positions
+    return h + L.local_seq(sinusoid(positions, cfg.d_model, dtype)), \
+        positions
 
 
 def forward(params, frames, tokens, cfg):

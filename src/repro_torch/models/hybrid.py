@@ -8,6 +8,13 @@ period (``periods["pos{i}"]``, the period axis first), as the reference's;
 the port loops over periods where the reference scans.  The caches hold
 one attention layer's K/V per period and ``conv`` / ``ssm`` states per
 Mamba position; decode steps update them in place.
+
+Under tensor parallelism every position splits its products over "model"
+(the SSD heads of a Mamba position, ``ssm``; attention and MLP,
+``layers``; the MoE's experts, ``moe``), and under a train step's sequence
+parallelism the residual between positions is this rank's slice of the
+sequence, as the reference's ``("batch", "seq_sp", None)`` constraint
+lays it out.
 """
 from __future__ import annotations
 

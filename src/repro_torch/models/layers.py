@@ -47,17 +47,25 @@ shards (its backward reduce-scatters their gradients), ``constraint``
 redistributes a DTensor and leaves a local activation in the step's layout,
 and ``attention_decode`` takes the flash decode over a sequence-sharded
 cache (``distributed.collectives``) where the reference does.  Under a
-serve step's tensor parallelism (``sharding.active_tp``) the weights keep
-their "model" shards and each product is this rank's part, as GSPMD
-partitions the reference's: the q / k / v projections column-parallel
-(``_project_q``, ``project_kv``; columns that are not whole heads are
-all-gathered), attention on this rank's q heads (``_repeat_kv`` picks each
-one's kv head of whole K/V), wo row-parallel (``_out_proj``), the MLP's
-w1 / w3 column- and w2 row-parallel, a vocab-parallel lookup
-(``embed_fwd``) and vocab-sharded logits (``unembed_fwd``); each
-row-parallel product ends in ``collectives.row_parallel_sum``.  Without a
-mesh, or with one rank on "model", all of this is as before: identities
-and the one-device code.
+step's tensor parallelism (``sharding.active_tp``) the weights keep their
+"model" shards and each product is this rank's part, as GSPMD partitions
+the reference's: the q / k / v projections column-parallel (``_project_q``,
+``project_kv``; columns that are not whole heads are all-gathered),
+attention on this rank's q heads (``_repeat_kv`` picks each one's kv head
+of whole K/V), wo row-parallel (``_out_proj``), the MLP's w1 / w3 column-
+and w2 row-parallel, a vocab-parallel lookup (``embed_fwd``),
+vocab-sharded logits (``unembed_fwd``) and a vocab-parallel cross-entropy
+(``cross_entropy``).  Where the residual is whole on every model rank (a
+serve step) each row-parallel product ends in
+``collectives.row_parallel_sum``.  Under a train step's sequence
+parallelism (``TensorParallel.seq``) the residual is this rank's slice of
+the sequence: norms run on the slice, ``gather_seq`` all-gathers a normed
+input on the sequence before the column-parallel products (attention runs
+on the whole sequence of this rank's heads), a row-parallel product ends
+in a reduce-scatter onto the sequence (``to_residual``), and a product
+left whole (its dim does not divide the model axis) keeps this rank's
+slice of its output.  Without a mesh, or with one rank on "model", all of
+this is as before: identities and the one-device code.
 """
 from __future__ import annotations
 
@@ -164,17 +172,16 @@ def fsdp_gather(block_params, block_defs):
     body (so remat gathers again in the backward, and one layer's weights
     are gathered at a time); the identity without a mesh.
 
-    Under a serve step's tensor parallelism only the data (fsdp) axes are
-    gathered and each weight keeps its "model" shards of the TP axes
-    ("heads", "kv_heads", "qkv", "ff", "vocab"), as the reference's
-    ``fsdp_gather`` drops only the "embed" axis: the layer functions
-    compute this rank's part of each product.  A train step gathers every
-    dense weight whole and splits the batch instead
-    (``distributed/sharding.py``).  The MoE's expert weights stay sharded
-    over "model" under both (the experts under expert parallelism, their
-    d_ff under expert-TP), as the reference's ``shard_map`` takes them, and
-    ``moe._moe_sharded`` computes on this rank's part, so no rank holds
-    every expert.  The Mamba mixers' weights are gathered whole."""
+    Under tensor parallelism only the data (fsdp) axes are gathered and
+    each weight keeps its "model" shards of the TP axes ("heads",
+    "kv_heads", "qkv", "ff", "vocab", "ssm_heads", "ssm_inner"), as the
+    reference's ``fsdp_gather`` drops only the "embed" axis: the layer
+    functions compute this rank's part of each product, in a serve step
+    and in a train step alike (``distributed/sharding.py``).  The MoE's
+    expert weights stay sharded over "model" under both (the experts under
+    expert parallelism, their d_ff under expert-TP), as the reference's
+    ``shard_map`` takes them, and ``moe._moe_sharded`` computes on this
+    rank's part, so no rank holds every expert."""
     mesh = shd.active_mesh()
     if mesh is None:
         return block_params
@@ -188,6 +195,46 @@ def rmsnorm(x, w, eps):
     x32 = x.float()
     rms = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
     return (x32 * rms).to(x.dtype) * w
+
+
+def _seq_tp():
+    """The active ``TensorParallel`` where it splits the sequence, else
+    None."""
+    tp = shd.active_tp()
+    return tp if tp is not None and tp.seq else None
+
+
+def gather_seq(x):
+    """Under sequence parallelism the whole sequence [B,S,...] from this
+    rank's slice ``x`` [B,S/n,...] (an all-gather; backward: a
+    reduce-scatter); else ``x``."""
+    tp = _seq_tp()
+    return collectives.all_gather(x, 1, tp.group) if tp is not None else x
+
+
+def local_seq(x):
+    """Under sequence parallelism this rank's slice of the sequence of a
+    tensor ``x`` [B,S,...] every model rank holds whole; else ``x``."""
+    tp = _seq_tp()
+    if tp is None:
+        return x
+    n = x.shape[1] // tp.n
+    return x.narrow(1, tp.rank * n, n)
+
+
+def to_residual(y, split: bool):
+    """A product's result ``y`` [B,S,D] in the residual's layout: where
+    ``split`` (a row-parallel product under tensor parallelism) ``y`` holds
+    this rank's partial sums, added over "model"; else ``y`` is whole.
+    Under sequence parallelism the result is this rank's slice of the
+    sequence: the sums reduce-scattered onto it, a whole ``y`` sliced."""
+    tp = shd.active_tp()
+    if tp is None:
+        return y
+    if tp.seq:
+        return collectives.reduce_scatter(y, 1, tp.group) if split \
+            else local_seq(y)
+    return collectives.row_parallel_sum(y, tp.group) if split else y
 
 
 def rope_tables(positions, head_dim, theta, dtype):
@@ -310,16 +357,16 @@ def _out_proj(p, out, cfg):
     """``wo`` on the attention's output [B,S,heads,hd] of this rank's q
     heads (``_q_heads``); under tensor parallelism this rank's rows of wo
     times its columns of the output (where they are not whole heads, its
-    slice of its heads'), the partial sums added over "model"."""
+    slice of its heads'), the partial sums added over "model" (onto the
+    sequence under sequence parallelism, ``to_residual``)."""
     o = out.reshape(*out.shape[:2], -1)
     tp = shd.active_tp()
-    if tp is None or not tp.heads:
-        return o @ p["wo"]
-    if not tp.whole_heads:
+    split = tp is not None and tp.heads
+    if split and not tp.whole_heads:
         c = cfg.num_heads * cfg.head_dim // tp.n
         first = tp.rank * c - _q_heads(cfg)[0] * cfg.head_dim
         o = o[..., first:first + c]
-    return collectives.row_parallel_sum(o @ p["wo"], tp.group)
+    return to_residual(o @ p["wo"], split)
 
 
 def _exact_attn(q, k, v, causal, q_offset=0, kv_len=None):
@@ -442,7 +489,10 @@ def attention_fwd(p, h, cfg, *, positions, causal=True, kv=None):
 
     Self-attention runs the flash-attention kernel on a CUDA tensor (as
     ``FlashAttention`` while autograd records); cross-attention (``kv``
-    given) is the plain route on every device."""
+    given) is the plain route on every device.  Under sequence parallelism
+    ``h`` is this rank's slice of the sequence, gathered whole here, and
+    the output is this rank's slice again (``_out_proj``)."""
+    h = gather_seq(h)
     q, k, v = _project_qkv(p, h, cfg)
     if cfg.rope_theta > 0:
         cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
@@ -543,12 +593,17 @@ def mlp_defs(cfg, d_ff=None):
 
 def mlp_fwd(p, h):
     """SwiGLU; under tensor parallelism on this rank's d_ff columns (w1,
-    w3) and rows (w2), the partial sums added over "model"."""
+    w3) and rows (w2), the partial sums added over "model" (under
+    sequence parallelism ``h`` is this rank's slice of the sequence,
+    gathered first, and the sums reduce-scattered onto it; an MLP whose
+    d_ff is whole runs on the slice)."""
+    tp = shd.active_tp()
+    split = tp is not None and tp.ff
+    if split:
+        h = gather_seq(h)
     g = torch.nn.functional.silu(h @ p["w1"]) * (h @ p["w3"])
     y = g @ p["w2"]
-    tp = shd.active_tp()
-    return collectives.row_parallel_sum(y, tp.group) \
-        if tp is not None and tp.ff else y
+    return to_residual(y, split) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -564,24 +619,33 @@ def embed_defs(cfg):
 
 
 class EmbedGather(torch.autograd.Function):
-    """The table's rows of ``tokens`` in ``dtype``.  Its backward is the
-    table's gradient as a sorted segment sum (``kernels.segment_sum``):
-    each token's positions added in position order in float32 and rounded
-    once to the table's type, the same bits on every run (autograd's
-    scatter-add adds by atomics on the card)."""
+    """The table's rows of ``tokens`` in ``dtype``; with ``pad`` a token
+    of ``len(w)`` (no row of this table: under tensor parallelism a token
+    of another rank's rows) reads zeros.  Its backward is the table's
+    gradient as a sorted segment sum (``kernels.segment_sum``): each
+    token's positions added in position order in float32 and rounded once
+    to the table's type, the same bits on every run (autograd's
+    scatter-add adds by atomics on the card); with ``pad`` the sum is over
+    a table of one row more, whose last row (the other ranks' tokens) is
+    dropped (a view)."""
 
     @staticmethod
-    def forward(ctx, w, tokens, dtype):
+    def forward(ctx, w, tokens, dtype, pad=False):
         ctx.save_for_backward(tokens)
-        ctx.rows, ctx.w_dtype = w.shape[0], w.dtype
-        return w[tokens].to(dtype)
+        ctx.rows, ctx.w_dtype, ctx.pad = w.shape[0], w.dtype, pad
+        if not pad:
+            return w[tokens].to(dtype)
+        n = w.shape[0]
+        rows = w[tokens.clamp(max=n - 1)].to(dtype)
+        return rows.masked_fill((tokens == n)[..., None], 0.0)
 
     @staticmethod
     def backward(ctx, dout):
         tokens, = ctx.saved_tensors
         g = dout.reshape(-1, dout.shape[-1]).contiguous()
-        return segment_sum(g, tokens.reshape(-1).contiguous(), ctx.rows,
-                           ctx.w_dtype), None, None
+        table = segment_sum(g, tokens.reshape(-1).contiguous(),
+                            ctx.rows + ctx.pad, ctx.w_dtype)
+        return table[:ctx.rows], None, None, None
 
 
 def embed_fwd(p, tokens, dtype):
@@ -593,25 +657,35 @@ def embed_fwd(p, tokens, dtype):
     terms and ends ~0.5 of the leaf's largest magnitude from the float32
     sum.)  Under tensor parallelism the table is this rank's rows of the
     vocabulary: the rows of the tokens in them, zeros for the others, added
-    over "model"."""
+    over "model" (``to_residual``: under sequence parallelism
+    reduce-scattered onto this rank's slice of the sequence);
+    while autograd records the lookup is ``EmbedGather``'s on this rank's
+    rows, a token of another rank's rows indexing one row past them."""
     w = p["embedding"]
     tp = shd.active_tp()
-    if tp is not None and tp.vocab:
+    split = tp is not None and tp.vocab
+    if split:
         n = w.shape[0]
         idx = tokens.long() - tp.rank * n
-        hit = ((idx >= 0) & (idx < n))[..., None]
-        rows = w.to(dtype)[idx.clamp(0, n - 1)]
-        return collectives.row_parallel_sum(torch.where(hit, rows, 0.0),
-                                            tp.group)
-    if recording(w):
-        return EmbedGather.apply(w, tokens, dtype)
-    return w.to(dtype)[tokens]
+        hit = (idx >= 0) & (idx < n)
+        if recording(w):
+            rows = EmbedGather.apply(w, torch.where(hit, idx, n), dtype, True)
+        else:
+            rows = torch.where(hit[..., None],
+                               w.to(dtype)[idx.clamp(0, n - 1)], 0.0)
+    elif recording(w):
+        rows = EmbedGather.apply(w, tokens, dtype)
+    else:
+        rows = w.to(dtype)[tokens]
+    return to_residual(rows, split)
 
 
 def unembed_fwd(p, h):
     """Float32 logits over the padded vocabulary; under tensor parallelism
     over this rank's slice of it (the table's rows, or the unembedding's
-    columns, it holds)."""
+    columns, it holds).  Under sequence parallelism ``h`` is this rank's
+    slice of the sequence, gathered whole first."""
+    h = gather_seq(h)
     w = p.get("unembed")
     if w is None:
         w = p["embedding"].T.to(h.dtype)
@@ -620,11 +694,36 @@ def unembed_fwd(p, h):
     return constraint((h @ w).float(), ("batch", None, "vocab"))
 
 
+def _vocab_parallel_nll(logits, labels, tp):
+    """The NLL of ``labels`` under logits [B,S,V/n] that are this rank's
+    slice of the vocabulary: the log-sum-exp from the ranks' row maxima
+    (all-gathered, no gradient) and the ``psum`` of the sums of
+    exponentials, the gold logit ``psum``-ed from the rank that holds the
+    label."""
+    n = logits.shape[-1]
+    with torch.no_grad():
+        m = collectives._all_gather(logits.amax(-1)[None], 0, tp.group)
+        m = m.amax(0)
+    se = collectives.psum(torch.exp(logits - m[..., None]).sum(-1),
+                          tp.group)
+    idx = labels.long() - tp.rank * n
+    hit = (idx >= 0) & (idx < n)
+    gold = torch.gather(logits, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+    gold = collectives.psum(torch.where(hit, gold, 0.0), tp.group)
+    return m + torch.log(se) - gold
+
+
 def cross_entropy(logits, labels, mask=None):
-    """logits [B,S,V] fp32, labels [B,S] int; mean NLL over valid tokens."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    """logits [B,S,V] fp32, labels [B,S] int; mean NLL over valid tokens.
+    Under tensor parallelism of the vocabulary the logits are this rank's
+    slice of it (``_vocab_parallel_nll``)."""
+    tp = shd.active_tp()
+    if tp is not None and tp.vocab:
+        nll = _vocab_parallel_nll(logits, labels, tp)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        nll = logz - gold
     if mask is None:
         return nll.mean()
     mask = mask.to(nll.dtype)

@@ -28,7 +28,8 @@ experts divide the model axis, else expert-TP (a d_ff shard of every
 expert, the partial outputs summed over "model").  The tokens are first
 brought to the reference's partition (batch over the data axes, sequence
 over "model" under EP) from the step's layout, and back after, so every
-mesh drops the tokens the reference's sharded dispatch drops.
+mesh drops the tokens the reference's sharded dispatch drops; a train
+step's sequence-parallel residual is that partition under EP already.
 """
 from __future__ import annotations
 
@@ -201,10 +202,16 @@ def _model_part(w, dim, whole, mesh):
 def _moe_sharded(p, h, cfg, mesh):
     """The reference's ``shard_map`` body on local tensors.  The expert
     weights are this rank's experts (EP) or its d_ff shard of each
-    (expert-TP), or whole, and then sliced here (``_model_part``)."""
+    (expert-TP), or whole, and then sliced here (``_model_part``).  Under
+    a train step's sequence parallelism ``h`` is this rank's slice of the
+    sequence: under EP that is the reference's partition already, under
+    expert-TP it is all-gathered whole and the output sliced back."""
     have = shd.active_batch_axes()           # axes h's batch is split over
+    tp = shd.active_tp()
+    seq_in = tp is not None and tp.seq       # h: this rank's sequence slice
     B = h.shape[0] * mesh.size(have)         # the global batch
-    S, D = h.shape[1], h.shape[2]
+    S = h.shape[1] * (tp.n if seq_in else 1)  # the whole sequence
+    D = h.shape[2]
     dp = C._dp_axes(mesh, B)
     ep = mesh.size("model")
     use_ep = cfg.num_experts % ep == 0
@@ -218,7 +225,9 @@ def _moe_sharded(p, h, cfg, mesh):
     missing = tuple(a for a in dp if a not in have)
     if missing:                              # a caller's whole batch
         hl = shd.Sharding(mesh, (missing,)).local(hl)
-    if seq_model:
+    if seq_in and not seq_model:
+        hl = C.all_gather(hl, 1, mesh.group("model"))
+    elif seq_model and not seq_in:
         hl = shd.Sharding(mesh, (None, "model")).local(hl)
     Bl, Sl = hl.shape[0], hl.shape[1]
     T_local = Bl * Sl
@@ -248,8 +257,10 @@ def _moe_sharded(p, h, cfg, mesh):
     if seq_model:
         aux = C.pmean(aux, group)
     # back to the step's layout
-    if seq_model:
+    if seq_model and not seq_in:
         out = C.all_gather(out, 1, group)
+    elif seq_in and not seq_model:
+        out = out.narrow(1, mesh.coord("model") * (S // ep), S // ep)
     for a in reversed(missing):
         out = C.all_gather(out, 0, mesh.group(a))
     if extra:

@@ -21,12 +21,33 @@ plain ``ssd_chunked`` on every device, as the reference's model calls no
 SSD kernel: the port's ``ssd_scan`` kernel returns y alone, and the model
 needs the final state.  Like the reference's, the prefill leaves the conv
 state at zeros (the last K-1 inputs are not carried out of the prompt).
+
+Under tensor parallelism (``sharding.TensorParallel.ssm_inner``) the SSD
+heads go over "model", as GSPMD splits the reference's "ssm_heads" /
+"ssm_inner" axes: wz, wx and wdt are column-parallel, wB and wC whole; a
+rank computes the heads its d_inner columns fall in (``_ssd_heads``: its
+own where they are whole heads, else the heads its columns share with its
+neighbours, x's columns all-gathered); the conv runs on those heads' x
+channels and on B's and C's (conv_w / conv_b gathered whole, since their
+"ssm_inner" shards are chunks of the ``d_inner + 2N`` rows that do not
+line up with the heads); dt_bias, A_log and D_skip are the rank's heads
+(picked from the whole where "ssm_heads" does not divide); the gated
+RMSNorm over d_inner takes its sum of squares added over "model"; wo is
+row-parallel (``layers.to_residual``).  Under a train step's sequence
+parallelism the normed input is gathered on the sequence first.  The
+decode step keeps the ``ssm`` cache's heads local where they are whole;
+where they are not, and for the ``conv`` cache, a rank's own columns of the
+new states are all-gathered into the whole state (``_whole_channels``).
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import constraint
 from repro_torch.models import layers as L
 from repro_torch.models.layers import PD
@@ -115,25 +136,120 @@ def ssd_chunked(x, dt, A, Bm, Cm, D_skip, chunk: int):
     return y.to(x.dtype), state
 
 
+class _Heads(NamedTuple):
+    """A rank's SSD heads under tensor parallelism: heads ``lo`` to ``lo +
+    n``, of whose channels [``first``, ``first + c``) are its own d_inner
+    columns, ``part`` where those are not whole heads; ``tp`` None (every
+    head, every column) without it."""
+    lo: int
+    n: int
+    first: int
+    c: int
+    part: bool
+    tp: Optional[shd.TensorParallel]
+
+
+def _ssd_heads(cfg) -> _Heads:
+    DI, P = cfg.d_inner, cfg.ssm_headdim
+    tp = shd.active_tp()
+    if tp is None or not tp.ssm_inner:
+        return _Heads(0, cfg.ssm_nheads, 0, DI, False, None)
+    c = DI // tp.n
+    lo = tp.rank * c // P
+    n = -(-(tp.rank + 1) * c // P) - lo
+    return _Heads(lo, n, tp.rank * c - lo * P, c, n * P != c, tp)
+
+
+def _own(v, hs: _Heads, dim: int):
+    """A per-head weight at the rank's heads: as it is where it holds those
+    alone (its "ssm_heads" shard), else their slice of the whole."""
+    return v if v.shape[dim] == hs.n else v.narrow(dim, hs.lo, hs.n)
+
+
+def _conv_channels(t, cfg, hs: _Heads, dim: int):
+    """``t``'s conv channels along ``dim`` (x's d_inner, then B's and C's)
+    at the rank's heads' x channels and B's and C's."""
+    P, DI = cfg.ssm_headdim, cfg.d_inner
+    return torch.cat([t.narrow(dim, hs.lo * P, hs.n * P),
+                      t.narrow(dim, DI, t.shape[dim] - DI)], dim=dim)
+
+
+def _conv_params(p, cfg, hs: _Heads):
+    """conv_w / conv_b at the rank's channels (``_conv_channels``; the
+    weights all-gathered whole first where they are "ssm_inner" shards)."""
+    w, b = p["conv_w"], p["conv_b"]
+    if hs.tp is None:
+        return w, b
+    if w.shape[0] != cfg.d_inner + 2 * cfg.ssm_state:
+        w = collectives.all_gather(w, 0, hs.tp.group)
+        b = collectives.all_gather(b, 0, hs.tp.group)
+    return _conv_channels(w, cfg, hs, 0), _conv_channels(b, cfg, hs, 0)
+
+
+def _project_x(p, h, cfg, hs: _Heads):
+    """x = h @ wx at the rank's heads' channels (its columns all-gathered
+    where they are not whole heads)."""
+    x = h @ p["wx"]
+    if hs.part:
+        x = collectives.all_gather(x, -1, hs.tp.group)
+        P = cfg.ssm_headdim
+        x = x[..., hs.lo * P:(hs.lo + hs.n) * P]
+    return x
+
+
+def _gated_norm(y, z, w, cfg, hs: _Heads):
+    """The gated RMSNorm over d_inner of y [B,S,heads' channels] gated by
+    z: under tensor parallelism on the rank's own columns, the sum of
+    squares added over "model"."""
+    if hs.tp is None:
+        return L.rmsnorm(y * F.silu(z), w, cfg.norm_eps)
+    if hs.part:
+        y = y[..., hs.first:hs.first + hs.c]
+    g = y * F.silu(z)
+    x32 = g.float()
+    ss = (x32 * x32).sum(-1, keepdim=True)
+    ss = collectives.psum(ss, hs.tp.group) if L.recording(ss) \
+        else collectives._all_reduce_(ss, hs.tp.group)
+    rms = torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+    return (x32 * rms).to(g.dtype) * w
+
+
+def _whole_channels(x, cfg, hs: _Heads, dim: int):
+    """The whole d_inner channels along ``dim`` of a state computed at the
+    rank's heads' channels: its own columns all-gathered over "model"."""
+    return collectives._all_gather(
+        x.narrow(dim, hs.first, hs.c).contiguous(), dim, hs.tp.group)
+
+
 def ssd_block_fwd(p, h, cfg, return_state=False):
     """Full-sequence SSD block. h [B,S,D] -> [B,S,D] (and the final state
-    [B,H,P,N] in float32 with ``return_state``)."""
+    [B,H,P,N] in float32 with ``return_state``).  Under tensor parallelism
+    on the rank's heads (module docstring): the final state is its heads'
+    where they are whole (its "ssm_heads" shard of the cache), else every
+    head's."""
+    h = L.gather_seq(h)
     B, S, D = h.shape
-    DI, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
-    P = cfg.ssm_headdim
+    N, P = cfg.ssm_state, cfg.ssm_headdim
+    hs = _ssd_heads(cfg)
     z = h @ p["wz"]
-    xBC = torch.cat([h @ p["wx"], h @ p["wB"], h @ p["wC"]], dim=-1)
-    xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
-    x, Bm, Cm = torch.split(xBC, [DI, N, N], dim=-1)
-    dt = F.softplus((h @ p["wdt"]).float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"].float())
-    x = constraint(x.reshape(B, S, H, P), ("batch", None, "ssm_heads", None))
-    y, final_state = ssd_chunked(x, dt, A, Bm, Cm, p["D_skip"],
+    xBC = torch.cat([_project_x(p, h, cfg, hs), h @ p["wB"], h @ p["wC"]],
+                    dim=-1)
+    xBC = _causal_conv(xBC, *_conv_params(p, cfg, hs))
+    x, Bm, Cm = torch.split(xBC, [hs.n * P, N, N], dim=-1)
+    dt = F.softplus((h @ _own(p["wdt"], hs, 1)).float()
+                    + _own(p["dt_bias"], hs, 0).float())
+    A = -torch.exp(_own(p["A_log"], hs, 0).float())
+    x = constraint(x.reshape(B, S, hs.n, P),
+                   ("batch", None, "ssm_heads", None))
+    y, final_state = ssd_chunked(x, dt, A, Bm, Cm, _own(p["D_skip"], hs, 0),
                                  cfg.ssm_chunk)
-    y = y.reshape(B, S, DI)
-    y = L.rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    out = y @ p["wo"]
+    y = _gated_norm(y.reshape(B, S, hs.n * P), z, p["gate_norm"], cfg, hs)
+    out = L.to_residual(y @ p["wo"], hs.tp is not None)
     if return_state:
+        if hs.part:
+            final_state = _whole_channels(
+                final_state.reshape(B, hs.n * P, N), cfg, hs, 1) \
+                .reshape(B, cfg.ssm_nheads, P, N)
         return out, final_state
     return out
 
@@ -142,28 +258,45 @@ def ssd_decode_step(p, h, cfg, conv_state, ssm_state):
     """Single-token recurrent update.
 
     h [B,1,D]; conv_state [B,K-1,conv_dim]; ssm_state [B,H,P,N] (fp32).
-    Returns (out, the new conv state, the new ssm state).
+    Returns (out, the new conv state, the new ssm state).  Under tensor
+    parallelism on the rank's heads: ``conv_state`` whole, ``ssm_state``
+    its heads' where they are whole, else whole, each new state returned
+    in the layout it came in.
     """
     B = h.shape[0]
-    DI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    N, P = cfg.ssm_state, cfg.ssm_headdim
     f32 = torch.float32
+    hs = _ssd_heads(cfg)
     z = h @ p["wz"]
-    xBC_new = torch.cat([h @ p["wx"], h @ p["wB"], h @ p["wC"]], dim=-1)
+    xBC_new = torch.cat([_project_x(p, h, cfg, hs), h @ p["wB"],
+                         h @ p["wC"]], dim=-1)
+    conv_w, conv_b = _conv_params(p, cfg, hs)
+    if hs.tp is not None:
+        conv_state = _conv_channels(conv_state, cfg, hs, 2)
     window = torch.cat([conv_state, xBC_new], dim=1)              # [B,K,C]
-    conv_out = (window.float() * p["conv_w"].T[None]).sum(1) + p["conv_b"]
+    conv_out = (window.float() * conv_w.T[None]).sum(1) + conv_b
     xBC = F.silu(conv_out).to(h.dtype)                           # [B,C]
-    x, Bm, Cm = torch.split(xBC, [DI, N, N], dim=-1)
-    dt = F.softplus((h[:, 0] @ p["wdt"]).float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"].float())
-    x = x.reshape(B, H, P).to(f32)
+    x, Bm, Cm = torch.split(xBC, [hs.n * P, N, N], dim=-1)
+    dt = F.softplus((h[:, 0] @ _own(p["wdt"], hs, 1)).float()
+                    + _own(p["dt_bias"], hs, 0).float())
+    A = -torch.exp(_own(p["A_log"], hs, 0).float())
+    x = x.reshape(B, hs.n, P).to(f32)
     dA = torch.exp(dt * A)                                        # [B,H]
     dBx = torch.einsum("bn,bhp->bhpn", Bm.to(f32), x * dt[..., None])
-    ssm_state = ssm_state * dA[..., None, None] + dBx
-    y = torch.einsum("bhpn,bn->bhp", ssm_state, Cm.to(f32))
-    y = y + x * p["D_skip"].to(f32)[None, :, None]
-    y = y.reshape(B, 1, DI).to(h.dtype)
-    y = L.rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    return y @ p["wo"], window[:, 1:], ssm_state
+    state = _own(ssm_state, hs, 1) * dA[..., None, None] + dBx
+    y = torch.einsum("bhpn,bn->bhp", state, Cm.to(f32))
+    y = y + x * _own(p["D_skip"], hs, 0).to(f32)[None, :, None]
+    y = y.reshape(B, 1, hs.n * P).to(h.dtype)
+    y = _gated_norm(y, z, p["gate_norm"], cfg, hs)
+    new_conv = window[:, 1:]
+    if hs.tp is not None:
+        new_conv = torch.cat([
+            _whole_channels(new_conv[..., :hs.n * P], cfg, hs, 2),
+            new_conv[..., hs.n * P:]], dim=-1)
+        if ssm_state.shape[1] != hs.n:       # the cache's every head
+            state = _whole_channels(state.reshape(B, hs.n * P, N), cfg, hs,
+                                    1).reshape(ssm_state.shape)
+    return L.to_residual(y @ p["wo"], hs.tp is not None), new_conv, state
 
 
 # ---------------------------------------------------------------------------

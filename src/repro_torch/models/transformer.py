@@ -7,6 +7,14 @@ reference scans over that axis the port loops over the layers
 (``L.unstacked``, or ``layer`` for one), each body through
 ``L.run_layer`` where the reference remats it.  Decode steps update the
 cache in place.
+
+The reference constrains the residual between blocks to ``("batch",
+"seq_sp", None)``.  Under a train step's sequence parallelism
+(``sharding.TensorParallel.seq``) the residual that arrives there is
+already this rank's slice of the sequence: the embedding's lookup ends in
+a reduce-scatter onto it, each block's attention and MLP gather their
+normed input and reduce-scatter their output (``layers``), and the
+``constraint`` calls leave the local tensor as it is.
 """
 from __future__ import annotations
 

@@ -6,11 +6,18 @@ in the reference: callers give precomputed patch embeddings
 embeddings; the combined sequence runs through the dense decoder stack
 causally, so the cache covers patches and text.  Loss is over the text
 positions.
+
+Under a train step's sequence parallelism (``sharding.TensorParallel``)
+the combined sequence is split: the text embeddings are taken whole
+(``sharding.whole_sequence``), joined to the patches', and this rank's
+slice of the whole kept; the loss gathers the final hidden sequence
+before it drops the patch positions.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import PD
@@ -27,13 +34,15 @@ def model_defs(cfg):
 def _combine(params, patches, tokens, cfg):
     dtype = cfg.torch_dtype
     pe = (patches.to(dtype) @ params["patch_proj"]).to(dtype)
-    te = L.embed_fwd(params["embed"], tokens, dtype)
+    with shd.whole_sequence():
+        te = L.embed_fwd(params["embed"], tokens, dtype)
     return torch.cat([pe, te], dim=1)
 
 
 def forward(params, patches, tokens, cfg):
     h = _combine(params, patches, tokens, cfg)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    h = L.local_seq(h)
     body = lambda h, bp: T.block_fwd(bp, h, cfg, positions)
     for bp in L.unstacked(params["blocks"]):
         h = L.run_layer(body, cfg.remat, h, bp)
@@ -41,9 +50,11 @@ def forward(params, patches, tokens, cfg):
 
 
 def loss_fn(params, batch, cfg):
-    h = forward(params, batch["patches"], batch["tokens"], cfg)
+    h = L.gather_seq(forward(params, batch["patches"], batch["tokens"],
+                             cfg))
     P = batch["patches"].shape[1]
-    logits = L.unembed_fwd(params["embed"], h[:, P:])
+    with shd.whole_sequence():
+        logits = L.unembed_fwd(params["embed"], h[:, P:])
     return L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
 
 

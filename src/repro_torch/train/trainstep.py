@@ -27,24 +27,29 @@ Under a mesh (``launch.mesh``) the builders return the reference's
 DTensors laid out by them (``Sharding.place``, ``place_tree``): the step
 writes into their shards; a batch, and a prefill's or decode's
 parameters and cache, may also be whole tensors, laid out at each call.
-Each rank computes on its local tensors (``distributed/sharding.py``).  A
-train step splits the batch over the data axes and, where it divides, over
-"model" too (``batch_axes``); ``layers.fsdp_gather`` gathers a layer's
-weights whole and the step the others (``_live``).  The serve steps
-(prefill, decode) split the batch over the data axes only and split the
-dense products over "model" instead (``sharding.tensor_parallel``, the
-reference's "tp" rule): the weights keep their "model" shards of the TP
-axes, and the logits come out of the step as this rank's slice of the
-vocabulary.  The objective is the mean of the ranks' losses: each
-rank differentiates its loss over the world size, every collective's
-backward is its adjoint, and a weight's gradient arrives reduce-scattered
-into its shard, inside each microbatch (the reference's ``constrain``).
-``optimizer.apply_`` updates the local shards in place, with the global
-gradient norm (``_global_norm``: each shard's squares over its replicas,
-summed over the mesh).  A decode step keeps the cache as placed: its
+Each rank computes on its local tensors (``distributed/sharding.py``).
+Every step splits the batch over the data axes only (``batch_axes``, the
+reference's "batch" rule) and the dense products over "model"
+(``sharding.tensor_parallel``, the reference's "tp" rule): the weights
+keep their "model" shards of the TP axes (``layers.fsdp_gather`` gathers
+a layer's data shards at a time, the step the others, ``_live``), and the
+logits of a serve step come out of it as this rank's slice of the
+vocabulary.  A train step also splits the residual between blocks over
+the sequence where it divides the model axis (``TensorParallel.seq``, the
+reference's ``("batch", "seq_sp", None)`` constraint) and takes a
+vocab-parallel cross-entropy.  The objective is the mean of the ranks'
+losses: each rank differentiates its loss over the world size, every
+collective's backward is its adjoint, and a weight's gradient arrives
+summed into its shard, inside each microbatch (the reference's
+``constrain``).  ``optimizer.apply_`` updates the local shards in place,
+with the global gradient norm (``_global_norm``: each shard's squares over
+its replicas, summed over the mesh).  At one rank on "model" the split is
+the identity and the steps run the one-device layers.  A decode step keeps the cache as placed: its
 sequence over "model" where it divides, so each layer takes
 ``collectives.flash_decode_attention``, else its kv heads over "model"
-where they divide, which are the kv heads of this rank's q heads.
+where they divide, which are the kv heads of this rank's q heads; the
+SSD states' heads over "model" where they divide, which are this rank's
+SSD heads, and the conv states gathered for the step and written back.
 """
 from __future__ import annotations
 
@@ -97,15 +102,17 @@ def opt_shardings(model, mesh):
     return opt.OptState(step=shd.named_sharding((), (), mesh), mu=ps, nu=ps)
 
 
-def batch_axes(mesh, batch: int, split_model: bool) -> tuple:
+def batch_axes(mesh, batch: int) -> tuple:
     """The mesh axes a step splits the batch's rows over: the data axes
-    that divide it (the reference's "batch" rule) and, for ``split_model``,
-    "model" where the rest still divides."""
-    dp = C._dp_axes(mesh, batch)
-    if split_model and "model" in mesh.axis_names and \
-            (batch // mesh.size(dp)) % mesh.size("model") == 0:
-        return dp + ("model",)
-    return dp
+    that divide it (the reference's "batch" rule)."""
+    return C._dp_axes(mesh, batch)
+
+
+def _residual_len(batch) -> int:
+    """The length of a train batch's residual sequence: its tokens, after
+    the patches where it has them (a VLM's combined sequence)."""
+    n = batch["tokens"].shape[1]
+    return n + batch["patches"].shape[1] if "patches" in batch else n
 
 
 def _local_batch(batch, shardings, axes, mesh) -> dict:
@@ -252,16 +259,18 @@ def _sharded_train_step(model, shape, mesh, opt_cfg, microbatches,
                              "optimizer state out by in_shardings first "
                              "(sharding.place_tree)")
         B = next(iter(batch.values())).shape[0]
-        axes = batch_axes(mesh, B, split_model=True)
+        axes = batch_axes(mesh, B)
         local = _local_batch(batch, b_sh, axes, mesh)
-        # the microbatches split the rows this rank holds: as many as
+        tp = shd.tensor_parallel(cfg, mesh, seq_len=_residual_len(batch))
+        # the microbatches split the rows a data shard holds: as many as
         # divide them, up to the count asked for
         rows = B // mesh.size(axes)
         k = max(d for d in range(1, microbatches + 1) if rows % d == 0)
         grads, losses = None, []
-        with shd.use_mesh(mesh, axes):
+        with shd.use_mesh(mesh, axes, tp=tp):
             for i in range(k):
-                leaves, live = _live(model, params, p_sh, mesh, grad=True)
+                leaves, live = _live(model, params, p_sh, mesh, grad=True,
+                                     tp=tp)
                 mb = {n: x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
                       for n, x in local.items()}
                 loss_i = model.loss(live, mb)
@@ -304,21 +313,24 @@ def _to_sharding(x, logical, axes, sharding, mesh, tp=None):
     """A DTensor laid out by ``sharding`` from this rank's local ``x`` of a
     step, laid out by ``logical``: its "batch" dim split over ``axes`` and,
     under the tensor parallelism ``tp``, its "vocab" dim and its
-    "kv_heads" dim where they are whole heads this rank's "model" shard.
-    A kv-heads shard that ``sharding`` does not keep is all-gathered here
-    (the redistribution would take an all-to-all, which gloo does not run
-    on every device); every other change of layout is a local slice."""
+    "kv_heads" / "ssm_heads" dim where they are whole heads this rank's
+    "model" shard.  A heads shard that ``sharding`` does not keep is
+    all-gathered here (the redistribution would take an all-to-all, which
+    gloo does not run on every device); every other change of layout is a
+    local slice."""
     logical = list(logical)
     spec = [None] * x.ndim
     spec[logical.index("batch")] = axes if axes else None
     if tp is not None and tp.vocab and "vocab" in logical:
         spec[logical.index("vocab")] = "model"
-    if tp is not None and tp.whole_kv_heads and "kv_heads" in logical:
-        d = logical.index("kv_heads")
-        if sharding.spec_dim("model") == d:
-            spec[d] = "model"
-        else:
-            x = C._all_gather(x, d, tp.group)
+    for name, mine in (("kv_heads", tp is not None and tp.whole_kv_heads),
+                       ("ssm_heads", tp is not None and tp.ssm_heads)):
+        if mine and name in logical:
+            d = logical.index(name)
+            if sharding.spec_dim("model") == d:
+                spec[d] = "model"
+            else:
+                x = C._all_gather(x, d, tp.group)
     shape = list(x.shape)
     for d, e in enumerate(spec):
         if e:
@@ -357,7 +369,7 @@ def build_prefill_step(model: mapi.Model, shape: InputShape, mesh=None):
     @torch.no_grad()
     def prefill_step(params, batch):
         B = next(iter(batch.values())).shape[0]
-        axes = batch_axes(mesh, B, split_model=False)
+        axes = batch_axes(mesh, B)
         local = _local_batch(batch, b_sh, axes, mesh)
         _, live = _live(model, params, p_sh, mesh, grad=False, tp=tp)
         with shd.use_mesh(mesh, axes, tp=tp):
@@ -396,14 +408,15 @@ def build_decode_step(model: mapi.Model, shape: InputShape, mesh=None):
 
     @torch.no_grad()
     def decode_step(params, cache, tokens, pos):
-        axes = batch_axes(mesh, tokens.shape[0], split_model=False)
+        axes = batch_axes(mesh, tokens.shape[0])
         _, live = _live(model, params, p_sh, mesh, grad=False, tp=tp)
         tok = _local_batch({"tokens": tokens}, {"tokens": t_sh}, axes,
                            mesh)["tokens"]
         # each cache leaf local: its rows of the sequence over "model"
         # (the flash decode's layout), or under tensor parallelism its kv
-        # heads over "model" (this rank's q heads' own); any other dim
-        # "model" shards gathered for the step and written back after it
+        # heads over "model" (this rank's q heads' own) or its SSD heads
+        # (this rank's own); any other dim "model" shards gathered for the
+        # step and written back after it
         local, back = {}, {}
         for n, c in cache.items():
             if not shd.is_dtensor(c):
@@ -411,12 +424,16 @@ def build_decode_step(model: mapi.Model, shape: InputShape, mesh=None):
             d = c_sh[n].spec_dim("model")
             if d is None or c_logical[n][d] == "seq_kv" or (
                     tp is not None and tp.whole_kv_heads
-                    and c_logical[n][d] == "kv_heads"):
+                    and c_logical[n][d] == "kv_heads") or (
+                    tp is not None and tp.ssm_heads
+                    and c_logical[n][d] == "ssm_heads"):
                 local[n] = c.to_local()
             else:
-                whole = shd.Sharding(mesh, c_sh[n].without("model"))
-                local[n] = c.redistribute(mesh.device_mesh,
-                                          whole.placements).to_local()
+                # all-gathered by the port's collective: DTensor's
+                # redistribution over gloo ends the process on a CUDA
+                # tensor
+                local[n] = C._all_gather(c.to_local(), d,
+                                         mesh.group("model"))
                 back[n] = c
         kv = "k" in c_logical and c_sh["k"].spec_dim("model") == \
             c_logical["k"].index("seq_kv")

@@ -419,7 +419,92 @@ def case_tp(rank, world, npz, cases):
     return out
 
 
-CASES = {"tp": case_tp,
+def case_tp_train(rank, world, npz, cases):
+    """The train step under tensor parallelism, each case ``(name, arch,
+    overrides, mesh, (B, S), serve)`` from the ``.npz``'s reference
+    weights and batch: one step from zero moments (the parameters, first
+    moments, loss and gradient norm after it), with the shapes of the
+    weights and of the residual the layers were handed in it
+    (``{name}/held/...``); where ``serve`` is a list of positions also the
+    prefill of the batch's tokens and a decode step at each position from
+    the reference's prefill cache."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import trainstep
+    d = dict(np.load(npz))
+    held = {}
+
+    def spy(mod, fn_name, leaves, arg=1):
+        fn = getattr(mod, fn_name)
+
+        def wrapped(p, *a, **k):
+            if shd.active_tp() is not None and torch.is_grad_enabled():
+                held.update({n: tuple(p[n].shape) for n in leaves if n in p})
+                held[f"{fn_name}/h"] = tuple(a[arg - 1].shape)
+            return fn(p, *a, **k)
+        setattr(mod, fn_name, wrapped)
+
+    spy(L, "attention_fwd", ("wq", "wk", "wo"))
+    spy(L, "mlp_fwd", ("w1", "w2", "w3"))
+    spy(L, "embed_fwd", ("embedding",))
+    spy(SSM, "ssd_block_fwd", ("wz", "wx", "wdt", "wo", "gate_norm"))
+    out = {}
+    for name, arch, overrides, shape, (B, S), serve in cases:
+        cfg = get_config(arch).smoke().scaled(**overrides)
+        model = build(cfg)
+        mesh = _mesh(tuple(shape), ("data", "model"))
+        tree = unflat(d, f"{name}/params/")
+        fn, (p_sh, o_sh, b_sh), _, _ = trainstep.build_train_step(
+            model, InputShape("t", S, B, "train"), mesh, microbatches=1)
+        params = interop.model_params_from_numpy(cfg, tree, device="cpu",
+                                                 mesh=mesh)
+        zeros = tree_map(lambda a: np.zeros(np.shape(a), np.float32), tree)
+        state = interop.opt_state_from_numpy(0, zeros, zeros, device="cpu",
+                                             shardings=o_sh)
+        batch = {k: b_sh[k].place(torch.from_numpy(d[f"{name}/batch/{k}"]))
+                 for k in ("tokens", "labels")}
+        held.clear()
+        params, state, m = fn(params, state, batch)
+        out.update({f"{name}/params/{n}": shd.full(t)
+                    for n, t in _named(params)})
+        out.update({f"{name}/mu/{n}": shd.full(t)
+                    for n, t in _named(state.mu)})
+        out[f"{name}/loss"] = m["loss"]
+        out[f"{name}/grad_norm"] = m["grad_norm"]
+        for n, s in held.items():
+            out[f"{name}/held/{n}"] = torch.tensor(s)
+        if not serve:
+            continue
+        params = interop.model_params_from_numpy(cfg, tree, device="cpu",
+                                                 mesh=mesh)
+        toks = torch.from_numpy(d[f"{name}/batch/tokens"])
+        pf = trainstep.build_prefill_step(
+            model, InputShape("p", S, B, "prefill"), mesh)[0]
+        dec, (_, c_sh, _, _), _, _ = trainstep.build_decode_step(
+            model, InputShape("d", S, B, "decode"), mesh)
+        logits, cache = pf(params, {"tokens": toks})
+        out[f"{name}/prefill/logits"] = shd.full(logits)
+        for n, c in cache.items():
+            out[f"{name}/prefill/cache/{n}"] = shd.full(c)
+        tok = torch.from_numpy(d[f"{name}/tok"])
+        for pos in serve:
+            cache = {n: c_sh[n].place(torch.from_numpy(
+                d[f"{name}/cache/{n}"])) for n in c_sh}
+            logits, cache = dec(params, cache, tok, pos)
+            out[f"{name}/{pos}/logits"] = shd.full(logits)
+            for n, c in cache.items():
+                out[f"{name}/{pos}/cache/{n}"] = shd.full(c)
+    return out
+
+
+CASES = {"tp": case_tp, "tp_train": case_tp_train,
          "families": case_families, "moe_train": case_moe_train, "moe": case_moe, "decode": case_decode, "train": case_train,
          "pipeline": case_pipeline, "ckpt": case_ckpt, "loop": case_loop}
 

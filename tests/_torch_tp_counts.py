@@ -1,8 +1,10 @@
-"""Per-device FLOPs, HBM bytes and collective bytes of the mesh's serve
-steps, the port's op counter against the reference's HLO (CPU).
+"""Per-device FLOPs, HBM bytes and collective bytes of the mesh's steps,
+the port's op counter against the reference's HLO (CPU).
 
-The cells: llama3-8b ``.smoke()``, ``InputShape("tiny", 64, 8, kind)``,
-prefill and decode on the meshes (data 2, model 4) and (2, 8).  Each side
+The cells (``CELLS``), each at ``InputShape("tiny", 64, 8, kind)``:
+llama3-8b ``.smoke()``'s prefill and decode on the meshes (data 2, model
+4) and (2, 8) and its train step on both, mamba2-130m ``.smoke()``'s
+train and decode steps on (2, 4).  Each side
 runs in its own process: the reference compiles each step
 (``repro.launch.dryrun._builder``, in and out shardings, donation) on 16
 fake host devices and counts its HLO (``hlo_analysis.analyze``); the port
@@ -14,6 +16,7 @@ runs each step once on meta tensors as rank 0 of a fake process group of
 prints a row a cell, the port's counts over the reference's; ``--src``
 counts the port in another checkout's ``src`` (a parent commit, say).
 ``tests/test_torch_tensor_parallel.py`` holds the FLOPs to the reference's.
+The counter runs a train step once with a single microbatch.
 """
 from __future__ import annotations
 
@@ -26,10 +29,13 @@ import textwrap
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
-ARCH = "llama3-8b"
 SEQ, BATCH = 64, 8
-CELLS = (("decode", (2, 4)), ("decode", (2, 8)), ("prefill", (2, 4)),
-         ("prefill", (2, 8)))
+LLAMA, MAMBA = "llama3-8b", "mamba2-130m"
+# (arch, kind, (data, model))
+CELLS = ((LLAMA, "decode", (2, 4)), (LLAMA, "decode", (2, 8)),
+         (LLAMA, "prefill", (2, 4)), (LLAMA, "prefill", (2, 8)),
+         (LLAMA, "train", (2, 4)), (LLAMA, "train", (2, 8)),
+         (MAMBA, "train", (2, 4)), (MAMBA, "decode", (2, 4)))
 WORLD = 16
 KEYS = ("flops", "hbm_bytes", "ici_bytes")
 
@@ -41,12 +47,12 @@ from repro.core import hlo_analysis
 from repro.launch.dryrun import _builder
 from repro.launch.mesh import make_host_mesh
 from repro.models import api as mapi
-model = mapi.build(get_config(%(arch)r).smoke())
 out = []
-for kind, (data, m) in %(cells)r:
+for arch, kind, (data, m) in %(cells)r:
+    model = mapi.build(get_config(arch).smoke())
     mesh = make_host_mesh(data=data, model=m)
     fn, in_sh, out_sh, donate, args = _builder(
-        model, InputShape("tiny", %(seq)r, %(batch)r, kind), mesh)
+        model, InputShape("tiny", %(seq)r, %(batch)r, kind), mesh, micro=1)
     co = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh,
                  donate_argnums=donate).lower(*args).compile()
     out.append(hlo_analysis.analyze(co.as_text()))
@@ -62,12 +68,12 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import api as mapi
 dryrun.init_fake(%(world)r)
-model = mapi.build(get_config(%(arch)r).smoke())
 out = []
-for kind, (data, m) in %(cells)r:
+for arch, kind, (data, m) in %(cells)r:
+    model = mapi.build(get_config(arch).smoke())
     mesh = make_host_mesh(data=data, model=m)
     fn, args, _ = dryrun._builder(
-        model, InputShape("tiny", %(seq)r, %(batch)r, kind), mesh)
+        model, InputShape("tiny", %(seq)r, %(batch)r, kind), mesh, micro=1)
     counter = op_analysis.OpCounter()
     with counter:
         fn(*args)
@@ -79,8 +85,7 @@ print(json.dumps(out))
 def _json_of(code: str, src: str, env: dict):
     env = dict(os.environ, PYTHONPATH=src + os.pathsep
                + os.environ.get("PYTHONPATH", ""), **env)
-    code = code % dict(arch=ARCH, cells=CELLS, seq=SEQ, batch=BATCH,
-                       world=WORLD)
+    code = code % dict(cells=CELLS, seq=SEQ, batch=BATCH, world=WORLD)
     run = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
                          capture_output=True, text=True, env=env,
                          timeout=600)
@@ -107,11 +112,11 @@ def main(argv=None) -> int:
                     help="the src directory of the port to count")
     args = ap.parse_args(argv)
     ref, port = reference_counts(), port_counts(os.path.abspath(args.src))
-    print("| cell, mesh (data, model) | reference FLOPs / HBM B / "
+    print("| arch, cell, mesh (data, model) | reference FLOPs / HBM B / "
           "collective B | port | port / reference |")
     print("|---|---|---|---|")
-    for (kind, mesh), r, p in zip(CELLS, ref, port):
-        print(f"| {kind}, {mesh} | " + " / ".join(
+    for (arch, kind, mesh), r, p in zip(CELLS, ref, port):
+        print(f"| {arch}, {kind}, {mesh} | " + " / ".join(
             f"{r[k]:,.0f}" for k in KEYS) + " | " + " / ".join(
             f"{p[k]:,.0f}" for k in KEYS) + " | " + " / ".join(
             f"{p[k] / r[k]:.3f}x" for k in KEYS) + " |")

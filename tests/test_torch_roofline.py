@@ -10,10 +10,13 @@
   reference's ``hlo_analysis.analyze`` of the same cell's compiled HLO:
   per-device FLOPs within 10 %.  The HBM and collective bytes are printed
   as ratios to the reference's, with no bar: eager PyTorch fuses nothing,
-  and the port's train step gathers its dense weights whole and splits
-  the batch over "model" where GSPMD partitions the products (its serve
-  steps do, ``tests/test_torch_tensor_parallel.py``), so it moves other
-  collectives (``distributed/sharding.py``).  Each side runs in its own
+  and where GSPMD picks its own collectives (all-reduces) the port's train
+  step issues the reference's layout's own (``distributed/sharding.py``:
+  the "model" shards of the "tp" axes kept, the residual split over the
+  sequence, an all-gather before a block's column-parallel products and a
+  reduce-scatter after its row-parallel ones; held to the reference's
+  sharded step in ``tests/test_torch_tensor_parallel_train.py``).  Each
+  side runs in its own
   process: the reference with 8 fake host devices, the port as rank 0 of
   a fake process group of 8.
 - ``python -m repro_torch.launch.dryrun`` on one small cell in a

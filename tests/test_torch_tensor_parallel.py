@@ -1,20 +1,23 @@
-"""Tensor parallelism of the serve steps on a mesh (CPU).
+"""Tensor parallelism of the mesh's steps (CPU).
 
-A serve step (``trainstep.build_prefill_step`` / ``build_decode_step``)
-keeps each dense weight's "model" shards of the reference's "tp" axes and
-computes this rank's part of every product (``sharding.TensorParallel``),
-as GSPMD partitions the reference's:
+A step (``trainstep.build_prefill_step`` / ``build_decode_step`` /
+``build_train_step``) keeps each dense weight's "model" shards of the
+reference's "tp" axes and computes this rank's part of every product
+(``sharding.TensorParallel``), as GSPMD partitions the reference's:
 
 - **Work a device**, the op counter against the reference's HLO
-  (``_torch_tp_counts``: llama3-8b ``.smoke()``,
-  ``InputShape("tiny", 64, 8, kind)``): per-device FLOPs of the decode
-  step on (data 2, model 4) and (2, 8) and of the prefill on (2, 4)
-  within ``FLOPS_TOL`` of the reference's; the decode's HBM bytes at most
-  ``DECODE_HBM_MAX`` times the reference's.  The prefill on (2, 8) is held
-  to ``PREFILL_2X8_TOL``: its 4 heads do not divide the model axis, so two
-  ranks attend with the head their columns fall in, and the norms run on
-  the whole sequence, where GSPMD also splits the sequence.  HBM and
-  collective bytes are printed as ratios.
+  (``_torch_tp_counts``, ``InputShape("tiny", 64, 8, kind)``): per-device
+  FLOPs of llama3-8b ``.smoke()``'s decode step on (data 2, model 4) and
+  (2, 8), of its prefill and train step on (2, 4), and of mamba2-130m
+  ``.smoke()``'s train and decode steps on (2, 4) within ``FLOPS_TOL`` of
+  the reference's; the decode's HBM bytes at most ``DECODE_HBM_MAX`` times
+  the reference's.  The prefill and the train step on (2, 8) are held to
+  ``PREFILL_2X8_TOL``: llama's 4 heads do not divide the model axis, so two
+  ranks attend with the head their columns fall in (and a prefill's norms
+  run on the whole sequence, where GSPMD also splits the sequence).  HBM
+  and collective bytes are printed as ratios.  The values of the train
+  step on a mesh are held to the reference's sharded step in
+  ``tests/test_torch_tensor_parallel_train.py``.
 - **Values**, gloo ranks against the reference's sharded steps (one JAX
   subprocess with 8 fake host devices; the in and out shardings of the
   reference's step builders), at ``tests/test_torch_distributed.py``'s bars
@@ -111,27 +114,44 @@ np.savez(%(path)r, **out)
 """
 
 
+# the serve cells of llama3-8b, and the train and Mamba cells
+SERVE = [(k, m) for a, k, m in counts.CELLS
+         if a == counts.LLAMA and k != "train"]
+TRAIN = [c for c in counts.CELLS if c[0] != counts.LLAMA or c[1] == "train"]
+
+
 @pytest.fixture(scope="module")
 def op_counts():
     ref, port = counts.reference_counts(), counts.port_counts()
-    for (kind, mesh), r, p in zip(counts.CELLS, ref, port):
-        print(f"{kind} {mesh}: port / reference " + ", ".join(
+    for (arch, kind, mesh), r, p in zip(counts.CELLS, ref, port):
+        print(f"{arch} {kind} {mesh}: port / reference " + ", ".join(
             f"{k} {p[k] / r[k]:.3f}" for k in counts.KEYS))
     return {cell: (r, p) for cell, r, p in zip(counts.CELLS, ref, port)}
 
 
-@pytest.mark.parametrize("kind,mesh", counts.CELLS)
-def test_per_device_flops_match_reference_hlo(op_counts, kind, mesh):
-    ref, port = op_counts[kind, mesh]
-    tol = PREFILL_2X8_TOL if (kind, mesh) == ("prefill", (2, 8)) \
-        else FLOPS_TOL
+def _flops_within(ref, port, tol):
     assert abs(port["flops"] / ref["flops"] - 1) <= tol, (port, ref)
     assert port["ici_bytes"] > 0 and port["static_collective_count"] > 0
 
 
+@pytest.mark.parametrize("kind,mesh", SERVE)
+def test_per_device_flops_match_reference_hlo(op_counts, kind, mesh):
+    ref, port = op_counts[counts.LLAMA, kind, mesh]
+    _flops_within(ref, port, PREFILL_2X8_TOL
+                  if (kind, mesh) == ("prefill", (2, 8)) else FLOPS_TOL)
+
+
+@pytest.mark.parametrize("cell", TRAIN, ids=[f"{a}-{k}-{d}x{m}"
+                                             for a, k, (d, m) in TRAIN])
+def test_train_and_mamba_flops_match_reference_hlo(op_counts, cell):
+    ref, port = op_counts[cell]
+    _flops_within(ref, port, PREFILL_2X8_TOL
+                  if cell[1:] == ("train", (2, 8)) else FLOPS_TOL)
+
+
 @pytest.mark.parametrize("mesh", [(2, 4), (2, 8)])
 def test_decode_hbm_bytes_near_reference(op_counts, mesh):
-    ref, port = op_counts["decode", mesh]
+    ref, port = op_counts[counts.LLAMA, "decode", mesh]
     assert port["hbm_bytes"] <= DECODE_HBM_MAX * ref["hbm_bytes"], \
         (port, ref)
 
